@@ -1,0 +1,120 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each `csrc/*.cu` file is compiled by `nvcc` into a shared library with a
+plain C interface, loaded through `ctypes`.  PyTorch's headers are never
+included: such a build takes minutes, a plain one seconds.  Libraries go
+to `build/elasticdl_tpu_torch/` at the root of the checkout that holds
+this package (resolved from this file, not from the working directory),
+named by a hash of every source in `csrc/` and of the flags, so a changed
+source builds anew and an unchanged one is loaded from the cache.
+
+Nothing is built at import time.  A missing `nvcc` or a failed build
+raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = (
+    Path(__file__).resolve().parents[2] / "build" / "elasticdl_tpu_torch"
+)
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # registers, shared memory and spills per kernel, kept in build_logs
+    "-Xptxas", "-v",
+)
+
+_LOCK = threading.Lock()
+_LOADED: Dict[str, ctypes.CDLL] = {}
+# source name -> nvcc's output (ptxas resource usage), for the builds
+# this process ran
+build_logs: Dict[str, str] = {}
+
+
+def find_nvcc() -> str:
+    candidates = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")]
+    for root in candidates:
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.isfile("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, $PATH and "
+        "/usr/local/cuda); the port's CUDA kernels need the CUDA toolkit"
+    )
+
+
+def sources() -> List[str]:
+    return sorted(p.name for p in CSRC_DIR.glob("*.cu"))
+
+
+def _digest(nvcc: str) -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC_DIR.iterdir()):
+        if path.suffix in (".cu", ".cuh", ".h"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc.encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(source: str, nvcc: Optional[str] = None) -> Path:
+    stem = Path(source).stem
+    return BUILD_DIR / f"{stem}-{_digest(nvcc or find_nvcc())}.so"
+
+
+def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
+    """Compile every named source (default: all of `csrc/`) that has no
+    cached library, one `nvcc` per source, all started together.  Raises
+    on the first failure, after every started compile has ended."""
+    nvcc = find_nvcc()
+    names = list(names or sources())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = []
+    for name in names:
+        out = library_path(name, nvcc)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / name)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        started.append((name, out, tmp, proc))
+    failures = []
+    for name, out, tmp, proc in started:
+        log, _ = proc.communicate()
+        build_logs[name] = log
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed for {name}:\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return {name: library_path(name, nvcc) for name in names}
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<source>`, built first if needed."""
+    with _LOCK:
+        lib = _LOADED.get(source)
+        if lib is None:
+            path = build_all([source])[source]
+            lib = _LOADED[source] = ctypes.CDLL(str(path))
+        return lib

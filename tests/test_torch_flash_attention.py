@@ -1,0 +1,179 @@
+"""The port's flash attention (elasticdl_tpu_torch/ops) against the JAX
+package's, on the CPU.
+
+The JAX side runs its Pallas kernel in interpret mode (off-TPU default),
+the port its plain version: on a CPU tensor the wrapper never launches the
+Hopper kernel.  Inputs come from numpy with a seed.  Tolerances are the
+JAX tests' own: 2e-4 in f32 (two f32 accumulations in different order),
+3e-2 in bf16 (the Pallas kernel rounds the probabilities to bf16 before
+the PV product, the port's plain version keeps them in f32), 2e-3 for
+gradients.
+"""
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from elasticdl_tpu.ops import flash_attention as jax_flash
+from elasticdl_tpu.ops import ring_attention as jax_ring
+from elasticdl_tpu.parallel import mesh as mesh_lib
+from elasticdl_tpu_torch.ops import flash_attention as port_flash
+from elasticdl_tpu_torch.ops import ring_attention as port_ring
+
+torch.set_num_threads(2)
+
+TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+
+
+def _qkv(batch=2, length=256, heads=4, dim=32, seed=0):
+    rng = np.random.RandomState(seed)
+    shape = (batch, length, heads, dim)
+    return tuple(rng.randn(*shape).astype(np.float32) * 0.3
+                 for _ in range(3))
+
+
+def _both(arrays, dtype):
+    jx = tuple(jnp.asarray(a).astype(jnp.dtype(dtype)) for a in arrays)
+    pt = tuple(torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays)
+    return jx, pt
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", [64, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_out_and_lse_match_jax(causal, length, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(length=length), dtype)
+    scale = 32 ** -0.5
+    out_j, residuals = jax_flash._flash_fwd(jq, jk, jv, causal, scale)
+    lse_j = residuals[4]
+    out_t, lse_t = port_flash.flash_attention_forward(
+        tq, tk, tv, causal=causal)
+    assert out_t.dtype == tq.dtype and lse_t.dtype == torch.float32
+    assert tuple(lse_t.shape) == tuple(lse_j.shape)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(out_t), _np(out_j), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(lse_t), _np(lse_j), rtol=tol, atol=tol)
+    # the public entry returns the same output
+    np.testing.assert_array_equal(
+        _np(port_flash.flash_attention(tq, tk, tv, causal=causal)),
+        _np(out_t))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_gradients_match_jax(causal):
+    arrays = _qkv(batch=1, length=128, heads=2, dim=16)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "float32")
+
+    def loss(q, k, v):
+        return (jax_flash.flash_attention(q, k, v, causal=causal) ** 2).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    (port_flash.flash_attention(*leaves, causal=causal) ** 2).sum().backward()
+    for leaf, ref in zip(leaves, want):
+        np.testing.assert_allclose(_np(leaf.grad), _np(ref),
+                                   rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_full_attention_reference_matches_jax(causal):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(length=72), "float32")
+    np.testing.assert_allclose(
+        _np(port_ring.full_attention_reference(tq, tk, tv, causal=causal)),
+        _np(jax_ring.full_attention_reference(jq, jk, jv, causal=causal)),
+        rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("length", [128, 100])
+def test_seq1_ring_self_attention_matches_jax(length):
+    """Seq axis of size 1: the JAX entry runs the Pallas kernel under
+    shard_map (L=128) or the fused-lax ring body (L=100, which neither
+    kernel takes); the port dispatches the same way on one device."""
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        _qkv(batch=8, length=length, heads=2, dim=16), "float32")
+    mesh = mesh_lib.create_mesh()
+    assert mesh.shape["seq"] == 1
+    want = jax_ring.ring_self_attention(jq, jk, jv, mesh, causal=True)
+    got = port_ring.ring_self_attention(tq, tk, tv, mesh=None, causal=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)
+    # a mesh object whose seq axis is 1 is the same single-device path
+    seq1 = types.SimpleNamespace(shape={"data": 1, "seq": 1})
+    np.testing.assert_array_equal(
+        _np(port_ring.ring_self_attention(tq, tk, tv, mesh=seq1,
+                                          causal=True)),
+        _np(got))
+
+
+def test_ring_over_seq_axis_waits_for_parallel_slice():
+    _, (tq, tk, tv) = _both(_qkv(length=64), "float32")
+    mesh = types.SimpleNamespace(shape={"data": 1, "seq": 2})
+    with pytest.raises(NotImplementedError, match="parallel-layer slice"):
+        port_ring.ring_self_attention(tq, tk, tv, mesh=mesh)
+
+
+# (q shape, k shape, port predicate, JAX predicate)
+PREDICATE_CASES = [
+    ((64, 512, 12, 64), (64, 512, 12, 64), True, True),   # the slice
+    ((32, 1024, 12, 64), (32, 1024, 12, 64), True, True),
+    ((8, 64, 4, 64), (8, 64, 4, 64), True, True),         # one short tile
+    ((8, 512, 4, 256), (8, 512, 4, 256), False, False),   # D > 128
+    ((8, 100, 4, 64), (8, 100, 4, 64), False, False),     # L % 8
+    ((8, 128, 4, 64), (8, 100, 4, 64), False, False),     # Lk % 8
+    # where they differ: the Hopper kernel masks a ragged last tile, and
+    # streams K/V through shared memory with no residency ceiling
+    ((8, 520, 4, 64), (8, 520, 4, 64), True, False),      # L % 128
+    ((2, 136, 4, 32), (2, 136, 4, 32), True, False),
+    ((16, 2048, 12, 64), (16, 2048, 12, 64), True, False),  # TPU VMEM cap
+]
+
+
+@pytest.mark.parametrize("q_shape,k_shape,port_ok,jax_ok", PREDICATE_CASES)
+def test_flash_shapes_ok_cases(q_shape, k_shape, port_ok, jax_ok):
+    assert port_flash.flash_shapes_ok(q_shape, k_shape) is port_ok
+    assert jax_flash.flash_shapes_ok(q_shape, k_shape) is jax_ok
+
+
+def test_shape_validation():
+    _, (tq, tk, tv) = _both(_qkv(length=100), "float32")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        port_flash.flash_attention(tq, tk, tv)
+    _, (sq, _, _) = _both(_qkv(length=128), "float32")
+    with pytest.raises(ValueError, match="BOTH q and k"):
+        port_flash.flash_attention_forward(sq, tk, tv)
+
+
+def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
+    _, (tq, tk, tv) = _both(_qkv(length=64), "bfloat16")
+    before = port_flash.flash_attention.launches
+    out, lse = port_flash.flash_attention_forward(tq, tk, tv, causal=True)
+    ref_out, ref_lse = port_flash.flash_attention_reference(
+        tq, tk, tv, causal=True)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    port_flash.flash_attention(tq, tk, tv)
+    assert port_flash.flash_attention.launches == before
+
+
+def test_fused_qkv_views_match_contiguous_inputs():
+    """The model hands q/k/v as column views of one QKV product (row
+    stride 3*H*D); the wrapper takes them as they are."""
+    rng = np.random.RandomState(3)
+    qkv = torch.from_numpy(rng.randn(2, 64, 3 * 4 * 16).astype(np.float32))
+    q, k, v = (t.unflatten(-1, (4, 16)) for t in qkv.split(64, dim=-1))
+    assert q.stride(1) == 3 * 64
+    out, lse = port_flash.flash_attention_forward(q, k, v)
+    ref, ref_lse = port_flash.flash_attention_forward(
+        q.contiguous(), k.contiguous(), v.contiguous())
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), rtol=1e-6,
+                               atol=1e-6)

@@ -1,0 +1,121 @@
+"""The port stands alone: no module of elasticdl_tpu_torch, and not
+chip_smoke.py, imports jax, flax, optax, orbax, elasticdl_tpu or
+model_zoo — at import time (checked in a subprocess that blocks them)
+or lazily inside a function (checked on the source).  And the entry
+points pick the GPU unless told "cpu"."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from elasticdl_tpu_torch import device as device_lib
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.join(REPO, "elasticdl_tpu_torch")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "elasticdl_tpu",
+           "model_zoo")
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PACKAGE):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+_IMPORT_ALL = textwrap.dedent("""
+    import importlib, importlib.abc, importlib.util, os, pkgutil, sys
+    BLOCKED = {blocked!r}
+    for name in list(sys.modules):
+        if name.split(".")[0] in BLOCKED:
+            del sys.modules[name]
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, fullname, path=None, target=None):
+            if fullname.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import of {{fullname}}")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+    sys.path.insert(0, {repo!r})
+    import elasticdl_tpu_torch
+    names = ["elasticdl_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(
+            elasticdl_tpu_torch.__path__, "elasticdl_tpu_torch.")
+    ]
+    for name in names:
+        importlib.import_module(name)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join({repo!r}, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)   # defines main(); does not run it
+    leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+    print(len(names))
+""")
+
+
+def test_every_port_module_imports_with_jax_and_reference_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _IMPORT_ALL.format(blocked=BLOCKED, repo=REPO)],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    # every module of the slice, down to the serving stack
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+
+
+@pytest.mark.parametrize(
+    "path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_import_of_jax_or_the_reference_anywhere_in_source(path):
+    """Lazy imports inside functions never run at import time; the AST
+    sees them."""
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in BLOCKED, (
+                f"{os.path.relpath(path, REPO)}:{node.lineno} imports "
+                f"{name}")
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_lib.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_lib.resolve_device("cuda")
+
+
+def test_resolve_device_cpu_only_when_asked():
+    assert device_lib.resolve_device("cpu") == torch.device("cpu")
+    assert device_lib.resolve_device(torch.device("cpu")).type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        device_lib.resolve_device("meta")
+
+
+def test_float32_products_are_pinned_to_full_precision():
+    device_lib.resolve_device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_kernel_build_paths_resolve_from_the_package():
+    from elasticdl_tpu_torch.ops import _build
+
+    assert _build.CSRC_DIR == \
+        __import__("pathlib").Path(PACKAGE) / "csrc"
+    assert str(_build.BUILD_DIR).startswith(os.path.join(REPO, "build"))
+    assert "flash_attention_fwd.cu" in _build.sources()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
