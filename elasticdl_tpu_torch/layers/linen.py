@@ -9,6 +9,7 @@ flax's numerics and initialisers rather than PyTorch's defaults.
   at 0, normalisation in f32, output cast to `dtype` (default: the
   promotion of the input with f32).
 - `gelu`: the tanh approximation, flax's default.
+- `init_parameters`: every submodule's `reset_parameters(generator)`.
 """
 
 from __future__ import annotations
@@ -80,3 +81,13 @@ class LayerNorm(nn.Module):
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def init_parameters(model: nn.Module,
+                    generator: Optional[torch.Generator] = None) -> None:
+    """Draw every submodule's parameters from its flax initialiser
+    distribution (`reset_parameters(generator)`), in module order.  Pass
+    a generator on the parameters' device for a seeded draw."""
+    for module in model.modules():
+        if module is not model and hasattr(module, "reset_parameters"):
+            module.reset_parameters(generator)

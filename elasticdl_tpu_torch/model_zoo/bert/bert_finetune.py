@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from elasticdl_tpu_torch.layers.embedding import DistributedEmbedding
+from elasticdl_tpu_torch.layers import linen
 from elasticdl_tpu_torch.layers.linen import Dense, LayerNorm, gelu
 from elasticdl_tpu_torch.ops.ring_attention import ring_self_attention
 
@@ -132,9 +133,7 @@ def init_parameters(model: nn.Module,
     lecun_normal kernels and zero biases, LayerNorm ones and zeros, the
     token table N(0, 0.05), the position table N(0, 0.02).  Pass a
     generator on the parameters' device for a seeded draw."""
-    for module in model.modules():
-        if module is not model and hasattr(module, "reset_parameters"):
-            module.reset_parameters(generator)
+    linen.init_parameters(model, generator)
     if isinstance(model, BertClassifier):
         with torch.no_grad():
             nn.init.normal_(model.position_embedding, 0.0, 0.02,

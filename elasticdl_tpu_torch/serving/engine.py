@@ -40,6 +40,7 @@ from elasticdl_tpu_torch.device import resolve_device
 from elasticdl_tpu_torch.worker.trainer import (
     model_has_train_kwarg,
     run_device_serialized,
+    to_tensor,
 )
 
 logger = get_logger(__name__)
@@ -75,14 +76,6 @@ def packed_feature_spec(feature_spec: Dict[str, dict]) -> Dict[str, dict]:
         name: packed_leaf_spec(leaf) or dict(leaf)
         for name, leaf in feature_spec.items()
     }
-
-
-def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    # wide unsigned ids become int64 in numpy first: torch's uint16/32/64
-    # support few ops, and the models cast ids at entry anyway
-    if arr.dtype.kind == "u" and arr.dtype != np.uint8:
-        arr = arr.astype(np.int64)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
 def _signature(variables: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
@@ -166,7 +159,7 @@ class ServingEngine:
                 self._shapes_seen.add(shape)
                 self._compiles.inc()
         tensors = {
-            name: _to_tensor(arr, self.device) for name, arr in feats.items()
+            name: to_tensor(arr, self.device) for name, arr in feats.items()
         }
         x = tensors[SINGLE_FEATURE_KEY] if self._single else tensors
         kwargs = {"train": False} if self._has_train else {}

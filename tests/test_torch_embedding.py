@@ -1,7 +1,9 @@
 """The port's embedding layer (elasticdl_tpu_torch/layers/embedding.py)
-against the JAX package's: id hashing bit for bit, and the layer's
-gather, pad masking and combiners on the same table."""
+against the JAX package's: id hashing bit for bit, the layer's gather,
+pad masking, combiners and prehashed path on the same table, and the
+lookup's backward (the scatter-add) against `jax.vjp`."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,3 +97,71 @@ def test_init_distribution_matches_flax_stddev():
     layer.reset_parameters(torch.Generator().manual_seed(0))
     std = float(layer.embedding.detach().std())
     assert abs(std - 0.05) < 0.002  # flax normal(stddev=0.05)
+
+
+# ---- the lookup's backward: the scatter-add, in row order ----------------
+
+
+def _lookup_inputs(rows=50, dim=8, n=400, seed=9):
+    rng = np.random.RandomState(seed)
+    table = rng.randn(rows, dim).astype(np.float32)
+    flat = (rng.zipf(1.5, n) % rows).astype(np.int32)   # heavy duplicates
+    cot = rng.randn(n, dim).astype(np.float32)
+    return table, flat, cot
+
+
+@pytest.mark.parametrize("dim", [8, 1])
+def test_lookup_backward_bitwise_equals_jax_vjp(dim):
+    table, flat, cot = _lookup_inputs(dim=dim)
+    out, vjp = jax.vjp(lambda t: jax_emb._lookup(t, jnp.asarray(flat)),
+                       jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(cot))
+    t = torch.from_numpy(table).requires_grad_(True)
+    got_out = port_emb._lookup(t, torch.from_numpy(flat))
+    np.testing.assert_array_equal(got_out.detach().numpy(), np.asarray(out))
+    got_out.backward(torch.from_numpy(cot))
+    # the same serial in-order sums on both sides: bit for bit
+    np.testing.assert_array_equal(t.grad.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("combiner", [None, "mean"])
+def test_layer_gradient_matches_flax(combiner):
+    jax_layer, variables, port_layer = _layers(combiner, True)
+    ids = _ids()
+    w = np.random.RandomState(3).randn(
+        *(ids.shape[:1] if combiner else ids.shape), 8).astype(np.float32)
+
+    def jax_loss(table):
+        out = jax_layer.apply({"params": {"embedding": table}},
+                              jnp.asarray(ids))
+        return (out * w).sum()
+
+    want = np.asarray(jax.grad(jax_loss)(variables["params"]["embedding"]))
+    (port_layer(torch.from_numpy(ids)) * torch.from_numpy(w)).sum() \
+        .backward()
+    got = port_layer.embedding.grad.numpy()
+    if combiner is None:
+        np.testing.assert_array_equal(got, want)
+    else:
+        # the mean's division is fused differently: one rounding step
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("combiner", [None, "sum"])
+def test_prehashed_path_matches_flax(combiner):
+    jax_layer, variables, port_layer = _layers(combiner, True)
+    rows = np.random.RandomState(4).randint(0, 64, (4, 6)).astype(np.int32)
+    want = np.asarray(jax_layer.apply(variables, jnp.asarray(rows),
+                                      prehashed=True))
+    got = port_layer(torch.from_numpy(rows), prehashed=True).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    if combiner is None:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("capacity", [8192, 1000, 7])
+@pytest.mark.parametrize("mix", [True, False])
+def test_port_hash_ids_host_bit_exact(capacity, mix):
+    np.testing.assert_array_equal(
+        port_emb.hash_ids_host(_IDS32, capacity, mix=mix),
+        jax_emb.hash_ids_host(_IDS32, capacity, mix=mix))

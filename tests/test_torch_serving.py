@@ -212,8 +212,8 @@ def test_engine_runs_on_cuda_unless_told_cpu(engines, monkeypatch):
 def test_unsigned_ids_widen_before_the_model(engines):
     _, port_engine = engines
     ids = _requests(2, seed=11)["input_ids"]
-    tensor = port_engine_lib._to_tensor(ids.astype(np.uint16),
-                                        torch.device("cpu"))
+    tensor = port_engine_lib.to_tensor(ids.astype(np.uint16),
+                                      torch.device("cpu"))
     assert tensor.dtype == torch.int64
     np.testing.assert_array_equal(tensor.numpy(), ids)
 
