@@ -5,19 +5,24 @@
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions; builds every kernel in `elasticdl_tpu_torch/csrc/` with
-   nvcc, one process per source, and prints the build time.
+   nvcc, one process per source, and prints the build time, each
+   kernel's registers, shared memory and spills (ptxas) and the count of
+   HGMMA (wgmma) instructions in the tensor-core flash kernel's SASS.
 2. Holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and short ragged ones, and times the kernel,
    the plain version and the library call that computes the same
-   function (`library_ms`, a yardstick the port never calls).  The
-   scatter-add must equal its plain version (on CPU copies) bit for bit,
-   and itself across two launches.
+   function (`library_ms`, a yardstick the port never calls).  Each
+   flash row records which variant ran: bf16 must run `sm90_wgmma`, f32
+   `cuda_core`.  The scatter-add must equal its plain version (on CPU
+   copies) bit for bit, and itself across two launches; its rows count
+   the long segments and the kernel time per id of the longest one.
 3. Serves BERT-base (hidden 768, 12 layers, 12 heads, MLP 3072, vocab
    8192, L=512, bf16, random weights from a seed) through ServingEngine
    + DynamicBatcher with buckets (1, 4, 16, 64): seeded requests of 1-64
    rows from several client threads.  Every result must be OK, finite
    and of shape (rows, 2), and the kernel launch counts must show that
-   every layer of every executed batch went through the kernels.  One
+   every layer of every executed batch went through the tensor-core
+   flash kernel (`flash_attention.launches_by_kernel`).  One
    4-row batch is checked in f32 against the same weights on the CPU
    (the plain path).
 4. Trains DeepFM at bench.py's width (vocab 2^20, dim 16, MLP 256/128,
@@ -144,6 +149,16 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def sass_count(source: str, opcode: str) -> int:
+    """Lines of the built library's SASS (cuobjdump) that hold opcode."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
+                             "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(_build.library_path(source))],
+        check=True, capture_output=True, text=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
+
+
 def time_ms(fn, iters: int) -> float:
     for _ in range(3):
         fn()
@@ -205,11 +220,17 @@ def check_flash_kernel(gen):
          False),
         ("ragged-f32", (4, 72, 12, 64), torch.float32, False, False),
         ("ragged-f32-causal", (4, 72, 12, 64), torch.float32, True, False),
+        ("bf16-d128", (32, SEQ_LEN, 6, 128), torch.bfloat16, False, False),
+        ("ragged-bf16-d128-causal", (4, 200, 4, 128), torch.bfloat16, True,
+         False),
     ]
     rows = []
     for label, shape, dtype, causal, fused in cases:
         q, k, v = make_qkv(shape, dtype, gen, fused)
+        fa.reset_launch_counts()
         out_k, lse_k = fa.flash_attention_forward(q, k, v, causal=causal)
+        variant = [name for name, n in
+                   fa.flash_attention.launches_by_kernel.items() if n]
         out_r, lse_r = fa.flash_attention_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err_out = (out_k.float() - out_r.float()).abs().max().item()
@@ -217,11 +238,14 @@ def check_flash_kernel(gen):
         tol = TOL[dtype]
         ok = (bool(torch.isfinite(out_k).all())
               and err_out <= tol["out"] and err_lse <= tol["lse"])
+        want = fa.SM90_WGMMA if dtype == torch.bfloat16 else fa.CUDA_CORE
+        ok = ok and variant == [want]
         row = {"case": label, "shape": list(shape),
                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+               "variant": variant,
                "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
                "tol_out": tol["out"], "tol_lse": tol["lse"]}
-        if shape[0] == 64:
+        if shape[0] >= 32:
             iters = 10
             row["ms"] = time_ms(
                 lambda: fa.flash_attention_forward(q, k, v, causal=causal),
@@ -239,14 +263,17 @@ def check_flash_kernel(gen):
         print(json.dumps(row), flush=True)
         if not ok:
             raise AssertionError(
-                f"flash kernel disagrees with its plain version: {row}")
+                f"flash kernel disagrees with its plain version or ran "
+                f"the wrong variant (bf16 goes to {fa.SM90_WGMMA}, f32 to "
+                f"{fa.CUDA_CORE}): {row}")
         rows.append(row)
         del q, k, v, out_k, out_r, lse_k, lse_r
     main = rows[0]
     entry = {
         "name": "flash_attention_fwd",
         "route": "cuda",
-        "source": "elasticdl_tpu_torch/csrc/flash_attention_fwd.cu",
+        "source": "elasticdl_tpu_torch/csrc/flash_attention_fwd_sm90.cu",
+        "variant": main["variant"][0],
         "replaces": "elasticdl_tpu/ops/flash_attention.py:48",
         "max_abs_err": main["max_abs_err_out"],
         "ms": main["ms"],
@@ -288,7 +315,7 @@ def serve_bert(gen_seed: int):
                 results.append((req["input_ids"].shape[0], res, lat))
 
     # ---- the main path: counts start at 0 here ----
-    fa.flash_attention.launches = 0
+    fa.reset_launch_counts()
     engine = ServingEngine(model, variables, step=0,
                            feature_spec=feature_spec, buckets=BUCKETS,
                            device=device)
@@ -302,7 +329,9 @@ def serve_bert(gen_seed: int):
         t.join()
     wall_s = time.perf_counter() - t_start
     batcher.shutdown()
-    launches = {"flash_attention_fwd": fa.flash_attention.launches}
+    launches = {"flash_attention_fwd": fa.flash_attention.launches,
+                "flash_attention_fwd_by_variant":
+                    dict(fa.flash_attention.launches_by_kernel)}
     # ---- end of the main path ----
 
     snap = batcher.metrics.snapshot()
@@ -317,11 +346,15 @@ def serve_bert(gen_seed: int):
             raise AssertionError(
                 f"bad predictions for {rows} rows: {r.predictions.shape}")
     expected = NUM_LAYERS * (len(BUCKETS) + batches)
-    if launches["flash_attention_fwd"] != expected:
+    by_variant = launches["flash_attention_fwd_by_variant"]
+    if (launches["flash_attention_fwd"] != expected
+            or by_variant[fa.SM90_WGMMA] != expected):
         raise AssertionError(
             f"flash kernel launched {launches['flash_attention_fwd']} "
-            f"times; {NUM_LAYERS} layers x ({len(BUCKETS)} warm-up + "
-            f"{batches} served batches) = {expected}")
+            f"times ({by_variant}); every bf16 layer must run the "
+            f"{fa.SM90_WGMMA} kernel: {NUM_LAYERS} layers x "
+            f"({len(BUCKETS)} warm-up + {batches} served batches) = "
+            f"{expected}")
     if engine.compile_count != len(BUCKETS):
         raise AssertionError(
             f"{engine.compile_count} batch shapes for {len(BUCKETS)} "
@@ -407,7 +440,7 @@ def forward_breakdown(engine):
     groups = {"flash_attention_fwd": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms in by_kernel.items():
         low = name.lower()
-        if "flash_fwd_kernel" in low:
+        if "flash_fwd" in low:
             groups["flash_attention_fwd"] += ms
         elif any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet")):
             groups["matmul"] += ms
@@ -451,6 +484,30 @@ def scatter_bound_ms(n: int, dim: int, touched: int):
                                  "operations")
 
 
+def scatter_launch_breakdown(kernel_only, reps: int = 5):
+    """Device µs per call of each of the scatter kernel's three launches
+    (torch.profiler over `reps` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kernel_only()
+        torch.cuda.synchronize()
+    by_launch = {"permute": 0.0, "long_segments": 0.0, "short_segments": 0.0}
+    names = {"permute_rows": "permute",
+             "scatter_add_long": "long_segments",
+             "scatter_add_segments": "short_segments"}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        for key, group in names.items():
+            if key in evt.key:
+                by_launch[group] += evt.self_device_time_total / reps
+    return by_launch
+
+
 def check_scatter_kernel(gen):
     """The scatter-add kernel vs its plain version on CPU copies, bit for
     bit, and vs itself across two launches; timed at the main path's
@@ -470,6 +527,14 @@ def check_scatter_kernel(gen):
         ("ragged-d1", (rng.zipf(1.5, 1000) % 8192).astype(np.int32), 8192,
          1, False),
         ("one-row", np.full(65536, 4321, np.int32), 8192, 16, True),
+        # 64 hot rows of 4,096 ids each, shuffled: 64 long segments at once
+        ("many-long", np.repeat(np.arange(64, dtype=np.int32) * 97,
+                                4096)[rng.permutation(64 * 4096)], 8192, 16,
+         True),
+        # segments of 63-65 ids around the long-segment threshold, D = 24
+        ("threshold-d24", np.repeat(
+            np.arange(40, dtype=np.int32),
+            [63, 64, 65, 1, 2, 200, 64, 65] * 5), 64, 24, False),
     ]
     lib = sa._library()
     rows = []
@@ -485,23 +550,27 @@ def check_scatter_kernel(gen):
         got = out1.cpu()
         _, counts = torch.unique(ids, return_counts=True)
         touched = int(counts.numel())
+        sorted_ids, order = torch.sort(ids, stable=True)
+        heads, ends = sa.segment_plan(sorted_ids)
         row = {"case": label, "n": n, "rows": n_rows, "dim": dim,
                "touched_rows": touched,
                "longest_segment": int(counts.max()),
+               "long_segments": int(sa.long_segments(heads, ends).shape[0]),
+               "long_segment_threshold": sa.LONG_SEGMENT,
                "bitwise_vs_plain": bool(torch.equal(got, ref)),
                "bitwise_across_launches": bool(torch.equal(out1, out2)),
                "max_abs_err": float((got - ref).abs().max())}
         if timed:
             iters = 20
             scratch = table.clone()
-            sorted_ids, order = torch.sort(ids, stable=True)
-            sorted_grads = torch.empty_like(grads)
+            sorted_grads = torch.empty(n * dim + 4, device="cuda")
 
             def kernel_only():
                 err = lib.scatter_add_segments(
                     scratch.data_ptr(), sorted_ids.data_ptr(),
                     order.data_ptr(), grads.data_ptr(),
-                    sorted_grads.data_ptr(), n, dim,
+                    sorted_grads.data_ptr(), heads.data_ptr(),
+                    ends.data_ptr(), n, dim, sa.LONG_SEGMENT,
                     torch.cuda.current_stream().cuda_stream)
                 if err != 0:
                     raise RuntimeError(f"scatter_add_segments: error {err}")
@@ -509,22 +578,30 @@ def check_scatter_kernel(gen):
             row["ms"] = time_ms(lambda: sa.scatter_add_forward(
                 scratch, ids, grads, inplace=True), iters)
             row["kernel_ms"] = time_ms(kernel_only, iters)
+            row["kernel_us_by_launch"] = scatter_launch_breakdown(
+                kernel_only)
+            # the longest segment's chain bounds the kernel: kernel time
+            # per id of that segment
+            row["ns_per_id_longest"] = row["kernel_ms"] * 1e6 / int(
+                counts.max())
             row["sort_ms"] = time_ms(
                 lambda: torch.sort(ids, stable=True), iters)
+            row["plan_ms"] = time_ms(lambda: sa.segment_plan(sorted_ids),
+                                     iters)
             row["plain_ms"] = time_ms(
                 lambda: sa.scatter_add_reference(table, ids, grads), iters)
             row["library_ms"] = time_ms(
                 lambda: scratch.index_add_(0, ids, grads), iters)
             row["bound_ms"], row["bound_by"] = scatter_bound_ms(
                 n, dim, touched)
-            del scratch, sorted_ids, order, sorted_grads
+            del scratch, sorted_grads
         print(json.dumps(row), flush=True)
         if not (row["bitwise_vs_plain"] and row["bitwise_across_launches"]):
             raise AssertionError(
                 f"scatter-add kernel differs from its plain version or "
                 f"from itself: {row}")
         rows.append(row)
-        del ids, table, grads, out1, out2
+        del ids, table, grads, out1, out2, sorted_ids, order
     main = rows[0]
     entry = {
         "name": "scatter_add",
@@ -719,7 +796,8 @@ def step_breakdown(trainer, state, batch):
               "matmul": 0.0, "other": 0.0}
     for name, ms in by_kernel.items():
         low = name.lower()
-        if "scatter_add_segments" in low or "permute_rows" in low:
+        if any(s in low for s in ("scatter_add_segments", "scatter_add_long",
+                                  "permute_rows")):
             groups["scatter_add"] += ms
         elif "sort" in low:
             groups["sort"] += ms
@@ -760,8 +838,15 @@ def main() -> int:
           flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(s in line for s in ("registers", "spill", "smem",
+                                       "C75")):
                 print(f"  {name}: {line.strip()}")
+    hgmma = sass_count(fa.SOURCE_SM90, "HGMMA")
+    print(f"  {fa.SOURCE_SM90}: {hgmma} HGMMA instructions in the SASS",
+          flush=True)
+    if hgmma == 0:
+        raise AssertionError(f"{fa.SOURCE_SM90} has no HGMMA (wgmma) "
+                             "instruction in its SASS")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     entry, rows = check_flash_kernel(gen)

@@ -16,9 +16,10 @@
 // Bound: at BERT-base serving shapes (L=512, D=64, bf16) the FLOPs are
 // 4*B*H*L^2*D and the bytes 4*B*L*H*D*2, so on the tensor cores the
 // kernel would be bound by memory (about 61 us at B=64, 3.35 TB/s).
-// This first version is plain CUDA C++ on the CUDA cores, bound by
-// shared-memory loads feeding the f32 FMAs, far above that bound.
-// wgmma and TMA come later.
+// This kernel is plain CUDA C++ on the CUDA cores, bound by shared-memory
+// loads feeding the f32 FMAs, far above that bound.  It serves f32 and
+// the shapes the tensor-core kernel does not take; bf16 at D = 64 or 128
+// with aligned strides goes to flash_attention_fwd_sm90.cu (wgmma, TMA).
 //
 // Design: one block of 128 threads per (Q tile of 64 rows, head, batch).
 // The Q tile is staged in shared memory as f32; K and V stream through

@@ -1,19 +1,29 @@
-"""Flash attention for one device: the Hopper kernel, its plain version,
-and the autograd Function around them.
+"""Flash attention for one device: the Hopper kernels, their plain
+version, and the autograd Function around them.
 
-The kernel (`csrc/flash_attention_fwd.cu`) replaces the Pallas TPU kernel
-`_fwd_kernel` of elasticdl_tpu/ops/flash_attention.py.  It computes the
-same function: per head, softmax(Q K^T * scale) V by an online softmax
-(running max, normaliser, f32 accumulator), with O in the input type and
-the log-sum-exp in f32.  q/k/v stay in the model's (B, L, H, D) layout,
-read in place with their own batch and row strides.  The source says
-what bounds it and how it is laid out.
+Two kernels replace the Pallas TPU kernel `_fwd_kernel` of
+elasticdl_tpu/ops/flash_attention.py.  Both compute the same function:
+per head, softmax(Q K^T * scale) V by an online softmax (running max,
+normaliser, f32 accumulator), with O in the input type and the
+log-sum-exp in f32.  q/k/v stay in the model's (B, L, H, D) layout, read
+in place with their own batch and row strides.
+
+- `sm90_wgmma` (`csrc/flash_attention_fwd_sm90.cu`): TMA loads and wgmma
+  on the tensor cores, for the inputs `tensor_core_ok` accepts (bf16,
+  D = 64 or 128, 16-byte aligned pointers and strides).
+- `cuda_core` (`csrc/flash_attention_fwd.cu`): f32 FMAs on the CUDA cores,
+  for every other input the shapes allow (f32, other D, unaligned views).
+
+The choice is the explicit predicate `tensor_core_ok`, never a caught
+exception: a kernel that fails to build or launch raises.  Each source
+says what bounds it and how it is laid out.
 
 `flash_attention_forward` is the wrapper: on a CUDA tensor it launches
-the kernel (or raises), and counts the launch in `flash_attention.
-launches`; on a CPU tensor it takes `flash_attention_reference`, the
-plain O(L^2) version, which returns the same (out, lse).  Nothing falls
-back from the card to the plain version.
+one of the kernels (or raises), and counts the launch in
+`flash_attention.launches` and, per variant, in
+`flash_attention.launches_by_kernel`; on a CPU tensor it takes
+`flash_attention_reference`, the plain O(L^2) version, which returns the
+same (out, lse).  Nothing falls back from the card to the plain version.
 
 The backward is a plain recompute from the saved log-sum-exp, mirroring
 the JAX package's `_flash_bwd` (jnp there, not Pallas).
@@ -31,29 +41,65 @@ from elasticdl_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 SOURCE = "flash_attention_fwd.cu"
+SOURCE_SM90 = "flash_attention_fwd_sm90.cu"
+CUDA_CORE = "cuda_core"
+SM90_WGMMA = "sm90_wgmma"
 MAX_HEAD_DIM = 128
+TENSOR_CORE_HEAD_DIMS = (64, 128)
 _MAX_GRID_YZ = 65535  # heads and batch are the grid's y and z
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB_LOCK = threading.Lock()
-_LIB = None
+_LIBS = {}
 
 
-def _library():
-    global _LIB
+def _library(variant: str = CUDA_CORE):
+    """The loaded library of one variant, built first if needed.  The
+    CUDA-core entry takes a dtype code; the wgmma entry does not."""
     with _LIB_LOCK:
-        if _LIB is None:
-            lib = _build.load_library(SOURCE)
-            fn = lib.flash_attention_fwd
+        lib = _LIBS.get(variant)
+        if lib is None:
+            if variant == CUDA_CORE:
+                lib = _build.load_library(SOURCE)
+                fn = lib.flash_attention_fwd
+                ints = 6
+            else:
+                lib = _build.load_library(SOURCE_SM90)
+                fn = lib.flash_attention_fwd_sm90
+                ints = 5
             fn.argtypes = (
                 [ctypes.c_void_p] * 5
-                + [ctypes.c_int] * 6
+                + [ctypes.c_int] * ints
                 + [ctypes.c_longlong] * 6
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
-            _LIB = lib
-        return _LIB
+            _LIBS[variant] = lib
+        return lib
+
+
+def tensor_core_ok(q, k, v) -> bool:
+    """Whether the wgmma kernel takes these (B, L, H, D) tensors: bf16
+    throughout, D in TENSOR_CORE_HEAD_DIMS, the (H, D) dims contiguous,
+    and what TMA needs of a tensor map: a 16-byte aligned base pointer and
+    row and batch strides that are multiples of 16 bytes (8 elements),
+    rows that do not overlap and, at B > 1, batches that do not either.
+    Reads only metadata, so it answers for CPU tensors too."""
+    if q.dim() != 4 or q.shape[-1] not in TENSOR_CORE_HEAD_DIMS:
+        return False
+    for x in (q, k, v):
+        if x.dtype != torch.bfloat16 or x.dim() != 4:
+            return False
+        batch, length, heads, dim = x.shape
+        if x.stride(3) != 1 or x.stride(2) != dim:
+            return False
+        if x.data_ptr() % 16 or x.stride(1) % 8 or x.stride(0) % 8:
+            return False
+        if x.stride(1) < heads * dim:
+            return False
+        if batch > 1 and x.stride(0) < length * x.stride(1):
+            return False
+    return True
 
 
 def flash_shapes_ok(q_shape, k_shape) -> bool:
@@ -135,23 +181,29 @@ def _kernel_forward(q, k, v, causal: bool, scale: float):
                       device=q.device)
     lse = torch.empty((batch, q_len, heads), dtype=torch.float32,
                       device=q.device)
-    fn = _library().flash_attention_fwd
+    variant = SM90_WGMMA if tensor_core_ok(q, k, v) else CUDA_CORE
+    lib = _library(variant)
+    if variant == SM90_WGMMA:
+        fn, dtype_arg = lib.flash_attention_fwd_sm90, ()
+    else:
+        fn, dtype_arg = lib.flash_attention_fwd, (_DTYPE_CODES[q.dtype],)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(),
-            _DTYPE_CODES[q.dtype], batch, heads, q_len, k_len, dim,
+            *dtype_arg, batch, heads, q_len, k_len, dim,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1),
             float(scale), int(bool(causal)), stream,
         )
     if err != 0:
         raise RuntimeError(
-            f"flash_attention_fwd kernel launch failed with CUDA error "
+            f"flash_attention {variant} kernel launch failed with error "
             f"{err} for q {tuple(q.shape)} {q.dtype}"
         )
     flash_attention.launches += 1
+    flash_attention.launches_by_kernel[variant] += 1
     return out, lse
 
 
@@ -220,8 +272,9 @@ def flash_attention(
 
     Differentiable (flash recompute backward).  Sequence lengths must be
     multiples of 8 and D <= 128 (`flash_shapes_ok`).  On a CUDA tensor
-    the forward is the Hopper kernel; `flash_attention.launches` counts
-    its launches.
+    the forward is a Hopper kernel (`tensor_core_ok` picks which);
+    `flash_attention.launches` counts the launches and
+    `flash_attention.launches_by_kernel` splits them by variant.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -229,3 +282,11 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_kernel = {SM90_WGMMA: 0, CUDA_CORE: 0}
+
+
+def reset_launch_counts() -> None:
+    """Sets the total and every per-variant launch count to 0."""
+    flash_attention.launches = 0
+    for variant in flash_attention.launches_by_kernel:
+        flash_attention.launches_by_kernel[variant] = 0

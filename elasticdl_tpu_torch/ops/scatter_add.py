@@ -10,9 +10,13 @@ same function, `scatter_add(table, ids, grads) -> table'`:
 summed left to right over the positions i1 < i2 < ... where ids == r.
 The wrapper sorts the int32 ids with a stable sort (`torch.sort`: it
 orders integers and computes none of the float function), so each row's
-grads form one segment in original-index order; the kernel copies the
-grads rows into that order, sums each segment from table[r] and writes
-each touched row once.
+grads form one segment in original-index order, and computes the segment
+plan (`segment_plan`, two `torch.searchsorted` calls on the sorted ids,
+no host sync); the kernel copies the grads rows into that order, sums
+each segment from table[r] in order and writes each touched row once.
+Segments longer than `LONG_SEGMENT` ids (`long_segments`) get a block
+each, which stages their rows in shared memory; the rest a group of
+lanes.
 No float atomics, so the result is the same bit for bit from run to run
 and equal to the serial in-order sum.  The source says what bounds it.
 
@@ -34,6 +38,9 @@ from elasticdl_tpu_torch.ops import _build
 
 SOURCE = "scatter_add.cu"
 _MAX_IDS = 2 ** 31 - 1
+# segments longer than this many ids take the kernel's staged block path
+LONG_SEGMENT = 64
+MAX_DIM = 4096  # one staged chunk holds at least one row
 
 _LIB_LOCK = threading.Lock()
 _LIB = None
@@ -45,8 +52,9 @@ def _library():
         if _LIB is None:
             lib = _build.load_library(SOURCE)
             fn = lib.scatter_add_segments
-            fn.argtypes = [ctypes.c_void_p] * 5 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 7 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
@@ -59,6 +67,32 @@ def scatter_add_reference(table: torch.Tensor, ids: torch.Tensor,
     id order, which is the kernel's order; it raises on an id out of
     range."""
     return table.clone().index_add_(0, ids.long(), grads)
+
+
+def segment_plan(sorted_ids: torch.Tensor):
+    """The kernel's segment plan for ids sorted ascending: at every
+    anchor position j*LONG_SEGMENT, the first and one-past-last position
+    of the segment (run of equal ids) that holds it, as two int32
+    tensors of ceil(N / LONG_SEGMENT) entries.  Integer work only, on the
+    ids' device, with no host sync."""
+    anchors = sorted_ids[::LONG_SEGMENT].contiguous()
+    heads = torch.searchsorted(sorted_ids, anchors, out_int32=True)
+    ends = torch.searchsorted(sorted_ids, anchors, right=True,
+                              out_int32=True)
+    return heads, ends
+
+
+def long_segments(heads: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """The (head, end) pairs of the segments longer than LONG_SEGMENT,
+    by the rule the kernel's long-segment blocks apply to the plan: the
+    block of anchor j takes its segment when it is long and holds no
+    earlier anchor.  (K, 2) int64, in sorted order."""
+    heads, ends = heads.long(), ends.long()
+    anchors = torch.arange(heads.numel(), device=heads.device) * LONG_SEGMENT
+    first = torch.ones_like(heads, dtype=torch.bool)
+    first[1:] = heads[1:] > anchors[1:] - LONG_SEGMENT
+    take = first & (ends - heads > LONG_SEGMENT)
+    return torch.stack([heads[take], ends[take]], dim=1)
 
 
 def _check_inputs(table, ids, grads) -> None:
@@ -85,6 +119,9 @@ def _check_inputs(table, ids, grads) -> None:
         raise ValueError("scatter_add needs contiguous tensors")
     if ids.shape[0] > _MAX_IDS:
         raise ValueError(f"scatter_add takes at most {_MAX_IDS} ids")
+    if table.shape[1] > MAX_DIM:
+        raise ValueError(f"scatter_add takes rows of at most {MAX_DIM} "
+                         f"floats; got {table.shape[1]}")
 
 
 def _kernel_scatter_add_(table, ids, grads) -> torch.Tensor:
@@ -92,13 +129,17 @@ def _kernel_scatter_add_(table, ids, grads) -> torch.Tensor:
     if n == 0:
         return table
     sorted_ids, order = torch.sort(ids, stable=True)
-    sorted_grads = torch.empty_like(grads)
+    heads, ends = segment_plan(sorted_ids)
+    # 4 floats of slack: the staged copies move whole 16-byte units
+    sorted_grads = torch.empty(grads.numel() + 4, dtype=grads.dtype,
+                               device=grads.device)
     fn = _library().scatter_add_segments
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(table.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
-                 grads.data_ptr(), sorted_grads.data_ptr(), n,
-                 table.shape[1], stream)
+                 grads.data_ptr(), sorted_grads.data_ptr(),
+                 heads.data_ptr(), ends.data_ptr(), n, table.shape[1],
+                 LONG_SEGMENT, stream)
     if err != 0:
         raise RuntimeError(
             f"scatter_add_segments kernel launch failed with CUDA error "

@@ -177,3 +177,138 @@ def test_fused_qkv_views_match_contiguous_inputs():
                                atol=1e-6)
     np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), rtol=1e-6,
                                atol=1e-6)
+
+
+def _bf16_views(batch=2, length=64, heads=4, dim=64, extra=0, offset=0,
+                dtype=torch.bfloat16):
+    """q/k/v as column views of one fused QKV buffer whose rows are
+    3*H*D + extra elements wide, starting `offset` elements in."""
+    width = 3 * heads * dim + extra
+    flat = torch.zeros(batch * length * width + offset, dtype=dtype)
+    qkv = flat[offset:].view(batch, length, width)
+    return tuple(qkv[..., i * heads * dim:(i + 1) * heads * dim]
+                 .unflatten(-1, (heads, dim)) for i in range(3))
+
+
+# (case, q/k/v builder, the wgmma kernel takes them)
+TENSOR_CORE_CASES = [
+    ("bf16-d64-contiguous",
+     lambda: tuple(torch.zeros(2, 64, 4, 64, dtype=torch.bfloat16)
+                   for _ in range(3)), True),
+    ("bf16-d128-contiguous",
+     lambda: tuple(torch.zeros(2, 72, 4, 128, dtype=torch.bfloat16)
+                   for _ in range(3)), True),
+    ("bf16-d64-fused-qkv-views", lambda: _bf16_views(), True),
+    ("bf16-d128-fused-qkv-views", lambda: _bf16_views(dim=128), True),
+    ("bf16-d64-batch-1", lambda: _bf16_views(batch=1), True),
+    ("f32-d64", lambda: _bf16_views(dtype=torch.float32), False),
+    ("bf16-d32", lambda: _bf16_views(dim=32), False),
+    ("bf16-d16", lambda: _bf16_views(dim=16), False),
+    ("bf16-d96", lambda: _bf16_views(dim=96), False),
+    # a row stride of 3*H*D + 4 elements is 8 bytes off a 16-byte multiple
+    ("bf16-misaligned-row-stride", lambda: _bf16_views(extra=4), False),
+    ("bf16-aligned-padded-row-stride", lambda: _bf16_views(extra=8), True),
+    # a base pointer 2 bytes past a 16-byte boundary
+    ("bf16-misaligned-pointer", lambda: _bf16_views(offset=1), False),
+    ("bf16-q-f32-kv", lambda: (torch.zeros(2, 64, 4, 64),)
+     + _bf16_views()[1:], False),
+    ("bf16-heads-not-contiguous",
+     lambda: tuple(torch.zeros(2, 4, 64, 64, dtype=torch.bfloat16)
+                   .transpose(1, 2) for _ in range(3)), False),
+]
+
+
+@pytest.mark.parametrize("case,build,want", TENSOR_CORE_CASES,
+                         ids=[c[0] for c in TENSOR_CORE_CASES])
+def test_tensor_core_ok_cases(case, build, want):
+    q, k, v = build()
+    assert port_flash.tensor_core_ok(q, k, v) is want
+
+
+class _FakeKernel:
+    def __init__(self, err=0):
+        self.calls = 0
+        self.err = err
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.err
+
+
+@pytest.fixture
+def fake_libraries(monkeypatch):
+    """Both variants' C entries replaced by recorders, and the CUDA
+    device/stream lookups by stand-ins, so the dispatch runs on CPU
+    tensors without a card."""
+    import contextlib
+    import types as _types
+
+    libs = {
+        port_flash.SM90_WGMMA: _types.SimpleNamespace(
+            flash_attention_fwd_sm90=_FakeKernel()),
+        port_flash.CUDA_CORE: _types.SimpleNamespace(
+            flash_attention_fwd=_FakeKernel()),
+    }
+    monkeypatch.setattr(port_flash, "_library", lambda variant: libs[variant])
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _types.SimpleNamespace(
+                            cuda_stream=0))
+    port_flash.reset_launch_counts()
+    yield libs
+    port_flash.reset_launch_counts()
+
+
+@pytest.mark.parametrize("build,variant", [
+    (lambda: _bf16_views(), "sm90_wgmma"),
+    (lambda: _bf16_views(dim=128), "sm90_wgmma"),
+    (lambda: _bf16_views(dtype=torch.float32), "cuda_core"),
+    (lambda: _bf16_views(dim=32), "cuda_core"),
+    (lambda: _bf16_views(extra=4), "cuda_core"),
+])
+def test_kernel_dispatch_follows_the_predicate(fake_libraries, build,
+                                               variant):
+    q, k, v = build()
+    out, lse = port_flash._kernel_forward(q, k, v, False, 0.125)
+    assert out.shape == q.shape and lse.shape == q.shape[:3]
+    assert port_flash.flash_attention.launches == 1
+    assert port_flash.flash_attention.launches_by_kernel == {
+        "sm90_wgmma": int(variant == "sm90_wgmma"),
+        "cuda_core": int(variant == "cuda_core")}
+    sm90 = fake_libraries["sm90_wgmma"].flash_attention_fwd_sm90
+    core = fake_libraries["cuda_core"].flash_attention_fwd
+    assert (sm90.calls, core.calls) == (
+        (1, 0) if variant == "sm90_wgmma" else (0, 1))
+
+
+def test_a_failed_launch_raises_and_nothing_gives_way(fake_libraries):
+    """A wgmma launch that returns an error raises; the CUDA-core kernel
+    is not tried and no launch is counted."""
+    sm90 = fake_libraries["sm90_wgmma"].flash_attention_fwd_sm90
+    sm90.err = 10001
+    with pytest.raises(RuntimeError, match="sm90_wgmma"):
+        port_flash._kernel_forward(*_bf16_views(), False, 0.125)
+    assert fake_libraries["cuda_core"].flash_attention_fwd.calls == 0
+    assert port_flash.flash_attention.launches == 0
+    assert sum(port_flash.flash_attention.launches_by_kernel.values()) == 0
+
+
+def test_reset_launch_counts_zeroes_every_count():
+    port_flash.flash_attention.launches = 3
+    port_flash.flash_attention.launches_by_kernel["cuda_core"] = 3
+    port_flash.reset_launch_counts()
+    assert port_flash.flash_attention.launches == 0
+    assert port_flash.flash_attention.launches_by_kernel == {
+        "sm90_wgmma": 0, "cuda_core": 0}
+
+
+def test_kernel_sources_name_the_tpu_kernel_and_their_bound():
+    from elasticdl_tpu_torch.ops import _build
+
+    assert {port_flash.SOURCE, port_flash.SOURCE_SM90} <= set(
+        _build.sources())
+    text = (_build.CSRC_DIR / port_flash.SOURCE_SM90).read_text()
+    assert "`_fwd_kernel`" in text
+    assert "elasticdl_tpu/ops/flash_attention.py:48" in text
+    assert "60.6 us" in text and "wgmma" in text and "TMA" in text

@@ -158,6 +158,98 @@ def test_kernel_source_is_compiled_by_ops_build():
     from elasticdl_tpu_torch.ops import _build
 
     assert sa.SOURCE in _build.sources()
+    for source in _build.sources():  # no float atomics in any kernel
+        assert "atomicAdd" not in (_build.CSRC_DIR / source).read_text()
     text = (_build.CSRC_DIR / sa.SOURCE).read_text()
-    assert "atomicAdd" not in text  # a fixed order of summation
     assert "scripts/probe_pallas_scatter.py:68" in text
+    # the source states the redesign's critical path
+    assert "critical path" in text and "shared memory" in text
+
+
+def _segments_numpy(sorted_ids):
+    """(head, end) of every run of equal ids, by a plain loop."""
+    runs = []
+    head = 0
+    for p in range(1, len(sorted_ids) + 1):
+        if p == len(sorted_ids) or sorted_ids[p] != sorted_ids[head]:
+            runs.append((head, p))
+            head = p
+    return runs
+
+
+def _plan_numpy(sorted_ids, threshold):
+    runs = _segments_numpy(sorted_ids)
+    heads, ends = [], []
+    for anchor in range(0, len(sorted_ids), threshold):
+        head, end = next(r for r in runs if r[0] <= anchor < r[1])
+        heads.append(head)
+        ends.append(end)
+    return (np.array(heads, np.int32), np.array(ends, np.int32),
+            [r for r in runs if r[1] - r[0] > threshold])
+
+
+T = sa.LONG_SEGMENT
+PLAN_CASES = {
+    "zipf": lambda rng: (rng.zipf(1.5, 5000) % 300).astype(np.int32),
+    "all-distinct": lambda rng: rng.permutation(3000).astype(np.int32),
+    "one-row": lambda rng: np.full(1000, 7, np.int32),
+    "n1": lambda rng: np.array([3], np.int32),
+    # runs of exactly T - 1, T and T + 1 ids, and 2T + 1 crossing anchors
+    "threshold-edges": lambda rng: np.repeat(
+        np.arange(6, dtype=np.int32), [T - 1, T, T + 1, 1, 2 * T + 1, T]),
+    "long-at-the-end": lambda rng: np.repeat(
+        np.arange(3, dtype=np.int32), [5, 1, 3 * T]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_segment_plan_bitwise_equals_numpy(case):
+    ids = np.sort(PLAN_CASES[case](np.random.RandomState(11)), kind="stable")
+    heads, ends = sa.segment_plan(torch.from_numpy(ids))
+    want_heads, want_ends, long_runs = _plan_numpy(ids, T)
+    assert heads.dtype == ends.dtype == torch.int32
+    np.testing.assert_array_equal(heads.numpy(), want_heads)
+    np.testing.assert_array_equal(ends.numpy(), want_ends)
+    got_long = sa.long_segments(heads, ends)
+    assert [tuple(r) for r in got_long.tolist()] == long_runs
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_long_and_short_paths_cover_each_segment_once(case):
+    """The kernel's two paths by their own rules: a long-segment block per
+    `long_segments` pair, and a short head wherever position p + T does
+    not hold the same id.  Emulated in numpy, they add every segment
+    exactly once, in order, bit for bit the serial sum."""
+    rng = np.random.RandomState(12)
+    ids = PLAN_CASES[case](rng)
+    grads = rng.randn(len(ids), 3).astype(np.float32)
+    table = rng.randn(int(ids.max()) + 1, 3).astype(np.float32)
+    order = np.argsort(ids, kind="stable")
+    sorted_ids, sorted_grads = ids[order], grads[order]
+    heads, ends = sa.segment_plan(torch.from_numpy(sorted_ids))
+    segments = [tuple(r) for r in sa.long_segments(heads, ends).tolist()]
+    n = len(ids)
+    for p in range(n):
+        row = sorted_ids[p]
+        head = p == 0 or sorted_ids[p - 1] != row
+        long = p + T < n and sorted_ids[p + T] == row
+        if head and not long:
+            end = p
+            while end < n and sorted_ids[end] == row:
+                end += 1
+            segments.append((p, end))
+    assert sorted(segments) == _segments_numpy(sorted_ids)
+    out = table.copy()
+    for head, end in segments:
+        acc = out[sorted_ids[head]].copy()
+        for q in range(head, end):
+            acc += sorted_grads[q]
+        out[sorted_ids[head]] = acc
+    np.testing.assert_array_equal(out, _serial(table, ids, grads))
+
+
+def test_wrapper_rejects_rows_wider_than_a_staged_chunk():
+    table = torch.zeros(4, sa.MAX_DIM + 1)
+    with pytest.raises(ValueError, match="at most"):
+        sa.scatter_add_forward(table, torch.zeros(2, dtype=torch.int32),
+                               torch.zeros(2, sa.MAX_DIM + 1))
