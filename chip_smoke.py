@@ -33,6 +33,16 @@
    must equal 4 flat steps bit for bit.  Every step must launch the
    scatter-add kernel twice (one per arena).  A few f32 steps at vocab
    2^16 are checked against the same weights on the CPU.
+5. Runs the Local runner end to end at the same width (`local_deepfm`):
+   131,072 Criteo-format records in 2 TFRecord shards and 16,384
+   validation records written with the port's `write_dataset`; a train
+   job built from the command line's parser (batch 4096, 8 tasks of
+   16,384 records = 32 steps, an eval round every 16 steps, checkpoints
+   every 8 steps keeping 3, an event log) must finish with no failed
+   task, complete event chains, an exact AUC in [0.79, 0.86], 64
+   scatter-add launches and steps 16/24/32 retained and intact; an
+   evaluate job from that checkpoint must reproduce the AUC within
+   1e-6; a two-worker train job must finish in the band too.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
@@ -44,8 +54,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -56,6 +68,9 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from elasticdl_tpu_torch.client import api  # noqa: E402
+from elasticdl_tpu_torch.client import main as cli  # noqa: E402
+from elasticdl_tpu_torch.common import events  # noqa: E402
 from elasticdl_tpu_torch.common.export import feature_meta  # noqa: E402
 from elasticdl_tpu_torch.common.model_handler import (  # noqa: E402
     ZOO_DIR,
@@ -67,6 +82,7 @@ from elasticdl_tpu_torch.model_zoo.bert.bert_finetune import (  # noqa: E402
 from elasticdl_tpu_torch.model_zoo.common.metrics import auc  # noqa: E402
 from elasticdl_tpu_torch.model_zoo.deepfm.data import (  # noqa: E402
     synthetic_criteo,
+    write_dataset,
 )
 from elasticdl_tpu_torch.model_zoo.deepfm.deepfm_functional_api import (  # noqa: E402,E501
     NUM_SPARSE,
@@ -138,6 +154,23 @@ CPU_CHECK_STEPS = 4
 CPU_CHECK_BATCH = 1024
 CPU_LOSS_TOL = 1e-4
 CPU_PRED_TOL = 1e-3
+
+# The Local job: bench.py's _deepfm_auc protocol and the
+# docs/CONVERGENCE.md DeepFM row, through the command line's flags
+LOCAL_TRAIN = 131072
+LOCAL_SHARDS = 2
+LOCAL_VAL = 16384
+LOCAL_RECORDS_PER_TASK = 16384
+LOCAL_TASKS = LOCAL_TRAIN // LOCAL_RECORDS_PER_TASK          # 8
+LOCAL_STEPS = LOCAL_TRAIN // AUC_BATCH                       # 32
+LOCAL_EVAL_STEPS = 16
+LOCAL_CKPT_STEPS = 8
+LOCAL_KEEP = 3
+# evaluate-from-checkpoint AUC vs the train job's final AUC: the same
+# weights and kernels on the same rows
+LOCAL_EVAL_AUC_TOL = 1e-6
+TASK_CHAIN = [events.TASK_DISPATCHED, events.TASK_CLAIMED,
+              events.TASK_TRAINED, events.TASK_REPORTED]
 
 
 def card_line() -> str:
@@ -820,6 +853,215 @@ def step_breakdown(trainer, state, batch):
     }
 
 
+def local_argv(job: str, *extra) -> list:
+    return [job, "--distribution_strategy", "Local",
+            "--model_def", DEEPFM, "--model_params", DEEPFM_PARAMS,
+            "--use_bf16", "true", "--minibatch_size", str(AUC_BATCH),
+            "--records_per_task", str(LOCAL_RECORDS_PER_TASK), *extra]
+
+
+def _phase_split(job) -> dict:
+    snap = job.phase_timer.snapshot()
+    return {p: {"total_s": v["total_s"], "share": v["share"]}
+            for p, v in snap.items()}
+
+
+def _check_job(job, label: str, one_worker: bool = True) -> dict:
+    """The assertions a Local train job must pass; returns its summary.
+    With one worker the eval rounds fall at known versions; with two,
+    where the version reports interleave, only the final one does."""
+    tm = job.master.task_manager
+    counters = tm.counters.as_dict()
+    by_type = counters["by_type"]
+    metrics = job.metrics or {}
+    auc_value = metrics.get("auc")
+    summary = {"exit_code": job.exit_code, "counters": counters,
+               "model_step": job.owner.step, "metrics": metrics,
+               "eval_versions": sorted(job.master.evaluation_service
+                                       .history)}
+    if job.exit_code != 0 or not tm.finished:
+        raise AssertionError(f"{label}: the job failed: {summary}")
+    if counters["failed"] != 0:
+        raise AssertionError(f"{label}: {counters['failed']} failed task "
+                             f"reports: {summary}")
+    if by_type.get(0) != LOCAL_TASKS or job.owner.step != LOCAL_STEPS:
+        raise AssertionError(f"{label}: expected {LOCAL_TASKS} training "
+                             f"tasks and {LOCAL_STEPS} steps: {summary}")
+    want_versions = ({LOCAL_EVAL_STEPS, LOCAL_STEPS} if one_worker
+                     else {LOCAL_STEPS})
+    if by_type.get(1, 0) < 2 or not want_versions <= set(
+            summary["eval_versions"]):
+        raise AssertionError(f"{label}: expected eval rounds at versions "
+                             f"{sorted(want_versions)}: {summary}")
+    if auc_value is None or not AUC_BAND[0] <= auc_value <= AUC_BAND[1]:
+        raise AssertionError(f"{label}: final AUC {auc_value} outside "
+                             f"{AUC_BAND}")
+    return summary
+
+
+def job_timeline(evs, unix0: float, unix1: float) -> dict:
+    """Where a Local job's wall time went, from its event log (host
+    clock): start to the first lease, each training and eval task's
+    claimed -> reported time in task order, the last report to the job's
+    end (the checkpoint writer's tail and the threads' exit), and each
+    checkpoint's host copy, write time and landing time."""
+    types = {e["task_id"]: e["task_type"] for e in evs
+             if e["event"] == events.TASK_DISPATCHED}
+    stamps = {}
+    for e in evs:
+        if "task_id" in e:
+            stamps.setdefault(e["task_id"], {})[e["event"]] = e["ts"]
+    task_s = {"training": [], "evaluation": []}
+    for task_id in sorted(stamps, key=lambda t: stamps[t][
+            events.TASK_CLAIMED]):
+        ts = stamps[task_id]
+        kind = "training" if types[task_id] == 0 else "evaluation"
+        task_s[kind].append(ts[events.TASK_REPORTED]
+                            - ts[events.TASK_CLAIMED])
+    dispatched = [e["ts"] for e in evs
+                  if e["event"] == events.TASK_DISPATCHED]
+    reported = [e["ts"] for e in evs if e["event"] == events.TASK_REPORTED]
+    saved = [e for e in evs if e["event"] == events.CHECKPOINT_SAVED]
+    return {
+        "start_to_first_lease_s": min(dispatched) - unix0,
+        "training_tasks_s": sum(task_s["training"]),
+        "training_task_s_each": task_s["training"],
+        "eval_tasks_s": sum(task_s["evaluation"]),
+        "eval_task_s_each": task_s["evaluation"],
+        "last_report_to_end_s": unix1 - max(reported),
+        "checkpoints": [{"step": e["step"], "bytes": e["bytes"],
+                         "capture_s": e["capture_s"],
+                         "write_s": e["write_s"],
+                         "landed_at_s": e["ts"] - unix0} for e in saved],
+    }
+
+
+def local_deepfm(card: str):
+    """The Local runner end to end: data, a train job with eval rounds
+    and checkpoints, an evaluate job from its checkpoint, a two-worker
+    train job.  Returns (summary, launches of the train job)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_local_")
+    try:
+        t0 = time.perf_counter()
+        train_dir, val_dir = write_dataset(
+            os.path.join(tmp, "data"), n_train=LOCAL_TRAIN, n_val=LOCAL_VAL,
+            seed=SEED, shards=LOCAL_SHARDS)
+        write_s = time.perf_counter() - t0
+        data_bytes = sum(
+            os.path.getsize(os.path.join(d, f))
+            for d in (train_dir, val_dir) for f in os.listdir(d))
+        print(json.dumps({"local_dataset": {
+            "card": card, "records": LOCAL_TRAIN + LOCAL_VAL,
+            "bytes": data_bytes, "write_s": write_s}}), flush=True)
+        ckpt = os.path.join(tmp, "ckpt")
+        log = os.path.join(tmp, "events.jsonl")
+        args = cli.parse_args(local_argv(
+            "train", "--num_epochs", "1",
+            "--training_data", train_dir, "--validation_data", val_dir,
+            "--evaluation_steps", str(LOCAL_EVAL_STEPS),
+            "--checkpoint_dir", ckpt,
+            "--checkpoint_steps", str(LOCAL_CKPT_STEPS),
+            "--keep_checkpoint_max", str(LOCAL_KEEP),
+            "--event_log", log))
+
+        # ---- the main path: counts start at 0 here ----
+        fa.reset_launch_counts()
+        sa.scatter_add.launches = 0
+        torch.cuda.synchronize()
+        t0, unix0 = time.perf_counter(), time.time()
+        job = api.run_local(args, "train")     # the body of api.train
+        torch.cuda.synchronize()
+        wall_s, unix1 = time.perf_counter() - t0, time.time()
+        launches = {"scatter_add": sa.scatter_add.launches,
+                    "flash_attention_fwd": fa.flash_attention.launches}
+        # ---- end of the main path ----
+
+        train = _check_job(job, "local train job")
+        evs = events.read_events(log)
+        events.configure(None)
+        reported = {e["task_id"] for e in evs
+                    if e["event"] == events.TASK_REPORTED}
+        finished = sum(train["counters"]["by_type"].values())
+        broken = {t: events.task_chain(evs, t) for t in reported
+                  if events.task_chain(evs, t) != TASK_CHAIN}
+        if len(reported) != finished or broken:
+            raise AssertionError(
+                f"event chains: {len(reported)} reported tasks for "
+                f"{finished} finished, incomplete {broken}")
+        train_ids = {e["task_id"] for e in evs
+                     if e["event"] == events.TASK_DISPATCHED
+                     and e["task_type"] == 0}
+        train_ts = [e["ts"] for e in evs if e.get("task_id") in train_ids]
+        # first training lease to last training report
+        train_span_s = max(train_ts) - min(train_ts)
+        timeline = job_timeline(evs, unix0, unix1)
+        saver = job.owner.checkpoint_saver
+        steps = saver.all_steps()
+        intact = {s: saver.verify_step(s) for s in steps}
+        want_steps = list(range(LOCAL_STEPS - (LOCAL_KEEP - 1) *
+                                LOCAL_CKPT_STEPS, LOCAL_STEPS + 1,
+                                LOCAL_CKPT_STEPS))
+        if steps != want_steps or not all(intact.values()):
+            raise AssertionError(f"checkpoints {intact}, want {want_steps}")
+        if launches["scatter_add"] != 2 * LOCAL_STEPS or \
+                launches["flash_attention_fwd"] != 0:
+            raise AssertionError(
+                f"the Local job launched {launches}; 2 arenas x "
+                f"{LOCAL_STEPS} steps = {2 * LOCAL_STEPS} scatter-adds")
+        train.update({
+            "card": card, "wall_s": wall_s,
+            "examples_per_s": LOCAL_TRAIN / wall_s,
+            "train_span_s": train_span_s,
+            "train_examples_per_s": LOCAL_TRAIN / train_span_s,
+            "phases": _phase_split(job), "timeline": timeline,
+            "launches": launches,
+            "checkpoints": steps,
+        })
+        print(json.dumps({"local_train": train}), flush=True)
+        del job
+
+        t0 = time.perf_counter()
+        ev = api.run_local(cli.parse_args(local_argv(
+            "evaluate", "--validation_data", val_dir,
+            "--checkpoint_dir_for_init", ckpt)), "evaluate")
+        eval_s = time.perf_counter() - t0
+        eval_auc = (ev.metrics or {}).get("auc")
+        evaluate = {"card": card, "exit_code": ev.exit_code,
+                    "model_step": ev.owner.step, "auc": eval_auc,
+                    "train_auc": train["metrics"]["auc"], "wall_s": eval_s,
+                    "tol": LOCAL_EVAL_AUC_TOL}
+        print(json.dumps({"local_evaluate": evaluate}), flush=True)
+        if ev.exit_code != 0 or ev.owner.step != LOCAL_STEPS or \
+                eval_auc is None or abs(eval_auc - train["metrics"]["auc"]) \
+                > LOCAL_EVAL_AUC_TOL:
+            raise AssertionError(f"evaluate from the checkpoint: {evaluate}")
+        del ev
+
+        sa.scatter_add.launches = 0
+        t0 = time.perf_counter()
+        two = api.run_local(cli.parse_args(local_argv(
+            "train", "--num_workers", "2",
+            "--training_data", train_dir, "--validation_data", val_dir,
+            "--evaluation_steps", str(LOCAL_EVAL_STEPS))), "train")
+        two_s = time.perf_counter() - t0
+        two_workers = _check_job(two, "two-worker train job",
+                                 one_worker=False)
+        two_workers.update({"card": card, "wall_s": two_s,
+                            "examples_per_s": LOCAL_TRAIN / two_s,
+                            "scatter_launches": sa.scatter_add.launches,
+                            "phases": _phase_split(two)})
+        print(json.dumps({"local_two_workers": two_workers}), flush=True)
+        if sa.scatter_add.launches != 2 * LOCAL_STEPS:
+            raise AssertionError(f"two-worker job: {two_workers}")
+        summary = {"dataset_write_s": write_s, "dataset_bytes": data_bytes,
+                   "train": train, "evaluate": evaluate,
+                   "two_workers": two_workers}
+        return summary, launches
+    finally:
+        events.configure(None)
+        shutil.rmtree(tmp)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -856,7 +1098,14 @@ def main() -> int:
     entry["launches"] = launches["flash_attention_fwd"]
     torch.cuda.empty_cache()
     deepfm, fm_launches = train_deepfm()
-    scatter_entry["launches"] = fm_launches["scatter_add"]
+    torch.cuda.empty_cache()
+    local, local_launches = local_deepfm(card)
+    # launches: this slice's main path, the Local job; each path's
+    # count beside it
+    scatter_entry["launches"] = local_launches["scatter_add"]
+    scatter_entry["launches_by_path"] = {
+        "deepfm_trainer": fm_launches["scatter_add"],
+        "local_deepfm": local_launches["scatter_add"]}
     kernels = {"kernels": [entry, scatter_entry]}
 
     name = torch.cuda.get_device_name(0)
@@ -867,7 +1116,8 @@ def main() -> int:
                    "cuda": torch.version.cuda, "build_s": build_s,
                    "kernel_checks": rows, "scatter_checks": scatter_rows,
                    "serve": serve, "bert_f32_check": check,
-                   "deepfm": deepfm, **kernels}, f, indent=1)
+                   "deepfm": deepfm, "local_deepfm": local, **kernels}, f,
+                  indent=1)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

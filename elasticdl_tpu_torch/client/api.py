@@ -1,0 +1,225 @@
+"""Job construction for the Local strategy (the port's copy of
+`train`/`evaluate`/`predict` and `_train_local` from the JAX package's
+client/api.py): master and worker threads in one process, no cluster.
+
+The path of a train job: TFRecord shards -> the master's task queue ->
+worker thread(s) -> one shared ModelOwner (Trainer on the device;
+periodic checkpoints) -> evaluation rounds with an exact AUC -> final
+metrics, and an exit code that says whether the job succeeded.  The
+evaluate and predict jobs run from `--checkpoint_dir_for_init`.
+
+The cluster strategies, the tiered store, model export (`--output` of a
+train job), and the telemetry, TensorBoard and SLO loops wait for their
+slices of the port and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from elasticdl_tpu_torch.common import events
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.model_handler import get_model_spec
+from elasticdl_tpu_torch.common.profiler import PhaseTimer
+from elasticdl_tpu_torch.common.save_utils import CheckpointSaver
+from elasticdl_tpu_torch.data.reader import create_data_reader
+from elasticdl_tpu_torch.device import resolve_device
+from elasticdl_tpu_torch.master.main import Master
+from elasticdl_tpu_torch.proto.service import InProcessMasterClient
+from elasticdl_tpu_torch.worker.sync import ModelOwner
+from elasticdl_tpu_torch.worker.trainer import Trainer
+from elasticdl_tpu_torch.worker.worker import Worker
+
+logger = get_logger(__name__)
+
+LOCAL = "Local"
+# seconds a worker thread may take to notice the finished job and exit
+WORKER_JOIN_S = 60.0
+
+
+@dataclass
+class LocalJob:
+    """What a finished Local job leaves: `exit_code` is what `train`,
+    `evaluate` and `predict` return."""
+
+    ok: bool
+    master: Master
+    owner: ModelOwner
+    workers: List[Worker]
+    phase_timer: PhaseTimer
+    metrics: Optional[Dict[str, float]] = None
+
+    @property
+    def exit_code(self) -> int:
+        return 0 if self.ok else 1
+
+
+def train(args) -> int:
+    return run_local(args, job_type="train").exit_code
+
+
+def evaluate(args) -> int:
+    return run_local(args, job_type="evaluate").exit_code
+
+
+def predict(args) -> int:
+    return run_local(args, job_type="predict").exit_code
+
+
+def _check_supported(args, job_type: str) -> None:
+    if args.distribution_strategy != LOCAL:
+        raise NotImplementedError(
+            f"--distribution_strategy {args.distribution_strategy} (a "
+            "cluster job) waits for the cluster slice of the port "
+            "(ROADMAP.md queue 1, item 12); use Local")
+    if job_type == "train" and args.output:
+        raise NotImplementedError(
+            "--output (model export) waits for the export slice of the "
+            "port (ROADMAP.md queue 1, item 13)")
+    if job_type in ("evaluate", "predict") and \
+            not args.checkpoint_dir_for_init:
+        raise ValueError(
+            f"{job_type} requires --checkpoint_dir_for_init (evaluating "
+            "or predicting with random weights is meaningless)")
+
+
+def run_local(args, job_type: str = "train") -> LocalJob:
+    """Master and worker threads in one process; returns the finished
+    job.  A worker thread that dies outside its task loop's reporting
+    path fails the job and its exception re-raises here."""
+    _check_supported(args, job_type)
+    device = resolve_device(args.device)
+    spec = get_model_spec(
+        args.model_zoo, args.model_def,
+        model_params=args.model_params,
+        dataset_fn=args.dataset_fn,
+        loss=args.loss,
+        optimizer=args.optimizer,
+        eval_metrics_fn=args.eval_metrics_fn,
+        custom_data_reader=args.custom_data_reader,
+        callbacks=args.callbacks,
+        prediction_outputs_processor=args.prediction_outputs_processor,
+    )
+    if getattr(spec.module, "build_tiered_store", None) is not None:
+        raise NotImplementedError(
+            "the tiered embedding store waits for its slice of the port "
+            "(ROADMAP.md queue 1, item 9)")
+    args.job_type = job_type
+    events.configure(args.event_log or None, role="local")
+
+    master = Master(args)
+    client = InProcessMasterClient(master.servicer)
+    data_origin = {
+        "train": args.training_data,
+        "evaluate": args.validation_data,
+        "predict": args.prediction_data,
+    }[job_type]
+
+    def make_reader():
+        # one reader per worker thread: zoo readers promise no thread
+        # safety
+        if spec.custom_data_reader is not None:
+            return spec.custom_data_reader(data_origin=data_origin)
+        return create_data_reader(data_origin)
+
+    if job_type in ("evaluate", "predict"):
+        saver = CheckpointSaver(args.checkpoint_dir_for_init)
+        if saver.latest_step() is None:
+            raise ValueError(
+                f"--checkpoint_dir_for_init "
+                f"{args.checkpoint_dir_for_init!r} contains no checkpoint")
+    elif args.checkpoint_dir:
+        saver = CheckpointSaver(args.checkpoint_dir,
+                                keep_max=args.keep_checkpoint_max)
+    elif args.checkpoint_dir_for_init:
+        saver = CheckpointSaver(args.checkpoint_dir_for_init)
+    else:
+        saver = None
+
+    # one model for the whole job: every worker thread shares the owner
+    owner = ModelOwner(
+        Trainer(model=spec.model, optimizer=spec.optimizer,
+                loss_fn=spec.loss, use_bf16=args.use_bf16, device=device),
+        checkpoint_saver=saver,
+        checkpoint_steps=args.checkpoint_steps,
+    )
+    master.task_manager.maybe_finish_if_drained()
+    phase_timer = PhaseTimer()
+    workers: List[Worker] = []
+    errors: List[BaseException] = []
+
+    def run_worker(worker):
+        try:
+            worker.run()
+        except BaseException as exc:   # re-raised by run_local
+            errors.append(exc)
+            # its leases go back to the queue, so the other threads can
+            # drain it instead of waiting on them forever
+            master.task_manager.recover_tasks(worker.worker_id)
+            raise
+
+    threads = []
+    for wid in range(args.num_workers):
+        worker = Worker(
+            worker_id=wid,
+            master_client=client,
+            data_reader=make_reader(),
+            spec=spec,
+            minibatch_size=args.minibatch_size,
+            model_owner=owner,
+            steps_per_execution=args.steps_per_execution,
+            compact_wire=args.compact_wire,
+            wire_format=args.wire_format,
+            phase_timer=phase_timer,
+        )
+        workers.append(worker)
+        threads.append(threading.Thread(
+            target=run_worker, args=(worker,), daemon=True,
+            name=f"worker-{wid}"))
+    for thread in threads:
+        thread.start()
+    # until the job finishes, or every worker thread is gone without it
+    while any(t.is_alive() for t in threads) and \
+            not master.wait(timeout=1.0):
+        pass
+    for thread in threads:
+        thread.join(timeout=WORKER_JOIN_S)
+    stuck = [t.name for t in threads if t.is_alive()]
+    if stuck:
+        logger.error("worker threads did not exit: %s", stuck)
+    ok = master.task_manager.finished and not stuck and not errors
+    if saver is not None:
+        # flush in-flight async writes; a failed write re-raises
+        saver.close()
+    metrics = master.evaluation_service.latest_metrics()
+    if metrics:
+        logger.info("Final metrics: %s", metrics)
+    if job_type == "predict" and args.output:
+        _write_predictions(args.output, workers)
+    logger.info("Job %s: %s", "succeeded" if ok else "failed",
+                master.task_manager.snapshot())
+    if errors:
+        raise errors[0]
+    return LocalJob(ok=ok, master=master, owner=owner, workers=workers,
+                    phase_timer=phase_timer, metrics=metrics)
+
+
+def _write_predictions(output: str, workers) -> None:
+    """The workers' per-task prediction arrays merged in task order (so
+    the row order is the same across runs) into one .npy."""
+    by_task = {}
+    for w in workers:
+        by_task.update(w.predictions)
+    if not by_task:
+        return
+    path = output
+    if not path.endswith(".npy"):
+        os.makedirs(path, exist_ok=True)
+        path = os.path.join(path, "predictions.npy")
+    np.save(path, np.concatenate([by_task[t] for t in sorted(by_task)]))
+    logger.info("Wrote predictions to %s", path)

@@ -1,0 +1,121 @@
+"""The command-line flags of a Local job (the port's copy of the subset
+of the JAX package's common/args.py that `_train_local` reads).
+
+Flags outside the subset are absent, so argparse rejects them; none is
+accepted and then ignored.  A flag whose feature waits for a later slice
+of the port (a non-Local strategy, the compact and dedup wire formats,
+`--output` export of a training job) parses and then raises
+NotImplementedError where the job would use it.
+
+`--device` is the port's own: `cuda` (the default) or `cpu`, the
+counterpart of the JAX package's JAX_PLATFORMS, resolved through
+`device.py::resolve_device` (which raises when CUDA is wanted and
+absent).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from elasticdl_tpu_torch.common.model_handler import ZOO_DIR
+
+
+def pos_int(value):
+    ivalue = int(value)
+    if ivalue <= 0:
+        raise argparse.ArgumentTypeError(f"{value} is not a positive integer")
+    return ivalue
+
+
+def non_neg_int(value):
+    ivalue = int(value)
+    if ivalue < 0:
+        raise argparse.ArgumentTypeError(f"{value} is negative")
+    return ivalue
+
+
+def str2bool(value):
+    if isinstance(value, bool):
+        return value
+    if value.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if value.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError(f"Boolean value expected, got {value}")
+
+
+def add_common_params(parser: argparse.ArgumentParser):
+    parser.add_argument(
+        "--distribution_strategy", default="AllReduce",
+        choices=["Local", "AllReduce", "ParameterServer"],
+        help="Only Local (master and workers in this process) is ported; "
+        "the cluster strategies raise NotImplementedError.")
+    parser.add_argument("--num_workers", type=pos_int, default=1,
+                        help="worker threads sharing one model")
+    parser.add_argument(
+        "--event_log", default="",
+        help="Append-only JSONL span-event log (task dispatch/claim/"
+        "train/report, checkpoint save/restore).")
+    parser.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="Where the model runs: the GPU (default; raises without "
+        "CUDA) or the CPU when asked by name.")
+
+
+def add_model_params(parser: argparse.ArgumentParser):
+    parser.add_argument(
+        "--model_zoo", default=ZOO_DIR,
+        help="Directory containing model definitions (default: the "
+        "port's own zoo)")
+    parser.add_argument(
+        "--model_def", default="",
+        help="module.function returning the model, e.g. "
+        "deepfm.deepfm_functional_api.custom_model")
+    parser.add_argument("--model_params", default="",
+                        help="'k=v;k2=v2' kwargs for the zoo functions")
+    parser.add_argument("--dataset_fn", default="feed")
+    parser.add_argument("--loss", default="loss")
+    parser.add_argument("--optimizer", default="optimizer")
+    parser.add_argument("--eval_metrics_fn", default="eval_metrics_fn")
+    parser.add_argument("--custom_data_reader",
+                        default="custom_data_reader")
+    parser.add_argument("--prediction_outputs_processor", default="")
+    parser.add_argument("--callbacks", default="callbacks")
+
+
+def add_train_params(parser: argparse.ArgumentParser):
+    parser.add_argument("--minibatch_size", type=pos_int, default=64)
+    parser.add_argument(
+        "--steps_per_execution", type=pos_int, default=1,
+        help="Run this many train steps per Trainer call "
+        "(train_on_batch_stack); bitwise equal to single steps.")
+    parser.add_argument("--num_epochs", type=pos_int, default=1)
+    parser.add_argument("--training_data", default="")
+    parser.add_argument("--validation_data", default="")
+    parser.add_argument("--prediction_data", default="")
+    parser.add_argument("--evaluation_steps", type=non_neg_int, default=0)
+    parser.add_argument("--evaluation_start_delay_secs", type=non_neg_int,
+                        default=0)
+    parser.add_argument("--evaluation_throttle_secs", type=non_neg_int,
+                        default=0)
+    parser.add_argument("--checkpoint_steps", type=non_neg_int, default=0)
+    parser.add_argument("--checkpoint_dir", default="")
+    parser.add_argument("--keep_checkpoint_max", type=non_neg_int,
+                        default=3)
+    parser.add_argument(
+        "--output", default="",
+        help="predict: where predictions.npy goes (a .npy path or a "
+        "directory).  train: model export, which waits for its slice "
+        "of the port.")
+    parser.add_argument("--checkpoint_dir_for_init", default="",
+                        help="checkpoint to start from")
+    parser.add_argument("--use_bf16", type=str2bool, default=True,
+                        help="cast floating features to bf16")
+    parser.add_argument(
+        "--compact_wire", type=str2bool, default=False,
+        help="the compact wire format (waits for its slice of the port)")
+    parser.add_argument(
+        "--wire_format", default="",
+        choices=["", "plain", "compact", "dedup"],
+        help="host->device wire format; only plain is ported")
+    parser.add_argument("--records_per_task", type=pos_int, default=4096)

@@ -56,6 +56,23 @@ class ModelSpec:
     module: Any = None
 
 
+def resolve_wire_format(spec: ModelSpec, wire_format: str = "",
+                        compact_wire: bool = False) -> str:
+    """The batch wire format a worker runs: `--wire_format`, or the
+    legacy `--compact_wire` when it is empty.  Only `plain` (the zoo's
+    feed / feed_bulk) is ported; `compact` and `dedup` raise."""
+    requested = (wire_format or "").strip().lower() or (
+        "compact" if compact_wire else "plain")
+    if requested not in ("plain", "compact", "dedup"):
+        raise ValueError(f"unknown wire format {requested!r}; "
+                         "expected plain | compact | dedup")
+    if requested != "plain":
+        raise NotImplementedError(
+            f"the {requested!r} wire format waits for the wire-decoder "
+            "slice of the port (ROADMAP.md queue 1, item 4)")
+    return requested
+
+
 def load_module(model_zoo: str, dotted: str):
     """Resolve `pkg.module.fn` relative to the model_zoo directory; returns
     (module, function).  The port's own zoo resolves by qualified name."""

@@ -1,11 +1,133 @@
-"""Latency histogram shared by the serving metrics (a copy of
-`LatencyHistogram` from the JAX package's common/profiler.py; the step
-and phase timers there wait for the training slice)."""
+"""Step and phase timers of the training loop and the latency histogram
+of the serving metrics (copies of `StepTimer`, `PhaseTimer` and
+`LatencyHistogram` from the JAX package's common/profiler.py).  The JAX
+profiler hooks (`trace`, `annotate`) and the registry histogram behind
+PhaseTimer wait for their slice of the port."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
+import time
+from collections import deque
+from typing import Optional
+
+from elasticdl_tpu_torch.common import events
+from elasticdl_tpu_torch.common.log_utils import get_logger
+
+logger = get_logger(__name__)
+
+
+class StepTimer:
+    """Rolling step-rate meter: `tick()` after each train step; reads
+    are O(1).  Host time between ticks: with asynchronous device work a
+    tick measures launch time unless the caller synchronizes."""
+
+    def __init__(self, window: int = 100):
+        self._times = deque(maxlen=window)
+        self._last: Optional[float] = None
+
+    def tick(self):
+        now = time.perf_counter()
+        if self._last is not None:
+            self._times.append(now - self._last)
+        self._last = now
+
+    @property
+    def steps_per_sec(self) -> float:
+        if not self._times:
+            return 0.0
+        return len(self._times) / sum(self._times)
+
+    def log(self, prefix: str = ""):
+        logger.info("%ssteps/sec=%.2f", prefix, self.steps_per_sec)
+
+
+#: The step-phase vocabulary: every phase a worker attributes step time
+#: to.  (The JAX package's `cold_gather` belongs to the tiered store,
+#: which waits for its slice.)
+STEP_PHASES = ("data_wait", "pack", "h2d_stage", "compute", "report")
+
+
+class PhaseTimer:
+    """Attributes each train step's wall time to named phases.
+
+    The worker loop wraps each region in `with timer.phase("compute"):`
+    (or calls `add(name, seconds)` for regions timed elsewhere, e.g. on
+    the prefetch producer thread) and calls `step_done()` once per
+    executed step.  Every `flush_every` steps the accumulated breakdown
+    is emitted as one `step_phases` span event.  Thread-safe: `add()`
+    may run on the prefetch producer while the consumer runs `phase()`.
+    """
+
+    def __init__(self, phases=STEP_PHASES, flush_every: int = 50):
+        self.phases = tuple(phases)
+        self._flush_every = max(1, int(flush_every))
+        self._lock = threading.Lock()
+        self._totals = {p: 0.0 for p in self.phases}      # job lifetime
+        self._pending = {p: 0.0 for p in self.phases}     # since flush
+        self._steps = 0
+        self._pending_steps = 0
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.add(name, time.perf_counter() - start)
+
+    def add(self, name: str, seconds: float) -> None:
+        if name not in self._totals:
+            raise ValueError(f"unknown step phase {name!r}")
+        seconds = max(0.0, float(seconds))
+        with self._lock:
+            self._totals[name] += seconds
+            self._pending[name] += seconds
+
+    def _take_pending_locked(self):
+        payload = {p: round(v, 6) for p, v in self._pending.items()}
+        steps = self._pending_steps
+        for p in self._pending:
+            self._pending[p] = 0.0
+        self._pending_steps = 0
+        return payload, steps
+
+    def step_done(self) -> None:
+        """Count one executed step; flush a `step_phases` event at the
+        flush interval."""
+        with self._lock:
+            self._steps += 1
+            self._pending_steps += 1
+            if self._pending_steps < self._flush_every:
+                return
+            payload, steps = self._take_pending_locked()
+        events.emit(events.STEP_PHASES, phases=payload, steps=steps)
+
+    def flush(self) -> None:
+        """Emit what accumulated since the last flush (end of a task)."""
+        with self._lock:
+            if not self._pending_steps:
+                return
+            payload, steps = self._take_pending_locked()
+        events.emit(events.STEP_PHASES, phases=payload, steps=steps)
+
+    def snapshot(self) -> dict:
+        """{phase: {"total_s", "mean_s", "share"}} over the job so far;
+        `share` is the phase's fraction of all attributed time."""
+        with self._lock:
+            totals = dict(self._totals)
+            steps = self._steps
+        attributed = sum(totals.values())
+        return {
+            p: {
+                "total_s": t,
+                "mean_s": (t / steps) if steps else 0.0,
+                "share": (t / attributed) if attributed else 0.0,
+            }
+            for p, t in totals.items()
+        }
 
 
 class LatencyHistogram:

@@ -1,0 +1,367 @@
+"""Checkpoint save and restore without orbax (the port's copy of
+`CheckpointSaver` from the JAX package's common/save_utils.py).
+
+Layout, one directory per saved step:
+
+    <checkpoint_dir>/<step>/state.pt        torch.save of {"step",
+                                            "model", "optimizer"}
+    <checkpoint_dir>/.manifests/<step>.json size and sha256 per file of
+                                            the step, plus the
+                                            `produced` stamp
+
+Both are written to a temporary name and moved into place with
+`os.replace`, so a reader never sees half a file; a step directory
+without `state.pt` is a torn save and is not a step.
+
+- Restore: `torch.load(..., weights_only=True, map_location=<the
+  template's device>)`.  `verify_step` checks a step against its
+  manifest; `maybe_restore` falls back past a torn or corrupt step.
+- Rotation: keep the newest `keep_max` steps, except those pinned with
+  `pin_step` (a reader mid-restore).
+- Async save: `save` takes owning host copies of the parameters, the
+  buffers and the optimizer's moments at once, on the caller's thread
+  (which holds the owner's lock, so no optimizer step runs in between);
+  a background thread writes them.  A `state_dict()` tensor aliases the
+  live parameter, which the next `optimizer.step()` rewrites in place:
+  handing it to the writer would save step N+1's values as step N.
+  `wait_until_finished` joins the writer and re-raises its failures.
+
+The tiered-store sidecar, the int8 arena migration and a loader for the
+JAX package's orbax checkpoints wait for their slices of the port
+(ROADMAP.md queue 1, item 3); an orbax step directory raises
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import copy
+import hashlib
+import json
+import os
+import shutil
+import threading
+import time
+from typing import Any, Dict, FrozenSet, List, Optional
+
+import torch
+
+from elasticdl_tpu_torch.common import events
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.worker.trainer import TrainState
+
+logger = get_logger(__name__)
+
+STATE_FILE = "state.pt"
+# the file orbax writes into every step directory it finalizes
+_ORBAX_MARKER = "_CHECKPOINT_METADATA"
+
+# ---- step pinning ---------------------------------------------------------
+#
+# A process-wide pin registry keyed by the checkpoint directory: a reader
+# pins the step it restores, and the keep-last-K sweep skips pinned steps
+# (they rotate out on the first sweep after unpin).  Refcounted.
+
+_PIN_LOCK = threading.Lock()
+_PINNED: Dict[str, Dict[int, int]] = {}   # abs dir -> step -> refcount
+
+
+def pin_step(checkpoint_dir: str, step: int) -> None:
+    """Protect `step` from the keep-last-K sweep until unpinned."""
+    key = os.path.abspath(checkpoint_dir)
+    with _PIN_LOCK:
+        dir_pins = _PINNED.setdefault(key, {})
+        dir_pins[int(step)] = dir_pins.get(int(step), 0) + 1
+
+
+def unpin_step(checkpoint_dir: str, step: int) -> None:
+    key = os.path.abspath(checkpoint_dir)
+    step = int(step)
+    with _PIN_LOCK:
+        dir_pins = _PINNED.get(key)
+        if not dir_pins or step not in dir_pins:
+            return
+        dir_pins[step] -= 1
+        if dir_pins[step] <= 0:
+            del dir_pins[step]
+        if not dir_pins:
+            del _PINNED[key]
+
+
+def pinned_steps(checkpoint_dir: str) -> FrozenSet[int]:
+    with _PIN_LOCK:
+        return frozenset(_PINNED.get(os.path.abspath(checkpoint_dir), ()))
+
+
+def _file_digest(path: str) -> Dict[str, Any]:
+    sha = hashlib.sha256()
+    size = 0
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            sha.update(chunk)
+            size += len(chunk)
+    return {"sha256": sha.hexdigest(), "size": size}
+
+
+def _step_files(step_dir: str) -> List[str]:
+    out = []
+    for root, _dirs, files in os.walk(step_dir):
+        for name in files:
+            out.append(os.path.relpath(os.path.join(root, name), step_dir))
+    return sorted(out)
+
+
+def _host_copy(tree):
+    """Owning CPU copies of every tensor in a nested dict/list of a
+    state dict (a CUDA tensor's copy waits for its stream)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return copy.deepcopy(tree)
+
+
+def host_state(state: TrainState) -> Dict[str, Any]:
+    """{"step", "model", "optimizer"}: owning host copies of a state."""
+    return {
+        "step": int(state.step),
+        "model": _host_copy(state.model.state_dict()),
+        "optimizer": _host_copy(state.optimizer.state_dict()),
+    }
+
+
+def empty_like(template: TrainState) -> TrainState:
+    """A separate TrainState shaped like `template`: its own copy of the
+    model and a new optimizer of the same class and settings."""
+    model = copy.deepcopy(template.model)
+    opt = template.optimizer
+    return TrainState(step=template.step, model=model,
+                      optimizer=type(opt)(model.parameters(),
+                                          **opt.defaults))
+
+
+def read_produced_meta(checkpoint_dir: str,
+                       step: int) -> Optional[Dict[str, Any]]:
+    """A manifest's producer stamp {model_step, produced_unix_s}."""
+    path = os.path.join(os.path.abspath(checkpoint_dir), ".manifests",
+                        f"{int(step)}.json")
+    try:
+        with open(path) as f:
+            return json.load(f).get("produced")
+    except (OSError, ValueError):
+        return None
+
+
+class CheckpointSaver:
+    def __init__(self, checkpoint_dir: str, keep_max: int = 3,
+                 clock=time.time):
+        self._clock = clock
+        self._dir = os.path.abspath(checkpoint_dir)
+        self._manifest_dir = os.path.join(self._dir, ".manifests")
+        os.makedirs(self._manifest_dir, exist_ok=True)
+        self._keep_max = int(keep_max) if keep_max else None
+        self._lock = threading.Lock()
+        self._pending: Dict[int, concurrent.futures.Future] = {}
+        self._writer = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="checkpoint-writer")
+        self.all_steps()   # an orbax directory raises here
+
+    # ---- steps ---------------------------------------------------------
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self._dir, str(int(step)))
+
+    def _manifest_path(self, step: int) -> str:
+        return os.path.join(self._manifest_dir, f"{int(step)}.json")
+
+    def all_steps(self) -> List[int]:
+        """Finalized steps (those whose state.pt is in place), sorted."""
+        steps = []
+        for name in os.listdir(self._dir):
+            step_dir = os.path.join(self._dir, name)
+            if not (name.isdigit() and os.path.isdir(step_dir)):
+                continue
+            if os.path.exists(os.path.join(step_dir, _ORBAX_MARKER)):
+                raise NotImplementedError(
+                    f"{step_dir} is an orbax checkpoint of the JAX "
+                    "package; loading those waits for its slice of the "
+                    "port (ROADMAP.md queue 1, item 3)")
+            if os.path.isfile(os.path.join(step_dir, STATE_FILE)):
+                steps.append(int(name))
+        return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    # ---- save ----------------------------------------------------------
+
+    def save(self, state: TrainState) -> bool:
+        """Start saving `state` at its step (the write runs on the
+        writer thread); False when that step is already saved or being
+        saved."""
+        self._raise_failed_writes()
+        step = int(state.step)
+        with self._lock:
+            if step in self._pending or os.path.isfile(
+                    os.path.join(self._step_dir(step), STATE_FILE)):
+                return False
+            start = time.perf_counter()
+            blob = host_state(state)
+            capture_s = time.perf_counter() - start
+            produced = {"model_step": step,
+                        "produced_unix_s": round(float(self._clock()), 6)}
+            self._pending[step] = self._writer.submit(
+                self._write, step, blob, produced, capture_s)
+        return True
+
+    def _write(self, step: int, blob, produced, capture_s: float) -> None:
+        start = time.perf_counter()
+        step_dir = self._step_dir(step)
+        os.makedirs(step_dir, exist_ok=True)
+        path = os.path.join(step_dir, STATE_FILE)
+        torch.save(blob, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        manifest = {
+            "step": step,
+            "files": {rel: _file_digest(os.path.join(step_dir, rel))
+                      for rel in _step_files(step_dir)},
+            "produced": produced,
+        }
+        tmp = self._manifest_path(step) + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self._manifest_path(step))
+        logger.info("Checkpoint saved at step %d", step)
+        # capture_s: the host copy on the caller's thread (under the
+        # owner's lock); write_s: serialize, write and hash, off it
+        events.emit(events.CHECKPOINT_SAVED, step=step,
+                    bytes=manifest["files"][STATE_FILE]["size"],
+                    capture_s=round(capture_s, 6),
+                    write_s=round(time.perf_counter() - start, 6))
+        self._sweep_old_steps()
+
+    def _sweep_old_steps(self) -> None:
+        """Keep-last-K over finalized steps, skipping pinned ones."""
+        if self._keep_max is None:
+            return
+        excess = self.all_steps()[:-self._keep_max]
+        pinned = pinned_steps(self._dir)
+        for step in excess:
+            if step in pinned:
+                logger.info("keep-last-%d sweep deferring pinned step %d",
+                            self._keep_max, step)
+                continue
+            shutil.rmtree(self._step_dir(step))
+            if os.path.exists(self._manifest_path(step)):
+                os.remove(self._manifest_path(step))
+
+    def _raise_failed_writes(self) -> None:
+        with self._lock:
+            done = [s for s, f in self._pending.items() if f.done()]
+            futures = [self._pending.pop(s) for s in done]
+        for future in futures:
+            future.result()
+
+    def wait_until_finished(self) -> None:
+        """Join every pending write; re-raise the first failure."""
+        with self._lock:
+            futures = list(self._pending.values())
+            self._pending.clear()
+        for future in futures:
+            future.result()
+
+    def close(self) -> None:
+        self.wait_until_finished()
+        self._writer.shutdown(wait=True)
+
+    # ---- integrity -----------------------------------------------------
+
+    def verify_step(self, step: int) -> bool:
+        """Check a step's files against its manifest: True when intact or
+        when no manifest exists, False on any missing, truncated or
+        altered file."""
+        path = self._manifest_path(step)
+        if not os.path.exists(path):
+            return True
+        try:
+            with open(path) as f:
+                manifest = json.load(f)
+        except (OSError, ValueError):
+            return True  # unreadable manifest != corrupt checkpoint
+        step_dir = self._step_dir(step)
+        for rel, want in manifest.get("files", {}).items():
+            full = os.path.join(step_dir, rel)
+            if not os.path.isfile(full):
+                logger.warning("checkpoint step %d: missing file %s",
+                               step, rel)
+                return False
+            got = _file_digest(full)
+            if got["size"] != want.get("size") \
+                    or got["sha256"] != want.get("sha256"):
+                logger.warning(
+                    "checkpoint step %d: checksum mismatch in %s (%d bytes "
+                    "vs %d expected)", step, rel, got["size"],
+                    want.get("size", -1))
+                return False
+        return True
+
+    def produced_meta(self, step: int) -> Optional[Dict[str, Any]]:
+        return read_produced_meta(self._dir, step)
+
+    # ---- restore -------------------------------------------------------
+
+    def _load_into(self, state: TrainState, step: int) -> TrainState:
+        device = next(state.model.parameters()).device
+        blob = torch.load(os.path.join(self._step_dir(step), STATE_FILE),
+                          weights_only=True, map_location=device)
+        state.model.load_state_dict(blob["model"], strict=True)
+        state.optimizer.load_state_dict(blob["optimizer"])
+        state.step = int(blob["step"])
+        events.emit(events.CHECKPOINT_RESTORED, step=state.step)
+        return state
+
+    def restore_step(self, step: int, template: TrainState
+                     ) -> Optional[TrainState]:
+        """A separate TrainState holding checkpointed `step` (eval at a
+        version), or None when the step is absent or fails its check.
+        `template` is not modified."""
+        if step not in self.all_steps():
+            return None
+        if not self.verify_step(step):
+            logger.warning("checkpoint step %d failed integrity check; "
+                           "not restoring", step)
+            return None
+        restored = self._load_into(empty_like(template), step)
+        logger.info("Restored checkpoint step %d (eval-at-version)", step)
+        return restored
+
+    def maybe_restore(self, template: TrainState) -> Optional[TrainState]:
+        """Restore the newest intact step into `template` (in place; it
+        is returned), or None when there is no step.  A step that fails
+        its manifest check or fails to load falls back to the previous
+        one; when every step fails, the last load error re-raises (never
+        train from scratch over broken checkpoints)."""
+        last_exc: Optional[Exception] = None
+        for step in reversed(self.all_steps()):
+            if not self.verify_step(step):
+                logger.warning("checkpoint step %d corrupt; falling back to "
+                               "the previous good step", step)
+                continue
+            try:
+                restored = self._load_into(template, step)
+            except (RuntimeError, OSError, KeyError, ValueError) as exc:
+                last_exc = exc
+                logger.warning("checkpoint step %d failed to restore (%s); "
+                               "falling back to the previous good step",
+                               step, exc)
+                continue
+            logger.info("Restored checkpoint step %d", step)
+            return restored
+        if last_exc is not None:
+            raise last_exc
+        return None

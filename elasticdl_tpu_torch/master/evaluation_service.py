@@ -1,0 +1,272 @@
+"""Evaluation service: schedules eval tasks and aggregates worker metrics
+(the port's copy of the JAX package's master/evaluation_service.py).
+
+Eval tasks ride the training queue; workers run forward-only over a
+shard and report per-shard metrics plus the raw (label, prediction)
+samples, keyed by task, so job-level rank metrics (AUC) are recomputed
+exactly over the merged validation set: a weighted mean of per-shard
+AUCs is biased whenever shards differ.  The summary writer
+(TensorBoard) waits for its slice of the port.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, Optional
+
+import numpy as np
+
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.proto import messages as pb
+
+logger = get_logger(__name__)
+
+# Exact recomputation is O(merged rows); at or below this count it runs
+# on every report, above it once per completed delivery (final_chunk)
+# and on reads (latest_metrics).
+EAGER_EXACT_ROWS = 1 << 20
+
+
+def _exact_metrics(label_chunks, pred_chunks, width, eval_metrics
+                   ) -> Dict[str, float]:
+    """Merge sample chunks and score every metric fn over the merged
+    set."""
+    out: Dict[str, float] = {}
+    if not label_chunks:
+        return out
+    labels = np.concatenate(label_chunks)
+    preds = np.concatenate(pred_chunks).reshape(len(labels), width)
+    if width == 1:
+        preds = preds[:, 0]
+    for name, fn in eval_metrics.items():
+        out[name] = float(fn(labels, preds))
+    return out
+
+
+class _TaskReport:
+    """One eval task's contribution: scalar metrics and sample chunks.
+    Keyed storage makes re-delivery idempotent: a re-queued task
+    replaces its earlier contribution instead of double-counting it."""
+
+    __slots__ = ("metrics", "num_examples", "label_chunks", "pred_chunks",
+                 "pred_width")
+
+    def __init__(self):
+        self.metrics: Dict[str, float] = {}
+        self.num_examples = 0
+        self.label_chunks = []
+        self.pred_chunks = []
+        # the width of this delivery's prediction rows, fixed by its
+        # first sample chunk
+        self.pred_width: Optional[int] = None
+
+
+class _VersionAgg:
+    def __init__(self, max_sample_rows: int = 1 << 24):
+        self.reports: Dict[object, _TaskReport] = {}
+        self.samples_dropped = False
+        self._max_sample_rows = max_sample_rows
+        # unkeyed reports accumulate, one slot per delivery; their
+        # continuation chunks attach to the worker's latest slot
+        self._unkeyed_seq = 0
+        self._unkeyed_last: Dict[int, object] = {}
+        self._cache_key = None
+        self._cache_val: Dict[str, float] = {}
+        self._dirty = True
+
+    def ingest(self, req: pb.ReportEvaluationMetricsRequest):
+        if req.eval_task_key:
+            key = req.eval_task_key
+        elif req.samples_only and req.worker_id in self._unkeyed_last:
+            key = self._unkeyed_last[req.worker_id]
+        else:
+            self._unkeyed_seq += 1
+            key = ("w", req.worker_id, self._unkeyed_seq)
+            self._unkeyed_last[req.worker_id] = key
+        if not req.samples_only:
+            # first chunk of a (re-)delivery: reset this task's slot
+            report = self.reports[key] = _TaskReport()
+            report.metrics = dict(req.metrics)
+            report.num_examples = req.num_examples or 1
+        else:
+            report = self.reports.setdefault(key, _TaskReport())
+        if req.num_samples and not self.samples_dropped:
+            if self.sample_rows + req.num_samples > self._max_sample_rows:
+                self.drop_samples(
+                    f"sample cap ({self._max_sample_rows} rows) exceeded")
+            else:
+                width = max(1, req.pred_width)
+                if report.pred_width is None:
+                    report.pred_width = width
+                if width != report.pred_width:
+                    # a continuation chunk disagreeing with its own
+                    # delivery's width would mis-reshape every row
+                    logger.warning(
+                        "Ignoring eval sample chunk with pred_width=%d for "
+                        "a delivery that started at width=%d (worker %d, "
+                        "v%d, task %r)", width, report.pred_width,
+                        req.worker_id, req.model_version, key)
+                else:
+                    report.label_chunks.append(
+                        np.asarray(req.eval_labels, np.float32))
+                    report.pred_chunks.append(
+                        np.asarray(req.eval_preds, np.float32))
+        self._dirty = True
+
+    def drop_samples(self, reason: str):
+        """Memory valve: discard sample chunks; this version's metrics
+        fall back to weighted shard means."""
+        if not self.samples_dropped:
+            logger.warning("Dropping eval samples (%s); rank metrics for "
+                           "this version fall back to weighted shard "
+                           "means", reason)
+        self.samples_dropped = True
+        for report in self.reports.values():
+            report.label_chunks = []
+            report.pred_chunks = []
+        self._dirty = True
+
+    @property
+    def num_examples(self) -> int:
+        return sum(r.num_examples for r in self.reports.values())
+
+    @property
+    def sample_rows(self) -> int:
+        return sum(len(c) for r in self.reports.values()
+                   for c in r.label_chunks)
+
+    def weighted_means(self) -> Dict[str, float]:
+        total = self.num_examples
+        if not total:
+            return {}
+        out: Dict[str, float] = {}
+        for report in self.reports.values():
+            for name, value in report.metrics.items():
+                out[name] = out.get(name, 0.0) + value * report.num_examples
+        return {k: v / total for k, v in out.items()}
+
+    def sample_snapshot(self):
+        """(label_chunks, pred_chunks, width) of the merged samples, of
+        the width with the most rows when deliveries disagree (mixed
+        widths cannot share one matrix; the rest count through the
+        weighted means)."""
+        by_width: Dict[int, list] = {}
+        for report in self.reports.values():
+            if report.label_chunks:
+                by_width.setdefault(report.pred_width or 1, []).append(
+                    report)
+        if not by_width:
+            return [], [], 1
+        rows_of = {w: sum(len(c) for r in reports for c in r.label_chunks)
+                   for w, reports in by_width.items()}
+        width = max(rows_of, key=lambda w: rows_of[w])
+        if len(by_width) > 1:
+            logger.warning(
+                "Mixed pred widths in one eval version (%s rows per "
+                "width); exact metrics use width=%d only", rows_of, width)
+        labels = [c for r in by_width[width] for c in r.label_chunks]
+        preds = [c for r in by_width[width] for c in r.pred_chunks]
+        return labels, preds, width
+
+    def result(self, eval_metrics=None, exact: bool = True
+               ) -> Dict[str, float]:
+        """Weighted shard means, overridden by the exact recomputation
+        over the merged samples when `exact` and metric fns are given.
+        Cached until the contributions change."""
+        if not self.num_examples:
+            return {}
+        key = (id(eval_metrics), exact)
+        if not self._dirty and self._cache_key == key:
+            return self._cache_val
+        out = self.weighted_means()
+        if exact and eval_metrics and self.sample_rows:
+            out.update(_exact_metrics(*self.sample_snapshot(),
+                                      eval_metrics))
+        self._cache_key = key
+        self._cache_val = out
+        self._dirty = False
+        return out
+
+
+class EvaluationService:
+    # merged samples are kept for this many most recent versions; older
+    # versions freeze their exact result and free the samples
+    SAMPLE_VERSIONS_KEPT = 2
+
+    def __init__(self, task_manager, evaluation_steps: int = 0,
+                 start_delay_secs: int = 0, throttle_secs: int = 0,
+                 eval_metrics=None):
+        self._tm = task_manager
+        # {name: fn(labels, preds)} from the zoo's eval_metrics_fn: with
+        # it, job-level metrics are recomputed over the merged samples
+        self._eval_metrics = eval_metrics
+        self._evaluation_steps = evaluation_steps
+        self._start_delay_secs = start_delay_secs
+        self._throttle_secs = throttle_secs
+        self._lock = threading.Lock()
+        self._aggs: Dict[int, _VersionAgg] = {}
+        self._last_eval_version = 0
+        self._last_eval_time = 0.0
+        self._start_time = time.time()
+        self.history: Dict[int, Dict[str, float]] = {}
+
+    # ---- scheduling ----------------------------------------------------
+
+    def on_version_report(self, model_version: int):
+        """A worker reported progress: inject an eval round when the
+        version moved `evaluation_steps` past the last one (and the
+        start-delay and throttle gates allow)."""
+        if not self._evaluation_steps:
+            return
+        now = time.time()
+        with self._lock:
+            if now - self._start_time < self._start_delay_secs:
+                return
+            if (model_version - self._last_eval_version
+                    < self._evaluation_steps):
+                return
+            if now - self._last_eval_time < self._throttle_secs:
+                return
+            self._last_eval_version = model_version
+            self._last_eval_time = now
+        n = self._tm.create_evaluation_tasks(model_version)
+        logger.info("Injected %d eval tasks at model version %d",
+                    n, model_version)
+
+    # ---- aggregation ---------------------------------------------------
+
+    def report_metrics(self, req: pb.ReportEvaluationMetricsRequest):
+        version = req.model_version
+        with self._lock:
+            agg = self._aggs.setdefault(version, _VersionAgg())
+            if self._eval_metrics is None and req.num_samples:
+                # no metric fns here: samples could never be used
+                req.eval_labels = req.eval_preds = None
+            agg.ingest(req)
+            exact = (agg.sample_rows <= EAGER_EXACT_ROWS or req.final_chunk
+                     or not req.num_samples)
+            self.history[version] = agg.result(self._eval_metrics,
+                                               exact=exact)
+            self._prune_samples_locked()
+            n, sampled = agg.num_examples, agg.sample_rows
+            metrics = self.history[version]
+        logger.info("Eval metrics v%d (n=%d, sampled=%d): %s",
+                    version, n, sampled, metrics)
+
+    def _prune_samples_locked(self):
+        keep = sorted(self._aggs)[-self.SAMPLE_VERSIONS_KEPT:]
+        for version, agg in self._aggs.items():
+            if version not in keep and not agg.samples_dropped:
+                # freeze the exact result so far, then free the samples
+                self.history[version] = agg.result(self._eval_metrics)
+                agg.drop_samples(f"version {version} superseded")
+
+    def latest_metrics(self) -> Optional[Dict[str, float]]:
+        with self._lock:
+            if not self._aggs:
+                return None
+            version = max(self._aggs)
+            self.history[version] = self._aggs[version].result(
+                self._eval_metrics)
+            return self.history[version]

@@ -1,0 +1,268 @@
+"""Turns the stream of leased tasks into a stream of fixed-shape batches
+(the port's copy of the JAX package's worker/task_data_service.py).
+
+The invariant: task completion means data consumed.  A task is reported
+only after every batch cut from its records went through the train
+loop.  Batches never span tasks; a task's last partial batch is padded
+by wrapping its records (`pad_to_multiple`), with the true record count
+carried alongside for metrics.
+
+The master client is called directly (the Local runner shares the
+process): the RPC retry policy and the SPMD slice-local batches
+(`local_batches_for_task`) wait for the cluster slice of the port.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from collections import deque
+from typing import Callable, Iterator, Optional, Tuple
+
+import numpy as np
+
+from elasticdl_tpu_torch.proto import messages as pb
+
+
+def pad_to_multiple(batch, multiple: int):
+    """Pad a nested dict of arrays along the leading dim up to a multiple
+    of `multiple`, wrapping the existing rows; returns (padded_batch,
+    real_count).  (A copy of the JAX package's parallel/mesh.py
+    `pad_to_multiple`.)"""
+    leaves = []
+
+    def collect(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                collect(v)
+        else:
+            leaves.append(tree)
+
+    collect(batch)
+    sizes = {np.shape(x)[0] for x in leaves}
+    assert len(sizes) == 1, "ragged batch"
+    n = sizes.pop()
+    if n % multiple == 0:
+        return batch, n
+    target = ((n + multiple - 1) // multiple) * multiple
+    reps = (target + n - 1) // n
+
+    def pad(tree):
+        if isinstance(tree, dict):
+            return {k: pad(v) for k, v in tree.items()}
+        return np.concatenate([tree] * reps, axis=0)[:target]
+
+    return pad(batch), n
+
+
+def prefetch_batches(iterator, depth: int = 2, device_stage=None,
+                     device_depth: int = 1, phase_timer=None):
+    """Run a host batch iterator (reader IO and feed parsing) in a
+    background thread, keeping up to `depth` batches ready while the
+    caller's thread drives the device.  The producer never touches the
+    device.
+
+    `device_stage`, when given, adds a second level for the host->device
+    copy: up to `device_depth` upcoming batches pass through
+    `device_stage(item)` on the consumer thread before the current one is
+    yielded.
+
+    Exceptions from the iterator or from device_stage re-raise at the
+    consumer, after the batches staged before them.  Abandoning the
+    generator stops the producer.  `phase_timer`, when given, books the
+    consumer's blocked time on the queue as `data_wait`."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+    stop = threading.Event()
+    error = []
+
+    def produce():
+        try:
+            for item in iterator:
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.5)
+                        break
+                    except queue.Full:
+                        continue
+                if stop.is_set():
+                    return
+        except BaseException as exc:  # re-raised at the consumer
+            error.append(exc)
+        finally:
+            while not stop.is_set():
+                try:
+                    q.put(sentinel, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+
+    thread = threading.Thread(target=produce, daemon=True,
+                              name="batch-prefetch")
+    thread.start()
+
+    def consume():
+        while True:
+            wait_start = time.perf_counter()
+            item = q.get()
+            if phase_timer is not None:
+                phase_timer.add("data_wait",
+                                time.perf_counter() - wait_start)
+            if item is sentinel:
+                if error:
+                    raise error[0]
+                return
+            yield item
+
+    try:
+        if device_stage is None:
+            yield from consume()
+            return
+        staged: "deque" = deque()
+        source = consume()
+        while True:
+            try:
+                item = next(source)
+                staged.append(device_stage(item))
+            except StopIteration:
+                break
+            except BaseException:
+                # batches staged before the failure are good: deliver
+                # them first
+                while staged:
+                    yield staged.popleft()
+                raise
+            if len(staged) > device_depth:
+                yield staged.popleft()
+        while staged:
+            yield staged.popleft()
+    finally:
+        stop.set()
+
+
+class TaskDataService:
+    # Step-phase attribution hook (common/profiler.PhaseTimer): feed /
+    # feed_bulk parse time is the `pack` phase; the worker sets it.
+    phase_timer = None
+
+    # The most of a task's payload the bulk path holds in host memory at
+    # once, in batches.
+    BULK_CHUNK_BATCHES = 16
+
+    def __init__(self, master_client, data_reader, worker_id: int,
+                 wait_sleep_s: float = 0.5):
+        self._client = master_client
+        self._reader = data_reader
+        self._worker_id = worker_id
+        self._wait_sleep_s = wait_sleep_s
+
+    def get_task(self, should_stop=None
+                 ) -> Tuple[Optional[pb.Task], bool]:
+        """Poll the master for a task: (task | None, job_finished),
+        sleeping through WAIT answers.  `should_stop` is checked between
+        polls; when it turns true, returns (None, False)."""
+        while True:
+            resp = self._client.get_task(
+                pb.GetTaskRequest(worker_id=self._worker_id))
+            if resp.job_finished:
+                return None, True
+            task = resp.task
+            if task.task_id < 0 or task.type == pb.WAIT:
+                if should_stop is not None and should_stop():
+                    return None, False
+                time.sleep(self._wait_sleep_s)
+                continue
+            return task, False
+
+    def report_task(self, task: pb.Task, err: str = "", records: int = 0,
+                    transient: bool = False, model_version: int = -1):
+        req = pb.ReportTaskResultRequest(
+            task_id=task.task_id, err_message=err,
+            worker_id=self._worker_id, transient=transient)
+        req.exec_counters["records"] = records
+        if model_version >= 0:
+            # the model step at completion (for the journal's slice)
+            req.exec_counters["model_version"] = model_version
+        self._client.report_task_result(req)
+
+    def _timed_pack(self, fn: Optional[Callable]) -> Optional[Callable]:
+        """`fn` with its parse time booked as `pack`."""
+        timer = self.phase_timer
+        if timer is None or fn is None:
+            return fn
+
+        def timed(*args, **kwargs):
+            start = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                timer.add("pack", time.perf_counter() - start)
+
+        return timed
+
+    @staticmethod
+    def _bulk_batches(bulk, batch_size: int, feed_bulk: Callable):
+        """Cut one (buffer, sizes) bulk read into per-batch views; the
+        tail, if any, is wrap-padded to the batch size."""
+        buffer, sizes = bulk
+        n = len(sizes)
+        bounds = np.zeros(n + 1, np.int64)
+        np.cumsum(sizes, out=bounds[1:])
+        for i in range(0, n, batch_size):
+            j = min(i + batch_size, n)
+            batch = feed_bulk(buffer[bounds[i]: bounds[j]], sizes[i:j])
+            if j - i == batch_size:
+                yield batch, batch_size
+            else:
+                yield pad_to_multiple(batch, batch_size)
+
+    def batches_for_task(
+        self,
+        task: pb.Task,
+        batch_size: int,
+        feed: Callable,
+        feed_bulk: Optional[Callable] = None,
+    ) -> Iterator[Tuple[dict, int]]:
+        """Yield (batch, real_count) for one task.  With a bulk reader
+        (`read_records_bulk`) and the zoo's `feed_bulk`, the records move
+        as contiguous uint8 buffers, read in batch-aligned chunks of at
+        most BULK_CHUNK_BATCHES batches; otherwise `feed(records)` parses
+        lists of records."""
+        feed = self._timed_pack(feed)
+        feed_bulk = self._timed_pack(feed_bulk)
+        if feed_bulk is not None:
+            reader_bulk = getattr(self._reader, "read_records_bulk", None)
+            if reader_bulk is not None:
+                shard = task.shard
+                total = shard.end - shard.start
+                chunk = self.BULK_CHUNK_BATCHES * batch_size
+                used_bulk = False
+                for off in range(0, total, chunk):
+                    sub = pb.Task(
+                        task_id=task.task_id, type=task.type,
+                        shard=pb.Shard(
+                            name=shard.name, start=shard.start + off,
+                            end=min(shard.start + off + chunk, shard.end)))
+                    bulk = reader_bulk(sub)
+                    if bulk is None:
+                        if used_bulk:
+                            # a reader that served earlier chunks must not
+                            # truncate the task mid-stream
+                            raise IOError(
+                                f"bulk read failed mid-task at record "
+                                f"{off} of {task.task_id}")
+                        break   # no bulk form: the streaming path
+                    used_bulk = True
+                    yield from self._bulk_batches(bulk, batch_size,
+                                                  feed_bulk)
+                if used_bulk or total == 0:
+                    return
+        buf = []
+        for record in self._reader.read_records(task):
+            buf.append(record)
+            if len(buf) == batch_size:
+                yield feed(buf), batch_size
+                buf = []
+        if buf:
+            yield pad_to_multiple(feed(buf), batch_size)

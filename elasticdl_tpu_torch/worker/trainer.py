@@ -16,6 +16,7 @@ from __future__ import annotations
 import copy
 import inspect
 import threading
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Union
 
@@ -113,6 +114,13 @@ class Trainer:
     device:    CUDA by default; the CPU only when the caller passes "cpu".
     """
 
+    # Step-phase attribution (common/profiler.PhaseTimer), set by the
+    # worker: h2d_stage covers stage_batch, compute covers the step
+    # calls.  On CUDA a step returns once its kernels are queued, so
+    # compute is launch time; a copy that waits on the stream lands in
+    # whichever phase issues it.
+    phase_timer = None
+
     def __init__(self, model: nn.Module, optimizer: Callable,
                  loss_fn: Callable, use_bf16: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
@@ -158,6 +166,16 @@ class Trainer:
         model.train(train)
         return model(self._cast(features), **kwargs)
 
+    def _timed(self, phase_name: str, fn, *args):
+        timer = self.phase_timer
+        if timer is None:
+            return fn(*args)
+        start = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            timer.add(phase_name, time.perf_counter() - start)
+
     # ---- steps ---------------------------------------------------------
 
     def _train_step(self, state: TrainState, batch) -> torch.Tensor:
@@ -173,8 +191,8 @@ class Trainer:
         """`batch`'s tensors on the device now, for a later
         train_on_batch (which leaves tensors already there as they
         are)."""
-        return run_device_serialized(_to_device, batch, self.device,
-                                     device=self.device)
+        return self._timed("h2d_stage", lambda: run_device_serialized(
+            _to_device, batch, self.device, device=self.device))
 
     def train_on_batch(self, state: TrainState, batch):
         """One step; returns (state, loss), the loss a 0-d f32 tensor on
@@ -182,7 +200,8 @@ class Trainer:
         def _step():
             return self._train_step(state, _to_device(batch, self.device))
 
-        loss = run_device_serialized(_step, device=self.device)
+        loss = self._timed("compute", lambda: run_device_serialized(
+            _step, device=self.device))
         return state, loss
 
     def train_on_batch_stack(self, state: TrainState, batches):
@@ -195,7 +214,8 @@ class Trainer:
                 for b in batches
             ])
 
-        losses = run_device_serialized(_steps, device=self.device)
+        losses = self._timed("compute", lambda: run_device_serialized(
+            _steps, device=self.device))
         return state, losses
 
     def predict_on_batch(self, state: TrainState, features) -> np.ndarray:
