@@ -14,8 +14,12 @@
    function (`library_ms`, a yardstick the port never calls).  Each
    flash row records which variant ran: bf16 must run `sm90_wgmma`, f32
    `cuda_core`.  The scatter-add must equal its plain version (on CPU
-   copies) bit for bit, and itself across two launches; its rows count
-   the long segments and the kernel time per id of the longest one.
+   copies) bit for bit, and itself across two launches, at the rows of
+   every DeepFM path: the Trainer's timed batch, the first `wire_deepfm`
+   batch (whose dedup planes, decoded on the card, must give its hashed
+   rows bit for bit) and the Local jobs' first batch, each at D = 16
+   and 1; its rows count the long segments and the kernel time per id
+   of the longest one.
 3. Serves BERT-base (hidden 768, 12 layers, 12 heads, MLP 3072, vocab
    8192, L=512, bf16, random weights from a seed) through ServingEngine
    + DynamicBatcher with buckets (1, 4, 16, 64): seeded requests of 1-64
@@ -42,12 +46,28 @@
    task, complete event chains, an exact AUC in [0.79, 0.86], 64
    scatter-add launches and steps 16/24/32 retained and intact; an
    evaluate job from that checkpoint must reproduce the AUC within
-   1e-6; a two-worker train job must finish in the band too.
+   1e-6; a two-worker train job must finish in the band too.  Then, on
+   the same dataset, a `--wire_format dedup --steps_per_execution 4`
+   job and an `--arena_dtype int8` job with checkpoints, each with no
+   failed task, an AUC in the band and 64 scatter-add launches, and an
+   `evaluate` job from the int8 checkpoint that must reproduce its AUC.
+6. Drives the bare Trainer at bench.py::bench_deepfm_e2e's shape
+   (`wire_deepfm`: batch 65536, vocab 2^20, dim 16, bf16 MLP, K = 8
+   steps per train_on_batch_stack) on the same records through the
+   plain, compact and dedup wire formats, and the int8 arena on the
+   plain one: bytes per example on the link, host pack and host-to-device
+   ms per batch, step ms (CUDA events), the decode's device ms inside a
+   profiled step (the `wire_decode` range) and alone, the int8 lookup
+   and fold device ms, and the scatter-add launches (2 per step).  The
+   compact and dedup losses must be equal bit for bit.  On the int8
+   arena one more step runs with each arena's output gradient captured:
+   the carrier gradients (the scatter-add kernel behind `_GradTap`) must
+   equal the plain scatter-add of those gradients on the CPU bit for bit.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
-JSON; the last is {"ok": true, "device": {...}}.  The measured numbers
-also go to chiprun_out/chip_smoke.json.
+JSON; the last is {"ok": true, "device": {...}}.  The measured numbers,
+with each phase's wall seconds, also go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -76,17 +96,31 @@ from elasticdl_tpu_torch.common.model_handler import (  # noqa: E402
     ZOO_DIR,
     get_model_spec,
 )
+from elasticdl_tpu_torch.data.wire import (  # noqa: E402
+    DedupPacker,
+    plane_tensor,
+    unpack_rows_dedup,
+)
+from elasticdl_tpu_torch.layers.arena import (  # noqa: E402
+    fold_quantized_updates,
+)
+from elasticdl_tpu_torch.layers.embedding import hash_ids  # noqa: E402
 from elasticdl_tpu_torch.model_zoo.bert.bert_finetune import (  # noqa: E402
     init_parameters,
 )
 from elasticdl_tpu_torch.model_zoo.common.metrics import auc  # noqa: E402
+from elasticdl_tpu_torch.model_zoo.deepfm import (  # noqa: E402
+    deepfm_functional_api as fm_zoo,
+)
 from elasticdl_tpu_torch.model_zoo.deepfm.data import (  # noqa: E402
     synthetic_criteo,
     write_dataset,
 )
 from elasticdl_tpu_torch.model_zoo.deepfm.deepfm_functional_api import (  # noqa: E402,E501
     NUM_SPARSE,
+    RECORD_BYTES,
     hash_field_rows_host,
+    sparse_field_rows,
 )
 from elasticdl_tpu_torch.ops import _build  # noqa: E402
 from elasticdl_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -171,6 +205,13 @@ LOCAL_KEEP = 3
 LOCAL_EVAL_AUC_TOL = 1e-6
 TASK_CHAIN = [events.TASK_DISPATCHED, events.TASK_CLAIMED,
               events.TASK_TRAINED, events.TASK_REPORTED]
+
+# The bare Trainer at bench.py::bench_deepfm_e2e's shape, per wire format
+WIRE_BATCH = 65536
+WIRE_K = 8
+WIRE_FORMATS = ("plain", "compact", "dedup", "plain-int8")
+# the named profiler ranges of the wire decode and the int8 arena
+RANGES = ("wire_decode", "int8_lookup", "int8_fold")
 
 
 def card_line() -> str:
@@ -541,18 +582,51 @@ def scatter_launch_breakdown(kernel_only, reps: int = 5):
     return by_launch
 
 
-def check_scatter_kernel(gen):
+def path_rows(wire_buffer: bytes) -> dict:
+    """The arena rows each DeepFM path hands the scatter-add, from the
+    data that path trains on: the bare Trainer's timed batch, the first
+    `wire_deepfm` batch (hashed on the host as the plain and compact
+    paths hash on the card; and decoded on the card from its dedup
+    planes, which must give the same rows bit for bit), and the first
+    batch of the Local jobs' first shard (the dedup and int8 jobs)."""
+    wire_sparse = fm_zoo.feed_bulk(
+        wire_buffer, np.full(WIRE_BATCH, RECORD_BYTES, np.int64)
+    )["features"]["sparse"]
+    hashed = hash_field_rows_host(wire_sparse, DEEPFM_VOCAB)
+    planes = DedupPacker().pack(hashed)
+    decoded = unpack_rows_dedup(
+        {k: plane_tensor(v, torch.device("cuda")) for k, v in
+         planes.items()}).cpu().numpy()
+    if not np.array_equal(decoded, hashed):
+        raise AssertionError("dedup-decoded rows differ from the hashed "
+                             "rows of the same wire_deepfm batch")
+    local_sparse = synthetic_criteo(LOCAL_TRAIN // LOCAL_SHARDS,
+                                    seed=SEED)[1][:AUC_BATCH]
+    return {
+        "main": hash_field_rows_host(
+            make_criteo_batch(TIMED_BATCH)["features"]["sparse"],
+            DEEPFM_VOCAB).reshape(-1),
+        "wire": decoded.reshape(-1),
+        "local": hash_field_rows_host(local_sparse,
+                                      DEEPFM_VOCAB).reshape(-1),
+    }
+
+
+def check_scatter_kernel(gen, wire_buffer: bytes):
     """The scatter-add kernel vs its plain version on CPU copies, bit for
-    bit, and vs itself across two launches; timed at the main path's
+    bit, and vs itself across two launches, at the rows of every DeepFM
+    path (`path_rows`) and at probe shapes; timed at the main paths'
     shapes.  Returns (kernels entry sans launches, detail rows)."""
     rng = np.random.RandomState(SEED)
-    model_rows = hash_field_rows_host(
-        make_criteo_batch(TIMED_BATCH)["features"]["sparse"],
-        DEEPFM_VOCAB).reshape(-1)
+    rows_of = path_rows(wire_buffer)
     cases = [
         # (label, ids, table rows, dim, timed)
-        ("main-d16", model_rows, DEEPFM_VOCAB, DEEPFM_DIM, True),
-        ("main-d1", model_rows, DEEPFM_VOCAB, 1, True),
+        ("main-d16", rows_of["main"], DEEPFM_VOCAB, DEEPFM_DIM, True),
+        ("main-d1", rows_of["main"], DEEPFM_VOCAB, 1, True),
+        ("wire-d16", rows_of["wire"], DEEPFM_VOCAB, DEEPFM_DIM, True),
+        ("wire-d1", rows_of["wire"], DEEPFM_VOCAB, 1, True),
+        ("local-d16", rows_of["local"], DEEPFM_VOCAB, DEEPFM_DIM, False),
+        ("local-d1", rows_of["local"], DEEPFM_VOCAB, 1, False),
         ("probe", (rng.zipf(1.5, 262144) % 8192).astype(np.int32), 8192,
          16, True),
         ("ragged-d16", (rng.zipf(1.5, 1000) % 8192).astype(np.int32), 8192,
@@ -849,8 +923,213 @@ def step_breakdown(trainer, state, batch):
         "device_ms": device_ms if by_kernel else None,
         "device_busy_share": device_ms / wall_ms if by_kernel else None,
         "device_ms_by_group": groups if by_kernel else None,
+        "device_ms_by_range": range_device_ms(prof, RANGES),
         "top_kernels_ms": top,
     }
+
+
+def range_device_ms(prof, names) -> dict:
+    """Device ms of the kernels launched inside each named
+    record_function range (its CPU event's device time, children
+    included); None where the range did not run."""
+    from torch.autograd import DeviceType
+
+    out = {name: None for name in names}
+    for evt in prof.key_averages():
+        if evt.key in out and evt.device_type == DeviceType.CPU:
+            out[evt.key] = (out[evt.key] or 0.0) + \
+                evt.device_time_total / 1e3
+    return out
+
+
+def wire_records(n: int, seed: int) -> np.ndarray:
+    """bench.py::_ensure_bench_criteo's records as (n, 157) uint8 rows:
+    uniform dense, zipf(1.5) ids over a 2^22 raw space, random labels."""
+    rng = np.random.RandomState(seed)
+    arr = np.empty((n, RECORD_BYTES), np.uint8)
+    arr[:, :52] = rng.rand(n, 13).astype(np.float32).view(np.uint8)
+    arr[:, 52:156] = ((rng.zipf(1.5, size=(n, 26)) % (1 << 22))
+                      .astype(np.int32).view(np.uint8))
+    arr[:, 156] = rng.randint(0, 2, n)
+    return arr
+
+
+def _leaf_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_leaf_bytes(v) for v in tree.values())
+    return int(tree.nbytes)
+
+
+def carrier_grad_check(trainer, state, batch, rows) -> dict:
+    """One more training step on the int8 arenas with each arena's output
+    gradient captured (a tensor hook on its forward output): each zero
+    carrier's gradient, which `_GradTap`'s backward scatter-adds on the
+    card, must equal bit for bit the plain scatter-add on the CPU of that
+    output gradient at the step's rows."""
+    model = state.model
+    arenas = {"fm_embedding": model.fm_embedding,
+              "fm_linear": model.fm_linear}
+    out_grads = {}
+
+    def capture(name):
+        def hook(module, inputs, out):
+            # the raw-id path returns {feature: vectors}; prehashed rows
+            # return the vectors
+            vecs = out["sparse"] if isinstance(out, dict) else out
+            vecs.register_hook(
+                lambda g: out_grads.__setitem__(name, g.detach().clone()))
+        return hook
+
+    handles = [m.register_forward_hook(capture(name))
+               for name, m in arenas.items()]
+    trainer.train_on_batch(state, batch)
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    flat_rows = rows.reshape(-1).cpu()
+    check = {}
+    for name, arena in arenas.items():
+        got = arena.embedding.grad.cpu()
+        g = out_grads[name].cpu().reshape(flat_rows.shape[0], -1)
+        want = sa.scatter_add_reference(torch.zeros_like(got), flat_rows, g)
+        check[name] = {"dim": int(g.shape[1]), "n": int(g.shape[0]),
+                       "bitwise_vs_plain": bool(torch.equal(got, want)),
+                       "max_abs_err": float((got - want).abs().max()),
+                       "grad_abs_max": float(want.abs().max())}
+    if not all(c["bitwise_vs_plain"] for c in check.values()):
+        raise AssertionError(
+            f"int8 carrier gradients differ from the plain scatter-add of "
+            f"the step's output gradients: {check}")
+    return check
+
+
+def _wire_run(fmt: str, buffers, device) -> tuple:
+    """One wire format (or the int8 arena on the plain one) at
+    bench_deepfm_e2e's shape.  Returns (summary, losses, launches)."""
+    arena = "int8" if fmt.endswith("int8") else ""
+    wire = fmt.split("-")[0]
+    spec = get_model_spec(ZOO_DIR, DEEPFM, DEEPFM_PARAMS, arena_dtype=arena)
+    feed = {"plain": spec.feed_bulk, "compact": spec.feed_bulk_compact,
+            "dedup": spec.feed_bulk_dedup}[wire]
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, use_bf16=True,
+                      device=device)
+    sizes = np.full(WIRE_BATCH, RECORD_BYTES, np.int64)
+    fm_zoo._DEDUP_PACKER = DedupPacker()   # caps of this phase's batches
+    t0 = time.perf_counter()
+    batches = [feed(buf, sizes) for buf in buffers]
+    pack_ms = (time.perf_counter() - t0) * 1e3 / len(buffers)
+    wire_bytes = sum(_leaf_bytes(b) for b in batches) / len(batches)
+    staged, h2d_ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged.append(trainer.stage_batch(batch))
+        torch.cuda.synchronize()
+        h2d_ms.append((time.perf_counter() - t0) * 1e3)
+    packer = fm_zoo._DEDUP_PACKER
+    caps = ({"unique_cap": packer.unique_cap, "exc_cap": packer.exc_cap,
+             "last_unique": packer.last_unique,
+             "last_exceptions": packer.last_exceptions}
+            if wire == "dedup" else None)
+    del batches
+
+    # ---- the main path: counts start at 0 here ----
+    sa.scatter_add.launches = 0
+    fa.flash_attention.launches = 0
+    state = trainer.init_state(
+        torch.Generator(device=device).manual_seed(SEED),
+        staged[0]["features"])
+    state, warm = trainer.train_on_batch_stack(state, staged)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, timed = trainer.train_on_batch_stack(state, staged)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / WIRE_K
+    breakdown = step_breakdown(trainer, state, staged[0])
+    torch.cuda.synchronize()
+    launches = sa.scatter_add.launches
+    steps = 2 * WIRE_K + 1
+    # ---- end of the main path ----
+
+    feats = trainer._cast(staged[0]["features"])
+    with torch.no_grad():
+        decode_ms = time_ms(lambda: sparse_field_rows(feats, DEEPFM_VOCAB),
+                            20)
+        rows, prehashed = sparse_field_rows(feats, DEEPFM_VOCAB)
+        if not prehashed:
+            # the arena's own hash of the field-offset ids (offset 0)
+            rows = hash_ids(rows, DEEPFM_VOCAB)
+        lookup_ms = time_ms(
+            lambda: state.model.fm_embedding(rows, prehashed=True), 20)
+    carrier = (carrier_grad_check(trainer, state, staged[0], rows)
+               if arena else None)
+    losses = torch.cat([warm, timed]).cpu()
+    summary = {
+        "card": card_line(), "format": wire, "arena_dtype": arena or
+        "float32", "batch": WIRE_BATCH, "k": WIRE_K, "steps": steps,
+        "bytes_per_example": wire_bytes / WIRE_BATCH,
+        "pack_ms_per_batch": pack_ms,
+        "h2d_ms_per_batch": float(np.mean(h2d_ms)),
+        "h2d_ms_each": h2d_ms,
+        "step_ms": step_ms,
+        "examples_per_s": WIRE_BATCH / step_ms * 1e3,
+        "decode_device_ms_in_step":
+            breakdown["device_ms_by_range"]["wire_decode"],
+        "decode_ms": decode_ms,
+        "fm_embedding_lookup_ms": lookup_ms,
+        "scatter_launches": launches,
+        "losses_first_last": [float(losses[0]), float(losses[-1])],
+        "dedup_caps": caps,
+        "carrier_grad_check": carrier,
+        "step_breakdown": breakdown,
+    }
+    if arena:
+        summary["fold_ms"] = time_ms(
+            lambda: fold_quantized_updates(state.model, state.step), 10)
+    if launches != 2 * steps or not torch.isfinite(losses).all():
+        raise AssertionError(
+            f"wire_deepfm {fmt}: {launches} scatter-add launches in "
+            f"{steps} steps (2 arenas x {steps} = {2 * steps}), losses "
+            f"{losses.tolist()}")
+    del staged, state, trainer
+    torch.cuda.empty_cache()
+    return summary, losses, launches
+
+
+def wire_buffers() -> list:
+    """The K record buffers of `wire_deepfm`, one per batch."""
+    rows = wire_records(WIRE_K * WIRE_BATCH, SEED)
+    return [rows[i * WIRE_BATCH:(i + 1) * WIRE_BATCH].tobytes()
+            for i in range(WIRE_K)]
+
+
+def wire_deepfm(buffers):
+    """The bare Trainer at bench_deepfm_e2e's shape on one set of records
+    through each wire format; compact and dedup must give the same
+    losses bit for bit (their model inputs are the same).  Returns
+    (summary, scatter launches over the phase)."""
+    device = torch.device("cuda", 0)
+    runs, losses, launches = {}, {}, 0
+    for fmt in WIRE_FORMATS:
+        runs[fmt], losses[fmt], n = _wire_run(fmt, buffers, device)
+        launches += n
+        print(json.dumps({"wire_deepfm": runs[fmt]}), flush=True)
+    same = {
+        "compact_equals_dedup": bool(torch.equal(losses["compact"],
+                                                 losses["dedup"])),
+        "plain_equals_compact": bool(torch.equal(losses["plain"],
+                                                 losses["compact"])),
+    }
+    print(json.dumps({"wire_deepfm_losses": same}), flush=True)
+    if not same["compact_equals_dedup"]:
+        raise AssertionError(
+            f"compact and dedup losses differ: {losses['compact'].tolist()}"
+            f" vs {losses['dedup'].tolist()}")
+    return {"runs": runs, "losses_equal": same,
+            "launches": launches}, launches
 
 
 def local_argv(job: str, *extra) -> list:
@@ -1053,9 +1332,86 @@ def local_deepfm(card: str):
         print(json.dumps({"local_two_workers": two_workers}), flush=True)
         if sa.scatter_add.launches != 2 * LOCAL_STEPS:
             raise AssertionError(f"two-worker job: {two_workers}")
+        del two
+
+        def extra_job(label: str, *flags):
+            """A one-worker train job on the same data with `flags`; the
+            scatter-add launches are counted over it alone."""
+            fm_zoo._DEDUP_PACKER = DedupPacker()
+            args = cli.parse_args(local_argv(
+                "train", "--training_data", train_dir,
+                "--validation_data", val_dir,
+                "--evaluation_steps", str(LOCAL_EVAL_STEPS), *flags))
+            # ---- the main path: counts start at 0 here ----
+            fa.reset_launch_counts()
+            sa.scatter_add.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            job = api.run_local(args, "train")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = sa.scatter_add.launches
+            # ---- end of the main path ----
+            summary = _check_job(job, label)
+            summary.update({
+                "card": card, "flags": list(flags), "wall_s": wall,
+                "examples_per_s": LOCAL_TRAIN / wall,
+                "wire_format": job.workers[0].wire_format,
+                "scatter_launches": launches,
+                "phases": _phase_split(job)})
+            print(json.dumps({label: summary}), flush=True)
+            if launches != 2 * LOCAL_STEPS or \
+                    fa.flash_attention.launches != 0:
+                raise AssertionError(
+                    f"{label}: {launches} scatter-add launches; 2 arenas x "
+                    f"{LOCAL_STEPS} steps = {2 * LOCAL_STEPS}")
+            return job, summary
+
+        job, dedup = extra_job("local_deepfm_dedup", "--wire_format",
+                               "dedup", "--steps_per_execution", "4")
+        dedup["auc_equals_plain_job"] = \
+            dedup["metrics"]["auc"] == train["metrics"]["auc"]
+        if job.workers[0].wire_format != "dedup":
+            raise AssertionError(f"the dedup job ran {dedup}")
+        del job
+        ckpt8 = os.path.join(tmp, "ckpt_int8")
+        job, int8 = extra_job(
+            "local_deepfm_int8", "--arena_dtype", "int8",
+            "--checkpoint_dir", ckpt8,
+            "--checkpoint_steps", str(LOCAL_CKPT_STEPS),
+            "--keep_checkpoint_max", str(LOCAL_KEEP))
+        arena = job.owner.state.model.fm_embedding
+        int8["carrier_zero"] = not bool(arena.embedding.detach().any())
+        int8["checkpoint_bytes"] = os.path.getsize(os.path.join(
+            ckpt8, str(LOCAL_STEPS), "state.pt"))
+        if arena.q8.dtype != torch.int8 or not int8["carrier_zero"]:
+            raise AssertionError(f"the int8 job's arena: {int8}")
+        del job, arena
+        t0 = time.perf_counter()
+        ev8 = api.run_local(cli.parse_args(local_argv(
+            "evaluate", "--validation_data", val_dir,
+            "--checkpoint_dir_for_init", ckpt8, "--arena_dtype", "int8")),
+            "evaluate")
+        eval8 = {"card": card, "exit_code": ev8.exit_code,
+                 "model_step": ev8.owner.step,
+                 "auc": (ev8.metrics or {}).get("auc"),
+                 "train_auc": int8["metrics"]["auc"],
+                 "wall_s": time.perf_counter() - t0,
+                 "tol": LOCAL_EVAL_AUC_TOL}
+        print(json.dumps({"local_evaluate_int8": eval8}), flush=True)
+        if ev8.exit_code != 0 or ev8.owner.step != LOCAL_STEPS or \
+                eval8["auc"] is None or abs(eval8["auc"] - eval8[
+                    "train_auc"]) > LOCAL_EVAL_AUC_TOL:
+            raise AssertionError(f"evaluate from the int8 checkpoint: "
+                                 f"{eval8}")
+        del ev8
         summary = {"dataset_write_s": write_s, "dataset_bytes": data_bytes,
                    "train": train, "evaluate": evaluate,
-                   "two_workers": two_workers}
+                   "two_workers": two_workers, "dedup": dedup,
+                   "int8": int8, "evaluate_int8": eval8}
+        launches.update({
+            "local_deepfm_dedup": dedup["scatter_launches"],
+            "local_deepfm_int8": int8["scatter_launches"]})
         return summary, launches
     finally:
         events.configure(None)
@@ -1090,22 +1446,37 @@ def main() -> int:
         raise AssertionError(f"{fa.SOURCE_SM90} has no HGMMA (wgmma) "
                              "instruction in its SASS")
 
+    # wall seconds of each phase, the build's included
+    phase_s = {"build": build_s}
+
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        phase_s[label] = time.perf_counter() - t0
+        return out
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    entry, rows = check_flash_kernel(gen)
-    scatter_entry, scatter_rows = check_scatter_kernel(gen)
-    torch.cuda.empty_cache()
-    serve, check, launches = serve_bert(SEED)
+    entry, rows = phase("check_flash", check_flash_kernel, gen)
+    buffers = phase("wire_records", wire_buffers)
+    scatter_entry, scatter_rows = phase("check_scatter", check_scatter_kernel,
+                                        gen, buffers[0])
+    serve, check, launches = phase("serve_bert", serve_bert, SEED)
     entry["launches"] = launches["flash_attention_fwd"]
-    torch.cuda.empty_cache()
-    deepfm, fm_launches = train_deepfm()
-    torch.cuda.empty_cache()
-    local, local_launches = local_deepfm(card)
-    # launches: this slice's main path, the Local job; each path's
+    deepfm, fm_launches = phase("deepfm_trainer", train_deepfm)
+    local, local_launches = phase("local_deepfm", local_deepfm, card)
+    wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
+    del buffers
+    print(json.dumps({"phase_s": phase_s}), flush=True)
+    # launches: the Local job's (the north star's path); each path's
     # count beside it
     scatter_entry["launches"] = local_launches["scatter_add"]
     scatter_entry["launches_by_path"] = {
         "deepfm_trainer": fm_launches["scatter_add"],
-        "local_deepfm": local_launches["scatter_add"]}
+        "local_deepfm": local_launches["scatter_add"],
+        "local_deepfm_dedup": local_launches["local_deepfm_dedup"],
+        "local_deepfm_int8": local_launches["local_deepfm_int8"],
+        "wire_deepfm": wire_launches}
     kernels = {"kernels": [entry, scatter_entry]}
 
     name = torch.cuda.get_device_name(0)
@@ -1114,10 +1485,11 @@ def main() -> int:
               "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": build_s,
+                   "phase_s": phase_s,
                    "kernel_checks": rows, "scatter_checks": scatter_rows,
                    "serve": serve, "bert_f32_check": check,
-                   "deepfm": deepfm, "local_deepfm": local, **kernels}, f,
-                  indent=1)
+                   "deepfm": deepfm, "local_deepfm": local,
+                   "wire_deepfm": wire, **kernels}, f, indent=1)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -104,6 +104,7 @@ def run_local(args, job_type: str = "train") -> LocalJob:
         custom_data_reader=args.custom_data_reader,
         callbacks=args.callbacks,
         prediction_outputs_processor=args.prediction_outputs_processor,
+        arena_dtype=args.arena_dtype,
     )
     if getattr(spec.module, "build_tiered_store", None) is not None:
         raise NotImplementedError(

@@ -3,9 +3,10 @@ of the JAX package's common/args.py that `_train_local` reads).
 
 Flags outside the subset are absent, so argparse rejects them; none is
 accepted and then ignored.  A flag whose feature waits for a later slice
-of the port (a non-Local strategy, the compact and dedup wire formats,
-`--output` export of a training job) parses and then raises
-NotImplementedError where the job would use it.
+of the port (a non-Local strategy, `--output` export of a training job)
+parses and then raises NotImplementedError where the job would use it.
+The wire formats (`--wire_format plain|compact|dedup`, the legacy
+`--compact_wire`) and the int8 arena (`--arena_dtype int8`) run.
 
 `--device` is the port's own: `cuda` (the default) or `cpu`, the
 counterpart of the JAX package's JAX_PLATFORMS, resolved through
@@ -73,6 +74,12 @@ def add_model_params(parser: argparse.ArgumentParser):
         "deepfm.deepfm_functional_api.custom_model")
     parser.add_argument("--model_params", default="",
                         help="'k=v;k2=v2' kwargs for the zoo functions")
+    parser.add_argument(
+        "--arena_dtype", default="", choices=["", "float32", "int8"],
+        help="Embedding arena storage dtype: int8 stores rows as "
+        "quantized codes with per-row fp32 scales; empty defers to the "
+        "model's default (float32).  Forwarded into model_params for "
+        "zoos whose custom_model accepts arena_dtype.")
     parser.add_argument("--dataset_fn", default="feed")
     parser.add_argument("--loss", default="loss")
     parser.add_argument("--optimizer", default="optimizer")
@@ -113,9 +120,14 @@ def add_train_params(parser: argparse.ArgumentParser):
                         help="cast floating features to bf16")
     parser.add_argument(
         "--compact_wire", type=str2bool, default=False,
-        help="the compact wire format (waits for its slice of the port)")
+        help="Legacy spelling of --wire_format compact (read when "
+        "--wire_format is empty).")
     parser.add_argument(
         "--wire_format", default="",
         choices=["", "plain", "compact", "dedup"],
-        help="host->device wire format; only plain is ported")
+        help="Host->device batch format: plain (the zoo's feed_bulk), "
+        "compact (feed_bulk_compact: bf16 dense, b22 ids) or dedup "
+        "(feed_bulk_dedup: host-hashed rows dedup'd per field).  A "
+        "format the zoo lacks falls back dedup -> compact -> plain "
+        "with a warning.  Empty defers to --compact_wire.")
     parser.add_argument("--records_per_task", type=pos_int, default=4096)

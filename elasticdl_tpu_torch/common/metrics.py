@@ -1,9 +1,17 @@
 """Labeled Counters / Gauges / Histograms in thread-safe registries —
-the part of the JAX package's common/metrics.py that the serving engine
-and batcher use.  The registry IS the storage: a component registers a
-metric once and increments it; snapshots read the same objects.  The
-Prometheus exposition and the process-wide registry wait for the slice
-that ports the telemetry server.
+the part of the JAX package's common/metrics.py that the serving engine,
+the batcher and the wire packers use.  The registry IS the storage: a
+component registers a metric once and increments it; snapshots read the
+same objects.
+
+* `default_registry()`: one per process, for process-wide series (the
+  wire packers' byte and row counters).
+* per-component `MetricsRegistry()` instances: components that can be
+  instantiated many times in one process (batcher, engine) keep
+  instance-scoped values.
+
+The Prometheus exposition waits for the slice that ports the telemetry
+server.
 
 Naming contract: every metric is `subsystem_name_unit`, lower_snake_case,
 with the subsystem in `KNOWN_SUBSYSTEMS` and the unit suffix in
@@ -329,6 +337,14 @@ class MetricsRegistry:
             for labelpairs, value in fam.samples():
                 out[_series_key(fam.name, labelpairs)] = value
         return out
+
+
+_default_registry = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    """The process-wide registry for singleton subsystems."""
+    return _default_registry
 
 
 def _series_key(name: str, labelpairs) -> str:

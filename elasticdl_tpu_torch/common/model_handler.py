@@ -7,8 +7,10 @@ The zoo contract keeps the same function names, with PyTorch bodies:
     loss(labels, predictions) -> scalar torch loss
     optimizer(lr=...)         -> callable(params) -> torch.optim.Optimizer
     feed(records, metadata)   -> batch dict {"features":..., "labels":...}
-    feed_bulk / feed_bulk_compact(buffer, sizes, metadata) -> batch dict
-                                 (optional; vectorized numpy parses)
+    feed_bulk / feed_bulk_compact / feed_bulk_dedup(buffer, sizes,
+                              metadata) -> batch dict (optional;
+                              vectorized numpy parses into the plain,
+                              compact and dedup wire formats)
     eval_metrics_fn()         -> {name: fn(labels, predictions) -> scalar}
 
 The port's own zoo (`elasticdl_tpu_torch/model_zoo/`) is imported by its
@@ -57,20 +59,31 @@ class ModelSpec:
 
 
 def resolve_wire_format(spec: ModelSpec, wire_format: str = "",
-                        compact_wire: bool = False) -> str:
-    """The batch wire format a worker runs: `--wire_format`, or the
-    legacy `--compact_wire` when it is empty.  Only `plain` (the zoo's
-    feed / feed_bulk) is ported; `compact` and `dedup` raise."""
+                        compact_wire: bool = False, log=logger) -> str:
+    """The batch wire format a worker runs.
+
+    `--wire_format` wins; empty defers to the legacy `--compact_wire`.
+    A requested format the zoo does not implement degrades to the next
+    one it does (dedup -> compact -> plain), with a warning, as the JAX
+    package does: a job does not die over a missing optional feed."""
     requested = (wire_format or "").strip().lower() or (
         "compact" if compact_wire else "plain")
     if requested not in ("plain", "compact", "dedup"):
         raise ValueError(f"unknown wire format {requested!r}; "
                          "expected plain | compact | dedup")
-    if requested != "plain":
-        raise NotImplementedError(
-            f"the {requested!r} wire format waits for the wire-decoder "
-            "slice of the port (ROADMAP.md queue 1, item 4)")
-    return requested
+    resolved = requested
+    if resolved == "dedup" and spec.feed_bulk_dedup is None:
+        log.warning(
+            "--wire_format=dedup requested but the zoo module defines no "
+            "feed_bulk_dedup; falling back")
+        resolved = "compact"
+    if resolved == "compact" and spec.feed_bulk_compact is None:
+        if requested == "compact":
+            log.warning(
+                "--compact_wire requested but the zoo module defines no "
+                "feed_bulk_compact; using the standard feed")
+        resolved = "plain"
+    return resolved
 
 
 def load_module(model_zoo: str, dotted: str):
@@ -122,7 +135,14 @@ def get_model_spec(
     custom_data_reader: str = "custom_data_reader",
     callbacks: str = "callbacks",
     prediction_outputs_processor: str = "",
+    arena_dtype: str = "",
 ) -> ModelSpec:
+    # --arena_dtype rides into model_params: `_call_with_params` filters
+    # kwargs by signature, so zoos without quantized arenas ignore it.
+    # An arena_dtype already in model_params wins.
+    if arena_dtype and "arena_dtype" not in model_params:
+        sep = ";" if model_params else ""
+        model_params = f"{model_params}{sep}arena_dtype='{arena_dtype}'"
     module, model_fn = load_module(model_zoo, model_def)
 
     def opt(name, required=True):

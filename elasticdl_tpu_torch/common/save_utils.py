@@ -26,10 +26,16 @@ without `state.pt` is a torn save and is not a step.
   handing it to the writer would save step N+1's values as step N.
   `wait_until_finished` joins the writer and re-raises its failures.
 
-The tiered-store sidecar, the int8 arena migration and a loader for the
-JAX package's orbax checkpoints wait for their slices of the port
-(ROADMAP.md queue 1, item 3); an orbax step directory raises
-NotImplementedError.
+- int8 arenas: the manifest's `arena` entry records the arena dtype and
+  each plane's path, rows and dim.  A restore whose checkpoint and
+  template differ in arena dtype raises `ArenaDtypeMismatch`, unless
+  `arena_convert=True` migrates it (fp32 -> int8 quantizes each table,
+  int8 -> fp32 dequantizes it; the carrier keeps the table's name and
+  shape, so Adam's moments carry over either way).
+
+The tiered-store sidecar and a loader for the JAX package's orbax
+checkpoints wait for their slices of the port (ROADMAP.md queue 1, item
+3); an orbax step directory raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,6 +54,13 @@ import torch
 
 from elasticdl_tpu_torch.common import events
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.layers.arena import (
+    dequantize_arena_tree,
+    plane_key,
+    plane_path,
+    plane_prefixes,
+    quantize_arena_tree,
+)
 from elasticdl_tpu_torch.worker.trainer import TrainState
 
 logger = get_logger(__name__)
@@ -55,6 +68,31 @@ logger = get_logger(__name__)
 STATE_FILE = "state.pt"
 # the file orbax writes into every step directory it finalizes
 _ORBAX_MARKER = "_CHECKPOINT_METADATA"
+
+
+class ArenaDtypeMismatch(ValueError):
+    """A checkpoint's arena storage dtype differs from the configured
+    model's and no conversion was requested."""
+
+
+def arena_dtype_of(model_state: Dict[str, Any]) -> str:
+    """"int8" when a model state dict holds int8 arena planes, else
+    "float32"."""
+    return "int8" if plane_prefixes(model_state) else "float32"
+
+
+def arena_meta(model_state: Dict[str, Any]) -> Dict[str, Any]:
+    """The manifest's `arena` entry: the dtype and, in int8 mode, each
+    plane's flax path with its rows, dim and scale shape."""
+    planes = {}
+    for prefix in plane_prefixes(model_state):
+        q8 = model_state[plane_key(prefix, "q8")]
+        scale = model_state[plane_key(prefix, "scale")]
+        planes["/".join(plane_path(prefix))] = {
+            "rows": int(q8.shape[0]), "dim": int(q8.shape[1]),
+            "scale_shape": [int(d) for d in scale.shape]}
+    return {"arena_dtype": arena_dtype_of(model_state), "planes": planes}
+
 
 # ---- step pinning ---------------------------------------------------------
 #
@@ -229,6 +267,7 @@ class CheckpointSaver:
             "files": {rel: _file_digest(os.path.join(step_dir, rel))
                       for rel in _step_files(step_dir)},
             "produced": produced,
+            "arena": arena_meta(blob["model"]),
         }
         tmp = self._manifest_path(step) + ".tmp"
         with open(tmp, "w") as f:
@@ -315,37 +354,68 @@ class CheckpointSaver:
 
     # ---- restore -------------------------------------------------------
 
-    def _load_into(self, state: TrainState, step: int) -> TrainState:
+    def _load_into(self, state: TrainState, step: int,
+                   arena_convert: bool = False) -> TrainState:
         device = next(state.model.parameters()).device
         blob = torch.load(os.path.join(self._step_dir(step), STATE_FILE),
                           weights_only=True, map_location=device)
-        state.model.load_state_dict(blob["model"], strict=True)
+        model_state = self._arena_compat(step, blob["model"], state,
+                                         arena_convert)
+        state.model.load_state_dict(model_state, strict=True)
         state.optimizer.load_state_dict(blob["optimizer"])
         state.step = int(blob["step"])
         events.emit(events.CHECKPOINT_RESTORED, step=state.step)
         return state
 
-    def restore_step(self, step: int, template: TrainState
-                     ) -> Optional[TrainState]:
+    def _arena_compat(self, step: int, model_state, template: TrainState,
+                      arena_convert: bool):
+        """The checkpoint's model state in the template's arena dtype:
+        as it is when the dtypes agree, migrated when `arena_convert`,
+        else ArenaDtypeMismatch."""
+        want_sd = template.model.state_dict()
+        want, have = arena_dtype_of(want_sd), arena_dtype_of(model_state)
+        if have == want:
+            return model_state
+        if not arena_convert:
+            raise ArenaDtypeMismatch(
+                f"checkpoint step {step} stores {have} arena rows but the "
+                f"configured model expects {want}: pass arena_convert=True "
+                f"to migrate on restore, or set --arena_dtype {have} to "
+                "match the checkpoint")
+        if have == "float32":
+            logger.info("checkpoint step %d: quantized fp32 arena rows to "
+                        "int8 on restore", step)
+            return quantize_arena_tree(model_state, plane_prefixes(want_sd))
+        logger.info("checkpoint step %d: dequantized int8 arena rows to "
+                    "fp32 on restore", step)
+        return dequantize_arena_tree(model_state)
+
+    def restore_step(self, step: int, template: TrainState,
+                     arena_convert: bool = False) -> Optional[TrainState]:
         """A separate TrainState holding checkpointed `step` (eval at a
         version), or None when the step is absent or fails its check.
-        `template` is not modified."""
+        `template` is not modified.  An arena dtype that differs from the
+        template's raises ArenaDtypeMismatch unless `arena_convert`."""
         if step not in self.all_steps():
             return None
         if not self.verify_step(step):
             logger.warning("checkpoint step %d failed integrity check; "
                            "not restoring", step)
             return None
-        restored = self._load_into(empty_like(template), step)
+        restored = self._load_into(empty_like(template), step,
+                                   arena_convert)
         logger.info("Restored checkpoint step %d (eval-at-version)", step)
         return restored
 
-    def maybe_restore(self, template: TrainState) -> Optional[TrainState]:
+    def maybe_restore(self, template: TrainState,
+                      arena_convert: bool = False) -> Optional[TrainState]:
         """Restore the newest intact step into `template` (in place; it
         is returned), or None when there is no step.  A step that fails
         its manifest check or fails to load falls back to the previous
         one; when every step fails, the last load error re-raises (never
-        train from scratch over broken checkpoints)."""
+        train from scratch over broken checkpoints).  An arena dtype
+        mismatch raises ArenaDtypeMismatch at once (older steps would
+        mismatch alike) unless `arena_convert` migrates it."""
         last_exc: Optional[Exception] = None
         for step in reversed(self.all_steps()):
             if not self.verify_step(step):
@@ -353,7 +423,9 @@ class CheckpointSaver:
                                "the previous good step", step)
                 continue
             try:
-                restored = self._load_into(template, step)
+                restored = self._load_into(template, step, arena_convert)
+            except ArenaDtypeMismatch:
+                raise
             except (RuntimeError, OSError, KeyError, ValueError) as exc:
                 last_exc = exc
                 logger.warning("checkpoint step %d failed to restore (%s); "

@@ -1,5 +1,5 @@
 """Fused embedding arena: every same-`dim` feature table as one tensor
-(the port of the JAX package's layers/arena.py, float32 mode).
+(the port of the JAX package's layers/arena.py).
 
 Feature i owns rows [offset_i, offset_i + capacity_i) of the one table;
 its ids are hashed mod its own capacity and shifted by its offset, so
@@ -9,13 +9,27 @@ gather forward and one scatter-add backward (the Hopper kernel on the
 card) per arena, whatever the feature count.  The parameter is named
 `embedding`, as in the JAX arena.
 
-The quantized arena (`arena_dtype="int8"`) waits for its slice of the
-port and raises NotImplementedError.
+Quantized storage (`arena_dtype="int8"`): rows live as int8 codes with a
+per-row fp32 scale, the buffers `q8` (R, D) and `scale` (R, 1), and are
+dequantized inside the gather.  The gradient and optimizer path stays
+fp32: the trainable `embedding` is a zero fp32 carrier with the table's
+name and shape (so optimizer state and checkpoint names do not change
+with the mode), `_GradTap` routes the scatter-add gradient into it (the
+same Hopper kernel as `_lookup`'s backward), and `fold_quantized_updates`
+folds the optimizer's per-step delta back into the codes with
+stochastic rounding seeded from (step, plane path), then zeroes the
+carrier.  All int8 plane arithmetic lives in this module.  The int8
+gather and the fold run inside the named profiler ranges `int8_lookup`
+and `int8_fold`, so a torch.profiler trace attributes their device
+time.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import hashlib
+import zlib
+from collections.abc import Mapping
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -26,8 +40,95 @@ from elasticdl_tpu_torch.layers.embedding import (
     hash_ids,
     hash_ids_host,
 )
+from elasticdl_tpu_torch.ops.scatter_add import scatter_add_forward
 
 ARENA_DTYPES = ("float32", "int8")
+
+# int8 code range is symmetric [-127, 127]: -128 is unused so negation
+# round-trips and scale = max|row| / 127 covers the row exactly.
+_Q_MAX = 127.0
+
+# RNG namespace for the training write-back rounding, combined with the
+# step and the plane path so every run rounds the same step alike
+_FOLD_SEED = 0x51A7
+
+# the state-dict names of an int8 arena's planes, beside its `embedding`
+PLANE_KEYS = ("q8", "scale")
+
+# ---- quantization numerics (all int8 plane math lives here) -------------
+
+
+def quantize_rows(table: torch.Tensor):
+    """fp32 (R, D) -> (int8 codes (R, D), fp32 scales (R, 1)).  Per-row
+    symmetric: scale = max|row| / 127 (an all-zero row gets scale 1.0
+    and round-trips exactly), codes round to nearest even.  The training
+    write-back uses `stochastic_round` instead."""
+    table = table.to(torch.float32)
+    max_abs = table.abs().amax(dim=1, keepdim=True)
+    scale = torch.where(max_abs > 0, max_abs / _Q_MAX,
+                        torch.ones_like(max_abs))
+    q8 = torch.clamp(torch.round(table / scale), -_Q_MAX, _Q_MAX)
+    return q8.to(torch.int8), scale
+
+
+def dequantize_rows(q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 codes + per-row scales -> the fp32 view the math runs on."""
+    return q8.to(torch.float32) * scale
+
+
+def quantize_rows_host(table: np.ndarray):
+    """numpy mirror of `quantize_rows`, bit for bit."""
+    table = np.asarray(table, np.float32)
+    max_abs = np.max(np.abs(table), axis=1, keepdims=True) \
+        if table.size else np.zeros((table.shape[0], 1), np.float32)
+    scale = np.where(max_abs > 0, max_abs / _Q_MAX, 1.0).astype(np.float32)
+    q8 = np.clip(
+        np.round(table / scale), -_Q_MAX, _Q_MAX
+    ).astype(np.int8)
+    return q8, scale
+
+
+def dequantize_rows_host(q8: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    """numpy mirror of `dequantize_rows`."""
+    return q8.astype(np.float32) * np.asarray(scale, np.float32)
+
+
+def stochastic_round(x: torch.Tensor, generator: torch.Generator):
+    """Unbiased integer rounding: floor(x + U[0,1)), so E[result] == x
+    and exact integers return exactly (floor(k + u) == k for u < 1)."""
+    u = torch.rand(x.shape, generator=generator, device=x.device,
+                   dtype=x.dtype)
+    return torch.clamp(torch.floor(x + u), -_Q_MAX, _Q_MAX).to(torch.int8)
+
+
+class _GradTap(torch.autograd.Function):
+    """Gradient collector for the quantized arena.  Forward returns exact
+    zeros shaped like the gather output, made from the carrier's shape
+    and dtype only (it never reads the carrier).  Backward scatter-adds
+    the output gradient into the carrier's shape, the same scatter-add
+    (the Hopper kernel on the card) as `_lookup`'s backward, so the
+    optimizer sees an ordinary fp32 embedding gradient on the carrier."""
+
+    @staticmethod
+    def forward(ctx, carrier, flat_rows):
+        ctx.save_for_backward(flat_rows)
+        ctx.carrier_shape = carrier.shape
+        ctx.carrier_dtype = carrier.dtype
+        return torch.zeros(flat_rows.shape + (carrier.shape[1],),
+                           dtype=carrier.dtype, device=carrier.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat_rows,) = ctx.saved_tensors
+        dcarrier = torch.zeros(ctx.carrier_shape, dtype=g.dtype,
+                               device=g.device)
+        scatter_add_forward(dcarrier, flat_rows, g.contiguous(),
+                            inplace=True)
+        return dcarrier.to(ctx.carrier_dtype), None
+
+
+def _grad_tap(carrier: torch.Tensor, flat_rows: torch.Tensor):
+    return _GradTap.apply(carrier, flat_rows)
 
 
 def arena_offsets(features: Tuple[Tuple[str, int], ...]) -> Dict[str, int]:
@@ -53,7 +154,11 @@ class EmbeddingArena(nn.Module):
     Call with a dict {name: int ids (B, ...)}; returns {name: (B, ...,
     output_dim)} vectors, zero where an id equals `pad_id`.  Call with
     `prehashed=True` and one int tensor of arena rows (from
-    `arena_rows_host`) to skip the hashing.
+    `arena_rows_host` or the dedup wire format) to skip the hashing.
+
+    arena_dtype: "float32" (default) or "int8" (codes in the `q8` buffer,
+    per-row scales in `scale`, a zero fp32 carrier as `embedding`; see
+    the module docstring).
     """
 
     def __init__(self, features: Tuple[Tuple[str, int], ...],
@@ -65,26 +170,52 @@ class EmbeddingArena(nn.Module):
             raise ValueError(
                 f"arena_dtype must be one of {ARENA_DTYPES}, got "
                 f"{arena_dtype!r}")
-        if arena_dtype == "int8":
-            raise NotImplementedError(
-                "arena_dtype='int8' (int8 codes with per-row scales) comes "
-                "with the int8 arena slice of the port")
         self.features = tuple((str(n), int(c)) for n, c in features)
         self.output_dim = output_dim
         self.pad_id = pad_id
         self.hash_input = hash_input
-        self.embedding = nn.Parameter(torch.empty(
-            (arena_rows(self.features), output_dim), dtype=dtype))
+        self.arena_dtype = arena_dtype
+        shape = (arena_rows(self.features), output_dim)
+        if arena_dtype == "int8":
+            # the trainable zero carrier; the planes are buffers
+            self.embedding = nn.Parameter(torch.zeros(shape))
+            self.register_buffer("q8", torch.zeros(shape, dtype=torch.int8))
+            self.register_buffer("scale", torch.ones((shape[0], 1)))
+        else:
+            self.embedding = nn.Parameter(torch.empty(shape, dtype=dtype))
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
+        """The flax init: normal(0.05) rows; in int8 mode drawn in fp32,
+        quantized into the planes, with a zero carrier."""
         with torch.no_grad():
-            nn.init.normal_(self.embedding, 0.0, 0.05, generator=generator)
+            if self.arena_dtype != "int8":
+                nn.init.normal_(self.embedding, 0.0, 0.05,
+                                generator=generator)
+                return
+            self.embedding.zero_()
+            sample = torch.empty(self.embedding.shape,
+                                 device=self.embedding.device)
+            nn.init.normal_(sample, 0.0, 0.05, generator=generator)
+            q8, scale = quantize_rows(sample)
+            self.q8.copy_(q8)
+            self.scale.copy_(scale)
+
+    def _gather(self, flat_rows: torch.Tensor) -> torch.Tensor:
+        if self.arena_dtype != "int8":
+            return _lookup(self.embedding, flat_rows)
+        # dequantize inside the gather (code gather, scale gather, one
+        # multiply); the tap adds exact zeros forward and collects the
+        # scatter-add backward
+        with torch.profiler.record_function("int8_lookup"):
+            deq = dequantize_rows(self.q8.index_select(0, flat_rows),
+                                  self.scale.index_select(0, flat_rows))
+        return deq + _grad_tap(self.embedding, flat_rows)
 
     def forward(self, ids, prehashed: bool = False):
         if prehashed:
             rows = ids.to(torch.int32)
-            return _lookup(self.embedding, rows.reshape(-1)).reshape(
+            return self._gather(rows.reshape(-1)).reshape(
                 rows.shape + (self.output_dim,))
         names = [name for name, _ in self.features]
         if set(ids) != set(names):
@@ -104,7 +235,7 @@ class EmbeddingArena(nn.Module):
             offset += capacity
         all_rows = torch.cat(parts, dim=1)                 # (B, sum k_i)
         all_valid = torch.cat(valids, dim=1)
-        vecs = _lookup(self.embedding, all_rows.reshape(-1)).reshape(
+        vecs = self._gather(all_rows.reshape(-1)).reshape(
             all_rows.shape + (self.output_dim,))
         vecs = torch.where(all_valid[..., None], vecs, torch.zeros_like(vecs))
         out, col = {}, 0
@@ -131,3 +262,115 @@ class EmbeddingArena(nn.Module):
             parts.append(rows.reshape(x.shape[0], -1).astype(np.int32))
             offset += capacity
         return np.concatenate(parts, axis=1)
+
+
+# ---- quantized write-back + checkpoint migration ------------------------
+
+
+def is_quantized_planes(node) -> bool:
+    """True for a {"q8", "scale"} plane dict."""
+    return isinstance(node, Mapping) and set(node) == set(PLANE_KEYS)
+
+
+def _path_seed(path: Tuple[str, ...]) -> int:
+    return zlib.crc32("/".join(path).encode()) & 0x7FFFFFFF
+
+
+def plane_path(prefix: str) -> Tuple[str, ...]:
+    """The flax path of an arena's planes from its module name in the
+    state dict ("fm_embedding" -> ("fm_embedding", "embedding"))."""
+    return tuple(p for p in prefix.split(".") if p) + ("embedding",)
+
+
+def _fold_generator(step: int, path: Tuple[str, ...],
+                    device: torch.device) -> torch.Generator:
+    """A generator on `device` keyed on (_FOLD_SEED, step, path): one
+    step and plane round the same way on every run."""
+    key = f"{_FOLD_SEED}/{int(step)}/{_path_seed(path)}".encode()
+    seed = int.from_bytes(hashlib.blake2b(key, digest_size=8).digest(),
+                          "little") & ((1 << 63) - 1)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _requantize_plane(q8: torch.Tensor, scale: torch.Tensor,
+                      delta: torch.Tensor, generator: torch.Generator):
+    """(new q8, new scale) with `delta` folded in.  Rows whose delta is
+    all zero (Adam's update is 0 while m = v = 0) keep their codes and
+    scales bit for bit, so idle rows do not random-walk."""
+    touched = (delta != 0.0).any(dim=1, keepdim=True)
+    table = dequantize_rows(q8, scale) + delta
+    max_abs = table.abs().amax(dim=1, keepdim=True)
+    new_scale = torch.where(max_abs > 0, max_abs / _Q_MAX,
+                            torch.ones_like(max_abs))
+    new_q8 = stochastic_round(table / new_scale, generator)
+    return (torch.where(touched, new_q8, q8),
+            torch.where(touched, new_scale, scale))
+
+
+def fold_quantized_updates(model: nn.Module, step: int) -> int:
+    """The write-back after `optimizer.step()`: in each int8 arena the
+    carrier holds this step's fp32 delta; fold it into the codes (table
+    = dequant + delta, new per-row scale, stochastic rounding keyed on
+    (seed, step, plane path)) and zero the carrier.  Returns the number
+    of planes folded; with no int8 arena it changes nothing and returns
+    0."""
+    arenas = [(name, m) for name, m in model.named_modules()
+              if isinstance(m, EmbeddingArena) and m.arena_dtype == "int8"]
+    if not arenas:
+        return 0
+    with torch.no_grad(), torch.profiler.record_function("int8_fold"):
+        for name, arena in arenas:
+            gen = _fold_generator(step, plane_path(name), arena.q8.device)
+            q8, scale = _requantize_plane(arena.q8, arena.scale,
+                                          arena.embedding, gen)
+            arena.q8.copy_(q8)
+            arena.scale.copy_(scale)
+            arena.embedding.zero_()
+    return len(arenas)
+
+
+def plane_key(prefix: str, leaf: str) -> str:
+    """The state-dict name of an arena's `leaf` ("embedding", "q8" or
+    "scale") under its module name."""
+    return f"{prefix}.{leaf}" if prefix else leaf
+
+
+def plane_prefixes(state_dict: Mapping[str, torch.Tensor]) -> List[str]:
+    """The module names that hold int8 planes in a state dict (both its
+    `q8` and its `scale` present; "" for a top-level arena), sorted."""
+    prefixes = (key[: -len("q8")].rstrip(".") for key in state_dict
+                if key == "q8" or key.endswith(".q8"))
+    return sorted(p for p in prefixes
+                  if plane_key(p, "scale") in state_dict)
+
+
+def quantize_arena_tree(state_dict: Mapping[str, torch.Tensor],
+                        prefixes) -> Dict[str, torch.Tensor]:
+    """fp32 -> int8 migration of a state dict: each table at a prefix
+    of `prefixes` (the int8 model's `plane_prefixes`) is quantized
+    deterministically into `q8`/`scale`, and its `embedding` becomes the
+    zero carrier of the same name and shape, so Adam's moments carry
+    over."""
+    out = dict(state_dict)
+    for prefix in prefixes:
+        table = out[plane_key(prefix, "embedding")]
+        q8, scale = quantize_rows(table)
+        out[plane_key(prefix, "q8")] = q8
+        out[plane_key(prefix, "scale")] = scale
+        out[plane_key(prefix, "embedding")] = torch.zeros_like(table)
+    return out
+
+
+def dequantize_arena_tree(state_dict: Mapping[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+    """int8 -> fp32 migration: each table = dequant(q8, scale) + carrier
+    (the carrier is zero between steps; adding it keeps the conversion
+    exact mid-step), and the planes are dropped."""
+    out = dict(state_dict)
+    for prefix in plane_prefixes(state_dict):
+        q8 = out.pop(plane_key(prefix, "q8"))
+        scale = out.pop(plane_key(prefix, "scale"))
+        carrier = out[plane_key(prefix, "embedding")]
+        out[plane_key(prefix, "embedding")] = dequantize_rows(q8, scale) \
+            + carrier.to(torch.float32)
+    return out

@@ -14,10 +14,15 @@ Submodules carry the flax names (`fm_embedding.embedding`,
 `fm_linear.embedding`, `dense_linear`, `mlp_0`, `mlp_1`, `mlp_out`), so
 `common/weights.py::params_from_jax` carries a flax tree across.
 
-The packed wire formats (b22, uint24, the dedup'd rows) wait for the
-wire-decoder slice of the port; a packed input raises
-NotImplementedError.  So do `arena_dtype="int8"`, `feed_bulk_compact`
-and `feed_bulk_dedup`.
+Three wire formats (data/wire.py), decoded on the device by
+`sparse_field_rows`: plain (`feed_bulk`: f32 dense, int32 ids, 160
+bytes/example), compact (`feed_bulk_compact`: bf16 dense, b22 ids, uint8
+labels, 99 bytes/example; uint24 ids decode too) and dedup
+(`feed_bulk_dedup`: the ids field-offset and hashed on the host, then
+dedup'd per field, so the embeddings take the rows as they are,
+`prehashed=True`).  The decode runs inside the named profiler range
+`wire_decode`.  `arena_dtype="int8"` stores both arenas as int8 codes
+with per-row scales (layers/arena.py).
 
 Record format: 13 float32 dense | 26 int32 sparse ids | 1 uint8 label =
 157 bytes.
@@ -32,6 +37,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from elasticdl_tpu_torch.data.wire import (
+    DedupPacker,
+    is_packed_b22,
+    is_packed_dedup,
+    is_packed_uint24,
+    pack_f32_to_bf16,
+    pack_int_to_b22,
+    unpack_b22,
+    unpack_rows_dedup,
+    unpack_uint24,
+)
 from elasticdl_tpu_torch.layers.arena import EmbeddingArena
 from elasticdl_tpu_torch.layers.embedding import hash_ids_host
 from elasticdl_tpu_torch.layers.linen import Dense
@@ -55,24 +71,27 @@ def field_offset_ids(sparse: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
 
 
-def _is_packed(sparse) -> bool:
-    # the wire formats of the JAX package's data/wire.py: b22 and dedup
-    # arrive as dicts of planes, uint24 as a trailing axis of 3 bytes
-    return isinstance(sparse, dict) or (
-        sparse.dtype == torch.uint8 and sparse.dim() >= 2
-        and sparse.shape[-1] == 3)
+def sparse_ids(features) -> torch.Tensor:
+    """(B, 26) int ids from `features["sparse"]`, whatever wire format it
+    arrived in: plain ids, or the compact b22 / uint24 packings."""
+    sparse = features["sparse"]
+    if is_packed_b22(sparse):
+        return unpack_b22(sparse)
+    if is_packed_uint24(sparse):
+        return unpack_uint24(sparse)
+    return sparse
 
 
 def sparse_field_rows(features, vocab_capacity: int):
-    """(B, 26) field-offset ids into the shared table, plus whether they
-    are already hashed (never, until the dedup'd wire format is
-    ported)."""
+    """(B, 26) rows into the shared table, plus whether they are already
+    hashed.  The dedup'd wire format ships pre-hashed rows (decoded by
+    `unpack_rows_dedup`; the embeddings then skip their hash); every
+    other format goes through the field offsets and the device hash."""
     sparse = features["sparse"]
-    if _is_packed(sparse):
-        raise NotImplementedError(
-            "packed sparse ids (b22, uint24, dedup'd rows) come with the "
-            "wire-decoder slice of the port")
-    return field_offset_ids(sparse), False
+    with torch.profiler.record_function("wire_decode"):
+        if is_packed_dedup(sparse):
+            return unpack_rows_dedup(sparse), True
+        return field_offset_ids(sparse_ids(features)), False
 
 
 def hash_field_rows_host(sparse, vocab_capacity: int) -> np.ndarray:
@@ -157,6 +176,10 @@ class DeepFM(nn.Module):
 
 def custom_model(vocab_capacity: int = 1 << 18, embed_dim: int = 16,
                  bf16: bool = False, arena_dtype: str = "float32"):
+    global DEDUP_VOCAB_CAPACITY
+    # the dedup feed hashes on the host, so it must use the capacity the
+    # model in this process was built with (feeds get no model handle)
+    DEDUP_VOCAB_CAPACITY = int(vocab_capacity)
     return DeepFM(
         vocab_capacity=vocab_capacity,
         embed_dim=embed_dim,
@@ -221,6 +244,47 @@ def feed_bulk(buffer, sizes, metadata=None):
     return {
         "features": {"dense": dense, "sparse": sparse},
         "labels": labels,
+    }
+
+
+def feed_bulk_compact(buffer, sizes, metadata=None):
+    """feed_bulk in the compact wire format: dense bf16, sparse b22
+    (uint16 low halves + bit-packed high 6), labels uint8, 99 bytes per
+    example on the link instead of 160.  The model decodes on the
+    device; dense values round through bf16 (they feed a log1p squash in
+    f32).  This record format keeps ids < 2^22, the b22 bound."""
+    batch = feed_bulk(buffer, sizes, metadata)
+    features = batch["features"]
+    return {
+        "features": {
+            "dense": pack_f32_to_bf16(features["dense"]),
+            "sparse": pack_int_to_b22(features["sparse"]),
+        },
+        "labels": batch["labels"].astype(np.uint8),
+    }
+
+
+DEDUP_VOCAB_CAPACITY = 1 << 18   # set by custom_model()
+# one packer for the process: its sticky caps keep consecutive batches of
+# every worker thread at one shape (DedupPacker is thread-safe)
+_DEDUP_PACKER = DedupPacker()
+
+
+def feed_bulk_dedup(buffer, sizes, metadata=None):
+    """feed_bulk in the dedup'd wire format: ids are field-offset and
+    hashed on the host into shared-table rows, dedup'd per field into a
+    frequency-ranked unique list, a 1-byte inverse plane and escape-coded
+    exceptions; dense bf16, labels uint8.  The device skips the hash (the
+    embeddings take the rows as they are)."""
+    batch = feed_bulk(buffer, sizes, metadata)
+    features = batch["features"]
+    rows = hash_field_rows_host(features["sparse"], DEDUP_VOCAB_CAPACITY)
+    return {
+        "features": {
+            "dense": pack_f32_to_bf16(features["dense"]),
+            "sparse": _DEDUP_PACKER.pack(rows),
+        },
+        "labels": batch["labels"].astype(np.uint8),
     }
 
 

@@ -54,20 +54,25 @@ class ModelOwner:
 
     def ensure_state(self, batch) -> None:
         """Initialize (and restore from the saver's newest intact step)
-        on the first batch; a state installed beforehand is kept."""
+        on the first batch; a state installed beforehand is kept.  The
+        state is installed only once the restore succeeded (the JAX
+        owner installs the random init first, so a retry after a failed
+        restore goes on from it)."""
         with self.lock:
             if self.sample_features is None:
                 # one host row, kept for export signatures
                 self.sample_features = _first_rows(batch["features"])
             if self.state is not None:
                 return
-            self.state = self.trainer.init_state(INIT_SEED,
-                                                 batch["features"])
+            state = self.trainer.init_state(INIT_SEED, batch["features"])
             if self.checkpoint_saver is not None:
-                restored = self.checkpoint_saver.maybe_restore(self.state)
+                # a restore that raises installs nothing: the next call
+                # tries again rather than going on from the random init
+                restored = self.checkpoint_saver.maybe_restore(state)
                 if restored is not None:
-                    self.state = restored
+                    state = restored
                     logger.info("Restored state from checkpoint")
+            self.state = state
 
     def has_trained_state(self) -> bool:
         """True if the owner holds (or can restore) non-random params."""

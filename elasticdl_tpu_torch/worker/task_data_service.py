@@ -29,7 +29,12 @@ def pad_to_multiple(batch, multiple: int):
     """Pad a nested dict of arrays along the leading dim up to a multiple
     of `multiple`, wrapping the existing rows; returns (padded_batch,
     real_count).  (A copy of the JAX package's parallel/mesh.py
-    `pad_to_multiple`.)"""
+    `pad_to_multiple`, which asserts where this raises.)  A leaf keeps
+    its array class (the bf16 bits of the compact format stay marked).
+
+    Every leaf must share one leading size.  A dedup batch does not (its
+    unique, starts, inverse8 and exc_val planes have four), so a dedup
+    tail raises here, as it fails in the JAX package."""
     leaves = []
 
     def collect(tree):
@@ -41,7 +46,12 @@ def pad_to_multiple(batch, multiple: int):
 
     collect(batch)
     sizes = {np.shape(x)[0] for x in leaves}
-    assert len(sizes) == 1, "ragged batch"
+    if len(sizes) != 1:
+        raise ValueError(
+            f"ragged batch: leading sizes {sorted(sizes)} differ, so its "
+            f"rows cannot be wrap-padded to a multiple of {multiple} (a "
+            "dedup wire-format batch has four plane sizes; give its tasks "
+            "a record count that is a multiple of the minibatch size)")
     n = sizes.pop()
     if n % multiple == 0:
         return batch, n
@@ -51,7 +61,9 @@ def pad_to_multiple(batch, multiple: int):
     def pad(tree):
         if isinstance(tree, dict):
             return {k: pad(v) for k, v in tree.items()}
-        return np.concatenate([tree] * reps, axis=0)[:target]
+        out = np.concatenate([tree] * reps, axis=0)[:target]
+        return out.view(type(tree)) if isinstance(tree, np.ndarray) \
+            else out
 
     return pad(batch), n
 

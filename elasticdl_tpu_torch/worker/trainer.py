@@ -7,6 +7,12 @@ model on one device.  Where the JAX step is one jitted function over
 immutable state, this one runs eagerly and updates its state in place:
 `TrainState` holds the model (its own copy, on the device) and the
 optimizer, and `train_on_batch` returns the same object one step on.
+After each optimizer step the int8 arenas fold their carrier's delta
+into their codes (`fold_quantized_updates`; a no-op without them).
+
+Batches move to the device at their wire width: the b22 and dedup plane
+dicts and bf16 dense features (data/wire.py) go plane by plane through
+`plane_tensor`, and the model's decoders widen them on the device.
 The tiered store, the mesh, sharding and elastic prewarm wait for their
 slices of the port.
 """
@@ -24,7 +30,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from elasticdl_tpu_torch.data.wire import (
+    BF16Bits,
+    is_wire_planes,
+    plane_tensor,
+)
 from elasticdl_tpu_torch.device import resolve_device
+from elasticdl_tpu_torch.layers.arena import fold_quantized_updates
 from elasticdl_tpu_torch.layers.linen import init_parameters
 
 # Process-wide execution lock for the CPU.  CPU work runs synchronously
@@ -60,9 +72,12 @@ def model_has_train_kwarg(model) -> bool:
 def to_tensor(arr, device: torch.device) -> torch.Tensor:
     """A numpy array (or tensor) as a tensor on `device`.  Wide unsigned
     ids become int64 in numpy first: torch's uint16/32/64 support few
-    ops, and the models cast ids at entry anyway."""
+    ops, and the models cast ids at entry anyway.  bf16 bit patterns
+    (`BF16Bits`) arrive as torch.bfloat16."""
     if isinstance(arr, torch.Tensor):
         return arr.to(device)
+    if isinstance(arr, BF16Bits):
+        return plane_tensor(arr, device)
     arr = np.asarray(arr)
     if arr.dtype.kind == "u" and arr.dtype != np.uint8:
         arr = arr.astype(np.int64)
@@ -72,7 +87,10 @@ def to_tensor(arr, device: torch.device) -> torch.Tensor:
 
 
 def _to_device(tree, device: torch.device):
-    """`to_tensor` over nested dicts."""
+    """`to_tensor` over nested dicts; a dict of wire planes moves plane
+    by plane at its wire width."""
+    if is_wire_planes(tree):
+        return {k: plane_tensor(v, device) for k, v in tree.items()}
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return to_tensor(tree, device)
@@ -184,6 +202,9 @@ class Trainer:
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
+        # int8 arenas: fold the carrier's delta into the codes, keyed on
+        # the step before the increment, as the JAX step does
+        fold_quantized_updates(state.model, state.step)
         state.step += 1
         return loss.detach()
 
@@ -207,7 +228,9 @@ class Trainer:
     def train_on_batch_stack(self, state: TrainState, batches):
         """len(batches) steps, one after another; returns (state, losses
         (K,)).  The same step as train_on_batch, so K steps here and K
-        calls there give the same parameters bit for bit."""
+        calls there give the same parameters bit for bit.  Batches of any
+        wire format (plain, b22, dedup) go through as they are; the
+        worker groups only batches of one shape."""
         def _steps():
             return torch.stack([
                 self._train_step(state, _to_device(b, self.device))

@@ -9,7 +9,9 @@ A task's exception is reported to the master as the task's failure
 (`err_message`); the master re-queues it up to its retry budget.  That
 is the one place an exception is caught and the loop goes on.
 
-Only the `plain` wire format is ported (compact and dedup raise); the
+Batches parse into the wire format `--wire_format` asks for (plain,
+compact or dedup; `resolve_wire_format` falls back where the zoo lacks
+a feed), for training, evaluation and prediction tasks alike.  The
 remesh path, TensorBoard scalars, `--profile_dir` traces and the program
 registry binding wait for their slices of the port.
 """
@@ -87,6 +89,20 @@ def report_evaluation_with_samples(
         client.report_evaluation_metrics(req)
 
 
+def _leaf_shapes(tree):
+    if isinstance(tree, dict):
+        return tuple((k, _leaf_shapes(v)) for k, v in sorted(tree.items()))
+    return (tuple(np.shape(tree)), str(getattr(tree, "dtype", None)))
+
+
+def _same_batch_shapes(a, b) -> bool:
+    """True when two host batches have identical leaf shapes and dtypes,
+    which one steps_per_execution group needs.  Only the dedup wire
+    format gives consecutive batches of different shapes (its sticky pad
+    caps grow, data/wire.py DedupPacker)."""
+    return _leaf_shapes(a) == _leaf_shapes(b)
+
+
 class TransientTaskError(RuntimeError):
     """The task is fine but this worker cannot serve it yet (e.g. an eval
     task leased before the worker has trained state).  Reported with
@@ -110,7 +126,9 @@ class Worker:
         self.worker_id = worker_id
         self.spec = spec
         self.minibatch_size = minibatch_size
-        resolve_wire_format(spec, wire_format, compact_wire)
+        # --wire_format / --compact_wire: the format batches parse into
+        self.wire_format = resolve_wire_format(spec, wire_format,
+                                               compact_wire, logger)
         # >1: that many steps per Trainer.train_on_batch_stack call
         self.steps_per_execution = max(1, int(steps_per_execution))
         self._client = master_client
@@ -241,7 +259,12 @@ class Worker:
                 continue
             # full groups go through train_batch_stack; the task's tail
             # (fewer than steps_per_execution batches) steps one by one.
-            # Batches are wrap-padded to one shape, so any group stacks.
+            # Dedup's sticky caps can grow between batches: a group holds
+            # one shape, so the held batches step one by one first.
+            if pending and not _same_batch_shapes(pending[-1], batch):
+                for held in pending:
+                    self._train_step(held)
+                pending.clear()
             pending.append(batch)
             if len(pending) == self.steps_per_execution:
                 self.losses.extend(self._owner.train_batch_stack(pending))
@@ -313,9 +336,11 @@ class Worker:
 
     @property
     def _feed_bulk(self):
-        """The zoo's vectorised parse for batches_for_task, or None (the
-        streaming feed runs then)."""
-        fn = self.spec.feed_bulk
+        """The zoo's vectorised parse for batches_for_task in the
+        resolved wire format, or None (the streaming feed runs then)."""
+        fn = {"plain": self.spec.feed_bulk,
+              "compact": self.spec.feed_bulk_compact,
+              "dedup": self.spec.feed_bulk_dedup}[self.wire_format]
         if fn is None:
             return None
         metadata = self._reader.metadata

@@ -122,11 +122,27 @@ def test_wrong_feature_names_raise():
         layer(ids)
 
 
-def test_int8_arena_is_queued_and_bad_dtypes_raise():
-    with pytest.raises(NotImplementedError, match="int8 arena slice"):
-        port_arena.EmbeddingArena(FEATURES, DIM, arena_dtype="int8")
-    with pytest.raises(ValueError, match="arena_dtype must be one of"):
-        port_arena.EmbeddingArena(FEATURES, DIM, arena_dtype="fp16")
+def test_int8_arena_has_planes_and_a_zero_carrier_and_bad_dtypes_raise():
+    """The int8 arena keeps the fp32 arena's parameter (a zero carrier
+    named `embedding`, same shape) and adds the `q8`/`scale` buffers,
+    drawn from normal(0.05) and quantized; an unknown dtype raises."""
+    layer = port_arena.EmbeddingArena(FEATURES, DIM, arena_dtype="int8")
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    rows = port_arena.arena_rows(FEATURES)
+    assert dict(layer.named_parameters()).keys() == {"embedding"}
+    assert tuple(layer.embedding.shape) == (rows, DIM)
+    assert not layer.embedding.detach().any()
+    assert set(layer.state_dict()) == {"embedding", "q8", "scale"}
+    assert layer.q8.dtype == torch.int8 and tuple(layer.q8.shape) == (
+        rows, DIM)
+    assert layer.scale.dtype == torch.float32 and tuple(
+        layer.scale.shape) == (rows, 1)
+    assert int(layer.q8.abs().max()) == 127      # each row's max code
+    table = port_arena.dequantize_rows(layer.q8, layer.scale)
+    assert abs(float(table.std()) - 0.05) < 0.005
+    for bad in ("fp16", "int4"):
+        with pytest.raises(ValueError, match="arena_dtype must be one of"):
+            port_arena.EmbeddingArena(FEATURES, DIM, arena_dtype=bad)
 
 
 def test_init_distribution_matches_flax_stddev():

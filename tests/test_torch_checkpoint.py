@@ -230,6 +230,40 @@ def test_eval_at_version_restores_a_separate_state(tmp_path):
                               owner.predict_batch(batches[0]))
 
 
+def test_a_failed_restore_installs_no_state_and_the_retry_restores(
+        tmp_path, monkeypatch):
+    """A restore that raises leaves the owner without a state, so the
+    next call restores again instead of training on from the random
+    init."""
+    trainer = _trainer()
+    saved = _trained(trainer, 3)
+    saver = save_utils.CheckpointSaver(str(tmp_path))
+    saver.save(saved)
+    saver.wait_until_finished()
+    real_restore = saver.maybe_restore
+    calls = []
+
+    def restore_failing_once(state, **kwargs):
+        calls.append(state)
+        if len(calls) == 1:
+            raise OSError("checkpoint read failed")
+        return real_restore(state, **kwargs)
+
+    monkeypatch.setattr(saver, "maybe_restore", restore_failing_once)
+    owner = ModelOwner(trainer, checkpoint_saver=saver)
+    batch = _batches(1, seed=9)[0]
+    with pytest.raises(OSError, match="read failed"):
+        owner.train_batch(batch)
+    assert owner.state is None and owner.step == 0
+    loss = owner.train_batch(batch)
+    assert len(calls) == 2 and owner.step == 4
+    # the same step taken from the saved state itself
+    want, want_loss = trainer.train_on_batch(saved, batch)
+    assert torch.equal(loss, want_loss)
+    _assert_states_equal(owner.state, want)
+    saver.close()
+
+
 def test_an_orbax_checkpoint_directory_raises(tmp_path):
     import jax.numpy as jnp
     import orbax.checkpoint as ocp

@@ -6,6 +6,8 @@ for byte.
 Small configuration: vocab 4096, embed dim 8, MLP (256, 128), batch 64.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,13 +15,17 @@ import optax
 import pytest
 import torch
 
+from elasticdl_tpu.data import wire as jax_wire
+from elasticdl_tpu.layers import arena as jax_arena
 from elasticdl_tpu_torch.common import model_handler as port_handler
 from elasticdl_tpu_torch.common.weights import flatten_params, params_from_jax
+from elasticdl_tpu_torch.data import wire as port_wire
 from elasticdl_tpu_torch.model_zoo.common import metrics as port_metrics
 from elasticdl_tpu_torch.model_zoo.deepfm import data as port_data
 from elasticdl_tpu_torch.model_zoo.deepfm import (
     deepfm_functional_api as port_fm,
 )
+from elasticdl_tpu_torch.worker import trainer as port_trainer
 from model_zoo.common import metrics as jax_metrics
 from model_zoo.deepfm import data as jax_data
 from model_zoo.deepfm import deepfm_functional_api as jax_fm
@@ -178,19 +184,74 @@ def test_auc_and_accuracy_equal(case):
         jax_metrics.binary_accuracy(labels, scores)
 
 
-@pytest.mark.parametrize("sparse", [
-    {"lo16": torch.zeros(2, 26), "hi6": torch.zeros(2, 20)},
-    torch.zeros(2, 26, 3, dtype=torch.uint8),
-])
-def test_packed_wire_formats_are_queued(sparse):
-    model = port_fm.custom_model(vocab_capacity=64, embed_dim=4)
-    with pytest.raises(NotImplementedError, match="wire-decoder slice"):
-        model({"dense": torch.zeros(2, 13), "sparse": sparse})
+def _wire_inputs(fmt, seed=6):
+    """The same synthetic batch in wire format `fmt`, packed by each
+    package: (JAX model input, port model input on the CPU)."""
+    dense, sparse, _ = port_data.synthetic_criteo(BATCH, seed=seed)
+    jdense = jax_wire.pack_f32_to_bf16(dense)
+    pdense = port_wire.pack_f32_to_bf16(dense)
+    if fmt == "b22":
+        jsparse = jax_wire.pack_int_to_b22(sparse)
+        psparse = port_wire.pack_int_to_b22(sparse)
+    elif fmt == "uint24":
+        jsparse = jax_wire.pack_int_to_uint24(sparse)
+        psparse = port_wire.pack_int_to_uint24(sparse)
+    else:
+        jsparse = jax_wire.pack_rows_dedup(
+            jax_fm.hash_field_rows_host(sparse, CFG["vocab_capacity"]))
+        psparse = port_wire.pack_rows_dedup(
+            port_fm.hash_field_rows_host(sparse, CFG["vocab_capacity"]))
+    port_in = port_trainer._to_device({"dense": pdense, "sparse": psparse},
+                                      torch.device("cpu"))
+    return {"dense": jdense, "sparse": jsparse}, port_in
 
 
-def test_int8_arena_is_queued():
-    with pytest.raises(NotImplementedError, match="int8 arena slice"):
-        port_fm.custom_model(vocab_capacity=64, arena_dtype="int8")
+@pytest.mark.parametrize("fmt", ["b22", "uint24", "dedup"])
+def test_packed_wire_formats_match_flax(pair, fmt):
+    """The port's forward on each packed wire format matches the flax
+    model's on the same packed input, within the f32/bf16 tolerance; the
+    decoded rows equal the JAX decoder's bit for bit."""
+    bf16, jax_model, variables, port_model = pair
+    jax_in, port_in = _wire_inputs(fmt)
+    want = np.asarray(jax_model.apply(variables, jax_in), np.float32)
+    with torch.no_grad():
+        got = port_model(port_in)
+    tol = BF16_TOL if bf16 else F32_TOL
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    rows, prehashed = port_fm.sparse_field_rows(port_in, 4096)
+    jrows, jpre = jax_fm.sparse_field_rows(jax_in, 4096)
+    assert prehashed == jpre == (fmt == "dedup")
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_int8_deepfm_matches_flax(bf16):
+    """The int8 DeepFM with the flax params and quantized planes carried
+    across: the dequantized gather bit for bit, the logits within
+    F32_TOL (BF16_TOL with the bf16 MLP)."""
+    feats = _features(seed=8, pad=False)
+    jax_model = jax_fm.custom_model(**CFG, bf16=bf16, arena_dtype="int8")
+    variables = jax_model.init(jax.random.PRNGKey(0), feats)
+    port_model = port_fm.custom_model(**CFG, bf16=bf16, arena_dtype="int8")
+    as_np = functools.partial(jax.tree.map, np.asarray)
+    port_model.load_state_dict(params_from_jax(
+        port_model, flatten_params(as_np(variables["params"])),
+        quantized=flatten_params(as_np(variables["quantized"]))),
+        strict=True)
+    want = np.asarray(jax_model.apply(variables, feats), np.float32)
+    tensors = {k: torch.from_numpy(v) for k, v in feats.items()}
+    with torch.no_grad():
+        got = port_model(tensors)
+        rows, _ = port_fm.sparse_field_rows(tensors, 4096)
+        vecs = port_model.fm_embedding({"sparse": rows})["sparse"]
+    tol = BF16_TOL if bf16 else F32_TOL
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    planes = variables["quantized"]["fm_embedding"]["embedding"]
+    jrows = np.asarray(jax_fm.hash_field_rows_host(feats["sparse"], 4096))
+    np.testing.assert_array_equal(
+        vecs.numpy(),
+        np.asarray(jax_arena.dequantize_rows(planes["q8"][jrows],
+                                             planes["scale"][jrows])))
 
 
 def test_get_model_spec_loads_the_port_zoo():
@@ -206,5 +267,6 @@ def test_get_model_spec_loads_the_port_zoo():
     assert opt.defaults["betas"] == (0.9, 0.999)
     assert opt.defaults["eps"] == 1e-8
     assert spec.feed_bulk is port_fm.feed_bulk
-    assert spec.feed_bulk_compact is None and spec.feed_bulk_dedup is None
+    assert spec.feed_bulk_compact is port_fm.feed_bulk_compact
+    assert spec.feed_bulk_dedup is port_fm.feed_bulk_dedup
     assert set(spec.eval_metrics) == {"auc", "accuracy"}

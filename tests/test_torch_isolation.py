@@ -1,6 +1,6 @@
 """The port stands alone: no module of elasticdl_tpu_torch, and not
 chip_smoke.py, imports jax, flax, optax, orbax, protobuf, grpc,
-elasticdl_tpu or model_zoo — at import time (checked in a subprocess
+ml_dtypes, elasticdl_tpu or model_zoo — at import time (checked in a subprocess
 that blocks them) or lazily inside a function (checked on the source).
 And the entry points pick the GPU unless told "cpu"."""
 
@@ -18,7 +18,7 @@ from elasticdl_tpu_torch import device as device_lib
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "elasticdl_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "elasticdl_tpu",
-           "model_zoo", "google.protobuf", "grpc")
+           "model_zoo", "google.protobuf", "grpc", "ml_dtypes")
 
 
 def _blocked(name: str) -> bool:
@@ -76,8 +76,8 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
         capture_output=True, text=True, timeout=300, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
-    # every module of the slices, down to the Local runner's
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 45
+    # every module of the slices, down to the wire formats'
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 54
 
 
 @pytest.mark.parametrize(

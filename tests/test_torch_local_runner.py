@@ -278,13 +278,13 @@ def test_cli_rejects_and_raises(data, monkeypatch):
     with pytest.raises(SystemExit):
         cli.main(["train", *_flags(train_dir, val_dir), "--device", "cpu",
                   "--tensorboard_log_dir", "/tmp/tb"])
-    with pytest.raises(SystemExit):
-        cli.parse_args(["train", "--device", "tpu"])
+    for bad in (["--device", "tpu"], ["--wire_format", "bogus"],
+                ["--arena_dtype", "int4"]):
+        with pytest.raises(SystemExit):
+            cli.parse_args(["train", *bad])
     flags = _flags(train_dir, val_dir)
     for extra, match in (
             (["--distribution_strategy", "AllReduce"], "cluster"),
-            (["--wire_format", "compact"], "wire"),
-            (["--compact_wire", "true"], "wire"),
             (["--output", "/tmp/export"], "export")):
         with pytest.raises(NotImplementedError, match=match):
             cli.main(["train", *flags, "--device", "cpu", *extra])
