@@ -64,6 +64,30 @@
    the carrier gradients (the scatter-add kernel behind `_GradTap`) must
    equal the plain scatter-add of those gradients on the CPU bit for bit.
 
+7. Holds the flash-attention backward kernel against its plain version
+   (`_flash_bwd`) on the card, on the plain forward's residuals, and
+   against itself across two calls (bitwise): at (64, 512, 12 x 64) bf16
+   from fused-QKV views, causal and not (the `mma_sync` variant), f32
+   at D = 16, ragged L = 72, D = 128, and the tiny Local BERT job's
+   (64, 32, 4 x 16) f32 from fused-QKV views (`check_flash_bwd`; step 2
+   holds the forward at that shape too); timed beside the plain
+   version, the bound and SDPA's backward.
+8. Trains BERT-base through the bare Trainer at bench.py::bench_bert's
+   shape (batch 64, L 512, full width, bf16, the zoo's AdamW), without
+   and with remat (`train_bert`): one counted step, then timed steps
+   (`Trainer.timed_steps_per_sec`), peak memory and a profiled step's
+   device time by group.  Each step must launch the flash backward 12
+   times, the forward 12 times (24 with remat) and the scatter-add once
+   (the token table, also held bitwise to its plain version at these
+   rows in step 2).  A small f32 BERT is checked against the CPU.
+9. Runs the Local runner on BERT (`local_bert`): the planted-pairs job
+   of tests/test_bert.py (hidden 64, L 32, 384 steps) must reach an
+   accuracy above 0.9, and an evaluate job from its checkpoint must
+   reproduce its metrics exactly; then one epoch of 2048 records at
+   bench_bert's width, checkpointed once at its end, for its wall and
+   examples/s.  Both must launch the flash backward once per layer and
+   step.
+
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
 JSON; the last is {"ok": true, "device": {...}}.  The measured numbers,
@@ -104,9 +128,13 @@ from elasticdl_tpu_torch.data.wire import (  # noqa: E402
 from elasticdl_tpu_torch.layers.arena import (  # noqa: E402
     fold_quantized_updates,
 )
-from elasticdl_tpu_torch.layers.embedding import hash_ids  # noqa: E402
-from elasticdl_tpu_torch.model_zoo.bert.bert_finetune import (  # noqa: E402
-    init_parameters,
+from elasticdl_tpu_torch.layers.embedding import (  # noqa: E402
+    hash_ids,
+    hash_ids_host,
+)
+from elasticdl_tpu_torch.layers.linen import init_parameters  # noqa: E402
+from elasticdl_tpu_torch.model_zoo.bert.data import (  # noqa: E402
+    write_dataset as write_pairs,
 )
 from elasticdl_tpu_torch.model_zoo.common.metrics import auc  # noqa: E402
 from elasticdl_tpu_torch.model_zoo.deepfm import (  # noqa: E402
@@ -213,6 +241,42 @@ WIRE_FORMATS = ("plain", "compact", "dedup", "plain-int8")
 # the named profiler ranges of the wire decode and the int8 arena
 RANGES = ("wire_decode", "int8_lookup", "int8_fold")
 
+# Flash backward, kernel vs plain on the same inputs: both accumulate in
+# f32 in another order; bf16 gradients are then rounded to bf16, so the
+# bound is two rounding steps (2^-7) of the gradient's largest magnitude;
+# f32 keeps 1e-5 of it.
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+# BERT-base training as bench.py::bench_bert configures it: batch 64,
+# L 512, full width, bf16 compute, the zoo's AdamW (lr 2e-5, wd 0.01)
+BERT = "bert.bert_finetune.custom_model"
+TRAIN_BATCH = 64
+TRAIN_TIMED_STEPS = 8
+# f32 card vs CPU, a small BERT at D = 64 (the CUDA-core kernels): the
+# per-step losses differ by the order of f32 sums (cuBLAS and the flash
+# kernels vs the CPU's products), which AdamW's sign-like first steps
+# carry into the parameters.
+BERT_CPU_PARAMS = ("hidden=256;num_layers=2;heads=4;mlp_dim=512;"
+                   "max_len=128;vocab_size=512;lr=0.001")
+BERT_CPU_STEPS = 3
+BERT_CPU_LOSS_TOL = 1e-4
+# The Local runner on BERT: tests/test_bert.py's planted-pairs config
+# (must learn to accuracy > 0.9), then bench_bert's width on 2048 records
+BERT_TINY_PARAMS = ("hidden=64;num_layers=2;heads=4;mlp_dim=128;"
+                    "max_len=32;vocab_size=16;lr=0.003")
+BERT_TINY_TRAIN = 4096
+BERT_TINY_EPOCHS = 6
+BERT_TINY_BATCH = 64
+BERT_TINY_STEPS = BERT_TINY_TRAIN * BERT_TINY_EPOCHS // BERT_TINY_BATCH  # 384
+BERT_TINY_LAYERS = 2
+BERT_TINY_ACCURACY = 0.9
+# the tiny job's attention: (batch, max_len, heads, hidden / heads), f32
+BERT_TINY_ATTENTION = (BERT_TINY_BATCH, 32, 4, 16)
+BERT_FULL_TRAIN = 2048
+BERT_FULL_VAL = 512
+BERT_FULL_STEPS = BERT_FULL_TRAIN // TRAIN_BATCH                    # 32
+BERT_RECORDS_PER_TASK = 512
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -247,20 +311,31 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(q, k, v, causal: bool):
+def attention_bound_ms(q, k, v, causal: bool, backward: bool = False):
     """Least time for the kernel's work on this card: each input read
-    once, O and lse written once, over HBM; QK^T and PV over the peak
-    rate of the input type (causal: only the unmasked pairs)."""
+    once and each output written once, over HBM; the products over the
+    peak rate of the input type (causal: only the unmasked pairs).  The
+    forward reads q, k, v and writes O and lse: QK^T and PV.  The
+    backward reads q, k, v, O, dO and lse and writes dQ, dK and dV: QK^T,
+    dO V^T, P^T dO, dS K and dS^T Q."""
     batch, q_len, heads, dim = q.shape
     k_len = k.shape[1]
     elem = q.element_size()
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * elem \
-        + batch * q_len * heads * 4
+    lse_bytes = batch * q_len * heads * 4
+    if backward:
+        # q, O, dO and dQ; k and dK; v and dV
+        nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * elem \
+            + lse_bytes
+        products = 5
+    else:
+        nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * elem \
+            + lse_bytes
+        products = 2
     if causal:
         pairs = sum(min(i + 1, k_len) for i in range(q_len))
     else:
         pairs = q_len * k_len
-    flops = 4.0 * batch * heads * pairs * dim
+    flops = 2.0 * products * batch * heads * pairs * dim
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -297,6 +372,8 @@ def check_flash_kernel(gen):
         ("bf16-d128", (32, SEQ_LEN, 6, 128), torch.bfloat16, False, False),
         ("ragged-bf16-d128-causal", (4, 200, 4, 128), torch.bfloat16, True,
          False),
+        ("local-bert-tiny-f32", BERT_TINY_ATTENTION, torch.float32, False,
+         True),
     ]
     rows = []
     for label, shape, dtype, causal, fused in cases:
@@ -350,6 +427,115 @@ def check_flash_kernel(gen):
         "variant": main["variant"][0],
         "replaces": "elasticdl_tpu/ops/flash_attention.py:48",
         "max_abs_err": main["max_abs_err_out"],
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+    }
+    return entry, rows
+
+
+def sdpa_backward_fn(q, k, v, g, causal: bool):
+    """One backward of torch's scaled_dot_product_attention at the same
+    inputs (the library yardstick; the port never calls it): the forward
+    is recorded once, each call differentiates it again."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    gt = g.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                       retain_graph=True)
+
+
+def check_flash_bwd(gen):
+    """The backward kernel vs the plain `_flash_bwd` on the card, on the
+    plain forward's residuals, and vs itself across two calls (bitwise);
+    timed at the training shape.  Returns (kernels entry sans launches,
+    detail rows)."""
+    cases = [
+        # (label, shape, dtype, causal, fused qkv views, timed)
+        ("train-bf16", (TRAIN_BATCH, SEQ_LEN, 12, 64), torch.bfloat16,
+         False, True, True),
+        ("train-bf16-causal", (TRAIN_BATCH, SEQ_LEN, 12, 64),
+         torch.bfloat16, True, True, True),
+        ("f32-d16", (8, SEQ_LEN, 12, 16), torch.float32, False, False,
+         True),
+        ("f32-d16-causal", (8, SEQ_LEN, 12, 16), torch.float32, True,
+         False, False),
+        ("ragged-bf16", (4, 72, 12, 64), torch.bfloat16, False, True,
+         False),
+        ("ragged-bf16-causal", (4, 72, 12, 64), torch.bfloat16, True,
+         False, False),
+        ("ragged-f32-d16", (4, 72, 4, 16), torch.float32, False, False,
+         False),
+        ("ragged-f32-d64-causal", (4, 72, 12, 64), torch.float32, True,
+         False, False),
+        ("bf16-d128", (16, SEQ_LEN, 6, 128), torch.bfloat16, False, False,
+         True),
+        ("ragged-bf16-d128-causal", (4, 200, 4, 128), torch.bfloat16, True,
+         False, False),
+        ("bf16-d32", (4, 128, 4, 32), torch.bfloat16, True, False, False),
+        ("local-bert-tiny-f32", BERT_TINY_ATTENTION, torch.float32, False,
+         True, False),
+    ]
+    rows = []
+    for label, shape, dtype, causal, fused, timed in cases:
+        q, k, v = make_qkv(shape, dtype, gen, fused)
+        out, lse = fa.flash_attention_reference(q, k, v, causal=causal)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        scale = shape[-1] ** -0.5
+        fa.reset_launch_counts()
+        got = fa.flash_attention_backward(q, k, v, out, lse, g, causal)
+        variant = [name for name, n in
+                   fa.flash_attention.backward_launches_by_kernel.items()
+                   if n]
+        again = fa.flash_attention_backward(q, k, v, out, lse, g, causal)
+        want = fa._flash_bwd(causal, scale, (q, k, v, out, lse), g)
+        torch.cuda.synchronize()
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, want)]
+        scales = [float(b.float().abs().max()) for b in want]
+        tol = BWD_TOL[dtype]
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        want_variant = (fa.MMA_SYNC if dtype == torch.bfloat16
+                        and shape[-1] in fa.TENSOR_CORE_HEAD_DIMS
+                        else fa.CUDA_CORE)
+        ok = (finite and bitwise and variant == [want_variant]
+              and all(e <= tol * max(1.0, sc)
+                      for e, sc in zip(errs, scales)))
+        row = {"case": label, "shape": list(shape),
+               "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+               "fused_qkv": fused, "variant": variant,
+               "max_abs_err_dq_dk_dv": errs, "scale_dq_dk_dv": scales,
+               "tol_relative": tol, "bitwise_across_calls": bitwise}
+        if timed:
+            row["ms"] = time_ms(lambda: fa.flash_attention_backward(
+                q, k, v, out, lse, g, causal), 10)
+            row["plain_ms"] = time_ms(lambda: fa._flash_bwd(
+                causal, scale, (q, k, v, out, lse), g), 3)
+            row["library_ms"] = time_ms(
+                sdpa_backward_fn(q, k, v, g, causal), 10)
+            row["bound_ms"], row["bound_by"] = attention_bound_ms(
+                q, k, v, causal, backward=True)
+        print(json.dumps({"flash_bwd": row}), flush=True)
+        if not ok:
+            raise AssertionError(
+                f"flash backward kernel disagrees with its plain version, "
+                f"with itself, or ran the wrong variant (bf16 at D 64/128 "
+                f"goes to {fa.MMA_SYNC}, the rest to {fa.CUDA_CORE}): "
+                f"{row}")
+        rows.append(row)
+        del q, k, v, out, lse, g, got, again, want
+    main = rows[0]
+    entry = {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "elasticdl_tpu_torch/csrc/flash_attention_bwd.cu",
+        "variant": main["variant"][0],
+        "replaces": "elasticdl_tpu/ops/flash_attention.py:208",
+        "max_abs_err": max(main["max_abs_err_dq_dk_dv"]),
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -533,6 +719,17 @@ def forward_breakdown(engine):
     }
 
 
+def bert_train_batch():
+    """bench.py::bench_bert's batch: 64 rows of 512 ids in [0, 8192) and
+    binary labels, from a seeded generator."""
+    rng = np.random.RandomState(SEED)
+    return {
+        "features": {"input_ids": rng.randint(
+            0, VOCAB, (TRAIN_BATCH, SEQ_LEN)).astype(np.int32)},
+        "labels": rng.randint(0, 2, TRAIN_BATCH).astype(np.int32),
+    }
+
+
 def make_criteo_batch(batch_size: int):
     """bench.py's _make_criteo_batch: zipf(1.5) ids over a 2^22 raw
     space, so one id takes ~38% of each field and most are rare."""
@@ -583,8 +780,9 @@ def scatter_launch_breakdown(kernel_only, reps: int = 5):
 
 
 def path_rows(wire_buffer: bytes) -> dict:
-    """The arena rows each DeepFM path hands the scatter-add, from the
-    data that path trains on: the bare Trainer's timed batch, the first
+    """The table rows each training path hands the scatter-add, from the
+    data that path trains on: BERT's token rows at train_bert's batch;
+    the bare DeepFM Trainer's timed batch, the first
     `wire_deepfm` batch (hashed on the host as the plain and compact
     paths hash on the card; and decoded on the card from its dedup
     planes, which must give the same rows bit for bit), and the first
@@ -603,6 +801,10 @@ def path_rows(wire_buffer: bytes) -> dict:
     local_sparse = synthetic_criteo(LOCAL_TRAIN // LOCAL_SHARDS,
                                     seed=SEED)[1][:AUC_BATCH]
     return {
+        # the BERT token table takes ids mod its vocab, unmixed
+        "bert": hash_ids_host(
+            bert_train_batch()["features"]["input_ids"], VOCAB,
+            mix=False).reshape(-1),
         "main": hash_field_rows_host(
             make_criteo_batch(TIMED_BATCH)["features"]["sparse"],
             DEEPFM_VOCAB).reshape(-1),
@@ -626,6 +828,8 @@ def check_scatter_kernel(gen, wire_buffer: bytes):
         ("wire-d16", rows_of["wire"], DEEPFM_VOCAB, DEEPFM_DIM, True),
         ("wire-d1", rows_of["wire"], DEEPFM_VOCAB, 1, True),
         ("local-d16", rows_of["local"], DEEPFM_VOCAB, DEEPFM_DIM, False),
+        # the BERT token table's backward at train_bert's batch
+        ("bert-d768", rows_of["bert"], VOCAB, 768, True),
         ("local-d1", rows_of["local"], DEEPFM_VOCAB, 1, False),
         ("probe", (rng.zipf(1.5, 262144) % 8192).astype(np.int32), 8192,
          16, True),
@@ -877,7 +1081,8 @@ def deepfm_card_vs_cpu():
 
 def step_breakdown(trainer, state, batch):
     """Device time of one synced training step by group (torch.profiler)
-    and the device's busy share of its host wall time."""
+    and the device's busy share of its host wall time.  "other" holds the
+    elementwise passes (LayerNorm, GELU, casts, residuals)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -900,11 +1105,17 @@ def step_breakdown(trainer, state, batch):
             us = evt.self_cuda_time_total
         by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us / 1e3
     groups = {"scatter_add": 0.0, "sort": 0.0, "gather": 0.0, "adam": 0.0,
-              "matmul": 0.0, "other": 0.0}
+              "matmul": 0.0, "flash_attention_fwd": 0.0,
+              "flash_attention_bwd": 0.0, "other": 0.0}
     for name, ms in by_kernel.items():
         low = name.lower()
-        if any(s in low for s in ("scatter_add_segments", "scatter_add_long",
-                                  "permute_rows")):
+        if "flash_fwd" in low:
+            groups["flash_attention_fwd"] += ms
+        elif any(s in low for s in ("dkdv_", "dq_mma", "dq_core",
+                                    "delta_kernel")):
+            groups["flash_attention_bwd"] += ms
+        elif any(s in low for s in ("scatter_add_segments",
+                                    "scatter_add_long", "permute_rows")):
             groups["scatter_add"] += ms
         elif "sort" in low:
             groups["sort"] += ms
@@ -1418,6 +1629,280 @@ def local_deepfm(card: str):
         shutil.rmtree(tmp)
 
 
+def bert_launches() -> dict:
+    return {"flash_attention_fwd": fa.flash_attention.launches,
+            "flash_attention_fwd_by_variant":
+                dict(fa.flash_attention.launches_by_kernel),
+            "flash_attention_bwd": fa.flash_attention.backward_launches,
+            "flash_attention_bwd_by_variant":
+                dict(fa.flash_attention.backward_launches_by_kernel),
+            "scatter_add": sa.scatter_add.launches}
+
+
+def reset_counts() -> None:
+    fa.reset_launch_counts()
+    sa.scatter_add.launches = 0
+
+
+def check_bert_launches(label: str, launches: dict, steps: int,
+                        layers: int, remat: bool, fwd_variant: str,
+                        bwd_variant: str, other_forwards: bool = False
+                        ) -> int:
+    """Per step: one flash backward per layer; one flash forward per
+    layer (two with remat: the checkpoint reruns it in the backward);
+    one scatter-add (the token table).  Every launch on the named
+    variants.  With `other_forwards` (a Local job: the init's forward and
+    the eval batches) the forwards beyond the steps' must be a positive
+    whole number of model forwards; returns that number."""
+    train_fwd = steps * layers * (2 if remat else 1)
+    fwd = launches["flash_attention_fwd"]
+    extra = fwd - train_fwd
+    if other_forwards:
+        ok_extra = extra > 0 and extra % layers == 0
+    else:
+        ok_extra = extra == 0
+    want = {"flash_attention_fwd_by_variant": {fwd_variant: fwd},
+            "flash_attention_bwd": steps * layers,
+            "flash_attention_bwd_by_variant": {bwd_variant: steps * layers},
+            "scatter_add": steps}
+    got = {k: ({n: c for n, c in v.items() if c} if isinstance(v, dict)
+               else v) for k, v in launches.items()
+           if k != "flash_attention_fwd"}
+    if got != want or not ok_extra:
+        raise AssertionError(
+            f"{label}: launches {launches}; want {want} and "
+            f"{train_fwd} training forwards"
+            + (" plus whole model forwards" if other_forwards else ""))
+    return extra // layers
+
+
+def train_bert():
+    """BERT-base training through the bare Trainer at bench_bert's shape,
+    without and with remat: one counted step, timed steps, peak memory
+    and a profiled step; then a small f32 BERT on the card vs the CPU.
+    Returns (summary, launches by config)."""
+    device = torch.device("cuda", 0)
+    batch = bert_train_batch()
+    summary, launches_by = {}, {}
+    first_loss = {}
+    for tag, extra in (("plain", ""), ("remat", ";remat=True")):
+        remat = tag == "remat"
+        spec = get_model_spec(ZOO_DIR, BERT, BERT_PARAMS + ";bf16=True"
+                              + extra)
+        trainer = Trainer(spec.model, spec.optimizer, spec.loss,
+                          use_bf16=True, device=device)
+        state = trainer.init_state(SEED, batch["features"])
+        staged = trainer.stage_batch(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+
+        # ---- the main path: counts start at 0 here ----
+        reset_counts()
+        state, loss = trainer.train_on_batch(state, staged)
+        torch.cuda.synchronize()
+        one_step = bert_launches()
+        # ---- end of the main path ----
+        peak_bytes = torch.cuda.max_memory_allocated()
+        first_loss[tag] = float(loss)
+        check_bert_launches(f"train_bert {tag}", one_step, 1, NUM_LAYERS,
+                            remat, fa.SM90_WGMMA, fa.MMA_SYNC)
+
+        # ---- the main path: counts start at 0 here ----
+        reset_counts()
+        steps_per_s = trainer.timed_steps_per_sec(
+            state, staged, iters=TRAIN_TIMED_STEPS)
+        launches = bert_launches()
+        # ---- end of the main path ----
+        # the first call warms up with one step of its own
+        check_bert_launches(f"train_bert {tag} timed", launches,
+                            TRAIN_TIMED_STEPS + 1, NUM_LAYERS, remat,
+                            fa.SM90_WGMMA, fa.MMA_SYNC)
+        breakdown = step_breakdown(trainer, state, staged)
+        last = trainer.predict_on_batch(state, batch["features"])
+        if not (np.isfinite(first_loss[tag]) and np.isfinite(last).all()
+                and last.shape == (TRAIN_BATCH, 2)):
+            raise AssertionError(f"train_bert {tag}: non-finite or "
+                                 f"misshapen outputs")
+        summary[tag] = {
+            "config": BERT_PARAMS + ";bf16=True" + extra,
+            "batch": TRAIN_BATCH, "seq_len": SEQ_LEN,
+            "timed_steps": TRAIN_TIMED_STEPS,
+            "steps_per_s": steps_per_s,
+            "step_ms": 1e3 / steps_per_s,
+            "examples_per_s": TRAIN_BATCH * steps_per_s,
+            "first_loss": first_loss[tag],
+            "peak_memory_bytes": peak_bytes,
+            "state_bytes": base_bytes,
+            "launches_one_step": one_step,
+            "launches_timed": launches,
+            "step_breakdown": breakdown,
+        }
+        launches_by[tag] = launches
+        print(json.dumps({f"train_bert_{tag}": summary[tag]}), flush=True)
+        del trainer, state, staged
+        torch.cuda.empty_cache()
+    # the same seed, the same kernels: remat changes memory, not numbers
+    summary["remat_first_loss_equal"] = \
+        first_loss["plain"] == first_loss["remat"]
+    summary["cpu_check"] = bert_card_vs_cpu()
+    return summary, launches_by
+
+
+def bert_card_vs_cpu():
+    """A few f32 AdamW steps of a small BERT (D = 64: the CUDA-core flash
+    kernels) on the card and on the CPU (plain path) from the same
+    weights."""
+    spec = get_model_spec(ZOO_DIR, BERT, BERT_CPU_PARAMS)
+    gpu = Trainer(spec.model, spec.optimizer, spec.loss, device="cuda")
+    cpu = Trainer(spec.model, spec.optimizer, spec.loss, device="cpu")
+    rng = np.random.RandomState(SEED + 3)
+    batches = [{"features": {"input_ids": rng.randint(
+                    0, 512, (8, 128)).astype(np.int32)},
+                "labels": rng.randint(0, 2, 8).astype(np.int32)}
+               for _ in range(BERT_CPU_STEPS)]
+    gs = gpu.init_state(SEED, batches[0]["features"])
+    cs = cpu.init_state(SEED, batches[0]["features"])
+    cs.model.load_state_dict({k: v.cpu() for k, v in
+                              gs.model.state_dict().items()})
+    reset_counts()
+    loss_err, losses = 0.0, []
+    for batch in batches:
+        gs, gl = gpu.train_on_batch(gs, batch)
+        cs, cl = cpu.train_on_batch(cs, batch)
+        losses.append(float(cl))
+        loss_err = max(loss_err, abs(float(gl) - float(cl)))
+    launches = bert_launches()
+    check = {"config": BERT_CPU_PARAMS, "steps": BERT_CPU_STEPS,
+             "losses_cpu": losses, "loss_max_abs_err": loss_err,
+             "loss_tol": BERT_CPU_LOSS_TOL, "launches": launches}
+    print(json.dumps({"bert_card_vs_cpu": check}), flush=True)
+    check_bert_launches("bert_card_vs_cpu", launches, BERT_CPU_STEPS, 2,
+                        False, fa.CUDA_CORE, fa.CUDA_CORE)
+    if not loss_err <= BERT_CPU_LOSS_TOL:
+        raise AssertionError(f"BERT on the card vs CPU: {check}")
+    return check
+
+
+def bert_argv(job: str, params: str, batch: int, *extra) -> list:
+    return [job, "--distribution_strategy", "Local", "--model_def", BERT,
+            "--model_params", params, "--minibatch_size", str(batch),
+            "--records_per_task", str(BERT_RECORDS_PER_TASK), *extra]
+
+
+def local_bert(card: str):
+    """The Local runner on BERT: the planted-pairs job of tests/
+    test_bert.py to accuracy > 0.9 and an evaluate job from its
+    checkpoint with exactly its metrics; then one epoch at bench_bert's
+    width for its wall and examples/s.  Returns (summary, launches by
+    job)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bert_")
+    try:
+        train_dir, val_dir = write_pairs(
+            os.path.join(tmp, "tiny"), n_train=BERT_TINY_TRAIN, n_val=256,
+            max_len=32, vocab=16, seed=SEED)
+        ckpt = os.path.join(tmp, "ckpt_tiny")
+        args = cli.parse_args(bert_argv(
+            "train", BERT_TINY_PARAMS, BERT_TINY_BATCH,
+            "--training_data", train_dir,
+            "--validation_data", val_dir,
+            "--num_epochs", str(BERT_TINY_EPOCHS),
+            "--checkpoint_dir", ckpt,
+            "--checkpoint_steps", str(BERT_TINY_STEPS)))
+        # ---- the main path: counts start at 0 here ----
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        job = api.run_local(args, "train")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        tiny_launches = bert_launches()
+        # ---- end of the main path ----
+        metrics = job.metrics or {}
+        tiny = {"card": card, "config": BERT_TINY_PARAMS,
+                "exit_code": job.exit_code, "model_step": job.owner.step,
+                "metrics": metrics, "wall_s": wall_s,
+                "examples_per_s": BERT_TINY_TRAIN * BERT_TINY_EPOCHS
+                / wall_s,
+                "phases": _phase_split(job), "launches": tiny_launches}
+        print(json.dumps({"local_bert_tiny": tiny}), flush=True)
+        if job.exit_code != 0 or job.owner.step != BERT_TINY_STEPS or \
+                metrics.get("accuracy", 0.0) <= BERT_TINY_ACCURACY:
+            raise AssertionError(f"the planted-pairs Local job: {tiny}")
+        tiny["other_forwards"] = check_bert_launches(
+            "local_bert_tiny", tiny_launches, BERT_TINY_STEPS,
+            BERT_TINY_LAYERS, False, fa.CUDA_CORE, fa.CUDA_CORE,
+            other_forwards=True)
+        del job
+        ev = api.run_local(cli.parse_args(bert_argv(
+            "evaluate", BERT_TINY_PARAMS, BERT_TINY_BATCH,
+            "--validation_data", val_dir,
+            "--checkpoint_dir_for_init", ckpt)), "evaluate")
+        evaluate = {"exit_code": ev.exit_code, "model_step": ev.owner.step,
+                    "metrics": ev.metrics, "train_metrics": metrics}
+        print(json.dumps({"local_bert_evaluate": evaluate}), flush=True)
+        if ev.exit_code != 0 or ev.owner.step != BERT_TINY_STEPS or \
+                ev.metrics != metrics:
+            raise AssertionError(f"evaluate from the BERT checkpoint: "
+                                 f"{evaluate}")
+        del ev
+        shutil.rmtree(ckpt)
+
+        t0 = time.perf_counter()
+        train_dir, val_dir = write_pairs(
+            os.path.join(tmp, "full"), n_train=BERT_FULL_TRAIN,
+            n_val=BERT_FULL_VAL, max_len=SEQ_LEN, vocab=VOCAB, seed=SEED)
+        write_s = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, "ckpt_full")
+        args = cli.parse_args(bert_argv(
+            "train", BERT_PARAMS + ";bf16=True", TRAIN_BATCH,
+            "--use_bf16", "true",
+            "--training_data", train_dir, "--validation_data", val_dir,
+            "--num_epochs", "1", "--checkpoint_dir", ckpt,
+            "--checkpoint_steps", str(BERT_FULL_STEPS),
+            "--keep_checkpoint_max", "1"))
+        # ---- the main path: counts start at 0 here ----
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        job = api.run_local(args, "train")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        full_launches = bert_launches()
+        # ---- end of the main path ----
+        saver = job.owner.checkpoint_saver
+        steps = saver.all_steps()
+        full = {"card": card, "config": BERT_PARAMS + ";bf16=True",
+                "records": BERT_FULL_TRAIN, "dataset_write_s": write_s,
+                "exit_code": job.exit_code, "model_step": job.owner.step,
+                "metrics": job.metrics, "wall_s": wall_s,
+                "examples_per_s": BERT_FULL_TRAIN / wall_s,
+                "phases": _phase_split(job), "launches": full_launches,
+                "checkpoints": steps,
+                "checkpoint_bytes": os.path.getsize(os.path.join(
+                    ckpt, str(BERT_FULL_STEPS), "state.pt"))
+                if steps else None,
+                "eval_versions": sorted(
+                    job.master.evaluation_service.history)}
+        print(json.dumps({"local_bert_full": full}), flush=True)
+        counters = job.master.task_manager.counters.as_dict()
+        if job.exit_code != 0 or counters["failed"] != 0 or \
+                job.owner.step != BERT_FULL_STEPS or \
+                steps != [BERT_FULL_STEPS] or \
+                not saver.verify_step(BERT_FULL_STEPS):
+            raise AssertionError(f"the full-width BERT Local job: {full}")
+        full["other_forwards"] = check_bert_launches(
+            "local_bert_full", full_launches, BERT_FULL_STEPS, NUM_LAYERS,
+            False, fa.SM90_WGMMA, fa.MMA_SYNC, other_forwards=True)
+        del job, saver
+        return ({"tiny": tiny, "evaluate": evaluate, "full": full},
+                {"local_bert_tiny": tiny_launches,
+                 "local_bert_full": full_launches})
+    finally:
+        events.configure(None)
+        shutil.rmtree(tmp)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -1434,11 +1919,16 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.1f} s for {_build.sources()}",
           flush=True)
+    # ptxas's registers, spills and shared memory per kernel, also kept
+    # in chip_smoke.json
+    build_resources = {}
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if any(s in line for s in ("registers", "spill", "smem",
-                                       "C75")):
-                print(f"  {name}: {line.strip()}")
+            if any(s in line for s in ("Compiling entry", "registers",
+                                       "spill", "smem", "C75")):
+                build_resources.setdefault(name, []).append(line.strip())
+                if "Compiling entry" not in line:
+                    print(f"  {name}: {line.strip()}")
     hgmma = sass_count(fa.SOURCE_SM90, "HGMMA")
     print(f"  {fa.SOURCE_SM90}: {hgmma} HGMMA instructions in the SASS",
           flush=True)
@@ -1458,6 +1948,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     entry, rows = phase("check_flash", check_flash_kernel, gen)
+    bwd_entry, bwd_rows = phase("check_flash_bwd", check_flash_bwd, gen)
     buffers = phase("wire_records", wire_buffers)
     scatter_entry, scatter_rows = phase("check_scatter", check_scatter_kernel,
                                         gen, buffers[0])
@@ -1467,6 +1958,8 @@ def main() -> int:
     local, local_launches = phase("local_deepfm", local_deepfm, card)
     wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
     del buffers
+    bert_train, bert_launches_by = phase("train_bert", train_bert)
+    bert_local, bert_local_launches = phase("local_bert", local_bert, card)
     print(json.dumps({"phase_s": phase_s}), flush=True)
     # launches: the Local job's (the north star's path); each path's
     # count beside it
@@ -1476,8 +1969,26 @@ def main() -> int:
         "local_deepfm": local_launches["scatter_add"],
         "local_deepfm_dedup": local_launches["local_deepfm_dedup"],
         "local_deepfm_int8": local_launches["local_deepfm_int8"],
-        "wire_deepfm": wire_launches}
-    kernels = {"kernels": [entry, scatter_entry]}
+        "wire_deepfm": wire_launches,
+        "train_bert": bert_launches_by["plain"]["scatter_add"],
+        "train_bert_remat": bert_launches_by["remat"]["scatter_add"],
+        "local_bert_tiny":
+            bert_local_launches["local_bert_tiny"]["scatter_add"],
+        "local_bert_full":
+            bert_local_launches["local_bert_full"]["scatter_add"]}
+    bert_paths = {"train_bert": bert_launches_by["plain"],
+                  "train_bert_remat": bert_launches_by["remat"],
+                  **bert_local_launches}
+    entry["launches_by_path"] = {
+        "serve_bert": launches["flash_attention_fwd"],
+        **{path: n["flash_attention_fwd"] for path, n in
+           bert_paths.items()}}
+    # launches: the bare Trainer's timed steps at bench_bert's shape (the
+    # BERT training path); each path's count beside it
+    bwd_entry["launches"] = bert_launches_by["plain"]["flash_attention_bwd"]
+    bwd_entry["launches_by_path"] = {
+        path: n["flash_attention_bwd"] for path, n in bert_paths.items()}
+    kernels = {"kernels": [entry, scatter_entry, bwd_entry]}
 
     name = torch.cuda.get_device_name(0)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -1485,8 +1996,11 @@ def main() -> int:
               "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": build_s,
+                   "build_resources": build_resources,
                    "phase_s": phase_s,
                    "kernel_checks": rows, "scatter_checks": scatter_rows,
+                   "flash_bwd_checks": bwd_rows,
+                   "train_bert": bert_train, "local_bert": bert_local,
                    "serve": serve, "bert_f32_check": check,
                    "deepfm": deepfm, "local_deepfm": local,
                    "wire_deepfm": wire, **kernels}, f, indent=1)

@@ -9,7 +9,8 @@ flax's numerics and initialisers rather than PyTorch's defaults.
   at 0, normalisation in f32, output cast to `dtype` (default: the
   promotion of the input with f32).
 - `gelu`: the tanh approximation, flax's default.
-- `init_parameters`: every submodule's `reset_parameters(generator)`.
+- `init_parameters`: every submodule's `reset_parameters(generator)`,
+  then the model's own `reset_own_parameters(generator)` if it has one.
 """
 
 from __future__ import annotations
@@ -86,8 +87,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def init_parameters(model: nn.Module,
                     generator: Optional[torch.Generator] = None) -> None:
     """Draw every submodule's parameters from its flax initialiser
-    distribution (`reset_parameters(generator)`), in module order.  Pass
-    a generator on the parameters' device for a seeded draw."""
+    distribution (`reset_parameters(generator)`), in module order, then
+    the model's own (`reset_own_parameters(generator)`).  Pass a
+    generator on the parameters' device for a seeded draw."""
     for module in model.modules():
         if module is not model and hasattr(module, "reset_parameters"):
             module.reset_parameters(generator)
+    # the model's own parameters (those of no submodule) are drawn last
+    reset_own = getattr(model, "reset_own_parameters", None)
+    if reset_own is not None:
+        reset_own(generator)

@@ -11,9 +11,13 @@ and zoo contract.
 - bf16=True: parameters stay f32; the encoder's Dense layers and block
   LayerNorms compute in bf16 (the LayerNorm statistics in f32); the
   embedding LayerNorm and the classifier stay f32.
+- remat=True recomputes each encoder block in the backward
+  (`torch.utils.checkpoint`, non-reentrant), as flax's nn.remat does:
+  the same parameter names, the same numbers, less activation memory;
+  the flash forward then runs twice per block per step.
 
-Only the dense single-device encoder is ported: moe_experts,
-pipeline_microbatches and remat wait for the parallel-layer slice.
+Only the dense single-device encoder is ported: moe_experts and
+pipeline_microbatches wait for the parallel-layer slice.
 
 Record format: max_len int32 token ids | 1 uint8 label.
 """
@@ -27,10 +31,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from elasticdl_tpu_torch.layers.embedding import DistributedEmbedding
-from elasticdl_tpu_torch.layers import linen
 from elasticdl_tpu_torch.layers.linen import Dense, LayerNorm, gelu
+from elasticdl_tpu_torch.model_zoo.common.metrics import auc
 from elasticdl_tpu_torch.ops.ring_attention import ring_self_attention
 
 MAX_LEN = 128
@@ -95,12 +100,10 @@ class BertClassifier(nn.Module):
                 "pipeline_microbatches > 0 (the GPipe schedule over the "
                 "pipe axis) comes with the parallel-layer slice of the port"
             )
-        if remat:
-            raise NotImplementedError(
-                "remat=True (recompute each block in the backward) comes "
-                "with the BERT training slice of the port"
-            )
         self.num_layers = num_layers
+        # recompute each block in the backward; the parameters, and so
+        # the checkpoints, are the same either way
+        self.remat = remat
         self.token_embedding = DistributedEmbedding(
             vocab_size, hidden, hash_input=False
         )
@@ -112,8 +115,15 @@ class BertClassifier(nn.Module):
             ))
         self.classifier = Dense(hidden, num_classes)
         # the submodules drew their own parameters; only this one is left
+        self.reset_own_parameters()
+
+    def reset_own_parameters(self,
+                             generator: Optional[torch.Generator] = None):
+        """The position table, N(0, 0.02): the one parameter of no
+        submodule, drawn last by `linen.init_parameters`."""
         with torch.no_grad():
-            nn.init.normal_(self.position_embedding, 0.0, 0.02)
+            nn.init.normal_(self.position_embedding, 0.0, 0.02,
+                            generator=generator)
 
     def forward(self, features):
         ids = features["input_ids"].to(torch.int32)         # (B, L)
@@ -121,23 +131,14 @@ class BertClassifier(nn.Module):
         x = tok + self.position_embedding[None, : ids.shape[1]]
         x = self.LayerNorm_0(x)
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x)
+            block = getattr(self, f"layer_{i}")
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
         # max-pool over the sequence
         pooled = x.amax(dim=1)
         return self.classifier(pooled)
-
-
-def init_parameters(model: nn.Module,
-                    generator: Optional[torch.Generator] = None) -> None:
-    """Draw every parameter from flax's initialiser distributions: Dense
-    lecun_normal kernels and zero biases, LayerNorm ones and zeros, the
-    token table N(0, 0.05), the position table N(0, 0.02).  Pass a
-    generator on the parameters' device for a seeded draw."""
-    linen.init_parameters(model, generator)
-    if isinstance(model, BertClassifier):
-        with torch.no_grad():
-            nn.init.normal_(model.position_embedding, 0.0, 0.02,
-                            generator=generator)
 
 
 def custom_model(hidden: int = 768, num_layers: int = 12, heads: int = 12,
@@ -217,4 +218,17 @@ def feed_bulk_compact(buffer, sizes, metadata=None):
     return {
         "features": {"input_ids": ids.astype(np.uint16)},
         "labels": batch["labels"].astype(np.uint8),
+    }
+
+
+def eval_metrics_fn():
+    """Accuracy of the argmax, and AUC on logit1 - logit0, over (B, 2)
+    logits."""
+    return {
+        "accuracy": lambda labels, predictions: float(
+            np.mean(np.argmax(predictions, -1) == labels)
+        ),
+        "auc": lambda labels, predictions: auc(
+            labels, predictions[:, 1] - predictions[:, 0]
+        ),
     }

@@ -25,8 +25,20 @@ one of the kernels (or raises), and counts the launch in
 `flash_attention_reference`, the plain O(L^2) version, which returns the
 same (out, lse).  Nothing falls back from the card to the plain version.
 
-The backward is a plain recompute from the saved log-sum-exp, mirroring
-the JAX package's `_flash_bwd` (jnp there, not Pallas).
+The backward (`flash_attention_backward`, under `_Flash.backward`) is a
+recompute from the saved log-sum-exp, the function of the JAX package's
+`_flash_bwd` (jnp there, compiled by XLA).  On a CUDA tensor it runs the
+hand kernel `csrc/flash_attention_bwd.cu` (three launches: delta, dK/dV,
+dQ; no atomics, so the same bits from run to run) in one of two
+variants, picked by the predicate `backward_tensor_core_ok`:
+
+- `mma_sync`: bf16 at D = 64 or 128 with 16-byte aligned rows, on the
+  tensor cores by mma.sync;
+- `cuda_core`: f32 FMAs, for every other input the shapes allow.
+
+It counts each call in `flash_attention.backward_launches` and, per
+variant, `flash_attention.backward_launches_by_kernel`.  On a CPU tensor
+it takes the plain `_flash_bwd`.
 """
 
 from __future__ import annotations
@@ -42,8 +54,11 @@ from elasticdl_tpu_torch.ops import _build
 _NEG_INF = -1e30
 SOURCE = "flash_attention_fwd.cu"
 SOURCE_SM90 = "flash_attention_fwd_sm90.cu"
+SOURCE_BWD = "flash_attention_bwd.cu"
 CUDA_CORE = "cuda_core"
 SM90_WGMMA = "sm90_wgmma"
+MMA_SYNC = "mma_sync"
+_BWD_VARIANT_CODES = {CUDA_CORE: 0, MMA_SYNC: 1}
 MAX_HEAD_DIM = 128
 TENSOR_CORE_HEAD_DIMS = (64, 128)
 _MAX_GRID_YZ = 65535  # heads and batch are the grid's y and z
@@ -78,6 +93,39 @@ def _library(variant: str = CUDA_CORE):
         return lib
 
 
+def _backward_library():
+    """The loaded backward library (both variants in one source), built
+    first if needed."""
+    with _LIB_LOCK:
+        lib = _LIBS.get(SOURCE_BWD)
+        if lib is None:
+            lib = _build.load_library(SOURCE_BWD)
+            lib.flash_attention_bwd.argtypes = (
+                [ctypes.c_void_p] * 10
+                + [ctypes.c_int] * 7
+                + [ctypes.c_longlong] * 10
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            )
+            lib.flash_attention_bwd.restype = ctypes.c_int
+            _LIBS[SOURCE_BWD] = lib
+        return lib
+
+
+def _hd_contiguous(x) -> bool:
+    """Whether a (B, L, H, D) tensor's (H, D) dims are contiguous."""
+    return x.stride(3) == 1 and x.stride(2) == x.shape[3]
+
+
+def _bf16_rows_aligned(x, dim: int) -> bool:
+    """Whether x is a bf16 (B, L, H, dim) tensor with contiguous (H, D)
+    dims, a 16-byte aligned base pointer, and row and batch strides that
+    are multiples of 16 bytes (8 elements)."""
+    return (x.dtype == torch.bfloat16 and x.dim() == 4
+            and x.shape[3] == dim and _hd_contiguous(x)
+            and x.data_ptr() % 16 == 0
+            and x.stride(1) % 8 == 0 and x.stride(0) % 8 == 0)
+
+
 def tensor_core_ok(q, k, v) -> bool:
     """Whether the wgmma kernel takes these (B, L, H, D) tensors: bf16
     throughout, D in TENSOR_CORE_HEAD_DIMS, the (H, D) dims contiguous,
@@ -88,18 +136,25 @@ def tensor_core_ok(q, k, v) -> bool:
     if q.dim() != 4 or q.shape[-1] not in TENSOR_CORE_HEAD_DIMS:
         return False
     for x in (q, k, v):
-        if x.dtype != torch.bfloat16 or x.dim() != 4:
+        if not _bf16_rows_aligned(x, q.shape[3]):
             return False
         batch, length, heads, dim = x.shape
-        if x.stride(3) != 1 or x.stride(2) != dim:
-            return False
-        if x.data_ptr() % 16 or x.stride(1) % 8 or x.stride(0) % 8:
-            return False
         if x.stride(1) < heads * dim:
             return False
         if batch > 1 and x.stride(0) < length * x.stride(1):
             return False
     return True
+
+
+def backward_tensor_core_ok(q, k, v, out, g) -> bool:
+    """Whether the mma.sync backward takes these (B, L, H, D) tensors:
+    bf16 throughout, one D in TENSOR_CORE_HEAD_DIMS, the (H, D) dims
+    contiguous, and 16-byte aligned base pointers and row and batch
+    strides (its tile loads move 16 bytes a thread).  Reads only
+    metadata, so it answers for CPU tensors too."""
+    return (q.dim() == 4 and q.shape[-1] in TENSOR_CORE_HEAD_DIMS
+            and all(_bf16_rows_aligned(x, q.shape[3])
+                    for x in (q, k, v, out, g)))
 
 
 def flash_shapes_ok(q_shape, k_shape) -> bool:
@@ -165,7 +220,7 @@ def _kernel_forward(q, k, v, causal: bool, scale: float):
                 f"dtype; {name} is {x.dtype} on {x.device}, q is "
                 f"{q.dtype} on {q.device}"
             )
-        if x.stride(3) != 1 or x.stride(2) != x.shape[3]:
+        if not _hd_contiguous(x):
             raise ValueError(
                 f"flash_attention needs the (H, D) dims of {name} "
                 f"contiguous; got strides {tuple(x.stride())}"
@@ -250,9 +305,95 @@ def _flash_bwd(causal: bool, scale: float, residuals, g):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _kernel_backward(q, k, v, out, lse, g, causal: bool, scale: float):
+    # O and dO are read with their own strides but need their (H, D)
+    # dims contiguous; q, k and v are the caller's views and must be so
+    g = g.to(q.dtype)
+    if not _hd_contiguous(g):
+        g = g.contiguous()
+    if not _hd_contiguous(out):
+        out = out.contiguous()
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("g", g)):
+        if x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(
+                "flash_attention backward needs q, k, v, out and g on one "
+                f"device with one dtype; {name} is {x.dtype} on "
+                f"{x.device}, q is {q.dtype} on {q.device}")
+        if not _hd_contiguous(x):
+            raise ValueError(
+                f"flash_attention backward needs the (H, D) dims of {name} "
+                f"contiguous; got strides {tuple(x.stride())}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"flash_attention backward kernel takes float32 or bfloat16, "
+            f"not {q.dtype}")
+    batch, q_len, heads, dim = q.shape
+    k_len = k.shape[1]
+    if (tuple(out.shape) != tuple(q.shape)
+            or tuple(g.shape) != tuple(q.shape)
+            or tuple(lse.shape) != (batch, q_len, heads)
+            or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.device != q.device):
+        raise ValueError(
+            f"flash_attention backward needs out and g shaped like q "
+            f"{tuple(q.shape)} and a contiguous f32 lse of "
+            f"{(batch, q_len, heads)}; got out {tuple(out.shape)}, g "
+            f"{tuple(g.shape)}, lse {tuple(lse.shape)} {lse.dtype}")
+    dq = torch.empty((batch, q_len, heads, dim), dtype=q.dtype,
+                     device=q.device)
+    dk = torch.empty((batch, k_len, heads, dim), dtype=q.dtype,
+                     device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((batch, heads, q_len), dtype=torch.float32,
+                        device=q.device)
+    variant = (MMA_SYNC if backward_tensor_core_ok(q, k, v, out, g)
+               else CUDA_CORE)
+    fn = _backward_library().flash_attention_bwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            _BWD_VARIANT_CODES[variant], _DTYPE_CODES[q.dtype],
+            batch, heads, q_len, k_len, dim,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+            g.stride(0), g.stride(1),
+            float(scale), int(bool(causal)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention backward {variant} kernel launch failed with "
+            f"error {err} for q {tuple(q.shape)} {q.dtype}")
+    flash_attention.backward_launches += 1
+    flash_attention.backward_launches_by_kernel[variant] += 1
+    return dq, dk, dv
+
+
+def flash_attention_backward(
+    q, k, v, out, lse, g, causal: bool = False,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of flash attention from the forward's residuals
+    (q, k, v, out, lse) and the output gradient g: the Hopper kernel for
+    CUDA tensors, the plain `_flash_bwd` for CPU tensors."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    _check_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return _flash_bwd(causal, scale, (q, k, v, out, lse), g)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return _kernel_backward(q, k, v, out, lse, g, causal, scale)
+
+
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
+        # under a non-reentrant checkpoint this runs again in the
+        # backward, and the recompute's out and lse are the ones saved
         out, lse = flash_attention_forward(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
@@ -261,7 +402,9 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        dq, dk, dv = _flash_bwd(ctx.causal, ctx.scale, ctx.saved_tensors, g)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, g,
+                                              ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -272,9 +415,10 @@ def flash_attention(
 
     Differentiable (flash recompute backward).  Sequence lengths must be
     multiples of 8 and D <= 128 (`flash_shapes_ok`).  On a CUDA tensor
-    the forward is a Hopper kernel (`tensor_core_ok` picks which);
-    `flash_attention.launches` counts the launches and
-    `flash_attention.launches_by_kernel` splits them by variant.
+    the forward and the backward are Hopper kernels (`tensor_core_ok` and
+    `backward_tensor_core_ok` pick the variants);
+    `flash_attention.launches` and `flash_attention.backward_launches`
+    count the calls, and the `..._by_kernel` dicts split them by variant.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -283,10 +427,16 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.launches_by_kernel = {SM90_WGMMA: 0, CUDA_CORE: 0}
+flash_attention.backward_launches = 0
+flash_attention.backward_launches_by_kernel = {MMA_SYNC: 0, CUDA_CORE: 0}
 
 
 def reset_launch_counts() -> None:
-    """Sets the total and every per-variant launch count to 0."""
+    """Sets the forward's and the backward's totals and every
+    per-variant launch count to 0."""
     flash_attention.launches = 0
-    for variant in flash_attention.launches_by_kernel:
-        flash_attention.launches_by_kernel[variant] = 0
+    flash_attention.backward_launches = 0
+    for counts in (flash_attention.launches_by_kernel,
+                   flash_attention.backward_launches_by_kernel):
+        for variant in counts:
+            counts[variant] = 0

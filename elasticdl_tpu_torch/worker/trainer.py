@@ -96,6 +96,13 @@ def _to_device(tree, device: torch.device):
     return to_tensor(tree, device)
 
 
+def _batch_key(tree):
+    """The leaf shapes and dtypes of a batch of tensors."""
+    if isinstance(tree, dict):
+        return tuple((k, _batch_key(v)) for k, v in sorted(tree.items()))
+    return (tuple(tree.shape), str(tree.dtype))
+
+
 def _floating_to_bf16(tree):
     if isinstance(tree, dict):
         return {k: _floating_to_bf16(v) for k, v in tree.items()}
@@ -148,6 +155,8 @@ class Trainer:
         self.loss_fn = loss_fn
         self.use_bf16 = use_bf16
         self._has_train_kwarg = model_has_train_kwarg(model)
+        # batch shapes timed_steps_per_sec has warmed up
+        self._timing_warmed = set()
 
     # ---- state ---------------------------------------------------------
 
@@ -240,6 +249,47 @@ class Trainer:
         losses = self._timed("compute", lambda: run_device_serialized(
             _steps, device=self.device))
         return state, losses
+
+    def timed_steps_per_sec(self, state: TrainState, batch,
+                            iters: int = 40) -> float:
+        """Steps per second over `iters` serially dependent train steps
+        on one staged batch: the counterpart of the JAX Trainer's
+        `timed_steps_per_sec_fused`, which runs them as one program.
+        The first call for a batch shape warms up with one step (the
+        kernels' build and first launch, the allocator's first blocks).
+        On CUDA the steps are timed with CUDA events and the timing ends
+        on a value read from the final parameters, so no step is left
+        queued.  The state trains on: it advances by the warm-up and
+        `iters` steps."""
+        staged = self.stage_batch(batch)
+        key = _batch_key(staged)
+        if key not in self._timing_warmed:
+            self.train_on_batch(state, staged)
+            self._timing_warmed.add(key)
+
+        def steps():
+            for _ in range(iters):
+                self.train_on_batch(state, staged)
+
+        def anchor():
+            # one element of every parameter: the last step's update of
+            # each must have run before it is read
+            return float(sum(p.detach().reshape(-1)[0].float()
+                             for p in state.model.parameters()))
+
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            steps()
+            anchor()
+            return iters / (time.perf_counter() - t0)
+        torch.cuda.synchronize(self.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        steps()
+        end.record()
+        anchor()
+        return iters * 1e3 / start.elapsed_time(end)
 
     def predict_on_batch(self, state: TrainState, features) -> np.ndarray:
         """f32 predictions as numpy."""

@@ -312,3 +312,231 @@ def test_kernel_sources_name_the_tpu_kernel_and_their_bound():
     assert "`_fwd_kernel`" in text
     assert "elasticdl_tpu/ops/flash_attention.py:48" in text
     assert "60.6 us" in text and "wgmma" in text and "TMA" in text
+
+
+# ---- the backward ---------------------------------------------------------
+
+# Plain backward vs the JAX `_flash_bwd` on the same residuals: the same
+# algorithm with sums in another order (f32: measured 4.8e-7 at a gradient
+# scale of 3.7); in bf16 both round P, dS and the outputs to bf16 at the
+# same places, so they differ by at most about one rounding step of an
+# output (2^-8 relative; measured 4.9e-4 at a scale of 0.36).
+BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _bwd_inputs(dtype, length, causal, fused, batch=2, heads=4, dim=32,
+                seed=0):
+    """q/k/v (column views of one fused QKV buffer when `fused`), the
+    port's plain forward residuals, and dO, for both packages."""
+    rng = np.random.RandomState(seed)
+    tdtype = getattr(torch, dtype)
+    if fused:
+        qkv = rng.randn(batch, length, 3 * heads * dim).astype(
+            np.float32) * 0.5
+        arrays = [qkv[..., i * heads * dim:(i + 1) * heads * dim]
+                  .reshape(batch, length, heads, dim) for i in range(3)]
+        views = [t.unflatten(-1, (heads, dim)) for t in
+                 torch.from_numpy(qkv).to(tdtype).split(heads * dim, -1)]
+    else:
+        arrays = [rng.randn(batch, length, heads, dim).astype(np.float32)
+                  * 0.5 for _ in range(3)]
+        views = [torch.from_numpy(a).to(tdtype) for a in arrays]
+    g = rng.randn(batch, length, heads, dim).astype(np.float32)
+    scale = dim ** -0.5
+    out, lse = port_flash.flash_attention_reference(*views, causal=causal,
+                                                    scale=scale)
+    jdtype = jnp.dtype(dtype)
+    jax_res = tuple(jnp.asarray(a).astype(jdtype) for a in arrays) + (
+        jnp.asarray(_np(out)).astype(jdtype), jnp.asarray(lse.numpy()))
+    port_res = tuple(views) + (out, lse)
+    return (jax_res, jnp.asarray(g).astype(jdtype)), (
+        port_res, torch.from_numpy(g).to(tdtype)), scale
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["contiguous",
+                                                      "fused-qkv"])
+@pytest.mark.parametrize("length", [72, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_backward_matches_jax_flash_bwd(dtype, causal, length, fused):
+    (jres, jg), (pres, pg), scale = _bwd_inputs(dtype, length, causal,
+                                                fused)
+    want = jax_flash._flash_bwd(causal, scale, jres, jg)
+    got = port_flash._flash_bwd(causal, scale, pres, pg)
+    tol = BWD_TOL[dtype]
+    for g_port, g_jax, q in zip(got, want, pres[:3]):
+        assert g_port.dtype == q.dtype and g_port.shape == q.shape
+        np.testing.assert_allclose(_np(g_port), _np(g_jax), rtol=tol,
+                                   atol=tol)
+    # the CPU wrapper is the plain version, and launches nothing
+    port_flash.reset_launch_counts()
+    again = port_flash.flash_attention_backward(*pres, pg, causal, scale)
+    for a, b in zip(again, got):
+        assert torch.equal(a, b)
+    assert port_flash.flash_attention.backward_launches == 0
+
+
+def test_autograd_backward_goes_through_the_backward_wrapper(monkeypatch):
+    calls = []
+    real = port_flash.flash_attention_backward
+
+    def spy(*args):
+        calls.append(args[6])
+        return real(*args)
+
+    monkeypatch.setattr(port_flash, "flash_attention_backward", spy)
+    _, (tq, tk, tv) = _both(_qkv(length=64), "float32")
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    port_flash.flash_attention(*leaves, causal=True).sum().backward()
+    assert calls == [True]
+    assert all(leaf.grad is not None for leaf in leaves)
+
+
+# (case, q/k/v builder, the mma.sync backward takes them)
+BACKWARD_TENSOR_CORE_CASES = [
+    ("bf16-d64-fused-qkv-views", lambda: _bf16_views(), True),
+    ("bf16-d128-fused-qkv-views", lambda: _bf16_views(dim=128), True),
+    ("bf16-d64-contiguous",
+     lambda: tuple(torch.zeros(2, 72, 4, 64, dtype=torch.bfloat16)
+                   for _ in range(3)), True),
+    ("f32-d64", lambda: _bf16_views(dtype=torch.float32), False),
+    ("bf16-d16", lambda: _bf16_views(dim=16), False),
+    ("bf16-d32", lambda: _bf16_views(dim=32), False),
+    ("bf16-misaligned-row-stride", lambda: _bf16_views(extra=4), False),
+    ("bf16-misaligned-pointer", lambda: _bf16_views(offset=1), False),
+    ("bf16-heads-not-contiguous",
+     lambda: tuple(torch.zeros(2, 4, 64, 64, dtype=torch.bfloat16)
+                   .transpose(1, 2) for _ in range(3)), False),
+]
+
+
+def _out_and_grad(q, dtype=None):
+    dtype = dtype or q.dtype
+    return (torch.zeros(q.shape, dtype=dtype),
+            torch.zeros(q.shape, dtype=dtype))
+
+
+@pytest.mark.parametrize("case,build,want", BACKWARD_TENSOR_CORE_CASES,
+                         ids=[c[0] for c in BACKWARD_TENSOR_CORE_CASES])
+def test_backward_tensor_core_ok_cases(case, build, want):
+    q, k, v = build()
+    out, g = _out_and_grad(q)
+    assert port_flash.backward_tensor_core_ok(q, k, v, out, g) is want
+
+
+def test_backward_tensor_core_ok_reads_out_and_grad_too():
+    q, k, v = _bf16_views()
+    out, g = _out_and_grad(q)
+    assert port_flash.backward_tensor_core_ok(q, k, v, out, g)
+    # an output gradient in f32, or one 2 bytes off a 16-byte boundary
+    assert not port_flash.backward_tensor_core_ok(
+        q, k, v, out, g.float())
+    flat = torch.zeros(g.numel() + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(g.shape)
+    assert not port_flash.backward_tensor_core_ok(q, k, v, out, shifted)
+
+
+@pytest.fixture
+def fake_backward_library(monkeypatch):
+    """The backward's C entry replaced by a recorder, and the CUDA
+    device/stream lookups by stand-ins, so its dispatch runs on CPU
+    tensors without a card."""
+    import contextlib
+    import types as _types
+
+    lib = _types.SimpleNamespace(flash_attention_bwd=_FakeKernel())
+    monkeypatch.setattr(port_flash, "_backward_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _types.SimpleNamespace(
+                            cuda_stream=0))
+    port_flash.reset_launch_counts()
+    yield lib.flash_attention_bwd
+    port_flash.reset_launch_counts()
+
+
+def _residuals(q):
+    batch, length, heads, _ = q.shape
+    out, g = _out_and_grad(q)
+    return out, torch.zeros(batch, length, heads), g
+
+
+@pytest.mark.parametrize("build,variant", [
+    (lambda: _bf16_views(), "mma_sync"),
+    (lambda: _bf16_views(dim=128), "mma_sync"),
+    (lambda: _bf16_views(dtype=torch.float32), "cuda_core"),
+    (lambda: _bf16_views(dim=16), "cuda_core"),
+    (lambda: _bf16_views(extra=4), "cuda_core"),
+])
+def test_backward_dispatch_follows_the_predicate(fake_backward_library,
+                                                 build, variant):
+    q, k, v = build()
+    out, lse, g = _residuals(q)
+    dq, dk, dv = port_flash._kernel_backward(q, k, v, out, lse, g, True,
+                                             0.125)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert dq.is_contiguous() and dq.dtype == q.dtype
+    assert fake_backward_library.calls == 1
+    assert port_flash.flash_attention.backward_launches == 1
+    assert port_flash.flash_attention.backward_launches_by_kernel == {
+        "mma_sync": int(variant == "mma_sync"),
+        "cuda_core": int(variant == "cuda_core")}
+    # the forward's counts are the forward's alone
+    assert port_flash.flash_attention.launches == 0
+
+
+def test_a_failed_backward_launch_raises_and_counts_nothing(
+        fake_backward_library):
+    fake_backward_library.err = 10001
+    q, k, v = _bf16_views()
+    out, lse, g = _residuals(q)
+    with pytest.raises(RuntimeError, match="backward mma_sync"):
+        port_flash._kernel_backward(q, k, v, out, lse, g, False, 0.125)
+    assert fake_backward_library.calls == 1
+    assert port_flash.flash_attention.backward_launches == 0
+    assert sum(port_flash.flash_attention.backward_launches_by_kernel
+               .values()) == 0
+
+
+def test_backward_validates_its_residuals(fake_backward_library):
+    q, k, v = _bf16_views()
+    out, lse, g = _residuals(q)
+    with pytest.raises(ValueError, match="lse"):
+        port_flash._kernel_backward(q, k, v, out, lse[:, :8], g, False,
+                                    0.125)
+    with pytest.raises(ValueError, match="one dtype"):
+        port_flash._kernel_backward(q, k, v, out.float(), lse, g, False,
+                                    0.125)
+    assert fake_backward_library.calls == 0
+
+
+def test_backward_makes_a_strided_grad_contiguous(fake_backward_library):
+    q, k, v = _bf16_views()
+    out, lse, _ = _residuals(q)
+    # (B, H, L, D) storage seen as (B, L, H, D): heads not contiguous
+    g = torch.zeros(q.shape[0], q.shape[2], q.shape[1], q.shape[3],
+                    dtype=q.dtype).transpose(1, 2)
+    port_flash._kernel_backward(q, k, v, out, lse, g, False, 0.125)
+    assert port_flash.flash_attention.backward_launches_by_kernel[
+        "mma_sync"] == 1
+
+
+def test_reset_launch_counts_zeroes_the_backward_counts():
+    port_flash.flash_attention.backward_launches = 2
+    port_flash.flash_attention.backward_launches_by_kernel["mma_sync"] = 2
+    port_flash.reset_launch_counts()
+    assert port_flash.flash_attention.backward_launches == 0
+    assert port_flash.flash_attention.backward_launches_by_kernel == {
+        "mma_sync": 0, "cuda_core": 0}
+
+
+def test_backward_source_names_the_reference_and_its_bound():
+    from elasticdl_tpu_torch.ops import _build
+
+    assert port_flash.SOURCE_BWD in _build.sources()
+    text = (_build.CSRC_DIR / port_flash.SOURCE_BWD).read_text()
+    assert "`_flash_bwd`" in text
+    assert "elasticdl_tpu/ops/flash_attention.py:208" in text
+    assert "128.8 GFLOP" in text and "0.130 ms" in text
+    assert "mma.sync" in text and "no atomics" in text

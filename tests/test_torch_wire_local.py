@@ -126,25 +126,36 @@ def test_dedup_and_compact_jobs_match_each_other_and_the_jax_jobs(
                                              wire_format, k, params)
         jlosses = [float(x) for x in jworker.losses]
         plosses = torch.stack(list(pworker.losses))
-        assert len(jlosses) == plosses.numel() == powner.step == 16
-        np.testing.assert_allclose(plosses.numpy(), jlosses, rtol=0,
-                                   atol=LOSS_TOL)
-        jauc = jmaster.evaluation_service.latest_metrics()["auc"]
-        pauc = pmaster.evaluation_service.latest_metrics()["auc"]
-        assert abs(pauc - jauc) <= AUC_TOL and pauc > 0.5
-        assert sorted(pmaster.evaluation_service.history) == sorted(
-            jmaster.evaluation_service.history) == [8, 16]
         pc = pmaster.task_manager.counters.as_dict()
         jc = jmaster.task_manager.counters.as_dict()
-        assert pc["failed"] == jc["failed"] == 0
-        assert pc["by_type"] == jc["by_type"]
+        phist = pmaster.evaluation_service.history
+        jhist = jmaster.evaluation_service.history
+        # everything an intermittent failure would need to be diagnosed
+        seen = (f"{wire_format}: port losses {plosses.tolist()}, jax "
+                f"losses {jlosses}, port step {powner.step}, port eval "
+                f"history {phist}, jax eval history {jhist}, port "
+                f"counters {pc}, jax counters {jc}")
+        assert len(jlosses) == plosses.numel() == powner.step == 16, seen
+        np.testing.assert_allclose(plosses.numpy(), jlosses, rtol=0,
+                                   atol=LOSS_TOL, err_msg=seen)
+        jauc = jmaster.evaluation_service.latest_metrics()["auc"]
+        pauc = pmaster.evaluation_service.latest_metrics()["auc"]
+        assert abs(pauc - jauc) <= AUC_TOL and pauc > 0.5, (
+            f"port AUC {pauc}, jax AUC {jauc}; {seen}")
+        assert sorted(phist) == sorted(jhist) == [8, 16], seen
+        assert pc["failed"] == jc["failed"] == 0, seen
+        assert pc["by_type"] == jc["by_type"], seen
         runs[wire_format] = (plosses, powner, pauc)
     # the same rows and dense values on both wires: bit for bit
     (dl, downer, dauc), (cl, cowner, cauc) = runs["dedup"], runs["compact"]
-    assert torch.equal(dl, cl) and dauc == cauc
+    assert torch.equal(dl, cl) and dauc == cauc, (
+        f"dedup losses {dl.tolist()} AUC {dauc}; compact losses "
+        f"{cl.tolist()} AUC {cauc}")
     for (name, a), b in zip(downer.state.model.state_dict().items(),
                             cowner.state.model.state_dict().values()):
-        assert torch.equal(a, b), name
+        assert torch.equal(a, b), (
+            f"{name}: max |dedup - compact| "
+            f"{float((a.float() - b.float()).abs().max())}")
 
 
 def test_growing_dedup_caps_drain_the_held_group(data, monkeypatch):
