@@ -7,7 +7,8 @@
    versions; builds every kernel in `elasticdl_tpu_torch/csrc/` with
    nvcc, one process per source, and prints the build time, each
    kernel's registers, shared memory and spills (ptxas) and the count of
-   HGMMA (wgmma) instructions in the tensor-core flash kernel's SASS.
+   HGMMA (wgmma) instructions in the SASS of the tensor-core flash
+   kernels, forward and backward (each must have some).
 2. Holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and short ragged ones, and times the kernel,
    the plain version and the library call that computes the same
@@ -67,11 +68,13 @@
 7. Holds the flash-attention backward kernel against its plain version
    (`_flash_bwd`) on the card, on the plain forward's residuals, and
    against itself across two calls (bitwise): at (64, 512, 12 x 64) bf16
-   from fused-QKV views, causal and not (the `mma_sync` variant), f32
-   at D = 16, ragged L = 72, D = 128, and the tiny Local BERT job's
-   (64, 32, 4 x 16) f32 from fused-QKV views (`check_flash_bwd`; step 2
-   holds the forward at that shape too); timed beside the plain
-   version, the bound and SDPA's backward.
+   from fused-QKV views, causal and not (the `sm90_wgmma` variant, as
+   every bf16 case at D 64/128), f32 at D = 16, ragged L = 72 and 200,
+   H = 6 (lse's per-head stride of 24 B), D = 128, and the tiny Local
+   BERT job's (64, 32, 4 x 16) f32 from fused-QKV views
+   (`check_flash_bwd`; step 2 holds the forward at that shape too);
+   timed beside the plain version, the bound and SDPA's backward, with
+   the kernel's device time split by launch (prep, dK/dV, dQ).
 8. Trains BERT-base through the bare Trainer at bench.py::bench_bert's
    shape (batch 64, L 512, full width, bf16, the zoo's AdamW), without
    and with remat (`train_bert`): one counted step, then timed steps
@@ -287,14 +290,35 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def sass_count(source: str, opcode: str) -> int:
-    """Lines of the built library's SASS (cuobjdump) that hold opcode."""
+def _sass(source: str) -> str:
+    """The built library's SASS (cuobjdump)."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
                              "cuobjdump")
-    sass = subprocess.run(
+    return subprocess.run(
         [cuobjdump, "-sass", str(_build.library_path(source))],
         check=True, capture_output=True, text=True).stdout
-    return sum(opcode in line for line in sass.splitlines())
+
+
+def sass_count(source: str, opcode: str) -> int:
+    """Lines of the built library's SASS that hold opcode."""
+    return sum(opcode in line for line in _sass(source).splitlines())
+
+
+def sass_by_kernel(source: str) -> dict:
+    """Per kernel of the built library: its HGMMA instructions, the
+    `WARPGROUP.DEPBAR` waits ptxas placed among them (one after every
+    HGMMA means the wgmmas run serialized), and the highest register
+    index it uses."""
+    import re
+
+    out = {}
+    for body in _sass(source).split("Function : ")[1:]:
+        name = body.split(None, 1)[0]
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", body)]
+        out[name] = {"HGMMA": body.count("HGMMA"),
+                     "WARPGROUP.DEPBAR": body.count("WARPGROUP.DEPBAR"),
+                     "max_register": max(regs, default=0)}
+    return out
 
 
 def time_ms(fn, iters: int) -> float:
@@ -476,6 +500,9 @@ def check_flash_bwd(gen):
         ("ragged-bf16-d128-causal", (4, 200, 4, 128), torch.bfloat16, True,
          False, False),
         ("bf16-d32", (4, 128, 4, 32), torch.bfloat16, True, False, False),
+        # H = 6: lse's per-head stride is 24 B, which TMA cannot read
+        ("h6-ragged-bf16-causal", (4, 200, 6, 64), torch.bfloat16, True,
+         True, False),
         ("local-bert-tiny-f32", BERT_TINY_ATTENTION, torch.float32, False,
          True, False),
     ]
@@ -499,7 +526,7 @@ def check_flash_bwd(gen):
         tol = BWD_TOL[dtype]
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
         finite = all(bool(torch.isfinite(a).all()) for a in got)
-        want_variant = (fa.MMA_SYNC if dtype == torch.bfloat16
+        want_variant = (fa.SM90_WGMMA if dtype == torch.bfloat16
                         and shape[-1] in fa.TENSOR_CORE_HEAD_DIMS
                         else fa.CUDA_CORE)
         ok = (finite and bitwise and variant == [want_variant]
@@ -519,12 +546,15 @@ def check_flash_bwd(gen):
                 sdpa_backward_fn(q, k, v, g, causal), 10)
             row["bound_ms"], row["bound_by"] = attention_bound_ms(
                 q, k, v, causal, backward=True)
+            row["kernel_ms_by_launch"] = kernel_ms_by_name(
+                lambda: fa.flash_attention_backward(
+                    q, k, v, out, lse, g, causal), 5)
         print(json.dumps({"flash_bwd": row}), flush=True)
         if not ok:
             raise AssertionError(
                 f"flash backward kernel disagrees with its plain version, "
                 f"with itself, or ran the wrong variant (bf16 at D 64/128 "
-                f"goes to {fa.MMA_SYNC}, the rest to {fa.CUDA_CORE}): "
+                f"goes to {fa.SM90_WGMMA}, the rest to {fa.CUDA_CORE}): "
                 f"{row}")
         rows.append(row)
         del q, k, v, out, lse, g, got, again, want
@@ -532,7 +562,7 @@ def check_flash_bwd(gen):
     entry = {
         "name": "flash_attention_bwd",
         "route": "cuda",
-        "source": "elasticdl_tpu_torch/csrc/flash_attention_bwd.cu",
+        "source": "elasticdl_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
         "variant": main["variant"][0],
         "replaces": "elasticdl_tpu/ops/flash_attention.py:208",
         "max_abs_err": max(main["max_abs_err_dq_dk_dv"]),
@@ -1079,20 +1109,10 @@ def deepfm_card_vs_cpu():
     return check
 
 
-def step_breakdown(trainer, state, batch):
-    """Device time of one synced training step by group (torch.profiler)
-    and the device's busy share of its host wall time.  "other" holds the
-    elementwise passes (LayerNorm, GELU, casts, residuals)."""
+def _device_ms_by_kernel(prof) -> dict:
+    """Device ms of a profile by kernel name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_on_batch(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
     for evt in prof.key_averages():
         # user annotations (Optimizer.step#Adam.step) span kernels that
@@ -1104,6 +1124,45 @@ def step_breakdown(trainer, state, batch):
         if us is None:
             us = evt.self_cuda_time_total
         by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us / 1e3
+    return by_kernel
+
+
+def kernel_ms_by_name(fn, iters: int) -> dict:
+    """Device ms per call of each kernel fn launches (torch.profiler over
+    `iters` calls after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {name: ms / iters
+            for name, ms in _device_ms_by_kernel(prof).items()}
+
+
+def _is_flash_bwd(name: str) -> bool:
+    """The backward's kernels: the wgmma variant's `flash_bwd_*` and the
+    CUDA-core variant's `dkdv_core`, `dq_core` and `delta_kernel`."""
+    return any(s in name for s in ("flash_bwd", "dkdv_core", "dq_core",
+                                   "delta_kernel"))
+
+
+def step_breakdown(trainer, state, batch):
+    """Device time of one synced training step by group (torch.profiler)
+    and the device's busy share of its host wall time.  "other" holds the
+    elementwise passes (LayerNorm, GELU, casts, residuals)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_on_batch(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = _device_ms_by_kernel(prof)
     groups = {"scatter_add": 0.0, "sort": 0.0, "gather": 0.0, "adam": 0.0,
               "matmul": 0.0, "flash_attention_fwd": 0.0,
               "flash_attention_bwd": 0.0, "other": 0.0}
@@ -1111,8 +1170,7 @@ def step_breakdown(trainer, state, batch):
         low = name.lower()
         if "flash_fwd" in low:
             groups["flash_attention_fwd"] += ms
-        elif any(s in low for s in ("dkdv_", "dq_mma", "dq_core",
-                                    "delta_kernel")):
+        elif _is_flash_bwd(low):
             groups["flash_attention_bwd"] += ms
         elif any(s in low for s in ("scatter_add_segments",
                                     "scatter_add_long", "permute_rows")):
@@ -1135,6 +1193,8 @@ def step_breakdown(trainer, state, batch):
         "device_busy_share": device_ms / wall_ms if by_kernel else None,
         "device_ms_by_group": groups if by_kernel else None,
         "device_ms_by_range": range_device_ms(prof, RANGES),
+        "flash_bwd_ms_by_kernel": {name: ms for name, ms in by_kernel.items()
+                                   if _is_flash_bwd(name.lower())},
         "top_kernels_ms": top,
     }
 
@@ -1706,7 +1766,7 @@ def train_bert():
         peak_bytes = torch.cuda.max_memory_allocated()
         first_loss[tag] = float(loss)
         check_bert_launches(f"train_bert {tag}", one_step, 1, NUM_LAYERS,
-                            remat, fa.SM90_WGMMA, fa.MMA_SYNC)
+                            remat, fa.SM90_WGMMA, fa.SM90_WGMMA)
 
         # ---- the main path: counts start at 0 here ----
         reset_counts()
@@ -1717,7 +1777,7 @@ def train_bert():
         # the first call warms up with one step of its own
         check_bert_launches(f"train_bert {tag} timed", launches,
                             TRAIN_TIMED_STEPS + 1, NUM_LAYERS, remat,
-                            fa.SM90_WGMMA, fa.MMA_SYNC)
+                            fa.SM90_WGMMA, fa.SM90_WGMMA)
         breakdown = step_breakdown(trainer, state, staged)
         last = trainer.predict_on_batch(state, batch["features"])
         if not (np.isfinite(first_loss[tag]) and np.isfinite(last).all()
@@ -1745,6 +1805,10 @@ def train_bert():
     # the same seed, the same kernels: remat changes memory, not numbers
     summary["remat_first_loss_equal"] = \
         first_loss["plain"] == first_loss["remat"]
+    if not summary["remat_first_loss_equal"]:
+        raise AssertionError(f"train_bert: remat's first loss "
+                             f"{first_loss['remat']} is not the plain "
+                             f"step's {first_loss['plain']} bit for bit")
     summary["cpu_check"] = bert_card_vs_cpu()
     return summary, launches_by
 
@@ -1893,7 +1957,7 @@ def local_bert(card: str):
             raise AssertionError(f"the full-width BERT Local job: {full}")
         full["other_forwards"] = check_bert_launches(
             "local_bert_full", full_launches, BERT_FULL_STEPS, NUM_LAYERS,
-            False, fa.SM90_WGMMA, fa.MMA_SYNC, other_forwards=True)
+            False, fa.SM90_WGMMA, fa.SM90_WGMMA, other_forwards=True)
         del job, saver
         return ({"tiny": tiny, "evaluate": evaluate, "full": full},
                 {"local_bert_tiny": tiny_launches,
@@ -1929,12 +1993,17 @@ def main() -> int:
                 build_resources.setdefault(name, []).append(line.strip())
                 if "Compiling entry" not in line:
                     print(f"  {name}: {line.strip()}")
-    hgmma = sass_count(fa.SOURCE_SM90, "HGMMA")
-    print(f"  {fa.SOURCE_SM90}: {hgmma} HGMMA instructions in the SASS",
-          flush=True)
-    if hgmma == 0:
-        raise AssertionError(f"{fa.SOURCE_SM90} has no HGMMA (wgmma) "
-                             "instruction in its SASS")
+    hgmma = {}
+    for source in (fa.SOURCE_SM90, fa.SOURCE_BWD_SM90):
+        hgmma[source] = sass_count(source, "HGMMA")
+        print(f"  {source}: {hgmma[source]} HGMMA instructions in the SASS",
+              flush=True)
+        if hgmma[source] == 0:
+            raise AssertionError(f"{source} has no HGMMA (wgmma) "
+                                 "instruction in its SASS")
+    sass_stats = sass_by_kernel(fa.SOURCE_BWD_SM90)
+    for name, stats in sass_stats.items():
+        print(f"  {fa.SOURCE_BWD_SM90}: {name}: {stats}", flush=True)
 
     # wall seconds of each phase, the build's included
     phase_s = {"build": build_s}
@@ -1996,7 +2065,8 @@ def main() -> int:
               "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": build_s,
-                   "build_resources": build_resources,
+                   "build_resources": build_resources, "hgmma": hgmma,
+                   "bwd_sass_by_kernel": sass_stats,
                    "phase_s": phase_s,
                    "kernel_checks": rows, "scatter_checks": scatter_rows,
                    "flash_bwd_checks": bwd_rows,

@@ -28,7 +28,7 @@
 // Design: three launches, no atomics, so a result is the same bits from
 // run to run.
 //   1. delta: one warp per (batch, row, head) row of O and dO
-//      (`delta_kernel`), in both variants.
+//      (`delta_kernel`).
 //   2. dK/dV: one block per (64-key tile, head, batch), looping over the
 //      query tiles (causal: from the diagonal on); it recomputes S and dP
 //      for each pair of tiles and accumulates dK and dV in registers.
@@ -36,22 +36,13 @@
 //      key tiles (causal: up to the diagonal); it recomputes S and dP
 //      again and accumulates dQ.  That makes 7 products where the bound
 //      counts 5: the price of no atomics.
-// Two variants, picked by the wrapper's predicate
-// (ops/flash_attention.py::backward_tensor_core_ok), never by a failure:
-//   - `mma_sync` (bf16, D = 64 or 128, 16-byte aligned rows): tensor cores by
-//     mma.sync m16n8k16 (bf16 in, f32 accumulate).  4 warps, each owning
-//     16 rows of the block's tile.  The S and dP accumulators turn into
-//     the A fragments of the next product in registers (the C and A
-//     fragment layouts of m16n8k16 coincide), rounded to bf16 on the way,
-//     which is the reference's rounding of P and dS.  Tiles sit in shared
-//     memory as bf16 rows padded by 8 elements, so the ldmatrix loads of
-//     the fragments fall in distinct banks; ldmatrix.trans gives the B
-//     operands that run along a tile's rows (dO and Q for dV and dK, K
-//     for dQ).  No cp.async or TMA pipeline, no wgmma: later work.
-//   - `cuda_core` (f32, other D, unaligned views): f32 FMAs on the CUDA
-//     cores with the forward's thread map (4 rows x 8 strided columns per
-//     thread, 128 threads); tiles staged in shared memory as f32, P^T and
-//     dS through shared memory to the next product.
+// This source is the `cuda_core` variant: f32, D other than 64 and 128,
+// and bf16 views TMA cannot describe (ops/flash_attention.py::
+// backward_wgmma_ok picks it, never a failure).  bf16 at D = 64 or 128 runs
+// on the tensor cores in flash_attention_bwd_sm90.cu (TMA + wgmma).  f32
+// FMAs on the CUDA cores with the forward's thread map (4 rows x 8 strided
+// columns per thread, 128 threads); tiles staged in shared memory as f32,
+// P^T and dS through shared memory to the next product.
 // Query rows past q_len and keys past k_len are zero-filled and masked;
 // rows past the length are never stored.
 
@@ -67,7 +58,6 @@ constexpr int COL_GROUPS = 8;     // cuda_core: lanes sharing rows
 constexpr int ROWS = 4;           // cuda_core: rows per thread
 constexpr int S_COLS = TILE / COL_GROUPS;
 constexpr int P_LD = TILE + 1;    // cuda_core: padded P/dS row
-constexpr int PAD = 8;            // mma: bf16 elements of row padding
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -403,386 +393,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// ---- mma variant (bf16, D = 64 or 128) --------------------------------
-
-typedef __nv_bfloat16 bf16;
-
-// D[16x8] += A[16x16] B[16x8]; bf16 operands, f32 accumulators.
-// Fragments (lane = 4 * grp + tig): A {(grp, 2tig..), (grp+8, 2tig..),
-// (grp, 2tig+8..), (grp+8, 2tig+8..)}; B {(k 2tig.., n grp), (k 2tig+8..,
-// n grp)}; C {(grp, 2tig), (grp, 2tig+1), (grp+8, 2tig), (grp+8, 2tig+1)}.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two floats as one register of bf16 (lo in the low half), rounded to
-// nearest even
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 blocks from shared memory: lane l gives the address of
-// row l % 8 of block l / 8, and receives in r[i] its two elements of
-// block i, (row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1) as stored,
-// or of the block's transpose with `trans`.
-template <bool TRANS>
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* row) {
-  if (TRANS)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-        "{%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(row)));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-        "{%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(row)));
-}
-
-// `rows` rows of one head into shared memory (pitch D + PAD), 16 bytes a
-// thread per load; rows past `len` are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               int row0, int rows, int len,
-                                               int64_t row_stride) {
-  constexpr int CHUNKS = D / 8;
-  constexpr int LD = D + PAD;
-  for (int idx = threadIdx.x; idx < rows * CHUNKS; idx += THREADS) {
-    const int r = idx / CHUNKS;
-    const int c = (idx - r * CHUNKS) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < len)
-      val = *reinterpret_cast<const uint4*>(src + (int64_t)row * row_stride +
-                                            c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// The A fragment of rows row0.. (16) and columns col0.. (16) of a tile:
-// blocks (rows, columns) +(0, 0), +(8, 0), +(0, 8), +(8, 8).
-template <int D>
-__device__ __forceinline__ void ld_a(uint32_t a[4], const bf16* tile,
-                                     int row0, int col0, int lane) {
-  constexpr int LD = D + PAD;
-  const int blk = lane >> 3;
-  ldsm_x4<false>(a, tile + (row0 + (blk & 1) * 8 + (lane & 7)) * LD + col0 +
-                        (blk >> 1) * 8);
-}
-
-// B fragments of two n-tiles of M^T, where M's rows n0.. (16) are the
-// product's columns and its columns k0.. (16) the reduction: b[0], b[1]
-// for n-tile n0 and b[2], b[3] for n0 + 8.
-template <int D>
-__device__ __forceinline__ void ld_b_rows(uint32_t b[4], const bf16* tile,
-                                          int n0, int k0, int lane) {
-  constexpr int LD = D + PAD;
-  const int blk = lane >> 3;
-  ldsm_x4<false>(b, tile + (n0 + (blk >> 1) * 8 + (lane & 7)) * LD + k0 +
-                        (blk & 1) * 8);
-}
-
-// B fragments of two n-tiles of M itself, where M's rows k0.. (16) are the
-// reduction and its columns n0.. (16) the product's columns (transposed
-// blocks): b[0], b[1] for n-tile n0 and b[2], b[3] for n0 + 8.
-template <int D>
-__device__ __forceinline__ void ld_b_cols(uint32_t b[4], const bf16* tile,
-                                          int k0, int n0, int lane) {
-  constexpr int LD = D + PAD;
-  const int blk = lane >> 3;
-  ldsm_x4<true>(b, tile + (k0 + (blk & 1) * 8 + (lane & 7)) * LD + n0 +
-                       (blk >> 1) * 8);
-}
-
-// A fragments of a 16 x 16 chunk of a C-layout accumulator (n-tiles nt,
-// nt + 1), rounded to bf16
-__device__ __forceinline__ void c_to_a(uint32_t a[4], const float c0[4],
-                                       const float c1[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Stores a warp's 16 x D accumulator (rows row0.. of a (B, L, H, D)
-// output) as bf16 pairs.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, const float acc[][4],
-                                           int b, int h, int heads, int len,
-                                           int row0, int grp, int tig) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + grp + 8 * half;
-    if (row >= len) continue;
-    bf16* dst = out + (((int64_t)b * len + row) * heads + h) * D + 2 * tig;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + n * 8) =
-          pack_bf16(acc[n][2 * half], acc[n][2 * half + 1]);
-  }
-}
-
-template <int D>
-struct MmaCfg {
-  // dK/dV: the query tile each iteration brings in (32 at D = 128 keeps
-  // the S/dP accumulators beside dK and dV within the register file)
-  static constexpr int BQ = D == 64 ? 64 : 32;
-  // dK/dV blocks resident per SM: at D = 64 three (at most 170 registers
-  // a thread; without the bound ptxas takes 185 and only two fit)
-  static constexpr int DKDV_MIN_BLOCKS = D == 64 ? 3 : 1;
-  static constexpr int LD = D + PAD;
-  static constexpr int DKDV_SMEM =
-      (2 * TILE + 2 * BQ) * LD * 2 + 2 * BQ * 4;
-  static constexpr int DQ_SMEM = 4 * TILE * LD * 2;
-};
-
-template <int D>
-__global__ void __launch_bounds__(THREADS, MmaCfg<D>::DKDV_MIN_BLOCKS)
-    dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ g,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int heads, int q_len, int k_len,
-                    int64_t q_bs, int64_t q_rs, int64_t k_bs, int64_t k_rs,
-                    int64_t v_bs, int64_t v_rs, int64_t g_bs, int64_t g_rs,
-                    float scale, int causal) {
-  constexpr int BQ = MmaCfg<D>::BQ;
-  constexpr int LD = MmaCfg<D>::LD;
-  constexpr int QN = BQ / 8;   // n-tiles of S^T (queries)
-  constexpr int DN = D / 8;    // n-tiles of dK, dV
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + TILE * LD;
-  bf16* qs = vs + TILE * LD;
-  bf16* gs = qs + BQ * LD;
-  float* lse_s = reinterpret_cast<float*>(gs + BQ * LD);
-  float* delta_s = lse_s + BQ;
-
-  const int k0 = blockIdx.x * TILE;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int grp = lane / 4;
-  const int tig = lane % 4;
-  const int wrow = warp * 16;   // this warp's keys within the tile
-
-  const bf16* qh = q + b * q_bs + (int64_t)h * D;
-  const bf16* kh = k + b * k_bs + (int64_t)h * D;
-  const bf16* vh = v + b * v_bs + (int64_t)h * D;
-  const bf16* gh = g + b * g_bs + (int64_t)h * D;
-  const float* delta_h = delta + ((int64_t)b * heads + h) * q_len;
-
-  load_tile_bf16<D>(ks, kh, k0, TILE, k_len, k_rs);
-  load_tile_bf16<D>(vs, vh, k0, TILE, k_len, v_rs);
-
-  float acc_dk[DN][4];
-  float acc_dv[DN][4];
-#pragma unroll
-  for (int n = 0; n < DN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
-
-  // causal: queries before this key tile's first key see none of it
-  const int q_start = causal ? (k0 / BQ) * BQ : 0;
-  for (int q0 = q_start; q0 < q_len; q0 += BQ) {
-    __syncthreads();
-    load_tile_bf16<D>(qs, qh, q0, BQ, q_len, q_rs);
-    load_tile_bf16<D>(gs, gh, q0, BQ, q_len, g_rs);
-    for (int i = threadIdx.x; i < BQ; i += THREADS) {
-      const int row = q0 + i;
-      const bool in = row < q_len;
-      lse_s[i] = in ? lse[((int64_t)b * q_len + row) * heads + h] : 0.f;
-      delta_s[i] = in ? delta_h[row] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries
-    float s[QN][4];
-    float dp[QN][4];
-#pragma unroll
-    for (int n = 0; n < QN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a_k[4], a_v[4];
-      ld_a<D>(a_k, ks, wrow, kk, lane);
-      ld_a<D>(a_v, vs, wrow, kk, lane);
-#pragma unroll
-      for (int n = 0; n < QN; n += 2) {
-        uint32_t b_q[4], b_g[4];
-        ld_b_rows<D>(b_q, qs, n * 8, kk, lane);
-        ld_b_rows<D>(b_g, gs, n * 8, kk, lane);
-        mma_bf16(s[n], a_k, b_q);
-        mma_bf16(s[n + 1], a_k, b_q + 2);
-        mma_bf16(dp[n], a_v, b_g);
-        mma_bf16(dp[n + 1], a_v, b_g + 2);
-      }
-    }
-    // P^T in s, dS^T in dp (f32; rounded to bf16 by c_to_a)
-#pragma unroll
-    for (int n = 0; n < QN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + wrow + grp + 8 * (e >> 1);
-        const int qi = n * 8 + 2 * tig + (e & 1);
-        const int row = q0 + qi;
-        const bool valid = row < q_len && (!causal || row >= key);
-        const float p = valid ? expf(s[n][e] * scale - lse_s[qi]) : 0.f;
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - delta_s[qi]) * scale;
-      }
-
-    // dV += P^T dO, dK += dS^T Q (reduction over the BQ queries)
-#pragma unroll
-    for (int kq = 0; kq < QN / 2; ++kq) {
-      uint32_t a_p[4], a_ds[4];
-      c_to_a(a_p, s[2 * kq], s[2 * kq + 1]);
-      c_to_a(a_ds, dp[2 * kq], dp[2 * kq + 1]);
-#pragma unroll
-      for (int n = 0; n < DN; n += 2) {
-        uint32_t b_g[4], b_q[4];
-        ld_b_cols<D>(b_g, gs, kq * 16, n * 8, lane);
-        ld_b_cols<D>(b_q, qs, kq * 16, n * 8, lane);
-        mma_bf16(acc_dv[n], a_p, b_g);
-        mma_bf16(acc_dv[n + 1], a_p, b_g + 2);
-        mma_bf16(acc_dk[n], a_ds, b_q);
-        mma_bf16(acc_dk[n + 1], a_ds, b_q + 2);
-      }
-    }
-  }
-
-  store_rows<D>(dk, acc_dk, b, h, heads, k_len, k0 + wrow, grp, tig);
-  store_rows<D>(dv, acc_dv, b, h, heads, k_len, k0 + wrow, grp, tig);
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ g,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dq,
-                  int heads, int q_len, int k_len, int64_t q_bs,
-                  int64_t q_rs, int64_t k_bs, int64_t k_rs, int64_t v_bs,
-                  int64_t v_rs, int64_t g_bs, int64_t g_rs, float scale,
-                  int causal) {
-  constexpr int LD = MmaCfg<D>::LD;
-  constexpr int KN = TILE / 8;  // n-tiles of S (keys)
-  constexpr int DN = D / 8;     // n-tiles of dQ
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* gs = qs + TILE * LD;
-  bf16* ks = gs + TILE * LD;
-  bf16* vs = ks + TILE * LD;
-
-  const int q0 = blockIdx.x * TILE;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int grp = lane / 4;
-  const int tig = lane % 4;
-  const int wrow = warp * 16;   // this warp's queries within the tile
-
-  const bf16* qh = q + b * q_bs + (int64_t)h * D;
-  const bf16* kh = k + b * k_bs + (int64_t)h * D;
-  const bf16* vh = v + b * v_bs + (int64_t)h * D;
-  const bf16* gh = g + b * g_bs + (int64_t)h * D;
-
-  load_tile_bf16<D>(qs, qh, q0, TILE, q_len, q_rs);
-  load_tile_bf16<D>(gs, gh, q0, TILE, q_len, g_rs);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + wrow + grp + 8 * half;
-    const bool in = row < q_len;
-    lse_r[half] = in ? lse[((int64_t)b * q_len + row) * heads + h] : 0.f;
-    delta_r[half] =
-        in ? delta[((int64_t)b * heads + h) * q_len + row] : 0.f;
-  }
-
-  float acc[DN][4];
-#pragma unroll
-  for (int n = 0; n < DN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int k_end = causal ? min(k_len, q0 + TILE) : k_len;
-  for (int k0 = 0; k0 < k_end; k0 += TILE) {
-    __syncthreads();
-    load_tile_bf16<D>(ks, kh, k0, TILE, k_len, k_rs);
-    load_tile_bf16<D>(vs, vh, k0, TILE, k_len, v_rs);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
-    float s[KN][4];
-    float dp[KN][4];
-#pragma unroll
-    for (int n = 0; n < KN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a_q[4], a_g[4];
-      ld_a<D>(a_q, qs, wrow, kk, lane);
-      ld_a<D>(a_g, gs, wrow, kk, lane);
-#pragma unroll
-      for (int n = 0; n < KN; n += 2) {
-        uint32_t b_k[4], b_v[4];
-        ld_b_rows<D>(b_k, ks, n * 8, kk, lane);
-        ld_b_rows<D>(b_v, vs, n * 8, kk, lane);
-        mma_bf16(s[n], a_q, b_k);
-        mma_bf16(s[n + 1], a_q, b_k + 2);
-        mma_bf16(dp[n], a_g, b_v);
-        mma_bf16(dp[n + 1], a_g, b_v + 2);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < KN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int row = q0 + wrow + grp + 8 * half;
-        const int key = k0 + n * 8 + 2 * tig + (e & 1);
-        const bool valid =
-            key < k_len && row < q_len && (!causal || key <= row);
-        const float p =
-            valid ? expf(s[n][e] * scale - lse_r[half]) : 0.f;
-        dp[n][e] = p * (dp[n][e] - delta_r[half]) * scale;
-      }
-
-    // dQ += dS K (reduction over the 64 keys)
-#pragma unroll
-    for (int kq = 0; kq < KN / 2; ++kq) {
-      uint32_t a_ds[4];
-      c_to_a(a_ds, dp[2 * kq], dp[2 * kq + 1]);
-#pragma unroll
-      for (int n = 0; n < DN; n += 2) {
-        uint32_t b_k[4];
-        ld_b_cols<D>(b_k, ks, kq * 16, n * 8, lane);
-        mma_bf16(acc[n], a_ds, b_k);
-        mma_bf16(acc[n + 1], a_ds, b_k + 2);
-      }
-    }
-  }
-
-  store_rows<D>(dq, acc, b, h, heads, q_len, q0 + wrow, grp, tig);
-}
-
 // ---- launches ---------------------------------------------------------
 
 struct Args {
@@ -850,53 +460,19 @@ cudaError_t dispatch_core(const Args& a) {
   return launch_core<T, 128>(a);
 }
 
-template <int D>
-cudaError_t launch_mma(const Args& a) {
-  cudaError_t err = launch_delta<bf16>(a);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dkdv_mma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             MmaCfg<D>::DKDV_SMEM);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq_mma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             MmaCfg<D>::DQ_SMEM);
-  if (err != cudaSuccess) return err;
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* g = static_cast<const bf16*>(a.g);
-  const float* lse = static_cast<const float*>(a.lse);
-  const float* delta = static_cast<const float*>(a.delta);
-  const dim3 kv_grid((a.k_len + TILE - 1) / TILE, a.heads, a.batch);
-  dkdv_mma_kernel<D><<<kv_grid, THREADS, MmaCfg<D>::DKDV_SMEM, a.stream>>>(
-      q, k, v, g, lse, delta, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.heads, a.q_len, a.k_len, a.q_bs, a.q_rs,
-      a.k_bs, a.k_rs, a.v_bs, a.v_rs, a.g_bs, a.g_rs, a.scale, a.causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 q_grid((a.q_len + TILE - 1) / TILE, a.heads, a.batch);
-  dq_mma_kernel<D><<<q_grid, THREADS, MmaCfg<D>::DQ_SMEM, a.stream>>>(
-      q, k, v, g, lse, delta, static_cast<bf16*>(a.dq), a.heads, a.q_len,
-      a.k_len, a.q_bs, a.q_rs, a.k_bs, a.k_rs, a.v_bs, a.v_rs, a.g_bs,
-      a.g_rs, a.scale, a.causal);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// variant: 0 = cuda_core, 1 = mma_sync.  dtype: 0 = float32, 1 = bfloat16.
-// q/k/v/o/g are (B, L, H, D) with the (H, D) dims contiguous and the given
-// batch and row strides (elements); lse is (B, Lq, H) f32; delta is an
-// (B, H, Lq) f32 scratch; dq/dk/dv are contiguous (B, L, H, D) outputs.
-// Returns a cudaError_t (0 = success), checked after each of the three
-// launches: a refused launch never runs, and a later synchronize would
-// not report it.
+// dtype: 0 = float32, 1 = bfloat16.  q/k/v/o/g are (B, L, H, D) with the
+// (H, D) dims contiguous and the given batch and row strides (elements);
+// lse is (B, Lq, H) f32; delta is an (B, H, Lq) f32 scratch; dq/dk/dv are
+// contiguous (B, L, H, D) outputs.  Returns a cudaError_t (0 = success),
+// checked after each of the three launches: a refused launch never runs,
+// and a later synchronize would not report it.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* g, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int variant, int dtype, int batch, int heads, int q_len,
-    int k_len, int head_dim, long long q_bs, long long q_rs, long long k_bs,
+    void* dv, int dtype, int batch, int heads, int q_len, int k_len,
+    int head_dim, long long q_bs, long long q_rs, long long k_bs,
     long long k_rs, long long v_bs, long long v_rs, long long o_bs,
     long long o_rs, long long g_bs, long long g_rs, float scale, int causal,
     void* stream) {
@@ -908,13 +484,6 @@ extern "C" int flash_attention_bwd(
                dv,   batch, heads, q_len, k_len, head_dim, q_bs, q_rs,
                k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, g_bs, g_rs, scale,
                causal, static_cast<cudaStream_t>(stream)};
-  if (variant == 1) {
-    if (dtype != 1) return (int)cudaErrorInvalidValue;
-    if (head_dim == 64) return (int)launch_mma<64>(a);
-    if (head_dim == 128) return (int)launch_mma<128>(a);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (variant != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)dispatch_core<float>(a);
   if (dtype == 1) return (int)dispatch_core<__nv_bfloat16>(a);
   return (int)cudaErrorInvalidValue;

@@ -27,14 +27,16 @@ same (out, lse).  Nothing falls back from the card to the plain version.
 
 The backward (`flash_attention_backward`, under `_Flash.backward`) is a
 recompute from the saved log-sum-exp, the function of the JAX package's
-`_flash_bwd` (jnp there, compiled by XLA).  On a CUDA tensor it runs the
-hand kernel `csrc/flash_attention_bwd.cu` (three launches: delta, dK/dV,
-dQ; no atomics, so the same bits from run to run) in one of two
-variants, picked by the predicate `backward_tensor_core_ok`:
+`_flash_bwd` (jnp there, compiled by XLA).  On a CUDA tensor it runs a
+hand kernel (three launches: a delta pass, dK/dV, dQ; no atomics, so the
+same bits from run to run) in one of two variants, picked by the
+predicate `backward_wgmma_ok`:
 
-- `mma_sync`: bf16 at D = 64 or 128 with 16-byte aligned rows, on the
-  tensor cores by mma.sync;
-- `cuda_core`: f32 FMAs, for every other input the shapes allow.
+- `sm90_wgmma` (`csrc/flash_attention_bwd_sm90.cu`): TMA loads and wgmma
+  on the tensor cores, for bf16 at D = 64 or 128 where q, k, v, O and dO
+  all meet the forward's TMA rules;
+- `cuda_core` (`csrc/flash_attention_bwd.cu`): f32 FMAs, for every other
+  input the shapes allow.
 
 It counts each call in `flash_attention.backward_launches` and, per
 variant, `flash_attention.backward_launches_by_kernel`.  On a CPU tensor
@@ -55,10 +57,9 @@ _NEG_INF = -1e30
 SOURCE = "flash_attention_fwd.cu"
 SOURCE_SM90 = "flash_attention_fwd_sm90.cu"
 SOURCE_BWD = "flash_attention_bwd.cu"
+SOURCE_BWD_SM90 = "flash_attention_bwd_sm90.cu"
 CUDA_CORE = "cuda_core"
 SM90_WGMMA = "sm90_wgmma"
-MMA_SYNC = "mma_sync"
-_BWD_VARIANT_CODES = {CUDA_CORE: 0, MMA_SYNC: 1}
 MAX_HEAD_DIM = 128
 TENSOR_CORE_HEAD_DIMS = (64, 128)
 _MAX_GRID_YZ = 65535  # heads and batch are the grid's y and z
@@ -93,21 +94,31 @@ def _library(variant: str = CUDA_CORE):
         return lib
 
 
-def _backward_library():
-    """The loaded backward library (both variants in one source), built
-    first if needed."""
+# backward variant -> (source, C entry, pointers, ints): the CUDA-core
+# entry takes a dtype code and no lse2 scratch, the wgmma entry the reverse
+_BWD_ENTRIES = {
+    CUDA_CORE: (SOURCE_BWD, "flash_attention_bwd", 10, 6),
+    SM90_WGMMA: (SOURCE_BWD_SM90, "flash_attention_bwd_sm90", 11, 5),
+}
+
+
+def _backward_library(variant: str = CUDA_CORE):
+    """The loaded backward library of one variant, built first if
+    needed."""
+    source, entry, pointers, ints = _BWD_ENTRIES[variant]
     with _LIB_LOCK:
-        lib = _LIBS.get(SOURCE_BWD)
+        lib = _LIBS.get(source)
         if lib is None:
-            lib = _build.load_library(SOURCE_BWD)
-            lib.flash_attention_bwd.argtypes = (
-                [ctypes.c_void_p] * 10
-                + [ctypes.c_int] * 7
+            lib = _build.load_library(source)
+            fn = getattr(lib, entry)
+            fn.argtypes = (
+                [ctypes.c_void_p] * pointers
+                + [ctypes.c_int] * ints
                 + [ctypes.c_longlong] * 10
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             )
-            lib.flash_attention_bwd.restype = ctypes.c_int
-            _LIBS[SOURCE_BWD] = lib
+            fn.restype = ctypes.c_int
+            _LIBS[source] = lib
         return lib
 
 
@@ -126,6 +137,17 @@ def _bf16_rows_aligned(x, dim: int) -> bool:
             and x.stride(1) % 8 == 0 and x.stride(0) % 8 == 0)
 
 
+def _tma_ok(x, dim: int) -> bool:
+    """Whether TMA can describe x as a bf16 (B, L, H, dim) tensor map:
+    `_bf16_rows_aligned`, rows that do not overlap and, at B > 1,
+    batches that do not either."""
+    if not _bf16_rows_aligned(x, dim):
+        return False
+    batch, length, heads, _ = x.shape
+    return (x.stride(1) >= heads * dim
+            and (batch == 1 or x.stride(0) >= length * x.stride(1)))
+
+
 def tensor_core_ok(q, k, v) -> bool:
     """Whether the wgmma kernel takes these (B, L, H, D) tensors: bf16
     throughout, D in TENSOR_CORE_HEAD_DIMS, the (H, D) dims contiguous,
@@ -133,28 +155,17 @@ def tensor_core_ok(q, k, v) -> bool:
     row and batch strides that are multiples of 16 bytes (8 elements),
     rows that do not overlap and, at B > 1, batches that do not either.
     Reads only metadata, so it answers for CPU tensors too."""
-    if q.dim() != 4 or q.shape[-1] not in TENSOR_CORE_HEAD_DIMS:
-        return False
-    for x in (q, k, v):
-        if not _bf16_rows_aligned(x, q.shape[3]):
-            return False
-        batch, length, heads, dim = x.shape
-        if x.stride(1) < heads * dim:
-            return False
-        if batch > 1 and x.stride(0) < length * x.stride(1):
-            return False
-    return True
-
-
-def backward_tensor_core_ok(q, k, v, out, g) -> bool:
-    """Whether the mma.sync backward takes these (B, L, H, D) tensors:
-    bf16 throughout, one D in TENSOR_CORE_HEAD_DIMS, the (H, D) dims
-    contiguous, and 16-byte aligned base pointers and row and batch
-    strides (its tile loads move 16 bytes a thread).  Reads only
-    metadata, so it answers for CPU tensors too."""
     return (q.dim() == 4 and q.shape[-1] in TENSOR_CORE_HEAD_DIMS
-            and all(_bf16_rows_aligned(x, q.shape[3])
-                    for x in (q, k, v, out, g)))
+            and all(_tma_ok(x, q.shape[3]) for x in (q, k, v)))
+
+
+def backward_wgmma_ok(q, k, v, out, g) -> bool:
+    """Whether the wgmma backward takes these (B, L, H, D) tensors:
+    `tensor_core_ok(q, k, v)` and the same TMA rules on the forward's
+    output and its gradient.  Reads only metadata, so it answers for CPU
+    tensors too."""
+    return (tensor_core_ok(q, k, v)
+            and all(_tma_ok(x, q.shape[3]) for x in (out, g)))
 
 
 def flash_shapes_ok(q_shape, k_shape) -> bool:
@@ -344,19 +355,25 @@ def _kernel_backward(q, k, v, out, lse, g, causal: bool, scale: float):
     dk = torch.empty((batch, k_len, heads, dim), dtype=q.dtype,
                      device=q.device)
     dv = torch.empty_like(dk)
+    # (B, H, Lq) f32 scratch: delta and, for the wgmma kernel, lse *
+    # log2(e) in a layout TMA can describe
     delta = torch.empty((batch, heads, q_len), dtype=torch.float32,
                         device=q.device)
-    variant = (MMA_SYNC if backward_tensor_core_ok(q, k, v, out, g)
-               else CUDA_CORE)
-    fn = _backward_library().flash_attention_bwd
+    variant = SM90_WGMMA if backward_wgmma_ok(q, k, v, out, g) else CUDA_CORE
+    lib = _backward_library(variant)
+    if variant == SM90_WGMMA:
+        fn, dtype_arg = lib.flash_attention_bwd_sm90, ()
+        scratch = (delta, torch.empty_like(delta))
+    else:
+        fn, dtype_arg = lib.flash_attention_bwd, (_DTYPE_CODES[q.dtype],)
+        scratch = (delta,)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(),
-            _BWD_VARIANT_CODES[variant], _DTYPE_CODES[q.dtype],
-            batch, heads, q_len, k_len, dim,
+            g.data_ptr(), lse.data_ptr(), *(t.data_ptr() for t in scratch),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *dtype_arg, batch, heads, q_len, k_len, dim,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             g.stride(0), g.stride(1),
@@ -416,7 +433,7 @@ def flash_attention(
     Differentiable (flash recompute backward).  Sequence lengths must be
     multiples of 8 and D <= 128 (`flash_shapes_ok`).  On a CUDA tensor
     the forward and the backward are Hopper kernels (`tensor_core_ok` and
-    `backward_tensor_core_ok` pick the variants);
+    `backward_wgmma_ok` pick the variants);
     `flash_attention.launches` and `flash_attention.backward_launches`
     count the calls, and the `..._by_kernel` dicts split them by variant.
     """
@@ -428,7 +445,7 @@ def flash_attention(
 flash_attention.launches = 0
 flash_attention.launches_by_kernel = {SM90_WGMMA: 0, CUDA_CORE: 0}
 flash_attention.backward_launches = 0
-flash_attention.backward_launches_by_kernel = {MMA_SYNC: 0, CUDA_CORE: 0}
+flash_attention.backward_launches_by_kernel = {SM90_WGMMA: 0, CUDA_CORE: 0}
 
 
 def reset_launch_counts() -> None:

@@ -232,6 +232,7 @@ class _FakeKernel:
 
     def __call__(self, *args):
         self.calls += 1
+        self.last_args = args
         return self.err
 
 
@@ -392,7 +393,20 @@ def test_autograd_backward_goes_through_the_backward_wrapper(monkeypatch):
     assert all(leaf.grad is not None for leaf in leaves)
 
 
-# (case, q/k/v builder, the mma.sync backward takes them)
+def _overlapping(rows=False, batches=False, dim=64):
+    """bf16 (2, 64, 4, dim) views whose rows (stride(1) < H*D) or batches
+    (stride(0) < L*stride(1)) overlap, with every stride still a multiple
+    of 8 elements: the old 16-byte-load predicate took them, TMA cannot."""
+    heads, length = 4, 64
+    row = dim if rows else heads * dim
+    batch = 8 * row if batches else length * row
+    flat = torch.zeros(batch + length * row + heads * dim,
+                       dtype=torch.bfloat16)
+    return tuple(flat.as_strided((2, length, heads, dim),
+                                 (batch, row, dim, 1)) for _ in range(3))
+
+
+# (case, q/k/v builder, the wgmma backward takes them)
 BACKWARD_TENSOR_CORE_CASES = [
     ("bf16-d64-fused-qkv-views", lambda: _bf16_views(), True),
     ("bf16-d128-fused-qkv-views", lambda: _bf16_views(dim=128), True),
@@ -407,6 +421,10 @@ BACKWARD_TENSOR_CORE_CASES = [
     ("bf16-heads-not-contiguous",
      lambda: tuple(torch.zeros(2, 4, 64, 64, dtype=torch.bfloat16)
                    .transpose(1, 2) for _ in range(3)), False),
+    ("bf16-overlapping-rows", lambda: _overlapping(rows=True), False),
+    ("bf16-overlapping-batches", lambda: _overlapping(batches=True), False),
+    ("bf16-d128-overlapping-rows",
+     lambda: _overlapping(rows=True, dim=128), False),
 ]
 
 
@@ -421,38 +439,55 @@ def _out_and_grad(q, dtype=None):
 def test_backward_tensor_core_ok_cases(case, build, want):
     q, k, v = build()
     out, g = _out_and_grad(q)
-    assert port_flash.backward_tensor_core_ok(q, k, v, out, g) is want
+    assert port_flash.backward_wgmma_ok(q, k, v, out, g) is want
+    # the backward's rules on q, k and v are the forward's
+    assert port_flash.tensor_core_ok(q, k, v) is want
 
 
 def test_backward_tensor_core_ok_reads_out_and_grad_too():
     q, k, v = _bf16_views()
     out, g = _out_and_grad(q)
-    assert port_flash.backward_tensor_core_ok(q, k, v, out, g)
+    assert port_flash.backward_wgmma_ok(q, k, v, out, g)
     # an output gradient in f32, or one 2 bytes off a 16-byte boundary
-    assert not port_flash.backward_tensor_core_ok(
-        q, k, v, out, g.float())
+    assert not port_flash.backward_wgmma_ok(q, k, v, out, g.float())
     flat = torch.zeros(g.numel() + 1, dtype=torch.bfloat16)
     shifted = flat[1:].view(g.shape)
-    assert not port_flash.backward_tensor_core_ok(q, k, v, out, shifted)
+    assert not port_flash.backward_wgmma_ok(q, k, v, out, shifted)
+    # an output whose rows are 3*H*D + 4 elements apart (8 bytes off a
+    # 16-byte multiple), or an output gradient whose rows overlap
+    strided = _bf16_views(extra=4)[0]
+    assert not port_flash.backward_wgmma_ok(q, k, v, strided, g)
+    assert not port_flash.backward_wgmma_ok(
+        q, k, v, out, _overlapping(rows=True)[0])
+    # an output that is a column view of a wider buffer, aligned, is taken
+    assert port_flash.backward_wgmma_ok(q, k, v, _bf16_views(extra=8)[0], g)
 
 
 @pytest.fixture
 def fake_backward_library(monkeypatch):
-    """The backward's C entry replaced by a recorder, and the CUDA
-    device/stream lookups by stand-ins, so its dispatch runs on CPU
-    tensors without a card."""
+    """Both backward variants' C entries replaced by recorders, and the
+    CUDA device/stream lookups by stand-ins, so the dispatch runs on CPU
+    tensors without a card.  Yields {variant: recorder}."""
     import contextlib
     import types as _types
 
-    lib = _types.SimpleNamespace(flash_attention_bwd=_FakeKernel())
-    monkeypatch.setattr(port_flash, "_backward_library", lambda: lib)
+    kernels = {port_flash.SM90_WGMMA: _FakeKernel(),
+               port_flash.CUDA_CORE: _FakeKernel()}
+    libs = {
+        port_flash.SM90_WGMMA: _types.SimpleNamespace(
+            flash_attention_bwd_sm90=kernels[port_flash.SM90_WGMMA]),
+        port_flash.CUDA_CORE: _types.SimpleNamespace(
+            flash_attention_bwd=kernels[port_flash.CUDA_CORE]),
+    }
+    monkeypatch.setattr(port_flash, "_backward_library",
+                        lambda variant: libs[variant])
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: _types.SimpleNamespace(
                             cuda_stream=0))
     port_flash.reset_launch_counts()
-    yield lib.flash_attention_bwd
+    yield kernels
     port_flash.reset_launch_counts()
 
 
@@ -463,11 +498,12 @@ def _residuals(q):
 
 
 @pytest.mark.parametrize("build,variant", [
-    (lambda: _bf16_views(), "mma_sync"),
-    (lambda: _bf16_views(dim=128), "mma_sync"),
+    (lambda: _bf16_views(), "sm90_wgmma"),
+    (lambda: _bf16_views(dim=128), "sm90_wgmma"),
     (lambda: _bf16_views(dtype=torch.float32), "cuda_core"),
     (lambda: _bf16_views(dim=16), "cuda_core"),
     (lambda: _bf16_views(extra=4), "cuda_core"),
+    (lambda: _overlapping(rows=True), "cuda_core"),
 ])
 def test_backward_dispatch_follows_the_predicate(fake_backward_library,
                                                  build, variant):
@@ -477,10 +513,16 @@ def test_backward_dispatch_follows_the_predicate(fake_backward_library,
                                              0.125)
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
     assert dq.is_contiguous() and dq.dtype == q.dtype
-    assert fake_backward_library.calls == 1
+    assert {name: k.calls for name, k in fake_backward_library.items()} == {
+        "sm90_wgmma": int(variant == "sm90_wgmma"),
+        "cuda_core": int(variant == "cuda_core")}
+    # the wgmma entry takes an lse2 scratch and no dtype code: one pointer
+    # more and one int fewer, the same count of arguments
+    args = fake_backward_library[variant].last_args
+    assert len(args) == 29
     assert port_flash.flash_attention.backward_launches == 1
     assert port_flash.flash_attention.backward_launches_by_kernel == {
-        "mma_sync": int(variant == "mma_sync"),
+        "sm90_wgmma": int(variant == "sm90_wgmma"),
         "cuda_core": int(variant == "cuda_core")}
     # the forward's counts are the forward's alone
     assert port_flash.flash_attention.launches == 0
@@ -488,12 +530,15 @@ def test_backward_dispatch_follows_the_predicate(fake_backward_library,
 
 def test_a_failed_backward_launch_raises_and_counts_nothing(
         fake_backward_library):
-    fake_backward_library.err = 10001
+    """A wgmma launch that returns an error raises; the CUDA-core kernel
+    is not tried and no launch is counted."""
+    fake_backward_library["sm90_wgmma"].err = 10001
     q, k, v = _bf16_views()
     out, lse, g = _residuals(q)
-    with pytest.raises(RuntimeError, match="backward mma_sync"):
+    with pytest.raises(RuntimeError, match="backward sm90_wgmma"):
         port_flash._kernel_backward(q, k, v, out, lse, g, False, 0.125)
-    assert fake_backward_library.calls == 1
+    assert fake_backward_library["sm90_wgmma"].calls == 1
+    assert fake_backward_library["cuda_core"].calls == 0
     assert port_flash.flash_attention.backward_launches == 0
     assert sum(port_flash.flash_attention.backward_launches_by_kernel
                .values()) == 0
@@ -508,7 +553,7 @@ def test_backward_validates_its_residuals(fake_backward_library):
     with pytest.raises(ValueError, match="one dtype"):
         port_flash._kernel_backward(q, k, v, out.float(), lse, g, False,
                                     0.125)
-    assert fake_backward_library.calls == 0
+    assert sum(k.calls for k in fake_backward_library.values()) == 0
 
 
 def test_backward_makes_a_strided_grad_contiguous(fake_backward_library):
@@ -519,24 +564,67 @@ def test_backward_makes_a_strided_grad_contiguous(fake_backward_library):
                     dtype=q.dtype).transpose(1, 2)
     port_flash._kernel_backward(q, k, v, out, lse, g, False, 0.125)
     assert port_flash.flash_attention.backward_launches_by_kernel[
-        "mma_sync"] == 1
+        "sm90_wgmma"] == 1
 
 
 def test_reset_launch_counts_zeroes_the_backward_counts():
     port_flash.flash_attention.backward_launches = 2
-    port_flash.flash_attention.backward_launches_by_kernel["mma_sync"] = 2
+    port_flash.flash_attention.backward_launches_by_kernel["sm90_wgmma"] = 2
     port_flash.reset_launch_counts()
     assert port_flash.flash_attention.backward_launches == 0
     assert port_flash.flash_attention.backward_launches_by_kernel == {
-        "mma_sync": 0, "cuda_core": 0}
+        "sm90_wgmma": 0, "cuda_core": 0}
 
 
 def test_backward_source_names_the_reference_and_its_bound():
     from elasticdl_tpu_torch.ops import _build
 
-    assert port_flash.SOURCE_BWD in _build.sources()
-    text = (_build.CSRC_DIR / port_flash.SOURCE_BWD).read_text()
-    assert "`_flash_bwd`" in text
-    assert "elasticdl_tpu/ops/flash_attention.py:208" in text
-    assert "128.8 GFLOP" in text and "0.130 ms" in text
-    assert "mma.sync" in text and "no atomics" in text
+    assert {port_flash.SOURCE_BWD, port_flash.SOURCE_BWD_SM90} <= set(
+        _build.sources())
+    for source in (port_flash.SOURCE_BWD, port_flash.SOURCE_BWD_SM90):
+        text = (_build.CSRC_DIR / source).read_text()
+        assert "`_flash_bwd`" in text
+        assert "elasticdl_tpu/ops/flash_attention.py:208" in text
+        assert "128.8 GFLOP" in text and "0.130 ms" in text
+        assert "no atomics" in text
+        assert "mma.sync" not in text
+    text = (_build.CSRC_DIR / port_flash.SOURCE_BWD_SM90).read_text()
+    assert "wgmma.mma_async" in text and "cp.async.bulk.tensor" in text
+    # the forward's source is not included: the primitives are copied
+    assert "#include \"flash_attention_fwd" not in text
+
+
+@pytest.mark.parametrize("variant,entry,pointers", [
+    ("sm90_wgmma", "flash_attention_bwd_sm90", 11),
+    ("cuda_core", "flash_attention_bwd", 10),
+])
+def test_backward_library_declares_pointers_and_stream_as_void_p(
+        monkeypatch, variant, entry, pointers):
+    """ctypes passes an undeclared int as 32 bits and would cut a
+    pointer: every pointer and the stream are c_void_p, the strides
+    c_longlong."""
+    import ctypes
+    import types as _types
+
+    from elasticdl_tpu_torch.ops import _build
+
+    loaded = []
+
+    def fake_load(source):
+        loaded.append(source)
+        return _types.SimpleNamespace(**{entry: _types.SimpleNamespace()})
+
+    monkeypatch.setattr(_build, "load_library", fake_load)
+    monkeypatch.setattr(port_flash, "_LIBS", {})
+    fn = getattr(port_flash._backward_library(variant), entry)
+    assert loaded == [port_flash._BWD_ENTRIES[variant][0]]
+    types_ = list(fn.argtypes)
+    assert len(types_) == 29 and fn.restype is ctypes.c_int
+    assert types_[:pointers] == [ctypes.c_void_p] * pointers
+    assert types_[-1] is ctypes.c_void_p          # the stream
+    assert types_[-3:-1] == [ctypes.c_float, ctypes.c_int]
+    assert types_[-13:-3] == [ctypes.c_longlong] * 10
+    assert ctypes.c_void_p not in types_[pointers:-1]
+    # loaded once
+    port_flash._backward_library(variant)
+    assert len(loaded) == 1
