@@ -90,6 +90,25 @@
    bench_bert's width, checkpointed once at its end, for its wall and
    examples/s.  Both must launch the flash backward once per layer and
    step.
+10. Serves the Local DeepFM job's files with `serve` over a socket on
+   127.0.0.1 (`serve_cli_deepfm`, `build_serving_server` on parsed serve
+   args, `ServingStub` clients): mixed seeded traffic, all OK; the
+   16,384 validation records, whose AUC must equal the job's eval AUC
+   within 1e-4; a newer step written under traffic, with every response
+   from one whole step (its forward within SERVE_STEP_TOL) and one
+   reload; a truncated step rejected while serving goes on; the job's
+   `--output` export through `serve --export_dir`, bitwise against a
+   checkpoint-backed engine at every bucket; the int8 job's checkpoint
+   through `--arena_dtype int8` (AUC within 1e-4 of that job's), and the
+   fp32 checkpoint converted into the int8 config, bitwise against its
+   own forward.  Prints requests/s, p50/p99, decode and respond ms, the
+   reload's verify/restore/swap seconds and the peak device memory while
+   two generations coexist.
+11. Serves the full-width Local BERT job's checkpoint with `serve
+   --checkpoint_dir` (`serve_cli_bert`): serve_bert's 40 requests over
+   the socket; the flash forward must launch 12 x (buckets + batches)
+   times, all on `sm90_wgmma`; its requests/s and latency print beside
+   serve_bert's in-process figures.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
@@ -160,7 +179,22 @@ from elasticdl_tpu_torch.serving.batcher import (  # noqa: E402
     OK,
     DynamicBatcher,
 )
-from elasticdl_tpu_torch.serving.engine import ServingEngine  # noqa: E402
+from elasticdl_tpu_torch.common.save_utils import (  # noqa: E402
+    ArenaDtypeMismatch,
+    CheckpointSaver,
+)
+from elasticdl_tpu_torch.data.reader import TFRecordDataReader  # noqa: E402
+from elasticdl_tpu_torch.proto import messages as pb  # noqa: E402
+from elasticdl_tpu_torch.proto import serving as spb  # noqa: E402
+from elasticdl_tpu_torch.proto.service import ServingStub  # noqa: E402
+from elasticdl_tpu_torch.serving.engine import (  # noqa: E402
+    ServingEngine,
+    build_state_template,
+)
+from elasticdl_tpu_torch.serving.server import (  # noqa: E402
+    from_tensor_proto,
+    make_predict_request,
+)
 from elasticdl_tpu_torch.worker.trainer import Trainer  # noqa: E402
 
 SEED = 0
@@ -204,6 +238,7 @@ DEEPFM_DIM = 16
 AUC_STEPS = 32
 AUC_BATCH = 4096
 AUC_BAND = (0.79, 0.86)          # docs/CONVERGENCE.md
+AUC_CHUNK = 64                   # rows per request of the served AUC pass
 TIMED_BATCH = 16384
 TIMED_STEPS = 20
 WARMUP_STEPS = 5
@@ -575,6 +610,17 @@ def check_flash_bwd(gen):
     return entry, rows
 
 
+def bert_requests(rng) -> list:
+    """CLIENT_THREADS lists of REQUESTS_PER_CLIENT seeded BERT requests of
+    1-64 rows: the traffic of serve_bert and serve_cli_bert."""
+    return [
+        [{"input_ids": rng.randint(0, VOCAB, (rows, SEQ_LEN))
+          .astype(np.int32)}
+         for rows in rng.randint(1, BUCKETS[-1] + 1, REQUESTS_PER_CLIENT)]
+        for _ in range(CLIENT_THREADS)
+    ]
+
+
 def serve_bert(gen_seed: int):
     device = torch.device("cuda", 0)
     spec = get_model_spec(ZOO_DIR, "bert.bert_finetune.custom_model",
@@ -587,12 +633,7 @@ def serve_bert(gen_seed: int):
         {"input_ids": np.zeros((1, SEQ_LEN), np.int32)})
 
     rng = np.random.RandomState(gen_seed)
-    requests = [
-        [{"input_ids": rng.randint(0, VOCAB, (rows, SEQ_LEN))
-          .astype(np.int32)}
-         for rows in rng.randint(1, BUCKETS[-1] + 1, REQUESTS_PER_CLIENT)]
-        for _ in range(CLIENT_THREADS)
-    ]
+    requests = bert_requests(rng)
     results = []
     results_lock = threading.Lock()
 
@@ -1486,11 +1527,14 @@ def job_timeline(evs, unix0: float, unix1: float) -> dict:
     }
 
 
-def local_deepfm(card: str):
-    """The Local runner end to end: data, a train job with eval rounds
-    and checkpoints, an evaluate job from its checkpoint, a two-worker
-    train job.  Returns (summary, launches of the train job)."""
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_local_")
+def local_deepfm(card: str, work: str):
+    """The Local runner end to end: data, a train job with eval rounds,
+    checkpoints and an export (`--output`), an evaluate job from its
+    checkpoint, a two-worker train job, the dedup and int8 jobs.
+    Returns (summary, launches of the train job, what `serve_cli_deepfm`
+    serves: the validation data, the checkpoint and export directories
+    and the jobs' AUCs).  Its files stay under `work`."""
+    tmp = os.path.join(work, "local_deepfm")
     try:
         t0 = time.perf_counter()
         train_dir, val_dir = write_dataset(
@@ -1504,6 +1548,7 @@ def local_deepfm(card: str):
             "card": card, "records": LOCAL_TRAIN + LOCAL_VAL,
             "bytes": data_bytes, "write_s": write_s}}), flush=True)
         ckpt = os.path.join(tmp, "ckpt")
+        export_dir = os.path.join(tmp, "export")
         log = os.path.join(tmp, "events.jsonl")
         args = cli.parse_args(local_argv(
             "train", "--num_epochs", "1",
@@ -1512,7 +1557,7 @@ def local_deepfm(card: str):
             "--checkpoint_dir", ckpt,
             "--checkpoint_steps", str(LOCAL_CKPT_STEPS),
             "--keep_checkpoint_max", str(LOCAL_KEEP),
-            "--event_log", log))
+            "--event_log", log, "--output", export_dir))
 
         # ---- the main path: counts start at 0 here ----
         fa.reset_launch_counts()
@@ -1683,10 +1728,12 @@ def local_deepfm(card: str):
         launches.update({
             "local_deepfm_dedup": dedup["scatter_launches"],
             "local_deepfm_int8": int8["scatter_launches"]})
-        return summary, launches
+        served = {"val_dir": val_dir, "ckpt": ckpt, "ckpt8": ckpt8,
+                  "export": export_dir, "auc": train["metrics"]["auc"],
+                  "auc_int8": int8["metrics"]["auc"]}
+        return summary, launches, served
     finally:
         events.configure(None)
-        shutil.rmtree(tmp)
 
 
 def bert_launches() -> dict:
@@ -1854,13 +1901,14 @@ def bert_argv(job: str, params: str, batch: int, *extra) -> list:
             "--records_per_task", str(BERT_RECORDS_PER_TASK), *extra]
 
 
-def local_bert(card: str):
+def local_bert(card: str, work: str):
     """The Local runner on BERT: the planted-pairs job of tests/
     test_bert.py to accuracy > 0.9 and an evaluate job from its
     checkpoint with exactly its metrics; then one epoch at bench_bert's
     width for its wall and examples/s.  Returns (summary, launches by
-    job)."""
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_bert_")
+    job, the full-width job's checkpoint directory, which
+    `serve_cli_bert` serves).  Its files stay under `work`."""
+    tmp = os.path.join(work, "local_bert")
     try:
         train_dir, val_dir = write_pairs(
             os.path.join(tmp, "tiny"), n_train=BERT_TINY_TRAIN, n_val=256,
@@ -1961,10 +2009,483 @@ def local_bert(card: str):
         del job, saver
         return ({"tiny": tiny, "evaluate": evaluate, "full": full},
                 {"local_bert_tiny": tiny_launches,
-                 "local_bert_full": full_launches})
+                 "local_bert_full": full_launches}, ckpt)
     finally:
         events.configure(None)
-        shutil.rmtree(tmp)
+
+
+# ---- serve_cli: the `serve` command over a socket --------------------------
+
+SERVE_CALL_TIMEOUT_S = 300.0
+# the DeepFM server's --reload_poll_seconds: the hot swap lands within it
+SERVE_POLL_S = 0.1
+# served AUC vs the job's own eval AUC on the same 16,384 records
+SERVE_AUC_TOL = 1e-4
+# The newer step moves the output bias by SWAP_SHIFT, so every logit of
+# it sits 1.0 from the older step's.  A response is held against its
+# step's forward on the request alone within SERVE_STEP_TOL: the bf16
+# MLP runs on the batch the request rode in, whose shape changes
+# cuBLAS's tiling and so the bf16 roundings (a few 2^-8 steps of the
+# hidden activations).
+SWAP_SHIFT = 1.0
+SERVE_STEP_TOL = 0.05
+SWAP_CLIENT_MIN = 10          # requests each client sends around the swap
+SWAP_DEADLINE_S = 120.0
+
+
+def serve_argv(model_def: str, params: str, *extra) -> list:
+    return ["serve", "--model_def", model_def, "--model_params", params,
+            "--batch_buckets", ",".join(str(b) for b in BUCKETS),
+            "--port", "0", *extra]
+
+
+def start_server(args):
+    """`build_serving_server` on parsed serve args, started on an
+    ephemeral port; returns (server, a stub on 127.0.0.1)."""
+    server = api.build_serving_server(args)
+    port = server.start(args.port)
+    return server, ServingStub(f"127.0.0.1:{port}",
+                               timeout=SERVE_CALL_TIMEOUT_S)
+
+
+def socket_traffic(stub, requests_by_client):
+    """Each client thread sends its requests in turn through the stub;
+    returns ([(client, index, rows, response, latency_s)], wall_s)."""
+    results, lock, errors = [], threading.Lock(), []
+
+    def client(c, reqs):
+        try:
+            for i, feats in enumerate(reqs):
+                t0 = time.perf_counter()
+                resp = stub.predict(make_predict_request(feats))
+                lat = time.perf_counter() - t0
+                with lock:
+                    results.append((c, i, len(next(iter(feats.values()))),
+                                    resp, lat))
+        except BaseException as exc:   # re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(c, reqs))
+               for c, reqs in enumerate(requests_by_client)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    bad = [(rows, r.code, r.error) for _, _, rows, r, _ in results
+           if r.code != spb.SERVING_OK]
+    if bad:
+        raise AssertionError(f"{len(bad)} responses not OK: {bad[:3]}")
+    return results, wall_s
+
+
+def latency_summary(results, wall_s: float) -> dict:
+    lats = np.array([lat for *_, lat in results]) * 1e3
+    rows = sum(r[2] for r in results)
+    return {"requests": len(results), "rows": rows, "wall_s": wall_s,
+            "requests_per_s": len(results) / wall_s,
+            "rows_per_s": rows / wall_s,
+            "p50_latency_ms": float(np.percentile(lats, 50)),
+            "p99_latency_ms": float(np.percentile(lats, 99))}
+
+
+def phase_ms(server) -> dict:
+    """The server-side phases (p50 and mean ms): decode (wire tensors to
+    arrays), respond (the response's encoding), and the batcher's."""
+    out = {}
+    for name in ("decode", "queue_wait", "compute", "unpack", "respond"):
+        snap = server.batcher.metrics.phase.labels(phase=name).snapshot()
+        out[name] = {"p50_ms": snap["p50_s"] * 1e3,
+                     "mean_ms": snap["mean_s"] * 1e3,
+                     "count": snap["count"]}
+    return out
+
+
+def served_auc(stub, features, labels, chunk: int = AUC_CHUNK) -> float:
+    """AUC of the server's predictions for every record, sent in
+    `chunk`-row requests from CLIENT_THREADS clients."""
+    n = len(labels)
+    chunks = [{k: v[i:i + chunk] for k, v in features.items()}
+              for i in range(0, n, chunk)]
+    by_client = [chunks[c::CLIENT_THREADS] for c in range(CLIENT_THREADS)]
+    results, _ = socket_traffic(stub, by_client)
+    preds = [None] * len(chunks)
+    for c, i, _, resp, _ in results:
+        preds[c + i * CLIENT_THREADS] = from_tensor_proto(resp.predictions)
+    return float(auc(labels, np.concatenate(preds)))
+
+
+def seeded_rows(n_requests: int, seed: int) -> list:
+    """Seeded Criteo-format requests of 1-64 rows."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i, rows in enumerate(rng.randint(1, BUCKETS[-1] + 1, n_requests)):
+        dense, sparse, _ = synthetic_criteo(int(rows), seed=seed * 1000 + i)
+        out.append({"dense": dense, "sparse": sparse})
+    return out
+
+
+def bf16_rounded(features: dict) -> dict:
+    """The floating features as `--use_bf16 true` hands them to the model
+    (Trainer._cast), kept in float32 for the wire."""
+    return {k: (torch.from_numpy(v).to(torch.bfloat16).float().numpy()
+                if v.dtype == np.float32 else v)
+            for k, v in features.items()}
+
+
+def read_validation(val_dir: str) -> dict:
+    reader = TFRecordDataReader(val_dir)
+    return fm_zoo.feed_bulk(*reader.read_records_bulk(pb.Task(
+        shard=pb.Shard(name=os.path.join(val_dir, "criteo-val.tfrecord"),
+                       start=0, end=LOCAL_VAL))))
+
+
+def stage_corrupt_step(ckpt: str, good: int, bad: int) -> int:
+    """Step `bad`: a copy of step `good` whose state.pt is cut in half,
+    with the manifest of the whole file.  Built beside the directory and
+    renamed in, so the reloader sees it whole or not at all.  Returns
+    the cut file's bytes."""
+    stage = os.path.join(os.path.dirname(ckpt), f"stage_{bad}")
+    os.makedirs(stage)
+    path = os.path.join(stage, "state.pt")
+    shutil.copyfile(os.path.join(ckpt, str(good), "state.pt"), path)
+    with open(os.path.join(ckpt, ".manifests", f"{good}.json")) as f:
+        manifest = json.load(f)
+    manifest["step"] = bad
+    with open(os.path.join(ckpt, ".manifests", f"{bad}.json"), "w") as f:
+        json.dump(manifest, f)
+    with open(path, "r+b") as f:
+        f.truncate(os.path.getsize(path) // 2)
+    os.rename(stage, os.path.join(ckpt, str(bad)))
+    return os.path.getsize(os.path.join(ckpt, str(bad), "state.pt"))
+
+
+def wait_until(predicate, timeout_s: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while not predicate():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"timed out after {timeout_s} s: {what}")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def serve_cli_deepfm(card: str, served: dict) -> dict:
+    """`serve` on the Local DeepFM job's files at the north-star width,
+    over a socket: mixed traffic, the validation AUC, a hot swap under
+    traffic, a corrupt step, the export, the int8 checkpoint and the
+    fp32 checkpoint converted into the int8 config."""
+    ckpt = served["ckpt"]
+    val = read_validation(served["val_dir"])
+    labels = val["labels"]
+    feature_spec = json.dumps(feature_meta(val["features"]))
+    rounded = bf16_rounded(val["features"])
+    out = {"card": card}
+
+    args = cli.parse_args(serve_argv(
+        DEEPFM, DEEPFM_PARAMS, "--checkpoint_dir", ckpt,
+        "--feature_spec", feature_spec,
+        "--reload_poll_seconds", str(SERVE_POLL_S)))
+    # ---- the main path: counts start at 0 here ----
+    reset_counts()
+    server, stub = start_server(args)
+    engine, reloader = server.engine, server.reloader
+    device = engine.device
+    try:
+        if engine.step != LOCAL_STEPS:
+            raise AssertionError(f"serving step {engine.step}, want "
+                                 f"{LOCAL_STEPS}")
+        mixed, wall = socket_traffic(stub, [
+            seeded_rows(REQUESTS_PER_CLIENT, SEED + 10 + c)
+            for c in range(CLIENT_THREADS)])
+        out["mixed_traffic"] = latency_summary(mixed, wall)
+        out["auc"] = served_auc(stub, rounded, labels)
+        out["auc_f32_dense"] = served_auc(stub, val["features"], labels)
+        out["job_auc"] = served["auc"]
+        print(json.dumps({"serve_cli_deepfm_auc": {
+            k: out[k] for k in ("auc", "auc_f32_dense", "job_auc")}}),
+            flush=True)
+        if abs(out["auc"] - served["auc"]) > SERVE_AUC_TOL:
+            raise AssertionError(f"served AUC {out['auc']} vs the job's "
+                                 f"{served['auc']}")
+
+        # the newer step: the served one with its output bias moved,
+        # built on the host so the device holds only what serving holds
+        spec = get_model_spec(ZOO_DIR, DEEPFM, DEEPFM_PARAMS)
+        saver = CheckpointSaver(ckpt, keep_max=0)
+        newer = saver.restore_step(
+            LOCAL_STEPS, build_state_template(spec, None, "cpu"))
+        with torch.no_grad():
+            newer.model.mlp_out.bias += SWAP_SHIFT
+        newer.step = LOCAL_STEPS + 1
+        old_vars = engine.variables
+        new_vars = {k: v.to(device) for k, v in
+                    newer.model.state_dict().items()}
+        swap_results, lock = [], threading.Lock()
+        saw_new = threading.Event()
+        errors = []
+
+        def client(c):
+            try:
+                reqs = seeded_rows(1000, SEED + 100 + c)
+                deadline = time.perf_counter() + SWAP_DEADLINE_S
+                for i, feats in enumerate(reqs):
+                    resp = stub.predict(make_predict_request(feats))
+                    with lock:
+                        swap_results.append((feats, resp))
+                    if resp.model_step == LOCAL_STEPS + 1:
+                        saw_new.set()
+                    if i + 1 >= SWAP_CLIENT_MIN and (
+                            saw_new.is_set()
+                            or time.perf_counter() > deadline):
+                        return
+            except BaseException as exc:   # re-raised below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(CLIENT_THREADS)]
+        for t in threads:
+            t.start()
+        wait_until(lambda: len(swap_results) >= CLIENT_THREADS, 60,
+                   "traffic before the swap")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before_bytes = torch.cuda.memory_allocated()
+        t_save = time.perf_counter()
+        saver.save(newer)
+        saver.wait_until_finished()
+        write_s = time.perf_counter() - t_save
+        wait_until(lambda: engine.step == LOCAL_STEPS + 1, 60,
+                   "the hot swap")
+        landed_s = time.perf_counter() - t_save
+        peak_bytes = torch.cuda.max_memory_allocated()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        steps = sorted({r.model_step for _, r in swap_results})
+        codes = {int(r.code) for _, r in swap_results}
+        refs = {LOCAL_STEPS: old_vars, LOCAL_STEPS + 1: new_vars}
+        ref_engines = {
+            step: ServingEngine(spec.model, v, step,
+                                feature_meta(val["features"]),
+                                buckets=BUCKETS, precompile=False,
+                                device=device)
+            for step, v in refs.items()}
+        worst, nearest_other = 0.0, float("inf")
+        for feats, resp in swap_results:
+            got = from_tensor_proto(resp.predictions)
+            rows = len(got)
+            own, _ = ref_engines[resp.model_step].predict(feats, rows)
+            other_step = (LOCAL_STEPS if resp.model_step != LOCAL_STEPS
+                          else LOCAL_STEPS + 1)
+            other, _ = ref_engines[other_step].predict(feats, rows)
+            worst = max(worst, float(np.abs(got - own).max()))
+            nearest_other = min(nearest_other,
+                                float(np.abs(got - other).min()))
+        out["hot_swap"] = {
+            "requests": len(swap_results), "steps_seen": steps,
+            "codes": sorted(codes), "reload_count": reloader.reload_count,
+            "reload_rejected": reloader.rejected_count,
+            "reload_s": reloader.last_reload_s,
+            "checkpoint_write_s": write_s,
+            "save_start_to_swap_s": landed_s,
+            "device_bytes_before": before_bytes,
+            "device_peak_bytes_two_generations": peak_bytes,
+            "checkpoint_bytes": os.path.getsize(os.path.join(
+                ckpt, str(LOCAL_STEPS + 1), "state.pt")),
+            "max_abs_err_vs_own_step": worst, "tol": SERVE_STEP_TOL,
+            "min_abs_diff_vs_other_step": nearest_other}
+        print(json.dumps({"serve_cli_deepfm_hot_swap": out["hot_swap"]}),
+              flush=True)
+        if (codes != {int(spb.SERVING_OK)}
+                or steps != [LOCAL_STEPS, LOCAL_STEPS + 1]
+                or reloader.reload_count != 1 or worst > SERVE_STEP_TOL
+                or nearest_other < SWAP_SHIFT / 2):
+            raise AssertionError(f"hot swap: {out['hot_swap']}")
+        del ref_engines, refs, old_vars, new_vars, newer
+
+        cut_bytes = stage_corrupt_step(ckpt, LOCAL_STEPS + 1,
+                                       LOCAL_STEPS + 2)
+        wait_until(lambda: reloader.rejected_count == 1, 60,
+                   "the corrupt step's rejection")
+        resp = stub.predict(make_predict_request(seeded_rows(1, SEED)[0]))
+        health = stub.health(spb.HealthRequest())
+        hm = {m.name: m.value for m in health.metrics}
+        out["corrupt_step"] = {
+            "step": LOCAL_STEPS + 2, "cut_bytes": cut_bytes,
+            "reload_rejected": reloader.rejected_count,
+            "last_error": reloader.last_error,
+            "served_step": engine.step, "response_step": resp.model_step,
+            "health": {k: hm[k] for k in ("reload_count",
+                                          "reload_rejected",
+                                          "swap_count")}}
+        print(json.dumps({"serve_cli_deepfm_corrupt": out["corrupt_step"]}),
+              flush=True)
+        if (engine.step != LOCAL_STEPS + 1 or resp.code != spb.SERVING_OK
+                or resp.model_step != LOCAL_STEPS + 1
+                or hm["reload_count"] != 1 or hm["reload_rejected"] != 1):
+            raise AssertionError(f"corrupt step: {out['corrupt_step']}")
+        out["server_phases"] = phase_ms(server)
+        saver.close()
+    finally:
+        stub.close()
+        server.stop()
+    out["launches"] = bert_launches()
+    # ---- end of the main path ----
+    if out["launches"]["scatter_add"] or \
+            out["launches"]["flash_attention_fwd"]:
+        raise AssertionError(f"DeepFM serving launched {out['launches']}")
+
+    # the export of the same job, served; its engine against a
+    # checkpoint-backed one of the same step, bucket by bucket
+    export_server, export_stub = start_server(cli.parse_args(serve_argv(
+        DEEPFM, DEEPFM_PARAMS, "--export_dir", served["export"])))
+    try:
+        resp = export_stub.predict(make_predict_request(
+            seeded_rows(1, SEED + 7)[0]))
+        by_ckpt = ServingEngine.from_checkpoint(
+            ckpt, get_model_spec(ZOO_DIR, DEEPFM, DEEPFM_PARAMS),
+            {k: v[:1] for k, v in val["features"].items()},
+            buckets=BUCKETS, step=LOCAL_STEPS, device=device)
+        equal = {}
+        for b in BUCKETS:
+            x = {k: v[:b] for k, v in val["features"].items()}
+            a, _ = export_server.engine.predict(x, b)
+            c, _ = by_ckpt.predict(x, b)
+            equal[str(b)] = bool(np.array_equal(a, c))
+        out["export"] = {"step": export_server.engine.step,
+                         "response_code": int(resp.code),
+                         "response_step": resp.model_step,
+                         "bitwise_equal_by_bucket": equal}
+        print(json.dumps({"serve_cli_deepfm_export": out["export"]}),
+              flush=True)
+        if (resp.code != spb.SERVING_OK or resp.model_step != LOCAL_STEPS
+                or not all(equal.values())):
+            raise AssertionError(f"export vs checkpoint: {out['export']}")
+        del by_ckpt
+    finally:
+        export_stub.close()
+        export_server.stop()
+
+    # int8: the int8 job's checkpoint through --arena_dtype int8
+    int8_server, int8_stub = start_server(cli.parse_args(serve_argv(
+        DEEPFM, DEEPFM_PARAMS, "--arena_dtype", "int8",
+        "--checkpoint_dir", served["ckpt8"], "--feature_spec",
+        feature_spec)))
+    try:
+        q8 = int8_server.engine.variables["fm_embedding.q8"]
+        out["int8"] = {"auc": served_auc(int8_stub, rounded, labels),
+                       "job_auc": served["auc_int8"],
+                       "q8_dtype": str(q8.dtype)}
+    finally:
+        int8_stub.close()
+        int8_server.stop()
+    # the fp32 checkpoint converted into the int8 config on restore
+    spec8 = get_model_spec(ZOO_DIR, DEEPFM, DEEPFM_PARAMS,
+                           arena_dtype="int8")
+    sample = {k: v[:1] for k, v in val["features"].items()}
+    try:
+        ServingEngine.from_checkpoint(ckpt, spec8, sample, buckets=BUCKETS,
+                                      step=LOCAL_STEPS, device=device)
+        raise AssertionError("an fp32 checkpoint served into the int8 "
+                             "config without arena_convert")
+    except ArenaDtypeMismatch as exc:
+        out["int8"]["without_arena_convert"] = str(exc)
+    converted = ServingEngine.from_checkpoint(
+        ckpt, spec8, sample, buckets=BUCKETS, step=LOCAL_STEPS,
+        arena_convert=True, device=device)
+    saver = CheckpointSaver(ckpt, keep_max=0)
+    own = saver.restore_step(LOCAL_STEPS, build_state_template(
+        spec8, None, device), arena_convert=True)
+    saver.close()
+    own.model.eval()
+    x = {k: v[:BUCKETS[-1]] for k, v in rounded.items()}
+    got, _ = converted.predict(x, BUCKETS[-1])
+    with torch.no_grad():
+        want = own.model({k: torch.from_numpy(v).to(device)
+                          for k, v in x.items()}).float().cpu().numpy()
+    preds = np.concatenate([
+        converted.predict({k: v[i:i + BUCKETS[-1]]
+                           for k, v in rounded.items()},
+                          min(BUCKETS[-1], LOCAL_VAL - i))[0]
+        for i in range(0, LOCAL_VAL, BUCKETS[-1])])
+    out["int8"]["arena_convert"] = {
+        "bitwise_equal_to_own_forward": bool(np.array_equal(got, want)),
+        "auc": float(auc(labels, preds)), "fp32_job_auc": served["auc"],
+        "q8_dtype": str(converted.variables["fm_embedding.q8"].dtype)}
+    print(json.dumps({"serve_cli_deepfm_int8": out["int8"]}), flush=True)
+    if (abs(out["int8"]["auc"] - served["auc_int8"]) > SERVE_AUC_TOL
+            or out["int8"]["q8_dtype"] != "torch.int8"
+            or not out["int8"]["arena_convert"][
+                "bitwise_equal_to_own_forward"]
+            or not AUC_BAND[0] <= out["int8"]["arena_convert"]["auc"]
+            <= AUC_BAND[1]):
+        raise AssertionError(f"int8 serving: {out['int8']}")
+    print(json.dumps({"serve_cli_deepfm": out}), flush=True)
+    return out
+
+
+def serve_cli_bert(card: str, bert_ckpt: str, in_process: dict):
+    """`serve --checkpoint_dir` on the full-width BERT Local job's
+    checkpoint, over a socket: serve_bert's traffic (the same seeded
+    requests), its flash-forward launches and its latency beside
+    serve_bert's in-process figures.  Returns (summary, launches)."""
+    requests = bert_requests(np.random.RandomState(SEED))
+    args = cli.parse_args(serve_argv(
+        BERT, BERT_PARAMS + ";bf16=True", "--checkpoint_dir", bert_ckpt,
+        "--feature_spec", json.dumps(
+            {"input_ids": {"shape": [SEQ_LEN], "dtype": "int32"}})))
+    # ---- the main path: counts start at 0 here ----
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server, stub = start_server(args)
+    start_s = time.perf_counter() - t0
+    try:
+        results, wall = socket_traffic(stub, requests)
+        snap = server.batcher.metrics.snapshot()
+        phases = phase_ms(server)
+        step = server.engine.step
+        compiles = server.engine.compile_count
+    finally:
+        stub.close()
+        server.stop()
+    torch.cuda.synchronize()
+    launches = bert_launches()
+    # ---- end of the main path ----
+    batches = int(snap["batches"])
+    for _, _, rows, resp, _ in results:
+        preds = from_tensor_proto(resp.predictions)
+        if preds.shape != (rows, 2) or not np.isfinite(preds).all():
+            raise AssertionError(f"bad BERT predictions for {rows} rows: "
+                                 f"{preds.shape}")
+    expected = NUM_LAYERS * (len(BUCKETS) + batches)
+    by_variant = launches["flash_attention_fwd_by_variant"]
+    summary = {"card": card, "checkpoint_step": step,
+               "checkpoint_bytes": os.path.getsize(os.path.join(
+                   bert_ckpt, str(step), "state.pt")),
+               "build_and_start_s": start_s, "batches": batches,
+               "batch_fill_ratio": snap["batch_fill_ratio"],
+               "socket": latency_summary(results, wall),
+               "in_process": {
+                   "requests_per_s": in_process["requests_per_s"],
+                   "p50_latency_ms_by_bucket":
+                       in_process["p50_latency_ms_by_bucket"]},
+               "server_phases": phases, "launches": launches,
+               "expected_flash_launches": expected}
+    print(json.dumps({"serve_cli_bert": summary}), flush=True)
+    if (launches["flash_attention_fwd"] != expected
+            or by_variant.get(fa.SM90_WGMMA) != expected
+            or launches["scatter_add"] != 0 or step != BERT_FULL_STEPS
+            or compiles != len(BUCKETS)):
+        raise AssertionError(
+            f"serve_cli_bert: flash launched {launches}; every bf16 layer "
+            f"must run {fa.SM90_WGMMA}: {NUM_LAYERS} layers x "
+            f"({len(BUCKETS)} warm-up + {batches} batches) = {expected}")
+    return summary, launches
 
 
 def main() -> int:
@@ -2005,8 +2526,20 @@ def main() -> int:
     for name, stats in sass_stats.items():
         print(f"  {fa.SOURCE_BWD_SM90}: {name}: {stats}", flush=True)
 
+    build = {"build_s": build_s, "build_resources": build_resources,
+             "hgmma": hgmma, "bwd_sass_by_kernel": sass_stats}
+    # the Local jobs' data, checkpoints and exports, which the serve_cli
+    # phases serve
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run_phases(card, build, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_phases(card: str, build: dict, work: str) -> int:
     # wall seconds of each phase, the build's included
-    phase_s = {"build": build_s}
+    phase_s = {"build": build["build_s"]}
 
     def phase(label, fn, *args):
         t0 = time.perf_counter()
@@ -2024,11 +2557,16 @@ def main() -> int:
     serve, check, launches = phase("serve_bert", serve_bert, SEED)
     entry["launches"] = launches["flash_attention_fwd"]
     deepfm, fm_launches = phase("deepfm_trainer", train_deepfm)
-    local, local_launches = phase("local_deepfm", local_deepfm, card)
+    local, local_launches, fm_served = phase("local_deepfm", local_deepfm,
+                                             card, work)
+    serve_fm = phase("serve_cli_deepfm", serve_cli_deepfm, card, fm_served)
     wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
     del buffers
     bert_train, bert_launches_by = phase("train_bert", train_bert)
-    bert_local, bert_local_launches = phase("local_bert", local_bert, card)
+    bert_local, bert_local_launches, bert_ckpt = phase(
+        "local_bert", local_bert, card, work)
+    serve_bert_cli, cli_launches = phase("serve_cli_bert", serve_cli_bert,
+                                         card, bert_ckpt, serve)
     print(json.dumps({"phase_s": phase_s}), flush=True)
     # launches: the Local job's (the north star's path); each path's
     # count beside it
@@ -2050,6 +2588,7 @@ def main() -> int:
                   **bert_local_launches}
     entry["launches_by_path"] = {
         "serve_bert": launches["flash_attention_fwd"],
+        "serve_cli_bert": cli_launches["flash_attention_fwd"],
         **{path: n["flash_attention_fwd"] for path, n in
            bert_paths.items()}}
     # launches: the bare Trainer's timed steps at bench_bert's shape (the
@@ -2064,16 +2603,16 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
-                   "cuda": torch.version.cuda, "build_s": build_s,
-                   "build_resources": build_resources, "hgmma": hgmma,
-                   "bwd_sass_by_kernel": sass_stats,
+                   "cuda": torch.version.cuda, **build,
                    "phase_s": phase_s,
                    "kernel_checks": rows, "scatter_checks": scatter_rows,
                    "flash_bwd_checks": bwd_rows,
                    "train_bert": bert_train, "local_bert": bert_local,
                    "serve": serve, "bert_f32_check": check,
                    "deepfm": deepfm, "local_deepfm": local,
-                   "wire_deepfm": wire, **kernels}, f, indent=1)
+                   "wire_deepfm": wire, "serve_cli_deepfm": serve_fm,
+                   "serve_cli_bert": serve_bert_cli, **kernels}, f,
+                  indent=1)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

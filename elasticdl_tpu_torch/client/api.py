@@ -1,16 +1,21 @@
-"""Job construction for the Local strategy (the port's copy of
-`train`/`evaluate`/`predict` and `_train_local` from the JAX package's
-client/api.py): master and worker threads in one process, no cluster.
+"""Job construction for the Local strategy and the serving command (the
+port's copy of `train`/`evaluate`/`predict`, `_train_local`, `serve` and
+`build_serving_server` from the JAX package's client/api.py): master and
+worker threads in one process, no cluster.
 
 The path of a train job: TFRecord shards -> the master's task queue ->
 worker thread(s) -> one shared ModelOwner (Trainer on the device;
 periodic checkpoints) -> evaluation rounds with an exact AUC -> final
-metrics, and an exit code that says whether the job succeeded.  The
-evaluate and predict jobs run from `--checkpoint_dir_for_init`.
+metrics, the model export when `--output` names a directory, and an exit
+code that says whether the job succeeded.  The evaluate and predict jobs
+run from `--checkpoint_dir_for_init`.
 
-The cluster strategies, the tiered store, model export (`--output` of a
-train job), and the telemetry, TensorBoard and SLO loops wait for their
-slices of the port and raise NotImplementedError.
+`serve` answers Predict and Health over HTTP (serving/server.py) from an
+export (`--export_dir`) or a live checkpoint directory
+(`--checkpoint_dir`, hot-reloaded as the trainer writes new steps).
+
+The cluster strategies, the tiered store, and the TensorBoard and SLO
+loops wait for their slices of the port and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from elasticdl_tpu_torch.common import events
+from elasticdl_tpu_torch.common.export import SINGLE_FEATURE_KEY, export_model
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_handler import get_model_spec
 from elasticdl_tpu_torch.common.profiler import PhaseTimer
@@ -77,10 +83,6 @@ def _check_supported(args, job_type: str) -> None:
             f"--distribution_strategy {args.distribution_strategy} (a "
             "cluster job) waits for the cluster slice of the port "
             "(ROADMAP.md queue 1, item 12); use Local")
-    if job_type == "train" and args.output:
-        raise NotImplementedError(
-            "--output (model export) waits for the export slice of the "
-            "port (ROADMAP.md queue 1, item 13)")
     if job_type in ("evaluate", "predict") and \
             not args.checkpoint_dir_for_init:
         raise ValueError(
@@ -202,6 +204,11 @@ def run_local(args, job_type: str = "train") -> LocalJob:
         logger.info("Final metrics: %s", metrics)
     if job_type == "predict" and args.output:
         _write_predictions(args.output, workers)
+    elif args.output and owner.state is not None:
+        export_model(owner.state, spec, args.output,
+                     saved_model=bool(args.export_saved_model),
+                     sample_features=owner.sample_features)
+        logger.info("Exported model to %s", args.output)
     logger.info("Job %s: %s", "succeeded" if ok else "failed",
                 master.task_manager.snapshot())
     if errors:
@@ -224,3 +231,80 @@ def _write_predictions(output: str, workers) -> None:
         path = os.path.join(path, "predictions.npy")
     np.save(path, np.concatenate([by_task[t] for t in sorted(by_task)]))
     logger.info("Wrote predictions to %s", path)
+
+
+def serve(args) -> int:
+    """`serve`: online inference for a zoo model over HTTP, from a
+    params.pt export (--export_dir) or a live checkpoint directory
+    (--checkpoint_dir, with hot reload)."""
+    events.configure(args.event_log or None, role="serving")
+    server = build_serving_server(args)
+    port = server.start(args.port)
+    logger.info("serving %s on port %d (ctrl-c to stop)", args.model_def,
+                port)
+    try:
+        server.wait()
+    except KeyboardInterrupt:
+        logger.info("shutting down")
+    finally:
+        server.stop()
+    return 0
+
+
+def build_serving_server(args):
+    """Assemble (but do not start) the engine/batcher/reloader/server
+    stack from parsed `serve` args — split from serve() so tests and
+    embedders drive the lifecycle themselves."""
+    import json
+
+    from elasticdl_tpu_torch.serving.batcher import DynamicBatcher
+    from elasticdl_tpu_torch.serving.engine import ServingEngine
+    from elasticdl_tpu_torch.serving.reloader import CheckpointReloader
+    from elasticdl_tpu_torch.serving.server import ServingServer
+
+    if bool(args.export_dir) == bool(args.checkpoint_dir):
+        raise ValueError(
+            "serve needs exactly one of --export_dir or --checkpoint_dir")
+    device = resolve_device(args.device)
+    spec = get_model_spec(args.model_zoo, args.model_def,
+                          model_params=args.model_params,
+                          arena_dtype=args.arena_dtype)
+    buckets = tuple(
+        int(b) for b in str(args.batch_buckets).split(",") if b.strip()
+    )
+    reloader = None
+    if args.export_dir:
+        engine = ServingEngine.from_export(
+            args.export_dir, spec, buckets=buckets, device=device)
+    else:
+        feature_spec = args.feature_spec
+        if not feature_spec:
+            raise ValueError(
+                "--checkpoint_dir serving needs --feature_spec (inline "
+                "JSON or a path to an export_meta.json)")
+        if os.path.exists(feature_spec):
+            with open(feature_spec) as f:
+                meta = json.load(f)
+            feature_spec = meta.get("features", meta)
+        else:
+            feature_spec = json.loads(feature_spec)
+        sample = {
+            name: np.zeros((1, *leaf["shape"]), np.dtype(leaf["dtype"]))
+            for name, leaf in feature_spec.items()
+        }
+        if set(sample) == {SINGLE_FEATURE_KEY}:
+            sample = sample[SINGLE_FEATURE_KEY]
+        engine = ServingEngine.from_checkpoint(
+            args.checkpoint_dir, spec, sample, buckets=buckets,
+            device=device)
+        reloader = CheckpointReloader(
+            engine, args.checkpoint_dir,
+            poll_interval_s=args.reload_poll_seconds)
+    batcher = DynamicBatcher(
+        engine,
+        max_latency_s=args.max_batch_latency_ms / 1000.0,
+        max_queue_rows=args.max_queue_rows or None,
+        reject_oversized=args.reject_oversized,
+    )
+    return ServingServer(engine, batcher, reloader,
+                         telemetry_port=args.telemetry_port)

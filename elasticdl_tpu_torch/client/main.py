@@ -1,4 +1,4 @@
-"""The command line of the port (the train, evaluate and predict
+"""The command line of the port (the train, evaluate, predict and serve
 subcommands of the JAX package's client/main.py):
 
     python -m elasticdl_tpu_torch.client.main train \\
@@ -9,6 +9,10 @@ subcommands of the JAX package's client/main.py):
         --checkpoint_dir_for_init DIR
     python -m elasticdl_tpu_torch.client.main predict ... \\
         --checkpoint_dir_for_init DIR --output DIR
+    python -m elasticdl_tpu_torch.client.main serve \\
+        --model_def deepfm.deepfm_functional_api.custom_model \\
+        (--export_dir DIR | --checkpoint_dir DIR --feature_spec JSON) \\
+        [--port 50061] [--device cpu] ...
 
 Parsing is strict: an unknown flag is an error.  The exit code is 0 when
 the job succeeded.
@@ -35,6 +39,11 @@ def _build_parser() -> argparse.ArgumentParser:
         args_lib.add_model_params(sub)
         args_lib.add_train_params(sub)
         sub.set_defaults(func=name)
+    serve = subparsers.add_parser(
+        "serve", help="serve an exported model or live checkpoint dir")
+    args_lib.add_model_params(serve)
+    args_lib.add_serve_params(serve)
+    serve.set_defaults(func="serve")
     return parser
 
 

@@ -1,12 +1,14 @@
-"""The command-line flags of a Local job (the port's copy of the subset
-of the JAX package's common/args.py that `_train_local` reads).
+"""The command-line flags of a Local job and of `serve` (the port's copy
+of the subset of the JAX package's common/args.py that `_train_local`
+and `serve` read).
 
 Flags outside the subset are absent, so argparse rejects them; none is
 accepted and then ignored.  A flag whose feature waits for a later slice
-of the port (a non-Local strategy, `--output` export of a training job)
-parses and then raises NotImplementedError where the job would use it.
-The wire formats (`--wire_format plain|compact|dedup`, the legacy
-`--compact_wire`) and the int8 arena (`--arena_dtype int8`) run.
+of the port (a non-Local strategy) parses and then raises
+NotImplementedError where the job would use it.  The wire formats
+(`--wire_format plain|compact|dedup`, the legacy `--compact_wire`), the
+int8 arena (`--arena_dtype int8`) and `--output` (a train job's model
+export, common/export.py) run.
 
 `--device` is the port's own: `cuda` (the default) or `cpu`, the
 counterpart of the JAX package's JAX_PLATFORMS, resolved through
@@ -112,8 +114,14 @@ def add_train_params(parser: argparse.ArgumentParser):
     parser.add_argument(
         "--output", default="",
         help="predict: where predictions.npy goes (a .npy path or a "
-        "directory).  train: model export, which waits for its slice "
-        "of the port.")
+        "directory).  train: the directory of the final model export "
+        "(params.pt + export_meta.json).")
+    parser.add_argument(
+        "--export_saved_model", type=str2bool, default=False, nargs="?",
+        const=True,
+        help="train with --output: also ask for a TF SavedModel, which "
+        "the port records in export_meta.json as unavailable (the "
+        "params.pt export stands).")
     parser.add_argument("--checkpoint_dir_for_init", default="",
                         help="checkpoint to start from")
     parser.add_argument("--use_bf16", type=str2bool, default=True,
@@ -131,3 +139,63 @@ def add_train_params(parser: argparse.ArgumentParser):
         "format the zoo lacks falls back dedup -> compact -> plain "
         "with a warning.  Empty defers to --compact_wire.")
     parser.add_argument("--records_per_task", type=pos_int, default=4096)
+
+
+def add_serve_params(parser: argparse.ArgumentParser):
+    """`serve`: online inference from an export or a live checkpoint
+    directory."""
+    parser.add_argument(
+        "--export_dir", default="",
+        help="directory with params.pt + export_meta.json "
+        "(from --output of a training job)",
+    )
+    parser.add_argument(
+        "--checkpoint_dir", default="",
+        help="serve the newest verified checkpoint and hot-reload as "
+        "the trainer writes new steps (alternative to --export_dir)",
+    )
+    parser.add_argument("--port", type=non_neg_int, default=50061)
+    parser.add_argument(
+        "--batch_buckets", default="1,4,16,64",
+        help="comma-separated batch sizes to precompile; requests are "
+        "padded to the nearest bucket",
+    )
+    parser.add_argument(
+        "--max_batch_latency_ms", type=float, default=10.0,
+        help="max time a queued request waits for batch-mates",
+    )
+    parser.add_argument(
+        "--max_queue_rows", type=non_neg_int, default=0,
+        help="admission-control bound on queued rows "
+        "(0 = 4x the largest bucket)",
+    )
+    parser.add_argument(
+        "--reject_oversized", type=str2bool, default=False,
+        help="reject requests larger than the largest bucket instead "
+        "of splitting them",
+    )
+    parser.add_argument(
+        "--reload_poll_seconds", type=float, default=10.0,
+        help="checkpoint-directory poll interval for hot reload",
+    )
+    parser.add_argument(
+        "--telemetry_port", type=non_neg_int, default=0,
+        help="HTTP port for /metrics, /healthz and /varz on the serving "
+        "replica (0 = ephemeral)",
+    )
+    parser.add_argument(
+        "--event_log", default="",
+        help="append-only JSONL span-event log (hot-reload events join "
+        "the cluster's trace stream)",
+    )
+    parser.add_argument(
+        "--feature_spec", default="",
+        help="serving signature for --checkpoint_dir mode when no "
+        "export_meta.json is available: inline JSON "
+        '{"name": {"shape": [..], "dtype": ".."}} or a path to an '
+        "export_meta.json",
+    )
+    parser.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="Where the model serves: the GPU (default; raises without "
+        "CUDA) or the CPU when asked by name.")

@@ -1,6 +1,6 @@
 """Task tracing: append-only JSONL span events (a subset of the JAX
 package's common/events.py: `configure`, `emit`, `read_events`,
-`task_chain` and the task and checkpoint event names).
+`task_chain` and the task, checkpoint and serving event names).
 
 Each emit appends one JSON object per line to the configured file:
 
@@ -29,10 +29,13 @@ TASK_REPORTED = "task_reported"        # master recorded the result
 CHECKPOINT_SAVED = "checkpoint_saved"
 CHECKPOINT_RESTORED = "checkpoint_restored"
 STEP_PHASES = "step_phases"            # worker phase-time breakdown flush
+SERVING_RELOADED = "serving_reloaded"  # the reloader swapped a new step in
+PREDICT_SPAN = "predict_span"          # one traced serve request, all phases
 
 VOCABULARY = frozenset({
     TASK_DISPATCHED, TASK_CLAIMED, TASK_TRAINED, TASK_REPORTED,
-    CHECKPOINT_SAVED, CHECKPOINT_RESTORED, STEP_PHASES,
+    CHECKPOINT_SAVED, CHECKPOINT_RESTORED, STEP_PHASES, SERVING_RELOADED,
+    PREDICT_SPAN,
 })
 
 _lock = threading.Lock()

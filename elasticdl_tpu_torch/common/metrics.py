@@ -10,8 +10,9 @@ same objects.
   instantiated many times in one process (batcher, engine) keep
   instance-scoped values.
 
-The Prometheus exposition waits for the slice that ports the telemetry
-server.
+`render_text` gives the Prometheus text exposition and `varz` the debug
+JSON over one or more registries; the telemetry server
+(common/telemetry.py) serves both.
 
 Naming contract: every metric is `subsystem_name_unit`, lower_snake_case,
 with the subsystem in `KNOWN_SUBSYSTEMS` and the unit suffix in
@@ -20,9 +21,13 @@ with the subsystem in `KNOWN_SUBSYSTEMS` and the unit suffix in
 
 from __future__ import annotations
 
+import json
+import os
 import re
 import threading
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+import time
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 from elasticdl_tpu_torch.common.profiler import LatencyHistogram
 
@@ -352,3 +357,101 @@ def _series_key(name: str, labelpairs) -> str:
         return name
     inner = ",".join(f'{ln}="{lv}"' for ln, lv in labelpairs)
     return f"{name}{{{inner}}}"
+
+
+def _escape_label_value(value: str) -> str:
+    return (
+        value.replace("\\", "\\\\").replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _flatten(registries) -> List[MetricsRegistry]:
+    """Accepts registries and zero-arg callables returning registries (or
+    lists of registries) — late binding for components built after the
+    telemetry server starts."""
+    out: List[MetricsRegistry] = []
+    for item in registries:
+        if callable(item) and not isinstance(item, MetricsRegistry):
+            item = item()
+        if item is None:
+            continue
+        if isinstance(item, MetricsRegistry):
+            out.append(item)
+        else:
+            out.extend(r for r in item if isinstance(r, MetricsRegistry))
+    return out
+
+
+def _label_text(labelpairs) -> str:
+    return ",".join(f'{ln}="{_escape_label_value(str(lv))}"'
+                    for ln, lv in labelpairs)
+
+
+def render_text(registries: Iterable) -> str:
+    """Prometheus text exposition (format 0.0.4) over one or more
+    registries.  When several registries define the same family name the
+    samples concatenate; an identical (name, labels) series from a later
+    registry replaces the earlier one (one process = one truth)."""
+    families: Dict[str, List[object]] = {}
+    for registry in _flatten(registries):
+        for fam in registry.families():
+            families.setdefault(fam.name, []).append(fam)
+
+    lines: List[str] = []
+    for name in sorted(families):
+        group = families[name]
+        head = group[0]
+        help_text = next((f.help for f in group if f.help), "")
+        if help_text:
+            lines.append(f"# HELP {name} {help_text}")
+        lines.append(f"# TYPE {name} {head.kind}")
+        if head.kind == HISTOGRAM:
+            for fam in group:
+                for key, hist in fam.child_items():
+                    inner = _label_text(zip(fam.labelnames, key))
+                    sep = "," if inner else ""
+                    uppers, counts, total, sum_v = hist.bucket_snapshot()
+                    cumulative = 0
+                    for upper, count in zip(uppers, counts):
+                        cumulative += count
+                        lines.append(
+                            f'{name}_bucket{{{inner}{sep}'
+                            f'le="{upper:.6g}"}} {cumulative}'
+                        )
+                    lines.append(
+                        f'{name}_bucket{{{inner}{sep}le="+Inf"}} {total}'
+                    )
+                    if inner:
+                        lines.append(f"{name}_sum{{{inner}}} {sum_v:.9g}")
+                        lines.append(f"{name}_count{{{inner}}} {total}")
+                    else:
+                        lines.append(f"{name}_sum {sum_v:.9g}")
+                        lines.append(f"{name}_count {total}")
+            continue
+        seen: Dict[str, str] = {}
+        for fam in group:
+            for labelpairs, value in fam.samples():
+                series = (f"{name}{{{_label_text(labelpairs)}}}"
+                          if labelpairs else name)
+                seen[series] = f"{series} {value:.9g}"
+        lines.extend(seen[k] for k in sorted(seen))
+    return "\n".join(lines) + "\n"
+
+
+def varz(registries: Iterable, role: str = "",
+         extra: Optional[dict] = None) -> str:
+    """Debug JSON snapshot served at /varz: flat metric series plus
+    whatever structured extras the role wants to expose."""
+    merged: Dict[str, float] = {}
+    for registry in _flatten(registries):
+        merged.update(registry.snapshot())
+    doc = {
+        "role": role,
+        "pid": os.getpid(),
+        "time_unix_s": time.time(),
+        "metrics": merged,
+    }
+    if extra:
+        doc.update(extra)
+    return json.dumps(doc, sort_keys=True, default=str)

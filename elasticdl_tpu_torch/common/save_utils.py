@@ -10,8 +10,9 @@ Layout, one directory per saved step:
                                             `produced` stamp
 
 Both are written to a temporary name and moved into place with
-`os.replace`, so a reader never sees half a file; a step directory
-without `state.pt` is a torn save and is not a step.
+`os.replace`, so a reader never sees half a file; the manifest lands
+first, so every listed step can be verified.  A step directory without
+`state.pt` is a torn save and is not a step.
 
 - Restore: `torch.load(..., weights_only=True, map_location=<the
   template's device>)`.  `verify_step` checks a step against its
@@ -43,6 +44,7 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import hashlib
+import inspect
 import json
 import os
 import shutil
@@ -141,14 +143,6 @@ def _file_digest(path: str) -> Dict[str, Any]:
     return {"sha256": sha.hexdigest(), "size": size}
 
 
-def _step_files(step_dir: str) -> List[str]:
-    out = []
-    for root, _dirs, files in os.walk(step_dir):
-        for name in files:
-            out.append(os.path.relpath(os.path.join(root, name), step_dir))
-    return sorted(out)
-
-
 def _host_copy(tree):
     """Owning CPU copies of every tensor in a nested dict/list of a
     state dict (a CUDA tensor's copy waits for its stream)."""
@@ -172,12 +166,16 @@ def host_state(state: TrainState) -> Dict[str, Any]:
 
 def empty_like(template: TrainState) -> TrainState:
     """A separate TrainState shaped like `template`: its own copy of the
-    model and a new optimizer of the same class and settings."""
+    model and a new optimizer of the same class and settings.  Only the
+    settings the class's constructor takes are passed: `defaults` may
+    hold more (AdamW's holds `decoupled_weight_decay`, which AdamW sets
+    itself and does not take)."""
     model = copy.deepcopy(template.model)
     opt = template.optimizer
+    takes = inspect.signature(type(opt).__init__).parameters
+    settings = {k: v for k, v in opt.defaults.items() if k in takes}
     return TrainState(step=template.step, model=model,
-                      optimizer=type(opt)(model.parameters(),
-                                          **opt.defaults))
+                      optimizer=type(opt)(model.parameters(), **settings))
 
 
 def read_produced_meta(checkpoint_dir: str,
@@ -261,11 +259,12 @@ class CheckpointSaver:
         os.makedirs(step_dir, exist_ok=True)
         path = os.path.join(step_dir, STATE_FILE)
         torch.save(blob, path + ".tmp")
-        os.replace(path + ".tmp", path)
+        # the manifest lands before state.pt: a step is listed only once
+        # its state.pt is in place, so a reader (the serving reloader)
+        # never finds one it cannot verify
         manifest = {
             "step": step,
-            "files": {rel: _file_digest(os.path.join(step_dir, rel))
-                      for rel in _step_files(step_dir)},
+            "files": {STATE_FILE: _file_digest(path + ".tmp")},
             "produced": produced,
             "arena": arena_meta(blob["model"]),
         }
@@ -275,6 +274,7 @@ class CheckpointSaver:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, self._manifest_path(step))
+        os.replace(path + ".tmp", path)
         logger.info("Checkpoint saved at step %d", step)
         # capture_s: the host copy on the caller's thread (under the
         # owner's lock); write_s: serialize, write and hash, off it

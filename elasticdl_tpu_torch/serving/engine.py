@@ -19,25 +19,40 @@ port of the JAX package's serving/engine.py).
   `run_device_serialized` (worker/trainer.py) from the batcher's
   dispatch thread.
 
-The engine runs on CUDA unless it is given `device="cpu"`.  Loading from
-an export or a checkpoint waits for a later slice.
+The engine runs on CUDA unless it is given `device="cpu"`.  It loads
+from an export (`from_export`, common/export.py) or straight from a
+training checkpoint directory (`from_checkpoint`, through
+`CheckpointSaver.restore_step`); its variables are the model's whole
+`state_dict()`, parameters and buffers, so an int8 arena serves from its
+codes and scales.  `from_checkpoint(..., arena_convert=True)` serves a
+checkpoint whose arena dtype differs from the configured model's (fp32
+into an `arena_dtype="int8"` model, or the reverse), converted on
+restore.
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
 from elasticdl_tpu_torch.common import metrics as metrics_lib
-from elasticdl_tpu_torch.common.export import SINGLE_FEATURE_KEY
+from elasticdl_tpu_torch.common.export import (
+    SINGLE_FEATURE_KEY,
+    feature_meta,
+    load_exported,
+    read_export_meta,
+)
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.save_utils import CheckpointSaver
 from elasticdl_tpu_torch.device import resolve_device
 from elasticdl_tpu_torch.worker.trainer import (
+    TrainState,
     model_has_train_kwarg,
     run_device_serialized,
     to_tensor,
@@ -105,6 +120,8 @@ class ServingEngine:
         precompile: bool = True,
         produced_unix_s: Optional[float] = None,
         device=None,
+        state_template: Optional[TrainState] = None,
+        arena_convert: bool = False,
     ):
         if not buckets or any(b <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive: {buckets}")
@@ -141,8 +158,108 @@ class ServingEngine:
             "serving_model_step", lambda: self.step,
             "training step of the currently served variables",
         )
+        # kept for the reloader: the TrainState this engine's checkpoints
+        # restore into (None for export-loaded engines), and whether
+        # their arena dtype is converted on restore
+        self.state_template = state_template
+        self.arena_convert = bool(arena_convert)
         if precompile:
             self.warmup()
+
+    # ---- construction ---------------------------------------------------
+
+    @classmethod
+    def from_export(
+        cls,
+        export_dir: str,
+        spec,
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        sample_features: Any = None,
+        precompile: bool = True,
+        device=None,
+    ) -> "ServingEngine":
+        """Load a `params.pt` export (common/export.py).
+
+        The serving signature comes from export_meta.json; passing
+        `sample_features` additionally cross-checks the export's feature
+        keys against the model actually being served (load_exported's
+        drift guard)."""
+        meta = read_export_meta(export_dir)
+        feature_spec = meta.get("features")
+        if feature_spec is None:
+            if sample_features is None:
+                raise ValueError(
+                    f"export at {export_dir} predates feature signatures "
+                    "(no 'features' in export_meta.json) — pass "
+                    "sample_features to describe the model's inputs"
+                )
+            feature_spec = feature_meta(sample_features)
+        elif sample_features is not None:
+            load_exported(
+                export_dir, expected_features=list(
+                    feature_meta(sample_features)),
+                check_only=True,
+            )
+        variables = load_exported(
+            export_dir, template=spec.model,
+            expected_features=list(feature_spec),
+        )
+        return cls(
+            spec.model, variables, step=int(meta.get("step", 0)),
+            feature_spec=feature_spec, buckets=buckets,
+            precompile=precompile, device=device,
+        )
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        checkpoint_dir: str,
+        spec,
+        sample_features: Any,
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        step: Optional[int] = None,
+        precompile: bool = True,
+        arena_convert: bool = False,
+        device=None,
+    ) -> "ServingEngine":
+        """Serve straight from a training checkpoint directory (verified
+        against its manifest by CheckpointSaver; the optimizer state is
+        restored as part of the TrainState and dropped).
+
+        `arena_convert=True` lets a checkpoint whose arena storage dtype
+        differs from the configured model's migrate on restore — serve
+        an int8-trained checkpoint through an fp32 config or the reverse;
+        without it a mismatch raises `ArenaDtypeMismatch`
+        (common/save_utils.py)."""
+        device = resolve_device(device)
+        template = build_state_template(spec, sample_features, device)
+        saver = CheckpointSaver(checkpoint_dir)
+        try:
+            if step is None:
+                step = saver.latest_step()
+            if step is None:
+                raise ValueError(
+                    f"no checkpoints found in {checkpoint_dir}"
+                )
+            restored = run_device_serialized(
+                saver.restore_step, step, template, arena_convert,
+                device=device,
+            )
+            if restored is None:
+                raise ValueError(
+                    f"checkpoint step {step} in {checkpoint_dir} failed "
+                    "integrity verification or does not exist"
+                )
+            produced = saver.produced_meta(step) or {}
+        finally:
+            saver.close()
+        return cls(
+            spec.model, restored.model.state_dict(), step=int(step),
+            feature_spec=feature_meta(sample_features), buckets=buckets,
+            precompile=precompile, device=device,
+            produced_unix_s=produced.get("produced_unix_s"),
+            state_template=template, arena_convert=arena_convert,
+        )
 
     def _place(self, variables) -> Dict[str, torch.Tensor]:
         return {
@@ -341,3 +458,18 @@ class ServingEngine:
             self._produced_unix_s = produced_unix_s
         self._swaps.inc()
         logger.info("serving engine swapped to step %d", step)
+
+
+def build_state_template(spec, sample_features, device=None) -> TrainState:
+    """The TrainState training checkpoints of this model restore into:
+    the zoo model copied onto `device` with the zoo optimizer over it —
+    the restore target of checkpoint-backed serving and hot reload.  The
+    JAX package traces the model on `sample_features` for its shapes; a
+    torch module has them from construction, so no forward runs here
+    and `sample_features` is not read (so a server's kernel launches
+    are those of its warm-up and of the batches it serves)."""
+    del sample_features
+    device = resolve_device(device)
+    model = copy.deepcopy(spec.model).to(device)
+    return TrainState(step=0, model=model,
+                      optimizer=spec.optimizer(model.parameters()))

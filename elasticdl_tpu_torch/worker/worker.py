@@ -11,7 +11,9 @@ is the one place an exception is caught and the loop goes on.
 
 Batches parse into the wire format `--wire_format` asks for (plain,
 compact or dedup; `resolve_wire_format` falls back where the zoo lacks
-a feed), for training, evaluation and prediction tasks alike.  The
+a feed), for training, evaluation and prediction tasks alike.  A
+SAVE_MODEL task checkpoints and, when its rider names an output
+directory, exports a snapshot of the model (`export_for_task`).  The
 remesh path, TensorBoard scalars, `--profile_dir` traces and the program
 registry binding wait for their slices of the port.
 """
@@ -26,6 +28,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from elasticdl_tpu_torch.common import events
+from elasticdl_tpu_torch.common.export import export_model
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_handler import (
     ModelSpec,
@@ -218,14 +221,15 @@ class Worker:
         raise ValueError(f"unknown task type {task.type!r}")
 
     def _save_model(self, task: pb.Task):
-        """Checkpoint; an export requested in the task's rider raises
-        until the export slice of the port."""
-        config = json.loads(task.extended_config or "{}")
-        if config.get("output"):
-            raise NotImplementedError(
-                "model export waits for the export slice of the port "
-                "(ROADMAP.md queue 1, item 13)")
+        """Checkpoint, and export if the task's config rider asks for it
+        (cluster mode: the master injects the output dir at job end)."""
         self._owner.save()
+        # a snapshot: another worker thread may still be training (and
+        # rewriting the live parameters in place) while the export reads
+        export_for_task(
+            self._owner.snapshot(), self.spec, task,
+            sample_features=self._owner.sample_features,
+        )
 
     def _train_step(self, batch):
         loss = self._owner.train_batch(batch)
@@ -345,3 +349,43 @@ class Worker:
             return None
         metadata = self._reader.metadata
         return lambda buf, sizes: fn(buf, sizes, metadata)
+
+
+def _task_export_config(task: pb.Task) -> dict:
+    """Parse a SAVE_MODEL task's JSON config rider ({output, saved_model})."""
+    if not task.extended_config:
+        return {}
+    try:
+        return json.loads(task.extended_config)
+    except ValueError:
+        logger.warning(
+            "Bad extended_config on task %d: %r",
+            task.task_id, task.extended_config,
+        )
+        return {}
+
+
+def export_for_task(state, spec, task: pb.Task,
+                    sample_features=None) -> bool:
+    """Export the model if the SAVE_MODEL task's rider names an output dir.
+
+    Raises when an export was requested but there is no trained state —
+    a silent skip would let the job report success with the output never
+    written; raising re-queues the task for a worker that has state.
+    """
+    config = _task_export_config(task)
+    output = config.get("output", "")
+    if not output:
+        return False
+    if state is None:
+        raise RuntimeError(
+            "SAVE_MODEL requested an export but this worker has no "
+            "trained state; re-queueing"
+        )
+    export_model(
+        state, spec, output,
+        saved_model=bool(config.get("saved_model", False)),
+        sample_features=sample_features,
+    )
+    logger.info("Exported model to %s", output)
+    return True

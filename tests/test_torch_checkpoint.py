@@ -275,3 +275,51 @@ def test_an_orbax_checkpoint_directory_raises(tmp_path):
     mngr.wait_until_finished()
     with pytest.raises(NotImplementedError, match="orbax"):
         save_utils.CheckpointSaver(str(tmp_path))
+
+
+def test_the_manifest_lands_before_the_state_file(tmp_path, monkeypatch):
+    """A step is listed once its state.pt is in place; its manifest is
+    there already, so a reader (the serving reloader) always verifies
+    what it restores."""
+    order = []
+    real_replace = os.replace
+
+    def recording_replace(src, dst):
+        order.append(os.path.relpath(dst, str(tmp_path)))
+        real_replace(src, dst)
+
+    monkeypatch.setattr(save_utils.os, "replace", recording_replace)
+    trainer = _trainer()
+    state = _trained(trainer, 2)
+    saver = save_utils.CheckpointSaver(str(tmp_path))
+    saver.save(state)
+    saver.close()
+    assert order == [os.path.join(".manifests", "2.json"),
+                     os.path.join("2", "state.pt")]
+    assert saver.verify_step(2)
+
+
+def test_restore_step_rebuilds_an_adamw_optimizer(tmp_path):
+    """restore_step builds a fresh optimizer of the template's class from
+    its settings; AdamW's `defaults` hold a key its constructor does not
+    take (`decoupled_weight_decay`), which must not reach it."""
+    spec = get_model_spec(
+        ZOO_DIR, "bert.bert_finetune.custom_model",
+        model_params="hidden=32;num_layers=1;heads=2;mlp_dim=64;"
+                     "max_len=16;vocab_size=64;lr=0.001")
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, device="cpu")
+    rng = np.random.RandomState(0)
+    batch = {"features": {"input_ids": rng.randint(
+                 0, 64, (4, 16)).astype(np.int32)},
+             "labels": rng.randint(0, 2, 4).astype(np.int32)}
+    state = trainer.init_state(0, batch["features"])
+    state, _ = trainer.train_on_batch(state, batch)
+    assert isinstance(state.optimizer, torch.optim.AdamW)
+    saver = save_utils.CheckpointSaver(str(tmp_path))
+    saver.save(state)
+    saver.wait_until_finished()
+    restored = saver.restore_step(1, state)
+    saver.close()
+    assert isinstance(restored.optimizer, torch.optim.AdamW)
+    assert restored.optimizer.defaults == state.optimizer.defaults
+    _assert_states_equal(restored, state)

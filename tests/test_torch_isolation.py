@@ -1,5 +1,5 @@
 """The port stands alone: no module of elasticdl_tpu_torch, and not
-chip_smoke.py, imports jax, flax, optax, orbax, protobuf, grpc,
+chip_smoke.py, imports jax, flax, optax, orbax, protobuf, grpc, msgpack,
 ml_dtypes, elasticdl_tpu or model_zoo — at import time (checked in a subprocess
 that blocks them) or lazily inside a function (checked on the source).
 And the entry points pick the GPU unless told "cpu"."""
@@ -18,7 +18,7 @@ from elasticdl_tpu_torch import device as device_lib
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "elasticdl_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "elasticdl_tpu",
-           "model_zoo", "google.protobuf", "grpc", "ml_dtypes")
+           "model_zoo", "google.protobuf", "grpc", "ml_dtypes", "msgpack")
 
 
 def _blocked(name: str) -> bool:
@@ -65,8 +65,19 @@ _IMPORT_ALL = textwrap.dedent("""
     spec.loader.exec_module(module)   # defines main(); does not run it
     leaked = sorted(n for n in sys.modules if blocked(n))
     assert not leaked, leaked
-    print(len(names))
+    print(" ".join(names))
 """)
+
+# the serving slice's modules (each must be among those imported above)
+SERVING_MODULES = (
+    "elasticdl_tpu_torch.proto.serving",
+    "elasticdl_tpu_torch.proto.service",
+    "elasticdl_tpu_torch.serving.server",
+    "elasticdl_tpu_torch.serving.reloader",
+    "elasticdl_tpu_torch.serving.engine",
+    "elasticdl_tpu_torch.common.telemetry",
+    "elasticdl_tpu_torch.common.export",
+)
 
 
 def test_every_port_module_imports_with_jax_and_reference_blocked():
@@ -76,8 +87,11 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
         capture_output=True, text=True, timeout=300, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
-    # every module of the slices, down to the BERT zoo's data writer
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 55
+    names = proc.stdout.strip().splitlines()[-1].split()
+    # every module of the slices, down to the BERT zoo's data writer and
+    # the serving front end
+    assert len(names) >= 59
+    assert set(SERVING_MODULES) <= set(names)
 
 
 @pytest.mark.parametrize(

@@ -284,8 +284,7 @@ def test_cli_rejects_and_raises(data, monkeypatch):
             cli.parse_args(["train", *bad])
     flags = _flags(train_dir, val_dir)
     for extra, match in (
-            (["--distribution_strategy", "AllReduce"], "cluster"),
-            (["--output", "/tmp/export"], "export")):
+            (["--distribution_strategy", "AllReduce"], "cluster"),):
         with pytest.raises(NotImplementedError, match=match):
             cli.main(["train", *flags, "--device", "cpu", *extra])
     # evaluate needs a checkpoint
@@ -404,14 +403,21 @@ def test_drain_saves_a_checkpoint_and_stops(data, tmp_path):
 
 
 def test_save_model_tasks_save_or_fail_loudly(data, tmp_path):
-    """A SAVE_MODEL task checkpoints; one whose rider asks for an export
-    fails (export waits for its slice) and is reported, retried and
-    dropped, and the job still ends."""
+    """A SAVE_MODEL task checkpoints; one whose rider names an output
+    directory also exports the model there; one whose export cannot be
+    written fails and is reported, retried and dropped, and the job
+    still ends."""
+    import json
+
+    from elasticdl_tpu_torch.common.export import load_exported
     from elasticdl_tpu_torch.common.save_utils import CheckpointSaver
 
     train_dir, val_dir = data
-    saver = CheckpointSaver(str(tmp_path))
+    saver = CheckpointSaver(str(tmp_path / "ckpt"))
     master, owner, worker = _job_parts(train_dir, val_dir, saver)
+    export_dir = str(tmp_path / "export")
+    (tmp_path / "a_file").write_text("")
+    unwritable = str(tmp_path / "a_file" / "export")
     injected = []
 
     def save_model_tasks():
@@ -419,15 +425,21 @@ def test_save_model_tasks_save_or_fail_loudly(data, tmp_path):
             return []
         injected.append(1)
         return [(pb.Shard(), pb.SAVE_MODEL, -1),
-                (pb.Shard(), pb.SAVE_MODEL, -1, '{"output": "/x"}')]
+                (pb.Shard(), pb.SAVE_MODEL, -1,
+                 json.dumps({"output": export_dir})),
+                (pb.Shard(), pb.SAVE_MODEL, -1,
+                 json.dumps({"output": unwritable}))]
 
     master.task_manager.add_pre_finish_provider(save_model_tasks)
     assert worker.run() and master.task_manager.finished
     counters = master.task_manager.counters.as_dict()
-    assert counters["by_type"] == {0: 4, 1: 1, 4: 1}
+    assert counters["by_type"] == {0: 4, 1: 1, 4: 2}
     assert counters["failed"] == 4          # the first try and 3 retries
     saver.wait_until_finished()
     assert saver.all_steps() == [8]
+    exported = load_exported(export_dir, template=owner.state.model)
+    for name, tensor in owner.state.model.state_dict().items():
+        assert torch.equal(exported[name], tensor), name
 
 
 def test_threads_share_the_queue_and_the_owner_without_lost_updates():
