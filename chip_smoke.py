@@ -109,6 +109,34 @@
    the socket; the flash forward must launch 12 x (buckets + batches)
    times, all on `sm90_wgmma`; its requests/s and latency print beside
    serve_bert's in-process figures.
+12. Trains DeepFM over the tiered embedding store through the bare
+   Trainer at full width (`tiered_deepfm`).  (a) Parity: flat at vocab
+   2^20 against a 2^16-row cache on an all-hot, collision-free working
+   set (26 x 2,000 rows; host tier backfilled from the flat init), batch
+   4096, 8 steps: losses and trained rows equal bit for bit, predictions
+   within 4 ulp; a K = 8 union block against the flat 8-step stack, bit
+   for bit; the int8 cache against the int8 arena, gaps reported.  (b)
+   Real size: a 2^20-row cache per plane, batch 16384 from a seeded
+   zipf(1.2) stream over 2^22 ids per field, the store's threads running
+   and planning on a producer thread, until the vocabulary passes 2^21
+   rows: per step the hits, misses, admissions, evictions, vocabulary
+   rows, host bytes, prepare ms, the seam's read and admit ms (host and
+   device; ROADMAP.md's later kernel 7), cold-gather seconds, step ms
+   and 2 scatter-add launches; a profiled step's busy share; then the
+   stream's first 24 steps on an int8 cache.  The scatter-add is also held bitwise
+   against its plain version at the cache slots of (b)'s first batch.
+13. Runs `elasticdl train --model_def deepfm.deepfm_tiered.custom_model`
+   on local_deepfm's records (`local_tiered`: batch 4096, 32 steps, a
+   20,480-row cache below the 25,913 rows the records grow, checkpoints
+   every 8 keeping 3): one worker, two workers (deferred planning), K = 4
+   union blocks and the int8 cache, each exiting 0 with 64 scatter-add
+   launches, its threads ticked and stopped and one sidecar per kept
+   step.  The one-worker job's last step is served in process through
+   TieredServingEngine: the validation records' AUC in [0.79, 0.86]
+   beside the flat job's, resident rows against Trainer.predict_on_batch
+   on the restored state, never-seen ids finite, a newer step swapped in
+   by the reloader under traffic with no failed request, and a step
+   without its sidecar rejected while serving goes on.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
@@ -148,6 +176,7 @@ from elasticdl_tpu_torch.data.wire import (  # noqa: E402
     unpack_rows_dedup,
 )
 from elasticdl_tpu_torch.layers.arena import (  # noqa: E402
+    dequantize_rows,
     fold_quantized_updates,
 )
 from elasticdl_tpu_torch.layers.embedding import (  # noqa: E402
@@ -161,6 +190,9 @@ from elasticdl_tpu_torch.model_zoo.bert.data import (  # noqa: E402
 from elasticdl_tpu_torch.model_zoo.common.metrics import auc  # noqa: E402
 from elasticdl_tpu_torch.model_zoo.deepfm import (  # noqa: E402
     deepfm_functional_api as fm_zoo,
+)
+from elasticdl_tpu_torch.model_zoo.deepfm import (  # noqa: E402
+    deepfm_tiered as tiered_zoo,
 )
 from elasticdl_tpu_torch.model_zoo.deepfm.data import (  # noqa: E402
     synthetic_criteo,
@@ -191,9 +223,20 @@ from elasticdl_tpu_torch.serving.engine import (  # noqa: E402
     ServingEngine,
     build_state_template,
 )
+from elasticdl_tpu_torch.serving.reloader import (  # noqa: E402
+    CheckpointReloader,
+)
+from elasticdl_tpu_torch.store import checkpoint as store_ckpt  # noqa: E402
+from elasticdl_tpu_torch.store import device as store_device  # noqa: E402
+from elasticdl_tpu_torch.store.serving import (  # noqa: E402
+    TieredServingEngine,
+)
 from elasticdl_tpu_torch.serving.server import (  # noqa: E402
     from_tensor_proto,
     make_predict_request,
+)
+from elasticdl_tpu_torch.worker.task_data_service import (  # noqa: E402
+    prefetch_batches,
 )
 from elasticdl_tpu_torch.worker.trainer import Trainer  # noqa: E402
 
@@ -856,8 +899,9 @@ def path_rows(wire_buffer: bytes) -> dict:
     the bare DeepFM Trainer's timed batch, the first
     `wire_deepfm` batch (hashed on the host as the plain and compact
     paths hash on the card; and decoded on the card from its dedup
-    planes, which must give the same rows bit for bit), and the first
-    batch of the Local jobs' first shard (the dedup and int8 jobs)."""
+    planes, which must give the same rows bit for bit), the first
+    batch of the Local jobs' first shard (the dedup and int8 jobs), and
+    the cache slots of tiered_deepfm's first real-size batch."""
     wire_sparse = fm_zoo.feed_bulk(
         wire_buffer, np.full(WIRE_BATCH, RECORD_BYTES, np.int64)
     )["features"]["sparse"]
@@ -871,7 +915,13 @@ def path_rows(wire_buffer: bytes) -> dict:
                              "rows of the same wire_deepfm batch")
     local_sparse = synthetic_criteo(LOCAL_TRAIN // LOCAL_SHARDS,
                                     seed=SEED)[1][:AUC_BATCH]
+    # the tiered store's first real-size batch: cache slots of a 2^20-row
+    # cache (tiered_deepfm (b) plans the same batch first)
+    store = tiered_zoo.TieredStore(TIERED_PLANES, NUM_SPARSE, REAL_CACHE)
+    tiered_slots, _ = store.prepare(
+        next(zipf_stream(SEED + 7))["features"]["sparse"])
     return {
+        "tiered": tiered_slots.reshape(-1),
         # the BERT token table takes ids mod its vocab, unmixed
         "bert": hash_ids_host(
             bert_train_batch()["features"]["input_ids"], VOCAB,
@@ -899,6 +949,9 @@ def check_scatter_kernel(gen, wire_buffer: bytes):
         ("wire-d16", rows_of["wire"], DEEPFM_VOCAB, DEEPFM_DIM, True),
         ("wire-d1", rows_of["wire"], DEEPFM_VOCAB, 1, True),
         ("local-d16", rows_of["local"], DEEPFM_VOCAB, DEEPFM_DIM, False),
+        # the tiered cache's backward at tiered_deepfm (b)'s first batch
+        ("tiered-d16", rows_of["tiered"], REAL_CACHE, DEEPFM_DIM, True),
+        ("tiered-d1", rows_of["tiered"], REAL_CACHE, 1, False),
         # the BERT token table's backward at train_bert's batch
         ("bert-d768", rows_of["bert"], VOCAB, 768, True),
         ("local-d1", rows_of["local"], DEEPFM_VOCAB, 1, False),
@@ -2488,6 +2541,675 @@ def serve_cli_bert(card: str, bert_ckpt: str, in_process: dict):
     return summary, launches
 
 
+# ---- the tiered embedding store ------------------------------------------
+
+TIERED = "deepfm.deepfm_tiered.custom_model"
+TIERED_PLANES = {"fm_embedding": DEEPFM_DIM, "fm_linear": 1}
+# (a) parity: flat at vocab 2^20 against a 2^16-row cache on an all-hot,
+# collision-free working set (26 x 2,000 rows), batch 4096
+PARITY_CACHE = 1 << 16
+PARITY_IDS = 2000
+PARITY_BATCH = AUC_BATCH
+PARITY_STEPS = 8
+PARITY_K = 8
+# the reference's few-ulp bound on a separately run predict
+PRED_ULP_TOL = 4 * float(np.finfo(np.float32).eps)
+# (b) real size: a 2^20-row cache per plane, batch 16384 of a zipf(1.2)
+# stream over 2^22 ids per field, until the vocabulary passes twice the
+# cache
+REAL_CACHE = 1 << 20
+REAL_BATCH = TIMED_BATCH
+REAL_IDS = 1 << 22
+REAL_ZIPF = 1.2
+REAL_MAX_STEPS = 96
+REAL_AFTER = 2           # steps run after the vocabulary passes 2x
+# the int8 cache replays the stream's first steps only (the phase's
+# time is the host's planning, ~0.6 s a step on the card's machine): the
+# first evictions come at about step 22
+REAL_INT8_STEPS = 24
+# the Local jobs: a cache below the 25,913 rows the synthetic records
+# grow and above the 17,446 of the largest K = 4 block's union
+LOCAL_CACHE = 20480
+TIERED_PARAMS = (f"embed_dim={DEEPFM_DIM};bf16=True;lr=0.005;"
+                 f"cache_rows={LOCAL_CACHE}")
+SERVE_TOL = 1e-4         # tests/test_torch_serving.py's TOL
+TIERED_REQUESTS = 40     # per client, around the swap
+
+
+def tiered_params(cache_rows: int, cache_dtype: str = "float32") -> str:
+    return (f"embed_dim={DEEPFM_DIM};bf16=True;lr=0.005;"
+            f"cache_rows={cache_rows};cache_dtype='{cache_dtype}'")
+
+
+def collision_free_ids(cap: int, per_field: int, seed: int) -> np.ndarray:
+    """(26, per_field) raw ids whose flat rows (vocab `cap`) never
+    collide, across fields too."""
+    rng = np.random.RandomState(seed)
+    cand = rng.randint(0, 1 << 22, size=(NUM_SPARSE, per_field * 4))
+    rows = tiered_zoo.flat_rows_host(
+        np.repeat(np.arange(NUM_SPARSE)[:, None], cand.shape[1], 1), cand,
+        cap).reshape(-1)
+    _, first = np.unique(rows, return_index=True)
+    keep = np.zeros(rows.size, bool)
+    keep[first] = True
+    keep = keep.reshape(cand.shape)
+    sel = np.stack([cand[f][keep[f]][:per_field] for f in range(NUM_SPARSE)])
+    if sel.shape != (NUM_SPARSE, per_field):
+        raise AssertionError("not enough collision-free candidates")
+    return sel.astype(np.int32)
+
+
+def parity_batch(sel: np.ndarray, step: int, batch: int, seed0: int):
+    rng = np.random.RandomState(seed0 + step)
+    pick = rng.randint(0, sel.shape[1], (batch, NUM_SPARSE))
+    return {"features": {
+        "dense": rng.exponential(1.0, (batch, 13)).astype(np.float32),
+        "sparse": sel[np.arange(NUM_SPARSE)[None, :], pick]},
+        "labels": rng.randint(0, 2, batch).astype(np.int32)}
+
+
+def flat_and_tiered(sel, cache_dtype="float32", deferred=False):
+    """The bare flat and tiered Trainers at full width from one init: the
+    tiered dense layers filled from the flat state, the host tier
+    backfilled from the flat tables."""
+    device = torch.device("cuda", 0)
+    flat_spec = get_model_spec(ZOO_DIR, DEEPFM, DEEPFM_PARAMS
+                               + f";arena_dtype='{cache_dtype}'")
+    tier_spec = get_model_spec(ZOO_DIR, TIERED,
+                               tiered_params(PARITY_CACHE, cache_dtype))
+    flat_tr = Trainer(flat_spec.model, flat_spec.optimizer, flat_spec.loss,
+                      use_bf16=True, device=device)
+    tier_tr = Trainer(tier_spec.model, tier_spec.optimizer, tier_spec.loss,
+                      use_bf16=True, device=device)
+    b0 = parity_batch(sel, 0, PARITY_BATCH, 100)
+    flat = flat_tr.init_state(SEED, b0["features"])
+    tier = tier_tr.init_state(SEED + 1, {
+        "dense": b0["features"]["dense"],
+        "slots": np.zeros((PARITY_BATCH, NUM_SPARSE), np.int32)})
+    flat_sd = flat.model.state_dict()
+    tier.model.load_state_dict(store_ckpt.fill_matching(
+        tier.model.state_dict(), flat_sd))
+    init = {}
+    for name in TIERED_PLANES:
+        if cache_dtype == "int8":
+            init[name] = dequantize_rows(flat_sd[f"{name}.q8"],
+                                         flat_sd[f"{name}.scale"]).cpu()
+        else:
+            init[name] = flat_sd[f"{name}.embedding"]
+        # an owning copy: the flat table trains on in place
+        init[name] = init[name].detach().to("cpu", copy=True).numpy()
+    store = tiered_zoo.TieredStore(TIERED_PLANES, NUM_SPARSE, PARITY_CACHE,
+                                   cache_dtype=cache_dtype)
+    store.host.set_backfill(store_ckpt.flat_backfill(
+        init, lambda f, i: tiered_zoo.flat_rows_host(f, i, DEEPFM_VOCAB)))
+    if deferred:
+        store.enable_deferred_prepare()
+    tier_tr.tiered_store = store
+    return flat_tr, flat, tier_tr, tier, store
+
+
+def trained_rows_equal(flat, tier, store, sel) -> dict:
+    """Each plane's trained rows, flat table at the hashed rows against
+    the cache at the store's slots, bit for bit."""
+    fields = np.repeat(np.arange(NUM_SPARSE)[:, None], sel.shape[1], 1)
+    rows = store.host.lookup(sel.T)       # (per_field, 26) store rows
+    slots = np.vectorize(store.cache.slot_of)(rows)
+    flat_rows = tiered_zoo.flat_rows_host(fields.T, sel.T, DEEPFM_VOCAB)
+    out = {}
+    for name in TIERED_PLANES:
+        f = flat.params[f"{name}.embedding"].detach()
+        t = tier.params[f"{name}.embedding"].detach()
+        if (slots < 0).any():
+            out[name] = False
+            continue
+        out[name] = bool(torch.equal(
+            f[torch.from_numpy(flat_rows.reshape(-1)).long().cuda()],
+            t[torch.from_numpy(slots.reshape(-1)).long().cuda()]))
+    return out
+
+
+def tiered_parity() -> tuple:
+    """(a): flat vs tiered at full width, 8 steps, then a K = 8 block
+    against the flat 8-step stack, bit for bit; then int8, reported.
+    Returns (summary, tiered steps, scatter launches over them)."""
+    sel = collision_free_ids(DEEPFM_VOCAB, PARITY_IDS, seed=SEED)
+    batches = [parity_batch(sel, s, PARITY_BATCH, 100)
+               for s in range(PARITY_STEPS)]
+
+    def attached(store, b):
+        return store.attach({"features": dict(b["features"]),
+                             "labels": b["labels"]})
+
+    flat_tr, flat, tier_tr, tier, store = flat_and_tiered(sel)
+    flat_losses, tier_losses = [], []
+    tier_launches = 0
+    for b in batches:
+        flat, fl = flat_tr.train_on_batch(flat, b)
+        before = sa.scatter_add.launches
+        tier, tl = tier_tr.train_on_batch(tier, attached(store, b))
+        torch.cuda.synchronize()
+        tier_launches += sa.scatter_add.launches - before
+        flat_losses.append(fl)
+        tier_losses.append(tl)
+    losses_equal = bool(torch.equal(torch.stack(flat_losses),
+                                    torch.stack(tier_losses)))
+    rows_equal = trained_rows_equal(flat, tier, store, sel)
+    probe = parity_batch(sel, 10_000, PARITY_BATCH, 100)
+    slots, _ = store.prepare(probe["features"]["sparse"])
+    flat_pred = flat_tr.predict_on_batch(flat, probe["features"])
+    tier_pred = tier_tr.predict_on_batch(
+        tier, {"dense": probe["features"]["dense"], "slots": slots})
+    pred_err = float(np.abs(flat_pred - tier_pred).max())
+    stats = store.stats()
+    del flat, tier
+
+    flat_tr, flat, tier_tr, tier, store = flat_and_tiered(sel,
+                                                          deferred=True)
+    flat, flat_stack = flat_tr.train_on_batch_stack(flat, batches)
+    before = sa.scatter_add.launches
+    tier, tier_stack = tier_tr.train_on_batch_stack(
+        tier, [attached(store, b) for b in batches])
+    torch.cuda.synchronize()
+    tier_launches += sa.scatter_add.launches - before
+    block_equal = bool(torch.equal(flat_stack, tier_stack))
+    block_rows_equal = trained_rows_equal(flat, tier, store, sel)
+    block_plans = store.stats()["block_plans"]
+    del flat, tier
+
+    flat_tr, flat, tier_tr, tier, store = flat_and_tiered(sel, "int8")
+    gaps = []
+    for b in batches:
+        flat, fl = flat_tr.train_on_batch(flat, b)
+        before = sa.scatter_add.launches
+        tier, tl = tier_tr.train_on_batch(tier, attached(store, b))
+        torch.cuda.synchronize()
+        tier_launches += sa.scatter_add.launches - before
+        gaps.append(abs(float(fl) - float(tl)))
+    int8_carrier_zero = not bool(
+        tier.model.fm_embedding.embedding.detach().any())
+    del flat, tier
+    tier_steps = 2 * PARITY_STEPS + PARITY_K
+    summary = {
+        "flat": DEEPFM_PARAMS, "tiered": tiered_params(PARITY_CACHE),
+        "batch": PARITY_BATCH, "steps": PARITY_STEPS,
+        "working_set_rows": NUM_SPARSE * PARITY_IDS,
+        "losses_bitwise_equal": losses_equal,
+        "trained_rows_bitwise_equal": rows_equal,
+        "pred_max_abs_err": pred_err, "pred_tol": PRED_ULP_TOL,
+        "stats": stats,
+        "block_k": PARITY_K, "block_losses_bitwise_equal": block_equal,
+        "block_trained_rows_bitwise_equal": block_rows_equal,
+        "block_plans": block_plans,
+        "int8_loss_gaps": gaps, "int8_carrier_zero": int8_carrier_zero,
+        "losses_first_last": [float(flat_losses[0]),
+                              float(flat_losses[-1])],
+    }
+    print(json.dumps({"tiered_parity": summary}), flush=True)
+    if not (losses_equal and all(rows_equal.values()) and block_equal
+            and all(block_rows_equal.values()) and pred_err <= PRED_ULP_TOL
+            and stats["misses"] and block_plans == 1
+            and stats["cache_occupancy_rows"] == NUM_SPARSE * PARITY_IDS
+            and np.isfinite(gaps).all() and int8_carrier_zero):
+        raise AssertionError(f"tiered vs flat parity: {summary}")
+    return summary, tier_steps, tier_launches
+
+
+def zipf_stream(seed: int):
+    """Endless seeded batches of REAL_BATCH rows: zipf(1.2) ranks capped
+    at 2^22, mapped per field by an odd multiplier and a field offset mod
+    2^22 (a bijection, so hot ids differ across fields)."""
+    batch = REAL_BATCH
+    rng = np.random.default_rng(seed)
+    mask = REAL_IDS - 1
+    offset = np.arange(NUM_SPARSE, dtype=np.int64) * 0x61C88647
+    while True:
+        ranks = np.minimum(rng.zipf(REAL_ZIPF, size=(batch, NUM_SPARSE)),
+                           REAL_IDS) - 1
+        yield {"features": {
+            "dense": rng.exponential(1.0, (batch, 13)).astype(np.float32),
+            "sparse": ((ranks * 0x9E3779B1 + offset) & mask).astype(
+                np.int64)},
+            "labels": rng.integers(0, 2, batch).astype(np.int32)}
+
+
+class SeamTimer:
+    """Host ms of each store device call of a step (`read_rows`: the
+    eviction read with its blocking host copy; `apply_admissions`: the
+    admit, synchronized so its device time is inside) and their device
+    ms (CUDA events), through wrappers on the store's device module."""
+
+    def __init__(self):
+        self._orig = (store_device.read_rows,
+                      store_device.apply_admissions)
+        self.reset()
+
+    def reset(self):
+        self.calls = {"read": [0.0, 0.0, 0], "admit": [0.0, 0.0, 0]}
+
+    def _wrap(self, key, fn):
+        def timed(state, paths, slots, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(state, paths, slots, *args, **kwargs)
+            end.record()
+            end.synchronize()
+            rec = self.calls[key]
+            rec[0] += (time.perf_counter() - t0) * 1e3
+            rec[1] += start.elapsed_time(end)
+            rec[2] += int(np.asarray(slots).size)
+            return out
+        return timed
+
+    def __enter__(self):
+        store_device.read_rows = self._wrap("read", self._orig[0])
+        store_device.apply_admissions = self._wrap("admit", self._orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        store_device.read_rows, store_device.apply_admissions = self._orig
+
+
+def attached(store, stream, runner: list):
+    """The stream's batches attached to the store (eager planning, in
+    order), each with its prepare ms: the host iterator that the port's
+    `prefetch_batches` runs on its thread (recorded in `runner`)."""
+    runner.append(threading.current_thread())
+    for batch in stream:
+        t0 = time.perf_counter()
+        yield store.attach(batch), (time.perf_counter() - t0) * 1e3
+
+
+def stop_prefetch(feed, runner: list) -> None:
+    """Close a `prefetch_batches` generator and wait for its producer
+    thread, so no attach runs on after the store stops."""
+    feed.close()
+    for thread in runner:
+        thread.join(timeout=60)
+        if thread.is_alive():
+            raise RuntimeError("the prefetch thread did not stop")
+
+
+def real_size_run(cache_dtype: str, card: str, max_steps: int = 0) -> dict:
+    """(b): the bare Trainer over a 2^20-row cache, threads started,
+    eager planning on a prefetch thread, until the vocabulary passes
+    twice the cache (and REAL_AFTER steps more), or for `max_steps`.
+    Per step: the plan's counts, prepare ms (producer), the seam's read
+    and admit ms, step ms (CUDA events) and the scatter launches; one
+    profiled step."""
+    device = torch.device("cuda", 0)
+    spec = get_model_spec(ZOO_DIR, TIERED,
+                          tiered_params(REAL_CACHE, cache_dtype))
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, use_bf16=True,
+                      device=device)
+    store = tiered_zoo.build_tiered_store()
+    if store.cache_rows != REAL_CACHE or store.cache_dtype != cache_dtype:
+        raise AssertionError(f"store {store.stats()}")
+    trainer.tiered_store = store
+    store.start()
+    runner = []
+    feed = prefetch_batches(attached(store, zipf_stream(SEED + 7),
+                                     runner))
+    steps, after, state = [], None, None
+    timer = SeamTimer()
+    try:
+        with timer:
+            while True:
+                batch, prepare_ms = next(feed)
+                plan = batch["__store_plan__"]
+                if state is None:
+                    state = trainer.init_state(SEED, batch["features"])
+                timer.reset()
+                launches = sa.scatter_add.launches
+                gather_async = store.gather_async_s
+                gather_sync = store.gather_sync_s
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                state, loss = trainer.train_on_batch(state, batch)
+                end.record()
+                end.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                host = store.host.size
+                rec = {
+                    "step": len(steps) + 1, "hits": plan.hits,
+                    "misses": plan.misses,
+                    "hit_rate": plan.hits / max(plan.hits + plan.misses, 1),
+                    "admissions": int(plan.admit_rows.size),
+                    "evictions": int(plan.evict_rows.size),
+                    "vocab_rows": host,
+                    "host_bytes": store.host.nbytes,
+                    "prepare_ms": prepare_ms,
+                    "read_ms": timer.calls["read"][0],
+                    "read_device_ms": timer.calls["read"][1],
+                    "admit_ms": timer.calls["admit"][0],
+                    "admit_device_ms": timer.calls["admit"][1],
+                    "cold_gather_async_s": store.gather_async_s
+                    - gather_async,
+                    "cold_gather_sync_s": store.gather_sync_s - gather_sync,
+                    "step_ms": start.elapsed_time(end), "wall_ms": wall_ms,
+                    "scatter_launches": sa.scatter_add.launches - launches,
+                    "loss": float(loss)}
+                steps.append(rec)
+                print(json.dumps({f"tiered_real_{cache_dtype}_step": {
+                    k: round(v, 3) if isinstance(v, float) else v
+                    for k, v in rec.items()}}), flush=True)
+                if rec["scatter_launches"] != 2:
+                    raise AssertionError(f"a tiered step launched "
+                                         f"{rec['scatter_launches']} "
+                                         "scatter-adds, not 2")
+                if after is None and host >= 2 * REAL_CACHE:
+                    after = len(steps)
+                if len(steps) == max_steps or len(steps) >= REAL_MAX_STEPS \
+                        or (not max_steps and after is not None
+                            and len(steps) >= after + REAL_AFTER):
+                    break
+            # one more step, profiled (its batch was planned ahead)
+            batch, _ = next(feed)
+            breakdown = step_breakdown(trainer, state, batch)
+    finally:
+        stop_prefetch(feed, runner)
+        store.stop()
+    stats = store.stats()
+    evicting = [s for s in steps if s["evictions"]]
+    summary = {
+        "card": card, "config": tiered_params(REAL_CACHE, cache_dtype),
+        "batch": REAL_BATCH, "lookups_per_step": REAL_BATCH * NUM_SPARSE,
+        "zipf": REAL_ZIPF, "ids_per_field": REAL_IDS,
+        "steps": len(steps), "stats": stats,
+        "device_cache_bytes": stats["device_cache_bytes"],
+        "steps_with_evictions": len(evicting),
+        "mean": {k: float(np.mean([s[k] for s in steps[1:]]))
+                 for k in ("prepare_ms", "read_ms", "read_device_ms",
+                           "admit_ms", "admit_device_ms", "step_ms",
+                           "wall_ms", "hit_rate", "admissions",
+                           "evictions")},
+        "mean_evicting": {k: float(np.mean([s[k] for s in evicting]))
+                          for k in ("prepare_ms", "read_ms",
+                                    "read_device_ms", "admit_ms",
+                                    "admit_device_ms", "step_ms",
+                                    "hit_rate", "admissions", "evictions")}
+        if evicting else None,
+        "admitted_rows_per_step": float(np.mean(
+            [s["admissions"] for s in steps])),
+        "step_breakdown": breakdown,
+        "losses": [s["loss"] for s in steps],
+    }
+    print(json.dumps({f"tiered_real_{cache_dtype}": {
+        k: v for k, v in summary.items() if k != "losses"}}), flush=True)
+    if not max_steps and (after is None or not evicting) or \
+            not np.isfinite(summary["losses"]).all():
+        raise AssertionError(
+            f"the real-size run ({cache_dtype}) never passed "
+            f"{2 * REAL_CACHE} rows with evictions: {stats}")
+    return summary
+
+
+def tiered_deepfm(card: str):
+    """The tiered store on the bare Trainer: (a) parity, (b) real size
+    (fp32, then int8 on the stream's first REAL_INT8_STEPS steps).
+    Returns (summary, scatter-add launches of the tiered steps)."""
+    # ---- the main path: counts start at 0 here ----
+    # (the flat Trainer's steps that parity holds the tiered ones
+    # against launch too; only the tiered steps' launches are counted)
+    fa.reset_launch_counts()
+    sa.scatter_add.launches = 0
+    parity, parity_steps, parity_launches = tiered_parity()
+    sa.scatter_add.launches = 0
+    real = real_size_run("float32", card)
+    real8 = real_size_run("int8", card, REAL_INT8_STEPS)
+    torch.cuda.synchronize()
+    launches = parity_launches + sa.scatter_add.launches
+    # ---- end of the main path ----
+    # each real-size run adds its profiled step
+    steps = parity_steps + real["steps"] + real8["steps"] + 2
+    n = min(real["steps"], real8["steps"])
+    gap = [abs(a - b) for a, b in zip(real["losses"][:n],
+                                      real8["losses"][:n])]
+    summary = {"parity": parity, "real": real, "real_int8": real8,
+               "int8_loss_gap_mean": float(np.mean(gap)),
+               "int8_loss_gap_max": float(np.max(gap)),
+               "int8_step_ms_mean": real8["mean"]["step_ms"],
+               "int8_device_cache_bytes": real8["device_cache_bytes"],
+               "fp32_device_cache_bytes": real["device_cache_bytes"],
+               "scatter_launches": launches, "tiered_steps": steps}
+    print(json.dumps({"tiered_deepfm": {
+        k: summary[k] for k in summary if k not in (
+            "parity", "real", "real_int8")}}), flush=True)
+    if launches != 2 * steps or parity_launches != 2 * parity_steps or \
+            fa.flash_attention.launches != 0:
+        raise AssertionError(
+            f"tiered_deepfm launched {launches} scatter-adds in {steps} "
+            f"steps (parity {parity_launches} in {parity_steps}); 2 "
+            "planes per step")
+    return summary, launches
+
+
+def tiered_argv(ckpt: str, train_dir: str, *extra) -> list:
+    return ["train", "--distribution_strategy", "Local",
+            "--model_def", TIERED, "--model_params", TIERED_PARAMS,
+            "--use_bf16", "true", "--minibatch_size", str(AUC_BATCH),
+            "--records_per_task", str(LOCAL_RECORDS_PER_TASK),
+            "--num_epochs", "1", "--training_data", train_dir,
+            "--checkpoint_dir", ckpt,
+            "--checkpoint_steps", str(LOCAL_CKPT_STEPS),
+            "--keep_checkpoint_max", str(LOCAL_KEEP), *extra]
+
+
+def tiered_job(label: str, card: str, ckpt: str, train_dir: str, *extra):
+    """One Local tiered train job; its checks; returns (summary, job,
+    launches)."""
+    args = cli.parse_args(tiered_argv(ckpt, train_dir, *extra))
+    # ---- the main path: counts start at 0 here ----
+    fa.reset_launch_counts()
+    sa.scatter_add.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    job = api.run_local(args, "train")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sa.scatter_add.launches
+    # ---- end of the main path ----
+    store = tiered_zoo._LAST_STORE
+    stats = store.stats()
+    steps = job.owner.checkpoint_saver.all_steps()
+    sidecars = sorted(int(n) for n in os.listdir(
+        os.path.join(ckpt, store_ckpt.SIDECAR_ROOT)))
+    counters = job.master.task_manager.counters.as_dict()
+    want_steps = list(range(LOCAL_STEPS - (LOCAL_KEEP - 1) *
+                            LOCAL_CKPT_STEPS, LOCAL_STEPS + 1,
+                            LOCAL_CKPT_STEPS))
+    summary = {"card": card, "flags": list(extra), "wall_s": wall,
+               "examples_per_s": LOCAL_TRAIN / wall,
+               "exit_code": job.exit_code, "model_step": job.owner.step,
+               "counters": counters, "stats": stats,
+               "deferred": store.deferred_prepare,
+               "threads_alive": store.threads_alive,
+               "checkpoints": steps, "sidecars": sidecars,
+               "scatter_launches": launches,
+               "phases": _phase_split(job)}
+    print(json.dumps({label: summary}), flush=True)
+    ticks = (stats["fold_ticks"] > 0 and (
+        stats["prefetch_ticks"] > 0 if not store.deferred_prepare
+        else stats["cold_gather_overlap_share"] == 0.0))
+    if (job.exit_code != 0 or counters["failed"] != 0
+            or job.owner.step != LOCAL_STEPS or not ticks
+            or store.threads_alive or store._started
+            or steps != want_steps or sidecars != want_steps
+            or stats["vocab_rows"] <= LOCAL_CACHE
+            or launches != 2 * LOCAL_STEPS
+            or fa.flash_attention.launches != 0):
+        raise AssertionError(f"{label}: {summary}")
+    return summary, job, launches
+
+
+def local_tiered(card: str, work: str, served: dict):
+    """`elasticdl train --model_def deepfm.deepfm_tiered.custom_model` on
+    local_deepfm's records: one worker, two workers, K = 4 blocks, the
+    int8 cache; then the one-worker job's last step served in process
+    through TieredServingEngine.  Returns (summary, launches of the
+    one-worker job)."""
+    tmp = os.path.join(work, "local_tiered")
+    train_dir = os.path.join(os.path.dirname(served["val_dir"]), "train")
+    jobs, ckpts = {}, {}
+    launches = {}
+    for label, extra in (
+            ("tiered_one_worker", ()),
+            ("tiered_two_workers", ("--num_workers", "2")),
+            ("tiered_k4", ("--steps_per_execution", "4")),
+            ("tiered_int8", ("--store_cache_dtype", "int8"))):
+        ckpts[label] = os.path.join(tmp, label)
+        summary, job, n = tiered_job(label, card, ckpts[label], train_dir,
+                                     *extra)
+        jobs[label] = summary
+        launches[label] = n
+        del job
+    if not jobs["tiered_two_workers"]["deferred"] or \
+            not jobs["tiered_k4"]["deferred"] or \
+            jobs["tiered_k4"]["stats"]["block_plans"] != LOCAL_STEPS // 4:
+        raise AssertionError(f"deferred planning: {jobs}")
+    serving = serve_tiered(card, ckpts["tiered_one_worker"], served)
+    summary = {"cache_rows": LOCAL_CACHE, "jobs": jobs, "serving": serving}
+    return summary, launches
+
+
+def serve_tiered(card: str, ckpt: str, served: dict) -> dict:
+    """The one-worker tiered job's last step served in process: the
+    validation records' AUC, resident rows against the Trainer, never
+    seen ids, a hot swap through the reloader under traffic and a step
+    without its sidecar rejected."""
+    device = torch.device("cuda", 0)
+    spec = get_model_spec(ZOO_DIR, TIERED, TIERED_PARAMS)
+    sample = {
+        "dense": np.zeros((1, 13), np.float32),
+        "slots": np.zeros((1, NUM_SPARSE), np.int32),
+        "cold_fm": np.zeros((1, NUM_SPARSE, DEEPFM_DIM), np.float32),
+        "cold_linear": np.zeros((1, NUM_SPARSE, 1), np.float32)}
+    t0 = time.perf_counter()
+    engine = ServingEngine.from_checkpoint(ckpt, spec, sample,
+                                           buckets=BUCKETS, device=device)
+    first = engine.step
+    tiered = TieredServingEngine(engine, ckpt, first,
+                                 tiered_zoo.OVERLAY_FEATURES)
+    build_s = time.perf_counter() - t0
+    val = read_validation(served["val_dir"])
+    feats = bf16_rounded(val["features"])
+    labels = val["labels"]
+    preds, translate_ms = [], []
+    for i in range(0, LOCAL_VAL, AUC_CHUNK):
+        chunk = {k: v[i:i + AUC_CHUNK] for k, v in feats.items()}
+        t1 = time.perf_counter()
+        tiered.translate(chunk["sparse"])
+        translate_ms.append((time.perf_counter() - t1) * 1e3)
+        p, _ = tiered.predict(chunk, len(chunk["dense"]))
+        preds.append(p)
+    preds = np.concatenate(preds)
+    served_auc = float(auc(labels, preds))
+
+    # rows whose ids are all resident: the engine against the Trainer on
+    # the restored state, one 64-row batch (one bucket, one shape)
+    slots, _ = tiered.translate(feats["sparse"])
+    hot = np.nonzero((slots >= 0).all(1))[0][:AUC_CHUNK]
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, use_bf16=True,
+                      device=device)
+    template = trainer.init_state(SEED, {"dense": sample["dense"],
+                                         "slots": sample["slots"]})
+    saver = CheckpointSaver(ckpt)
+    restored = saver.restore_step(first, template)
+    saver.close()
+    want = trainer.predict_on_batch(restored, {
+        "dense": feats["dense"][hot], "slots": slots[hot]})
+    got, _ = tiered.predict({"dense": feats["dense"][hot],
+                             "sparse": feats["sparse"][hot]}, hot.size)
+    resident_err = float(np.abs(got - want).max())
+    unknown, _ = tiered.predict({
+        "dense": feats["dense"][:4],
+        "sparse": np.full((4, NUM_SPARSE), 2 ** 30, np.int64)}, 4)
+
+    # a newer step with its sidecar, under traffic, through the reloader
+    store = tiered_zoo.TieredStore(TIERED_PLANES, NUM_SPARSE, LOCAL_CACHE)
+    saver = CheckpointSaver(ckpt, keep_max=0)
+    saver.attach_tiered_store(store)
+    state = saver.maybe_restore(trainer.init_state(SEED, {
+        "dense": sample["dense"], "slots": sample["slots"]}))
+    with torch.no_grad():
+        state.model.mlp_out.bias.add_(SWAP_SHIFT)
+    state.step = first + 1
+    reloader = CheckpointReloader(tiered, ckpt)
+    failures, answered = [], []
+    stop = threading.Event()
+    requests = [{k: v[j:j + 4] for k, v in feats.items()}
+                for j in range(0, 4 * TIERED_REQUESTS, 4)]
+
+    def client():
+        while not stop.is_set():
+            for r in requests:
+                try:
+                    p, step = tiered.predict(r, 4)
+                    if not np.isfinite(p).all():
+                        raise AssertionError("non-finite")
+                    answered.append(step)
+                except Exception as exc:   # counted, then raised below
+                    failures.append(repr(exc))
+
+    clients = [threading.Thread(target=client) for _ in range(CLIENT_THREADS)]
+    for c in clients:
+        c.start()
+    try:
+        wait_until(lambda: len(answered) >= 20, SWAP_DEADLINE_S,
+                   "traffic before the swap")
+        saver.save(state)
+        saver.wait_until_finished()
+        swapped = reloader.check_once()
+        n = len(answered)
+        wait_until(lambda: len(answered) >= n + 20, SWAP_DEADLINE_S,
+                   "traffic after the swap")
+        # a step whose sidecar is gone: rejected, the old one serves on
+        state.step += 1
+        saver.save(state)
+        saver.wait_until_finished()
+        shutil.rmtree(store_ckpt.sidecar_dir(ckpt, state.step))
+        rejected = not reloader.check_once()
+        n = len(answered)
+        wait_until(lambda: len(answered) >= n + 20, SWAP_DEADLINE_S,
+                   "traffic after the rejection")
+    finally:
+        stop.set()
+        for c in clients:
+            c.join(timeout=SWAP_DEADLINE_S)
+        saver.close()
+    steps_seen = sorted(set(answered))
+    summary = {
+        "card": card, "step": first, "build_s": build_s,
+        "served_auc": served_auc, "flat_local_auc": served["auc"],
+        "auc_band": list(AUC_BAND),
+        "translate_ms_per_request_mean": float(np.mean(translate_ms)),
+        "translate_ms_per_request_p50": float(np.median(translate_ms)),
+        "rows_per_request": AUC_CHUNK,
+        "resident_rows": int(hot.size),
+        "resident_max_abs_err_vs_trainer": resident_err,
+        "resident_tol": SERVE_TOL,
+        "unknown_ids_finite": bool(np.isfinite(unknown).all()),
+        "swapped": swapped, "swap_s": reloader.last_reload_s,
+        "rejected": rejected, "rejected_count": reloader.rejected_count,
+        "last_error": reloader.last_error, "serving_step": tiered.step,
+        "requests": len(answered), "failed_requests": len(failures),
+        "steps_answered": steps_seen,
+    }
+    print(json.dumps({"serve_tiered": summary}), flush=True)
+    if (failures or not swapped or not rejected
+            or tiered.step != first + 1
+            or steps_seen != [first, first + 1]
+            or not AUC_BAND[0] <= served_auc <= AUC_BAND[1]
+            or hot.size != AUC_CHUNK or resident_err > SERVE_TOL
+            or not summary["unknown_ids_finite"]):
+        raise AssertionError(f"serve_tiered: {summary} {failures[:3]}")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -2562,6 +3284,9 @@ def run_phases(card: str, build: dict, work: str) -> int:
     serve_fm = phase("serve_cli_deepfm", serve_cli_deepfm, card, fm_served)
     wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
     del buffers
+    tiered, tiered_launches = phase("tiered_deepfm", tiered_deepfm, card)
+    local_t, local_t_launches = phase("local_tiered", local_tiered, card,
+                                      work, fm_served)
     bert_train, bert_launches_by = phase("train_bert", train_bert)
     bert_local, bert_local_launches, bert_ckpt = phase(
         "local_bert", local_bert, card, work)
@@ -2577,6 +3302,8 @@ def run_phases(card: str, build: dict, work: str) -> int:
         "local_deepfm_dedup": local_launches["local_deepfm_dedup"],
         "local_deepfm_int8": local_launches["local_deepfm_int8"],
         "wire_deepfm": wire_launches,
+        "tiered_deepfm": tiered_launches,
+        **local_t_launches,
         "train_bert": bert_launches_by["plain"]["scatter_add"],
         "train_bert_remat": bert_launches_by["remat"]["scatter_add"],
         "local_bert_tiny":
@@ -2611,6 +3338,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
                    "serve": serve, "bert_f32_check": check,
                    "deepfm": deepfm, "local_deepfm": local,
                    "wire_deepfm": wire, "serve_cli_deepfm": serve_fm,
+                   "tiered_deepfm": tiered, "local_tiered": local_t,
                    "serve_cli_bert": serve_bert_cli, **kernels}, f,
                   indent=1)
     print(json.dumps(kernels), flush=True)

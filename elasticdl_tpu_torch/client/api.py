@@ -14,8 +14,17 @@ run from `--checkpoint_dir_for_init`.
 export (`--export_dir`) or a live checkpoint directory
 (`--checkpoint_dir`, hot-reloaded as the trainer writes new steps).
 
-The cluster strategies, the tiered store, and the TensorBoard and SLO
-loops wait for their slices of the port and raise NotImplementedError.
+A zoo module that exports `build_tiered_store` (deepfm.deepfm_tiered)
+trains over the tiered embedding store (store/): the runner builds the
+store, wraps the feeds with its id -> slot translation, attaches it to
+the trainer and the checkpoint saver, starts its threads and stops them
+when the job ends.  Planning is eager on the one worker's feed thread,
+and deferred to the trainer (in step order) with more than one worker,
+with `--steps_per_execution` > 1, or when the job resumes from a
+checkpoint (the restore must precede the first plan).
+
+The cluster strategies, and the TensorBoard and SLO loops wait for their
+slices of the port and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import numpy as np
 from elasticdl_tpu_torch.common import events
 from elasticdl_tpu_torch.common.export import SINGLE_FEATURE_KEY, export_model
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.metrics import default_registry
 from elasticdl_tpu_torch.common.model_handler import get_model_spec
 from elasticdl_tpu_torch.common.profiler import PhaseTimer
 from elasticdl_tpu_torch.common.save_utils import CheckpointSaver
@@ -107,11 +117,11 @@ def run_local(args, job_type: str = "train") -> LocalJob:
         callbacks=args.callbacks,
         prediction_outputs_processor=args.prediction_outputs_processor,
         arena_dtype=args.arena_dtype,
+        store_cache_dtype=args.store_cache_dtype,
     )
-    if getattr(spec.module, "build_tiered_store", None) is not None:
-        raise NotImplementedError(
-            "the tiered embedding store waits for its slice of the port "
-            "(ROADMAP.md queue 1, item 9)")
+    build_tiered_store = getattr(spec.module, "build_tiered_store", None)
+    if build_tiered_store is not None:
+        _check_tiered(args, job_type)
     args.job_type = job_type
     events.configure(args.event_log or None, role="local")
 
@@ -153,6 +163,70 @@ def run_local(args, job_type: str = "train") -> LocalJob:
     )
     master.task_manager.maybe_finish_if_drained()
     phase_timer = PhaseTimer()
+    store = None
+    if build_tiered_store is not None:
+        store = _attach_tiered_store(build_tiered_store, args, spec, owner,
+                                     saver, phase_timer)
+    try:
+        return _run_workers(args, job_type, spec, master, client, owner,
+                            saver, phase_timer, make_reader)
+    finally:
+        if store is not None:
+            # drain the pending write-backs, then stop both threads
+            store.stop()
+
+
+def _check_tiered(args, job_type: str) -> None:
+    """The tiered store trains only, and without mid-train evaluation,
+    as in the JAX package."""
+    if job_type != "train":
+        raise ValueError(
+            f"a tiered-store model cannot run a {job_type} job: its "
+            "features are cache slots the store assigns while training; "
+            "serve its checkpoint through store.serving."
+            "TieredServingEngine")
+    if args.validation_data:
+        raise ValueError(
+            "tiered embedding store does not support mid-train "
+            "evaluation yet: the eval path prepares admission plans it "
+            "never applies, corrupting the cache map; drop "
+            "--validation_data for tiered runs")
+
+
+def _attach_tiered_store(build_tiered_store, args, spec, owner, saver,
+                         phase_timer):
+    """Build the job's store, wrap the feeds, attach it to the trainer
+    and the saver, and start its threads; returns it."""
+    store = build_tiered_store(registry=default_registry(),
+                               phase_timer=phase_timer)
+    reasons = []
+    if args.num_workers != 1:
+        # N feed producers cannot plan in batch order
+        reasons.append(f"{args.num_workers} workers")
+    if args.steps_per_execution != 1:
+        # a K-step block takes one union plan over its raw batches
+        reasons.append(f"steps_per_execution={args.steps_per_execution}")
+    if saver is not None and saver.latest_step() is not None:
+        # the sidecar restore must come before the first plan
+        reasons.append("a resumed checkpoint")
+    if reasons:
+        store.enable_deferred_prepare()
+        logger.info("tiered store: deferred planning (%s)",
+                    ", ".join(reasons))
+    spec.feed = store.wrap_feed(spec.feed)
+    spec.feed_bulk = store.wrap_feed(spec.feed_bulk)
+    owner.trainer.tiered_store = store
+    if saver is not None:
+        saver.attach_tiered_store(store)
+    store.start()
+    logger.info("tiered embedding store active: cache_rows=%d "
+                "host_dtype=%s cache_dtype=%s", store.cache_rows,
+                store.host.host_dtype, store.cache_dtype)
+    return store
+
+
+def _run_workers(args, job_type, spec, master, client, owner, saver,
+                 phase_timer, make_reader) -> LocalJob:
     workers: List[Worker] = []
     errors: List[BaseException] = []
 
@@ -268,7 +342,8 @@ def build_serving_server(args):
     device = resolve_device(args.device)
     spec = get_model_spec(args.model_zoo, args.model_def,
                           model_params=args.model_params,
-                          arena_dtype=args.arena_dtype)
+                          arena_dtype=args.arena_dtype,
+                          store_cache_dtype=args.store_cache_dtype)
     buckets = tuple(
         int(b) for b in str(args.batch_buckets).split(",") if b.strip()
     )

@@ -7,8 +7,9 @@ accepted and then ignored.  A flag whose feature waits for a later slice
 of the port (a non-Local strategy) parses and then raises
 NotImplementedError where the job would use it.  The wire formats
 (`--wire_format plain|compact|dedup`, the legacy `--compact_wire`), the
-int8 arena (`--arena_dtype int8`) and `--output` (a train job's model
-export, common/export.py) run.
+int8 arena (`--arena_dtype int8`), the tiered store's int8 cache
+(`--store_cache_dtype int8`) and `--output` (a train job's model export,
+common/export.py) run.
 
 `--device` is the port's own: `cuda` (the default) or `cpu`, the
 counterpart of the JAX package's JAX_PLATFORMS, resolved through
@@ -82,6 +83,13 @@ def add_model_params(parser: argparse.ArgumentParser):
         "quantized codes with per-row fp32 scales; empty defers to the "
         "model's default (float32).  Forwarded into model_params for "
         "zoos whose custom_model accepts arena_dtype.")
+    parser.add_argument(
+        "--store_cache_dtype", default="", choices=["", "float32", "int8"],
+        help="Tiered-store device hot-row cache storage dtype: int8 "
+        "stores cache rows as quantized codes with per-row fp32 scales; "
+        "empty defers to the model's default (float32).  Forwarded into "
+        "model_params as cache_dtype for zoos whose custom_model accepts "
+        "it.")
     parser.add_argument("--dataset_fn", default="feed")
     parser.add_argument("--loss", default="loss")
     parser.add_argument("--optimizer", default="optimizer")

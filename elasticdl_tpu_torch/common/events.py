@@ -1,6 +1,7 @@
 """Task tracing: append-only JSONL span events (a subset of the JAX
 package's common/events.py: `configure`, `emit`, `read_events`,
-`task_chain` and the task, checkpoint and serving event names).
+`task_chain` and the task, checkpoint, serving and tiered-store event
+names).
 
 Each emit appends one JSON object per line to the configured file:
 
@@ -31,11 +32,13 @@ CHECKPOINT_RESTORED = "checkpoint_restored"
 STEP_PHASES = "step_phases"            # worker phase-time breakdown flush
 SERVING_RELOADED = "serving_reloaded"  # the reloader swapped a new step in
 PREDICT_SPAN = "predict_span"          # one traced serve request, all phases
+STORE_GROWN = "store_grown"            # tiered store lazily grew vocab rows
+STORE_TIER_SWAPPED = "store_tier_swapped"  # serving adopted tier metadata
 
 VOCABULARY = frozenset({
     TASK_DISPATCHED, TASK_CLAIMED, TASK_TRAINED, TASK_REPORTED,
     CHECKPOINT_SAVED, CHECKPOINT_RESTORED, STEP_PHASES, SERVING_RELOADED,
-    PREDICT_SPAN,
+    PREDICT_SPAN, STORE_GROWN, STORE_TIER_SWAPPED,
 })
 
 _lock = threading.Lock()

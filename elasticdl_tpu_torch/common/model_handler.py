@@ -136,13 +136,19 @@ def get_model_spec(
     callbacks: str = "callbacks",
     prediction_outputs_processor: str = "",
     arena_dtype: str = "",
+    store_cache_dtype: str = "",
 ) -> ModelSpec:
-    # --arena_dtype rides into model_params: `_call_with_params` filters
-    # kwargs by signature, so zoos without quantized arenas ignore it.
-    # An arena_dtype already in model_params wins.
+    # --arena_dtype and --store_cache_dtype ride into model_params (the
+    # latter as the tiered zoos' `cache_dtype`): `_call_with_params`
+    # filters kwargs by signature, so zoos without them ignore them.  A
+    # value already in model_params wins.
     if arena_dtype and "arena_dtype" not in model_params:
         sep = ";" if model_params else ""
         model_params = f"{model_params}{sep}arena_dtype='{arena_dtype}'"
+    if store_cache_dtype and "cache_dtype" not in model_params:
+        sep = ";" if model_params else ""
+        model_params = \
+            f"{model_params}{sep}cache_dtype='{store_cache_dtype}'"
     module, model_fn = load_module(model_zoo, model_def)
 
     def opt(name, required=True):

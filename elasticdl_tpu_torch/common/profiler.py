@@ -45,9 +45,10 @@ class StepTimer:
 
 
 #: The step-phase vocabulary: every phase a worker attributes step time
-#: to.  (The JAX package's `cold_gather` belongs to the tiered store,
-#: which waits for its slice.)
-STEP_PHASES = ("data_wait", "pack", "h2d_stage", "compute", "report")
+#: to.  `cold_gather` is the tiered store's host gather of admitted rows,
+#: on its prefetch thread or at apply time (store/tiered.py).
+STEP_PHASES = ("data_wait", "pack", "h2d_stage", "compute", "report",
+               "cold_gather")
 
 
 class PhaseTimer:

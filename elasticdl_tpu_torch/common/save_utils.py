@@ -34,9 +34,22 @@ first, so every listed step can be verified.  A step directory without
   int8 -> fp32 dequantizes it; the carrier keeps the table's name and
   shape, so Adam's moments carry over either way).
 
-The tiered-store sidecar and a loader for the JAX package's orbax
-checkpoints wait for their slices of the port (ROADMAP.md queue 1, item
-3); an orbax step directory raises NotImplementedError.
+- Tiered store (`attach_tiered_store`): each save also writes the
+  store's sidecar, `<checkpoint_dir>/.tiered/<step>/` (store/checkpoint.py).
+  It is captured in the same locked region as the state's host copy and
+  written by the writer thread before `state.pt` lands, and the
+  manifest's `tiered` entry records its layout.  A failed sidecar write
+  fails the save as a failed state write does (the JAX package logs it
+  and goes on).  The sweep removes a step's sidecar with the step, so
+  every kept step, pinned ones included, keeps its own.  `maybe_restore`
+  loads the restored step's sidecar into the store; a step without one,
+  or a store with plans not yet applied, raises (no fallback to an
+  older step).  `restore_step` (a separate state for an eval at a
+  version) leaves the live store as it is.
+
+A loader for the JAX package's orbax checkpoints waits for its slice of
+the port (ROADMAP.md queue 1, item 3); an orbax step directory raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -63,6 +76,7 @@ from elasticdl_tpu_torch.layers.arena import (
     plane_prefixes,
     quantize_arena_tree,
 )
+from elasticdl_tpu_torch.store import checkpoint as store_ckpt
 from elasticdl_tpu_torch.worker.trainer import TrainState
 
 logger = get_logger(__name__)
@@ -202,7 +216,13 @@ class CheckpointSaver:
         self._pending: Dict[int, concurrent.futures.Future] = {}
         self._writer = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="checkpoint-writer")
+        self._tiered_store = None
         self.all_steps()   # an orbax directory raises here
+
+    def attach_tiered_store(self, store) -> None:
+        """Save `store`'s sidecar with every step, and load it back into
+        the store on `maybe_restore`."""
+        self._tiered_store = store
 
     # ---- steps ---------------------------------------------------------
 
@@ -246,19 +266,28 @@ class CheckpointSaver:
                 return False
             start = time.perf_counter()
             blob = host_state(state)
+            # the store's sidecar beside the state, from the same point
+            # between two steps
+            sidecar = None if self._tiered_store is None else \
+                store_ckpt.capture_sidecar(self._tiered_store,
+                                            blob["model"], step)
             capture_s = time.perf_counter() - start
             produced = {"model_step": step,
                         "produced_unix_s": round(float(self._clock()), 6)}
             self._pending[step] = self._writer.submit(
-                self._write, step, blob, produced, capture_s)
+                self._write, step, blob, produced, capture_s, sidecar)
         return True
 
-    def _write(self, step: int, blob, produced, capture_s: float) -> None:
+    def _write(self, step: int, blob, produced, capture_s: float,
+               sidecar=None) -> None:
         start = time.perf_counter()
         step_dir = self._step_dir(step)
         os.makedirs(step_dir, exist_ok=True)
         path = os.path.join(step_dir, STATE_FILE)
         torch.save(blob, path + ".tmp")
+        if sidecar is not None:
+            # before state.pt lands: a listed step has its sidecar
+            store_ckpt.write_sidecar(self._dir, step, *sidecar)
         # the manifest lands before state.pt: a step is listed only once
         # its state.pt is in place, so a reader (the serving reloader)
         # never finds one it cannot verify
@@ -268,6 +297,9 @@ class CheckpointSaver:
             "produced": produced,
             "arena": arena_meta(blob["model"]),
         }
+        if sidecar is not None:
+            manifest["tiered"] = {k: v for k, v in sidecar[1].items()
+                                  if k != "step"}
         tmp = self._manifest_path(step) + ".tmp"
         with open(tmp, "w") as f:
             json.dump(manifest, f)
@@ -298,6 +330,8 @@ class CheckpointSaver:
             shutil.rmtree(self._step_dir(step))
             if os.path.exists(self._manifest_path(step)):
                 os.remove(self._manifest_path(step))
+        # sidecars move in lockstep with their steps
+        store_ckpt.prune_sidecars(self._dir, self.all_steps())
 
     def _raise_failed_writes(self) -> None:
         with self._lock:
@@ -367,6 +401,26 @@ class CheckpointSaver:
         events.emit(events.CHECKPOINT_RESTORED, step=state.step)
         return state
 
+    def _load_sidecar(self, step: int):
+        """The step's sidecar (a step without one raises
+        FileNotFoundError)."""
+        if not store_ckpt.has_sidecar(self._dir, step):
+            raise FileNotFoundError(
+                f"checkpoint step {step} has no tiered sidecar under "
+                f"{self._dir}: its store state cannot be restored")
+        return store_ckpt.load_sidecar(self._dir, step)
+
+    def _adopt_sidecar(self, sidecar) -> None:
+        # convert=True: an arena dtype change of the cache values was
+        # migrated with the TrainState (arena_convert), so the map
+        # carries over
+        self._tiered_store.load_sidecar_state(
+            sidecar.host_state, sidecar.row_of, sidecar.score,
+            cache_dtype=sidecar.cache_dtype, convert=True)
+        logger.info("tiered store sidecar restored for step %d "
+                    "(vocab_rows=%d cache_dtype=%s)", sidecar.meta["step"],
+                    sidecar.meta["vocab_rows"], sidecar.cache_dtype)
+
     def _arena_compat(self, step: int, model_state, template: TrainState,
                       arena_convert: bool):
         """The checkpoint's model state in the template's arena dtype:
@@ -413,7 +467,9 @@ class CheckpointSaver:
         is returned), or None when there is no step.  A step that fails
         its manifest check or fails to load falls back to the previous
         one; when every step fails, the last load error re-raises (never
-        train from scratch over broken checkpoints).  An arena dtype
+        train from scratch over broken checkpoints).  With a tiered store
+        attached, the restored step's sidecar is loaded into it; a step
+        without one raises FileNotFoundError.  An arena dtype
         mismatch raises ArenaDtypeMismatch at once (older steps would
         mismatch alike) unless `arena_convert` migrates it."""
         last_exc: Optional[Exception] = None
@@ -432,6 +488,11 @@ class CheckpointSaver:
                                "falling back to the previous good step",
                                step, exc)
                 continue
+            if self._tiered_store is not None:
+                # outside the fallback: a restored step's sidecar that is
+                # missing or refused (plans not yet applied) is a fault
+                # to raise, not a damaged step to skip
+                self._adopt_sidecar(self._load_sidecar(step))
             logger.info("Restored checkpoint step %d", step)
             return restored
         if last_exc is not None:

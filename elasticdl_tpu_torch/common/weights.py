@@ -15,6 +15,8 @@ a leaf, with matching shapes; anything else raises.
 An int8 arena's planes live in flax's `quantized` collection
 (`fm_embedding/embedding/q8`, `.../scale`); passed as `quantized`, they
 land on the arena's `q8` and `scale` buffers (`fm_embedding.q8`, ...).
+The tiered DeepFM's `TieredArena` caches keep the flat arena's names, so
+their tables, int8 planes and zero carriers map by the same rules.
 """
 
 from __future__ import annotations

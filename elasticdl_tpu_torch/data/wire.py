@@ -396,9 +396,12 @@ class DedupPacker:
     never lowered by another and every batch fits the caps it is padded
     to.  The per-field ranking (the costly part) runs outside it.
 
-    Unlike the JAX packer it keeps no batch-global `last_ranking`: its
-    one reader there is the tiered store, which the port does not have,
-    and the merge would cost the producer thread on every batch."""
+    `pack(rows, return_ranking=True)` also returns the batch-global
+    `(uniq, counts)` ranking, the tiered store's admission signal.  The
+    JAX packer keeps it in a `last_ranking` attribute instead; with one
+    packer shared by threads, an attribute could hand one caller the
+    ranking of another's batch, so here it is each call's own return
+    value."""
 
     def __init__(self, quantum: int = 4096, headroom: float = 1.25):
         self.quantum = int(quantum)
@@ -409,8 +412,13 @@ class DedupPacker:
         self.last_exceptions = 0
         self._lock = threading.Lock()
 
-    def pack(self, rows: np.ndarray) -> dict:
-        exact = pack_rows_dedup(rows)
+    def pack(self, rows: np.ndarray, return_ranking: bool = False):
+        """The padded dedup struct of `rows`; with `return_ranking`,
+        `(packed, (uniq, counts))`."""
+        if return_ranking:
+            exact, ranking = pack_rows_dedup(rows, return_ranking=True)
+        else:
+            exact = pack_rows_dedup(rows)
         n_unique = int(exact["unique"].shape[0])
         n_exc = int(exact["exc_val"].shape[0])
         with self._lock:
@@ -426,4 +434,6 @@ class DedupPacker:
             packed = pad_dedup(exact, self.unique_cap, self.exc_cap)
         _pack_bytes_counter.inc(dedup_wire_bytes(packed))
         _pack_examples_counter.inc(int(np.asarray(rows).shape[0]))
+        if return_ranking:
+            return packed, ranking
         return packed

@@ -22,6 +22,11 @@ carrier.  All int8 plane arithmetic lives in this module.  The int8
 gather and the fold run inside the named profiler ranges `int8_lookup`
 and `int8_fold`, so a torch.profiler trace attributes their device
 time.
+
+`TieredArena` is the tiered store's device cache (store/): the same
+table, gather, scatter-add backward and int8 planes over `cache_rows`
+cache slots instead of the whole vocabulary, plus the serving overlay
+for cold rows.
 """
 
 from __future__ import annotations
@@ -144,38 +149,21 @@ def arena_rows(features: Tuple[Tuple[str, int], ...]) -> int:
     return sum(int(capacity) for _, capacity in features)
 
 
-class EmbeddingArena(nn.Module):
-    """N per-feature embedding tables fused into one parameter.
+class _ArenaTable(nn.Module):
+    """The storage both arenas share: an (R, D) table named `embedding`,
+    or in int8 mode the `q8`/`scale` planes beside a zero fp32 carrier of
+    that name; its flax init, and the gather (the scatter-add kernel in
+    the backward)."""
 
-    features:   ordered ((name, capacity), ...); order fixes the layout.
-    output_dim: shared embedding dimension (one arena per dim).
-    hash_input: multiplicative-mix ids before the per-feature mod.
-
-    Call with a dict {name: int ids (B, ...)}; returns {name: (B, ...,
-    output_dim)} vectors, zero where an id equals `pad_id`.  Call with
-    `prehashed=True` and one int tensor of arena rows (from
-    `arena_rows_host` or the dedup wire format) to skip the hashing.
-
-    arena_dtype: "float32" (default) or "int8" (codes in the `q8` buffer,
-    per-row scales in `scale`, a zero fp32 carrier as `embedding`; see
-    the module docstring).
-    """
-
-    def __init__(self, features: Tuple[Tuple[str, int], ...],
-                 output_dim: int, pad_id: int = -1, hash_input: bool = True,
-                 dtype: torch.dtype = torch.float32,
-                 arena_dtype: str = "float32"):
+    def __init__(self, rows: int, dim: int, arena_dtype: str,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if arena_dtype not in ARENA_DTYPES:
             raise ValueError(
                 f"arena_dtype must be one of {ARENA_DTYPES}, got "
                 f"{arena_dtype!r}")
-        self.features = tuple((str(n), int(c)) for n, c in features)
-        self.output_dim = output_dim
-        self.pad_id = pad_id
-        self.hash_input = hash_input
         self.arena_dtype = arena_dtype
-        shape = (arena_rows(self.features), output_dim)
+        shape = (int(rows), int(dim))
         if arena_dtype == "int8":
             # the trainable zero carrier; the planes are buffers
             self.embedding = nn.Parameter(torch.zeros(shape))
@@ -211,6 +199,36 @@ class EmbeddingArena(nn.Module):
             deq = dequantize_rows(self.q8.index_select(0, flat_rows),
                                   self.scale.index_select(0, flat_rows))
         return deq + _grad_tap(self.embedding, flat_rows)
+
+
+class EmbeddingArena(_ArenaTable):
+    """N per-feature embedding tables fused into one parameter.
+
+    features:   ordered ((name, capacity), ...); order fixes the layout.
+    output_dim: shared embedding dimension (one arena per dim).
+    hash_input: multiplicative-mix ids before the per-feature mod.
+
+    Call with a dict {name: int ids (B, ...)}; returns {name: (B, ...,
+    output_dim)} vectors, zero where an id equals `pad_id`.  Call with
+    `prehashed=True` and one int tensor of arena rows (from
+    `arena_rows_host` or the dedup wire format) to skip the hashing.
+
+    arena_dtype: "float32" (default) or "int8" (codes in the `q8` buffer,
+    per-row scales in `scale`, a zero fp32 carrier as `embedding`; see
+    the module docstring).
+    """
+
+    def __init__(self, features: Tuple[Tuple[str, int], ...],
+                 output_dim: int, pad_id: int = -1, hash_input: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 arena_dtype: str = "float32"):
+        features = tuple((str(n), int(c)) for n, c in features)
+        super().__init__(arena_rows(features), output_dim, arena_dtype,
+                         dtype)
+        self.features = features
+        self.output_dim = output_dim
+        self.pad_id = pad_id
+        self.hash_input = hash_input
 
     def forward(self, ids, prehashed: bool = False):
         if prehashed:
@@ -264,6 +282,47 @@ class EmbeddingArena(nn.Module):
         return np.concatenate(parts, axis=1)
 
 
+class TieredArena(_ArenaTable):
+    """The device half of the tiered embedding store (store/): a
+    `cache_rows`-row hot-row cache where `EmbeddingArena` holds the whole
+    vocabulary.  The full, lazily grown vocabulary lives in the store's
+    host tier, and the store admits every row a training batch touches
+    before its step, so the cache table is the only trainable embedding
+    storage and a step is the flat arena's: one gather forward and one
+    scatter-add backward (the Hopper kernel on the card).
+
+    Call with `slots` (..., F) int cache slots (TieredStore.prepare).
+    Training passes resident slots (>= 0).  Serving may pass -1 for a
+    cold or unknown id with `overlay`, a (..., F, dim) plane of host
+    values for those positions; the overlay is detached (cold rows train
+    on the host through the store's fold, never through the optimizer).
+
+    cache_dtype: "float32", or "int8" (the flat arena's int8 planes,
+    folded by `fold_quantized_updates` on the same plane path).  The
+    table and the planes carry the flat arena's names, so optimizer
+    state, checkpoints and `params_from_jax` see the same layout, and a
+    never-admitted slot starts as a fresh flat row would."""
+
+    def __init__(self, cache_rows: int, output_dim: int,
+                 cache_dtype: str = "float32"):
+        super().__init__(cache_rows, output_dim, cache_dtype)
+        self.cache_rows = int(cache_rows)
+        self.output_dim = int(output_dim)
+
+    @property
+    def cache_dtype(self) -> str:
+        return self.arena_dtype
+
+    def forward(self, slots: torch.Tensor, overlay=None) -> torch.Tensor:
+        rows = slots.to(torch.int32)
+        flat = torch.clamp_min(rows.reshape(-1), 0)
+        hot = self._gather(flat).reshape(rows.shape + (self.output_dim,))
+        if overlay is None:
+            return hot
+        cold = overlay.detach().to(hot.dtype)
+        return torch.where((rows >= 0)[..., None], hot, cold)
+
+
 # ---- quantized write-back + checkpoint migration ------------------------
 
 
@@ -308,14 +367,14 @@ def _requantize_plane(q8: torch.Tensor, scale: torch.Tensor,
 
 
 def fold_quantized_updates(model: nn.Module, step: int) -> int:
-    """The write-back after `optimizer.step()`: in each int8 arena the
-    carrier holds this step's fp32 delta; fold it into the codes (table
+    """The write-back after `optimizer.step()`: in each int8 arena (flat
+    or tiered, keyed on the same plane path) the carrier holds this step's fp32 delta; fold it into the codes (table
     = dequant + delta, new per-row scale, stochastic rounding keyed on
     (seed, step, plane path)) and zero the carrier.  Returns the number
     of planes folded; with no int8 arena it changes nothing and returns
     0."""
     arenas = [(name, m) for name, m in model.named_modules()
-              if isinstance(m, EmbeddingArena) and m.arena_dtype == "int8"]
+              if isinstance(m, _ArenaTable) and m.arena_dtype == "int8"]
     if not arenas:
         return 0
     with torch.no_grad(), torch.profiler.record_function("int8_fold"):

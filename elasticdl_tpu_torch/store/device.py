@@ -1,0 +1,227 @@
+"""The tiered store's one device seam (the port of the JAX package's
+store/device.py): every device operation of the store goes through
+here, and the rest of `store/` stays numpy on the host.
+
+- `apply_admissions` writes host-gathered row values into the cache
+  parameter in place (`index_copy_` under `torch.no_grad()`; the
+  Parameter object stays, so the optimizer keeps its reference), and
+  zeroes those rows in every optimizer-state tensor shaped like the
+  parameter: an admitted row then behaves like a never-touched flat row,
+  whose Adam moments are zero.  Adam's `step` is a scalar and is left
+  alone (optax's count is global too), and a parameter the optimizer has
+  not stepped yet has no state to zero.  In int8 mode the values are
+  quantized by round-to-nearest into `q8`/`scale` and the carrier rows
+  are zeroed, so a re-admitted slot carries no stale delta.
+- `read_rows`, `read_full_tables`, `read_full_planes` return owning host
+  copies (a blocking copy: a non-blocking one could hand the fold thread
+  memory the stream has not written yet).  int8 reads dequantize and add
+  the carrier, exact even mid-step.
+
+Index vectors are padded to a power-of-four bucket (`_pad_bucket`) by
+repeating their first entry with its own value, so duplicate writes
+carry identical values and `index_copy_`'s unspecified order among
+duplicates cannot change the result.  The JAX package pads for XLA's
+compile cache; here it keeps the shapes few for CUDA graphs (ROADMAP.md
+item 14).  The admit and gather are plain PyTorch (`index_select`,
+`index_copy_`): ROADMAP.md queue 2's later hand kernel 7.
+
+Model layout: `param_paths` maps each store plane to the dotted name of
+its `TieredArena` in the model (DeepFM: `fm_embedding`, `fm_linear`);
+the arena holds `embedding`, and in int8 mode `q8` and `scale`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from elasticdl_tpu_torch.layers.arena import dequantize_rows, quantize_rows
+from elasticdl_tpu_torch.worker.trainer import run_device_serialized
+
+
+def _pad_bucket(n: int) -> int:
+    """Smallest power of four >= n, at least 64."""
+    size = 64
+    while size < n:
+        size <<= 2
+    return size
+
+
+def _pad_indices(idx: np.ndarray) -> np.ndarray:
+    """Pad an index vector to its bucket by repeating index 0."""
+    padded = np.full(_pad_bucket(idx.size), idx[0], idx.dtype)
+    padded[: idx.size] = idx
+    return padded
+
+
+def _pad_values(vals: np.ndarray, size: int) -> np.ndarray:
+    """Pad rows to `size` by repeating row 0: every duplicate write
+    carries the same value as the first."""
+    padded = np.repeat(vals[:1], size, axis=0)
+    padded[: vals.shape[0]] = vals
+    return padded
+
+
+def _arena(model: torch.nn.Module, path: str):
+    return model.get_submodule(path)
+
+
+def _device(state) -> torch.device:
+    return next(state.model.parameters()).device
+
+
+def _check_int8(arena, path: str) -> None:
+    if getattr(arena, "cache_dtype", "float32") != "int8":
+        raise ValueError(
+            f'cache_dtype="int8" but {path} has no quantized planes; build '
+            "the zoo model with cache_dtype='int8' (TieredArena) so the "
+            "planes exist")
+
+
+def _rows_of(arena, idx: torch.Tensor, cache_dtype: str) -> torch.Tensor:
+    if cache_dtype == "int8":
+        return dequantize_rows(arena.q8.index_select(0, idx),
+                               arena.scale.index_select(0, idx)) \
+            + arena.embedding.index_select(0, idx)
+    return arena.embedding.index_select(0, idx)
+
+
+def read_rows(state, param_paths: Dict[str, str], slots: np.ndarray,
+              cache_dtype: str = "float32") -> Dict[str, np.ndarray]:
+    """Owning fp32 host copies of cache rows `slots`, per plane: the
+    eviction write-back read."""
+    n = int(np.asarray(slots).size)
+    device = _device(state)
+    idx_host = _pad_indices(np.asarray(slots, np.int64).reshape(-1))
+
+    def _read():
+        idx = torch.from_numpy(idx_host).to(device)
+        out = {}
+        with torch.no_grad():
+            for name, path in param_paths.items():
+                arena = _arena(state.model, path)
+                if cache_dtype == "int8":
+                    _check_int8(arena, path)
+                rows = _rows_of(arena, idx, cache_dtype)
+                out[name] = rows.float().cpu().numpy()[:n].copy()
+        return out
+
+    return run_device_serialized(_read, device=device)
+
+
+def read_full_tables(state, param_paths: Dict[str, str],
+                     cache_dtype: str = "float32") -> Dict[str, np.ndarray]:
+    """Owning fp32 host copies of each plane's whole cache table (int8:
+    the dequantized view plus the carrier)."""
+    device = _device(state)
+
+    def _read():
+        out = {}
+        with torch.no_grad():
+            for name, path in param_paths.items():
+                arena = _arena(state.model, path)
+                if cache_dtype == "int8":
+                    _check_int8(arena, path)
+                    table = dequantize_rows(arena.q8, arena.scale) \
+                        + arena.embedding
+                else:
+                    table = arena.embedding
+                out[name] = table.detach().float().cpu().numpy().copy()
+        return out
+
+    return run_device_serialized(_read, device=device)
+
+
+def read_full_planes(state, param_paths: Dict[str, str]
+                     ) -> Dict[str, Dict[str, np.ndarray]]:
+    """Owning copies of an int8 cache's raw planes {name: {"q8",
+    "scale"}}: the sidecar stores them as they are, so an int8 -> int8
+    restore is exact."""
+    device = _device(state)
+
+    def _read():
+        out = {}
+        for name, path in param_paths.items():
+            arena = _arena(state.model, path)
+            _check_int8(arena, path)
+            out[name] = {
+                "q8": arena.q8.detach().cpu().numpy().copy(),
+                "scale": arena.scale.detach().float().cpu().numpy().copy(),
+            }
+        return out
+
+    return run_device_serialized(_read, device=device)
+
+
+def _zero_moments(optimizer, param: torch.nn.Parameter,
+                  idx: torch.Tensor) -> int:
+    """Zero rows `idx` of every optimizer-state tensor shaped like
+    `param` (Adam's exp_avg and exp_avg_sq); returns how many it zeroed.
+    Scalars (Adam's `step`) stay as they are; a parameter without state
+    (no step taken yet) has nothing to zero."""
+    if optimizer is None:
+        return 0
+    n = 0
+    for value in optimizer.state.get(param, {}).values():
+        if isinstance(value, torch.Tensor) and value.shape == param.shape:
+            value.index_fill_(0, idx, 0.0)
+            n += 1
+    return n
+
+
+def apply_admissions(state, param_paths: Dict[str, str], slots: np.ndarray,
+                     values: Dict[str, np.ndarray],
+                     cache_dtype: str = "float32"):
+    """Write fp32 host values into cache rows `slots` of every plane, in
+    place, and zero those rows' optimizer moments (int8: quantize into
+    the planes and zero the carrier rows too).  Returns `state`."""
+    n = int(np.asarray(slots).size)
+    if n == 0:
+        return state
+    device = _device(state)
+    idx_host = _pad_indices(np.asarray(slots, np.int64).reshape(-1))
+    vals_host = {
+        name: _pad_values(
+            np.asarray(values[name], np.float32).reshape(n, -1),
+            idx_host.size)
+        for name in param_paths}
+
+    def _apply():
+        idx = torch.from_numpy(idx_host).to(device)
+        with torch.no_grad():
+            for name, path in param_paths.items():
+                arena = _arena(state.model, path)
+                vals = torch.from_numpy(vals_host[name]).to(device)
+                if cache_dtype == "int8":
+                    _check_int8(arena, path)
+                    codes, scales = quantize_rows(vals)
+                    arena.q8.index_copy_(0, idx, codes)
+                    arena.scale.index_copy_(0, idx, scales)
+                    # an admission is the row's new state: a carrier
+                    # delta left in the slot is stale
+                    arena.embedding.index_fill_(0, idx, 0.0)
+                else:
+                    arena.embedding.index_copy_(
+                        0, idx, vals.to(arena.embedding.dtype))
+                _zero_moments(state.optimizer, arena.embedding, idx)
+        return state
+
+    return run_device_serialized(_apply, device=device)
+
+
+def zero_cache_slots(state, param_paths: Dict[str, str], slots: np.ndarray,
+                     cache_dtype: str = "float32"):
+    """Zero cache rows `slots` in every plane and their moments (an int8
+    cache quantizes zeros to code 0, scale 1.0)."""
+    slots = np.asarray(slots, np.int64).reshape(-1)
+    if slots.size == 0:
+        return state
+    values = {
+        name: np.zeros((slots.size,
+                        _arena(state.model, path).embedding.shape[1]),
+                       np.float32)
+        for name, path in param_paths.items()}
+    return apply_admissions(state, param_paths, slots, values,
+                            cache_dtype=cache_dtype)

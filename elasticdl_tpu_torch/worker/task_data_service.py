@@ -23,6 +23,7 @@ from typing import Callable, Iterator, Optional, Tuple
 import numpy as np
 
 from elasticdl_tpu_torch.proto import messages as pb
+from elasticdl_tpu_torch.worker.trainer import STORE_KEYS
 
 
 def pad_to_multiple(batch, multiple: int):
@@ -36,11 +37,14 @@ def pad_to_multiple(batch, multiple: int):
     unique, starts, inverse8 and exc_val planes have four), so a dedup
     tail raises here, as it fails in the JAX package."""
     leaves = []
+    # a tiered store's bookkeeping is not row data
+    carried = sorted(k for k in batch if k in STORE_KEYS)
 
     def collect(tree):
         if isinstance(tree, dict):
-            for v in tree.values():
-                collect(v)
+            for k, v in tree.items():
+                if k not in carried:
+                    collect(v)
         else:
             leaves.append(tree)
 
@@ -55,6 +59,12 @@ def pad_to_multiple(batch, multiple: int):
     n = sizes.pop()
     if n % multiple == 0:
         return batch, n
+    if carried:
+        raise ValueError(
+            f"batch carries {carried}: a tiered-store batch is planned "
+            "when the feed makes it and cannot be wrap-padded to a "
+            f"multiple of {multiple} after; give its tasks a record count "
+            "that is a multiple of the minibatch size")
     target = ((n + multiple - 1) // multiple) * multiple
     reps = (target + n - 1) // n
 

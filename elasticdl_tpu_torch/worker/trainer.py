@@ -13,8 +13,14 @@ into their codes (`fold_quantized_updates`; a no-op without them).
 Batches move to the device at their wire width: the b22 and dedup plane
 dicts and bf16 dense features (data/wire.py) go plane by plane through
 `plane_tensor`, and the model's decoders widen them on the device.
-The tiered store, the mesh, sharding and elastic prewarm wait for their
-slices of the port.
+
+With a tiered store (`Trainer.tiered_store`, store/tiered.py) a batch
+may carry host bookkeeping beside its data: an admission plan under
+`__store_plan__` (eager planning; applied before the step) or the raw
+sparse ids under `__store_sparse__` (deferred planning; prepared and
+applied here, inside the step-serialized region, in step order).
+`stage_batch` passes both through untouched.  The mesh, sharding and
+elastic prewarm wait for their slices of the port.
 """
 
 from __future__ import annotations
@@ -45,6 +51,14 @@ from elasticdl_tpu_torch.layers.linen import init_parameters
 # threads, as the JAX package serializes its CPU backend.  A CUDA device
 # executes in stream order, so there the call goes straight through.
 _CPU_EXEC_LOCK = threading.Lock()
+
+# host bookkeeping a tiered-store batch carries (store/tiered.py): an
+# admission plan, the raw sparse batch of deferred planning, and the
+# feed's ranking of the batch's ids (consumed by TieredStore.attach)
+STORE_PLAN_KEY = "__store_plan__"
+STORE_SPARSE_KEY = "__store_sparse__"
+RANKING_KEY = "__dedup_ranking__"
+STORE_KEYS = (STORE_PLAN_KEY, STORE_SPARSE_KEY)
 
 
 def run_device_serialized(fn, *args, device: torch.device):
@@ -88,12 +102,23 @@ def to_tensor(arr, device: torch.device) -> torch.Tensor:
 
 def _to_device(tree, device: torch.device):
     """`to_tensor` over nested dicts; a dict of wire planes moves plane
-    by plane at its wire width."""
+    by plane at its wire width.  A tiered store's bookkeeping keys stay
+    as they are."""
     if is_wire_planes(tree):
         return {k: plane_tensor(v, device) for k, v in tree.items()}
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
+        return {k: v if k in STORE_KEYS else _to_device(v, device)
+                for k, v in tree.items()}
     return to_tensor(tree, device)
+
+
+def _with_slots(batch, slots):
+    """`batch` with its features' `slots` replaced."""
+    features = dict(batch["features"])
+    features["slots"] = slots
+    out = dict(batch)
+    out["features"] = features
+    return out
 
 
 def _batch_key(tree):
@@ -145,6 +170,9 @@ class Trainer:
     # compute is launch time; a copy that waits on the stream lands in
     # whichever phase issues it.
     phase_timer = None
+    # the TieredStore whose plans this trainer's batches carry (set by
+    # the Local runner)
+    tiered_store = None
 
     def __init__(self, model: nn.Module, optimizer: Callable,
                  loss_fn: Callable, use_bf16: bool = False,
@@ -224,9 +252,36 @@ class Trainer:
         return self._timed("h2d_stage", lambda: run_device_serialized(
             _to_device, batch, self.device, device=self.device))
 
+    def _store(self):
+        if self.tiered_store is None:
+            raise ValueError(
+                "the batch carries tiered-store bookkeeping but the "
+                "trainer has no tiered_store")
+        return self.tiered_store
+
+    def _apply_store(self, state: TrainState, batch):
+        """Execute a tiered batch's plan (eager) or prepare and apply it
+        here (deferred); returns the batch without the store keys."""
+        plan = batch.get(STORE_PLAN_KEY)
+        pending = batch.get(STORE_SPARSE_KEY)
+        if plan is None and pending is None:
+            return batch
+        batch = {k: v for k, v in batch.items() if k not in STORE_KEYS}
+        store = self._store()
+        if pending is not None:
+            sparse, ranked = pending
+            slots, plan = store.prepare(sparse, ranked=ranked)
+            batch = _with_slots(batch, slots)
+        store.apply_plan(state, plan)
+        return batch
+
     def train_on_batch(self, state: TrainState, batch):
         """One step; returns (state, loss), the loss a 0-d f32 tensor on
-        the device."""
+        the device.  A tiered batch's admissions run first (every slot
+        the step gathers must be resident, and evicted rows are read out
+        before their slots are reused)."""
+        batch = self._apply_store(state, batch)
+
         def _step():
             return self._train_step(state, _to_device(batch, self.device))
 
@@ -234,12 +289,40 @@ class Trainer:
             _step, device=self.device))
         return state, loss
 
+    def _apply_store_block(self, state: TrainState, batches):
+        """A tiered block: one admission plan over the union of the K
+        batches' rows, applied once before the block.  Eagerly planned
+        batches are refused: plan k+1 may evict a row batch k reads,
+        with no apply point between the steps of a block."""
+        if any(STORE_PLAN_KEY in b for b in batches):
+            raise ValueError(
+                "eager per-batch store plans cannot cover a fused "
+                "multi-step block: use TieredStore.enable_deferred_"
+                "prepare() so the raw sparse batches arrive here and "
+                "one union plan covers the whole block")
+        pendings = [b.get(STORE_SPARSE_KEY) for b in batches]
+        if all(p is None for p in pendings):
+            return batches
+        if any(p is None for p in pendings):
+            raise ValueError(
+                "mixed store-prepared and raw batches in one fused block")
+        slots_list, plan = self._store().prepare_block(
+            [sparse for sparse, _ranked in pendings])
+        self.tiered_store.apply_plan(state, plan)
+        return [
+            _with_slots({k: v for k, v in b.items() if k not in STORE_KEYS},
+                        slots)
+            for b, slots in zip(batches, slots_list)]
+
     def train_on_batch_stack(self, state: TrainState, batches):
         """len(batches) steps, one after another; returns (state, losses
         (K,)).  The same step as train_on_batch, so K steps here and K
         calls there give the same parameters bit for bit.  Batches of any
         wire format (plain, b22, dedup) go through as they are; the
-        worker groups only batches of one shape."""
+        worker groups only batches of one shape.  Tiered batches share
+        one admission plan over the block (`_apply_store_block`)."""
+        batches = self._apply_store_block(state, batches)
+
         def _steps():
             return torch.stack([
                 self._train_step(state, _to_device(b, self.device))

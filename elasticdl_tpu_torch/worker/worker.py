@@ -37,6 +37,7 @@ from elasticdl_tpu_torch.common.model_handler import (
 from elasticdl_tpu_torch.common.profiler import PhaseTimer, StepTimer
 from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.worker.sync import ModelOwner
+from elasticdl_tpu_torch.worker.trainer import STORE_KEYS
 from elasticdl_tpu_torch.worker.task_data_service import (
     TaskDataService,
     prefetch_batches,
@@ -93,8 +94,11 @@ def report_evaluation_with_samples(
 
 
 def _leaf_shapes(tree):
+    """The leaf shapes and dtypes of a host batch; a tiered store's
+    bookkeeping (its plan or raw sparse batch) is not batch data."""
     if isinstance(tree, dict):
-        return tuple((k, _leaf_shapes(v)) for k, v in sorted(tree.items()))
+        return tuple((k, _leaf_shapes(v)) for k, v in sorted(tree.items())
+                     if k not in STORE_KEYS)
     return (tuple(np.shape(tree)), str(getattr(tree, "dtype", None)))
 
 
