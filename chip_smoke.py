@@ -137,6 +137,27 @@
    on the restored state, never-seen ids finite, a newer step swapped in
    by the reloader under traffic with no failed request, and a step
    without its sidecar rejected while serving goes on.
+14. Runs the rest of the zoo as `elasticdl train` Local jobs at each
+   model's default width (`zoo_local`), each exiting 0 with no failed
+   task, its steps, its scatter-add launches (2 a step for the two
+   embedding arenas of Wide & Deep and xDeepFM, 0 for the others) and its
+   metric in its band: Wide & Deep on the census protocol (8,192 CSV
+   rows, 4 epochs at 512, AUC on 4,096 held-out rows in [0.68, 0.80]),
+   then on the same rows from a SQLite table, with per-step losses and
+   metrics equal to the CSV job's bit for bit; xDeepFM (vocab 2^18, dim
+   16, CIN (64, 64), MLP (256, 128)) on local_deepfm's records, its AUC
+   within 0.01 of its JAX twin's, then a bare Trainer's step ms, a
+   profiled step and the CIN alone; both MNIST styles (2,048 records, 4
+   epochs at 128, accuracy in [0.99, 1.0]), the functional job's
+   checkpoint served with `serve` over 127.0.0.1 at the job's accuracy;
+   ResNet-50 at full depth on the cifar10 protocol (16 SGD-momentum
+   steps of 64, accuracy on 512 held-out records in [0.60, 1.0]), its
+   running statistics moved and restored by an evaluate job that scores
+   the same, then a bare Trainer's step ms, peak memory and a profiled
+   step's busy share and convolution share; ctr_mlp on seeded click
+   dicts through a registered `clicks://` reader, above the majority
+   class.  Step 2 holds the scatter-add bitwise at Wide & Deep's and
+   xDeepFM's arena rows.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
@@ -176,6 +197,7 @@ from elasticdl_tpu_torch.data.wire import (  # noqa: E402
     unpack_rows_dedup,
 )
 from elasticdl_tpu_torch.layers.arena import (  # noqa: E402
+    arena_rows,
     dequantize_rows,
     fold_quantized_updates,
 )
@@ -215,7 +237,20 @@ from elasticdl_tpu_torch.common.save_utils import (  # noqa: E402
     ArenaDtypeMismatch,
     CheckpointSaver,
 )
-from elasticdl_tpu_torch.data.reader import TFRecordDataReader  # noqa: E402
+from elasticdl_tpu_torch.data.reader import (  # noqa: E402
+    MemoryDataReader,
+    TFRecordDataReader,
+    register_data_reader,
+)
+from elasticdl_tpu_torch.model_zoo.census import data as census_data  # noqa: E402,E501
+from elasticdl_tpu_torch.model_zoo.census import (  # noqa: E402
+    wide_and_deep as census_zoo,
+)
+from elasticdl_tpu_torch.model_zoo.cifar10 import data as cifar_data  # noqa: E402,E501
+from elasticdl_tpu_torch.model_zoo.clickstream import (  # noqa: E402
+    ctr_mlp as ctr_zoo,
+)
+from elasticdl_tpu_torch.model_zoo.mnist import data as mnist_data  # noqa: E402,E501
 from elasticdl_tpu_torch.proto import messages as pb  # noqa: E402
 from elasticdl_tpu_torch.proto import serving as spb  # noqa: E402
 from elasticdl_tpu_torch.proto.service import ServingStub  # noqa: E402
@@ -920,7 +955,22 @@ def path_rows(wire_buffer: bytes) -> dict:
     store = tiered_zoo.TieredStore(TIERED_PLANES, NUM_SPARSE, REAL_CACHE)
     tiered_slots, _ = store.prepare(
         next(zipf_stream(SEED + 7))["features"]["sparse"])
+    # Wide & Deep's two arenas at the census job's first batch, and
+    # xDeepFM's at the Local jobs' first batch (vocab 2^18)
+    census = census_zoo.feed(census_data.synthetic_census(
+        CENSUS_BATCH, seed=SEED))["features"]
+    wd = census_zoo.custom_model()
+    wide = np.concatenate([census["categorical"], census["cross"]], axis=1)
+    deep_ids = {name: census["categorical"][:, j]
+                for j, (name, _) in enumerate(wd.deep_embedding.features)}
+    wide_ids = {name: wide[:, j]
+                for j, (name, _) in enumerate(wd.wide_linear.features)}
     return {
+        "census_deep": wd.deep_embedding.arena_rows_host(
+            deep_ids).reshape(-1),
+        "census_wide": wd.wide_linear.arena_rows_host(wide_ids).reshape(-1),
+        "xdeepfm": hash_field_rows_host(local_sparse,
+                                        XDEEPFM_VOCAB).reshape(-1),
         "tiered": tiered_slots.reshape(-1),
         # the BERT token table takes ids mod its vocab, unmixed
         "bert": hash_ids_host(
@@ -955,6 +1005,15 @@ def check_scatter_kernel(gen, wire_buffer: bytes):
         # the BERT token table's backward at train_bert's batch
         ("bert-d768", rows_of["bert"], VOCAB, 768, True),
         ("local-d1", rows_of["local"], DEEPFM_VOCAB, 1, False),
+        # Wide & Deep's arenas (zoo_local): 4,096 ids into 4,096 rows at
+        # D 8 and 5,120 into 5,120 at D 1, most of them long segments;
+        # xDeepFM's at the Local jobs' first batch into 2^18 rows
+        ("census-deep-d8", rows_of["census_deep"],
+         arena_rows(census_zoo.deep_arena_features(CENSUS_VOCAB)), 8, True),
+        ("census-wide-d1", rows_of["census_wide"],
+         arena_rows(census_zoo.wide_arena_features(CENSUS_VOCAB)), 1, True),
+        ("xdeepfm-d16", rows_of["xdeepfm"], XDEEPFM_VOCAB, DEEPFM_DIM, True),
+        ("xdeepfm-d1", rows_of["xdeepfm"], XDEEPFM_VOCAB, 1, True),
         ("probe", (rng.zipf(1.5, 262144) % 8192).astype(np.int32), 8192,
          16, True),
         ("ragged-d16", (rng.zipf(1.5, 1000) % 8192).astype(np.int32), 8192,
@@ -3210,6 +3269,428 @@ def serve_tiered(card: str, ckpt: str, served: dict) -> dict:
     return summary
 
 
+# ---- the rest of the zoo through the Local runner (zoo_local) ----------
+
+CENSUS = "census.wide_and_deep.custom_model"
+CENSUS_TRAIN = 8192              # scripts/record_convergence.py::census
+CENSUS_VAL = 4096
+CENSUS_BATCH = 512
+CENSUS_EPOCHS = 4
+CENSUS_STEPS = CENSUS_TRAIN * CENSUS_EPOCHS // CENSUS_BATCH      # 64
+CENSUS_RECORDS_PER_TASK = 2048
+CENSUS_BAND = (0.68, 0.80)       # tests/test_convergence.py
+CENSUS_VOCAB = 4096              # the zoo's default vocab_capacity
+XDEEPFM = "deepfm.xdeepfm.custom_model"
+XDEEPFM_VOCAB = 1 << 18
+XDEEPFM_PARAMS = (f"vocab_capacity={XDEEPFM_VOCAB};embed_dim={DEEPFM_DIM};"
+                  "cin_widths=(64, 64);bf16=True;lr=0.005")
+# xDeepFM has no recorded band: the AUC of its JAX twin, the JAX
+# package's own Local job at this configuration on the same records, run
+# on the CPU (PERF.md)
+XDEEPFM_JAX_AUC = 0.8070796364329988
+XDEEPFM_AUC_TOL = 0.01
+XDEEPFM_TIMED_STEPS = 5
+MNIST_MODELS = ("mnist.mnist_functional_api.custom_model",
+                "mnist.mnist_subclass.custom_model")
+MNIST_TRAIN = 2048
+MNIST_VAL = 512
+MNIST_BATCH = 128
+MNIST_EPOCHS = 4
+MNIST_STEPS = MNIST_TRAIN * MNIST_EPOCHS // MNIST_BATCH          # 64
+MNIST_BAND = (0.99, 1.0)         # tests/test_convergence.py
+MNIST_SPEC = {"features": {"shape": [784], "dtype": "float32"}}
+RESNET = "cifar10.resnet.custom_model"
+RESNET_TRAIN = 1024              # scripts/record_convergence.py::cifar10
+RESNET_VAL = 512
+RESNET_VAL_SEED = 9
+RESNET_BATCH = 64
+RESNET_STEPS = RESNET_TRAIN // RESNET_BATCH                      # 16
+RESNET_BAND = (0.60, 1.0)        # tests/test_convergence.py
+RESNET_TIMED_STEPS = 5
+RESNET_BATCHNORMS = 53           # the stem, 16 blocks x 3, 4 projections
+CTR = "clickstream.ctr_mlp.custom_model"
+CTR_TRAIN = 32768
+CTR_VAL = 16384
+CTR_BATCH = 1024
+CTR_EPOCHS = 2
+CTR_STEPS = CTR_TRAIN * CTR_EPOCHS // CTR_BATCH                  # 64
+
+
+class ClickReader(MemoryDataReader):
+    """`clicks://N:SEED`: N seeded click dicts (user, item, clicked) from
+    a planted signal: per-user and per-item propensities on the hashed
+    buckets ctr_mlp encodes, and a user x item term (users and items of
+    one residue mod 4 click more).  The online loop's ClickStreamSource
+    is not ported yet (ROADMAP.md item 10); this stands in for it."""
+
+    def __init__(self, data_dir: str = "", **kwargs):
+        n, seed = (int(v) for v in data_dir.split(":"))
+        rng = np.random.RandomState(seed)
+        planted = np.random.RandomState(4321)
+        user_w = planted.randn(ctr_zoo.HASH_USER) * 1.5
+        item_w = planted.randn(ctr_zoo.HASH_ITEM) * 1.5
+        users = rng.randint(0, 1 << 20, n)
+        items = rng.randint(0, 1 << 16, n)
+        logits = (user_w[users % ctr_zoo.HASH_USER]
+                  + item_w[items % ctr_zoo.HASH_ITEM]
+                  + 1.5 * ((users % 4) == (items % 4)) - 0.5)
+        clicked = (rng.rand(n) < 1.0 / (1.0 + np.exp(-logits)))
+        super().__init__({"user": users, "item": items,
+                          "clicked": clicked.astype(np.int64)},
+                         name=f"clicks-{seed}", **kwargs)
+
+
+
+def zoo_argv(job: str, model_def: str, batch: int, *extra) -> list:
+    """A Local job of the zoo at its own width, f32 features (the
+    convergence protocols feed f32)."""
+    return [job, "--distribution_strategy", "Local", "--model_def",
+            model_def, "--minibatch_size", str(batch), "--use_bf16",
+            "false", *extra]
+
+
+def zoo_job(label: str, card: str, argv: list, steps: int, examples: int,
+            metric: str, band, scatter_per_step: int, job_type="train"):
+    """One Local job, counted from 0 around it; checks its exit, steps,
+    failed tasks, scatter-add launches and metric band; returns (job,
+    summary)."""
+    args = cli.parse_args(argv)
+    # ---- the main path: counts start at 0 here ----
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    job = api.run_local(args, job_type)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sa.scatter_add.launches
+    # ---- end of the main path ----
+    counters = job.master.task_manager.counters.as_dict()
+    value = (job.metrics or {}).get(metric)
+    summary = {"card": card, "exit_code": job.exit_code,
+               "model_step": job.owner.step, "wall_s": wall,
+               "examples_per_s": examples / wall, "metrics": job.metrics,
+               "counters": counters, "scatter_launches": launches,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "phases": _phase_split(job)}
+    print(json.dumps({label: summary}), flush=True)
+    if job.exit_code != 0 or counters["failed"] != 0 or \
+            job.owner.step != steps:
+        raise AssertionError(f"{label}: the job failed or took "
+                             f"{job.owner.step} steps, not {steps}: "
+                             f"{summary}")
+    if launches != scatter_per_step * steps:
+        raise AssertionError(f"{label}: {launches} scatter-add launches, "
+                             f"want {scatter_per_step} x {steps} steps")
+    if value is None or not band[0] <= value <= band[1]:
+        raise AssertionError(f"{label}: {metric} {value} outside {band}")
+    return job, summary
+
+
+def job_losses(job) -> list:
+    return [float(loss) for w in job.workers for loss in w.losses]
+
+
+def profiled_step(trainer, state, batch, ranges=()) -> dict:
+    """One synced training step under torch.profiler: device ms by
+    kernel (top 12), inside each named range, and the busy share of the
+    step's host wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    staged = trainer.stage_batch(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_on_batch(state, staged)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = _device_ms_by_kernel(prof)
+    device_ms = sum(by_kernel.values())
+    return {"profiled_wall_ms": wall_ms,
+            "device_ms": device_ms if by_kernel else None,
+            "device_busy_share": device_ms / wall_ms if by_kernel else None,
+            "by_kernel": by_kernel,
+            "top_kernels_ms": sorted(by_kernel.items(),
+                                     key=lambda kv: -kv[1])[:12],
+            "device_ms_by_range": range_device_ms(prof, ranges)}
+
+
+def timed_step_ms(trainer, state, batch, iters: int) -> float:
+    return 1e3 / trainer.timed_steps_per_sec(state, batch, iters=iters)
+
+
+def _is_conv(name: str) -> bool:
+    low = name.lower()
+    return any(s in low for s in ("conv", "cudnn", "xmma", "gemm", "nvjet",
+                                  "implicit", "fprop", "dgrad", "wgrad",
+                                  "cutlass"))
+
+
+def census_jobs(card: str, work: str) -> dict:
+    """Wide & Deep from CSV files and from a SQLite table of the same
+    rows: the census protocol, AUC in the band, 2 scatter-adds a step,
+    the same per-step losses and metrics bit for bit."""
+    root = os.path.join(work, "census")
+    os.makedirs(root, exist_ok=True)
+    rows = census_data.synthetic_census(CENSUS_TRAIN + CENSUS_VAL, seed=SEED)
+    train_dir = os.path.join(root, "train")
+    os.makedirs(train_dir, exist_ok=True)
+    census_data.write_csv(os.path.join(train_dir, "census-train.csv"),
+                          rows[:CENSUS_TRAIN])
+    val = census_data.write_csv(os.path.join(root, "census-val.csv"),
+                                rows[CENSUS_TRAIN:])
+    table = census_data.write_table(os.path.join(root, "census.db"),
+                                    "census", rows[:CENSUS_TRAIN])
+    common = ["--model_params", "lr=0.005", "--num_epochs",
+              str(CENSUS_EPOCHS), "--records_per_task",
+              str(CENSUS_RECORDS_PER_TASK), "--validation_data", val]
+    out, losses = {}, {}
+    for label, origin in (("zoo_census_csv", train_dir),
+                          ("zoo_census_sqlite", table)):
+        job, summary = zoo_job(
+            label, card, zoo_argv("train", CENSUS, CENSUS_BATCH,
+                                  "--training_data", origin, *common),
+            CENSUS_STEPS, CENSUS_TRAIN * CENSUS_EPOCHS, "auc", CENSUS_BAND,
+            scatter_per_step=2)
+        losses[label] = job_losses(job)
+        out[label] = summary
+        del job
+    out["losses_equal"] = losses["zoo_census_csv"] == \
+        losses["zoo_census_sqlite"]
+    out["metrics_equal"] = out["zoo_census_csv"]["metrics"] == \
+        out["zoo_census_sqlite"]["metrics"]
+    if not (out["losses_equal"] and out["metrics_equal"]
+            and len(losses["zoo_census_csv"]) == CENSUS_STEPS):
+        raise AssertionError(f"census CSV and SQLite jobs differ: {out}")
+    return out
+
+
+def xdeepfm_job(card: str, served: dict) -> dict:
+    """xDeepFM on the DeepFM Local job's records at its width: AUC
+    within XDEEPFM_AUC_TOL of its JAX twin's, 2 scatter-adds a step;
+    then on a bare Trainer its step ms and the CIN's share of a profiled
+    step, and its contraction timed against torch.einsum's path."""
+    val_dir = served["val_dir"]
+    train_dir = os.path.join(os.path.dirname(val_dir), "train")
+    fm_zoo._DEDUP_PACKER = DedupPacker()
+    band = (XDEEPFM_JAX_AUC - XDEEPFM_AUC_TOL,
+            XDEEPFM_JAX_AUC + XDEEPFM_AUC_TOL)
+    job, out = zoo_job(
+        "zoo_xdeepfm", card,
+        [*local_argv("train", "--training_data", train_dir,
+                     "--validation_data", val_dir, "--num_epochs", "1"),
+         "--model_def", XDEEPFM, "--model_params", XDEEPFM_PARAMS],
+        LOCAL_STEPS, LOCAL_TRAIN, "auc", band, scatter_per_step=2)
+    out["jax_twin_auc"] = XDEEPFM_JAX_AUC
+    del job
+    spec = get_model_spec(ZOO_DIR, XDEEPFM, model_params=XDEEPFM_PARAMS)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, use_bf16=True)
+    batch = make_criteo_batch(AUC_BATCH)
+    state = trainer.init_state(SEED, batch["features"])
+    out["step_ms"] = timed_step_ms(trainer, state, batch,
+                                   XDEEPFM_TIMED_STEPS)
+    prof = profiled_step(trainer, state, batch, ("cin_layer",))
+    out["profiled_step"] = {k: v for k, v in prof.items()
+                            if k != "by_kernel"}
+    # the CIN alone, forward and backward, on this batch's embeddings
+    cin = state.model.cin
+    with torch.no_grad():
+        rows = trainer.stage_batch(batch)["features"]
+        emb = state.model.fm_embedding(
+            {"sparse": fm_zoo.field_offset_ids(rows["sparse"])})["sparse"]
+    emb = emb.detach().requires_grad_(True)
+
+    def cin_step():
+        cin(emb).sum().backward()
+
+    def einsum_forward():
+        xk, x0 = emb, emb
+        for li in range(len(cin.layer_widths)):
+            xk = torch.relu(torch.einsum("hij,bid,bjd->bhd",
+                                         getattr(cin, f"w_{li}"), xk, x0))
+        return xk
+
+    with torch.no_grad():
+        out["cin"] = {
+            "forward_ms": time_ms(lambda: cin(emb), 10),
+            "torch_einsum_forward_ms": time_ms(einsum_forward, 10),
+            "outer_product_bytes_layer2": int(
+                AUC_BATCH * cin.layer_widths[0] * NUM_SPARSE * DEEPFM_DIM
+                * 4)}
+    out["cin"]["forward_backward_ms"] = time_ms(cin_step, 10)
+    out["cin"]["share_of_step"] = \
+        out["cin"]["forward_backward_ms"] / out["step_ms"]
+    print(json.dumps({"zoo_xdeepfm_step": {
+        "card": card, "step_ms": out["step_ms"], "cin": out["cin"],
+        "busy": prof["device_busy_share"]}}), flush=True)
+    del trainer, state, cin, emb
+    return out
+
+
+def mnist_jobs(card: str, work: str) -> dict:
+    """Both MNIST styles at the convergence protocol's batch, accuracy
+    in the band; the functional job's checkpoint served with `serve`
+    over 127.0.0.1 at the job's accuracy."""
+    root = os.path.join(work, "mnist")
+    train_dir, val_dir = mnist_data.write_dataset(
+        root, n_train=MNIST_TRAIN, n_val=MNIST_VAL, seed=SEED)
+    out = {}
+    for model_def in MNIST_MODELS:
+        label = "zoo_" + model_def.split(".")[1]
+        ckpt = os.path.join(root, "ckpt_" + label)
+        _, out[label] = zoo_job(
+            label, card, zoo_argv(
+                "train", model_def, MNIST_BATCH, "--training_data",
+                train_dir, "--validation_data", val_dir, "--num_epochs",
+                str(MNIST_EPOCHS), "--records_per_task", "512",
+                "--checkpoint_dir", ckpt, "--checkpoint_steps",
+                str(MNIST_STEPS)),
+            MNIST_STEPS, MNIST_TRAIN * MNIST_EPOCHS, "accuracy", MNIST_BAND,
+            scatter_per_step=0)
+        out[label]["ckpt"] = ckpt
+    functional = out["zoo_mnist_functional_api"]
+    server, stub = start_server(cli.parse_args(serve_argv(
+        MNIST_MODELS[0], "", "--checkpoint_dir", functional["ckpt"],
+        "--feature_spec", json.dumps(MNIST_SPEC))))
+    try:
+        images, labels = mnist_data.synthetic_mnist(MNIST_VAL, seed=SEED + 1)
+        features = images.astype(np.float32) / 255.0
+        chunks = [{"features": features[i:i + 64]}
+                  for i in range(0, MNIST_VAL, 64)]
+        by_client = [chunks[c::CLIENT_THREADS]
+                     for c in range(CLIENT_THREADS)]
+        results, wall_s = socket_traffic(stub, by_client)
+        preds = [None] * len(chunks)
+        for c, i, _, resp, _ in results:
+            preds[c + i * CLIENT_THREADS] = from_tensor_proto(
+                resp.predictions)
+        served = float(np.mean(np.argmax(np.concatenate(preds), -1)
+                               == labels))
+        out["served"] = {"card": card, "accuracy": served,
+                         "job_accuracy": functional["metrics"]["accuracy"],
+                         "model_step": server.engine.step,
+                         **latency_summary(results, wall_s)}
+    finally:
+        stub.close()
+        server.stop()
+    print(json.dumps({"zoo_mnist_served": out["served"]}), flush=True)
+    if out["served"]["accuracy"] != out["served"]["job_accuracy"] or \
+            out["served"]["model_step"] != MNIST_STEPS:
+        raise AssertionError(f"served MNIST: {out['served']}")
+    return out
+
+
+def resnet_jobs(card: str, work: str) -> dict:
+    """ResNet-50 at full depth, the cifar10 protocol: 16 SGD-momentum
+    steps of 64, accuracy in the band on 512 held-out records; the
+    running statistics moved in training and an evaluate job restores
+    them and scores the same.  Then a bare Trainer's step ms, peak
+    memory and a profiled step's busy share and conv / other split."""
+    root = os.path.join(work, "cifar10")
+    train_dir, val_dir = cifar_data.write_dataset(
+        root, n_train=RESNET_TRAIN, n_val=RESNET_VAL, seed=SEED,
+        val_seed=RESNET_VAL_SEED)
+    ckpt = os.path.join(root, "ckpt")
+    common = ["--validation_data", val_dir, "--records_per_task", "256"]
+    job, out = zoo_job(
+        "zoo_resnet50", card, zoo_argv(
+            "train", RESNET, RESNET_BATCH, "--training_data", train_dir,
+            "--checkpoint_dir", ckpt, "--checkpoint_steps",
+            str(RESNET_STEPS), *common),
+        RESNET_STEPS, RESNET_TRAIN, "accuracy", RESNET_BAND,
+        scatter_per_step=0)
+    stats = {k: v.detach().cpu().clone() for k, v in
+             job.owner.state.model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    out["batchnorms"] = len(stats) // 2
+    out["stats_moved"] = all(
+        not torch.all(v == (0.0 if k.endswith("mean") else 1.0))
+        for k, v in stats.items())
+    del job
+    evaluate, ev = zoo_job(
+        "zoo_resnet50_evaluate", card, zoo_argv(
+            "evaluate", RESNET, RESNET_BATCH, "--checkpoint_dir_for_init",
+            ckpt, *common),
+        RESNET_STEPS, RESNET_VAL, "accuracy", RESNET_BAND,
+        scatter_per_step=0, job_type="evaluate")
+    restored = evaluate.owner.state.model.state_dict()
+    ev["stats_restored"] = all(torch.equal(restored[k].cpu(), v)
+                               for k, v in stats.items())
+    ev["metrics_equal_train"] = ev["metrics"] == out["metrics"]
+    out["evaluate"] = ev
+    del evaluate
+    if out["batchnorms"] != RESNET_BATCHNORMS or not out["stats_moved"] or \
+            not ev["stats_restored"] or not ev["metrics_equal_train"]:
+        raise AssertionError(f"ResNet-50's running statistics: {out}")
+    spec = get_model_spec(ZOO_DIR, RESNET)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss)
+    xs, ys = cifar_data.synthetic_cifar(RESNET_BATCH, seed=SEED)
+    batch = {"features": (xs.astype(np.float32) / 255.0 - 0.5),
+             "labels": ys.astype(np.int32)}
+    state = trainer.init_state(SEED, batch["features"])
+    torch.cuda.reset_peak_memory_stats()
+    out["step_ms"] = timed_step_ms(trainer, state, batch,
+                                   RESNET_TIMED_STEPS)
+    out["step_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    prof = profiled_step(trainer, state, batch)
+    conv = sum(ms for name, ms in prof["by_kernel"].items()
+               if _is_conv(name))
+    out["profiled_step"] = {k: v for k, v in prof.items()
+                            if k != "by_kernel"}
+    out["profiled_step"]["conv_gemm_ms"] = conv
+    out["profiled_step"]["other_ms"] = (prof["device_ms"] or 0.0) - conv
+    print(json.dumps({"zoo_resnet50_step": {
+        "card": card, "step_ms": out["step_ms"],
+        "peak_memory_gb": out["step_peak_memory_gb"],
+        "busy": prof["device_busy_share"], "conv_gemm_ms": conv,
+        "other_ms": out["profiled_step"]["other_ms"]}}), flush=True)
+    del trainer, state
+    return out
+
+
+def ctr_job(card: str) -> dict:
+    """ctr_mlp on seeded click dicts through a registered `clicks://`
+    reader (a MemoryDataReader): accuracy above the majority class."""
+    register_data_reader("clicks", ClickReader)
+    val = ClickReader(f"{CTR_VAL}:{SEED + 1}")
+    majority = float(max(np.mean(val._arrays["clicked"]),
+                         1 - np.mean(val._arrays["clicked"])))
+    _, out = zoo_job(
+        "zoo_ctr_mlp", card, zoo_argv(
+            "train", CTR, CTR_BATCH, "--training_data",
+            f"clicks://{CTR_TRAIN}:{SEED}", "--validation_data",
+            f"clicks://{CTR_VAL}:{SEED + 1}", "--num_epochs",
+            str(CTR_EPOCHS), "--records_per_task", "8192"),
+        CTR_STEPS, CTR_TRAIN * CTR_EPOCHS, "accuracy",
+        (majority + 0.01, 1.0), scatter_per_step=0)
+    out["majority_share"] = majority
+    return out
+
+
+def zoo_local(card: str, work: str, served: dict):
+    """The rest of the zoo through `elasticdl train` Local jobs on the
+    card (Wide & Deep from CSV and SQLite, xDeepFM, both MNISTs served
+    over a socket, ResNet-50, ctr_mlp); returns (summary, the scatter-add
+    launches by path)."""
+    out = {"census": census_jobs(card, work),
+           "xdeepfm": xdeepfm_job(card, served),
+           "mnist": mnist_jobs(card, work),
+           "resnet50": resnet_jobs(card, work),
+           "ctr_mlp": ctr_job(card)}
+    launches = {
+        "zoo_census_csv": out["census"]["zoo_census_csv"][
+            "scatter_launches"],
+        "zoo_census_sqlite": out["census"]["zoo_census_sqlite"][
+            "scatter_launches"],
+        "zoo_xdeepfm": out["xdeepfm"]["scatter_launches"],
+        **{label: out["mnist"][label]["scatter_launches"]
+           for label in ("zoo_mnist_functional_api", "zoo_mnist_subclass")},
+        "zoo_resnet50": out["resnet50"]["scatter_launches"],
+        "zoo_ctr_mlp": out["ctr_mlp"]["scatter_launches"]}
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -3287,6 +3768,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
     tiered, tiered_launches = phase("tiered_deepfm", tiered_deepfm, card)
     local_t, local_t_launches = phase("local_tiered", local_tiered, card,
                                       work, fm_served)
+    zoo, zoo_launches = phase("zoo_local", zoo_local, card, work, fm_served)
     bert_train, bert_launches_by = phase("train_bert", train_bert)
     bert_local, bert_local_launches, bert_ckpt = phase(
         "local_bert", local_bert, card, work)
@@ -3304,6 +3786,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
         "wire_deepfm": wire_launches,
         "tiered_deepfm": tiered_launches,
         **local_t_launches,
+        **zoo_launches,
         "train_bert": bert_launches_by["plain"]["scatter_add"],
         "train_bert_remat": bert_launches_by["remat"]["scatter_add"],
         "local_bert_tiny":
@@ -3339,6 +3822,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
                    "deepfm": deepfm, "local_deepfm": local,
                    "wire_deepfm": wire, "serve_cli_deepfm": serve_fm,
                    "tiered_deepfm": tiered, "local_tiered": local_t,
+                   "zoo_local": zoo,
                    "serve_cli_bert": serve_bert_cli, **kernels}, f,
                   indent=1)
     print(json.dumps(kernels), flush=True)

@@ -133,12 +133,12 @@ def run_local(args, job_type: str = "train") -> LocalJob:
         "predict": args.prediction_data,
     }[job_type]
 
-    def make_reader():
+    def make_reader(origin=data_origin):
         # one reader per worker thread: zoo readers promise no thread
         # safety
         if spec.custom_data_reader is not None:
-            return spec.custom_data_reader(data_origin=data_origin)
-        return create_data_reader(data_origin)
+            return spec.custom_data_reader(data_origin=origin)
+        return create_data_reader(origin)
 
     if job_type in ("evaluate", "predict"):
         saver = CheckpointSaver(args.checkpoint_dir_for_init)
@@ -253,6 +253,9 @@ def _run_workers(args, job_type, spec, master, client, owner, saver,
             compact_wire=args.compact_wire,
             wire_format=args.wire_format,
             phase_timer=phase_timer,
+            validation_reader=(make_reader(args.validation_data)
+                               if job_type == "train"
+                               and args.validation_data else None),
         )
         workers.append(worker)
         threads.append(threading.Thread(

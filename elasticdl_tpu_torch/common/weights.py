@@ -4,6 +4,10 @@ The port names its submodules after the flax paths (`layer_0.attention.
 qkv`, `LayerNorm_0`, ...), so one rule maps every leaf:
 
 - `kernel` (in, out) -> `weight`, transposed to torch's (out, in);
+- a 4-D conv `kernel` (kh, kw, in, out), flax's HWIO -> `weight` as
+  torch's (out, in, kh, kw), axis by axis: `.T` would give (out, in, kw,
+  kh), spatially transposed, and a 3x3 kernel would pass the shape check
+  with its taps in the wrong places;
 - `scale`            -> `weight`;
 - every other leaf keeps its name (`bias`, `embedding`, ...).
 
@@ -17,6 +21,10 @@ An int8 arena's planes live in flax's `quantized` collection
 land on the arena's `q8` and `scale` buffers (`fm_embedding.q8`, ...).
 The tiered DeepFM's `TieredArena` caches keep the flat arena's names, so
 their tables, int8 planes and zero carriers map by the same rules.
+
+BatchNorm statistics live in flax's `batch_stats` collection
+(`BatchNorm_0/mean`, `.../var`); passed as `batch_stats`, they land on
+the port BatchNorm's `running_mean` and `running_var` buffers.
 """
 
 from __future__ import annotations
@@ -63,6 +71,32 @@ def _plane_name(flax_path: str) -> str:
     return ".".join([*scope, leaf])
 
 
+_STAT_BUFFERS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _stat_name(flax_path: str) -> str:
+    """`a/BatchNorm_0/mean` -> `a.BatchNorm_0.running_mean`."""
+    *scope, leaf = flax_path.split("/")
+    if leaf not in _STAT_BUFFERS:
+        raise ValueError(f"{flax_path} is not a batch statistic "
+                         "(<module>/mean or .../var)")
+    return ".".join([*scope, _STAT_BUFFERS[leaf]])
+
+
+def _stat_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The BatchNorm running statistics, by state-dict name."""
+    return {name: buf for name, buf in module.named_buffers()
+            if name.rsplit(".", 1)[-1] in _STAT_BUFFERS.values()}
+
+
+def _kernel_to_torch(value: np.ndarray) -> np.ndarray:
+    """A flax kernel in torch's layout: (in, out) -> (out, in); HWIO ->
+    OIHW."""
+    if value.ndim == 4:
+        return value.transpose(3, 2, 0, 1)
+    return value.T
+
+
 def _quantized_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
     """The int8 arenas' `q8` and `scale` buffers, by state-dict name."""
     named = dict(module.named_buffers())
@@ -71,28 +105,38 @@ def _quantized_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def params_from_jax(module: nn.Module, flat: Mapping[str, np.ndarray],
-                    quantized: Optional[Mapping[str, np.ndarray]] = None
+                    quantized: Optional[Mapping[str, np.ndarray]] = None,
+                    batch_stats: Optional[Mapping[str, np.ndarray]] = None
                     ) -> Dict[str, torch.Tensor]:
     """{parameter name: tensor} for `module` from a flattened flax tree,
     each tensor on its parameter's device and in its dtype, plus the int8
     arenas' `q8`/`scale` buffers from the flattened `quantized`
-    collection.  Load it with `module.load_state_dict(..., strict=True)`
-    or serve it as variables."""
+    collection and the BatchNorm statistics from the flattened
+    `batch_stats` collection.  Load it with `module.load_state_dict(...,
+    strict=True)` or serve it as variables."""
     params = dict(module.named_parameters())
     buffers = _quantized_buffers(module)
+    stats = _stat_buffers(module)
     if buffers and quantized is None:
         raise ValueError(
             f"the module has int8 arena planes {sorted(buffers)}: pass the "
             "flax 'quantized' collection as `quantized`")
+    if stats and batch_stats is None:
+        raise ValueError(
+            f"the module has BatchNorm statistics {sorted(stats)}: pass "
+            "the flax 'batch_stats' collection as `batch_stats`")
     out: Dict[str, torch.Tensor] = {}
     unused = []
-    for path, value in (quantized or {}).items():
-        name = _plane_name(path)
-        target = buffers.get(name)
-        if target is None:
-            unused.append(path)
-            continue
-        out[name] = _leaf_tensor(path, name, np.asarray(value), target)
+    for paths, to_name, targets in (
+            (quantized or {}, _plane_name, buffers),
+            (batch_stats or {}, _stat_name, stats)):
+        for path, value in paths.items():
+            name = to_name(path)
+            target = targets.get(name)
+            if target is None:
+                unused.append(path)
+                continue
+            out[name] = _leaf_tensor(path, name, np.asarray(value), target)
     for path, value in flat.items():
         name = torch_name(path)
         target = params.get(name)
@@ -101,9 +145,9 @@ def params_from_jax(module: nn.Module, flat: Mapping[str, np.ndarray],
             continue
         value = np.asarray(value)
         if path.rsplit("/", 1)[-1] == "kernel":
-            value = value.T
+            value = _kernel_to_torch(value)
         out[name] = _leaf_tensor(path, name, value, target)
-    missing = sorted((set(params) | set(buffers)) - set(out))
+    missing = sorted((set(params) | set(buffers) | set(stats)) - set(out))
     if unused or missing:
         raise ValueError(
             f"flax tree does not match the port module: unused leaves "

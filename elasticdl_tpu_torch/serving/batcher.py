@@ -20,7 +20,11 @@ requests stays bounded.
 Oversized requests (rows > largest bucket) are split into bucket-sized
 chunks that ride the queue independently and re-assemble on completion —
 or are rejected up front with INVALID when `reject_oversized` is set
-(deployments that want clients to respect the contract).
+(deployments that want clients to respect the contract).  A response is
+one checkpoint's forward: when a hot swap lands between a split
+request's chunks, so that they ran on different steps, the whole request
+runs again at the head of the queue.  (The JAX batcher answers such a
+request with rows of two steps, labelled with the older one.)
 
 Shutdown drains: queued requests complete, then later submissions get
 SHUTTING_DOWN.
@@ -34,7 +38,7 @@ import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
@@ -93,10 +97,15 @@ class _Item:
 
 @dataclass
 class _Aggregate:
-    """Re-assembles a split oversized request in chunk order."""
+    """Re-assembles a split oversized request in chunk order; `rerun`
+    re-queues all of it when its chunks ran on different steps."""
 
     future: Future
     pending: int
+    features: dict
+    rows: int
+    request_id: str
+    rerun: Callable[["_Aggregate"], None]
     chunks: list = field(default_factory=list)
     lock: threading.Lock = field(default_factory=threading.Lock)
 
@@ -107,16 +116,20 @@ class _Aggregate:
             if self.pending > 0:
                 return
             chunks = sorted(self.chunks)
+            self.chunks = []
         failed = [r for _, r in chunks if r.code != OK]
         if failed:
             self.future.set_result(failed[0])
+            return
+        if len({r.model_step for _, r in chunks}) > 1:
+            self.rerun(self)
             return
         self.future.set_result(ServingResult(
             code=OK,
             predictions=np.concatenate(
                 [r.predictions for _, r in chunks], axis=0
             ),
-            model_step=min(r.model_step for _, r in chunks),
+            model_step=chunks[0][1].model_step,
             request_id=chunks[0][1].request_id,
             phases_s=_merge_phases(r for _, r in chunks),
         ))
@@ -301,9 +314,9 @@ class DynamicBatcher:
 
     def _submit_split(self, features, rows: int,
                       request_id: str = "") -> Future:
-        chunk = self._max_batch
-        n_chunks = (rows + chunk - 1) // chunk
-        agg = _Aggregate(future=Future(), pending=n_chunks)
+        agg = _Aggregate(future=Future(), pending=0, features=features,
+                         rows=rows, request_id=request_id,
+                         rerun=self._rerun_split)
         # admission-check the WHOLE request before enqueuing any chunk:
         # partially admitting an oversized request sheds its own tail
         with self._cond:
@@ -315,19 +328,32 @@ class DynamicBatcher:
                     OVERLOADED,
                     f"queue full ({self._queued_rows} rows queued)",
                 )
-            now = self._clock()
-            for i in range(n_chunks):
-                lo, hi = i * chunk, min((i + 1) * chunk, rows)
-                part = {k: v[lo:hi] for k, v in features.items()}
-                item = _Item(
-                    features=part, rows=hi - lo, future=Future(),
-                    enqueued_at=now, request_id=request_id,
-                    aggregate=agg, chunk_index=i,
-                )
-                self._queue.append(item)
-                self._queued_rows += item.rows
+            self._queue.extend(self._split_items(agg))
+            self._queued_rows += rows
             self._cond.notify()
         return agg.future
+
+    def _split_items(self, agg: _Aggregate) -> list:
+        """`agg`'s request as max_batch-row chunk items, in order."""
+        chunk, rows = self._max_batch, agg.rows
+        agg.pending = (rows + chunk - 1) // chunk
+        now = self._clock()
+        return [
+            _Item(features={k: v[lo:lo + chunk]
+                            for k, v in agg.features.items()},
+                  rows=min(chunk, rows - lo), future=Future(),
+                  enqueued_at=now, request_id=agg.request_id,
+                  aggregate=agg, chunk_index=i)
+            for i, lo in enumerate(range(0, rows, chunk))
+        ]
+
+    def _rerun_split(self, agg: _Aggregate) -> None:
+        """Queue all of a split request again, ahead of the rest (it was
+        admitted once), after its chunks ran on different steps."""
+        with self._cond:
+            self._queue.extendleft(reversed(self._split_items(agg)))
+            self._queued_rows += agg.rows
+            self._cond.notify()
 
     def _enqueue(self, features, rows: int, request_id: str = "") -> Future:
         with self._cond:

@@ -129,6 +129,7 @@ class Worker:
         compact_wire: bool = False,
         wire_format: str = "",
         phase_timer: Optional[PhaseTimer] = None,
+        validation_reader=None,
     ):
         self.worker_id = worker_id
         self.spec = spec
@@ -148,6 +149,17 @@ class Worker:
         self._owner.trainer.phase_timer = self.phase_timer
         self._data_service.phase_timer = self.phase_timer
         self._reader = data_reader
+        # evaluation tasks of a train job read their shards through the
+        # validation origin's reader: a table reader addresses rows of
+        # its own table whatever the shard's name, so the training
+        # reader would score training rows
+        self._eval_reader = data_reader
+        self._eval_data_service = self._data_service
+        if validation_reader is not None:
+            self._eval_reader = validation_reader
+            self._eval_data_service = TaskDataService(
+                master_client, validation_reader, worker_id)
+            self._eval_data_service.phase_timer = self.phase_timer
         # bounded: device tensors, converted lazily
         self.losses = deque(maxlen=1024)
         self.step_timer = StepTimer()
@@ -254,10 +266,10 @@ class Worker:
             def device_stage(item):
                 staged_batch, staged_real = item
                 return self._owner.stage_batch(staged_batch), staged_real
+        feed, feed_bulk = self._feeds(self._reader)
         for batch, real in prefetch_batches(
             self._data_service.batches_for_task(
-                task, self.minibatch_size, self._feed,
-                feed_bulk=self._feed_bulk),
+                task, self.minibatch_size, feed, feed_bulk=feed_bulk),
             device_stage=device_stage,
             phase_timer=self.phase_timer,
         ):
@@ -294,9 +306,9 @@ class Worker:
         records = 0
         all_labels, all_preds = [], []
         eval_state, actual_version = None, None
-        for batch, real in self._data_service.batches_for_task(
-            task, self.minibatch_size, self._feed,
-            feed_bulk=self._feed_bulk,
+        feed, feed_bulk = self._feeds(self._eval_reader)
+        for batch, real in self._eval_data_service.batches_for_task(
+            task, self.minibatch_size, feed, feed_bulk=feed_bulk,
         ):
             if actual_version is None:
                 # score the state at the task's version when it can be
@@ -326,9 +338,9 @@ class Worker:
         records = 0
         processor = self.spec.prediction_outputs_processor
         rows = []
+        feed, feed_bulk = self._feeds(self._reader)
         for batch, real in self._data_service.batches_for_task(
-            task, self.minibatch_size, self._feed,
-            feed_bulk=self._feed_bulk,
+            task, self.minibatch_size, feed, feed_bulk=feed_bulk,
         ):
             rows.append(self._owner.predict_batch(batch)[:real])
             records += real
@@ -339,20 +351,20 @@ class Worker:
                     processor.process(chunk, self.worker_id)
         return records
 
-    def _feed(self, records):
-        return self.spec.feed(records, self._reader.metadata)
-
-    @property
-    def _feed_bulk(self):
-        """The zoo's vectorised parse for batches_for_task in the
-        resolved wire format, or None (the streaming feed runs then)."""
+    def _feeds(self, reader):
+        """(feed, feed_bulk) over `reader`'s metadata: the zoo's feed and
+        its vectorised parse in the resolved wire format, or None for
+        the latter (the streaming feed runs then)."""
         fn = {"plain": self.spec.feed_bulk,
               "compact": self.spec.feed_bulk_compact,
               "dedup": self.spec.feed_bulk_dedup}[self.wire_format]
+
+        def feed(records):
+            return self.spec.feed(records, reader.metadata)
+
         if fn is None:
-            return None
-        metadata = self._reader.metadata
-        return lambda buf, sizes: fn(buf, sizes, metadata)
+            return feed, None
+        return feed, lambda buf, sizes: fn(buf, sizes, reader.metadata)
 
 
 def _task_export_config(task: pb.Task) -> dict:

@@ -79,6 +79,23 @@ SERVING_MODULES = (
     "elasticdl_tpu_torch.common.export",
 )
 
+# the rest of the zoo, its readers and the preprocessing layers
+ZOO_MODULES = (
+    "elasticdl_tpu_torch.preprocessing.layers",
+    "elasticdl_tpu_torch.data.reader.csv_reader",
+    "elasticdl_tpu_torch.data.reader.memory_reader",
+    "elasticdl_tpu_torch.data.reader.table_reader",
+    "elasticdl_tpu_torch.model_zoo.census.wide_and_deep",
+    "elasticdl_tpu_torch.model_zoo.census.data",
+    "elasticdl_tpu_torch.model_zoo.deepfm.xdeepfm",
+    "elasticdl_tpu_torch.model_zoo.mnist.mnist_functional_api",
+    "elasticdl_tpu_torch.model_zoo.mnist.mnist_subclass",
+    "elasticdl_tpu_torch.model_zoo.mnist.data",
+    "elasticdl_tpu_torch.model_zoo.cifar10.resnet",
+    "elasticdl_tpu_torch.model_zoo.cifar10.data",
+    "elasticdl_tpu_torch.model_zoo.clickstream.ctr_mlp",
+)
+
 
 def test_every_port_module_imports_with_jax_and_reference_blocked():
     proc = subprocess.run(
@@ -90,8 +107,9 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
     names = proc.stdout.strip().splitlines()[-1].split()
     # every module of the slices, down to the BERT zoo's data writer and
     # the serving front end
-    assert len(names) >= 59
+    assert len(names) >= 59 + len(ZOO_MODULES)
     assert set(SERVING_MODULES) <= set(names)
+    assert set(ZOO_MODULES) <= set(names)
 
 
 @pytest.mark.parametrize(
@@ -119,6 +137,23 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
         device_lib.resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device_lib.resolve_device("cuda")
+
+
+@pytest.mark.parametrize("model_def", [
+    "census.wide_and_deep.custom_model", "deepfm.xdeepfm.custom_model",
+    "mnist.mnist_functional_api.custom_model",
+    "mnist.mnist_subclass.custom_model", "cifar10.resnet.custom_model",
+    "clickstream.ctr_mlp.custom_model"])
+def test_zoo_local_jobs_need_cuda_unless_asked(monkeypatch, model_def):
+    from elasticdl_tpu_torch.client import api
+    from elasticdl_tpu_torch.client import main as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = cli.parse_args(["train", "--distribution_strategy", "Local",
+                           "--model_def", model_def,
+                           "--training_data", "unused.csv"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.run_local(args, "train")
 
 
 def test_resolve_device_cpu_only_when_asked():

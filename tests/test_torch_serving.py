@@ -325,6 +325,29 @@ def test_batcher_splits_oversized_and_reassembles(fake):
     batcher.shutdown()
 
 
+class SwappingEngine(FakeEngine):
+    """A FakeEngine whose step moves to 8 after its first call, as a hot
+    swap landing between the chunks of a split request."""
+
+    def predict(self, features, rows):
+        preds, _ = super().predict(features, rows)
+        return preds, 7 if len(self.calls) == 1 else 8
+
+
+def test_batcher_reruns_a_split_request_that_straddles_a_swap():
+    """One response is one step's forward: the chunks ran on steps 7 and
+    8, so the whole request runs again, on step 8."""
+    engine = SwappingEngine()
+    batcher = DynamicBatcher(engine, max_latency_s=0.005)
+    result = batcher.submit(_req(18)).result(timeout=5)
+    assert result.code == OK and result.model_step == 8
+    # 3 chunks on the first pass, 3 again on the rerun
+    assert [rows for rows, _ in engine.calls] == [8, 8, 2] * 2
+    np.testing.assert_array_equal(result.predictions, np.arange(18, 36))
+    assert batcher.queue_depth == 0
+    batcher.shutdown()
+
+
 def test_batcher_rejects_oversized_by_policy(fake):
     batcher = DynamicBatcher(fake, max_latency_s=0.005,
                              reject_oversized=True)

@@ -59,6 +59,13 @@ torch.set_num_threads(2)
 MODEL = "deepfm.deepfm_functional_api.custom_model"
 PARAMS = "vocab_capacity=4096;embed_dim=8;lr=0.005"
 BUCKETS = (2, 8)
+# the mixed-traffic test's clients and request sizes: each client keeps
+# one request in flight, so at most CLIENTS * max(ROW_CHOICES) rows are
+# queued at once; the batcher's bound must hold them all, or a slow
+# batch sheds one (the default bound is 4 * max(BUCKETS) = 32 < 44)
+CLIENTS = 4
+ROW_CHOICES = (1, 2, 3, 5, 8, 11)
+MAX_QUEUED_ROWS = CLIENTS * max(ROW_CHOICES)
 CALL_TIMEOUT_S = 60.0
 # f32 on both sides, from the same carried weights; the JAX forward sums
 # in another order (XLA's fusions), measured ~1e-6 on these logits.
@@ -97,7 +104,8 @@ class _Stack:
         self.engine = ServingEngine.from_checkpoint(
             self.ckpt_dir, self.spec, self.sample, buckets=BUCKETS,
             device="cpu")
-        self.batcher = DynamicBatcher(self.engine, max_latency_s=0.005)
+        self.batcher = DynamicBatcher(self.engine, max_latency_s=0.005,
+                                      max_queue_rows=MAX_QUEUED_ROWS)
         self.reloader = CheckpointReloader(self.engine, self.ckpt_dir,
                                            poll_interval_s=0.05)
         self.server = ServingServer(self.engine, self.batcher,
@@ -194,7 +202,7 @@ def test_mixed_concurrent_traffic_with_midstream_hot_swap(stack):
             sent = 0
             while True:
                 sent += 1
-                rows = int(rng.choice([1, 2, 3, 5, 8, 11]))
+                rows = int(rng.choice(ROW_CHOICES))
                 x = _features(rows, seed=1000 * seed + sent)
                 resp = stack.stub.predict(make_predict_request(x))
                 with lock:
@@ -208,7 +216,7 @@ def test_mixed_concurrent_traffic_with_midstream_hot_swap(stack):
             errors.append(exc)
 
     threads = [threading.Thread(target=client, args=(i,))
-               for i in range(4)]
+               for i in range(CLIENTS)]
     for t in threads:
         t.start()
     stack.save_step(2)
