@@ -158,6 +158,33 @@
    dicts through a registered `clicks://` reader, above the majority
    class.  Step 2 holds the scatter-add bitwise at Wide & Deep's and
    xDeepFM's arena rows.
+15. Local DeepFM jobs that survive a crash and injected faults
+   (`resilient_local`, right after `local_deepfm`, on its records and
+   flags).  (a) The train job runs through the port's CLI in a
+   subprocess and is SIGKILLed once its event log shows step 16's
+   checkpoint committed and 4 training reports (a seeded 2.5 s delay at
+   rpc.report's 8th hit, from ELASTICDL_FAULT_SCHEDULE, holds it there,
+   before step 24's checkpoint); relaunched in process with the same
+   flags, it must restore step 16, train only the 4 shards after the
+   cutoff (16 steps, 32 scatter-add launches), count 131,072 training
+   records, land its AUC in [0.79, 0.86], and end with a state.pt equal
+   bit for bit to the uninterrupted `local_deepfm` job's (as the JAX
+   package's resumed job equals its own on the CPU).  (b) The same job
+   twice under one seeded schedule of raises, drops and delays at
+   rpc.get_task, rpc.report and checkpoint.write, with millisecond
+   backoff: full coverage, every fault fired, non-zero retry and fault
+   counters, the AUC in the band, byte-identical traces.  (c) A job
+   with `--profile_dir` and `--tensorboard_log_dir`: one Chrome trace,
+   worker 0's first task, whose scatter-add kernels number 2 per step of
+   that task; whether the summary writer was active, and why.  (d) The
+   native TFRecord index of every record file, through
+   `record_io.build_index` (whose count must show the native path), against
+   the Python scanner's, int64 bit for bit, both timed.  Then, once (a)'s
+   subprocess has ended, the job's reads through each scanner (native,
+   python, python, native): one pass of `read_bulk` over its task ranges
+   and the whole job's wall, data_wait and pack (the jobs read in
+   Python; the native pass is a comparison).  (b) and (c) run beside (a)'s
+   subprocess, so their times are taken under that overlap.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
@@ -167,6 +194,7 @@ with each phase's wall seconds, also go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -186,6 +214,11 @@ sys.path.insert(0, ROOT)
 from elasticdl_tpu_torch.client import api  # noqa: E402
 from elasticdl_tpu_torch.client import main as cli  # noqa: E402
 from elasticdl_tpu_torch.common import events  # noqa: E402
+from elasticdl_tpu_torch.common import faults, resilience  # noqa: E402
+from elasticdl_tpu_torch.common.faults import (  # noqa: E402
+    FaultRegistry,
+    FaultSpec,
+)
 from elasticdl_tpu_torch.common.export import feature_meta  # noqa: E402
 from elasticdl_tpu_torch.common.model_handler import (  # noqa: E402
     ZOO_DIR,
@@ -236,7 +269,9 @@ from elasticdl_tpu_torch.serving.batcher import (  # noqa: E402
 from elasticdl_tpu_torch.common.save_utils import (  # noqa: E402
     ArenaDtypeMismatch,
     CheckpointSaver,
+    committed_steps,
 )
+from elasticdl_tpu_torch.data import native_io, record_io  # noqa: E402
 from elasticdl_tpu_torch.data.reader import (  # noqa: E402
     MemoryDataReader,
     TFRecordDataReader,
@@ -1840,12 +1875,436 @@ def local_deepfm(card: str, work: str):
         launches.update({
             "local_deepfm_dedup": dedup["scatter_launches"],
             "local_deepfm_int8": int8["scatter_launches"]})
-        served = {"val_dir": val_dir, "ckpt": ckpt, "ckpt8": ckpt8,
+        served = {"train_dir": train_dir, "val_dir": val_dir,
+                  "ckpt": ckpt, "ckpt8": ckpt8,
                   "export": export_dir, "auc": train["metrics"]["auc"],
                   "auc_int8": int8["metrics"]["auc"]}
         return summary, launches, served
     finally:
         events.configure(None)
+
+
+# ---- resilient_local: crash and relaunch, faults, traces, the scanner ----
+
+# The stop of (a): the subprocess is killed once step 16's checkpoint has
+# committed and the 4th training task's report is journaled.  A seeded
+# delay at rpc.report's 8th hit (index 7: two reports a task, so the 4th
+# task's version report, after its result report) holds the job there
+# while step 16's write lands, so the kill falls before step 24's.
+CRASH_STEP = 2 * LOCAL_CKPT_STEPS                              # 16
+CRASH_TASKS = CRASH_STEP * AUC_BATCH // LOCAL_RECORDS_PER_TASK  # 4
+CRASH_HOLD_HIT = 2 * CRASH_TASKS - 1                          # 7
+CRASH_HOLD_S = 2.5
+CRASH_WAIT_S = 180.0
+# (b): seeded faults at every point a train job fires, at hit indices the
+# job reaches (rpc.get_task ~11 hits, rpc.report ~20, checkpoint.write 4)
+FAULT_SEED = 20241017
+FAULT_PLAN = ((faults.POINT_RPC_GET_TASK, 8, 3),
+              (faults.POINT_RPC_REPORT, 14, 4),
+              (faults.POINT_CHECKPOINT_WRITE, 3, 1))
+FAULT_DELAY_S = 0.01
+FAST_RETRIES = {resilience.ENV_INITIAL_BACKOFF_S: "0.001",
+                resilience.ENV_MAX_BACKOFF_S: "0.002"}
+SCATTER_KERNEL = "permute_rows_kernel"   # one per scatter-add launch
+
+
+def chaos_registry() -> FaultRegistry:
+    """The seeded schedule of (b): raises, drops and delays at rpc.get_task
+    and rpc.report, raises at checkpoint.write (a skipped save)."""
+    rng = np.random.default_rng(FAULT_SEED)
+    specs = []
+    for point, hits, n in FAULT_PLAN:
+        for at in sorted(rng.choice(hits, size=n, replace=False)):
+            action = ("raise", "drop", "delay")[int(rng.integers(3))]
+            if point == faults.POINT_CHECKPOINT_WRITE:
+                action = "raise"
+            specs.append(FaultSpec(point, int(at), action,
+                                   FAULT_DELAY_S if action == "delay"
+                                   else 0.0))
+    return FaultRegistry(specs, seed=FAULT_SEED)
+
+
+def resilient_argv(train_dir: str, val_dir: str, *extra) -> list:
+    """local_deepfm's train job: its records, batch, tasks, eval rounds."""
+    return local_argv("train", "--num_epochs", "1",
+                      "--training_data", train_dir,
+                      "--validation_data", val_dir,
+                      "--evaluation_steps", str(LOCAL_EVAL_STEPS), *extra)
+
+
+def run_counted(args) -> tuple:
+    """One Local train job on the main path, its scatter-add launches
+    counted from 0; returns (job, launches, wall seconds)."""
+    # ---- the main path: counts start at 0 here ----
+    fa.reset_launch_counts()
+    sa.scatter_add.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    job = api.run_local(args, "train")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sa.scatter_add.launches
+    # ---- end of the main path ----
+    if fa.flash_attention.launches:
+        raise AssertionError("a DeepFM job launched the flash kernel")
+    return job, launches, wall
+
+
+def job_summary(job, wall: float, launches: int, card: str) -> dict:
+    """A train job's numbers; examples/s counts the records it trained
+    (a relaunch's restored records are not among them)."""
+    tm = job.master.task_manager
+    trained = tm.counters.by_type.get(0, 0) * LOCAL_RECORDS_PER_TASK
+    return {"card": card, "exit_code": job.exit_code, "wall_s": wall,
+            "examples_per_s": trained / wall,
+            "model_step": job.owner.step,
+            "training_records_done": tm.snapshot()["training_records_done"],
+            "training_tasks": tm.counters.by_type.get(0, 0),
+            "auc": (job.metrics or {}).get("auc"),
+            "scatter_launches": launches, "phases": _phase_split(job)}
+
+
+def kill_after_commit(argv: list, ckpt: str, log: str, out: str) -> dict:
+    """(a)'s first life: the train job through the port's CLI in a
+    subprocess, SIGKILLed once its event log shows step CRASH_STEP's
+    checkpoint committed and CRASH_TASKS training reports."""
+    hold = FaultRegistry([FaultSpec(faults.POINT_RPC_REPORT, CRASH_HOLD_HIT,
+                                    "delay", CRASH_HOLD_S)], seed=SEED)
+    env = {**os.environ, **hold.env()}
+    t0 = time.perf_counter()
+    with open(out, "w") as sink:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "elasticdl_tpu_torch.client.main",
+             *argv], cwd=ROOT, env=env, stdout=sink,
+            stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    with open(out) as f:
+                        tail = f.read()[-4000:]
+                    raise AssertionError(
+                        f"the job to kill exited {proc.returncode} first:"
+                        f"\n{tail}")
+                evs = (events.read_events(log) if os.path.exists(log)
+                       else [])
+                saved = {e["step"] for e in evs
+                         if e["event"] == events.CHECKPOINT_SAVED}
+                reports = sum(1 for e in evs
+                              if e["event"] == events.TASK_REPORTED)
+                if CRASH_STEP in saved and reports >= CRASH_TASKS:
+                    break
+                if time.perf_counter() - t0 > CRASH_WAIT_S:
+                    raise AssertionError(f"no step {CRASH_STEP} commit in "
+                                         f"{CRASH_WAIT_S} s")
+                time.sleep(0.02)
+            proc.kill()   # SIGKILL: no handler, no flush
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    killed_at_s = time.perf_counter() - t0
+    with open(os.path.join(ckpt, "task_state.json")) as f:
+        journal = json.load(f)
+    return {"killed_at_s": killed_at_s, "returncode": proc.returncode,
+            "committed": committed_steps(ckpt),
+            "journal_versions": sorted(e[3] for e in
+                                       journal["done_training_shards"]),
+            "journal_records": journal["records_done"]}
+
+
+class Background(threading.Thread):
+    """`fn(*args)` on a thread; `result()` joins it and returns its value
+    or re-raises its exception."""
+
+    def __init__(self, fn, *args):
+        super().__init__(daemon=True, name=fn.__name__)
+        self._fn, self._args = fn, args
+        self._out, self._exc = None, None
+        self.start()
+
+    def run(self):
+        try:
+            self._out = self._fn(*self._args)
+        except BaseException as exc:   # re-raised by result()
+            self._exc = exc
+
+    def result(self, timeout: float):
+        self.join(timeout)
+        if self.is_alive():
+            raise AssertionError(f"{self.name} still running after "
+                                 f"{timeout} s")
+        if self._exc is not None:
+            raise self._exc
+        return self._out
+
+
+def state_gap(path_a: str, path_b: str) -> dict:
+    """Two state.pt files (model and Adam state), bit for bit."""
+    a = torch.load(path_a, map_location="cpu", weights_only=True)
+    b = torch.load(path_b, map_location="cpu", weights_only=True)
+    worst = 0.0
+    equal = a["step"] == b["step"] and set(a["model"]) == set(b["model"])
+    for k, v in a["model"].items():
+        equal = equal and torch.equal(v, b["model"][k])
+        worst = max(worst, float((v.double() - b["model"][k].double())
+                                 .abs().max()))
+    for sa_, sb_ in zip(a["optimizer"]["state"].values(),
+                        b["optimizer"]["state"].values()):
+        for key, v in sa_.items():
+            equal = equal and torch.equal(torch.as_tensor(v),
+                                          torch.as_tensor(sb_[key]))
+    return {"bitwise": bool(equal), "max_abs_param_diff": worst}
+
+
+def trace_scatter_launches(path: str) -> dict:
+    """The scatter-add kernels in a Chrome trace: launches (one
+    permute_rows_kernel each) and the kernel names seen."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in evs if e.get("cat") == "kernel"]
+    # the hand kernels' names, their argument lists cut off
+    names = sorted({n[:n.index("(", n.index("kernel"))]
+                    for n in kernels if "scatter_add_" in n
+                    or SCATTER_KERNEL in n})
+    return {"launches": sum(1 for n in kernels if SCATTER_KERNEL in n),
+            "kernel_names": names, "kernels": len(kernels)}
+
+
+def observe_and_inject(card, root, train_dir, val_dir, out, launches):
+    """resilient_local's (b) fault runs and (c) traced job; fills `out`
+    and `launches`.  They run beside (a)'s first life, so their times are
+    taken under that overlap."""
+    # (b) two runs under one seeded schedule
+    saved_env = {k: os.environ.get(k) for k in FAST_RETRIES}
+    os.environ.update(FAST_RETRIES)
+    traces = []
+    try:
+        for run in (1, 2):
+            resilience.reset_stats()
+            registry = faults.install(chaos_registry())
+            try:
+                job, n, wall = run_counted(cli.parse_args(resilient_argv(
+                    train_dir, val_dir,
+                    "--checkpoint_dir", os.path.join(root, f"chaos{run}"),
+                    "--checkpoint_steps", str(LOCAL_CKPT_STEPS))))
+                snap = job.master.snapshot()
+            finally:
+                faults.uninstall()
+            summary = job_summary(job, wall, n, card)
+            summary.update({"unfired": registry.unfired(),
+                            "faults": snap["faults"],
+                            "resilience": snap["resilience"],
+                            "failed_reports":
+                                snap["tasks"]["counters"]["failed"]})
+            print(json.dumps({f"resilient_faults_{run}": summary}),
+                  flush=True)
+            if job.exit_code != 0 or summary["unfired"] or \
+                    summary["training_records_done"] != LOCAL_TRAIN or \
+                    summary["training_tasks"] != LOCAL_TASKS or \
+                    not summary["resilience"]["retries"] or \
+                    not summary["faults"].get("injected") or \
+                    n != 2 * LOCAL_STEPS or \
+                    not AUC_BAND[0] <= (summary["auc"] or 0) <= AUC_BAND[1]:
+                raise AssertionError(f"fault run {run}: {summary}")
+            traces.append(registry.trace_text())
+            launches[f"resilient_faults_{run}"] = n
+            out[f"faults_{run}"] = summary
+            del job
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["traces_identical"] = traces[0] == traces[1]
+    out["trace"] = traces[0]
+    if not out["traces_identical"]:
+        raise AssertionError(f"fault traces differ:\n{traces[0]}\n--\n"
+                             f"{traces[1]}")
+
+    # (c) observability
+    profile = os.path.join(root, "profile")
+    job, n, wall = run_counted(cli.parse_args(resilient_argv(
+        train_dir, val_dir, "--profile_dir", profile,
+        "--tensorboard_log_dir", os.path.join(root, "tb"))))
+    observed = job_summary(job, wall, n, card)
+    trace = job.workers[0].profile_trace
+    steps_in_task = LOCAL_RECORDS_PER_TASK // AUC_BATCH
+    observed.update({
+        "trace": os.path.basename(trace or ""),
+        "trace_files": sorted(os.listdir(profile)),
+        "trace_bytes": os.path.getsize(trace) if trace else 0,
+        "traced": trace_scatter_launches(trace) if trace else {},
+        "steps_in_traced_task": steps_in_task,
+        "summary_active": job.master.eval_summary.active,
+        "summary_reason": job.master.eval_summary.reason})
+    print(json.dumps({"resilient_observed": observed}), flush=True)
+    if job.exit_code != 0 or observed["trace_files"] != [observed["trace"]] \
+            or observed["traced"]["launches"] != 2 * steps_in_task or \
+            not any("scatter_add" in k
+                    for k in observed["traced"]["kernel_names"]) or \
+            n != 2 * LOCAL_STEPS:
+        raise AssertionError(f"the observed job: {observed}")
+    launches["resilient_observed"] = n
+    out["observed"] = observed
+    del job
+
+
+@contextlib.contextmanager
+def native_reads():
+    """`TFRecordReader.read_bulk` through the native scanner's
+    `read_records_np` for the length of the block: the comparison that
+    keeps the job's reads on the Python path."""
+    python = record_io.TFRecordReader.read_bulk
+
+    def read_bulk(reader, start, end=None):
+        end = len(reader) if end is None else min(end, len(reader))
+        return native_io.read_records_np(reader._path, reader._offsets,
+                                         start, end, reader._check_crc)
+
+    record_io.TFRecordReader.read_bulk = read_bulk
+    try:
+        yield
+    finally:
+        record_io.TFRecordReader.read_bulk = python
+
+
+def read_job_records(files) -> float:
+    """Seconds to read every record of `files` as the job's tasks do: one
+    `read_bulk` per task range, through the reader's indexes."""
+    readers = [record_io.TFRecordReader(path) for path in files]
+    t0 = time.perf_counter()
+    for reader in readers:
+        for start in range(0, len(reader), LOCAL_RECORDS_PER_TASK):
+            reader.read_bulk(start, start + LOCAL_RECORDS_PER_TASK)
+    seconds = time.perf_counter() - t0
+    for reader in readers:
+        reader.close()
+    return seconds
+
+
+def scanner_and_reads(card, train_dir, val_dir, launches) -> dict:
+    """resilient_local's (d), after (a)'s subprocess has ended: the index
+    of every file of the job through `record_io.build_index` (native,
+    counted) against the Python scanner's, then the job's reads through
+    each scanner, in the order native, python, python, native: one pass
+    of `read_bulk` over its task ranges, and the whole train job with its
+    data_wait, pack and wall."""
+    files = sorted(os.path.join(d, f) for d in (train_dir, val_dir)
+                   for f in os.listdir(d) if f.endswith(".tfrecord"))
+    scans = []
+    for path in files:
+        t0 = time.perf_counter()
+        native = record_io.build_index(path)
+        t1 = time.perf_counter()
+        python = record_io.python_index(path)
+        t2 = time.perf_counter()
+        scans.append({"file": os.path.basename(path),
+                      "records": int(len(native)),
+                      "bitwise": native.dtype == python.dtype == np.int64
+                      and native.tobytes() == python.tobytes(),
+                      "native_ms": (t1 - t0) * 1e3,
+                      "python_ms": (t2 - t1) * 1e3})
+    reads = []
+    for i, path_name in enumerate("native python python native".split()):
+        with (native_reads() if path_name == "native"
+              else contextlib.nullcontext()):
+            read_s = read_job_records(files)
+            job, n, wall = run_counted(cli.parse_args(resilient_argv(
+                train_dir, val_dir)))
+        phases = _phase_split(job)
+        reads.append({"path": path_name, "read_bulk_s": read_s,
+                      "wall_s": wall,
+                      "data_wait_s": phases["data_wait"]["total_s"],
+                      "pack_s": phases["pack"]["total_s"],
+                      "auc": (job.metrics or {}).get("auc")})
+        if job.exit_code != 0 or n != 2 * LOCAL_STEPS:
+            raise AssertionError(f"the {path_name} read job: {reads[-1]}")
+        launches[f"resilient_reads_{i + 1}"] = n
+        del job
+    return {"card": card, "files": scans, "reads": reads}
+
+
+def resilient_local(card: str, work: str, served: dict):
+    """Local DeepFM jobs that survive a crash and injected faults, traced
+    and read through the native scanner: (a) kill after a committed
+    checkpoint and relaunch, (b) two runs under one seeded fault schedule,
+    (c) --profile_dir and --tensorboard_log_dir, (d) the native TFRecord
+    index against the Python one.  Returns (summary, launches by path)."""
+    root = os.path.join(work, "resilient_local")
+    os.makedirs(root)
+    train_dir, val_dir = served["train_dir"], served["val_dir"]
+    out = {}
+    launches = {}
+    record_io.reset_served()
+
+    # (a)'s first life runs in a subprocess, watched from a thread, while
+    # (b), (c) and (d) run here: it spends most of its time starting up
+    ckpt = os.path.join(root, "ckpt")
+    log = os.path.join(root, "events.jsonl")
+    argv = resilient_argv(
+        train_dir, val_dir, "--checkpoint_dir", ckpt,
+        "--checkpoint_steps", str(LOCAL_CKPT_STEPS),
+        "--keep_checkpoint_max", str(LOCAL_KEEP), "--event_log", log)
+    killer = Background(kill_after_commit, argv, ckpt, log,
+                        os.path.join(root, "killed.log"))
+
+    try:
+        observe_and_inject(card, root, train_dir, val_dir, out, launches)
+    finally:
+        # the watcher always ends its subprocess: killed at the commit,
+        # or at its deadline
+        killer.join(CRASH_WAIT_S + 60)
+
+    # (a) the kill, then the relaunch
+    killed = killer.result(0)
+    print(json.dumps({"resilient_killed": {"card": card, **killed}}),
+          flush=True)
+    if killed["committed"][-1] != CRASH_STEP or \
+            max(killed["journal_versions"]) < CRASH_STEP:
+        raise AssertionError(f"the kill missed its window: {killed}")
+    job, n, wall = run_counted(cli.parse_args(argv))
+    evs = events.read_events(log)
+    events.configure(None)
+    restored = [e["step"] for e in evs if e["pid"] == os.getpid()
+                and e["event"] == events.CHECKPOINT_RESTORED]
+    trained_steps = LOCAL_STEPS - CRASH_STEP
+    relaunch = job_summary(job, wall, n, card)
+    relaunch.update({
+        "restored_steps": restored,
+        "versus_uninterrupted": state_gap(
+            os.path.join(served["ckpt"], str(LOCAL_STEPS), "state.pt"),
+            os.path.join(ckpt, str(LOCAL_STEPS), "state.pt")),
+        "uninterrupted_auc": served["auc"]})
+    print(json.dumps({"resilient_relaunch": relaunch}), flush=True)
+    if job.exit_code != 0 or restored[:1] != [CRASH_STEP] or \
+            relaunch["training_tasks"] != trained_steps * AUC_BATCH \
+            // LOCAL_RECORDS_PER_TASK or \
+            relaunch["training_records_done"] != LOCAL_TRAIN or \
+            job.owner.step != LOCAL_STEPS or n != 2 * trained_steps or \
+            not AUC_BAND[0] <= (relaunch["auc"] or 0) <= AUC_BAND[1]:
+        raise AssertionError(f"the relaunched job: {relaunch}")
+    # the JAX package's resumed Local job equals its uninterrupted twin
+    # bit for bit (tests/test_torch_resilient_local.py): so must this one
+    if not relaunch["versus_uninterrupted"]["bitwise"]:
+        raise AssertionError(f"the relaunched job's final state differs "
+                             f"from the uninterrupted job's: {relaunch}")
+    launches["resilient_relaunch"] = n
+    out["killed"], out["relaunch"] = killed, relaunch
+    del job
+
+    # every index build of the phase in this process, (d)'s included,
+    # went through the native scanner, none through Python
+    scanner = scanner_and_reads(card, train_dir, val_dir, launches)
+    scanner["served"] = served_by = record_io.served()
+    print(json.dumps({"resilient_scanner": scanner}), flush=True)
+    if not all(s["bitwise"] for s in scanner["files"]) or \
+            (served_by.get("index", {}).get("native") or 0) < \
+            len(scanner["files"]) or \
+            any(v["python"] for v in served_by.values()):
+        raise AssertionError(f"the native scanner: {scanner}")
+    out["scanner"] = scanner
+    return out, launches
 
 
 def bert_launches() -> dict:
@@ -3762,6 +4221,8 @@ def run_phases(card: str, build: dict, work: str) -> int:
     deepfm, fm_launches = phase("deepfm_trainer", train_deepfm)
     local, local_launches, fm_served = phase("local_deepfm", local_deepfm,
                                              card, work)
+    resilient, resilient_launches = phase(
+        "resilient_local", resilient_local, card, work, fm_served)
     serve_fm = phase("serve_cli_deepfm", serve_cli_deepfm, card, fm_served)
     wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
     del buffers
@@ -3783,6 +4244,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
         "local_deepfm": local_launches["scatter_add"],
         "local_deepfm_dedup": local_launches["local_deepfm_dedup"],
         "local_deepfm_int8": local_launches["local_deepfm_int8"],
+        **resilient_launches,
         "wire_deepfm": wire_launches,
         "tiered_deepfm": tiered_launches,
         **local_t_launches,
@@ -3820,6 +4282,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
                    "train_bert": bert_train, "local_bert": bert_local,
                    "serve": serve, "bert_f32_check": check,
                    "deepfm": deepfm, "local_deepfm": local,
+                   "resilient_local": resilient,
                    "wire_deepfm": wire, "serve_cli_deepfm": serve_fm,
                    "tiered_deepfm": tiered, "local_tiered": local_t,
                    "zoo_local": zoo,

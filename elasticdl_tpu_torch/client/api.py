@@ -23,8 +23,20 @@ and deferred to the trainer (in step order) with more than one worker,
 with `--steps_per_execution` > 1, or when the job resumes from a
 checkpoint (the restore must precede the first plan).
 
-The cluster strategies, and the TensorBoard and SLO loops wait for their
-slices of the port and raise NotImplementedError.
+Resilience, as in the JAX package's Local runner: a train job with
+`--checkpoint_dir` journals its finished shards beside the checkpoints
+(master/main.py), so running the same command again after a crash
+restores the newest checkpoint and trains only the shards it had not
+covered.  A fault schedule in the environment (`ELASTICDL_FAULT_SCHEDULE`
+or `ELASTICDL_FAULT_SEED`, common/faults.py) is installed at the start
+of the job; the workers' data services retry the master calls under the
+`ELASTICDL_RPC_*` policy (common/resilience.py).  `--tensorboard_log_dir`
+gives the master and each worker a summary writer
+(`<dir>/master`, `<dir>/worker-<id>`); `--profile_dir` traces worker 0's
+first training task.
+
+The cluster strategies and the SLO loops wait for their slices of the
+port and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -36,7 +48,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from elasticdl_tpu_torch.common import events
+from elasticdl_tpu_torch.common import events, faults
+from elasticdl_tpu_torch.common.constants import DistributionStrategy
 from elasticdl_tpu_torch.common.export import SINGLE_FEATURE_KEY, export_model
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.metrics import default_registry
@@ -53,7 +66,7 @@ from elasticdl_tpu_torch.worker.worker import Worker
 
 logger = get_logger(__name__)
 
-LOCAL = "Local"
+LOCAL = DistributionStrategy.LOCAL
 # seconds a worker thread may take to notice the finished job and exit
 WORKER_JOIN_S = 60.0
 
@@ -124,6 +137,9 @@ def run_local(args, job_type: str = "train") -> LocalJob:
         _check_tiered(args, job_type)
     args.job_type = job_type
     events.configure(args.event_log or None, role="local")
+    # a chaos run's schedule travels in the environment; a no-op
+    # otherwise (a registry a caller installed stays)
+    faults.configure_from_env()
 
     master = Master(args)
     client = InProcessMasterClient(master.servicer)
@@ -256,6 +272,11 @@ def _run_workers(args, job_type, spec, master, client, owner, saver,
             validation_reader=(make_reader(args.validation_data)
                                if job_type == "train"
                                and args.validation_data else None),
+            tensorboard_dir=(
+                os.path.join(args.tensorboard_log_dir, f"worker-{wid}")
+                if args.tensorboard_log_dir else ""),
+            # one process, one profiler: only worker 0 traces
+            profile_dir=args.profile_dir if wid == 0 else "",
         )
         workers.append(worker)
         threads.append(threading.Thread(
@@ -273,6 +294,7 @@ def _run_workers(args, job_type, spec, master, client, owner, saver,
     if stuck:
         logger.error("worker threads did not exit: %s", stuck)
     ok = master.task_manager.finished and not stuck and not errors
+    master.stop()
     if saver is not None:
         # flush in-flight async writes; a failed write re-raises
         saver.close()
@@ -287,7 +309,7 @@ def _run_workers(args, job_type, spec, master, client, owner, saver,
                      sample_features=owner.sample_features)
         logger.info("Exported model to %s", args.output)
     logger.info("Job %s: %s", "succeeded" if ok else "failed",
-                master.task_manager.snapshot())
+                master.snapshot())
     if errors:
         raise errors[0]
     return LocalJob(ok=ok, master=master, owner=owner, workers=workers,

@@ -8,8 +8,11 @@ of the port (a non-Local strategy) parses and then raises
 NotImplementedError where the job would use it.  The wire formats
 (`--wire_format plain|compact|dedup`, the legacy `--compact_wire`), the
 int8 arena (`--arena_dtype int8`), the tiered store's int8 cache
-(`--store_cache_dtype int8`) and `--output` (a train job's model export,
-common/export.py) run.
+(`--store_cache_dtype int8`), `--output` (a train job's model export,
+common/export.py), the straggler flags, `--task_lease_timeout_s`,
+`--profile_dir` (a torch.profiler trace of worker 0's first training
+task) and `--tensorboard_log_dir` (scalars through
+torch.utils.tensorboard, inert without the tensorboard package) run.
 
 `--device` is the port's own: `cuda` (the default) or `cpu`, the
 counterpart of the JAX package's JAX_PLATFORMS, resolved through
@@ -21,6 +24,8 @@ from __future__ import annotations
 
 import argparse
 
+from elasticdl_tpu_torch.common.constants import (
+    DEFAULT_TASK_LEASE_TIMEOUT_S, DistributionStrategy)
 from elasticdl_tpu_torch.common.model_handler import ZOO_DIR
 
 
@@ -50,8 +55,9 @@ def str2bool(value):
 
 def add_common_params(parser: argparse.ArgumentParser):
     parser.add_argument(
-        "--distribution_strategy", default="AllReduce",
-        choices=["Local", "AllReduce", "ParameterServer"],
+        "--distribution_strategy", default=DistributionStrategy.ALLREDUCE,
+        choices=[DistributionStrategy.LOCAL, DistributionStrategy.ALLREDUCE,
+                 DistributionStrategy.PARAMETER_SERVER],
         help="Only Local (master and workers in this process) is ported; "
         "the cluster strategies raise NotImplementedError.")
     parser.add_argument("--num_workers", type=pos_int, default=1,
@@ -64,6 +70,17 @@ def add_common_params(parser: argparse.ArgumentParser):
         "--device", default="cuda", choices=["cuda", "cpu"],
         help="Where the model runs: the GPU (default; raises without "
         "CUDA) or the CPU when asked by name.")
+    parser.add_argument(
+        "--straggler_multiple", type=float, default=3.0,
+        help="Flag a worker as a straggler when its mean task duration "
+        "exceeds this multiple of the fleet-wide median (rolling window "
+        "of recent tasks).  Flags surface in Master.snapshot(), the "
+        "master_straggler_workers_count gauge and straggler_detected "
+        "span events.  0 disables detection.")
+    parser.add_argument(
+        "--straggler_min_tasks", type=pos_int, default=3,
+        help="Minimum completed tasks per worker (and workers in the "
+        "fleet) before straggler detection may flag anyone.")
 
 
 def add_model_params(parser: argparse.ArgumentParser):
@@ -132,6 +149,17 @@ def add_train_params(parser: argparse.ArgumentParser):
         "params.pt export stands).")
     parser.add_argument("--checkpoint_dir_for_init", default="",
                         help="checkpoint to start from")
+    parser.add_argument(
+        "--profile_dir", default="",
+        help="capture a torch.profiler trace (a Chrome trace, CUDA "
+        "activity on the card) of worker 0's first training task into "
+        "this directory")
+    parser.add_argument(
+        "--tensorboard_log_dir", default="",
+        help="write train-loss/steps-per-sec/eval scalars (workers) and "
+        "aggregated eval metrics (master) as TensorBoard event files "
+        "under this directory (inert, with one warning, without the "
+        "tensorboard package)")
     parser.add_argument("--use_bf16", type=str2bool, default=True,
                         help="cast floating features to bf16")
     parser.add_argument(
@@ -147,6 +175,10 @@ def add_train_params(parser: argparse.ArgumentParser):
         "format the zoo lacks falls back dedup -> compact -> plain "
         "with a warning.  Empty defers to --compact_wire.")
     parser.add_argument("--records_per_task", type=pos_int, default=4096)
+    parser.add_argument(
+        "--task_lease_timeout_s", type=pos_int,
+        default=DEFAULT_TASK_LEASE_TIMEOUT_S,
+        help="re-queue a leased task if not reported within this window")
 
 
 def add_serve_params(parser: argparse.ArgumentParser):

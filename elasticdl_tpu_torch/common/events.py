@@ -1,7 +1,7 @@
 """Task tracing: append-only JSONL span events (a subset of the JAX
 package's common/events.py: `configure`, `emit`, `read_events`,
-`task_chain` and the task, checkpoint, serving and tiered-store event
-names).
+`task_chain` and the task, checkpoint, serving, tiered-store and
+straggler event names).
 
 Each emit appends one JSON object per line to the configured file:
 
@@ -34,11 +34,12 @@ SERVING_RELOADED = "serving_reloaded"  # the reloader swapped a new step in
 PREDICT_SPAN = "predict_span"          # one traced serve request, all phases
 STORE_GROWN = "store_grown"            # tiered store lazily grew vocab rows
 STORE_TIER_SWAPPED = "store_tier_swapped"  # serving adopted tier metadata
+STRAGGLER_DETECTED = "straggler_detected"  # master flagged a slow worker
 
 VOCABULARY = frozenset({
     TASK_DISPATCHED, TASK_CLAIMED, TASK_TRAINED, TASK_REPORTED,
     CHECKPOINT_SAVED, CHECKPOINT_RESTORED, STEP_PHASES, SERVING_RELOADED,
-    PREDICT_SPAN, STORE_GROWN, STORE_TIER_SWAPPED,
+    PREDICT_SPAN, STORE_GROWN, STORE_TIER_SWAPPED, STRAGGLER_DETECTED,
 })
 
 _lock = threading.Lock()

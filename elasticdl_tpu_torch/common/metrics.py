@@ -113,6 +113,10 @@ class _Child:
         with self._lock:
             self._value += amount
 
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
     def value(self) -> float:
         with self._lock:
             return self._value
@@ -171,6 +175,14 @@ class _Family:
     def child_values(self) -> Dict[Tuple[str, ...], float]:
         with self._lock:
             return {key: c.value() for key, c in self._children.items()}
+
+    def reset(self) -> None:
+        """Drop every recorded value (tests and per-run stats)."""
+        with self._lock:
+            for child in self._children.values():
+                child.set(0.0)
+            if self.labelnames:
+                self._children.clear()
 
     def samples(self) -> List[Tuple[Tuple[Tuple[str, str], ...], float]]:
         out = []
@@ -319,6 +331,13 @@ class MetricsRegistry:
     def families(self) -> List[object]:
         with self._lock:
             return list(self._families.values())
+
+    def value(self, name: str) -> float:
+        """A counter's or gauge's value (a labeled family's total); 0.0
+        for a name never registered."""
+        with self._lock:
+            fam = self._families.get(name)
+        return 0.0 if fam is None else fam.value()
 
     def snapshot(self) -> Dict[str, float]:
         """Flat {series: value} view of every family.

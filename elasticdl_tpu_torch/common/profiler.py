@@ -1,13 +1,16 @@
-"""Step and phase timers of the training loop and the latency histogram
-of the serving metrics (copies of `StepTimer`, `PhaseTimer` and
-`LatencyHistogram` from the JAX package's common/profiler.py).  The JAX
-profiler hooks (`trace`, `annotate`) and the registry histogram behind
-PhaseTimer wait for their slice of the port."""
+"""Step and phase timers of the training loop, the latency histogram of
+the serving metrics and the profiler hooks (copies of `StepTimer`,
+`PhaseTimer`, `LatencyHistogram`, `trace` and `annotate` from the JAX
+package's common/profiler.py).  `trace` records with `torch.profiler`
+where the JAX package records with `jax.profiler`, and writes a Chrome
+trace.  The registry histogram behind PhaseTimer waits for its slice of
+the port."""
 
 from __future__ import annotations
 
 import contextlib
 import math
+import os
 import threading
 import time
 from collections import deque
@@ -202,3 +205,38 @@ class LatencyHistogram:
             "p50_s": self._quantile_from(uppers, counts, total, 0.5),
             "p99_s": self._quantile_from(uppers, counts, total, 0.99),
         }
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, cuda: bool = False, name: str = "trace"):
+    """Record the block with torch.profiler and write it as a Chrome
+    trace, `<log_dir>/<name>.json` (chrome://tracing, Perfetto):
+
+        with profiler.trace("/tmp/trace", cuda=True):
+            loss = trainer.train_on_batch(state, batch)
+            torch.cuda.synchronize()
+
+    `cuda` adds the CUDA activity (kernels, copies, device time); the
+    caller synchronizes inside the block, so the kernels it launched
+    end before the trace closes.  Yields the path the trace goes to.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"{name}.json")
+    with profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(path)
+    logger.info("Profiler trace written to %s", path)
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Name a region so it shows up in profiler timelines."""
+    from torch.profiler import record_function
+
+    with record_function(name):
+        yield

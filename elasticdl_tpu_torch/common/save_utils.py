@@ -27,6 +27,11 @@ first, so every listed step can be verified.  A step directory without
   handing it to the writer would save step N+1's values as step N.
   `wait_until_finished` joins the writer and re-raises its failures.
 
+- Fault point `checkpoint.write` (common/faults.py), fired at the top of
+  every `save`: an injected fault skips that save with a warning and
+  the next crossing saves again, as in the JAX package.  Only injected
+  faults take that path; a real write error still fails the save.
+
 - int8 arenas: the manifest's `arena` entry records the arena dtype and
   each plane's path, rows and dim.  A restore whose checkpoint and
   template differ in arena dtype raises `ArenaDtypeMismatch`, unless
@@ -67,7 +72,7 @@ from typing import Any, Dict, FrozenSet, List, Optional
 
 import torch
 
-from elasticdl_tpu_torch.common import events
+from elasticdl_tpu_torch.common import events, faults
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.layers.arena import (
     dequantize_arena_tree,
@@ -204,6 +209,67 @@ def read_produced_meta(checkpoint_dir: str,
         return None
 
 
+def committed_steps(checkpoint_dir: str) -> List[int]:
+    """The finalized steps under `checkpoint_dir` (those whose state.pt
+    is in place), sorted; [] for a directory that does not exist.  An
+    orbax step directory of the JAX package raises."""
+    if not os.path.isdir(checkpoint_dir):
+        return []
+    steps = []
+    for name in os.listdir(checkpoint_dir):
+        step_dir = os.path.join(checkpoint_dir, name)
+        if not (name.isdigit() and os.path.isdir(step_dir)):
+            continue
+        if os.path.exists(os.path.join(step_dir, _ORBAX_MARKER)):
+            raise NotImplementedError(
+                f"{step_dir} is an orbax checkpoint of the JAX "
+                "package; loading those waits for its slice of the "
+                "port (ROADMAP.md queue 1, item 3)")
+        if os.path.isfile(os.path.join(step_dir, STATE_FILE)):
+            steps.append(int(name))
+    return sorted(steps)
+
+
+def verify_step(checkpoint_dir: str, step: int) -> bool:
+    """Check a step's files against its manifest: True when intact or
+    when no manifest exists, False on any missing, truncated or altered
+    file."""
+    checkpoint_dir = os.path.abspath(checkpoint_dir)
+    path = os.path.join(checkpoint_dir, ".manifests", f"{int(step)}.json")
+    if not os.path.exists(path):
+        return True
+    try:
+        with open(path) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError):
+        return True  # unreadable manifest != corrupt checkpoint
+    step_dir = os.path.join(checkpoint_dir, str(int(step)))
+    for rel, want in manifest.get("files", {}).items():
+        full = os.path.join(step_dir, rel)
+        if not os.path.isfile(full):
+            logger.warning("checkpoint step %d: missing file %s",
+                           step, rel)
+            return False
+        got = _file_digest(full)
+        if got["size"] != want.get("size") \
+                or got["sha256"] != want.get("sha256"):
+            logger.warning(
+                "checkpoint step %d: checksum mismatch in %s (%d bytes "
+                "vs %d expected)", step, rel, got["size"],
+                want.get("size", -1))
+            return False
+    return True
+
+
+def intact_steps(checkpoint_dir: str) -> List[int]:
+    """The committed steps that pass their manifest check, sorted: the
+    steps `CheckpointSaver.maybe_restore` tries, newest first.  The
+    newest of them is the step a relaunch restores, and the cutoff up to
+    which a task journal is trusted."""
+    return [step for step in committed_steps(checkpoint_dir)
+            if verify_step(checkpoint_dir, step)]
+
+
 class CheckpointSaver:
     def __init__(self, checkpoint_dir: str, keep_max: int = 3,
                  clock=time.time):
@@ -234,19 +300,7 @@ class CheckpointSaver:
 
     def all_steps(self) -> List[int]:
         """Finalized steps (those whose state.pt is in place), sorted."""
-        steps = []
-        for name in os.listdir(self._dir):
-            step_dir = os.path.join(self._dir, name)
-            if not (name.isdigit() and os.path.isdir(step_dir)):
-                continue
-            if os.path.exists(os.path.join(step_dir, _ORBAX_MARKER)):
-                raise NotImplementedError(
-                    f"{step_dir} is an orbax checkpoint of the JAX "
-                    "package; loading those waits for its slice of the "
-                    "port (ROADMAP.md queue 1, item 3)")
-            if os.path.isfile(os.path.join(step_dir, STATE_FILE)):
-                steps.append(int(name))
-        return sorted(steps)
+        return committed_steps(self._dir)
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -257,7 +311,14 @@ class CheckpointSaver:
     def save(self, state: TrainState) -> bool:
         """Start saving `state` at its step (the write runs on the
         writer thread); False when that step is already saved or being
-        saved."""
+        saved, or when an injected `checkpoint.write` fault skipped it."""
+        try:
+            faults.fire(faults.POINT_CHECKPOINT_WRITE)
+        except faults.InjectedFault as exc:
+            # survivable by design: the next crossing saves again and a
+            # restore falls back to the last committed step
+            logger.warning("checkpoint save skipped (%s)", exc)
+            return False
         self._raise_failed_writes()
         step = int(state.step)
         with self._lock:
@@ -355,33 +416,7 @@ class CheckpointSaver:
     # ---- integrity -----------------------------------------------------
 
     def verify_step(self, step: int) -> bool:
-        """Check a step's files against its manifest: True when intact or
-        when no manifest exists, False on any missing, truncated or
-        altered file."""
-        path = self._manifest_path(step)
-        if not os.path.exists(path):
-            return True
-        try:
-            with open(path) as f:
-                manifest = json.load(f)
-        except (OSError, ValueError):
-            return True  # unreadable manifest != corrupt checkpoint
-        step_dir = self._step_dir(step)
-        for rel, want in manifest.get("files", {}).items():
-            full = os.path.join(step_dir, rel)
-            if not os.path.isfile(full):
-                logger.warning("checkpoint step %d: missing file %s",
-                               step, rel)
-                return False
-            got = _file_digest(full)
-            if got["size"] != want.get("size") \
-                    or got["sha256"] != want.get("sha256"):
-                logger.warning(
-                    "checkpoint step %d: checksum mismatch in %s (%d bytes "
-                    "vs %d expected)", step, rel, got["size"],
-                    want.get("size", -1))
-                return False
-        return True
+        return verify_step(self._dir, step)
 
     def produced_meta(self, step: int) -> Optional[Dict[str, Any]]:
         return read_produced_meta(self._dir, step)
@@ -473,11 +508,7 @@ class CheckpointSaver:
         mismatch raises ArenaDtypeMismatch at once (older steps would
         mismatch alike) unless `arena_convert` migrates it."""
         last_exc: Optional[Exception] = None
-        for step in reversed(self.all_steps()):
-            if not self.verify_step(step):
-                logger.warning("checkpoint step %d corrupt; falling back to "
-                               "the previous good step", step)
-                continue
+        for step in reversed(intact_steps(self._dir)):
             try:
                 restored = self._load_into(template, step, arena_convert)
             except ArenaDtypeMismatch:

@@ -10,10 +10,16 @@ range") is served through a sidecar offset index built on first use and
 cached next to the file (`<file>.idx`: a header of magic, data-file size
 and record count, then one uint64 offset per record).
 
+The index build and the bulk writer go through the native scanner
+(data/native_io.py, C++ built with g++ at first use) when it is
+available, and through Python otherwise, as in the JAX package; both
+give the same bytes.  `served()` counts which path served each call, by
+operation.  Reads have one path, Python's: a task's `read_bulk` is one
+`pread` and a strided numpy copy, faster on the H100 host than the
+native scanner's record-by-record read of the same ranges (PERF.md).
 Beside the per-byte crc32c there is a vectorised one (`crc32c_rows`)
 that runs the same table over many equal-length records at once; the
-bulk writer uses it for fixed-width records.  The C++ fast path of the
-JAX package (`native/`) waits for its slice of the port.
+Python bulk writer uses it for fixed-width records.
 """
 
 from __future__ import annotations
@@ -23,6 +29,42 @@ import struct
 from typing import Iterator, Optional
 
 import numpy as np
+
+from elasticdl_tpu_torch.common import metrics
+
+# which path served each call: operation -> {"native": n, "python": n}
+_served = metrics.default_registry().counter(
+    "data_recordio_calls_total",
+    "TFRecord index builds and bulk writes, by operation and by the "
+    "path that served them (native or python)",
+    labelnames=("op", "path"),
+)
+
+
+def _count(op: str, native) -> None:
+    _served.labels(op=op, path="python" if native is None
+                   else "native").inc()
+
+
+def served() -> dict:
+    """{operation: {"native": calls, "python": calls}} since the last
+    `reset_served()`."""
+    out: dict = {}
+    for (op, path), value in sorted(_served.child_values().items()):
+        out.setdefault(op, {"native": 0, "python": 0})[path] = int(value)
+    return out
+
+
+def reset_served() -> None:
+    _served.reset()
+
+
+def _try_native():
+    """The native scanner's module when its library is in use, else
+    None (the Python path serves)."""
+    from elasticdl_tpu_torch.data import native_io
+
+    return native_io if native_io.available() else None
 
 # ---- crc32c (Castagnoli), table-driven ---------------------------------
 
@@ -104,12 +146,18 @@ def write_tfrecords(path: str, payloads) -> int:
 
 def write_tfrecords_bulk(path: str, buffer, sizes) -> int:
     """Write records given as (contiguous uint8 payload buffer, int64
-    sizes), the symmetric form of TFRecordReader.read_bulk.  Fixed-width
-    records are framed in one numpy pass (`crc32c_rows`); mixed widths
-    go through the streaming writer."""
+    sizes), the symmetric form of TFRecordReader.read_bulk: through the
+    native writer when it is available; otherwise fixed-width records
+    are framed in one numpy pass (`crc32c_rows`) and mixed widths go
+    through the streaming writer."""
     sizes = np.ascontiguousarray(sizes, np.int64)
     buffer = np.ascontiguousarray(buffer, np.uint8).reshape(-1)
     n = len(sizes)
+    native = _try_native()
+    _count("write", native)
+    if native is not None:
+        native.write_records(path, buffer, sizes)
+        return n
     if n and (sizes == sizes[0]).all():
         width = int(sizes[0])
         payload = buffer.reshape(n, width)
@@ -138,6 +186,15 @@ def write_tfrecords_bulk(path: str, buffer, sizes) -> int:
 
 def build_index(path: str) -> np.ndarray:
     """Scan the file once; the byte offset of every record as int64."""
+    native = _try_native()
+    _count("index", native)
+    if native is not None:
+        return native.build_index(path)
+    return python_index(path)
+
+
+def python_index(path: str) -> np.ndarray:
+    """`build_index`'s Python scanner, whichever path is in use."""
     offsets = []
     size = os.path.getsize(path)
     with open(path, "rb") as f:
@@ -220,6 +277,9 @@ class TFRecordReader:
             if len(header) < 12:
                 raise IOError(f"{self._path}: truncated header @record {i}")
             (length,) = struct.unpack("<Q", header[:8])
+            if length > self._file_size - offset - 16:
+                # a corrupt length: never a read that size
+                raise IOError(f"{self._path}: truncated record @record {i}")
             body = os.pread(self._fd, length + 4, offset + 12)
             if len(body) < length + 4:
                 raise IOError(f"{self._path}: truncated record @record {i}")
@@ -257,8 +317,8 @@ class TFRecordReader:
         ).astype(np.int64) - first
         sizes = offs[1:] - offs[:-1] - 16  # strip length + 2 CRCs
         if self._check_crc:
-            # CRC validation parses each record: reuse the checked
-            # streaming path
+            # CRC validation parses each record: the checked streaming
+            # path (which serves it in Python too)
             payloads = list(self.read(start, end))
             return (
                 np.frombuffer(b"".join(payloads), np.uint8),

@@ -5,8 +5,9 @@ Eval tasks ride the training queue; workers run forward-only over a
 shard and report per-shard metrics plus the raw (label, prediction)
 samples, keyed by task, so job-level rank metrics (AUC) are recomputed
 exactly over the merged validation set: a weighted mean of per-shard
-AUCs is biased whenever shards differ.  The summary writer
-(TensorBoard) waits for its slice of the port.
+AUCs is biased whenever shards differ.  With a `summary_writer`
+(common/summary.py) each version's job-level metrics are written as
+`eval/<name>` scalars at that version, again as shards accumulate.
 """
 
 from __future__ import annotations
@@ -196,8 +197,9 @@ class EvaluationService:
 
     def __init__(self, task_manager, evaluation_steps: int = 0,
                  start_delay_secs: int = 0, throttle_secs: int = 0,
-                 eval_metrics=None):
+                 summary_writer=None, eval_metrics=None):
         self._tm = task_manager
+        self._summary = summary_writer
         # {name: fn(labels, preds)} from the zoo's eval_metrics_fn: with
         # it, job-level metrics are recomputed over the merged samples
         self._eval_metrics = eval_metrics
@@ -253,6 +255,11 @@ class EvaluationService:
             metrics = self.history[version]
         logger.info("Eval metrics v%d (n=%d, sampled=%d): %s",
                     version, n, sampled, metrics)
+        if self._summary is not None:
+            # the job-level curve, rewritten as shards accumulate
+            self._summary.scalars(
+                {f"eval/{k}": v for k, v in metrics.items()}, step=version)
+            self._summary.flush()
 
     def _prune_samples_locked(self):
         keep = sorted(self._aggs)[-self.SAMPLE_VERSIONS_KEPT:]

@@ -16,15 +16,34 @@ core of the JAX package's master/task_manager.py).
 - Completion callbacks and pre-finish providers let the evaluation
   service and the master hook task completion without polling.
 
+- The journal (`persist_path`, master fault tolerance): each finished
+  training shard of the current epoch is written, with the model version
+  it finished at, to a JSON file (through a `.tmp` and `os.replace`),
+  so a relaunched job resumes the epoch without it.  A restore trusts
+  the journal only up to `restore_cutoff_step` (the newest model
+  checkpoint's step): a shard finished at a later or unknown version
+  re-runs, and so does an epoch bump the checkpoint does not cover.  It
+  parses the whole file before it changes any state; a corrupt, non-dict
+  or malformed journal falls back to a fresh epoch.  The layout is the
+  JAX master's, so either package reads the other's `task_state.json`.
+- Straggler detection: a rolling window of training-task durations per
+  worker (lease to report); a worker whose mean exceeds
+  `straggler_multiple` times the lower median of the workers with at
+  least `straggler_min_tasks` tasks is flagged (`straggler_snapshot`,
+  the `master_straggler_workers_count` gauge, a `straggler_detected`
+  event).
+
 For the same shards and seed the task sequence (ids, types, shards) is
-the JAX master's, bit for bit.  Pure Python under one lock; never
-touches tensors.  The journal (`persist_path`, master fault tolerance),
-perpetual windows (the online loop) and straggler detection wait for
-their slices of the port.
+the JAX master's, bit for bit (a journaled manager draws its id base
+from `random.Random()`, as the JAX one does).  Pure Python under one
+lock; never touches tensors.  Perpetual windows (the online loop) wait
+for their slice of the port (ROADMAP.md queue 1, item 10).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import random
 import threading
 import time
@@ -32,6 +51,8 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
+from elasticdl_tpu_torch.common import events
+from elasticdl_tpu_torch.common import metrics as metrics_lib
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.proto import messages as pb
 
@@ -46,9 +67,11 @@ class _DoingEntry:
 
 
 class TaskCounters:
-    """Plain task counters, mutated under the task manager's lock."""
+    """Plain task counters, mutated under the task manager's lock, and
+    the manager's metrics registry (its gauges)."""
 
     def __init__(self):
+        self.registry = metrics_lib.MetricsRegistry()
         self.finished = 0
         self.failed = 0
         self.recovered = 0
@@ -94,6 +117,10 @@ class TaskManager:
     MAX_TRANSIENT_REQUEUES = 100
     # Hold window before a transiently re-queued task is leasable again.
     TRANSIENT_HOLD_S = 1.0
+    # Rolling window of recent training-task durations per worker: long
+    # enough to smooth task-size variance, short enough that a worker
+    # that recovers un-flags within a few tasks.
+    STRAGGLER_WINDOW = 20
 
     def __init__(
         self,
@@ -105,14 +132,13 @@ class TaskManager:
         max_task_retries: int = 3,
         shuffle_shards: bool = False,
         shuffle_seed: Optional[int] = None,
-        clock: Callable[[], float] = time.time,
         persist_path: Optional[str] = None,
+        restore_cutoff_step: Optional[int] = None,
+        straggler_multiple: float = 3.0,
+        straggler_min_tasks: int = 3,
+        clock: Callable[[], float] = time.time,
         perpetual: bool = False,
     ):
-        if persist_path is not None:
-            raise NotImplementedError(
-                "the task journal (persist_path) waits for its slice of "
-                "the port (ROADMAP.md queue 1, item 3)")
         if perpetual:
             raise NotImplementedError(
                 "perpetual (online) task windows wait for the online-loop "
@@ -131,7 +157,13 @@ class TaskManager:
         self._todo: deque = deque()
         self._doing: Dict[int, _DoingEntry] = {}
         self._dead_workers: set = set()
-        self._next_task_id = 0
+        # Stale-report guard for relaunches (journaled jobs only): a
+        # per-generation random id base, so a report of the previous
+        # generation's task N misses instead of acking another shard
+        self._next_task_id = (
+            random.Random().randrange(1 << 20, 1 << 30)
+            if persist_path is not None else 0
+        )
         # Jobs without training data (evaluate/predict) start with the
         # epoch requirement met, so they finish once their tasks drain.
         self._epoch = 0 if training_shards else num_epochs
@@ -141,6 +173,21 @@ class TaskManager:
         # task, so the same worker cannot re-lease it in a tight loop
         self._transient_hold: Dict[int, float] = {}
         self.counters = TaskCounters()
+        # Straggler detection from the lease -> report durations the
+        # master already sees: one rolling window per worker, a median
+        # at report time, no new RPC.
+        self._straggler_multiple = float(straggler_multiple)
+        self._straggler_min_tasks = int(straggler_min_tasks)
+        self._worker_task_s: Dict[int, deque] = {}
+        self._stragglers: set = set()
+        # worker_id -> clock() when its current flag was raised (the
+        # dwell an eviction policy reads); cleared with the flag
+        self._straggler_since: Dict[int, float] = {}
+        self.counters.registry.gauge_fn(
+            "master_straggler_workers_count",
+            lambda: float(len(self._stragglers)),
+            "workers currently flagged as stragglers (mean task "
+            "duration > --straggler_multiple x fleet median)")
         self._completion_callbacks: List[Callable[[pb.Task, bool],
                                                   None]] = []
         self._all_done_callbacks: List[Callable[[], None]] = []
@@ -148,11 +195,24 @@ class TaskManager:
         # round) atomically before the job is declared finished.
         self._pre_finish_providers: List[Callable[[], list]] = []
         self._finished = False
+        # The journal is armed only after construction: creating the
+        # first epoch must not overwrite a journal before it is read.
+        self._persist_path = None
+        self._done_training_shards: Dict[tuple, int] = {}  # key -> version
+        self._restore_cutoff_step = restore_cutoff_step
+        self._training_records_done = 0
+        # [(completed epoch, model version at completion)]: an epoch bump
+        # is trusted on restore only when the checkpoint covers it
+        self._epoch_history: List[Tuple[int, int]] = []
 
         if self._training_shards:
             self._create_training_tasks_locked()
         for shard in self._prediction_shards:
             self._todo.append(self._new_task(shard, pb.PREDICTION))
+        if persist_path is not None:
+            self._persist_path = persist_path
+            self._maybe_restore_locked(persist_path)
+            self._persist_locked()
 
     # ---- task creation -------------------------------------------------
 
@@ -175,9 +235,128 @@ class TaskManager:
             random.Random(seed).shuffle(shards)
         for shard in shards:
             self._todo.append(self._new_task(shard, pb.TRAINING))
+        if self._done_training_shards:
+            # the epoch just completed: the model version that covers
+            # all of it (-1 when any shard's version is unknown, which a
+            # checkpoint cutoff never trusts)
+            versions = list(self._done_training_shards.values())
+            floor = -1 if min(versions) < 0 else max(versions)
+            self._epoch_history.append((self._epoch, floor))
         self._epoch += 1
+        self._done_training_shards.clear()
+        self._persist_locked()
         logger.info("Created %d training tasks for epoch %d",
                     len(shards), self._epoch)
+
+    # ---- the journal (master fault tolerance) --------------------------
+
+    @staticmethod
+    def _shard_key(shard: pb.Shard) -> list:
+        return [shard.name, shard.start, shard.end]
+
+    def _persist_locked(self) -> None:
+        """Unthrottled: reports arrive per task, the state is a few KB,
+        and a dropped trailing write would lose the newest completions
+        on a crash right after them."""
+        if self._persist_path is None:
+            return
+        state = {
+            "epoch": self._epoch,
+            "done_training_shards": sorted(
+                [*key, v] for key, v in self._done_training_shards.items()
+            ),
+            "epoch_history": [list(e) for e in self._epoch_history],
+            # training records only: eval and predict records count
+            # again when their rounds re-run
+            "records_done": self._training_records_done,
+        }
+        tmp = self._persist_path + ".tmp"
+        try:
+            os.makedirs(os.path.dirname(self._persist_path) or ".",
+                        exist_ok=True)
+            with open(tmp, "w") as f:
+                json.dump(state, f)
+            os.replace(tmp, self._persist_path)  # atomic
+        except OSError as exc:
+            logger.warning("task-state persist failed: %s", exc)
+
+    def _maybe_restore_locked(self, path: str) -> None:
+        if not os.path.exists(path):
+            return
+        # Parse everything before changing any state: a malformed
+        # journal falls back to a fresh epoch, and nothing overwrites it
+        # until parsing has succeeded.
+        try:
+            with open(path) as f:
+                state = json.load(f)
+            if not isinstance(state, dict):
+                raise ValueError(f"journal top level is {type(state)}")
+            saved_epoch = int(state.get("epoch", 1))
+            saved_records = int(state.get("records_done", 0))
+            entries = [
+                ((str(e[0]), int(e[1]), int(e[2])), int(e[3]))
+                for e in state.get("done_training_shards", [])
+            ]
+            history = [(int(e[0]), int(e[1]))
+                       for e in state.get("epoch_history", [])]
+        except (OSError, ValueError, TypeError, IndexError, KeyError,
+                AttributeError) as exc:
+            logger.warning("task-state restore failed (%s); starting the "
+                           "epoch fresh", exc)
+            return
+        if not self._training_shards:
+            return
+        if self._restore_cutoff_step is not None:
+            # trust only the epoch bumps the model checkpoint covers
+            trusted = [e for e, v in history
+                       if 0 <= v <= self._restore_cutoff_step]
+            durable_epoch = (max(trusted) if trusted else 0) + 1
+            if durable_epoch < saved_epoch:
+                logger.info(
+                    "Journal epoch %d post-dates the model checkpoint "
+                    "(durable through epoch %d); resuming at epoch %d "
+                    "and re-running its shards",
+                    saved_epoch, durable_epoch - 1, durable_epoch)
+                saved_epoch = durable_epoch
+                entries = []  # they belong to the untrusted later epoch
+            self._epoch_history = [(e, v) for e, v in history
+                                   if e < saved_epoch]
+        else:
+            self._epoch_history = list(history)
+        done: Dict[tuple, int] = {}
+        dropped = dropped_records = 0
+        for key, version in entries:
+            if self._restore_cutoff_step is not None and (
+                    version < 0 or version > self._restore_cutoff_step):
+                # finished past the checkpointed step (or at an unknown
+                # one): its gradients are not in the restored model
+                dropped += 1
+                dropped_records += key[2] - key[1]
+                continue
+            done[key] = version
+        if dropped:
+            logger.info("%d journaled shards post-date the model "
+                        "checkpoint (step cutoff %s); they will re-run",
+                        dropped, self._restore_cutoff_step)
+        # rebuild the current epoch (its per-epoch shuffle seed) minus
+        # the trusted done shards
+        self._todo = deque(t for t in self._todo if t.type != pb.TRAINING)
+        self._epoch = max(0, saved_epoch - 1)
+        self._create_training_tasks_locked()   # sets the epoch, persists
+        if done:
+            self._todo = deque(
+                t for t in self._todo
+                if not (t.type == pb.TRAINING
+                        and tuple(self._shard_key(t.shard)) in done))
+            self._done_training_shards = dict(done)
+        # shards that re-run are counted again when they finish
+        self._training_records_done = max(0, saved_records - dropped_records)
+        self.counters.records_done = self._training_records_done
+        logger.info("Restored task state: epoch %d, %d/%d shards already "
+                    "done, training records_done=%d", self._epoch,
+                    len(done), len(self._training_shards),
+                    self._training_records_done)
+        self._persist_locked()
 
     def create_evaluation_tasks(self, model_version: int) -> int:
         """Inject evaluation tasks at the front of the queue, so metrics
@@ -229,19 +408,29 @@ class TaskManager:
                model_version: int = -1) -> bool:
         """A worker reports a leased task done or failed.  False for an
         unknown lease (already reaped or recovered): stale reports are
-        ignored.  `model_version` (the reporter's step) is kept for the
-        journal's slice."""
+        ignored.  `model_version` (the reporter's step at completion) is
+        journaled with a finished training shard."""
+        newly_flagged = []
         with self._lock:
             entry = self._doing.pop(task_id, None)
             if entry is None:
                 logger.warning("Report for unknown task %d ignored", task_id)
                 return False
             task = entry.task
+            if success and task.type == pb.TRAINING and \
+                    entry.worker_id >= 0:
+                newly_flagged = self._observe_task_duration_locked(
+                    entry.worker_id, self._clock() - entry.lease_start)
             if success:
                 self.counters.finished += 1
                 self.counters.records_done += records
                 self.counters.by_type[task.type] = (
                     self.counters.by_type.get(task.type, 0) + 1)
+                if task.type == pb.TRAINING:
+                    self._training_records_done += records
+                    self._done_training_shards[
+                        tuple(self._shard_key(task.shard))] = model_version
+                    self._persist_locked()
             elif transient and (
                 self._transient_count.get(task_id, 0)
                 < self.MAX_TRANSIENT_REQUEUES
@@ -266,17 +455,92 @@ class TaskManager:
                                  task_id)
             callbacks = list(self._completion_callbacks)
             fire_done = self._check_all_done_locked()
+        for wid, mean_s, median_s in newly_flagged:
+            logger.warning("Straggler: worker %d averages %.3fs/task vs "
+                           "fleet median %.3fs", wid, mean_s, median_s)
+            events.emit(
+                events.STRAGGLER_DETECTED, worker_id=wid,
+                mean_task_s=round(mean_s, 6),
+                median_task_s=round(median_s, 6),
+                ratio=round(mean_s / median_s, 3) if median_s else 0.0)
         for cb in callbacks:
             cb(task, success)
         if fire_done:
             self._fire_all_done()
         return True
 
+    # ---- straggler detection -------------------------------------------
+
+    def _observe_task_duration_locked(
+        self, worker_id: int, duration_s: float
+    ) -> List[Tuple[int, float, float]]:
+        """Record one finished training task and re-evaluate the flags;
+        returns the newly flagged (worker_id, mean_s, median_s), whose
+        events the caller emits outside the lock."""
+        window = self._worker_task_s.setdefault(
+            worker_id, deque(maxlen=self.STRAGGLER_WINDOW))
+        window.append(max(0.0, float(duration_s)))
+        if self._straggler_multiple <= 0:
+            return []
+        means = {wid: sum(w) / len(w)
+                 for wid, w in self._worker_task_s.items()
+                 if len(w) >= self._straggler_min_tasks}
+        # a one-worker fleet has no peer to be slower than
+        if len(means) < 2:
+            self._stragglers.clear()
+            self._straggler_since.clear()
+            return []
+        # the lower median: in a small even fleet the interpolated one is
+        # dragged up by the straggler's own mean (with 2 workers nothing
+        # would ever flag)
+        ordered = sorted(means.values())
+        median = ordered[(len(ordered) - 1) // 2]
+        if median <= 0:
+            self._stragglers.clear()
+            self._straggler_since.clear()
+            return []
+        flagged = {wid for wid, mean in means.items()
+                   if mean > self._straggler_multiple * median}
+        newly = flagged - self._stragglers
+        self._stragglers = flagged
+        # the dwell clock restarts when a flag bounces
+        now = self._clock()
+        for wid in newly:
+            self._straggler_since[wid] = now
+        for wid in list(self._straggler_since):
+            if wid not in flagged:
+                del self._straggler_since[wid]
+        return [(wid, means[wid], median) for wid in sorted(newly)]
+
+    def straggler_snapshot(self) -> Dict[int, dict]:
+        """worker_id -> rolling task-duration stats and the straggler
+        flag (merged into Master.snapshot()["workers"])."""
+        with self._lock:
+            now = self._clock()
+            return {
+                wid: {
+                    "task_count": len(window),
+                    "mean_task_s": round(sum(window) / len(window), 6),
+                    "straggler": wid in self._stragglers,
+                    # seconds the current flag has persisted
+                    "flagged_for_s": (
+                        round(now - self._straggler_since[wid], 6)
+                        if wid in self._straggler_since else 0.0),
+                }
+                for wid, window in self._worker_task_s.items()
+                if window
+            }
+
     def recover_tasks(self, worker_id: int) -> int:
         """Re-queue, at the front, every in-flight task leased by a
         (presumed dead) worker; never lease to it again."""
         with self._lock:
             self._dead_workers.add(worker_id)
+            # a dead worker's window must not skew the fleet median nor
+            # linger as a phantom flag
+            self._worker_task_s.pop(worker_id, None)
+            self._stragglers.discard(worker_id)
+            self._straggler_since.pop(worker_id, None)
             dead = [tid for tid, e in self._doing.items()
                     if e.worker_id == worker_id]
             for tid in dead:
@@ -366,6 +630,10 @@ class TaskManager:
                 "num_epochs": self._num_epochs,
                 "finished": self._finished,
                 "counters": self.counters.as_dict(),
+                # training records of the job, a relaunch's restored
+                # ones included (eval and predict records are not)
+                "training_records_done": self._training_records_done,
                 "task_retries": sum(self._task_retry_count.values()),
                 "transient_requeues": sum(self._transient_count.values()),
+                "stragglers": sorted(self._stragglers),
             }

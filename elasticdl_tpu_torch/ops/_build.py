@@ -10,6 +10,11 @@ source builds anew and an unchanged one is loaded from the cache.
 
 Nothing is built at import time.  A missing `nvcc` or a failed build
 raises; there is no fallback.
+
+Host code (`hostsrc/*.cc`, the native TFRecord scanner) takes a second
+route, `build_host`: `g++ -O3 -shared -fPIC` into the same directory,
+named by a hash of that one source, the flags and the compiler, so a
+change there never renames the CUDA builds.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+HOSTSRC_DIR = Path(__file__).resolve().parent.parent / "hostsrc"
 BUILD_DIR = (
     Path(__file__).resolve().parents[2] / "build" / "elasticdl_tpu_torch"
 )
@@ -34,6 +40,8 @@ NVCC_FLAGS = (
     # registers, shared memory and spills per kernel, kept in build_logs
     "-Xptxas", "-v",
 )
+
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -118,3 +126,41 @@ def load_library(source: str) -> ctypes.CDLL:
             path = build_all([source])[source]
             lib = _LOADED[source] = ctypes.CDLL(str(path))
         return lib
+
+
+def find_cxx() -> str:
+    found = shutil.which(os.environ.get("CXX") or "g++")
+    if not found:
+        raise RuntimeError("g++ not found (looked for $CXX and g++ on "
+                           "$PATH); the native host code needs it")
+    return found
+
+
+def host_library_path(source: str, cxx: Optional[str] = None) -> Path:
+    cxx = cxx or find_cxx()
+    h = hashlib.sha256()
+    h.update((HOSTSRC_DIR / source).read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    h.update(cxx.encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(source: str) -> Path:
+    """Compile `hostsrc/<source>` with g++ unless its library is cached;
+    the output is renamed into place, so a concurrent loader never sees
+    half of it.  Raises on a failed compile."""
+    cxx = find_cxx()
+    out = host_library_path(source, cxx)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run(
+        [cxx, *HOST_FLAGS, "-o", str(tmp), str(HOSTSRC_DIR / source)],
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {source}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)
+    return out

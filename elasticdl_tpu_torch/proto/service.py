@@ -12,10 +12,15 @@ JAX package's proto/service.py, its method tables and clients).
   body, the serialized response back.  The stub and the in-process
   client are interchangeable.
 
-The retry policy and the fault points (`common/resilience`,
-`common/faults`) wait for the cluster slice of the port (ROADMAP.md
-queue 1, item 12), and `FleetRouter` for the online loop (item 10).
-Exceptions propagate to the caller unchanged.
+Fault points and retries (`common/faults`, `common/resilience`), as in
+the JAX package: each client fires the method's point
+(`METHOD_FAULT_POINTS`, `SERVING_METHOD_FAULT_POINTS`) before every
+attempt, so a chaos schedule drives the in-process path and the socket
+alike.  The in-process clients do not retry: an exception, an injected
+one included, reaches the caller unchanged (a Local job's
+`TaskDataService` retries `get_task` and `report_task_result` itself).
+A `ServingStub` given a `retry_policy` retries a call under it.
+`FleetRouter` waits for the online loop (ROADMAP.md queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import http.client
 import threading
 from typing import Optional
 
+from elasticdl_tpu_torch.common import faults
 from elasticdl_tpu_torch.proto import serving as spb
 
 SERVICE_NAME = "elasticdl_tpu.Master"
@@ -36,32 +42,63 @@ MASTER_METHODS = (
     "report_version",
 )
 
+# method name -> fault-injection point (common/faults.py), the JAX
+# package's table; the port's master serves the first four methods.
+METHOD_FAULT_POINTS = {
+    "get_task": faults.POINT_RPC_GET_TASK,
+    "get_spmd_task": faults.POINT_RPC_GET_TASK,
+    "report_task_result": faults.POINT_RPC_REPORT,
+    "report_evaluation_metrics": faults.POINT_RPC_REPORT,
+    "report_version": faults.POINT_RPC_REPORT,
+    "get_cluster_spec": faults.POINT_RENDEZVOUS_JOIN,
+    "keep_alive": faults.POINT_WORKER_HEARTBEAT,
+}
+
 # method name -> (request class, response class)
 SERVING_METHODS = {
     "predict": (spb.PredictRequest, spb.PredictResponse),
     "health": (spb.HealthRequest, spb.HealthResponse),
 }
 
+# `health` has its own point, apart from the data path, so a schedule
+# can flap a prober without touching predict traffic, or the reverse.
+SERVING_METHOD_FAULT_POINTS = {
+    "predict": faults.POINT_RPC_PREDICT,
+    "health": faults.POINT_RPC_HEALTH_PROBE,
+}
+
+
+def _with_faults(attempt, point, retry_policy, name):
+    """`attempt(request, timeout)` behind the method's fault point, fired
+    once per attempt, and under `retry_policy` when one is given."""
+    def fired(request, timeout):
+        if point is not None:
+            faults.fire(point)
+        return attempt(request, timeout)
+
+    if retry_policy is None:
+        return lambda request, timeout=None: fired(request, timeout)
+    return lambda request, timeout=None: retry_policy.call(
+        lambda: fired(request, timeout), description=name)
+
 
 class _InProcessClient:
     _methods: tuple = ()
+    _fault_points: dict = {}
 
     def __init__(self, servicer):
         for name in self._methods:
-            setattr(self, name, self._bind(getattr(servicer, name)))
-
-    @staticmethod
-    def _bind(method):
-        def call(request, timeout=None):
-            return method(request, None)
-
-        return call
+            method = getattr(servicer, name)
+            setattr(self, name, _with_faults(
+                lambda request, timeout, _m=method: _m(request, None),
+                self._fault_points.get(name), None, name))
 
 
 class InProcessMasterClient(_InProcessClient):
     """Calls a MasterServicer directly."""
 
     _methods = MASTER_METHODS
+    _fault_points = METHOD_FAULT_POINTS
 
 
 class InProcessServingClient(_InProcessClient):
@@ -69,6 +106,7 @@ class InProcessServingClient(_InProcessClient):
     benches."""
 
     _methods = tuple(SERVING_METHODS)
+    _fault_points = SERVING_METHOD_FAULT_POINTS
 
 
 class ServingRpcError(RuntimeError):
@@ -87,9 +125,17 @@ class ServingStub:
     that calls the stub holds its own persistent connection; a call that
     fails closes it, and the next call opens a new one.  `timeout` (per
     call, else the stub's default) bounds the connect and each socket
-    read and write, in seconds; None waits forever."""
+    read and write, in seconds; None waits forever.
 
-    def __init__(self, target: str, timeout: Optional[float] = None):
+    Every attempt fires the method's fault point (`rpc.predict`,
+    `rpc.health_probe`).  With a `retry_policy`, a call retries under it
+    (common/resilience.py: an injected fault, a refused or reset
+    connection, a socket timeout, HTTP 503 and 504 retry), and the
+    policy's `attempt_timeout_s` bounds each attempt when the call gives
+    no timeout of its own."""
+
+    def __init__(self, target: str, timeout: Optional[float] = None,
+                 retry_policy=None):
         host, _, port = target.rpartition(":")
         if not host or not port.isdigit():
             raise ValueError(f"serving target {target!r} is not host:port")
@@ -99,6 +145,13 @@ class ServingStub:
         self._local = threading.local()
         self._lock = threading.Lock()
         self._connections = set()
+        self._retry_policy = retry_policy
+        self._calls = {
+            name: _with_faults(
+                lambda request, timeout, _name=name: self._call(
+                    _name, request, timeout),
+                SERVING_METHOD_FAULT_POINTS[name], retry_policy, name)
+            for name in SERVING_METHODS}
 
     def _connection(self, timeout) -> http.client.HTTPConnection:
         conn = getattr(self._local, "conn", None)
@@ -122,7 +175,10 @@ class ServingStub:
 
     def _call(self, name: str, request, timeout):
         response_cls = SERVING_METHODS[name][1]
-        timeout = self._timeout if timeout is None else timeout
+        if timeout is None:
+            timeout = self._timeout
+        if timeout is None and self._retry_policy is not None:
+            timeout = self._retry_policy.attempt_timeout_s
         body = request.SerializeToString()
         conn = self._connection(timeout)
         try:
@@ -142,11 +198,11 @@ class ServingStub:
 
     def predict(self, request: spb.PredictRequest,
                 timeout: Optional[float] = None) -> spb.PredictResponse:
-        return self._call("predict", request, timeout)
+        return self._calls["predict"](request, timeout)
 
     def health(self, request: spb.HealthRequest,
                timeout: Optional[float] = None) -> spb.HealthResponse:
-        return self._call("health", request, timeout)
+        return self._calls["health"](request, timeout)
 
     def close(self) -> None:
         """Close every thread's connection."""

@@ -23,8 +23,12 @@ or are rejected up front with INVALID when `reject_oversized` is set
 (deployments that want clients to respect the contract).  A response is
 one checkpoint's forward: when a hot swap lands between a split
 request's chunks, so that they ran on different steps, the whole request
-runs again at the head of the queue.  (The JAX batcher answers such a
-request with rows of two steps, labelled with the older one.)
+runs again at the head of the queue, counted in
+`serving_split_reruns_total`.  (The JAX batcher answers such a request
+with rows of two steps, labelled with the older one.)  A split
+request's chunks keep its first enqueue time across reruns and record
+their latency once each, at its final answer, so every sample covers
+the client's whole wait.
 
 Shutdown drains: queued requests complete, then later submissions get
 SHUTTING_DOWN.
@@ -106,6 +110,10 @@ class _Aggregate:
     rows: int
     request_id: str
     rerun: Callable[["_Aggregate"], None]
+    # the first enqueue: reruns keep it, so latency covers the whole wait
+    enqueued_at: float
+    # called with the chunk count before an OK answer is set
+    answered: Callable[["_Aggregate", int], None]
     chunks: list = field(default_factory=list)
     lock: threading.Lock = field(default_factory=threading.Lock)
 
@@ -124,6 +132,7 @@ class _Aggregate:
         if len({r.model_step for _, r in chunks}) > 1:
             self.rerun(self)
             return
+        self.answered(self, len(chunks))
         self.future.set_result(ServingResult(
             code=OK,
             predictions=np.concatenate(
@@ -171,6 +180,11 @@ class BatcherMetrics:
             "requests resolved without serving, by reason",
             labelnames=("reason",),
         )
+        self._reruns = self.registry.counter(
+            "serving_split_reruns_total",
+            "split requests run again whole because their chunks ran on "
+            "different steps (a hot swap between them)",
+        )
         self.latency = self.registry.histogram(
             "serving_batch_latency_seconds",
             "enqueue-to-completion latency per request row group",
@@ -205,6 +219,9 @@ class BatcherMetrics:
     def record_internal(self) -> None:
         self._rejected.labels(reason="internal").inc()
 
+    def record_rerun(self) -> None:
+        self._reruns.inc()
+
     def record_phase(self, phase: str, seconds: float) -> None:
         self.phase.labels(phase=phase).record(max(0.0, seconds))
 
@@ -224,6 +241,7 @@ class BatcherMetrics:
             "shed": self._rejected.labels(reason="shed").value(),
             "invalid": self._rejected.labels(reason="invalid").value(),
             "internal": self._rejected.labels(reason="internal").value(),
+            "split_reruns": self._reruns.value(),
             "latency_p50_s": lat["p50_s"],
             "latency_p99_s": lat["p99_s"],
             "latency_mean_s": lat["mean_s"],
@@ -316,7 +334,9 @@ class DynamicBatcher:
                       request_id: str = "") -> Future:
         agg = _Aggregate(future=Future(), pending=0, features=features,
                          rows=rows, request_id=request_id,
-                         rerun=self._rerun_split)
+                         rerun=self._rerun_split,
+                         enqueued_at=self._clock(),
+                         answered=self._split_answered)
         # admission-check the WHOLE request before enqueuing any chunk:
         # partially admitting an oversized request sheds its own tail
         with self._cond:
@@ -337,12 +357,11 @@ class DynamicBatcher:
         """`agg`'s request as max_batch-row chunk items, in order."""
         chunk, rows = self._max_batch, agg.rows
         agg.pending = (rows + chunk - 1) // chunk
-        now = self._clock()
         return [
             _Item(features={k: v[lo:lo + chunk]
                             for k, v in agg.features.items()},
                   rows=min(chunk, rows - lo), future=Future(),
-                  enqueued_at=now, request_id=agg.request_id,
+                  enqueued_at=agg.enqueued_at, request_id=agg.request_id,
                   aggregate=agg, chunk_index=i)
             for i, lo in enumerate(range(0, rows, chunk))
         ]
@@ -350,10 +369,18 @@ class DynamicBatcher:
     def _rerun_split(self, agg: _Aggregate) -> None:
         """Queue all of a split request again, ahead of the rest (it was
         admitted once), after its chunks ran on different steps."""
+        self.metrics.record_rerun()
         with self._cond:
             self._queue.extendleft(reversed(self._split_items(agg)))
             self._queued_rows += agg.rows
             self._cond.notify()
+
+    def _split_answered(self, agg: _Aggregate, chunks: int) -> None:
+        """A split request's final OK answer: one latency sample per
+        chunk, each from the request's first enqueue."""
+        wait = max(0.0, self._clock() - agg.enqueued_at)
+        for _ in range(chunks):
+            self.metrics.latency.record(wait)
 
     def _enqueue(self, features, rows: int, request_id: str = "") -> Future:
         with self._cond:
@@ -490,7 +517,10 @@ class DynamicBatcher:
         now = self._clock()
         offset = 0
         for item in batch:
-            self.metrics.latency.record(max(0.0, now - item.enqueued_at))
+            if item.aggregate is None:
+                # a split request's chunks record at its final answer
+                self.metrics.latency.record(max(0.0,
+                                                now - item.enqueued_at))
             self._finish(item, ServingResult(
                 code=OK,
                 predictions=preds[offset:offset + item.rows],

@@ -17,12 +17,12 @@ steps with the double-buffer discipline:
    generation they already read, so no request is dropped or served a
    half-loaded state.
 
-Any failure — integrity, or a real restore error — leaves the engine on
-its current variables and is counted in `rejected_count`; the SAME step
-is never retried (a corrupt step stays corrupt; retrying would melt the
-poll loop), but newer steps are still considered.  The JAX reloader also
-fires the fault point `POINT_SERVING_RELOAD`; the fault registry waits
-for its slice of the port (ROADMAP.md queue 1, item 12).
+Any failure — integrity, a real restore error, or an injected fault at
+the `serving.reload` point (common/faults.py, fired at the start of each
+attempt, as in the JAX reloader) — leaves the engine on its current
+variables and is counted in `rejected_count`; the SAME step is never
+retried (a corrupt step stays corrupt; retrying would melt the poll
+loop), but newer steps are still considered.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import threading
 import time
 from typing import Dict, Optional
 
-from elasticdl_tpu_torch.common import events
+from elasticdl_tpu_torch.common import events, faults
 from elasticdl_tpu_torch.common import metrics as metrics_lib
 from elasticdl_tpu_torch.common import save_utils
 from elasticdl_tpu_torch.common.log_utils import get_logger
@@ -74,7 +74,7 @@ class CheckpointReloader:
         )
         self._rejected = self.metrics_registry.counter(
             "serving_reloads_rejected_total",
-            "hot-reload attempts rejected (integrity, restore)",
+            "hot-reload attempts rejected (integrity, restore, injected)",
         )
         self.last_error: Optional[str] = None
         # seconds of the last accepted reload by phase: verify (the
@@ -96,6 +96,7 @@ class CheckpointReloader:
         save_utils.pin_step(self._dir, latest)
         t0 = time.perf_counter()
         try:
+            faults.fire(faults.POINT_SERVING_RELOAD)
             if not self._saver.verify_step(latest):
                 raise RuntimeError(
                     f"step {latest} failed integrity verification"

@@ -7,9 +7,15 @@ loop.  Batches never span tasks; a task's last partial batch is padded
 by wrapping its records (`pad_to_multiple`), with the true record count
 carried alongside for metrics.
 
-The master client is called directly (the Local runner shares the
-process): the RPC retry policy and the SPMD slice-local batches
-(`local_batches_for_task`) wait for the cluster slice of the port.
+`get_task` and `report_task` retry under the data service's policy
+(`rpc_policy`, default `resilience.default_policy()`), as in the JAX
+package: a transport failure or an injected fault (which behaves like
+one) retries with backoff (`resilience.is_retryable_error`); any other
+exception propagates at once.  A master unreachable past the get budget
+(`MASTER_GRACE_S`) ends the worker; a report that exhausts its budget is logged as lost, and the
+task's lease is what brings it back (at-least-once).  The SPMD
+slice-local batches (`local_batches_for_task`) wait for the cluster
+slice of the port.
 """
 
 from __future__ import annotations
@@ -22,8 +28,16 @@ from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
+from elasticdl_tpu_torch.common import resilience
+from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.worker.trainer import STORE_KEYS
+
+logger = get_logger(__name__)
+
+# How long get_task retries an unreachable master before the worker
+# stops (the JAX package's `master_grace_s` default).
+MASTER_GRACE_S = 30.0
 
 
 def pad_to_multiple(batch, multiple: int):
@@ -173,20 +187,42 @@ class TaskDataService:
     BULK_CHUNK_BATCHES = 16
 
     def __init__(self, master_client, data_reader, worker_id: int,
-                 wait_sleep_s: float = 0.5):
+                 wait_sleep_s: float = 0.5,
+                 rpc_policy: Optional[resilience.RetryPolicy] = None):
         self._client = master_client
         self._reader = data_reader
         self._worker_id = worker_id
         self._wait_sleep_s = wait_sleep_s
+        base = (rpc_policy if rpc_policy is not None
+                else resilience.default_policy())
+        # get_task gets the master-grace budget (exhaustion: the job is
+        # over or the master is lost); reports get a short budget,
+        # because the lease brings back whatever a lost report covered
+        self._get_policy = base.with_overrides(
+            max_elapsed_s=MASTER_GRACE_S,
+            initial_backoff_s=min(wait_sleep_s, 0.5),
+            retryable=resilience.is_retryable_error)
+        self._report_policy = base.with_overrides(
+            max_elapsed_s=10.0, retryable=resilience.is_retryable_error)
 
     def get_task(self, should_stop=None
                  ) -> Tuple[Optional[pb.Task], bool]:
         """Poll the master for a task: (task | None, job_finished),
         sleeping through WAIT answers.  `should_stop` is checked between
-        polls; when it turns true, returns (None, False)."""
+        polls; when it turns true, returns (None, False).  A master
+        unreachable past `MASTER_GRACE_S` means the job is over or lost:
+        (None, True)."""
         while True:
-            resp = self._client.get_task(
-                pb.GetTaskRequest(worker_id=self._worker_id))
+            req = pb.GetTaskRequest(worker_id=self._worker_id)
+            try:
+                resp = self._get_policy.call(
+                    lambda: self._client.get_task(req),
+                    description="get_task")
+            except resilience.RetryBudgetExhausted:
+                logger.error("Master unreachable for %.0fs; worker %d "
+                             "stopping", MASTER_GRACE_S,
+                             self._worker_id)
+                return None, True
             if resp.job_finished:
                 return None, True
             task = resp.task
@@ -204,9 +240,21 @@ class TaskDataService:
             worker_id=self._worker_id, transient=transient)
         req.exec_counters["records"] = records
         if model_version >= 0:
-            # the model step at completion (for the journal's slice)
+            # the model step at completion: the master's journal pairs a
+            # done shard with it and trusts it up to the checkpoint's step
             req.exec_counters["model_version"] = model_version
-        self._client.report_task_result(req)
+        try:
+            self._report_policy.call(
+                lambda: self._client.report_task_result(req),
+                description="report_task_result")
+        except Exception as exc:
+            if not (resilience.is_retryable_error(exc) or isinstance(
+                    exc, resilience.RetryBudgetExhausted)):
+                raise
+            # a lost report: the task's lease brings it back
+            # (at-least-once)
+            logger.warning("report_task_result for task %d failed: %s",
+                           task.task_id, exc)
 
     def _timed_pack(self, fn: Optional[Callable]) -> Optional[Callable]:
         """`fn` with its parse time booked as `pack`."""

@@ -13,8 +13,16 @@ Batches parse into the wire format `--wire_format` asks for (plain,
 compact or dedup; `resolve_wire_format` falls back where the zoo lacks
 a feed), for training, evaluation and prediction tasks alike.  A
 SAVE_MODEL task checkpoints and, when its rider names an output
-directory, exports a snapshot of the model (`export_for_task`).  The
-remesh path, TensorBoard scalars, `--profile_dir` traces and the program
+directory, exports a snapshot of the model (`export_for_task`).
+
+Observability, as in the JAX worker: with a `tensorboard_dir` each
+training task writes `train/loss` (one device read per task, not per
+step) and `train/steps_per_sec`, and each evaluation task its shard's
+`eval/<name>` (common/summary.py); with a `profile_dir` the first
+training task this worker runs is traced (common/profiler.py
+`trace`, under a `task-<id>` annotation, the device synchronized before
+the trace closes).  The Local runner gives `profile_dir` to worker 0
+only: one process, one profiler.  The remesh path and the program
 registry binding wait for their slices of the port.
 """
 
@@ -27,7 +35,9 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from elasticdl_tpu_torch.common import events
+import torch
+
+from elasticdl_tpu_torch.common import events, profiler
 from elasticdl_tpu_torch.common.export import export_model
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_handler import (
@@ -35,6 +45,7 @@ from elasticdl_tpu_torch.common.model_handler import (
     resolve_wire_format,
 )
 from elasticdl_tpu_torch.common.profiler import PhaseTimer, StepTimer
+from elasticdl_tpu_torch.common.summary import SummaryWriter
 from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.worker.sync import ModelOwner
 from elasticdl_tpu_torch.worker.trainer import STORE_KEYS
@@ -130,6 +141,8 @@ class Worker:
         wire_format: str = "",
         phase_timer: Optional[PhaseTimer] = None,
         validation_reader=None,
+        tensorboard_dir: str = "",
+        profile_dir: str = "",
     ):
         self.worker_id = worker_id
         self.spec = spec
@@ -165,6 +178,13 @@ class Worker:
         self.step_timer = StepTimer()
         self.predictions: Dict[int, np.ndarray] = {}
         self._stop_requested = False
+        self._summary = SummaryWriter(tensorboard_dir or None)
+        # --profile_dir: one task's trace, then no more (always-on
+        # tracing would drag the hot loop)
+        self._profile_dir = profile_dir
+        self._profiled = False
+        # the path of the trace written, once it is
+        self.profile_trace: Optional[str] = None
 
     # ---- loops ---------------------------------------------------------
 
@@ -189,6 +209,7 @@ class Worker:
                             self.worker_id)
                 if self.step_timer.steps_per_sec:
                     self.step_timer.log(f"worker {self.worker_id}: ")
+                self._summary.close()
                 invoke_callbacks(self.spec.callbacks, "on_job_end")
                 return True
             if task is None:
@@ -257,6 +278,20 @@ class Worker:
         self.phase_timer.step_done()
 
     def _train_task(self, task: pb.Task) -> int:
+        if self._profile_dir and not self._profiled:
+            self._profiled = True
+            cuda = self._owner.trainer.device.type == "cuda"
+            with profiler.trace(self._profile_dir, cuda=cuda,
+                                name=f"task-{task.task_id}") as path:
+                with profiler.annotate(f"task-{task.task_id}"):
+                    records = self._train_task_inner(task)
+                if cuda:
+                    torch.cuda.synchronize()
+            self.profile_trace = path
+            return records
+        return self._train_task_inner(task)
+
+    def _train_task_inner(self, task: pb.Task) -> int:
         records = 0
         pending = []
         # single-step dispatch stages batch k+1 on the device while batch
@@ -295,6 +330,13 @@ class Worker:
             self._train_step(batch)
         # the task boundary must not strand accumulated phase time
         self.phase_timer.flush()
+        if self._summary.active and self.losses:
+            # one scalar write per task: reading the loss every step
+            # would wait on the device every step
+            self._summary.scalars(
+                {"train/loss": float(self.losses[-1]),
+                 "train/steps_per_sec": self.step_timer.steps_per_sec},
+                step=self._owner.step)
         return records
 
     def _evaluate_task(self, task: pb.Task) -> int:
@@ -330,6 +372,8 @@ class Worker:
             report_evaluation_with_samples(
                 self._client, self.worker_id, version, metrics, records,
                 labels, preds, task_id=task.task_id)
+            self._summary.scalars(
+                {f"eval/{k}": v for k, v in metrics.items()}, step=version)
         return records
 
     def _predict_task(self, task: pb.Task) -> int:

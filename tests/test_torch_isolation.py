@@ -97,6 +97,17 @@ ZOO_MODULES = (
 )
 
 
+# the resilience slice: faults, retries, constants, summaries and the
+# native TFRecord scanner's bindings
+RESILIENCE_MODULES = (
+    "elasticdl_tpu_torch.common.constants",
+    "elasticdl_tpu_torch.common.faults",
+    "elasticdl_tpu_torch.common.resilience",
+    "elasticdl_tpu_torch.common.summary",
+    "elasticdl_tpu_torch.data.native_io",
+)
+
+
 def test_every_port_module_imports_with_jax_and_reference_blocked():
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -107,9 +118,10 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
     names = proc.stdout.strip().splitlines()[-1].split()
     # every module of the slices, down to the BERT zoo's data writer and
     # the serving front end
-    assert len(names) >= 59 + len(ZOO_MODULES)
+    assert len(names) >= 59 + len(ZOO_MODULES) + len(RESILIENCE_MODULES)
     assert set(SERVING_MODULES) <= set(names)
     assert set(ZOO_MODULES) <= set(names)
+    assert set(RESILIENCE_MODULES) <= set(names)
 
 
 @pytest.mark.parametrize(
@@ -129,6 +141,25 @@ def test_no_import_of_jax_or_the_reference_anywhere_in_source(path):
             assert not _blocked(name), (
                 f"{os.path.relpath(path, REPO)}:{node.lineno} imports "
                 f"{name}")
+
+
+def test_no_port_source_reaches_the_reference_native_directory():
+    """The native scanner builds from the port's own copy of the C++
+    source (elasticdl_tpu_torch/hostsrc/), never from the JAX package's
+    native/ directory, not even lazily."""
+    from elasticdl_tpu_torch.data import native_io
+    from elasticdl_tpu_torch.ops import _build
+
+    host = os.path.join(PACKAGE, "hostsrc")
+    paths = _port_sources() + [os.path.join(host, f)
+                               for f in os.listdir(host)]
+    for path in paths:
+        text = open(path).read()
+        assert "native/" not in text, os.path.relpath(path, REPO)
+        assert "'native'" not in text and '"native",' not in text, \
+            os.path.relpath(path, REPO)
+    assert str(_build.HOSTSRC_DIR) == host
+    assert os.path.isfile(os.path.join(host, native_io.SOURCE))
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):

@@ -273,11 +273,20 @@ def test_cli_module_runs_as_a_program(data, tmp_path):
     assert "Job succeeded" in proc.stderr
 
 
-def test_cli_rejects_and_raises(data, monkeypatch):
+def test_cli_rejects_and_raises(data, monkeypatch, tmp_path):
     train_dir, val_dir = data
-    with pytest.raises(SystemExit):
-        cli.main(["train", *_flags(train_dir, val_dir), "--device", "cpu",
-                  "--tensorboard_log_dir", "/tmp/tb"])
+    # --tensorboard_log_dir is accepted; without the tensorboard package
+    # the writers are inert and the job runs as it would without it
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    tb = tmp_path / "tb"
+    job = api.run_local(cli.parse_args(
+        ["train", *_flags(train_dir, val_dir), "--device", "cpu",
+         "--tensorboard_log_dir", str(tb)]), "train")
+    assert job.exit_code == 0
+    assert not job.master.eval_summary.active
+    assert "tensorboard unavailable" in job.master.eval_summary.reason
+    assert not any(w._summary.active for w in job.workers)
+    assert not tb.exists()
     for bad in (["--device", "tpu"], ["--wire_format", "bogus"],
                 ["--arena_dtype", "int4"]):
         with pytest.raises(SystemExit):

@@ -348,6 +348,46 @@ def test_batcher_reruns_a_split_request_that_straddles_a_swap():
     batcher.shutdown()
 
 
+class ClockedSwappingEngine(SwappingEngine):
+    """A SwappingEngine whose every call takes one second of a fake
+    clock, the batcher's clock."""
+
+    def __init__(self):
+        super().__init__()
+        self.now = 0.0
+
+    def clock(self):
+        return self.now
+
+    def predict(self, features, rows):
+        out = super().predict(features, rows)
+        self.now += 1.0
+        return out
+
+
+def test_batcher_times_a_rerun_request_once_from_its_first_enqueue():
+    """A rerun request of 3 chunks adds 3 latency samples, each the
+    client's whole wait (6 calls of one second), and counts one rerun."""
+    engine = ClockedSwappingEngine()
+    batcher = DynamicBatcher(engine, max_latency_s=0.0, clock=engine.clock)
+    samples = []
+    record = batcher.metrics.latency.record
+
+    def recorded(value):
+        samples.append(value)
+        record(value)
+
+    batcher.metrics.latency.record = recorded
+    result = batcher.submit(_req(18)).result(timeout=5)
+    assert result.code == OK and result.model_step == 8
+    assert [rows for rows, _ in engine.calls] == [8, 8, 2] * 2
+    assert samples == [6.0] * 3
+    snap = batcher.metrics.snapshot()
+    assert snap["split_reruns"] == 1.0
+    assert batcher.metrics.latency.snapshot()["count"] == 3
+    batcher.shutdown()
+
+
 def test_batcher_rejects_oversized_by_policy(fake):
     batcher = DynamicBatcher(fake, max_latency_s=0.005,
                              reject_oversized=True)

@@ -5,6 +5,8 @@ the counters match exactly (an integer path), the merged eval metrics
 within 1e-6 (the same float64 rank sums over the same float32 samples;
 the bound only absorbs summation order)."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -194,9 +196,19 @@ def test_create_shards_from_ranges_matches():
         assert got == want
 
 
-def test_waiting_parts_raise():
-    with pytest.raises(NotImplementedError, match="journal"):
-        port_tm.TaskManager(persist_path="/tmp/x.json")
+def test_waiting_parts_raise(tmp_path):
+    """The journal runs now (persist_path writes task_state.json from
+    construction on); perpetual windows still wait for the online
+    loop."""
+    path = tmp_path / "task_state.json"
+    tm = port_tm.TaskManager(
+        training_shards=port_tm.create_shards_from_ranges(SOURCES, 9),
+        persist_path=str(path))
+    assert json.loads(path.read_text())["epoch"] == 1
+    task = tm.get(0)
+    tm.report(task.task_id, success=True, records=9, model_version=3)
+    assert json.loads(path.read_text())["done_training_shards"] == [
+        [task.shard.name, task.shard.start, task.shard.end, 3]]
     with pytest.raises(NotImplementedError, match="perpetual"):
         port_tm.TaskManager(perpetual=True)
 

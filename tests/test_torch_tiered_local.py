@@ -158,8 +158,11 @@ def test_a_resumed_job_restores_the_store(data, tmp_path):
     first, store = _port_job(train_dir, "--checkpoint_dir", ckpt,
                              "--checkpoint_steps", "8")
     vocab = store.host.state_dict()
+    # the task journal beside the checkpoints marks the first epoch done,
+    # so the relaunch that trains is a second epoch on the same ids
     again, resumed = _port_job(train_dir, "--checkpoint_dir", ckpt,
-                               "--checkpoint_steps", "8")
+                               "--checkpoint_steps", "8",
+                               "--num_epochs", "2")
     # restored before its first plan (deferred), so the same ids grow
     # nothing
     assert resumed.deferred_prepare and again.owner.step == 16
