@@ -185,6 +185,31 @@
    and the whole job's wall, data_wait and pack (the jobs read in
    Python; the native pass is a comparison).  (b) and (c) run beside (a)'s
    subprocess, so their times are taken under that overlap.
+16. Streams and judgment (`stream_judgment`, after `resilient_local`;
+   budget 25 s).  (a) 32 windows of a ClickStreamSource (the JAX online
+   loop's shape: 128 records a window, 32 a task, 64 a poll, 512 users x
+   128 items, a 64-window buffer) through a StreamReader and a journaled
+   TaskManager(perpetual=True) into ctr_mlp's Trainer on the card, one
+   fake clock throughout: a stalled `stream.poll`, a skipped `task.rearm`
+   (the window is offered again and arms once), a burst poll past the
+   buffer's cap that drops an armed window, which `restore_window`
+   replays from the ledger record for record, and a restart of the task
+   manager from its journal mid-window.  32 windows armed and released,
+   none lost, no duplicate report; a WindowLineage tapped before the
+   first poll decomposes every window's ingest_wait and arm_wait (later
+   phases wait for the online loop).  A second run must give the same
+   events (bar wall-time fields) and parameters bit for bit, and the
+   first window's losses must equal the CPU's from the same weights
+   within 1e-5.  (b) local_deepfm's train job with `--history_interval
+   0.5 --slo_interval 0.5 --incident_dir`: in the AUC band, 64
+   scatter-add launches, its final `state.pt` bit for bit local_deepfm's,
+   all four SLOs `no_data`, a manual bundle read back; then a freshness
+   drill: (a)'s checkpoints produced one by one through a CheckpointSaver
+   and served by a ServingEngine + CheckpointReloader, each predict's
+   step into a FreshnessTracker, its registry into a MetricHistory, the
+   staleness_p99 SLO `ok` while reloads keep up and `breach` once a
+   reload is held past the 30 s objective, and exactly one slo_breach
+   bundle from the flight recorder.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
@@ -220,6 +245,17 @@ from elasticdl_tpu_torch.common.faults import (  # noqa: E402
     FaultSpec,
 )
 from elasticdl_tpu_torch.common.export import feature_meta  # noqa: E402
+from elasticdl_tpu_torch.common.flight import (  # noqa: E402
+    FlightRecorder,
+    list_bundles,
+    load_bundle,
+)
+from elasticdl_tpu_torch.common.history import MetricHistory  # noqa: E402
+from elasticdl_tpu_torch.common.lineage import (  # noqa: E402
+    WindowLineage,
+    decompose,
+    from_events,
+)
 from elasticdl_tpu_torch.common.model_handler import (  # noqa: E402
     ZOO_DIR,
     get_model_spec,
@@ -270,13 +306,23 @@ from elasticdl_tpu_torch.common.save_utils import (  # noqa: E402
     ArenaDtypeMismatch,
     CheckpointSaver,
     committed_steps,
+    read_produced_meta,
+)
+from elasticdl_tpu_torch.common.slo import (  # noqa: E402
+    SLO_NAMES,
+    SloEvaluator,
+    shipped_specs,
 )
 from elasticdl_tpu_torch.data import native_io, record_io  # noqa: E402
 from elasticdl_tpu_torch.data.reader import (  # noqa: E402
+    ClickStreamSource,
     MemoryDataReader,
+    StreamReader,
     TFRecordDataReader,
     register_data_reader,
 )
+from elasticdl_tpu_torch.master.freshness import FreshnessTracker  # noqa: E402,E501
+from elasticdl_tpu_torch.master.task_manager import TaskManager  # noqa: E402,E501
 from elasticdl_tpu_torch.model_zoo.census import data as census_data  # noqa: E402,E501
 from elasticdl_tpu_torch.model_zoo.census import (  # noqa: E402
     wide_and_deep as census_zoo,
@@ -2307,6 +2353,491 @@ def resilient_local(card: str, work: str, served: dict):
     return out, launches
 
 
+# ---- stream_judgment: the stream reader, perpetual windows, judgment ----
+
+# The online loop's shape (the JAX package's online/pipeline.py
+# OnlineConfig defaults): 128 records a window, 32 a task, 64 a poll,
+# 512 users x 128 items, a buffer of 64 windows, a checkpoint every 2
+# windows; ctr_mlp through the Trainer.
+STREAM_WINDOWS = 32
+STREAM_WINDOW_RECORDS = 128
+STREAM_TASK_RECORDS = 32
+STREAM_POLL_RECORDS = 64
+STREAM_USERS, STREAM_ITEMS = 512, 128
+STREAM_BUFFER = 64
+STREAM_CKPT_EVERY = 2
+STREAM_TASKS_PER_TICK = 2        # a window every 2 ticks: training keeps up
+STREAM_POLL_S = 0.5              # fake seconds between two polls
+STREAM_TASK_S = 0.05             # fake seconds a trained task takes
+STREAM_T0 = 1_700_000_000.0
+# The injected schedule: the 4th poll stalls (raise) and the 3rd arm is
+# skipped (its window is offered again the next tick).  Once 9 windows
+# have sealed, one poll pulls enough records to fill the 64-window buffer
+# past its cap, so it drops its oldest window, armed and not yet trained,
+# which the ledger then replays.  After 66 tasks (two of window 16's) the
+# task manager restarts from its journal.
+STREAM_STALL_HIT = 3
+STREAM_REARM_HIT = 2
+STREAM_DROP_AFTER = 9
+STREAM_TASKS_PER_WINDOW = STREAM_WINDOW_RECORDS // STREAM_TASK_RECORDS
+STREAM_RESTART_TASKS = 16 * STREAM_TASKS_PER_WINDOW + 2
+STREAM_MAX_TICKS = 400
+STREAM_CPU_LOSS_TOL = 1e-5       # f32 MLP, 4 Adam steps, card vs CPU
+# span-event fields that are wall time, not the stream's fake clock
+WALL_FIELDS = ("ts", "pid", "capture_s", "write_s")
+# (b): the Local judgment job's loops and the freshness drill
+JUDGE_INTERVAL_S = 0.5
+FRESH_TICK_S = 5.0
+FRESH_KEEP_UP_TICKS = 6
+FRESH_HOLD_TICKS = 12            # 60 fake seconds, twice the objective
+FRESH_RESUME_TICKS = 2
+FRESH_PREDICTS = 4               # a tick
+FRESH_ROWS = 16
+FRESH_STALENESS_S = 30.0         # the drill's --slo_staleness_p99_s
+
+
+class FakeClock:
+    """One clock for the source, reader, task manager, lineage and SLO
+    loops; only `advance` moves it."""
+
+    def __init__(self, start: float):
+        self.now = float(start)
+
+    def __call__(self) -> float:
+        return self.now
+
+    def advance(self, dt: float) -> None:
+        self.now += dt
+
+
+def stream_schedule() -> FaultRegistry:
+    return FaultRegistry([
+        FaultSpec(faults.POINT_STREAM_POLL, STREAM_STALL_HIT, "raise"),
+        FaultSpec(faults.POINT_TASK_REARM, STREAM_REARM_HIT, "raise")],
+        seed=SEED)
+
+
+def _stable_events(records) -> list:
+    return [{k: v for k, v in r.items() if k not in WALL_FIELDS}
+            for r in records]
+
+
+def _window_content(records) -> list:
+    """(user, item, clicked) of each record: a replay restores the data
+    and stamps every record with the window's watermark, not the event
+    time each poll stamped."""
+    return [(r["user"], r["item"], r["clicked"]) for r in records]
+
+
+def _window_records(reader, name: str, n: int) -> list:
+    task = pb.Task(shard=pb.Shard(name=name, start=0, end=n))
+    return list(reader.read_records(task))
+
+
+class _StreamRun:
+    """The bookkeeping of one stream run: the windows sealed, offered,
+    armed and left to train, and what happened to them."""
+
+    def __init__(self, windows: int, journal: str):
+        self.windows = windows
+        self.journal = journal
+        self.pending = []      # sealed windows not yet armed, oldest first
+        self.names = {}        # window id -> name, once armed
+        self.left = {}         # window name -> tasks not yet reported
+        self.sealed = {}       # window id -> its records as sealed
+        self.losses = []
+        self.restored = []
+        self.restarts = 0
+        self.tasks = self.records = self.released = 0
+        self.burst = False
+
+
+def _stream_tick(run, clock, reader, tm, trainer, spec, state, saver):
+    """One tick of the loop: poll (or the burst), arm one window, train
+    up to STREAM_TASKS_PER_TICK tasks; returns (state, tm)."""
+    clock.advance(STREAM_POLL_S)
+    snap = reader.snapshot()
+    if not run.burst and snap["windows_sealed"] == STREAM_DROP_AFTER \
+            and run.windows > STREAM_DROP_AFTER:
+        # exactly enough records to seal one window past the cap
+        run.burst = True
+        reader.poll((STREAM_BUFFER + 1 - snap["buffered_windows"])
+                    * STREAM_WINDOW_RECORDS - snap["pending_records"])
+    elif snap["windows_sealed"] < run.windows:
+        reader.poll()
+    for w in reader.take_new_windows():
+        if w.window_id < run.windows:
+            run.pending.append(w)
+            run.sealed[w.window_id] = list(w.records)
+    if run.pending:
+        w = run.pending[0]
+        n = tm.arm_window(w.name, len(w.records), STREAM_TASK_RECORDS,
+                          watermark_unix_s=w.watermark_unix_s,
+                          window_id=w.window_id, start_index=w.start_index)
+        if n is not None:          # None: task.rearm skipped this offer
+            run.pending.pop(0)
+            run.names[w.window_id] = w.name
+            run.left[w.name] = n
+    for _ in range(STREAM_TASKS_PER_TICK):
+        task = tm.get(0)
+        if task is None:
+            break
+        name = task.shard.name
+        try:
+            batch = list(reader.read_records(task))
+        except LookupError:
+            # the buffer dropped it: replay it from the ledger
+            (entry,) = [e for e in tm.open_windows() if e["name"] == name]
+            ok = reader.restore_window(
+                name, entry["window_id"], entry["start"],
+                entry["records"], entry["watermark"])
+            run.restored.append({
+                "window": entry["window_id"], "ok": ok,
+                "exact": _window_content(_window_records(
+                    reader, name, entry["records"]))
+                == _window_content(run.sealed[entry["window_id"]])})
+            batch = list(reader.read_records(task))
+        state, loss = trainer.train_on_batch(
+            state, spec.feed(batch, reader.metadata))
+        run.losses.append(float(loss))
+        clock.advance(STREAM_TASK_S)
+        tm.report(task.task_id, True, worker_id=0, records=len(batch),
+                  model_version=int(state.step))
+        run.tasks += 1
+        run.records += len(batch)
+        run.left[name] -= 1
+        if not run.left[name]:
+            (wid,) = [k for k, v in run.names.items() if v == name]
+            if not (tm.release_window(wid) and reader.release_window(name)):
+                raise AssertionError(f"window {wid}: release not acked")
+            run.released += 1
+            if run.released % STREAM_CKPT_EVERY == 0:
+                saver.save(state)
+                saver.wait_until_finished()
+        if run.tasks == STREAM_RESTART_TASKS:
+            # a master restart: a new manager over the journal (and its
+            # predecessor's registry) re-arms the open windows' undone
+            # shards
+            tm = TaskManager(perpetual=True, persist_path=run.journal,
+                             clock=clock,
+                             metrics_registry=tm.counters.registry)
+            run.restarts += 1
+            run.left = {e["name"]: len(range(0, e["records"],
+                                             e["per_task"])) - len(e["done"])
+                        for e in tm.open_windows()}
+    return state, tm
+
+
+def stream_train(device: str, root: str, windows: int = STREAM_WINDOWS,
+                 init=None) -> dict:
+    """Train `windows` stream windows on `device`: ClickStreamSource ->
+    StreamReader -> TaskManager(perpetual=True, journaled) -> leases ->
+    read_records -> ctr_mlp's feed -> Trainer.train_on_batch -> report
+    -> release, a checkpoint every STREAM_CKPT_EVERY windows, under one
+    fake clock and the injected schedule.  `init` is a state dict to
+    start from (else the seed's init).  Returns the run's numbers, its
+    tapped event stream, losses and final parameters."""
+    os.makedirs(root)
+    clock = FakeClock(STREAM_T0)
+    spec = get_model_spec(ZOO_DIR, CTR)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, device=device)
+    source = ClickStreamSource(
+        seed=SEED, users=STREAM_USERS, items=STREAM_ITEMS,
+        records_per_poll=STREAM_POLL_RECORDS, clock=clock)
+    reader = StreamReader(source, window_records=STREAM_WINDOW_RECORDS,
+                          max_buffered_windows=STREAM_BUFFER, clock=clock)
+    state = trainer.init_state(SEED, spec.feed(source.records(
+        0, STREAM_TASK_RECORDS))["features"])
+    if init is not None:
+        state.model.load_state_dict(init)
+    init_weights = {k: v.detach().cpu().clone()
+                    for k, v in state.model.state_dict().items()}
+    saver = CheckpointSaver(os.path.join(root, "ckpt"), keep_max=0,
+                            clock=clock)
+    run = _StreamRun(windows, os.path.join(root, "task_state.json"))
+    seen = []
+    lineage = WindowLineage(clock=clock)
+    events.add_observer(seen.append)
+    lineage.install()      # before the first poll
+    faults.install(stream_schedule())
+    try:
+        tm = TaskManager(perpetual=True, persist_path=run.journal,
+                         clock=clock)
+        t0 = time.perf_counter()
+        for _ in range(STREAM_MAX_TICKS):
+            if run.released == windows:
+                break
+            state, tm = _stream_tick(run, clock, reader, tm, trainer,
+                                     spec, state, saver)
+        else:
+            raise AssertionError(f"{run.released} of {windows} windows "
+                                 f"released in {STREAM_MAX_TICKS} ticks")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        fault_stats = faults.stats()
+    finally:
+        faults.uninstall()
+        lineage.close()
+        events.remove_observer(seen.append)
+        saver.close()
+    stable = _stable_events(seen)
+    decomps = {wid: decompose(s) for wid, s in
+               from_events(stable).items() if wid < windows}
+    closed = {p: sorted(d["phases"][p] for d in decomps.values()
+                        if p in d["phases"])
+              for p in ("ingest_wait", "arm_wait")}
+    return {
+        "windows": windows, "tasks": run.tasks, "records": run.records,
+        "released": run.released, "restarts": run.restarts,
+        "restored": run.restored, "wall_s": wall_s, "losses": run.losses,
+        "online": tm.online_snapshot(), "reader": reader.snapshot(),
+        "stream_lag_gauge_s": tm.counters.registry.value(
+            "master_stream_watermark_lag_seconds"),
+        "faults": fault_stats,
+        "lineage": lineage.snapshot(),
+        "lineage_windows": sorted(decomps),
+        "decomposed": all({"ingest_wait", "arm_wait"} <= set(d["phases"])
+                          for d in decomps.values()),
+        "open_at": sorted({d["blocked_phase"] for d in decomps.values()}),
+        "phase_quantiles_s": {
+            p: {"p50": v[len(v) // 2],
+                "p99": v[min(len(v) - 1, int(0.99 * len(v)))]}
+            for p, v in closed.items() if v},
+        "events": stable,
+        "params": {k: v.detach().cpu().clone()
+                   for k, v in state.model.state_dict().items()},
+        "init": init_weights,
+        "ckpt": os.path.join(root, "ckpt"),
+        "steps": int(state.step),
+    }
+
+
+def check_stream(run: dict) -> None:
+    online, reader, windows = run["online"], run["reader"], run["windows"]
+    fired = run["faults"].get("by_action", {})
+    problems = [what for what, bad in (
+        ("windows armed", online["windows_armed"] != windows),
+        ("windows released", online["windows_released"] != windows
+         or run["released"] != windows),
+        ("windows lost", online["windows_lost"] != 0),
+        ("duplicate reports", online["duplicate_reports"] != 0),
+        ("tasks", run["tasks"] != windows * STREAM_TASKS_PER_WINDOW),
+        ("records", run["records"] != windows * STREAM_WINDOW_RECORDS),
+        ("steps", run["steps"] != run["tasks"]),
+        ("stall", reader["poll_faults"] != 1 or fired.get("raise") != 2),
+        ("rearm fault", online["rearm_faults"] != 1),
+        ("drop", reader["dropped_windows"] != 1
+         or reader["replayed_windows"] != 1),
+        ("replay", [(r["ok"], r["exact"]) for r in run["restored"]]
+         != [(True, True)]),
+        ("restart", run["restarts"] != 1),
+        ("lineage", run["lineage_windows"] != list(range(windows))
+         or not run["decomposed"] or run["open_at"] != ["train"]),
+    ) if bad]
+    if problems:
+        summary = {k: v for k, v in run.items()
+                   if k not in ("events", "params", "init", "losses")}
+        raise AssertionError(f"stream run: {problems}: {summary}")
+
+
+def freshness_drill(card: str, root: str, stream: dict, args,
+                    device: str = "cuda") -> dict:
+    """(b) 2: the stream's checkpoints produced one by one into a
+    serving directory by a CheckpointSaver on the fake clock (its
+    `produced` stamp), served in process by a ServingEngine and a
+    CheckpointReloader; each predict's served step feeds a
+    FreshnessTracker, whose registry a MetricHistory samples for an
+    SloEvaluator over the shipped SLOs, whose breach a FlightRecorder
+    captures.  The reloads keep up, then one step's reload is held past
+    the objective, then they resume."""
+    clock = FakeClock(STREAM_T0 + 10_000.0)
+    spec = get_model_spec(ZOO_DIR, CTR)
+    source = CheckpointSaver(stream["ckpt"])
+    steps = iter(source.all_steps())
+    rng = np.random.default_rng(SEED)
+    features = {"features": ctr_zoo.encode(
+        rng.integers(0, STREAM_USERS, FRESH_ROWS),
+        rng.integers(0, STREAM_ITEMS, FRESH_ROWS))}
+    template = build_state_template(spec, features["features"], device)
+    serve_dir = os.path.join(root, "serving")
+    incident_dir = os.path.join(root, "incidents")
+    saver = CheckpointSaver(serve_dir, keep_max=3, clock=clock)
+    tracker = FreshnessTracker(
+        clock=clock,
+        produced_time_fn=lambda s: (read_produced_meta(serve_dir, s)
+                                    or {}).get("produced_unix_s"))
+    history = MetricHistory(registries=[tracker.metrics_registry],
+                            capacity=args.history_capacity, clock=clock)
+    evaluator = None
+    recorder = FlightRecorder(
+        incident_dir=incident_dir, ring_capacity=args.incident_ring,
+        max_bundles=args.incident_max_bundles, history=history,
+        snapshot_fn=lambda: {"freshness": tracker.snapshot(),
+                             "slo": evaluator.report()}).install()
+    evaluator = SloEvaluator(history, specs=shipped_specs(args),
+                             clock=clock, on_breach=recorder.breach)
+
+    def produce():
+        step = next(steps)
+        state = source.restore_step(step, template)
+        if state is None or not saver.save(state):
+            raise AssertionError(f"could not produce step {step}")
+        saver.wait_until_finished()
+        tracker.note_produced(step)
+
+    plan = (["keep_up"] * FRESH_KEEP_UP_TICKS + ["hold"] * FRESH_HOLD_TICKS
+            + ["resume"] * FRESH_RESUME_TICKS)
+    states, served = [], []
+    try:
+        produce()
+        engine = ServingEngine.from_checkpoint(
+            serve_dir, spec, features["features"], device=device)
+        reloader = CheckpointReloader(engine, serve_dir)
+        for i, mode in enumerate(plan):
+            clock.advance(FRESH_TICK_S)
+            if mode == "keep_up" or plan[i - 1] == "keep_up":
+                produce()      # the first hold tick's step stays unserved
+            if mode != "hold":
+                reloader.check_once()
+            for _ in range(FRESH_PREDICTS):
+                _, step = engine.predict(features, FRESH_ROWS)
+                tracker.observe_response(step)
+                served.append(step)
+            history.tick()
+            evaluator.tick()
+            states.append([mode, evaluator.state("staleness_p99")])
+        recorder.flush()
+    finally:
+        recorder.close()
+        saver.close()
+        source.close()
+    bundles = list_bundles(incident_dir)
+    loaded = load_bundle(bundles[0]["path"]) if bundles else {}
+    out = {"card": card, "served_steps": sorted(set(served)),
+           "reloads": reloader.reload_count, "states": states,
+           "decisions": evaluator.decisions,
+           "freshness": tracker.snapshot(),
+           "bundles": [b["bundle"] for b in bundles],
+           "bundle_evidence": loaded.get("manifest", {}).get("evidence"),
+           "bundle_sections": sorted(loaded),
+           "objective_s": args.slo_staleness_p99_s}
+    keep_up = {s for m, s in states if m == "keep_up"}
+    hold = [s for m, s in states if m == "hold"]
+    if keep_up != {"ok"} or "breach" not in hold or \
+            out["bundles"] != ["incident-0001-slo_breach"] or \
+            (out["bundle_evidence"] or {}).get("slo") != "staleness_p99":
+        raise AssertionError(f"the freshness drill: {out}")
+    return out
+
+
+def judgment_job(card: str, root: str, served: dict) -> tuple:
+    """(b) 1: local_deepfm's train job with the judgment flags.  The
+    master's history and SLO threads run and its flight recorder taps
+    the events; the job must end on local_deepfm's final state, bit for
+    bit."""
+    ckpt = os.path.join(root, "ckpt")
+    incident_dir = os.path.join(root, "incidents")
+    argv = resilient_argv(
+        served["train_dir"], served["val_dir"], "--checkpoint_dir", ckpt,
+        "--checkpoint_steps", str(LOCAL_CKPT_STEPS),
+        "--keep_checkpoint_max", str(LOCAL_KEEP),
+        "--history_interval", str(JUDGE_INTERVAL_S),
+        "--slo_interval", str(JUDGE_INTERVAL_S),
+        "--incident_dir", incident_dir)
+    job, launches, wall = run_counted(cli.parse_args(argv))
+    summary = job_summary(job, wall, launches, card)
+    snap = job.master.snapshot()
+    bundle = load_bundle(job.master.flight_recorder.capture(
+        "manual", {"phase": "stream_judgment"}))
+    summary.update({
+        "failed_tasks": job.master.task_manager.counters.failed,
+        "slo_states": snap["slo"]["states"],
+        "slo_ticks": snap["slo"]["ticks"],
+        "history": snap["slo"]["history"],
+        "flight": snap["flight"],
+        "bundles": [b["bundle"] for b in list_bundles(incident_dir)],
+        "bundle_sections": sorted(bundle),
+        "versus_local_deepfm": state_gap(
+            os.path.join(served["ckpt"], str(LOCAL_STEPS), "state.pt"),
+            os.path.join(ckpt, str(LOCAL_STEPS), "state.pt"))})
+    del job
+    if summary["exit_code"] != 0 or summary["failed_tasks"] or \
+            launches != 2 * LOCAL_STEPS or \
+            not AUC_BAND[0] <= (summary["auc"] or 0) <= AUC_BAND[1] or \
+            summary["slo_states"] != {
+                name: "no_data" for name in SLO_NAMES} or \
+            summary["history"]["samples"] < 1 or summary["slo_ticks"] < 1 \
+            or \
+            summary["bundles"] != ["incident-0001-manual"] or \
+            bundle["manifest"]["trigger"] != "manual" or \
+            "master" not in bundle or \
+            not summary["versus_local_deepfm"]["bitwise"]:
+        raise AssertionError(f"the judgment job: {summary}")
+    return summary, launches
+
+
+def stream_judgment(card: str, work: str, served: dict):
+    """(a) 32 stream windows trained on the card, twice (bit for bit),
+    the first window against the CPU; (b) the Local DeepFM job with the
+    judgment flags, and the freshness drill.  Returns (summary, the
+    judgment job's scatter-add launches)."""
+    root = os.path.join(work, "stream_judgment")
+    t0 = time.perf_counter()
+    first = stream_train("cuda", os.path.join(root, "run1"))
+    check_stream(first)
+    second = stream_train("cuda", os.path.join(root, "run2"))
+    rerun = {
+        "events_equal": second["events"] == first["events"],
+        "params_bitwise": all(torch.equal(first["params"][k],
+                                          second["params"][k])
+                              for k in first["params"]),
+        "losses_equal": second["losses"] == first["losses"],
+        "events": len(first["events"])}
+    cpu = stream_train("cpu", os.path.join(root, "cpu"), windows=1,
+                       init=first["init"])
+    head = first["losses"][:STREAM_TASKS_PER_WINDOW]
+    cpu_err = max(abs(a - b) for a, b in zip(cpu["losses"], head))
+    a_s = time.perf_counter() - t0
+    stream = {k: v for k, v in first.items()
+              if k not in ("events", "params", "init", "losses")}
+    stream.update({"card": card, "rerun": rerun,
+                   "second_wall_s": second["wall_s"],
+                   "cpu_first_window_losses": cpu["losses"],
+                   "first_window_losses": head,
+                   "cpu_loss_max_abs_err": cpu_err,
+                   "cpu_loss_tol": STREAM_CPU_LOSS_TOL,
+                   "last_loss": first["losses"][-1]})
+    print(json.dumps({"stream_train": stream}), flush=True)
+    if not (rerun["events_equal"] and rerun["params_bitwise"]
+            and rerun["losses_equal"]) or \
+            len(cpu["losses"]) != STREAM_TASKS_PER_WINDOW or \
+            cpu_err > STREAM_CPU_LOSS_TOL:
+        raise AssertionError(f"the stream's rerun or CPU check: {stream}")
+
+    t1 = time.perf_counter()
+    job, launches = judgment_job(card, os.path.join(root, "judgment"),
+                                 served)
+    print(json.dumps({"stream_judgment_job": job}), flush=True)
+    args = cli.parse_args(["train", "--slo_staleness_p99_s",
+                           str(FRESH_STALENESS_S)])
+    drill = freshness_drill(card, root, first, args)
+    print(json.dumps({"stream_freshness": drill}), flush=True)
+    b_s = time.perf_counter() - t1
+    walls = {"card": card, "a_s": a_s, "b_s": b_s,
+             "windows": first["windows"], "tasks": first["tasks"],
+             "records": first["records"],
+             "stream_lag_gauge_s": first["stream_lag_gauge_s"],
+             "lineage_p50_p99_s": first["phase_quantiles_s"],
+             "judgment_slo_states": job["slo_states"],
+             "judgment_bundles": len(job["bundles"]),
+             "drill_slo_states": [s for _, s in drill["states"]],
+             "drill_bundles": len(drill["bundles"])}
+    print(json.dumps({"stream_judgment": walls}), flush=True)
+    return {"stream": stream, "judgment_job": job, "freshness": drill,
+            "walls": walls}, launches
+
+
 def bert_launches() -> dict:
     return {"flash_attention_fwd": fa.flash_attention.launches,
             "flash_attention_fwd_by_variant":
@@ -3779,8 +4310,9 @@ class ClickReader(MemoryDataReader):
     """`clicks://N:SEED`: N seeded click dicts (user, item, clicked) from
     a planted signal: per-user and per-item propensities on the hashed
     buckets ctr_mlp encodes, and a user x item term (users and items of
-    one residue mod 4 click more).  The online loop's ClickStreamSource
-    is not ported yet (ROADMAP.md item 10); this stands in for it."""
+    one residue mod 4 click more).  The zoo job keeps this finite,
+    planted source for its accuracy band; the stream phase trains on
+    ClickStreamSource."""
 
     def __init__(self, data_dir: str = "", **kwargs):
         n, seed = (int(v) for v in data_dir.split(":"))
@@ -4223,6 +4755,8 @@ def run_phases(card: str, build: dict, work: str) -> int:
                                              card, work)
     resilient, resilient_launches = phase(
         "resilient_local", resilient_local, card, work, fm_served)
+    stream, stream_launches = phase("stream_judgment", stream_judgment,
+                                    card, work, fm_served)
     serve_fm = phase("serve_cli_deepfm", serve_cli_deepfm, card, fm_served)
     wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
     del buffers
@@ -4245,6 +4779,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
         "local_deepfm_dedup": local_launches["local_deepfm_dedup"],
         "local_deepfm_int8": local_launches["local_deepfm_int8"],
         **resilient_launches,
+        "stream_judgment": stream_launches,
         "wire_deepfm": wire_launches,
         "tiered_deepfm": tiered_launches,
         **local_t_launches,
@@ -4283,6 +4818,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
                    "serve": serve, "bert_f32_check": check,
                    "deepfm": deepfm, "local_deepfm": local,
                    "resilient_local": resilient,
+                   "stream_judgment": stream,
                    "wire_deepfm": wire, "serve_cli_deepfm": serve_fm,
                    "tiered_deepfm": tiered, "local_tiered": local_t,
                    "zoo_local": zoo,

@@ -35,8 +35,11 @@ gives the master and each worker a summary writer
 (`<dir>/master`, `<dir>/worker-<id>`); `--profile_dir` traces worker 0's
 first training task.
 
-The cluster strategies and the SLO loops wait for their slices of the
-port and raise NotImplementedError.
+With `--history_interval`, `--slo_interval` or `--incident_dir` the
+master also samples its metrics, judges the SLOs and keeps an incident
+flight recorder (master/main.py); `run_local` starts those threads and
+`Master.stop` ends them.  The cluster strategies wait for their slice
+of the port and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -142,54 +145,65 @@ def run_local(args, job_type: str = "train") -> LocalJob:
     faults.configure_from_env()
 
     master = Master(args)
-    client = InProcessMasterClient(master.servicer)
-    data_origin = {
-        "train": args.training_data,
-        "evaluate": args.validation_data,
-        "predict": args.prediction_data,
-    }[job_type]
-
-    def make_reader(origin=data_origin):
-        # one reader per worker thread: zoo readers promise no thread
-        # safety
-        if spec.custom_data_reader is not None:
-            return spec.custom_data_reader(data_origin=origin)
-        return create_data_reader(origin)
-
-    if job_type in ("evaluate", "predict"):
-        saver = CheckpointSaver(args.checkpoint_dir_for_init)
-        if saver.latest_step() is None:
-            raise ValueError(
-                f"--checkpoint_dir_for_init "
-                f"{args.checkpoint_dir_for_init!r} contains no checkpoint")
-    elif args.checkpoint_dir:
-        saver = CheckpointSaver(args.checkpoint_dir,
-                                keep_max=args.keep_checkpoint_max)
-    elif args.checkpoint_dir_for_init:
-        saver = CheckpointSaver(args.checkpoint_dir_for_init)
-    else:
-        saver = None
-
-    # one model for the whole job: every worker thread shares the owner
-    owner = ModelOwner(
-        Trainer(model=spec.model, optimizer=spec.optimizer,
-                loss_fn=spec.loss, use_bf16=args.use_bf16, device=device),
-        checkpoint_saver=saver,
-        checkpoint_steps=args.checkpoint_steps,
-    )
-    master.task_manager.maybe_finish_if_drained()
-    phase_timer = PhaseTimer()
-    store = None
-    if build_tiered_store is not None:
-        store = _attach_tiered_store(build_tiered_store, args, spec, owner,
-                                     saver, phase_timer)
     try:
-        return _run_workers(args, job_type, spec, master, client, owner,
-                            saver, phase_timer, make_reader)
-    finally:
-        if store is not None:
-            # drain the pending write-backs, then stop both threads
-            store.stop()
+        # the metric-history and SLO threads (only at an interval > 0)
+        master.start()
+        client = InProcessMasterClient(master.servicer)
+        data_origin = {
+            "train": args.training_data,
+            "evaluate": args.validation_data,
+            "predict": args.prediction_data,
+        }[job_type]
+
+        def make_reader(origin=data_origin):
+            # one reader per worker thread: zoo readers promise no thread
+            # safety
+            if spec.custom_data_reader is not None:
+                return spec.custom_data_reader(data_origin=origin)
+            return create_data_reader(origin)
+
+        if job_type in ("evaluate", "predict"):
+            saver = CheckpointSaver(args.checkpoint_dir_for_init)
+            if saver.latest_step() is None:
+                raise ValueError(
+                    f"--checkpoint_dir_for_init "
+                    f"{args.checkpoint_dir_for_init!r} contains no "
+                    "checkpoint")
+        elif args.checkpoint_dir:
+            saver = CheckpointSaver(args.checkpoint_dir,
+                                    keep_max=args.keep_checkpoint_max)
+        elif args.checkpoint_dir_for_init:
+            saver = CheckpointSaver(args.checkpoint_dir_for_init)
+        else:
+            saver = None
+
+        # one model for the whole job: every worker thread shares the
+        # owner
+        owner = ModelOwner(
+            Trainer(model=spec.model, optimizer=spec.optimizer,
+                    loss_fn=spec.loss, use_bf16=args.use_bf16,
+                    device=device),
+            checkpoint_saver=saver,
+            checkpoint_steps=args.checkpoint_steps,
+        )
+        master.task_manager.maybe_finish_if_drained()
+        phase_timer = PhaseTimer()
+        store = None
+        if build_tiered_store is not None:
+            store = _attach_tiered_store(build_tiered_store, args, spec,
+                                         owner, saver, phase_timer)
+        try:
+            return _run_workers(args, job_type, spec, master, client,
+                                owner, saver, phase_timer, make_reader)
+        finally:
+            if store is not None:
+                # drain the pending write-backs, then stop both threads
+                store.stop()
+    except BaseException:
+        # a job that fails to start still untaps its flight recorder and
+        # ends its judgment threads (stopping twice is harmless)
+        master.stop()
+        raise
 
 
 def _check_tiered(args, job_type: str) -> None:

@@ -2,17 +2,24 @@
 of the subset of the JAX package's common/args.py that `_train_local`
 and `serve` read).
 
-Flags outside the subset are absent, so argparse rejects them; none is
-accepted and then ignored.  A flag whose feature waits for a later slice
-of the port (a non-Local strategy) parses and then raises
-NotImplementedError where the job would use it.  The wire formats
-(`--wire_format plain|compact|dedup`, the legacy `--compact_wire`), the
-int8 arena (`--arena_dtype int8`), the tiered store's int8 cache
+Flags outside the subset are absent, so argparse rejects them.  A flag
+whose feature waits for a later slice of the port (a non-Local strategy)
+parses and then raises NotImplementedError where the job would use it;
+`--trace_sample_rate`, whose reader is the serving fleet (ROADMAP.md
+queue 1, item 10(b)), is the one flag that parses and is not read yet,
+as in the JAX package's Local jobs.  The wire formats (`--wire_format
+plain|compact|dedup`, the legacy `--compact_wire`), the int8 arena
+(`--arena_dtype int8`), the tiered store's int8 cache
 (`--store_cache_dtype int8`), `--output` (a train job's model export,
 common/export.py), the straggler flags, `--task_lease_timeout_s`,
 `--profile_dir` (a torch.profiler trace of worker 0's first training
-task) and `--tensorboard_log_dir` (scalars through
-torch.utils.tensorboard, inert without the tensorboard package) run.
+task), `--tensorboard_log_dir` (scalars through
+torch.utils.tensorboard, inert without the tensorboard package) and the
+judgment flags (`--history_interval`, `--history_capacity`,
+`--slo_interval`, `--slo_staleness_p99_s`, `--incident_dir`,
+`--incident_ring`, `--incident_max_bundles`: the master's metric
+history, SLO evaluator and incident flight recorder, master/main.py)
+run.
 
 `--device` is the port's own: `cuda` (the default) or `cpu`, the
 counterpart of the JAX package's JAX_PLATFORMS, resolved through
@@ -81,6 +88,62 @@ def add_common_params(parser: argparse.ArgumentParser):
         "--straggler_min_tasks", type=pos_int, default=3,
         help="Minimum completed tasks per worker (and workers in the "
         "fleet) before straggler detection may flag anyone.")
+    # ---- metric history + SLOs (common/history.py, common/slo.py,
+    #      docs/OBSERVABILITY.md "Metric history & SLOs") ----
+    parser.add_argument(
+        "--history_interval", type=float, default=0.0,
+        help="Seconds between metric-history samples (ring-buffer "
+        "recorder over every /metrics registry; the evidence the SLO "
+        "evaluator and `elasticdl slo` read).  0 disables the sampling "
+        "thread; tests tick by hand.",
+    )
+    parser.add_argument(
+        "--history_capacity", type=pos_int, default=512,
+        help="Samples retained per metric series in the history ring "
+        "buffer (oldest evicted first).  Must cover the slowest SLO "
+        "window: capacity * --history_interval >= slow_window_s.",
+    )
+    parser.add_argument(
+        "--slo_interval", type=float, default=0.0,
+        help="Seconds between SLO evaluator ticks (burn-rate math over "
+        "the metric history; emits slo_breach/slo_recovered span "
+        "events).  0 disables the thread; tests tick by hand.",
+    )
+    parser.add_argument(
+        "--slo_staleness_p99_s", type=float, default=60.0,
+        help="Objective of the staleness_p99 SLO: 99%% of predict "
+        "responses must be served from a checkpoint no older than this "
+        "many seconds behind the latest produced one.",
+    )
+    # ---- request tracing + incident flight recorder (common/flight.py,
+    #      docs/OBSERVABILITY.md "Request tracing & incident bundles") --
+    parser.add_argument(
+        "--trace_sample_rate", type=float, default=1.0,
+        help="Fraction of routed Predict requests whose predict_span "
+        "is recorded end to end (deterministic every-k'th sampling, "
+        "k = round(1/rate); 0 disables).  Error, shed, and failover "
+        "outcomes always capture regardless of the rate.",
+    )
+    parser.add_argument(
+        "--incident_dir", default="",
+        help="Directory the incident flight recorder writes bundles "
+        "into on an slo_breach, policy eviction, or terminal reload "
+        "refusal (one JSON dir per incident: recent request spans, "
+        "decisions, metric-history windows, Master.snapshot(), fault "
+        "stats).  Empty disables capture; the forensic rings still "
+        "fill.  Render with `elasticdl incident`.",
+    )
+    parser.add_argument(
+        "--incident_ring", type=pos_int, default=256,
+        help="Recent predict_span and decision events retained in the "
+        "flight recorder's in-memory rings (each; oldest evicted "
+        "first).",
+    )
+    parser.add_argument(
+        "--incident_max_bundles", type=pos_int, default=8,
+        help="Bundles kept under --incident_dir before the oldest is "
+        "rotated out — soak runs cannot fill the disk.",
+    )
 
 
 def add_model_params(parser: argparse.ArgumentParser):

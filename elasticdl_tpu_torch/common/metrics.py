@@ -1,8 +1,9 @@
 """Labeled Counters / Gauges / Histograms in thread-safe registries —
-the part of the JAX package's common/metrics.py that the serving engine,
-the batcher and the wire packers use.  The registry IS the storage: a
-component registers a metric once and increments it; snapshots read the
-same objects.
+the part of the JAX package's common/metrics.py that the serving
+engine, the batcher, the wire packers, the stream reader, the task
+manager and the judgment layer (common/history.py, slo.py) use.  The
+registry IS the storage: a component registers a metric once and
+increments it; snapshots read the same objects.
 
 * `default_registry()`: one per process, for process-wide series (the
   wire packers' byte and row counters).
@@ -164,6 +165,9 @@ class _Family:
     def inc(self, amount: float = 1.0) -> None:
         self._default_child().inc(amount)
 
+    def set(self, value: float) -> None:
+        self._default_child().set(value)
+
     def value(self, **labelvalues) -> float:
         if self.labelnames:
             if labelvalues:
@@ -275,6 +279,8 @@ class _HistogramFamily:
     def snapshot(self) -> dict:
         return self._default_child().snapshot()
 
+    def quantile(self, q: float) -> float:
+        return self._default_child().quantile(q)
 
 
 class MetricsRegistry:
@@ -300,6 +306,15 @@ class MetricsRegistry:
             name, lambda: _Family(name, COUNTER, help, labelnames)
         )
         if getattr(fam, "kind", None) != COUNTER:
+            raise ValueError(f"{name} already registered as {fam.kind}")
+        return fam
+
+    def gauge(self, name: str, help: str = "",
+              labelnames: Sequence[str] = ()) -> _Family:
+        fam = self._register(
+            name, lambda: _Family(name, GAUGE, help, labelnames)
+        )
+        if getattr(fam, "kind", None) != GAUGE:
             raise ValueError(f"{name} already registered as {fam.kind}")
         return fam
 

@@ -195,6 +195,12 @@ class LatencyHistogram:
                 return uppers[idx]
         return uppers[-1]
 
+    def quantile(self, q: float) -> float:
+        """Upper edge of the bucket holding the q-quantile; 0.0 before
+        any sample."""
+        uppers, counts, total, _ = self.bucket_snapshot()
+        return self._quantile_from(uppers, counts, total, q)
+
     def snapshot(self) -> dict:
         """{count, mean_s, p50_s, p99_s} — one consistent read: all four
         numbers derive from a single locked copy of the buckets."""

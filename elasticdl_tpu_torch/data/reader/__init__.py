@@ -6,9 +6,13 @@ A zoo module plugs a source in by registration: it calls
 `--training_data myscheme://...` origin dispatches to it.  Built in:
 `csv`, `tfrecord` and `sqlite` (`sqlite:///path.db?table=NAME`).
 
-`grain://` and `stream://` raise NotImplementedError: the grain package
-is not part of the port's stack (ROADMAP.md queue 1, item 3, "not
-queued"), and the stream reader comes with the online loop (item 10).
+`ClickStreamSource` and `StreamReader` (stream_reader.py) turn an
+unbounded source into shard-addressable windows for a perpetual task
+manager.  As in the JAX package, no scheme is registered for them: a
+caller builds the reader itself, so `stream://x` raises the registry's
+ValueError.  `grain://` raises NotImplementedError: the grain package is
+not part of the port's stack (ROADMAP.md queue 1, item 3, "not
+queued").
 """
 
 import os
@@ -20,6 +24,10 @@ from elasticdl_tpu_torch.data.reader.csv_reader import (  # noqa: F401
 )
 from elasticdl_tpu_torch.data.reader.memory_reader import (  # noqa: F401
     MemoryDataReader,
+)
+from elasticdl_tpu_torch.data.reader.stream_reader import (  # noqa: F401
+    ClickStreamSource,
+    StreamReader,
 )
 from elasticdl_tpu_torch.data.reader.table_reader import (  # noqa: F401
     TableDataReader,
@@ -33,8 +41,6 @@ _REGISTRY: Dict[str, Type[AbstractDataReader]] = {}
 _NOT_PORTED = {
     "grain": "the grain reader is not ported: the grain package is not "
              "part of the port's stack (ROADMAP.md queue 1, item 3)",
-    "stream": "the stream reader waits for the online loop's slice of "
-              "the port (ROADMAP.md queue 1, item 10)",
 }
 
 

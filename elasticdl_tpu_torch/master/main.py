@@ -13,9 +13,23 @@ evaluation rounds' job-level metrics go to TensorBoard under
 `<tensorboard_log_dir>/master` when that flag is set; `snapshot()` adds
 the fault, retry and straggler stats to the task counters.
 
-Pods, rendezvous, the policy engine, the serving fleet, metric history
-and SLOs, the telemetry server and the gRPC server wait for the cluster
-slice of the port.
+Judgment (the JAX master's wiring): with `--history_interval`,
+`--slo_interval` or `--incident_dir` set, the master builds a
+`MetricHistory` over its registries, an incident `FlightRecorder` tapped
+on the event stream (bundles under `--incident_dir`), and an
+`SloEvaluator` over the shipped SLOs whose breaches the recorder
+captures.  `start()` runs the history and SLO threads, each only at an
+interval > 0; `stop()` flushes and untaps the recorder, then stops
+both.  `snapshot()` gains `slo` (with the history's health) and
+`flight`.  A Local job serves nothing, so its four SLOs stay `no_data`;
+none of this touches training, so a job ends on the same state with the
+flags as without them.
+
+What waits for 10(b) (ROADMAP.md queue 1): the serving fleet and the
+`FreshnessTracker` it feeds (master/freshness.py is ported; the master
+builds one with the fleet), the policy engines and the online loop
+(`online/pipeline.py`).  Pods, rendezvous, the telemetry server and the
+gRPC server wait for the cluster slice (item 12).
 """
 
 from __future__ import annotations
@@ -26,9 +40,13 @@ import time
 from typing import Optional
 
 from elasticdl_tpu_torch.common import faults, resilience
+from elasticdl_tpu_torch.common import metrics as metrics_lib
+from elasticdl_tpu_torch.common.flight import FlightRecorder
+from elasticdl_tpu_torch.common.history import MetricHistory
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_handler import load_module
 from elasticdl_tpu_torch.common.save_utils import intact_steps
+from elasticdl_tpu_torch.common.slo import SloEvaluator, shipped_specs
 from elasticdl_tpu_torch.common.summary import SummaryWriter
 from elasticdl_tpu_torch.data.reader import create_data_reader
 from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
@@ -44,6 +62,12 @@ logger = get_logger(__name__)
 
 class Master:
     """Owns the control plane of one job."""
+
+    # judgment (history, SLOs, flight recorder): None unless a judgment
+    # flag is set
+    metric_history = None
+    slo_evaluator = None
+    flight_recorder = None
 
     def __init__(self, args):
         self.args = args
@@ -112,6 +136,28 @@ class Master:
         )
         self.servicer = MasterServicer(
             self.task_manager, evaluation_service=self.evaluation_service)
+        if (args.history_interval > 0 or args.slo_interval > 0
+                or args.incident_dir):
+            self.metric_history = MetricHistory(
+                registries=self.telemetry_registries(),
+                capacity=args.history_capacity,
+                interval_s=args.history_interval,
+            )
+            # without --incident_dir the rings still fill but nothing is
+            # captured
+            self.flight_recorder = FlightRecorder(
+                incident_dir=args.incident_dir or None,
+                ring_capacity=args.incident_ring,
+                max_bundles=args.incident_max_bundles,
+                snapshot_fn=self.snapshot,
+                history=self.metric_history,
+            ).install()
+            self.slo_evaluator = SloEvaluator(
+                self.metric_history,
+                specs=shipped_specs(args),
+                interval_s=args.slo_interval,
+                on_breach=self.flight_recorder.breach,
+            )
         self._done = threading.Event()
         self.task_manager.add_all_done_callback(self._done.set)
         # The final evaluation over the validation set, injected by the
@@ -143,6 +189,16 @@ class Master:
         return [(shard, pb.EVALUATION, version)
                 for shard in self._evaluation_shards]
 
+    def start(self) -> None:
+        """Start the metric-history and SLO threads; each runs only at
+        an interval > 0 (at 0, a caller ticks by hand)."""
+        if self.metric_history is not None and self.metric_history.start():
+            logger.info("Metric history sampling every %.1fs",
+                        self.metric_history.interval_s)
+        if self.slo_evaluator is not None and self.slo_evaluator.start():
+            logger.info("SLO evaluator ticking every %.1fs",
+                        self.slo_evaluator.interval_s)
+
     def wait(self, timeout: Optional[float] = None) -> bool:
         """Block until the job finished (True) or `timeout` passed
         (False)."""
@@ -156,17 +212,41 @@ class Master:
                 return True
 
     def snapshot(self) -> dict:
-        """Task progress, the per-worker straggler stats, and the
+        """Task progress, the per-worker straggler stats, the
         process-wide retry and fault counters (common/resilience.py,
-        common/faults.py)."""
-        return {
-            "tasks": self.task_manager.snapshot(),
-            "workers": self.task_manager.straggler_snapshot(),
-            "resilience": resilience.stats(),
-            "faults": faults.stats(),
-        }
+        common/faults.py), and with judgment on the SLO report and the
+        flight recorder's state."""
+        out = {"tasks": self.task_manager.snapshot()}
+        if self.slo_evaluator is not None:
+            slo = self.slo_evaluator.snapshot()
+            slo["history"] = self.metric_history.snapshot()
+            out["slo"] = slo
+        out["workers"] = self.task_manager.straggler_snapshot()
+        out["resilience"] = resilience.stats()
+        out["faults"] = faults.stats()
+        if self.flight_recorder is not None:
+            out["flight"] = self.flight_recorder.snapshot()
+        return out
+
+    def telemetry_registries(self) -> list:
+        """The master's registries: the process-wide default, the task
+        manager's and, with judgment on, the SLO evaluator's."""
+        registries = [metrics_lib.default_registry(),
+                      self.task_manager.counters.registry]
+        if self.slo_evaluator is not None:
+            registries.append(self.slo_evaluator.metrics_registry)
+        return registries
 
     def stop(self) -> None:
+        if self.flight_recorder is not None:
+            # write the tap's queued captures while the components can
+            # still give a coherent snapshot, then untap
+            self.flight_recorder.flush()
+            self.flight_recorder.close()
+        if self.slo_evaluator is not None:
+            self.slo_evaluator.stop()
+        if self.metric_history is not None:
+            self.metric_history.stop()
         self.eval_summary.close()
 
 

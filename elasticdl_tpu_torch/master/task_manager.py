@@ -33,11 +33,25 @@ core of the JAX package's master/task_manager.py).
   the `master_straggler_workers_count` gauge, a `straggler_detected`
   event).
 
+- Perpetual mode (`perpetual=True`, the online side): the queue never
+  finishes.  Each sealed stream window (data/reader/stream_reader.py)
+  becomes TRAINING tasks through `arm_window`, idempotent per window id,
+  with a `task.rearm` fault point that skips an arm atomically (the
+  caller re-offers the window).  A window ledger records each armed
+  window's stream offsets, watermark and done task offsets; a report of
+  an offset already done counts as a duplicate.  `release_window` acks
+  a trained window and `forfeit_window` gives one up as lost.  With a
+  journal the ledger is journaled too, and a restarted manager re-arms
+  exactly the undone shards of the unreleased windows; released windows
+  stay released.  The `master_stream_*` counters and the armed
+  watermark's lag gauge go to the manager's registry.  The loop that
+  drives it (`online/pipeline.py`) waits for its slice of the port
+  (ROADMAP.md queue 1, item 10(b)).
+
 For the same shards and seed the task sequence (ids, types, shards) is
 the JAX master's, bit for bit (a journaled manager draws its id base
 from `random.Random()`, as the JAX one does).  Pure Python under one
-lock; never touches tensors.  Perpetual windows (the online loop) wait
-for their slice of the port (ROADMAP.md queue 1, item 10).
+lock; never touches tensors.
 """
 
 from __future__ import annotations
@@ -51,7 +65,7 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
-from elasticdl_tpu_torch.common import events
+from elasticdl_tpu_torch.common import events, faults
 from elasticdl_tpu_torch.common import metrics as metrics_lib
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.proto import messages as pb
@@ -68,10 +82,11 @@ class _DoingEntry:
 
 class TaskCounters:
     """Plain task counters, mutated under the task manager's lock, and
-    the manager's metrics registry (its gauges)."""
+    the manager's metrics registry (its gauges and stream counters)."""
 
-    def __init__(self):
-        self.registry = metrics_lib.MetricsRegistry()
+    def __init__(self,
+                 registry: Optional[metrics_lib.MetricsRegistry] = None):
+        self.registry = registry or metrics_lib.MetricsRegistry()
         self.finished = 0
         self.failed = 0
         self.recovered = 0
@@ -138,11 +153,8 @@ class TaskManager:
         straggler_min_tasks: int = 3,
         clock: Callable[[], float] = time.time,
         perpetual: bool = False,
+        metrics_registry: Optional[metrics_lib.MetricsRegistry] = None,
     ):
-        if perpetual:
-            raise NotImplementedError(
-                "perpetual (online) task windows wait for the online-loop "
-                "slice of the port (ROADMAP.md queue 1, item 10)")
         self._lock = threading.Lock()
         self._clock = clock
         self._training_shards = list(training_shards or [])
@@ -172,7 +184,10 @@ class TaskManager:
         # task_id -> earliest leasable time of a transiently re-queued
         # task, so the same worker cannot re-lease it in a tight loop
         self._transient_hold: Dict[int, float] = {}
-        self.counters = TaskCounters()
+        # A restarted manager may adopt its predecessor's registry: the
+        # stream counters are get-or-create (their values go on) and a
+        # gauge re-registered reads the new manager.
+        self.counters = TaskCounters(metrics_registry)
         # Straggler detection from the lease -> report durations the
         # master already sees: one rolling window per worker, a median
         # at report time, no new RPC.
@@ -188,6 +203,48 @@ class TaskManager:
             lambda: float(len(self._stragglers)),
             "workers currently flagged as stragglers (mean task "
             "duration > --straggler_multiple x fleet median)")
+        # Perpetual (online) mode: sealed stream windows re-arm the queue
+        # through `arm_window`, and the job never finishes by itself.
+        self._perpetual = bool(perpetual)
+        self._armed_windows = 0
+        self._armed_tasks = 0
+        self._last_window_id = -1
+        self._last_window_name = ""
+        self._armed_watermark_unix_s: Optional[float] = None
+        # The window ledger: window_id -> name, stream start index,
+        # records, task size, watermark, the set of done task offsets and
+        # the released ack.  Journaled on every change, so a restarted
+        # manager re-arms exactly the unfinished windows.
+        self._window_ledger: Dict[int, dict] = {}
+        self._window_by_name: Dict[str, int] = {}
+        # ids below this floor were released and pruned: arming one
+        # again is a no-op (exactly once across restarts)
+        self._armed_floor = 0
+        if self._perpetual:
+            registry = self.counters.registry
+            self._windows_armed_counter = registry.counter(
+                "master_stream_windows_armed_total",
+                "sealed stream windows turned into queue tasks")
+            self._tasks_rearmed_counter = registry.counter(
+                "master_stream_tasks_rearmed_total",
+                "training tasks created by window re-arms")
+            self._rearm_faults_counter = registry.counter(
+                "master_stream_rearm_faults_total",
+                "window re-arms skipped by an injected task.rearm fault")
+            self._windows_released_counter = registry.counter(
+                "master_stream_windows_released_total",
+                "armed windows fully trained and acked in the ledger")
+            self._windows_lost_counter = registry.counter(
+                "master_stream_windows_lost_total",
+                "armed windows forfeited unreplayable; must stay 0")
+            self._duplicate_reports_counter = registry.counter(
+                "master_stream_duplicate_reports_total",
+                "task reports for window offsets the ledger already "
+                "recorded done")
+            registry.gauge_fn(
+                "master_stream_watermark_lag_seconds",
+                self._armed_watermark_lag,
+                "now minus the watermark of the last armed window")
         self._completion_callbacks: List[Callable[[pb.Task, bool],
                                                   None]] = []
         self._all_done_callbacks: List[Callable[[], None]] = []
@@ -270,6 +327,18 @@ class TaskManager:
             # again when their rounds re-run
             "records_done": self._training_records_done,
         }
+        if self._perpetual:
+            state["windows"] = [
+                [wid, e["name"], e["start"], e["records"], e["per_task"],
+                 e["watermark"], sorted(e["done"]), bool(e["released"])]
+                for wid, e in sorted(self._window_ledger.items())
+            ]
+            state["armed_floor"] = self._armed_floor
+            state["windows_armed"] = self._armed_windows
+            state["tasks_armed"] = self._armed_tasks
+            state["last_window_id"] = self._last_window_id
+            state["last_window_name"] = self._last_window_name
+            state["armed_watermark"] = self._armed_watermark_unix_s
         tmp = self._persist_path + ".tmp"
         try:
             os.makedirs(os.path.dirname(self._persist_path) or ".",
@@ -299,10 +368,29 @@ class TaskManager:
             ]
             history = [(int(e[0]), int(e[1]))
                        for e in state.get("epoch_history", [])]
+            windows = [
+                {"window_id": int(e[0]), "name": str(e[1]),
+                 "start": int(e[2]), "records": int(e[3]),
+                 "per_task": int(e[4]), "watermark": float(e[5]),
+                 "done": {int(d) for d in e[6]}, "released": bool(e[7])}
+                for e in state.get("windows", [])
+            ]
+            perpetual_saved = {
+                "armed_floor": int(state.get("armed_floor", 0)),
+                "windows_armed": int(state.get("windows_armed", 0)),
+                "tasks_armed": int(state.get("tasks_armed", 0)),
+                "last_window_id": int(state.get("last_window_id", -1)),
+                "last_window_name": str(state.get("last_window_name", "")),
+                "armed_watermark": state.get("armed_watermark"),
+            }
         except (OSError, ValueError, TypeError, IndexError, KeyError,
                 AttributeError) as exc:
             logger.warning("task-state restore failed (%s); starting the "
                            "epoch fresh", exc)
+            return
+        if self._perpetual:
+            self._restore_perpetual_locked(windows, perpetual_saved,
+                                           saved_records)
             return
         if not self._training_shards:
             return
@@ -357,6 +445,229 @@ class TaskManager:
                     len(done), len(self._training_shards),
                     self._training_records_done)
         self._persist_locked()
+
+    def _restore_perpetual_locked(self, windows: List[dict], saved: dict,
+                                  saved_records: int) -> None:
+        """Rebuild the window ledger from the journal and re-arm exactly
+        the unfinished work: TRAINING tasks for the offsets of every
+        unreleased window that its done set does not cover.  Released
+        windows stay released and done offsets stay done."""
+        self._armed_floor = saved["armed_floor"]
+        self._armed_windows = saved["windows_armed"]
+        self._armed_tasks = saved["tasks_armed"]
+        self._last_window_id = saved["last_window_id"]
+        self._last_window_name = saved["last_window_name"]
+        if saved["armed_watermark"] is not None:
+            self._armed_watermark_unix_s = float(saved["armed_watermark"])
+        self._training_records_done = max(0, saved_records)
+        self.counters.records_done = self._training_records_done
+        rearmed_windows = rearmed_tasks = 0
+        rearmed_stamps: List[tuple] = []
+        for entry in windows:
+            wid = entry.pop("window_id")
+            self._window_ledger[wid] = entry
+            self._window_by_name[entry["name"]] = wid
+            if entry["released"]:
+                continue
+            rearmed = 0
+            for lo in range(0, entry["records"], entry["per_task"]):
+                if lo in entry["done"]:
+                    continue
+                shard = pb.Shard(
+                    name=entry["name"], start=lo,
+                    end=min(lo + entry["per_task"], entry["records"]))
+                self._todo.append(self._new_task(shard, pb.TRAINING))
+                rearmed += 1
+            if rearmed:
+                rearmed_windows += 1
+                rearmed_tasks += rearmed
+                rearmed_stamps.append((int(wid), rearmed))
+        self._prune_released_locked()
+        for wid, n in rearmed_stamps:
+            # the lineage join keeps the original armed time when it saw
+            # the first arm: a restart only flags the window `rearmed`
+            events.emit(
+                events.WINDOW_SPAN, window_id=wid, phase="arm_wait",
+                reason="rearmed", at_unix_s=round(float(self._clock()), 6),
+                tasks=n)
+        logger.info("Restored window ledger: %d windows journaled, %d "
+                    "unfinished re-armed (%d tasks), armed_floor=%d",
+                    len(windows), rearmed_windows, rearmed_tasks,
+                    self._armed_floor)
+        self._persist_locked()
+
+    # ---- perpetual (online) mode ---------------------------------------
+
+    def arm_window(
+        self,
+        window_name: str,
+        num_records: int,
+        records_per_task: int,
+        watermark_unix_s: Optional[float] = None,
+        window_id: Optional[int] = None,
+        start_index: int = 0,
+    ) -> Optional[int]:
+        """Turn one sealed stream window into TRAINING tasks and open its
+        ledger entry.  Returns the number of tasks armed, or None when an
+        injected `task.rearm` fault skipped the arm atomically (nothing
+        queued; the caller keeps the window and re-offers it).  Idempotent
+        per window id: a window the ledger tracks, or has released,
+        returns 0."""
+        if not self._perpetual:
+            raise RuntimeError(
+                "arm_window requires TaskManager(perpetual=True)")
+        try:
+            faults.fire(faults.POINT_TASK_REARM)
+        except faults.InjectedFault as exc:
+            self._rearm_faults_counter.inc()
+            logger.warning("window %s re-arm skipped (%s); caller retries",
+                           window_name, exc)
+            return None
+        per_task = max(1, int(records_per_task))
+        with self._lock:
+            if window_id is not None and (
+                    int(window_id) < self._armed_floor
+                    or int(window_id) in self._window_ledger):
+                return 0
+            n = 0
+            for lo in range(0, int(num_records), per_task):
+                shard = pb.Shard(name=window_name, start=lo,
+                                 end=min(lo + per_task, int(num_records)))
+                self._todo.append(self._new_task(shard, pb.TRAINING))
+                n += 1
+            self._armed_windows += 1
+            self._armed_tasks += n
+            self._last_window_name = window_name
+            if window_id is not None:
+                self._last_window_id = int(window_id)
+                self._window_ledger[int(window_id)] = {
+                    "name": window_name,
+                    "start": int(start_index),
+                    "records": int(num_records),
+                    "per_task": per_task,
+                    "watermark": float(watermark_unix_s or 0.0),
+                    "done": set(),
+                    "released": False,
+                }
+                self._window_by_name[window_name] = int(window_id)
+            if watermark_unix_s is not None:
+                self._armed_watermark_unix_s = float(watermark_unix_s)
+            # a re-arm revives a queue that momentarily drained
+            self._finished = False
+            self._persist_locked()
+        self._windows_armed_counter.inc()
+        self._tasks_rearmed_counter.inc(n)
+        events.emit(
+            events.STREAM_WINDOW_ARMED,
+            window=int(window_id) if window_id is not None else window_name,
+            tasks=n)
+        if window_id is not None:
+            # closes arm_wait; a window that bounced off a `task.rearm`
+            # fault stamps only when its re-offer lands, so the fault's
+            # delay is charged to arm_wait
+            events.emit(
+                events.WINDOW_SPAN, window_id=int(window_id),
+                phase="arm_wait", reason="armed",
+                at_unix_s=round(float(self._clock()), 6), tasks=n)
+        return n
+
+    def _prune_released_locked(self) -> None:
+        """Drop the contiguous released prefix of the ledger and move the
+        armed floor past it: the journal stays bounded, and `arm_window`
+        still refuses every pruned id."""
+        while self._window_ledger:
+            wid = min(self._window_ledger)
+            if not self._window_ledger[wid]["released"]:
+                break
+            entry = self._window_ledger.pop(wid)
+            self._window_by_name.pop(entry["name"], None)
+            self._armed_floor = max(self._armed_floor, wid + 1)
+
+    def release_window(self, window_id: int) -> bool:
+        """Ack one fully trained window in the ledger; True when this
+        call released it.  Its journaled shard completions go with it."""
+        window_id = int(window_id)
+        with self._lock:
+            entry = self._window_ledger.get(window_id)
+            if entry is None or entry["released"]:
+                return False
+            entry["released"] = True
+            name = entry["name"]
+            for key in [k for k in self._done_training_shards
+                        if k[0] == name]:
+                del self._done_training_shards[key]
+            self._prune_released_locked()
+            self._persist_locked()
+        self._windows_released_counter.inc()
+        events.emit(events.STREAM_WINDOW_RELEASED, window=window_id)
+        return True
+
+    def forfeit_window(self, window_id: int) -> bool:
+        """Give up on a window that can neither train nor replay: counted
+        as lost (`master_stream_windows_lost_total`), its queued tasks
+        dropped and its ledger entry closed."""
+        window_id = int(window_id)
+        with self._lock:
+            entry = self._window_ledger.get(window_id)
+            if entry is None or entry["released"]:
+                return False
+            entry["released"] = True
+            name = entry["name"]
+            self._todo = deque(t for t in self._todo
+                               if t.shard.name != name)
+            for key in [k for k in self._done_training_shards
+                        if k[0] == name]:
+                del self._done_training_shards[key]
+            self._prune_released_locked()
+            self._persist_locked()
+        self._windows_lost_counter.inc()
+        logger.error("stream window %d forfeited (unreplayable)", window_id)
+        return True
+
+    def open_windows(self) -> List[dict]:
+        """Unreleased ledger entries, ascending window id: what a
+        restarted caller rebuilds its per-window bookkeeping from."""
+        with self._lock:
+            return [
+                {"window_id": wid, "name": e["name"], "start": e["start"],
+                 "records": e["records"], "per_task": e["per_task"],
+                 "watermark": e["watermark"], "done": sorted(e["done"])}
+                for wid, e in sorted(self._window_ledger.items())
+                if not e["released"]
+            ]
+
+    def _armed_watermark_lag(self) -> float:
+        watermark = self._armed_watermark_unix_s
+        if watermark is None:
+            return 0.0
+        return max(0.0, float(self._clock()) - watermark)
+
+    def online_snapshot(self) -> Optional[dict]:
+        """Perpetual-mode progress (snapshot()["online"]); None outside
+        perpetual mode."""
+        if not self._perpetual:
+            return None
+        with self._lock:
+            return {
+                "window": self._last_window_id,
+                "window_name": self._last_window_name,
+                "windows_armed": self._armed_windows,
+                "tasks_rearmed": self._armed_tasks,
+                "rearm_faults": int(self._rearm_faults_counter.value()),
+                "watermark_lag_s": round(self._armed_watermark_lag(), 6),
+                "windows_released": int(
+                    self._windows_released_counter.value()),
+                "windows_lost": int(self._windows_lost_counter.value()),
+                "duplicate_reports": int(
+                    self._duplicate_reports_counter.value()),
+                "open_windows": sum(
+                    1 for e in self._window_ledger.values()
+                    if not e["released"]),
+            }
+
+    @property
+    def perpetual(self) -> bool:
+        return self._perpetual
 
     def create_evaluation_tasks(self, model_version: int) -> int:
         """Inject evaluation tasks at the front of the queue, so metrics
@@ -430,6 +741,16 @@ class TaskManager:
                     self._training_records_done += records
                     self._done_training_shards[
                         tuple(self._shard_key(task.shard))] = model_version
+                    # the window ledger: mark the offset done; a report
+                    # of a done offset (at-least-once redelivery) is
+                    # counted, not recorded twice
+                    wid = self._window_by_name.get(task.shard.name)
+                    if wid is not None:
+                        done = self._window_ledger[wid]["done"]
+                        if task.shard.start in done:
+                            self._duplicate_reports_counter.inc()
+                        else:
+                            done.add(int(task.shard.start))
                     self._persist_locked()
             elif transient and (
                 self._transient_count.get(task_id, 0)
@@ -590,6 +911,10 @@ class TaskManager:
             self._fire_all_done()
 
     def _check_all_done_locked(self) -> bool:
+        if self._perpetual:
+            # an online job never finishes by itself: a drained queue
+            # means the next window is not armed yet
+            return False
         if self._finished:
             return False
         if (self._todo or self._doing
@@ -622,8 +947,9 @@ class TaskManager:
             return self._finished
 
     def snapshot(self) -> dict:
+        online = self.online_snapshot()
         with self._lock:
-            return {
+            out = {
                 "todo": len(self._todo),
                 "doing": len(self._doing),
                 "epoch": self._epoch,
@@ -637,3 +963,6 @@ class TaskManager:
                 "transient_requeues": sum(self._transient_count.values()),
                 "stragglers": sorted(self._stragglers),
             }
+        if online is not None:
+            out["online"] = online
+        return out

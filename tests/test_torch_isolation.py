@@ -108,6 +108,18 @@ RESILIENCE_MODULES = (
 )
 
 
+# streams and judgment: the stream reader, the metric history, SLOs,
+# the flight recorder, window lineage and freshness
+JUDGMENT_MODULES = (
+    "elasticdl_tpu_torch.data.reader.stream_reader",
+    "elasticdl_tpu_torch.common.history",
+    "elasticdl_tpu_torch.common.slo",
+    "elasticdl_tpu_torch.common.flight",
+    "elasticdl_tpu_torch.common.lineage",
+    "elasticdl_tpu_torch.master.freshness",
+)
+
+
 def test_every_port_module_imports_with_jax_and_reference_blocked():
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -118,10 +130,12 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
     names = proc.stdout.strip().splitlines()[-1].split()
     # every module of the slices, down to the BERT zoo's data writer and
     # the serving front end
-    assert len(names) >= 59 + len(ZOO_MODULES) + len(RESILIENCE_MODULES)
+    assert len(names) >= 59 + len(ZOO_MODULES) + len(RESILIENCE_MODULES) \
+        + len(JUDGMENT_MODULES)
     assert set(SERVING_MODULES) <= set(names)
     assert set(ZOO_MODULES) <= set(names)
     assert set(RESILIENCE_MODULES) <= set(names)
+    assert set(JUDGMENT_MODULES) <= set(names)
 
 
 @pytest.mark.parametrize(

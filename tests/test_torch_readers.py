@@ -249,9 +249,16 @@ def test_registry_errors():
         port_reader.create_data_reader("/tmp/x", reader_type="nosuch")
     with pytest.raises(TypeError):
         port_reader.register_data_reader("bad", object)
-    for origin in ("grain://mnist.data:grain_dataset", "stream://clicks"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_reader.create_data_reader(origin)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_reader.create_data_reader("grain://mnist.data:grain_dataset")
+    # the stream reader is ported, and as in the JAX package no scheme
+    # is registered for it: a caller builds it
+    for module in (jax_reader, port_reader):
+        with pytest.raises(ValueError, match="no data reader registered "
+                                             "for scheme 'stream'"):
+            module.create_data_reader("stream://clicks")
+        assert module.StreamReader.__name__ == "StreamReader"
+        assert module.ClickStreamSource.__name__ == "ClickStreamSource"
 
 
 def test_registered_scheme_as_call_and_decorator():

@@ -197,9 +197,10 @@ def test_create_shards_from_ranges_matches():
 
 
 def test_waiting_parts_raise(tmp_path):
-    """The journal runs now (persist_path writes task_state.json from
-    construction on); perpetual windows still wait for the online
-    loop."""
+    """The journal runs (persist_path writes task_state.json from
+    construction on), and so do perpetual windows: a perpetual manager
+    arms a window as the JAX one does, and a non-perpetual one refuses
+    to."""
     path = tmp_path / "task_state.json"
     tm = port_tm.TaskManager(
         training_shards=port_tm.create_shards_from_ranges(SOURCES, 9),
@@ -209,8 +210,123 @@ def test_waiting_parts_raise(tmp_path):
     tm.report(task.task_id, success=True, records=9, model_version=3)
     assert json.loads(path.read_text())["done_training_shards"] == [
         [task.shard.name, task.shard.start, task.shard.end, 3]]
-    with pytest.raises(NotImplementedError, match="perpetual"):
-        port_tm.TaskManager(perpetual=True)
+    assert "windows" not in json.loads(path.read_text())
+    with pytest.raises(RuntimeError, match="perpetual"):
+        tm.arm_window("stream:w000000", 8, 4, window_id=0)
+    online = port_tm.TaskManager(perpetual=True, clock=FakeClock())
+    want = JaxTM(perpetual=True, clock=FakeClock())
+    for m in (online, want):
+        assert m.arm_window("stream:w000000", 10, 4, window_id=0,
+                            watermark_unix_s=5.0) == 3
+    assert [_task(online.get(0)) for _ in range(4)] == [
+        _task(want.get(0)) for _ in range(4)]
+    assert online.online_snapshot()["windows_armed"] == 1
+    assert online.online_snapshot() == want.online_snapshot()
+
+
+def _perpetual_script(tm, clock, path, restart):
+    """Windows armed, leased, reported, recovered, reaped, forfeited and
+    released; a transient bounce and a failure; then a restart from the
+    journal with the predecessor's registry."""
+    out = []
+    done = []
+    tm.add_all_done_callback(lambda: done.append(1))
+
+    def arm(wid, n=12, per=4):
+        out.append(("arm", wid, tm.arm_window(
+            f"stream:w{wid:06d}", n, per, watermark_unix_s=clock() - 2.0,
+            window_id=wid, start_index=wid * n)))
+
+    def get(wid):
+        task = tm.get(wid)
+        out.append(("get", wid, _task(task)))
+        return task
+
+    def report(task, wid, **kwargs):
+        out.append(("report", task.task_id, tm.report(
+            task.task_id, worker_id=wid, model_version=7, **kwargs)))
+
+    arm(0)
+    arm(1, n=10)
+    arm(0)                                    # idempotent
+    a, b, c = get(0), get(1), get(2)
+    report(a, 0, success=True, records=4)
+    report(b, 1, success=False, transient=True)
+    report(c, 2, success=False)               # re-queued, retry charged
+    get(2)                                    # in flight when 2 dies
+    clock.t += 2.0
+    out.append(("recovered", tm.recover_tasks(2)))
+    d = get(3)
+    clock.t += 1000.0
+    out.append(("reaped", tm.reap_expired_tasks()))
+    del d
+    for _ in range(20):
+        task = get(0)
+        if task is None:
+            break
+        report(task, 0, success=True,
+               records=task.shard.end - task.shard.start)
+    out.append(("release", [tm.release_window(w) for w in (0, 1, 0)]))
+    arm(2)
+    e = get(0)
+    report(e, 0, success=True, records=4)
+    arm(3, n=8)
+    out.append(("forfeit", tm.forfeit_window(3), tm.forfeit_window(3)))
+    out.append(("open", tm.open_windows()))
+    out.append(("online", tm.online_snapshot()))
+    out.append(("finished", tm.finished, done))
+    if restart:
+        with open(path) as f:
+            out.append(("journal", json.load(f)))
+        successor = type(tm)(perpetual=True, persist_path=path,
+                             clock=clock,
+                             metrics_registry=tm.counters.registry)
+        first = None
+        rearmed = []
+        while True:
+            task = successor.get(0)
+            if task is None:
+                break
+            first = task.task_id if first is None else first
+            rearmed.append((task.task_id - first,) + _task(task)[1:])
+        out.append(("rearmed", rearmed))
+        out.append(("successor", successor.online_snapshot(),
+                    successor.open_windows()))
+    return out
+
+
+@pytest.mark.parametrize("journaled", [False, True])
+def test_perpetual_windows_match_the_jax_task_manager(tmp_path, journaled):
+    out = []
+    for label, cls in (("jax", JaxTM), ("port", port_tm.TaskManager)):
+        clock = FakeClock()
+        path = str(tmp_path / f"{label}.json")
+        tm = cls(perpetual=True, clock=clock, lease_timeout_s=60.0,
+                 max_task_retries=2,
+                 persist_path=path if journaled else None)
+        out.append(_perpetual_script(tm, clock, path, journaled))
+    want, got = out
+    if journaled:
+        # a journaled manager's ids start at a random base: compare the
+        # ids of the first generation relative to its first one
+        def rel(events):
+            base = next(e[2][0] for e in events if e[0] == "get" and e[2])
+            return [(e[0], e[1], (e[2][0] - base,) + e[2][1:])
+                    if e[0] == "get" and e[2] else
+                    (e[0], e[1] - base, e[2]) if e[0] == "report" else e
+                    for e in events]
+        want, got = rel(want), rel(got)
+    assert got == want
+    (snap,) = [e[1] for e in want if e[0] == "online"]
+    assert snap["windows_armed"] == 4 and snap["windows_released"] == 2
+    assert snap["windows_lost"] == 1 and snap["duplicate_reports"] == 0
+    assert ("finished", False, []) in want
+    assert ("recovered", 1) in want and ("reaped", 1) in want
+    if journaled:
+        (rearmed,) = [e[1] for e in want if e[0] == "rearmed"]
+        # window 2's two undone offsets; window 3 was forfeited
+        assert [r[2:4] for r in rearmed] == [("stream:w000002", 4),
+                                             ("stream:w000002", 8)]
 
 
 def _eval_reports(rng):

@@ -62,9 +62,14 @@ def test_cin_matches_flax():
     got = ported(torch.from_numpy(x0)).detach().numpy()
     np.testing.assert_allclose(got, np.asarray(cin.apply(variables, x0)),
                                atol=CIN_TOL, rtol=1e-5)
-    # the flax glorot_uniform bound, fan_in = H_prev * H, fan_out = m * H
+    # the flax glorot_uniform bound, fan_in = H_prev * H, fan_out = m * H;
+    # the draw comes from a seeded generator, so the check does not hang
+    # on what other tests drew from torch's global one, and it holds the
+    # float32 draw to float32(limit): a draw can round to that value,
+    # one float32 ulp above the float64 bound
     fresh = port.CIN(26, (64, 64))
-    limit = np.sqrt(6.0 / (26 * 64 + 26 * 64))
+    fresh.reset_parameters(torch.Generator().manual_seed(0))
+    limit = np.float32(np.sqrt(6.0 / (26 * 64 + 26 * 64)))
     assert float(fresh.w_0.detach().abs().max()) <= limit
 
 
