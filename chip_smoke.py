@@ -196,20 +196,52 @@
    replays from the ledger record for record, and a restart of the task
    manager from its journal mid-window.  32 windows armed and released,
    none lost, no duplicate report; a WindowLineage tapped before the
-   first poll decomposes every window's ingest_wait and arm_wait (later
-   phases wait for the online loop).  A second run must give the same
+   first poll decomposes every window's ingest_wait and arm_wait (the
+   later phases come from the online loop, item 17).  A second run must give the same
    events (bar wall-time fields) and parameters bit for bit, and the
    first window's losses must equal the CPU's from the same weights
    within 1e-5.  (b) local_deepfm's train job with `--history_interval
    0.5 --slo_interval 0.5 --incident_dir`: in the AUC band, 64
    scatter-add launches, its final `state.pt` bit for bit local_deepfm's,
-   all four SLOs `no_data`, a manual bundle read back; then a freshness
+   the SLOs of a job that serves nothing (JUDGMENT_SLO_STATES), a manual
+   bundle read back; then a freshness
    drill: (a)'s checkpoints produced one by one through a CheckpointSaver
    and served by a ServingEngine + CheckpointReloader, each predict's
    step into a FreshnessTracker, its registry into a MetricHistory, the
    staleness_p99 SLO `ok` while reloads keep up and `breach` once a
    reload is held past the 30 s objective, and exactly one slo_breach
    bundle from the flight recorder.
+17. The online loop (`online_loop`, after `stream_judgment`; budget 30
+   s): stream -> train -> checkpoint -> rolling hot-reload behind the
+   FleetRouter, ctr_mlp at its only width (hashed one-hots 128 -> Dense
+   32 -> ReLU -> Dense 2, Adam), through OnlinePipeline on the card.
+   (a) bench.py::_online_chaos_run's scenario at bench_online's seed
+   20260805 under a fake clock (0.125 s a read): 12 ticks of
+   OnlineConfig(window_records=64, records_per_poll=64,
+   records_per_task=16, checkpoint_every_windows=2, replicas=2,
+   workers=3, num_shards=4), faults at stream.poll, task.rearm,
+   serving.reload and store.shard_handoff, a replica kill, two trainer
+   kills and at tick 7 a master restart with the reader's buffers wiped.
+   Two card runs and one CPU run (from the card's initial weights) give
+   one canonical text (fault trace, fleet and SLO decisions, normalized
+   events, lineage decompositions) byte for byte and equal summaries;
+   every fault fired, 0 windows lost, 0 duplicate reports, 0 failed
+   requests, lineage phase sums within 5% of the measured end-to-end
+   time, the replayed window's ingest stamp from before the restart, and
+   the final parameters within ONLINE_PARAM_TOL of the CPU's.  (b)
+   bench_online's sustained loop on a real clock: 8 windows under two
+   predict-load threads (rows of 1, 2 or 4 through the router): train
+   examples/s, served requests/s, client p50/p99, staleness p50/p99 in
+   steps and seconds, the maximum staleness burn; at least 2 reload
+   cycles behind traffic and 0 failed requests.  (c)
+   bench.py::_traffic_spike_run's serving control loop (seed 20260807):
+   44 ticks, 12 requests a tick per replica, replicas 1 -> at most 4, a
+   5x spike at tick 8 for 4 ticks from the traffic generator, twice with
+   one canonical text; the fleet scales up within its hysteresis, the
+   flight recorder writes one bundle at the predict_shed_ratio breach,
+   backpressure skips polls, and the fleet returns to 1 replica.  The
+   phase runs no kernel: ctr_mlp has no embedding, and the sharded
+   store's statistics live on the host.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
@@ -309,7 +341,6 @@ from elasticdl_tpu_torch.common.save_utils import (  # noqa: E402
     read_produced_meta,
 )
 from elasticdl_tpu_torch.common.slo import (  # noqa: E402
-    SLO_NAMES,
     SloEvaluator,
     shipped_specs,
 )
@@ -332,6 +363,10 @@ from elasticdl_tpu_torch.model_zoo.clickstream import (  # noqa: E402
     ctr_mlp as ctr_zoo,
 )
 from elasticdl_tpu_torch.model_zoo.mnist import data as mnist_data  # noqa: E402,E501
+from elasticdl_tpu_torch.online import (  # noqa: E402
+    OnlineConfig,
+    OnlinePipeline,
+)
 from elasticdl_tpu_torch.proto import messages as pb  # noqa: E402
 from elasticdl_tpu_torch.proto import serving as spb  # noqa: E402
 from elasticdl_tpu_torch.proto.service import ServingStub  # noqa: E402
@@ -346,6 +381,11 @@ from elasticdl_tpu_torch.store import checkpoint as store_ckpt  # noqa: E402
 from elasticdl_tpu_torch.store import device as store_device  # noqa: E402
 from elasticdl_tpu_torch.store.serving import (  # noqa: E402
     TieredServingEngine,
+)
+from elasticdl_tpu_torch.traffic import (  # noqa: E402
+    TrafficConfig,
+    TrafficGenerator,
+    router_request_fn,
 )
 from elasticdl_tpu_torch.serving.server import (  # noqa: E402
     from_tensor_proto,
@@ -2387,6 +2427,13 @@ STREAM_CPU_LOSS_TOL = 1e-5       # f32 MLP, 4 Adam steps, card vs CPU
 WALL_FIELDS = ("ts", "pid", "capture_s", "write_s")
 # (b): the Local judgment job's loops and the freshness drill
 JUDGE_INTERVAL_S = 0.5
+# A Local job serves nothing: the ratio SLOs read `ok` over the fleet
+# router's request counters, which exist at zero once proto/service.py
+# is imported (the JAX package's Local job judges them the same way),
+# and the others have no series.
+JUDGMENT_SLO_STATES = {"staleness_p99": "no_data", "fleet_skew": "no_data",
+                       "predict_availability": "ok",
+                       "predict_shed_ratio": "ok"}
 FRESH_TICK_S = 5.0
 FRESH_KEEP_UP_TICKS = 6
 FRESH_HOLD_TICKS = 12            # 60 fake seconds, twice the objective
@@ -2765,8 +2812,7 @@ def judgment_job(card: str, root: str, served: dict) -> tuple:
     if summary["exit_code"] != 0 or summary["failed_tasks"] or \
             launches != 2 * LOCAL_STEPS or \
             not AUC_BAND[0] <= (summary["auc"] or 0) <= AUC_BAND[1] or \
-            summary["slo_states"] != {
-                name: "no_data" for name in SLO_NAMES} or \
+            summary["slo_states"] != JUDGMENT_SLO_STATES or \
             summary["history"]["samples"] < 1 or summary["slo_ticks"] < 1 \
             or \
             summary["bundles"] != ["incident-0001-manual"] or \
@@ -2836,6 +2882,582 @@ def stream_judgment(card: str, work: str, served: dict):
     print(json.dumps({"stream_judgment": walls}), flush=True)
     return {"stream": stream, "judgment_job": job, "freshness": drill,
             "walls": walls}, launches
+
+
+# ---- 17. the online loop ---------------------------------------------
+
+ONLINE_CHAOS_SEED = 20260805     # bench.py::bench_online's chaos seed
+ONLINE_TRAFFIC_SEED = 20260807   # bench.py::bench_traffic's seed
+ONLINE_CLOCK_STEP_S = 0.125      # the fake clock's step per read
+ONLINE_CHAOS_TICKS = 12
+ONLINE_WINDOWS = 8               # the sustained loop's windows
+ONLINE_LOAD_CLIENTS = 2
+ONLINE_LOAD_ROWS = (1, 2, 4)
+ONLINE_TRAFFIC_TICKS = 44
+ONLINE_CAPACITY_PER_TICK = 12    # requests a replica serves a tick
+ONLINE_SPIKE_AT_TICK = 8         # the generator's first 5x tick
+ONLINE_UP_TICKS = 2              # the serving policy's scale-up streak
+ONLINE_BUDGET_S = 30.0
+ONLINE_RECONCILE_PCT = 5.0
+# Card against CPU, final parameters of the chaos replay from the same
+# initial weights: ctr_mlp in f32 (TF32 off), 48 Adam steps at lr 1e-2
+# over 16-row batches.  The two devices order their f32 sums differently
+# (cuBLAS against MKL), a few ulp a step, and Adam divides each update
+# by sqrt(v) + 1e-8, so a gap on a parameter whose gradient is near 0
+# can grow by up to lr a step.  A correct run's gap on the H100 is
+# ~1e-5; a wrong batch or step moves parameters by ~1e-2.
+ONLINE_PARAM_TOL = 1e-3
+ONLINE_CHAOS_KEEP = ("window", "tasks", "records", "step",
+                     "shard", "from_worker", "to_worker",
+                     "window_id", "phase", "reason", "at_unix_s",
+                     "ingest_unix_s")
+ONLINE_TRAFFIC_KEEP = ("action", "reason", "tick", "requested", "replicas",
+                       "slo", "state")
+
+
+def fake_clock(start: float):
+    """A clock that steps ONLINE_CLOCK_STEP_S on every read, as bench.py's
+    online drivers do; `clk[0]` is its last reading."""
+    clk = [start]
+
+    def clock():
+        clk[0] += ONLINE_CLOCK_STEP_S
+        return clk[0]
+
+    return clock, clk
+
+
+def lineage_reconciliation(records) -> dict:
+    """bench.py::_lineage_reconciliation: over the completed windows
+    that were not dropped, the p99 of the phase sums against the p99 of
+    the measured ingest -> first-serve times."""
+    done = [r for r in records if r.get("complete") and not r.get("dropped")]
+    if not done:
+        return {"windows": 0, "phase_sum_p99_s": 0.0, "e2e_p99_s": 0.0,
+                "delta_pct": 0.0, "within_5pct": True,
+                "max_abs_delta_s": 0.0}
+    sums = np.array([sum(r["phases"].values()) for r in done])
+    e2e = np.array([r["e2e_s"] for r in done])
+    p99_sum = float(np.percentile(sums, 99))
+    p99_e2e = float(np.percentile(e2e, 99))
+    delta_pct = abs(p99_sum - p99_e2e) / p99_e2e * 100.0 if p99_e2e else 0.0
+    return {"windows": len(done),
+            "phase_sum_p99_s": round(p99_sum, 6),
+            "e2e_p99_s": round(p99_e2e, 6),
+            "delta_pct": round(delta_pct, 3),
+            "within_5pct": delta_pct <= ONLINE_RECONCILE_PCT,
+            "max_abs_delta_s": round(float(np.max(np.abs(sums - e2e))), 6)}
+
+
+def online_params(pipe) -> dict:
+    return {k: v.detach().cpu().clone()
+            for k, v in pipe.state.model.state_dict().items()}
+
+
+@contextlib.contextmanager
+def carried_init(init=None):
+    """Around an OnlinePipeline's construction: the trainer's initial
+    parameters are copied into `init` (a dict, filled on the first
+    draw), or, when `init` holds them already, loaded from it.  The card
+    and the CPU draw different numbers from one seed, so a run compared
+    with another device starts from the first run's weights."""
+    init = {} if init is None else init
+    original = Trainer.init_state
+
+    def init_state(self, rng, sample_features):
+        state = original(self, rng, sample_features)
+        if init:
+            state.model.load_state_dict(init)
+        else:
+            init.update({k: v.detach().cpu().clone()
+                         for k, v in state.model.state_dict().items()})
+        return state
+
+    Trainer.init_state = init_state
+    try:
+        yield init
+    finally:
+        Trainer.init_state = original
+
+
+def online_chaos_run(seed: int, device: str, root=None, init=None):
+    """bench.py::_online_chaos_run through the port, on `device`: a fake
+    clock, a sequential driver, four scheduled faults (stream.poll,
+    task.rearm, serving.reload, store.shard_handoff), a replica kill, two
+    trainer kills (the second retries the deferred move) and, at tick 7,
+    a master restart with one window mid-flight and the reader's buffers
+    wiped.  Returns (canonical text, summary, final parameters): the
+    text is the fault trace, the fleet's and the SLO evaluator's
+    decisions, the normalized event stream and the completed lineage
+    decompositions, bench.py's projection.  `init` carries initial
+    parameters in or out (carried_init)."""
+    clock, clk = fake_clock(1_000_000.0)
+    registry = faults.install(FaultRegistry(schedule=[
+        FaultSpec(faults.POINT_STREAM_POLL, 2, "raise"),
+        FaultSpec(faults.POINT_TASK_REARM, 3, "raise"),
+        FaultSpec(faults.POINT_SERVING_RELOAD, 2, "raise"),
+        # the first handoff (trainer 2's shard) defers; the second
+        # kill's evacuation retries and completes it
+        FaultSpec(faults.POINT_STORE_SHARD_HANDOFF, 1, "raise"),
+    ], seed=seed))
+    norm_events = []
+
+    def observe(record):
+        norm_events.append({
+            "event": record.get("event"),
+            **{k: record[k] for k in ONLINE_CHAOS_KEEP if k in record}})
+
+    events.add_observer(observe)
+    rng = np.random.RandomState(seed)
+    failed = 0
+    restart_at = None
+    try:
+        spec = get_model_spec(ZOO_DIR, CTR)
+        with tempfile.TemporaryDirectory(dir=root) as tmp, \
+                carried_init(init):
+            pipe = OnlinePipeline(
+                tmp, spec,
+                OnlineConfig(seed=seed, window_records=64,
+                             records_per_poll=64, records_per_task=16,
+                             checkpoint_every_windows=2, replicas=2,
+                             workers=3, num_shards=4),
+                clock=clock, device=device)
+            try:
+                for i in range(ONLINE_CHAOS_TICKS):
+                    if i == 7:
+                        # one of the window's 4 tasks trained, the
+                        # buffers wiped, the master restarted: the
+                        # replacement re-arms the 3 undone shards and
+                        # replays the wiped window from the source
+                        pipe.tick(max_train_tasks=1)
+                        wiped = pipe.drop_window_buffers()
+                        restart_at = clk[0]
+                        restored = pipe.restart_master()
+                        faults.note(
+                            "master.restart",
+                            "windows=%d tasks=%d buffers_wiped=%d" % (
+                                restored["windows_restored"],
+                                restored["tasks_rearmed"], wiped))
+                    else:
+                        pipe.tick()
+                    if i == 3:
+                        pipe.kill_replica(1)
+                        faults.note("replica.kill", "replica=1")
+                    if i == 4:
+                        info = pipe.kill_worker(2)
+                        faults.note("trainer.kill",
+                                    "worker=2 handoffs=%d" % info["handoffs"])
+                    if i == 9:
+                        info = pipe.kill_worker(1)
+                        faults.note("trainer.kill",
+                                    "worker=1 handoffs=%d" % info["handoffs"])
+                    for _ in range(2):
+                        x = ctr_zoo.encode(rng.randint(0, 512, 2),
+                                           rng.randint(0, 128, 2))
+                        resp = pipe.predict(make_predict_request(x))
+                        if resp.code != spb.SERVING_OK:
+                            failed += 1
+                # drain the restart's re-armed remainder
+                pipe.tick()
+                snap = pipe.snapshot()
+                lineage_records = pipe.lineage.records()
+                # open windows too: a replayed window still waiting for
+                # its reload must carry its original ingest stamp
+                all_lineage = lineage_records + \
+                    pipe.lineage.open_decompositions()
+                params = online_params(pipe)
+            finally:
+                pipe.shutdown()
+    finally:
+        events.remove_observer(observe)
+        faults.uninstall()
+
+    canonical = json.dumps({
+        "fault_trace": registry.trace_text(),
+        "fleet_decisions": snap["serving_fleet"]["decisions"],
+        "slo_decisions": snap["slo"]["decisions"],
+        "events": norm_events,
+        "lineage": lineage_records,
+    }, sort_keys=True)
+    online = snap["online"]
+    replayed = [r for r in all_lineage if r.get("replayed")]
+    summary = {
+        "all_faults_fired": registry.all_fired(),
+        "failed_requests": failed,
+        "rearm_faults": online["rearm_faults"],
+        "poll_faults": snap["stream"]["poll_faults"],
+        "last_reload_step": online["last_reload_step"],
+        "windows_trained": snap["windows_trained"],
+        "handoffs": online["handoffs"],
+        "pending_handoffs": online["pending_handoffs"],
+        "handoff_faults": snap["store"]["handoff_faults"],
+        "windows_released": online["windows_released"],
+        "windows_lost": online["windows_lost"],
+        "duplicate_reports": online["duplicate_reports"],
+        "master_restarts": online["master_restarts"],
+        "alive_trainers": online["alive_trainers"],
+        "replayed_windows": snap["stream"]["replayed_windows"],
+        "lineage_windows": snap["lineage"]["windows_traced"],
+        "lineage_replayed": len(replayed),
+        "lineage_dominant_phase": snap["lineage"]["dominant_phase"],
+        "lineage_reconcile": lineage_reconciliation(lineage_records),
+        # replay re-buffers records; it never re-bases the attribution
+        "replayed_original_ingest": (
+            restart_at is not None and bool(replayed)
+            and all(r.get("ingest_unix_s") is not None
+                    and float(r["ingest_unix_s"]) < restart_at
+                    for r in replayed)),
+    }
+    return canonical, summary, params
+
+
+def check_online_chaos(summary: dict) -> None:
+    bad = {k: summary[k] for k in ("windows_lost", "duplicate_reports",
+                                   "failed_requests") if summary[k]}
+    if bad or not summary["all_faults_fired"] \
+            or not summary["lineage_reconcile"]["within_5pct"] \
+            or not summary["replayed_original_ingest"] \
+            or summary["windows_trained"] != ONLINE_CHAOS_TICKS:
+        raise AssertionError(f"the online chaos replay: {summary}")
+
+
+def online_sustained(device: str, root=None) -> dict:
+    """bench.py::bench_online's sustained loop on a real clock:
+    ONLINE_WINDOWS stream windows trained, checkpointed and rolled onto the replicas
+    while ONLINE_LOAD_CLIENTS threads send rows of 1, 2 or 4 through the
+    router.  Each replica answers one request of each bucket before the
+    clock starts (its engine warmed its buckets when it was built)."""
+    spec = get_model_spec(ZOO_DIR, CTR)
+    cfg = OnlineConfig(window_records=64, records_per_poll=64,
+                       records_per_task=16, checkpoint_every_windows=2,
+                       replicas=2)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        pipe = OnlinePipeline(tmp, spec, cfg, device=device)
+        try:
+            warm = np.random.RandomState(SEED)
+            for rows in (1, 2, 4, 8) * cfg.replicas:
+                x = ctr_zoo.encode(warm.randint(0, cfg.source_users, rows),
+                                   warm.randint(0, cfg.source_items, rows))
+                if pipe.predict(make_predict_request(x)).code \
+                        != spb.SERVING_OK:
+                    raise AssertionError("warm-up predict failed")
+            stop = threading.Event()
+            latencies, failures = [], []
+            lock = threading.Lock()
+
+            def run_load(seed):
+                rng = np.random.RandomState(seed)
+                mine = []
+                while not stop.is_set():
+                    n = ONLINE_LOAD_ROWS[rng.randint(len(ONLINE_LOAD_ROWS))]
+                    x = ctr_zoo.encode(rng.randint(0, cfg.source_users, n),
+                                       rng.randint(0, cfg.source_items, n))
+                    t0 = time.perf_counter()
+                    try:
+                        resp = pipe.predict(make_predict_request(x))
+                        bad = None if resp.code == spb.SERVING_OK \
+                            else f"code {int(resp.code)}: {resp.error}"
+                    except Exception as exc:   # counted, and fails below
+                        bad = repr(exc)
+                    dt = time.perf_counter() - t0
+                    if bad is None:
+                        mine.append(dt)
+                    else:
+                        with lock:
+                            failures.append(bad)
+                with lock:
+                    latencies.extend(mine)
+
+            threads = [threading.Thread(target=run_load, args=(i,))
+                       for i in range(ONLINE_LOAD_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            ticks = 0
+            try:
+                while pipe._windows_trained < ONLINE_WINDOWS \
+                        and ticks < ONLINE_WINDOWS * 4:
+                    pipe.tick()
+                    ticks += 1
+            finally:
+                stop.set()
+                for t in threads:
+                    t.join()
+            elapsed = time.perf_counter() - t0
+            staleness = pipe.freshness.quantiles()
+            snap = pipe.snapshot()
+            lineage_records = pipe.lineage.records()
+        finally:
+            pipe.shutdown()
+    lat = np.array(latencies) if latencies else np.array([0.0])
+    fleet = snap["serving_fleet"]
+    return {
+        "device": device,
+        "windows_trained": snap["windows_trained"],
+        "ticks": ticks,
+        "elapsed_s": elapsed,
+        "examples_trained": snap["examples_trained"],
+        "train_examples_per_s": snap["examples_trained"] / elapsed,
+        "served_requests_per_s": len(latencies) / elapsed,
+        "requests": len(latencies) + len(failures),
+        "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+        "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "failed_requests": len(failures),
+        "first_failure": failures[0] if failures else None,
+        # distinct checkpoint steps rolled onto replicas behind traffic
+        "reload_cycles": len({d["target_step"] for d in fleet["decisions"]
+                              if d.get("action") == "reload_step"}),
+        "replica_hot_swaps": fleet["reload_steps"],
+        "last_reload_step": snap["online"]["last_reload_step"],
+        "staleness_p50_steps": staleness["staleness_p50_steps"],
+        "staleness_p99_steps": staleness["staleness_p99_steps"],
+        "staleness_p50_s": staleness["staleness_p50_s"],
+        "staleness_p99_s": staleness["staleness_p99_s"],
+        "max_burn_rate": snap["max_burn"],
+        "watermark_lag_s": snap["stream"]["watermark_lag_s"],
+        "lineage_windows": snap["lineage"]["windows_traced"],
+        "lineage_dominant_phase": snap["lineage"]["dominant_phase"],
+        "lineage_reconcile": lineage_reconciliation(lineage_records),
+    }
+
+
+class CapacityGate:
+    """bench.py's per-tick admission gate in front of a replica: the
+    first ONLINE_CAPACITY_PER_TICK requests of a tick pass, the rest
+    shed with SERVING_OVERLOADED, as a saturated batcher queue answers."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.used = 0
+
+    def reset(self):
+        self.used = 0
+
+    def predict(self, request, timeout=None):
+        if self.used >= ONLINE_CAPACITY_PER_TICK:
+            return spb.PredictResponse(code=spb.SERVING_OVERLOADED,
+                                       error="per-tick capacity exhausted")
+        self.used += 1
+        return self._inner.predict(request, timeout=timeout)
+
+    def health(self, request, timeout=None):
+        return self._inner.health(request, timeout=timeout)
+
+
+def traffic_spike_run(seed: int, device: str, root=None):
+    """bench.py::_traffic_spike_run through the port: the seeded traffic
+    generator offers a 5x spike to an autoscaling fleet whose replicas
+    each serve ONLINE_CAPACITY_PER_TICK requests a tick, under a fake
+    clock.
+    Returns (canonical text, summary): the offered schedule, the serving
+    policy's decisions, the fleet size per tick, the scale and SLO
+    events, and the incident bundles."""
+    clock, _ = fake_clock(2_000_000.0)
+    gates = {}
+
+    def client_wrapper(rid, inner):
+        gates[rid] = CapacityGate(inner)
+        return gates[rid]
+
+    watched = (events.SERVING_SCALE, events.SLO_BREACH,
+               events.SLO_RECOVERED, events.INCIDENT_CAPTURED)
+    norm_events = []
+
+    def observe(record):
+        if record.get("event") in watched:
+            norm_events.append({
+                "event": record["event"],
+                **{k: record[k] for k in ONLINE_TRAFFIC_KEEP if k in record}})
+
+    events.add_observer(observe)
+    try:
+        spec = get_model_spec(ZOO_DIR, CTR)
+        with tempfile.TemporaryDirectory(dir=root) as tmp:
+            incident_dir = os.path.join(tmp, "incidents")
+            pipe = OnlinePipeline(
+                tmp, spec,
+                OnlineConfig(seed=seed, window_records=64,
+                             records_per_poll=64, records_per_task=16,
+                             checkpoint_every_windows=2, replicas=1,
+                             max_serving_replicas=4,
+                             serving_up_ticks=ONLINE_UP_TICKS,
+                             serving_down_ticks=3,
+                             serving_scale_hold_ticks=2,
+                             serving_shed_window_s=30.0,
+                             backpressure_threshold=0.25,
+                             backpressure_stride=4),
+                clock=clock, client_wrapper=client_wrapper, device=device)
+            recorder = FlightRecorder(incident_dir=incident_dir,
+                                      snapshot_fn=pipe.snapshot,
+                                      history=pipe.history).install()
+            pipe.evaluator.set_on_breach(recorder.breach)
+
+            def encode_fn(rows, payload_seed):
+                rng = np.random.RandomState(payload_seed % (2 ** 31))
+                return ctr_zoo.encode(rng.randint(0, 512, rows),
+                                      rng.randint(0, 128, rows))
+
+            gen = TrafficGenerator(
+                router_request_fn(pipe.router, encode_fn),
+                TrafficConfig(profile="spike", base_qps=8.0, clients=4,
+                              seed=seed, tick_interval_s=1.0,
+                              spike_at_tick=ONLINE_SPIKE_AT_TICK,
+                              spike_ticks=4,
+                              spike_factor=5.0))
+            fleet_sizes, pressures = [], []
+            try:
+                for _ in range(ONLINE_TRAFFIC_TICKS):
+                    for gate in gates.values():
+                        gate.reset()
+                    gen.tick()
+                    pipe.tick()
+                    fleet_sizes.append(pipe.fleet_manager.live_replicas())
+                    pressures.append(pipe._serving_pressure)
+                snap = pipe.snapshot()
+                traffic = gen.snapshot()
+                recorder.flush()
+                bundles = (sorted(os.listdir(incident_dir))
+                           if os.path.isdir(incident_dir) else [])
+                skipped = int(pipe._backpressure_skips.value())
+            finally:
+                recorder.close()
+                pipe.shutdown()
+    finally:
+        events.remove_observer(observe)
+
+    policy = snap["serving_policy"]
+    canonical = json.dumps({
+        "schedule": traffic["schedule"],
+        "decisions": policy["decisions"],
+        "fleet_sizes": fleet_sizes,
+        "events": norm_events,
+        "bundles": bundles,
+    }, sort_keys=True)
+    scale_ups = [d["tick"] for d in policy["decisions"]
+                 if d["action"] == "scale_up"]
+    summary = {
+        "offered": traffic["offered"],
+        "offered_qps": traffic["offered_qps"],
+        "ok": traffic["ok"],
+        "shed": traffic["shed"],
+        "failed_requests": traffic["failed"],
+        "shed_ratio": traffic["shed_ratio"],
+        "min_fleet": 1,
+        "peak_fleet": max(fleet_sizes),
+        "final_fleet": fleet_sizes[-1],
+        "scale_ups": snap["serving_fleet"]["scale_ups"],
+        "scale_downs": snap["serving_fleet"]["scale_downs"],
+        "first_scale_up_tick": scale_ups[0] if scale_ups else None,
+        "decisions": len(policy["decisions"]),
+        "polls_skipped": snap["backpressure"]["polls_skipped"],
+        "backpressure_skipped_polls_total": skipped,
+        "peak_pressure": round(max(pressures), 4),
+        "incident_bundles": bundles,
+        "max_burn_rate": round(snap["max_burn"], 3),
+    }
+    return canonical, summary
+
+
+def check_traffic_spike(summary: dict) -> None:
+    """Scaled up within the hysteresis after the spike (the policy's
+    ticks count from 1, the generator's from 0, so the spike's first
+    tick is the policy's ONLINE_SPIKE_AT_TICK + 1 and a streak of
+    ONLINE_UP_TICKS acts by their sum), one incident bundle, polls
+    skipped under backpressure, and back to the minimum."""
+    first = summary["first_scale_up_tick"]
+    ok = (summary["peak_fleet"] > summary["min_fleet"]
+          and first is not None
+          and ONLINE_SPIKE_AT_TICK < first
+          <= ONLINE_SPIKE_AT_TICK + ONLINE_UP_TICKS
+          and len(summary["incident_bundles"]) == 1
+          and summary["backpressure_skipped_polls_total"] > 0
+          and summary["final_fleet"] == summary["min_fleet"])
+    if not ok:
+        raise AssertionError(f"the serving control loop: {summary}")
+
+
+def online_loop(card: str, work: str) -> dict:
+    """(a) the chaos replay on the card twice and on the CPU, texts equal
+    byte for byte, final parameters within ONLINE_PARAM_TOL; (b) the
+    sustained loop behind live traffic; (c) the serving control loop
+    twice.  Budget ONLINE_BUDGET_S."""
+    root = os.path.join(work, "online_loop")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    init = {}
+    text_a, summary_a, params_a = online_chaos_run(ONLINE_CHAOS_SEED,
+                                                   "cuda", root, init)
+    text_b, summary_b, _ = online_chaos_run(ONLINE_CHAOS_SEED, "cuda", root)
+    # from the card's initial weights
+    text_c, summary_c, params_c = online_chaos_run(ONLINE_CHAOS_SEED,
+                                                   "cpu", root, init)
+    check_online_chaos(summary_a)
+    param_err = max(float((params_a[k] - params_c[k]).abs().max())
+                    for k in params_a)
+    chaos = {"seed": ONLINE_CHAOS_SEED, "card": card,
+             "text_bytes": len(text_a),
+             "card_rerun_identical": text_a == text_b,
+             "card_equals_cpu": text_a == text_c,
+             "summaries_equal": summary_a == summary_b == summary_c,
+             "param_max_abs_err_vs_cpu": param_err,
+             "param_tol": ONLINE_PARAM_TOL, **summary_a}
+    a_s = time.perf_counter() - t0
+    print(json.dumps({"online_chaos": chaos}), flush=True)
+    if not (chaos["card_rerun_identical"] and chaos["card_equals_cpu"]
+            and chaos["summaries_equal"]) or param_err > ONLINE_PARAM_TOL:
+        raise AssertionError(f"the online chaos replay: {chaos}")
+
+    t1 = time.perf_counter()
+    sustained = online_sustained("cuda", root)
+    b_s = time.perf_counter() - t1
+    sustained["card"] = card
+    print(json.dumps({"online_sustained": sustained}), flush=True)
+    if sustained["failed_requests"] or sustained["reload_cycles"] < 2 \
+            or sustained["windows_trained"] < ONLINE_WINDOWS:
+        raise AssertionError(f"the sustained online loop: {sustained}")
+
+    t2 = time.perf_counter()
+    spike_a, spike_summary = traffic_spike_run(ONLINE_TRAFFIC_SEED, "cuda",
+                                               root)
+    spike_b, _ = traffic_spike_run(ONLINE_TRAFFIC_SEED, "cuda", root)
+    spike = {"seed": ONLINE_TRAFFIC_SEED, "card": card,
+             "rerun_identical": spike_a == spike_b, **spike_summary}
+    c_s = time.perf_counter() - t2
+    print(json.dumps({"online_traffic": spike}), flush=True)
+    check_traffic_spike(spike_summary)
+    if not spike["rerun_identical"]:
+        raise AssertionError(f"the serving control loop's rerun: {spike}")
+    wall = time.perf_counter() - t0
+    line = {"card": card, "wall_s": wall, "budget_s": ONLINE_BUDGET_S,
+            "a_s": a_s, "b_s": b_s, "c_s": c_s,
+            "chaos": {k: chaos[k] for k in (
+                "card_rerun_identical", "card_equals_cpu", "windows_lost",
+                "duplicate_reports", "all_faults_fired", "failed_requests",
+                "param_max_abs_err_vs_cpu")},
+            "chaos_reconcile_delta_pct":
+                chaos["lineage_reconcile"]["delta_pct"],
+            "train_examples_per_s": sustained["train_examples_per_s"],
+            "served_requests_per_s": sustained["served_requests_per_s"],
+            "p50_ms": sustained["p50_ms"], "p99_ms": sustained["p99_ms"],
+            "staleness_p50_steps": sustained["staleness_p50_steps"],
+            "staleness_p99_steps": sustained["staleness_p99_steps"],
+            "staleness_p50_s": sustained["staleness_p50_s"],
+            "staleness_p99_s": sustained["staleness_p99_s"],
+            "max_burn_rate": sustained["max_burn_rate"],
+            "reload_cycles": sustained["reload_cycles"],
+            "failed_requests": sustained["failed_requests"],
+            "first_scale_up_tick": spike["first_scale_up_tick"],
+            "peak_fleet": spike["peak_fleet"],
+            "final_fleet": spike["final_fleet"],
+            "incident_bundles": len(spike["incident_bundles"]),
+            "backpressure_skipped_polls_total":
+                spike["backpressure_skipped_polls_total"]}
+    print(json.dumps({"online_loop": line}), flush=True)
+    if wall > ONLINE_BUDGET_S:
+        raise AssertionError(f"online_loop took {wall:.1f} s, over its "
+                             f"{ONLINE_BUDGET_S} s budget")
+    return {"chaos": chaos, "sustained": sustained, "traffic": spike,
+            "walls": line}
 
 
 def bert_launches() -> dict:
@@ -4757,6 +5379,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
         "resilient_local", resilient_local, card, work, fm_served)
     stream, stream_launches = phase("stream_judgment", stream_judgment,
                                     card, work, fm_served)
+    online = phase("online_loop", online_loop, card, work)
     serve_fm = phase("serve_cli_deepfm", serve_cli_deepfm, card, fm_served)
     wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
     del buffers
@@ -4818,7 +5441,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
                    "serve": serve, "bert_f32_check": check,
                    "deepfm": deepfm, "local_deepfm": local,
                    "resilient_local": resilient,
-                   "stream_judgment": stream,
+                   "stream_judgment": stream, "online_loop": online,
                    "wire_deepfm": wire, "serve_cli_deepfm": serve_fm,
                    "tiered_deepfm": tiered, "local_tiered": local_t,
                    "zoo_local": zoo,

@@ -5,9 +5,10 @@ and `serve` read).
 Flags outside the subset are absent, so argparse rejects them.  A flag
 whose feature waits for a later slice of the port (a non-Local strategy)
 parses and then raises NotImplementedError where the job would use it;
-`--trace_sample_rate`, whose reader is the serving fleet (ROADMAP.md
-queue 1, item 10(b)), is the one flag that parses and is not read yet,
-as in the JAX package's Local jobs.  The wire formats (`--wire_format
+`--trace_sample_rate` parses and a Local job does not read it, as in the
+JAX package: its reader is the `FleetRouter` (proto/service.py) of the
+master's serving fleet, which the cluster slice wires (ROADMAP.md queue
+1, item 12).  The wire formats (`--wire_format
 plain|compact|dedup`, the legacy `--compact_wire`), the int8 arena
 (`--arena_dtype int8`), the tiered store's int8 cache
 (`--store_cache_dtype int8`), `--output` (a train job's model export,

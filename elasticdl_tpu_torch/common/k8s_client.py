@@ -1,0 +1,210 @@
+"""The Kubernetes client seam and its in-memory fake (the port's copy of
+the JAX package's common/k8s_client.py, its `PodSpec`, `parse_volumes`,
+`AbstractK8sClient` and `FakeK8sClient`).
+
+The master creates, watches and deletes pods through an
+`AbstractK8sClient`.  `FakeK8sClient` records the calls and lets a test
+or the online loop (`online/pipeline.py`) inject pod events: a created
+pod goes Pending -> Running at once, with a fabricated address, and
+`emit` drives a failure or a preemption.  The serving fleet places its
+replicas through it.
+
+The subprocess-backed `ProcessK8sClient` and the real `K8sClient` wait
+for the cluster slice of the port (ROADMAP.md queue 1, item 12).
+Nothing here imports a kubernetes package.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+from elasticdl_tpu_torch.common.constants import PodStatus, PodType
+from elasticdl_tpu_torch.common.log_utils import get_logger
+
+logger = get_logger(__name__)
+
+# (pod_name, phase, pod_address, exit_code): the address is "" until the
+# cluster knows the pod's IP; exit_code is the container's status on a
+# terminal phase (None when unknown).
+EventCallback = Callable[[str, str, str, Optional[int]], None]
+
+
+@dataclass
+class PodSpec:
+    name: str
+    pod_type: str  # "worker" | "master" | "serving"
+    worker_id: int = -1
+    image: str = ""
+    command: List[str] = field(default_factory=list)
+    resources: Dict[str, str] = field(default_factory=dict)
+    priority_class: str = ""
+    labels: Dict[str, str] = field(default_factory=dict)
+    # parsed --volume entries (parse_volumes): each a dict with
+    # "mount_path" plus one of "host_path" / "claim_name"
+    volumes: List[Dict[str, str]] = field(default_factory=list)
+
+
+def parse_volumes(volume: str) -> List[Dict[str, str]]:
+    """Parse the --volume flag: `host_path=/a,mount_path=/b` or
+    `claim_name=pvc,mount_path=/b`, several volumes separated by `;`."""
+    out: List[Dict[str, str]] = []
+    for part in (volume or "").split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        entry: Dict[str, str] = {}
+        for kv in part.split(","):
+            kv = kv.strip()
+            if not kv:
+                continue
+            if "=" not in kv:
+                raise ValueError(
+                    f"--volume entry {kv!r} is not key=value "
+                    "(expected host_path=/a,mount_path=/b or "
+                    "claim_name=pvc,mount_path=/b)"
+                )
+            key, _, value = kv.partition("=")
+            key, value = key.strip(), value.strip()
+            if key not in ("host_path", "claim_name", "mount_path"):
+                raise ValueError(
+                    f"--volume key {key!r} not supported (host_path, "
+                    "claim_name, mount_path)"
+                )
+            if not value:
+                raise ValueError(f"--volume key {key!r} has empty value")
+            entry[key] = value
+        if "host_path" in entry and "claim_name" in entry:
+            raise ValueError(
+                f"--volume entry {part!r} sets both host_path and "
+                "claim_name; pick one source"
+            )
+        if "mount_path" not in entry or not (
+            "host_path" in entry or "claim_name" in entry
+        ):
+            raise ValueError(
+                f"--volume entry {part!r} needs mount_path plus "
+                "host_path or claim_name"
+            )
+        out.append(entry)
+    return out
+
+
+class AbstractK8sClient:
+    def create_pod(self, spec: PodSpec) -> None:
+        raise NotImplementedError
+
+    def create_service(
+        self, name: str, selector: Dict[str, str], port: int
+    ) -> None:
+        """Expose the pods matching `selector` at DNS name `name`:`port`
+        (workers reach the master at `{job_name}-master:{port}`)."""
+        raise NotImplementedError
+
+    def delete_pod(self, name: str) -> None:
+        raise NotImplementedError
+
+    def get_pod_phase(self, name: str) -> str:
+        raise NotImplementedError
+
+    def start_watch(self, callback: EventCallback) -> None:
+        raise NotImplementedError
+
+    def list_pods(self) -> List[Tuple[str, int, str, str]]:
+        """The job's pods as (pod_name, worker_id, phase, address): a
+        replacement master adopts live workers from this list."""
+        return []
+
+    def get_pod_labels(self, name: str) -> Dict[str, str]:
+        """The labels stamped on the pod at creation ({} when the
+        client keeps none)."""
+        return {}
+
+    def master_host(self, job_name: str) -> str:
+        """The host name worker pods reach the master at."""
+        return f"{job_name}-master"
+
+
+class FakeK8sClient(AbstractK8sClient):
+    """In-memory cluster: a created pod goes Pending -> Running; tests
+    drive failures and preemptions through `emit`."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.pods: Dict[str, PodSpec] = {}
+        self.phases: Dict[str, str] = {}
+        self.services: Dict[str, dict] = {}
+        self.create_calls: List[PodSpec] = []
+        self.delete_calls: List[str] = []
+        self._callback: Optional[EventCallback] = None
+
+    def create_pod(self, spec: PodSpec) -> None:
+        with self._lock:
+            self.pods[spec.name] = spec
+            self.phases[spec.name] = PodStatus.PENDING
+            self.create_calls.append(spec)
+        self._emit(spec.name, PodStatus.PENDING)
+        with self._lock:
+            self.phases[spec.name] = PodStatus.RUNNING
+        # a fabricated address, as pod.status.pod_ip would give
+        self._emit(spec.name, PodStatus.RUNNING, self._pod_address(spec))
+
+    @staticmethod
+    def _pod_address(spec: PodSpec) -> str:
+        """One formula for the fabricated pod IP: the create_pod events
+        and list_pods (master adoption) must agree on it."""
+        return f"10.0.0.{spec.worker_id + 1}"
+
+    def create_service(
+        self, name: str, selector: Dict[str, str], port: int
+    ) -> None:
+        with self._lock:
+            self.services[name] = {"selector": selector, "port": port}
+
+    def delete_pod(self, name: str) -> None:
+        with self._lock:
+            self.delete_calls.append(name)
+            if name not in self.pods:
+                return
+            self.phases[name] = PodStatus.DELETED
+        self._emit(name, PodStatus.DELETED)
+
+    def get_pod_phase(self, name: str) -> str:
+        with self._lock:
+            return self.phases.get(name, PodStatus.UNKNOWN)
+
+    def get_pod_labels(self, name: str):
+        with self._lock:
+            spec = self.pods.get(name)
+            return dict(spec.labels) if spec is not None else {}
+
+    def list_pods(self):
+        with self._lock:
+            return [
+                (
+                    name,
+                    spec.worker_id,
+                    self.phases.get(name, PodStatus.UNKNOWN),
+                    self._pod_address(spec),
+                )
+                for name, spec in self.pods.items()
+                if spec.pod_type == PodType.WORKER
+            ]
+
+    def start_watch(self, callback: EventCallback) -> None:
+        self._callback = callback
+
+    # ---- test hooks ----------------------------------------------------
+
+    def emit(self, pod_name: str, phase: str, address: str = "",
+             exit_code=None):
+        """Inject a pod event (a preemption is FAILED)."""
+        with self._lock:
+            self.phases[pod_name] = phase
+        self._emit(pod_name, phase, address, exit_code)
+
+    def _emit(self, name: str, phase: str, address: str = "",
+              exit_code=None):
+        if self._callback is not None:
+            self._callback(name, phase, address, exit_code)

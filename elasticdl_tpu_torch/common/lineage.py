@@ -26,10 +26,10 @@ ONE monotone clock, the seven phase durations sum to the window's
 measured end-to-end staleness (served - ingest) exactly.
 
 In the port, the stream reader stamps the seal and replay and the task
-manager the arm; the train, admission, checkpoint, reload and serve
-stamps come from the online loop (`online/pipeline.py`), which waits for
-its slice of the port (ROADMAP.md queue 1, item 10(b)).  Until then
-`decompose` leaves a window open at `train`.
+manager the arm; the online loop (`online/pipeline.py`) stamps train and
+admission per task and fans the broadcast hops (checkpoint, reload,
+first serve) out to the windows each covers through the join queries
+below.  A window that never reaches a loop stays open at `train`.
 
 Replay attribution: a window replayed after a master restart keeps its
 FIRST-SEEN ingest/seal stamps; the replay stamp only fills them in when

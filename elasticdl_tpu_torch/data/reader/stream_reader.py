@@ -9,9 +9,7 @@ each sealed window becomes shard-addressable exactly like one small
 epoch — `(window_name, 0, n)` — which the perpetual task manager
 (master/task_manager.py `arm_window`) turns into leaseable tasks.  The
 loop that ties polling, arming, training, checkpointing and serving
-together is the JAX package's online/pipeline.py; the port's waits for
-its slice (ROADMAP.md queue 1, item 10(b)), and until then a caller
-drives these steps itself.
+together is online/pipeline.py.
 
 Time discipline:
 

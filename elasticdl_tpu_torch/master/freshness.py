@@ -20,9 +20,9 @@ via MetricHistory.  Injectable clock; `produced_time_fn` lets the
 master read the manifest's own wall-time stamp
 (`common/save_utils.py::read_produced_meta`) instead of observing late.
 
-Its first caller in the port's `Master` is the serving fleet, which
-waits for its slice of the port (ROADMAP.md queue 1, item 10(b)); until
-then a caller that serves in process feeds it by hand.
+The online loop (online/pipeline.py) builds one beside its serving
+fleet, whose router scores every response through it; the master builds
+one with its fleet in the cluster slice (ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations

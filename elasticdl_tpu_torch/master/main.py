@@ -21,15 +21,21 @@ on the event stream (bundles under `--incident_dir`), and an
 captures.  `start()` runs the history and SLO threads, each only at an
 interval > 0; `stop()` flushes and untaps the recorder, then stops
 both.  `snapshot()` gains `slo` (with the history's health) and
-`flight`.  A Local job serves nothing, so its four SLOs stay `no_data`;
-none of this touches training, so a job ends on the same state with the
-flags as without them.
+`flight`.  A Local job serves nothing: `staleness_p99` and `fleet_skew`
+stay `no_data`, and the two ratio SLOs read `ok` over the router's
+request counters, which exist at zero once `proto/service.py` is
+imported (as in the JAX package's Local job).  None of this touches
+training, so a job ends on the same state with the flags as without
+them.
 
-What waits for 10(b) (ROADMAP.md queue 1): the serving fleet and the
-`FreshnessTracker` it feeds (master/freshness.py is ported; the master
-builds one with the fleet), the policy engines and the online loop
-(`online/pipeline.py`).  Pods, rendezvous, the telemetry server and the
-gRPC server wait for the cluster slice (item 12).
+The serving fleet (master/serving_fleet.py), the `FreshnessTracker` it
+feeds and both policy engines (master/policy.py) are ported, and the
+online loop (online/pipeline.py) builds them.  The JAX master builds
+them only when it has pod machinery (a `PodManager`), and a Local
+master has none, so this master builds none of them, as the JAX Local
+master does: that wiring comes with the pods, rendezvous, the telemetry
+server and the gRPC server in the cluster slice (ROADMAP.md queue 1,
+item 12).
 """
 
 from __future__ import annotations

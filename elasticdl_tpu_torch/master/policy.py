@@ -1,0 +1,878 @@
+"""The policy engines: the actuators of the elastic control loop (the
+port of the JAX package's master/policy.py).
+
+`PolicyEngine` acts on the trainer fleet, at most ONE action a tick, in
+priority order:
+
+1. evict the lowest-id flagged straggler whose flag has dwelled past
+   `straggler_dwell_s` (a lifetime `eviction_budget`, and
+   `eviction_cooldown_s` between evictions);
+2. scale up by `scale_step` (whole groups when `workers_per_group` > 1)
+   when the backlog per worker has exceeded `backlog_per_worker` for
+   `backlog_ticks` ticks, or, for a perpetual job given a
+   `stream_lag_fn`, when the watermark lag has exceeded `stream_lag_s`
+   for `stream_lag_ticks` ticks;
+3. scale down (whole groups, stragglers first) when the fleet's
+   `data_wait` share of step time, a windowed delta of the cumulative
+   phase clocks, has exceeded `data_wait_share` for `data_wait_ticks`
+   ticks.
+
+`ServingPolicyEngine` scales the serving fleet on the SLO burn rate, the
+windowed shed ratio (`rpc_fleet_sheds_total` over
+`rpc_fleet_requests_total` from the metric history) and the batch fill,
+behind two guards that defer an action without resetting its streak:
+the rolling-reload guard and the `fleet.scale` fault point.
+`serving_pressure()` (burn x shed) is the online loop's backpressure
+signal.
+
+Both take their actuators duck-typed, as in the JAX package: a pool
+with `alive_workers / evict_worker / scale_up / scale_down` and a task
+manager with `snapshot / straggler_snapshot` (the online loop's
+`_TrainerPool` and `_TaskManagerProxy`), a fleet with `live_replicas /
+fill_signal / projected_scale_skew / scale_up / scale_down / config`.
+Streaks gate entry, every action arms `scale_hold_ticks` quiet ticks,
+`policy.tick` fires first in a trainer tick, and every decision is a
+span event and a clock-free record.  At `interval_s` 0 no thread starts.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass
+from typing import Callable, List, Optional
+
+from elasticdl_tpu_torch.common import events, faults
+from elasticdl_tpu_torch.common import metrics as metrics_lib
+from elasticdl_tpu_torch.common.log_utils import get_logger
+
+logger = get_logger(__name__)
+
+
+@dataclass
+class PolicyConfig:
+    """Thresholds and bounds for one policy loop (docs/ROBUSTNESS.md
+    "Policy engine" maps each field to its --flag)."""
+
+    min_workers: int = 1
+    max_workers: int = 1
+    interval_s: float = 0.0          # 0 = loop disabled
+    workers_per_group: int = 1
+    straggler_dwell_s: float = 30.0  # flag must persist this long
+    eviction_budget: int = 2         # lifetime cap on evictions
+    eviction_cooldown_s: float = 60.0
+    backlog_per_worker: float = 4.0  # queued tasks per worker
+    backlog_ticks: int = 3           # consecutive ticks above threshold
+    data_wait_share: float = 0.6     # fleet data_wait fraction of step
+    data_wait_ticks: int = 3
+    scale_step: int = 1              # workers per action (group-aligned)
+    scale_hold_ticks: int = 2        # quiet ticks after any scale action
+    # Perpetual (streaming) jobs only: scale up when the stream watermark
+    # lag (now - oldest armed window's watermark, reported by
+    # `stream_lag_fn`) has exceeded `stream_lag_s` for `stream_lag_ticks`
+    # consecutive ticks — the trainers aren't keeping up with ingest.
+    # 0 disables the signal (batch jobs have no watermark).
+    stream_lag_s: float = 0.0
+    stream_lag_ticks: int = 3
+
+    @classmethod
+    def from_args(cls, args) -> "PolicyConfig":
+        num_workers = getattr(args, "num_workers", 1)
+        max_workers = getattr(args, "max_workers", 0) or num_workers
+        return cls(
+            min_workers=getattr(args, "min_workers", 1),
+            max_workers=max(max_workers, getattr(args, "min_workers", 1)),
+            interval_s=getattr(args, "policy_interval", 0.0),
+            workers_per_group=max(
+                1, getattr(args, "workers_per_group", 1)
+            ),
+            straggler_dwell_s=getattr(args, "straggler_dwell_s", 30.0),
+            eviction_budget=getattr(args, "eviction_budget", 2),
+            eviction_cooldown_s=getattr(
+                args, "eviction_cooldown_s", 60.0
+            ),
+            backlog_per_worker=getattr(args, "backlog_per_worker", 4.0),
+            backlog_ticks=getattr(args, "backlog_ticks", 3),
+            data_wait_share=getattr(args, "data_wait_share", 0.6),
+            data_wait_ticks=getattr(args, "data_wait_ticks", 3),
+            scale_step=getattr(args, "scale_step", 1),
+            scale_hold_ticks=getattr(args, "scale_hold_ticks", 2),
+            stream_lag_s=getattr(args, "stream_lag_s", 0.0),
+            stream_lag_ticks=getattr(args, "stream_lag_ticks", 3),
+        )
+
+
+class PolicyEngine:
+    """Periodic evict/autoscale loop over the master's own components.
+
+    `telemetry_fn` returns the servicer's worker_telemetry() dict (the
+    cumulative `phase_<name>_ms` clocks piggybacked on worker reports);
+    `clock` is wall time in production and a fake in tests.
+    """
+
+    def __init__(
+        self,
+        task_manager,
+        pod_manager,
+        config: PolicyConfig,
+        telemetry_fn: Optional[Callable[[], dict]] = None,
+        clock: Callable[[], float] = time.time,
+        stream_lag_fn: Optional[Callable[[], float]] = None,
+    ):
+        self._tm = task_manager
+        self._pods = pod_manager
+        self.config = config
+        self._telemetry_fn = telemetry_fn or (lambda: {})
+        # Perpetual jobs: seconds of watermark lag behind the stream head
+        # (0.0 when idle / not streaming).  None disables the signal.
+        self._stream_lag_fn = stream_lag_fn
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+        self._tick_count = 0
+        self._backlog_streak = 0
+        self._data_wait_streak = 0
+        self._stream_lag_streak = 0
+        self._last_stream_lag_s = 0.0
+        self._hold_ticks = 0
+        self._evictions_used = 0
+        self._last_eviction_at: Optional[float] = None
+        # last-tick cumulative fleet phase clocks (wait_ms, total_ms)
+        self._last_phase = (0.0, 0.0)
+        self._last_backlog_ratio = 0.0
+        self._last_data_wait_ratio = 0.0
+        #: decisions in tick order; each entry is clock-free (tick index,
+        #: action, reason, integer/rounded inputs) so same-seed chaos
+        #: runs can byte-compare the whole list.
+        self.decisions: List[dict] = []
+
+        self.metrics_registry = metrics_lib.MetricsRegistry()
+        self._ticks = self.metrics_registry.counter(
+            "master_policy_ticks_total",
+            "policy loop ticks executed",
+        )
+        self._skipped = self.metrics_registry.counter(
+            "master_policy_skipped_ticks_total",
+            "ticks aborted by an injected policy.tick fault",
+        )
+        self._decisions_total = self.metrics_registry.counter(
+            "master_policy_decisions_total",
+            "actions taken by the policy loop",
+            labelnames=("action", "reason"),
+        )
+        self.metrics_registry.gauge_fn(
+            "master_policy_eviction_budget_count",
+            lambda: float(
+                max(0, self.config.eviction_budget - self._evictions_used)
+            ),
+            "evictions remaining in the lifetime budget",
+        )
+        self.metrics_registry.gauge_fn(
+            "master_policy_backlog_per_worker_ratio",
+            lambda: self._last_backlog_ratio,
+            "queued tasks per alive worker at the last tick",
+        )
+        self.metrics_registry.gauge_fn(
+            "master_policy_data_wait_ratio",
+            lambda: self._last_data_wait_ratio,
+            "fleet data_wait share of step time over the last tick window",
+        )
+        self.metrics_registry.gauge_fn(
+            "master_policy_stream_lag_seconds",
+            lambda: self._last_stream_lag_s,
+            "stream watermark lag behind ingest at the last tick "
+            "(perpetual jobs; 0 when the signal is disabled)",
+        )
+
+    # ---- lifecycle -----------------------------------------------------
+
+    def start(self) -> bool:
+        """Start the background loop; no-op (returns False) when
+        interval_s <= 0 — the documented off switch."""
+        if self.config.interval_s <= 0 or self._thread is not None:
+            return False
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, name="policy-engine", daemon=True
+        )
+        self._thread.start()
+        return True
+
+    def stop(self):
+        self._stop.set()
+        thread = self._thread
+        if thread is not None:
+            thread.join(timeout=5.0)
+            self._thread = None
+
+    def _run(self):
+        while not self._stop.wait(self.config.interval_s):
+            try:
+                self.tick()
+            except Exception:
+                # The policy loop must never take down the job brain.
+                logger.exception("policy tick failed")
+
+    # ---- the loop body -------------------------------------------------
+
+    def tick(self) -> Optional[dict]:
+        """One control decision; returns the decision record or None.
+        Serialized under a lock so a background tick and a test-driven
+        tick cannot interleave their read-decide-act sequences."""
+        with self._lock:
+            return self._tick_locked()
+
+    def _tick_locked(self) -> Optional[dict]:
+        self._tick_count += 1
+        self._ticks.inc()
+        try:
+            faults.fire(faults.POINT_POLICY_TICK)
+        except faults.InjectedFault as exc:
+            # A wedged control plane skips the tick; streaks and holds
+            # freeze rather than decay — the next healthy tick resumes.
+            self._skipped.inc()
+            logger.warning("policy tick %d skipped: %s", self._tick_count, exc)
+            return None
+
+        alive = self._pods.alive_workers()
+        decision = self._maybe_evict(alive)
+        if decision is None:
+            decision = self._maybe_scale(alive)
+        return decision
+
+    # ---- eviction ------------------------------------------------------
+
+    def _maybe_evict(self, alive: List[int]) -> Optional[dict]:
+        cfg = self.config
+        if self._evictions_used >= cfg.eviction_budget:
+            return None
+        now = self._clock()
+        if (
+            self._last_eviction_at is not None
+            and now - self._last_eviction_at < cfg.eviction_cooldown_s
+        ):
+            return None
+        # Never evict below min_workers: the group restart brings the
+        # victim back, but transiently the fleet dips by one group.
+        if len(alive) < max(cfg.min_workers, 1):
+            return None
+        snap = self._tm.straggler_snapshot()
+        for wid in sorted(snap):
+            stats = snap[wid]
+            if not stats.get("straggler"):
+                continue
+            if stats.get("flagged_for_s", 0.0) < cfg.straggler_dwell_s:
+                continue
+            if wid not in alive:
+                continue
+            if not self._pods.evict_worker(wid):
+                continue
+            self._evictions_used += 1
+            self._last_eviction_at = now
+            record = self._record(
+                "evict", "straggler",
+                worker_id=wid,
+                flagged_for_s=round(stats["flagged_for_s"], 3),
+                mean_task_s=round(stats.get("mean_task_s", 0.0), 3),
+                budget_left=cfg.eviction_budget - self._evictions_used,
+            )
+            events.emit(
+                events.POLICY_DECISION, action="evict", reason="straggler",
+                worker_id=wid, tick=self._tick_count,
+                flagged_for_s=record["flagged_for_s"],
+            )
+            return record
+        return None
+
+    # ---- autoscaling ---------------------------------------------------
+
+    def _signals(self, alive: List[int]) -> None:
+        """Refresh the two scaling signals and their hysteresis streaks."""
+        cfg = self.config
+        todo = self._tm.snapshot().get("todo", 0)
+        self._last_backlog_ratio = todo / max(1, len(alive))
+        if self._last_backlog_ratio > cfg.backlog_per_worker:
+            self._backlog_streak += 1
+        else:
+            self._backlog_streak = 0
+
+        wait_ms = total_ms = 0.0
+        for entry in self._telemetry_fn().values():
+            for key, value in entry.items():
+                if not key.startswith("phase_") or not key.endswith("_ms"):
+                    continue
+                try:
+                    value = float(value)
+                except (TypeError, ValueError):
+                    continue
+                total_ms += value
+                if key == "phase_data_wait_ms":
+                    wait_ms += value
+        prev_wait, prev_total = self._last_phase
+        self._last_phase = (wait_ms, total_ms)
+        delta_total = total_ms - prev_total
+        delta_wait = wait_ms - prev_wait
+        if delta_total > 0 and delta_wait >= 0:
+            self._last_data_wait_ratio = min(
+                1.0, delta_wait / delta_total
+            )
+        else:
+            # No step progress this window (or a counter reset): no
+            # signal — starving the fleet on stale data would be worse.
+            self._last_data_wait_ratio = 0.0
+        if self._last_data_wait_ratio > cfg.data_wait_share:
+            self._data_wait_streak += 1
+        else:
+            self._data_wait_streak = 0
+
+        # Stream watermark lag (perpetual jobs): how far the oldest armed
+        # window's event time trails the ingest head.  Sustained lag means
+        # the trainer fleet is underprovisioned for the stream rate.
+        self._last_stream_lag_s = 0.0
+        if self._stream_lag_fn is not None and cfg.stream_lag_s > 0:
+            try:
+                self._last_stream_lag_s = max(
+                    0.0, float(self._stream_lag_fn())
+                )
+            except Exception:
+                logger.exception("stream lag probe failed")
+        if self._last_stream_lag_s > cfg.stream_lag_s:
+            self._stream_lag_streak += 1
+        else:
+            self._stream_lag_streak = 0
+
+    def _aligned_step(self, room: int) -> int:
+        """Per-tick step, aligned to whole groups and capped by room."""
+        cfg = self.config
+        wpg = cfg.workers_per_group
+        step = min(max(1, cfg.scale_step), max(0, room))
+        if wpg > 1:
+            # whole slices only: request at least one group, never more
+            # than fit in the room
+            step = min(
+                wpg * max(1, cfg.scale_step // wpg),
+                (room // wpg) * wpg,
+            )
+        return step
+
+    def _maybe_scale(self, alive: List[int]) -> Optional[dict]:
+        cfg = self.config
+        self._signals(alive)
+        if self._hold_ticks > 0:
+            self._hold_ticks -= 1
+            return None
+
+        if self._backlog_streak >= cfg.backlog_ticks:
+            step = self._aligned_step(cfg.max_workers - len(alive))
+            if step > 0:
+                launched = self._pods.scale_up(step)
+                self._hold_ticks = cfg.scale_hold_ticks
+                self._backlog_streak = 0
+                self._data_wait_streak = 0
+                record = self._record(
+                    "scale_up", "backlog",
+                    backlog_per_worker=round(self._last_backlog_ratio, 3),
+                    alive=len(alive), requested=step, launched=launched,
+                )
+                events.emit(
+                    events.POLICY_DECISION,
+                    action="scale_up", reason="backlog",
+                    tick=self._tick_count, requested=step,
+                    launched=launched,
+                    backlog_per_worker=record["backlog_per_worker"],
+                )
+                return record
+
+        if self._stream_lag_streak >= cfg.stream_lag_ticks:
+            step = self._aligned_step(cfg.max_workers - len(alive))
+            if step > 0:
+                launched = self._pods.scale_up(step)
+                self._hold_ticks = cfg.scale_hold_ticks
+                self._backlog_streak = 0
+                self._data_wait_streak = 0
+                self._stream_lag_streak = 0
+                record = self._record(
+                    "scale_up", "stream_lag",
+                    stream_lag_s=round(self._last_stream_lag_s, 3),
+                    alive=len(alive), requested=step, launched=launched,
+                )
+                events.emit(
+                    events.POLICY_DECISION,
+                    action="scale_up", reason="stream_lag",
+                    tick=self._tick_count, requested=step,
+                    launched=launched,
+                    stream_lag_s=record["stream_lag_s"],
+                )
+                return record
+
+        if self._data_wait_streak >= cfg.data_wait_ticks:
+            step = self._aligned_step(len(alive) - cfg.min_workers)
+            if step > 0:
+                flagged = sorted(
+                    wid
+                    for wid, s in self._tm.straggler_snapshot().items()
+                    if s.get("straggler")
+                )
+                removed = self._pods.scale_down(step, prefer=flagged)
+                if removed:
+                    self._hold_ticks = cfg.scale_hold_ticks
+                    self._backlog_streak = 0
+                    self._data_wait_streak = 0
+                    record = self._record(
+                        "scale_down", "data_wait",
+                        data_wait_ratio=round(
+                            self._last_data_wait_ratio, 3
+                        ),
+                        alive=len(alive), removed=sorted(removed),
+                    )
+                    events.emit(
+                        events.POLICY_DECISION,
+                        action="scale_down", reason="data_wait",
+                        tick=self._tick_count, removed=sorted(removed),
+                        data_wait_ratio=record["data_wait_ratio"],
+                    )
+                    return record
+        return None
+
+    # ---- bookkeeping ---------------------------------------------------
+
+    def _record(self, action: str, reason: str, **inputs) -> dict:
+        assert action in events.POLICY_ACTIONS, action
+        assert reason in events.POLICY_REASONS, reason
+        self._decisions_total.labels(action=action, reason=reason).inc()
+        record = {"tick": self._tick_count, "action": action,
+                  "reason": reason}
+        record.update(inputs)
+        self.decisions.append(record)
+        logger.info("policy decision: %s", record)
+        return record
+
+    def snapshot(self) -> dict:
+        # Taken under the lock: snapshot() runs on the master/telemetry
+        # thread while the tick loop mutates these counters under
+        # self._lock (GL-LOCK).
+        with self._lock:
+            return {
+                "ticks": self._tick_count,
+                "evictions_used": self._evictions_used,
+                "eviction_budget": self.config.eviction_budget,
+                "backlog_streak": self._backlog_streak,
+                "data_wait_streak": self._data_wait_streak,
+                "hold_ticks": self._hold_ticks,
+                "backlog_per_worker": round(self._last_backlog_ratio, 3),
+                "data_wait_ratio": round(self._last_data_wait_ratio, 3),
+                "stream_lag_s": round(self._last_stream_lag_s, 3),
+                "stream_lag_streak": self._stream_lag_streak,
+                "decisions": list(self.decisions),
+                "interval_s": self.config.interval_s,
+            }
+
+
+@dataclass
+class ServingPolicyConfig:
+    """Thresholds and bounds for the serving-fleet autoscaler
+    (docs/SERVING.md "Autoscaling & backpressure" maps each field to
+    its --flag)."""
+
+    min_replicas: int = 1
+    max_replicas: int = 1
+    interval_s: float = 0.0          # 0 = loop disabled
+    burn_threshold: float = 1.0      # fast SLO burn considered overload
+    shed_threshold: float = 0.02     # windowed shed ratio = overload
+    fill_low: float = 0.2            # mean batch fill considered idle
+    up_ticks: int = 2                # streak gating scale_up entry
+    down_ticks: int = 3              # streak gating scale_down entry
+    scale_step: int = 1              # replicas per action
+    scale_hold_ticks: int = 2        # quiet ticks after any action
+    shed_window_s: float = 30.0      # shed-ratio evidence window
+
+    @classmethod
+    def from_args(cls, args) -> "ServingPolicyConfig":
+        replicas = getattr(args, "serving_replicas", 0)
+        min_replicas = (
+            getattr(args, "min_serving_replicas", 0) or replicas
+        )
+        return cls(
+            min_replicas=max(1, min_replicas),
+            max_replicas=max(
+                getattr(args, "max_serving_replicas", 0), min_replicas, 1
+            ),
+            interval_s=getattr(args, "serving_policy_interval", 0.0),
+            burn_threshold=getattr(
+                args, "serving_burn_threshold", 1.0
+            ),
+            shed_threshold=getattr(
+                args, "serving_shed_threshold", 0.02
+            ),
+            fill_low=getattr(args, "serving_fill_low", 0.2),
+            up_ticks=getattr(args, "serving_up_ticks", 2),
+            down_ticks=getattr(args, "serving_down_ticks", 3),
+            scale_step=getattr(args, "serving_scale_step", 1),
+            scale_hold_ticks=getattr(
+                args, "serving_scale_hold_ticks", 2
+            ),
+            shed_window_s=getattr(args, "serving_shed_window_s", 30.0),
+        )
+
+
+class ServingPolicyEngine:
+    """SLO-driven autoscaler for the serving fleet — the PolicyEngine
+    template applied to the serve tier (docs/SERVING.md "Autoscaling &
+    backpressure").
+
+    Per tick, at most ONE action, chosen from three signals:
+
+    - **SLO burn rate** (`evaluator.max_burn()` over the shipped
+      predict_availability / staleness_p99 SLOs): sustained burn above
+      `burn_threshold` for `up_ticks` consecutive ticks scales up.
+    - **Windowed shed ratio** (`rpc_fleet_sheds_total` over
+      `rpc_fleet_requests_total` deltas from the `MetricHistory` ring,
+      so a past spike ages OUT of the evidence): sustained shedding
+      scales up even before the SLO burns.
+    - **Batch fill** (mean batcher fill across healthy replicas from
+      the fleet manager's probes): a calm, underfilled fleet for
+      `down_ticks` ticks scales down, `prefer="unhealthy"` victims
+      first; a fleet with no offered traffic at all shrinks on reason
+      `idle`.
+
+    Hysteresis mirrors the trainer policy: consecutive-tick streaks
+    gate entry and every action arms `scale_hold_ticks` quiet ticks.
+    Two guards make an action a no-op for the tick WITHOUT resetting
+    streaks, so it retries next tick: the **rolling-reload guard**
+    (never scale while a reload sequence is mid-flight and the
+    projected `model_step` skew of a scale action would break the skew
+    SLO — recorded as `scale_aborted`/`reload_guard`) and the
+    **fleet.scale fault point** (an injected apiserver error aborts the
+    action atomically inside the manager — recorded as
+    `scale_aborted`/`fault`).
+
+    Every decision is a `serving_scale` span event with literal
+    action/reason from the closed SERVING_SCALE_ACTIONS/REASONS
+    vocabularies (graftlint GL-METRIC enforces the literals) plus a
+    clock-free `decisions` record, byte-stable across same-seed runs.
+    """
+
+    def __init__(
+        self,
+        fleet,
+        config: ServingPolicyConfig,
+        history=None,
+        evaluator=None,
+        clock: Callable[[], float] = time.time,
+        shed_series: str = "rpc_fleet_sheds_total",
+        offered_series: str = "rpc_fleet_requests_total",
+    ):
+        self._fleet = fleet
+        self.config = config
+        self._history = history
+        self._evaluator = evaluator
+        self._clock = clock
+        self._shed_series = shed_series
+        self._offered_series = offered_series
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+        self._tick_count = 0
+        self._up_streak = 0
+        self._down_streak = 0
+        self._hold_ticks = 0
+        self._last_burn = 0.0
+        self._last_shed_ratio = 0.0
+        self._last_fill = 0.0
+        self._last_offered = 0.0
+        self._last_up_reason = "burn_rate"
+        self._last_down_reason = "batch_fill"
+        #: clock-free decision records in tick order (the PolicyEngine
+        #: contract: byte-comparable across same-seed runs).
+        self.decisions: List[dict] = []
+
+        self.metrics_registry = metrics_lib.MetricsRegistry()
+        self._ticks = self.metrics_registry.counter(
+            "master_serving_policy_ticks_total",
+            "serving policy loop ticks executed",
+        )
+        self._decisions_total = self.metrics_registry.counter(
+            "master_serving_policy_decisions_total",
+            "serving scale actions taken, by action and reason",
+            labelnames=("action", "reason"),
+        )
+        self.metrics_registry.gauge_fn(
+            "master_serving_policy_burn_ratio",
+            lambda: self._last_burn,
+            "max SLO fast-burn multiple at the last tick",
+        )
+        self.metrics_registry.gauge_fn(
+            "master_serving_policy_shed_ratio",
+            lambda: self._last_shed_ratio,
+            "windowed fleet shed ratio at the last tick",
+        )
+        self.metrics_registry.gauge_fn(
+            "master_serving_policy_fill_ratio",
+            lambda: self._last_fill,
+            "mean healthy-replica batch fill at the last tick",
+        )
+
+    # ---- lifecycle -----------------------------------------------------
+
+    def start(self) -> bool:
+        if self.config.interval_s <= 0 or self._thread is not None:
+            return False
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, name="serving-policy", daemon=True
+        )
+        self._thread.start()
+        return True
+
+    def stop(self):
+        self._stop.set()
+        thread = self._thread
+        if thread is not None:
+            thread.join(timeout=5.0)
+            self._thread = None
+
+    def _run(self):
+        while not self._stop.wait(self.config.interval_s):
+            try:
+                self.tick()
+            except Exception:
+                logger.exception("serving policy tick failed")
+
+    # ---- signals -------------------------------------------------------
+
+    def serving_pressure(self) -> float:
+        """burn rate x shed ratio, from the last tick's signals: the
+        backpressure scalar OnlinePipeline reads to slow its stream
+        poll/arm cadence while serving is overloaded."""
+        with self._lock:
+            return round(self._last_burn * self._last_shed_ratio, 6)
+
+    def _signals_locked(self) -> None:
+        cfg = self.config
+        self._last_burn = 0.0
+        if self._evaluator is not None:
+            try:
+                self._last_burn = float(self._evaluator.max_burn())
+            except Exception:
+                logger.exception("burn-rate probe failed")
+        self._last_shed_ratio = 0.0
+        self._last_offered = 0.0
+        if self._history is not None:
+            try:
+                offered = self._history.counter_delta(
+                    self._offered_series, cfg.shed_window_s
+                )
+                sheds = self._history.counter_delta(
+                    self._shed_series, cfg.shed_window_s
+                )
+                self._last_offered = float(offered or 0.0)
+                if offered:
+                    self._last_shed_ratio = min(
+                        1.0, max(0.0, float(sheds or 0.0) / offered)
+                    )
+            except Exception:
+                logger.exception("shed-ratio probe failed")
+        # Idle-aware minimum, not the mean: one busy replica's full
+        # batches must not mask idle peers (see fleet.fill_signal()).
+        self._last_fill = float(self._fleet.fill_signal())
+
+        if self._last_burn >= cfg.burn_threshold:
+            self._up_streak += 1
+            self._last_up_reason = "burn_rate"
+        elif self._last_shed_ratio >= cfg.shed_threshold:
+            self._up_streak += 1
+            self._last_up_reason = "shed_ratio"
+        else:
+            self._up_streak = 0
+
+        calm = (
+            self._last_burn < cfg.burn_threshold
+            and self._last_shed_ratio < cfg.shed_threshold
+        )
+        if calm and self._last_offered <= 0.0:
+            self._down_streak += 1
+            self._last_down_reason = "idle"
+        elif calm and self._last_fill <= cfg.fill_low:
+            self._down_streak += 1
+            self._last_down_reason = "batch_fill"
+        else:
+            self._down_streak = 0
+
+    # ---- the loop body -------------------------------------------------
+
+    def tick(self) -> Optional[dict]:
+        """One control decision; returns the decision record or None."""
+        with self._lock:
+            return self._tick_locked()
+
+    def _tick_locked(self) -> Optional[dict]:
+        self._tick_count += 1
+        self._ticks.inc()
+        cfg = self.config
+        self._signals_locked()
+        if self._hold_ticks > 0:
+            self._hold_ticks -= 1
+            return None
+        live = self._fleet.live_replicas()
+
+        if self._up_streak >= cfg.up_ticks and live < cfg.max_replicas:
+            step = min(cfg.scale_step, cfg.max_replicas - live)
+            guard = self._reload_guard_locked()
+            if guard is not None:
+                return guard
+            result = self._fleet.scale_up(step)
+            if result is not None and result["action"] == "scale_aborted":
+                # fleet.scale fault: skipped atomically; streaks frozen,
+                # the next tick retries the same action
+                record = self._record(
+                    "scale_aborted", "fault", direction="up",
+                    requested=step,
+                )
+                events.emit(
+                    events.SERVING_SCALE, action="scale_aborted",
+                    reason="fault", tick=self._tick_count,
+                    requested=step,
+                )
+                return record
+            self._hold_ticks = cfg.scale_hold_ticks
+            self._up_streak = 0
+            self._down_streak = 0
+            added = list(result["replicas"]) if result else []
+            if self._last_up_reason == "burn_rate":
+                record = self._record(
+                    "scale_up", "burn_rate",
+                    burn=round(self._last_burn, 3),
+                    shed_ratio=round(self._last_shed_ratio, 4),
+                    replicas=added, target=self._fleet.live_replicas(),
+                )
+                events.emit(
+                    events.SERVING_SCALE, action="scale_up",
+                    reason="burn_rate", tick=self._tick_count,
+                    burn=record["burn"], replicas=added,
+                )
+            else:
+                record = self._record(
+                    "scale_up", "shed_ratio",
+                    shed_ratio=round(self._last_shed_ratio, 4),
+                    burn=round(self._last_burn, 3),
+                    replicas=added, target=self._fleet.live_replicas(),
+                )
+                events.emit(
+                    events.SERVING_SCALE, action="scale_up",
+                    reason="shed_ratio", tick=self._tick_count,
+                    shed_ratio=record["shed_ratio"], replicas=added,
+                )
+            return record
+
+        if (
+            self._down_streak >= cfg.down_ticks
+            and live > cfg.min_replicas
+        ):
+            step = min(cfg.scale_step, live - cfg.min_replicas)
+            guard = self._reload_guard_locked()
+            if guard is not None:
+                return guard
+            result = self._fleet.scale_down(step, prefer="unhealthy")
+            if result is not None and result["action"] == "scale_aborted":
+                record = self._record(
+                    "scale_aborted", "fault", direction="down",
+                    requested=step,
+                )
+                events.emit(
+                    events.SERVING_SCALE, action="scale_aborted",
+                    reason="fault", tick=self._tick_count,
+                    requested=step,
+                )
+                return record
+            self._hold_ticks = cfg.scale_hold_ticks
+            self._up_streak = 0
+            self._down_streak = 0
+            removed = list(result["replicas"]) if result else []
+            if self._last_down_reason == "idle":
+                record = self._record(
+                    "scale_down", "idle",
+                    fill=round(self._last_fill, 3),
+                    replicas=removed,
+                    target=self._fleet.live_replicas(),
+                )
+                events.emit(
+                    events.SERVING_SCALE, action="scale_down",
+                    reason="idle", tick=self._tick_count,
+                    replicas=removed,
+                )
+            else:
+                record = self._record(
+                    "scale_down", "batch_fill",
+                    fill=round(self._last_fill, 3),
+                    replicas=removed,
+                    target=self._fleet.live_replicas(),
+                )
+                events.emit(
+                    events.SERVING_SCALE, action="scale_down",
+                    reason="batch_fill", tick=self._tick_count,
+                    fill=record["fill"], replicas=removed,
+                )
+            return record
+        return None
+
+    def _reload_guard_locked(self) -> Optional[dict]:
+        """The rolling-reload guard: a scale action taken while a reload
+        sequence is mid-flight would place (or retire) replicas at the
+        pending step, and when the projected spread breaks the skew SLO
+        the action is deferred — streaks stay frozen, next tick retries
+        once the roll completes."""
+        slo = getattr(self._fleet.config, "step_skew_slo", 0)
+        if slo <= 0:
+            return None
+        projected = self._fleet.projected_scale_skew()
+        if projected <= slo:
+            return None
+        record = self._record(
+            "scale_aborted", "reload_guard",
+            projected_skew=int(projected), slo=int(slo),
+        )
+        events.emit(
+            events.SERVING_SCALE, action="scale_aborted",
+            reason="reload_guard", tick=self._tick_count,
+            projected_skew=int(projected), slo=int(slo),
+        )
+        return record
+
+    # ---- bookkeeping ---------------------------------------------------
+
+    def _record(self, action: str, reason: str, **inputs) -> dict:
+        assert action in events.SERVING_SCALE_ACTIONS, action
+        assert reason in events.SERVING_SCALE_REASONS, reason
+        self._decisions_total.labels(action=action, reason=reason).inc()
+        record = {"tick": self._tick_count, "action": action,
+                  "reason": reason}
+        record.update(inputs)
+        self.decisions.append(record)
+        logger.info("serving scale decision: %s", record)
+        return record
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            last = self.decisions[-1] if self.decisions else None
+            return {
+                "ticks": self._tick_count,
+                "up_streak": self._up_streak,
+                "down_streak": self._down_streak,
+                "hold_ticks": self._hold_ticks,
+                "burn": round(self._last_burn, 3),
+                "shed_ratio": round(self._last_shed_ratio, 4),
+                "fill": round(self._last_fill, 3),
+                "offered_window": round(self._last_offered, 1),
+                "serving_pressure": round(
+                    self._last_burn * self._last_shed_ratio, 6
+                ),
+                "min_replicas": self.config.min_replicas,
+                "max_replicas": self.config.max_replicas,
+                "live_replicas": self._fleet.live_replicas(),
+                "last_decision": dict(last) if last else None,
+                "decisions": list(self.decisions),
+                "interval_s": self.config.interval_s,
+            }

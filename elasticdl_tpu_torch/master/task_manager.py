@@ -44,9 +44,8 @@ core of the JAX package's master/task_manager.py).
   journal the ledger is journaled too, and a restarted manager re-arms
   exactly the undone shards of the unreleased windows; released windows
   stay released.  The `master_stream_*` counters and the armed
-  watermark's lag gauge go to the manager's registry.  The loop that
-  drives it (`online/pipeline.py`) waits for its slice of the port
-  (ROADMAP.md queue 1, item 10(b)).
+  watermark's lag gauge go to the manager's registry.  The online loop
+  (`online/pipeline.py`) drives it.
 
 For the same shards and seed the task sequence (ids, types, shards) is
 the JAX master's, bit for bit (a journaled manager draws its id base

@@ -1,6 +1,6 @@
 """Click-through-rate MLP (the port of the JAX zoo's model_zoo/
 clickstream/ctr_mlp.py, with its parameter names, numerics and zoo
-contract), the model of the online loop (ROADMAP.md item 10).
+contract), the model of the online loop (online/pipeline.py).
 
 Records are click dicts {user, item, clicked, ...}.  Features are hashed
 one-hots, the user into the first HASH_USER buckets and the item into

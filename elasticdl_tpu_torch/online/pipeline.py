@@ -1,0 +1,1013 @@
+"""The online loop: one measured loop from stream to served model (the
+port of the JAX package's online/pipeline.py).
+
+    ClickStreamSource -> StreamReader (bounded windows, watermark)
+        -> TaskManager(perpetual=True).arm_window  (re-arms forever)
+        -> Trainer.train_on_batch per leased task
+        -> CheckpointSaver every `checkpoint_every_windows` windows
+           (keep-last-K, freshness stamp, sharded-store sidecar)
+        -> ServingFleetManager.tick  (one replica hot-swapped a tick
+           behind the FleetRouter while traffic flows)
+        -> FreshnessTracker + MetricHistory + SloEvaluator
+
+Training fans out over `workers` LOGICAL trainers: lease identities
+against the task manager and shard owners in a `ShardedTieredStore`
+that keeps per-row CTR statistics on the host (`row % num_shards`).
+`kill_worker` requeues a dead trainer's leases and hands its shards to
+the survivors (`store.shard_handoff`); `restart_master` rebuilds the
+perpetual queue from the window-ledger journal, so an unfinished
+window re-arms exactly its undone shards.  With `max_workers >
+workers` a `PolicyEngine` scales the trainer pool; with
+`max_serving_replicas > replicas` a `ServingPolicyEngine` scales the
+serving fleet, and its pressure (burn x shed) slows the stream poll.
+
+Every collaborator that reads time shares ONE injected clock, and every
+decision maker is deterministic under a fake one, so a chaos run (a
+stream stall, trainer kills, a master restart, a handoff fault, a
+reload fault) replays byte for byte, and equals the JAX loop's replay
+(chip_smoke.py's `online_loop`).  The order of the constructor below
+is the JAX package's: each collaborator reads the clock as it is built.
+
+`device` (CUDA unless the caller asks for the CPU) is resolved once:
+the trainer and every replica's `ServingEngine` run on it.  The rest is
+host code.  The serving replicas are in-process servicers behind
+killable clients, so the whole loop runs in one process.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+from dataclasses import dataclass
+from typing import Callable, List, Optional
+
+import numpy as np
+
+from elasticdl_tpu_torch.common import events
+from elasticdl_tpu_torch.common import metrics as metrics_lib
+from elasticdl_tpu_torch.common.history import MetricHistory
+from elasticdl_tpu_torch.common.lineage import WindowLineage
+from elasticdl_tpu_torch.common.k8s_client import FakeK8sClient
+from elasticdl_tpu_torch.common.constants import PodStatus
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.resilience import RetryPolicy
+from elasticdl_tpu_torch.common.save_utils import CheckpointSaver
+from elasticdl_tpu_torch.common.slo import (
+    SLO_PREDICT_SHED_RATIO,
+    SLO_STALENESS_P99,
+    SloEvaluator,
+    shipped_specs,
+)
+from elasticdl_tpu_torch.device import resolve_device
+from elasticdl_tpu_torch.data.reader.stream_reader import (
+    ClickStreamSource,
+    StreamReader,
+)
+from elasticdl_tpu_torch.master.freshness import FreshnessTracker
+from elasticdl_tpu_torch.master.policy import (
+    PolicyConfig,
+    PolicyEngine,
+    ServingPolicyConfig,
+    ServingPolicyEngine,
+)
+from elasticdl_tpu_torch.master.serving_fleet import (
+    ServingFleetConfig,
+    ServingFleetManager,
+)
+from elasticdl_tpu_torch.master.task_manager import TaskManager
+from elasticdl_tpu_torch.proto.service import (
+    FleetRouter,
+    InProcessServingClient,
+)
+from elasticdl_tpu_torch.store import checkpoint as store_checkpoint
+from elasticdl_tpu_torch.store.sharding import ShardedTieredStore
+
+logger = get_logger(__name__)
+
+
+@dataclass
+class OnlineConfig:
+    """Shape of one online loop.  Defaults are CI-sized: a few hundred
+    records per window, two replicas, a checkpoint every other window."""
+
+    seed: int = 0
+    window_records: int = 128
+    records_per_task: int = 32
+    records_per_poll: int = 64
+    max_buffered_windows: int = 64
+    checkpoint_every_windows: int = 2
+    keep_max: int = 3
+    replicas: int = 2
+    probe_failures: int = 2
+    step_skew_slo: int = 16
+    source_users: int = 512
+    source_items: int = 128
+    # ---- elastic training pool + sharded store ----
+    workers: int = 1                 # logical trainer workers
+    num_shards: int = 4              # store row-space shards (row % N)
+    store_cache_rows: int = 512      # total hot-row capacity, all shards
+    max_workers: int = 0             # > workers enables the PolicyEngine
+    stream_lag_s: float = 60.0       # scale-up threshold (watermark lag)
+    stream_lag_ticks: int = 2
+    # ---- serving autoscaler + train/serve backpressure ----
+    max_serving_replicas: int = 0    # > replicas enables the autoscaler
+    min_serving_replicas: int = 0    # 0 = `replicas` (the placed size)
+    serving_up_ticks: int = 2        # autoscaler hysteresis streaks
+    serving_down_ticks: int = 3
+    serving_scale_hold_ticks: int = 2
+    serving_shed_window_s: float = 30.0
+    serving_burn_threshold: float = 1.0
+    serving_shed_threshold: float = 0.02
+    backpressure_threshold: float = 0.25  # serving_pressure gate
+    backpressure_stride: int = 4     # poll/arm every Nth tick when over
+
+
+class _KillableClient:
+    """In-process serving client with a kill switch standing in for a
+    dead pod (same harness shape as bench_serving_fleet)."""
+
+    def __init__(self, servicer):
+        self._inner = InProcessServingClient(servicer)
+        self.killed = False
+
+    def predict(self, request, timeout=None):
+        if self.killed:
+            raise ConnectionError("replica killed")
+        return self._inner.predict(request, timeout=timeout)
+
+    def health(self, request, timeout=None):
+        if self.killed:
+            raise ConnectionError("replica killed")
+        return self._inner.health(request, timeout=timeout)
+
+
+class _TrainerPool:
+    """PodManager-shaped adapter over the pipeline's LOGICAL trainer
+    workers — distinct lease identities + shard owners, not processes.
+    Implements exactly the surface the PolicyEngine drives
+    (alive_workers / evict_worker / scale_up / scale_down), so the
+    master's one policy loop actuates the perpetual trainer fleet the
+    same way it actuates batch pods."""
+
+    def __init__(self, pipeline: "OnlinePipeline", worker_ids):
+        self._pipeline = pipeline
+        self._alive: List[int] = sorted(int(w) for w in worker_ids)
+        self._next_id = (max(self._alive) + 1) if self._alive else 0
+
+    def alive_workers(self) -> List[int]:
+        return list(self._alive)
+
+    def drop_worker(self, worker_id: int) -> bool:
+        """Remove WITHOUT replacement (the chaos kill path); shard
+        evacuation and lease recovery are the pipeline's job."""
+        if worker_id not in self._alive or len(self._alive) <= 1:
+            return False
+        self._alive.remove(worker_id)
+        return True
+
+    def evict_worker(self, worker_id: int) -> bool:
+        """Evict + relaunch on a fresh id (the group-restart shape the
+        real PodManager has): the victim's shards hand off to the
+        survivors, then the replacement joins and takes a fair share
+        back — both sides of the handoff protocol in one action."""
+        if worker_id not in self._alive or len(self._alive) <= 1:
+            return False
+        self._alive.remove(worker_id)
+        self._pipeline._retire_worker(worker_id)
+        new_id = self._next_id
+        self._next_id += 1
+        self._alive.append(new_id)
+        self._alive.sort()
+        self._pipeline._admit_worker(new_id)
+        return True
+
+    def scale_up(self, n: int) -> int:
+        launched = 0
+        for _ in range(max(0, int(n))):
+            new_id = self._next_id
+            self._next_id += 1
+            self._alive.append(new_id)
+            self._pipeline._admit_worker(new_id)
+            launched += 1
+        self._alive.sort()
+        return launched
+
+    def scale_down(self, n: int, prefer=()) -> List[int]:
+        victims: List[int] = []
+        preferred = [w for w in prefer if w in self._alive]
+        rest = [
+            w for w in sorted(self._alive, reverse=True)
+            if w not in preferred
+        ]
+        for w in preferred + rest:
+            if len(victims) >= int(n):
+                break
+            if len(self._alive) - len(victims) <= 1:
+                break
+            victims.append(w)
+        for w in victims:
+            self._alive.remove(w)
+            self._pipeline._retire_worker(w)
+        return victims
+
+
+class _TaskManagerProxy:
+    """The PolicyEngine holds its task manager by reference, but the
+    pipeline REPLACES the task manager on a master restart.  This thin
+    forwarder keeps the engine pointed at whichever instance is live."""
+
+    def __init__(self, pipeline: "OnlinePipeline"):
+        self._pipeline = pipeline
+
+    def snapshot(self) -> dict:
+        return self._pipeline.task_manager.snapshot()
+
+    def straggler_snapshot(self) -> dict:
+        return self._pipeline.task_manager.straggler_snapshot()
+
+
+class OnlinePipeline:
+    """Builds and drives the whole loop.  `tick()` is one iteration:
+    poll the stream, arm sealed windows, train the leased tasks,
+    checkpoint on cadence, tick the serving fleet and the SLO watcher.
+    Call it forever (the real deployment) or N times (bench/tests)."""
+
+    def __init__(
+        self,
+        checkpoint_dir: str,
+        spec,
+        config: Optional[OnlineConfig] = None,
+        clock: Callable[[], float] = time.time,
+        source=None,
+        client_wrapper: Optional[Callable] = None,
+        device=None,
+    ):
+        # `client_wrapper(rid, client) -> client` interposes on every
+        # replica client the router sees (including ones the autoscaler
+        # launches later): how a driver models a replica's finite
+        # per-tick serving capacity without faking the servicer.
+        from elasticdl_tpu_torch.serving.batcher import DynamicBatcher
+        from elasticdl_tpu_torch.serving.engine import ServingEngine
+        from elasticdl_tpu_torch.serving.reloader import CheckpointReloader
+        from elasticdl_tpu_torch.serving.server import ServingServicer
+        from elasticdl_tpu_torch.worker.trainer import Trainer
+
+        self.config = cfg = config or OnlineConfig()
+        self.spec = spec
+        self._clock = clock
+        # resolved once: the trainer and every replica's engine run on
+        # it; the rest of the loop is host code
+        self.device = resolve_device(device)
+
+        # ---- window lineage (docs/OBSERVABILITY.md "Window lineage") ----
+        # Tapped on the event stream BEFORE any collaborator can emit a
+        # `window_span`, so every hop of every window joins.  The
+        # broadcast hops (checkpoint / reload / first serve) fan out to
+        # per-window stamps below via the lineage's join queries.
+        self.lineage = WindowLineage(clock=clock)
+        self.lineage.install()
+
+        # ---- stream -> windows ------------------------------------------
+        self.source = source if source is not None else ClickStreamSource(
+            seed=cfg.seed, users=cfg.source_users, items=cfg.source_items,
+            records_per_poll=cfg.records_per_poll, clock=clock,
+        )
+        self.reader = StreamReader(
+            self.source, window_records=cfg.window_records,
+            max_buffered_windows=cfg.max_buffered_windows, clock=clock,
+        )
+        self._pending_windows = []          # sealed, not yet armed
+        self._window_tasks_left = {}        # window name -> tasks open
+        self._window_ids = {}               # window name -> window id
+
+        # ---- perpetual task queue (journaled window ledger) -------------
+        # The journal is what makes `restart_master` exactly-once: the
+        # replacement re-arms unfinished windows' UNDONE shards only.
+        self._checkpoint_dir = checkpoint_dir
+        self._journal_path = os.path.join(
+            checkpoint_dir, "window_ledger.json"
+        )
+        self.task_manager = TaskManager(
+            perpetual=True, clock=clock, persist_path=self._journal_path,
+        )
+        self.master_restarts = 0
+
+        # ---- sharded tiered store (per-row CTR statistics) --------------
+        # Row space = user rows then item rows (HostTier field-disjoint
+        # assignment over fields {0: user, 1: item}); the "ctr" plane
+        # accumulates [impressions, clicks] per row.  Host tier is
+        # master-resident, so a trainer death loses only cache residency
+        # — the handoff protocol's whole point.
+        self.store = ShardedTieredStore(
+            planes={"ctr": 2},
+            num_fields=2,
+            cache_rows=cfg.store_cache_rows,
+            num_shards=cfg.num_shards,
+            workers=range(max(1, cfg.workers)),
+        )
+        self._sidecar_steps: List[int] = []
+
+        # ---- elastic trainer pool + policy engine -----------------------
+        self.pool = _TrainerPool(self, range(max(1, cfg.workers)))
+        self._rr = 0                        # round-robin lease cursor
+        self.policy: Optional[PolicyEngine] = None
+        if cfg.max_workers > cfg.workers:
+            self.policy = PolicyEngine(
+                _TaskManagerProxy(self),
+                self.pool,
+                PolicyConfig(
+                    min_workers=1,
+                    max_workers=cfg.max_workers,
+                    stream_lag_s=cfg.stream_lag_s,
+                    stream_lag_ticks=cfg.stream_lag_ticks,
+                ),
+                clock=clock,
+                stream_lag_fn=self._stream_lag,
+            )
+
+        # ---- trainer -----------------------------------------------------
+        self.trainer = Trainer(spec.model, spec.optimizer, spec.loss,
+                               device=self.device)
+        sample = spec.feed(
+            ClickStreamSource(
+                seed=cfg.seed, users=cfg.source_users,
+                items=cfg.source_items, clock=lambda: 0.0,
+            ).poll(2),
+            self.reader.metadata,
+        )["features"]
+        self._sample = np.asarray(sample)
+        self.state = self.trainer.init_state(cfg.seed, self._sample)
+
+        # ---- checkpoints -------------------------------------------------
+        self.saver = CheckpointSaver(
+            checkpoint_dir, keep_max=cfg.keep_max, clock=clock,
+        )
+        # An initial step-0 checkpoint so the serving fleet has a model
+        # before the first window finishes training.
+        self.saver.save(self.state)
+        self.saver.wait_until_finished()
+        self._latest_saved = int(self.state.step)
+        self._windows_since_save = 0
+        self._windows_trained = 0
+        self._examples_trained = 0
+        self._last_loss = float("nan")
+
+        # ---- serving fleet (in-process replicas) ------------------------
+        self.k8s = FakeK8sClient()
+        self.freshness = FreshnessTracker(
+            clock=clock,
+            produced_time_fn=lambda step: (
+                self.saver.produced_meta(step) or {}
+            ).get("produced_unix_s"),
+            on_first_serve=self._note_first_serve,
+        )
+        self.router = FleetRouter(
+            retry_policy=RetryPolicy(
+                initial_backoff_s=0.001, max_backoff_s=0.01,
+                max_elapsed_s=30.0, max_attempts=8,
+            ),
+            freshness=self.freshness,
+        )
+        self._fleet = {}
+
+        def make_replica(rid):
+            # Lazily materialised so the autoscaler's scale_up can mint
+            # replicas past the initial placement — a scaled-in replica
+            # that returns later reuses its warmed engine.
+            if rid not in self._fleet:
+                engine = ServingEngine.from_checkpoint(
+                    checkpoint_dir, spec, self._sample, buckets=(2, 8),
+                    device=self.device,
+                )
+                batcher = DynamicBatcher(engine, max_latency_s=0.002)
+                reloader = CheckpointReloader(
+                    engine, checkpoint_dir, poll_interval_s=3600.0
+                )
+                self._fleet[rid] = {
+                    "engine": engine,
+                    "batcher": batcher,
+                    "reloader": reloader,
+                    "servicer": ServingServicer(engine, batcher, reloader),
+                    "client": None,
+                }
+            return self._fleet[rid]
+
+        for rid in range(cfg.replicas):
+            make_replica(rid)
+
+        def client_factory(rid, _addr):
+            rep = make_replica(rid)
+            # kill_replica flips the INNER client's switch, so a wrapped
+            # client still dies when chaos asks it to
+            rep["client"] = _KillableClient(rep["servicer"])
+            if client_wrapper is not None:
+                return client_wrapper(rid, rep["client"])
+            return rep["client"]
+
+        self.fleet_manager = ServingFleetManager(
+            self.k8s,
+            ServingFleetConfig(
+                replicas=cfg.replicas, interval_s=0.0,
+                probe_failures=cfg.probe_failures,
+                step_skew_slo=cfg.step_skew_slo,
+            ),
+            job_name="online",
+            client_factory=client_factory,
+            reload_fn=lambda rid: self._fleet[rid][
+                "reloader"
+            ].check_once(),
+            pending_step_fn=lambda: self._latest_saved,
+            router=self.router,
+            clock=clock,
+            freshness=self.freshness,
+        )
+        self.fleet_manager.place()
+        self.fleet_manager.tick()   # prime: every replica probed healthy
+
+        # ---- SLO watcher -------------------------------------------------
+        # The history samples the stream-lag gauges alongside the
+        # freshness/fleet series, so `elasticdl slo` history coverage
+        # includes the stream-lag series (docs/OBSERVABILITY.md).
+        # The process-wide default registry carries the router's
+        # rpc_fleet_requests/sheds counters — the windowed shed-ratio
+        # evidence the serving autoscaler reads.
+        self.history = MetricHistory(
+            registries=[
+                metrics_lib.default_registry(),
+                self.freshness.metrics_registry,
+                self.fleet_manager.metrics_registry,
+                self.reader.metrics_registry,
+                self.task_manager.counters.registry,
+                self.store.registry,
+                self.lineage.registry,
+            ],
+            clock=clock,
+        )
+        # Staleness (the train->serve freshness promise) plus the
+        # shed-ratio SLO whose burn is the autoscaler's and the
+        # backpressure signal's overload evidence.
+        self.evaluator = SloEvaluator(
+            self.history,
+            specs=[
+                s for s in shipped_specs()
+                if s.name in (SLO_STALENESS_P99, SLO_PREDICT_SHED_RATIO)
+            ],
+            clock=clock,
+        )
+        self.max_burn = 0.0
+        self.ticks = 0
+
+        # ---- serving autoscaler + backpressure --------------------------
+        self.serving_policy: Optional[ServingPolicyEngine] = None
+        if cfg.max_serving_replicas > cfg.replicas:
+            self.serving_policy = ServingPolicyEngine(
+                self.fleet_manager,
+                ServingPolicyConfig(
+                    min_replicas=cfg.min_serving_replicas or cfg.replicas,
+                    max_replicas=cfg.max_serving_replicas,
+                    up_ticks=cfg.serving_up_ticks,
+                    down_ticks=cfg.serving_down_ticks,
+                    scale_hold_ticks=cfg.serving_scale_hold_ticks,
+                    shed_window_s=cfg.serving_shed_window_s,
+                    burn_threshold=cfg.serving_burn_threshold,
+                    shed_threshold=cfg.serving_shed_threshold,
+                ),
+                history=self.history,
+                evaluator=self.evaluator,
+                clock=clock,
+            )
+        # serving_pressure = burn rate x shed ratio, refreshed each tick
+        # from the router's own request/shed counters: when serving is
+        # overloaded, training slows its ingest instead of racing the
+        # serve tier for the machine (docs/SERVING.md "Autoscaling &
+        # backpressure").
+        self._serving_pressure = 0.0
+        self._polls_skipped = 0
+        self._router_seen = {"requests": 0, "sheds": 0}
+        self.metrics_registry = metrics_lib.MetricsRegistry()
+        self.metrics_registry.gauge_fn(
+            "master_serving_pressure_ratio",
+            lambda: self._serving_pressure,
+            "burn rate x fleet shed ratio at the last tick — the "
+            "train-side backpressure signal",
+        )
+        self._backpressure_skips = self.metrics_registry.counter(
+            "master_backpressure_skipped_polls_total",
+            "stream poll/arm rounds skipped because serving pressure "
+            "was over --backpressure_threshold",
+        )
+
+    # ---- one loop iteration ---------------------------------------------
+
+    def tick(self, max_train_tasks: Optional[int] = None) -> dict:
+        """Poll -> arm -> policy -> train -> checkpoint -> serve.
+        Returns a small progress dict for the caller's loop telemetry.
+        The policy tick runs BETWEEN arming and draining so its signals
+        (armed-window backlog, watermark lag) see the queue at its
+        fullest — the moment a scaling decision is actionable.
+        `max_train_tasks` caps this tick's training (a slow trainer
+        fleet in miniature): leftover tasks stay queued, which is what
+        lets chaos land a master restart while windows are mid-flight
+        and lets backlog build for the policy signals.
+
+        Backpressure: while last tick's `serving_pressure` (burn rate x
+        fleet shed ratio) is over `backpressure_threshold`, the stream
+        poll/arm pair runs only every `backpressure_stride`-th tick —
+        ingest slows, already-queued tasks still drain, and the serve
+        tier gets the machine back until the pressure clears."""
+        cfg = self.config
+        backpressured = (
+            self._serving_pressure > cfg.backpressure_threshold
+            and self.ticks % max(1, cfg.backpressure_stride) != 0
+        )
+        if backpressured:
+            polled = 0
+            self._polls_skipped += 1
+            self._backpressure_skips.inc()
+        else:
+            polled = self.reader.poll()
+            self._arm_pending()
+        if self.policy is not None:
+            self.policy.tick()
+        trained = self._drain_tasks(max_train_tasks)
+        saved = self._maybe_checkpoint()
+        self.fleet_manager.tick()
+        self._stamp_reloads()
+        self.history.tick()
+        self.evaluator.tick()
+        if self.serving_policy is not None:
+            self.serving_policy.tick()
+        self._refresh_pressure()
+        self.max_burn = max(self.max_burn, self.evaluator.max_burn())
+        self.ticks += 1
+        return {
+            "polled": polled,
+            "trained_tasks": trained,
+            "checkpointed": saved,
+            "model_step": int(self.state.step),
+            "loss": self._last_loss,
+            "backpressured": backpressured,
+        }
+
+    def _stamp_reloads(self) -> None:
+        """Fan the fleet's latest sequenced reload out into per-window
+        `reload_wait` lineage stamps.  `windows_awaiting_reload` only
+        matches windows whose covering checkpoint step the reload
+        actually carries, so a stale record from an earlier tick can
+        never stamp a window produced after it."""
+        info = self.fleet_manager.last_reload()
+        if not info:
+            return
+        for window_id in self.lineage.windows_awaiting_reload(
+                info["step"]):
+            events.emit(
+                events.WINDOW_SPAN,
+                window_id=int(window_id),
+                phase="reload_wait",
+                reason="reloaded",
+                at_unix_s=round(float(info["unix_s"]), 6),
+                step=int(info["step"]),
+                replica=int(info["replica"]),
+            )
+
+    def _note_first_serve(self, model_step: int, at_unix_s: float) -> None:
+        """FreshnessTracker hook: the first Predict response echoing a
+        new model step closes serve_wait for every window that step's
+        checkpoint covered."""
+        for window_id in self.lineage.windows_awaiting_serve(model_step):
+            events.emit(
+                events.WINDOW_SPAN,
+                window_id=int(window_id),
+                phase="serve_wait",
+                reason="served",
+                at_unix_s=round(float(at_unix_s), 6),
+                step=int(model_step),
+            )
+
+    def _refresh_pressure(self) -> None:
+        """Recompute `serving_pressure` from this tick's router deltas
+        (clock-free: instance counters, not wall-clock windows)."""
+        stats = self.router.stats()
+        requests = int(stats.get("requests", 0))
+        sheds = int(stats.get("sheds", 0))
+        d_requests = requests - self._router_seen["requests"]
+        d_sheds = sheds - self._router_seen["sheds"]
+        self._router_seen = {"requests": requests, "sheds": sheds}
+        shed_ratio = d_sheds / d_requests if d_requests > 0 else 0.0
+        self._serving_pressure = round(
+            self.evaluator.max_burn() * shed_ratio, 6
+        )
+
+    def _arm_pending(self) -> None:
+        self._pending_windows.extend(self.reader.take_new_windows())
+        still_pending = []
+        for window in self._pending_windows:
+            n = self.task_manager.arm_window(
+                window.name, len(window.records),
+                self.config.records_per_task,
+                watermark_unix_s=window.watermark_unix_s,
+                window_id=window.window_id,
+                start_index=window.start_index,
+            )
+            if n is None:
+                # injected task.rearm fault: the window stays pending and
+                # is re-offered next tick (docs/ROBUSTNESS.md)
+                still_pending.append(window)
+            elif n > 0:
+                self._window_tasks_left[window.name] = n
+                self._window_ids[window.name] = window.window_id
+            # n == 0: the ledger already tracks (or released) this id —
+            # a re-offer after a master restart; bookkeeping was rebuilt
+            # from open_windows(), nothing to add.
+        self._pending_windows = still_pending
+
+    def _lease_next(self):
+        """Round-robin one lease attempt over the alive trainer pool.
+        Returns (worker_id, task) or (None, None) when the queue is
+        drained for this tick."""
+        alive = self.pool.alive_workers()
+        for _ in range(len(alive)):
+            wid = alive[self._rr % len(alive)]
+            self._rr += 1
+            task = self.task_manager.get(wid)
+            if task is not None:
+                return wid, task
+        return None, None
+
+    def _drain_tasks(self, budget: Optional[int] = None) -> int:
+        trained = 0
+        while budget is None or trained < budget:
+            wid, task = self._lease_next()
+            if task is None:
+                return trained
+            name = task.shard.name
+            try:
+                records = list(self.reader.read_records(task))
+            except LookupError:
+                # Not buffered — replay it from the deterministic source
+                # (the journal knows the window's stream offsets) instead
+                # of dropping the task blind.
+                if self._restore_window(name):
+                    records = list(self.reader.read_records(task))
+                else:
+                    self._forfeit(wid, task)
+                    continue
+            batch = self.spec.feed(records, self.reader.metadata)
+            self.state, loss = self.trainer.train_on_batch(
+                self.state, batch
+            )
+            lineage_wid = self._window_ids.get(name)
+            if lineage_wid is not None:
+                # Per-task train-completion stamp; the lineage join keeps
+                # the LAST task's stamp as the window's train boundary.
+                events.emit(
+                    events.WINDOW_SPAN,
+                    window_id=int(lineage_wid),
+                    phase="train",
+                    reason="trained",
+                    at_unix_s=round(float(self._clock()), 6),
+                    step=int(self.state.step),
+                    start=int(task.shard.start),
+                )
+            self._fold_store_stats(records)
+            if lineage_wid is not None:
+                # Admission stamp right after the tiered-store fold: the
+                # admission phase is the store's plan+fold latency for
+                # this window's rows.
+                events.emit(
+                    events.WINDOW_SPAN,
+                    window_id=int(lineage_wid),
+                    phase="admission",
+                    reason="admitted",
+                    at_unix_s=round(float(self._clock()), 6),
+                    rows=2 * len(records),
+                )
+            self._last_loss = float(loss)
+            self._examples_trained += len(records)
+            trained += 1
+            self.task_manager.report(
+                task.task_id, True, worker_id=wid, records=len(records),
+                model_version=int(self.state.step),
+            )
+            self._window_done(name)
+        return trained
+
+    def _fold_store_stats(self, records) -> None:
+        """Per trained task: admit the batch's (user, item) rows through
+        the sharded cache plan, then fold [impressions, clicks] into the
+        host "ctr" plane — the live state a shard handoff must not lose
+        (the chaos test pins its byte stability)."""
+        if not records:
+            return
+        sparse = np.array(
+            [[r["user"], r["item"]] for r in records], np.int64
+        )
+        plan = self.store.prepare(sparse)
+        clicked = np.array([r["clicked"] for r in records], np.float32)
+        # rows flatten row-major (user, item per record): each record's
+        # click applies to both of its rows
+        self.store.fold_stats(
+            plan.rows, np.repeat(clicked, plan.rows.shape[1])
+        )
+
+    def _restore_window(self, name: str) -> bool:
+        """Re-buffer an un-acked window's records from the source (exact
+        replay: the stream is a pure function of (seed, index))."""
+        for entry in self.task_manager.open_windows():
+            if entry["name"] == name:
+                return self.reader.restore_window(
+                    name, entry["window_id"], entry["start"],
+                    entry["records"], entry["watermark"],
+                )
+        return False
+
+    def _forfeit(self, wid: int, task) -> None:
+        """Last resort for a window that can neither train nor replay
+        (non-replayable source): retire the task and close the ledger
+        entry as LOST so the queue is not wedged forever."""
+        name = task.shard.name
+        self.task_manager.report(task.task_id, True, worker_id=wid)
+        window_id = self._window_ids.pop(name, None)
+        if window_id is not None:
+            self.task_manager.forfeit_window(window_id)
+            # Lineage drop stamp: the window died mid-train; its partial
+            # decomposition finalizes flagged `dropped`.
+            events.emit(
+                events.WINDOW_SPAN,
+                window_id=int(window_id),
+                phase="train",
+                reason="dropped",
+                at_unix_s=round(float(self._clock()), 6),
+            )
+        self._window_tasks_left.pop(name, None)
+        released = self.reader.release_window(name)
+        logger.error(
+            "window %s forfeited (buffer=%s)", name, released,
+        )
+
+    def _window_done(self, name: str) -> None:
+        left = self._window_tasks_left.get(name)
+        if left is None:
+            return
+        left -= 1
+        if left > 0:
+            self._window_tasks_left[name] = left
+            return
+        del self._window_tasks_left[name]
+        # BOTH acknowledgments are consumed (GL-LEDGER): the ledger's
+        # release journals the window as done, the reader's frees the
+        # buffered records.
+        window_id = self._window_ids.pop(name, None)
+        acked = (
+            self.task_manager.release_window(window_id)
+            if window_id is not None else False
+        )
+        released = self.reader.release_window(name)
+        if window_id is not None and not acked:
+            logger.warning(
+                "window %s (%s) release not acked by the ledger",
+                name, window_id,
+            )
+        if not released:
+            logger.warning("window %s was not buffered at release", name)
+        self._windows_trained += 1
+        self._windows_since_save += 1
+
+    def _maybe_checkpoint(self) -> bool:
+        if self._windows_since_save < self.config.checkpoint_every_windows:
+            return False
+        self._windows_since_save = 0
+        if not self.saver.save(self.state):
+            return False   # injected checkpoint.write fault: next cadence
+        self.saver.wait_until_finished()
+        self._latest_saved = int(self.state.step)
+        # Checkpoint lineage stamps, one per covered window, timed by
+        # the manifest's own `produced` stamp (the freshness
+        # reference) so the reload_wait segment is measured from the
+        # exact instant the staleness histograms measure from.
+        produced = (
+            self.saver.produced_meta(self._latest_saved) or {}
+        ).get("produced_unix_s")
+        if produced is None:
+            produced = float(self._clock())
+        for window_id in self.lineage.windows_awaiting_checkpoint(
+                self._latest_saved):
+            events.emit(
+                events.WINDOW_SPAN,
+                window_id=int(window_id),
+                phase="checkpoint",
+                reason="produced",
+                at_unix_s=round(float(produced), 6),
+                step=self._latest_saved,
+            )
+        # Sharded-store sidecar rides the same cadence: it is the state
+        # `rebuild_shard` recovers a handed-off shard's host rows from.
+        store_checkpoint.save_sharded_sidecar(
+            self._checkpoint_dir, self._latest_saved, self.store
+        )
+        self._sidecar_steps.append(self._latest_saved)
+        if len(self._sidecar_steps) > self.config.keep_max:
+            self._sidecar_steps = self._sidecar_steps[
+                -self.config.keep_max:
+            ]
+            store_checkpoint.prune_sidecars(
+                self._checkpoint_dir, self._sidecar_steps
+            )
+        return True
+
+    # ---- elasticity: trainer pool, shard handoff, master restart --------
+
+    def _load_sharded_sidecar(self):
+        """Latest sharded sidecar, or None before the first save."""
+        for step in reversed(self._sidecar_steps):
+            if store_checkpoint.has_sharded_sidecar(
+                    self._checkpoint_dir, step):
+                return store_checkpoint.load_sharded_sidecar(
+                    self._checkpoint_dir, step
+                )
+        return None
+
+    def _retire_worker(self, worker_id: int) -> None:
+        """Pool callback (evict / scale_down): requeue the worker's
+        leases, evacuate its shard slices."""
+        recovered = self.task_manager.recover_tasks(worker_id)
+        moves = self.store.handoff(
+            dead_worker=worker_id, sidecar=self._load_sharded_sidecar()
+        )
+        logger.info(
+            "trainer %d retired: %d tasks recovered, %d shards moved",
+            worker_id, recovered, len(moves),
+        )
+
+    def _admit_worker(self, worker_id: int) -> None:
+        """Pool callback (evict relaunch / scale_up): rebalance shards
+        toward the joiner."""
+        moves = self.store.join(worker_id)
+        logger.info(
+            "trainer %d admitted: %d shards moved", worker_id, len(moves)
+        )
+
+    def _stream_lag(self) -> float:
+        online = self.task_manager.online_snapshot() or {}
+        return float(online.get("watermark_lag_s", 0.0))
+
+    def kill_worker(self, worker_id: int) -> dict:
+        """Chaos helper: a trainer dies mid-run.  Its leases requeue
+        (lease recovery), its shard slices hand off to the survivors
+        (`store.shard_handoff` fault-covered), and the pool shrinks —
+        subsequent ticks drain with the survivors."""
+        if not self.pool.drop_worker(worker_id):
+            raise ValueError(
+                f"cannot kill trainer {worker_id}: not alive, or last one"
+            )
+        recovered = self.task_manager.recover_tasks(worker_id)
+        moves = self.store.handoff(
+            dead_worker=worker_id, sidecar=self._load_sharded_sidecar()
+        )
+        logger.info(
+            "trainer %d killed: %d tasks recovered, %d shards handed off",
+            worker_id, recovered, len(moves),
+        )
+        return {"recovered_tasks": recovered, "handoffs": len(moves)}
+
+    def drop_window_buffers(self) -> int:
+        """Chaos helper: evict every still-open window's buffered
+        records (the amnesia a full master-process loss would inflict)
+        so subsequent leases must replay them from the deterministic
+        source — the path that proves replayed windows keep their
+        original ingest attribution."""
+        dropped = 0
+        for entry in self.task_manager.open_windows():
+            if self.reader.release_window(entry["name"]):
+                dropped += 1
+        return dropped
+
+    def restart_master(self) -> dict:
+        """Chaos helper: the master's brain dies and a replacement
+        rebuilds the perpetual queue from the window-ledger journal.
+        Unfinished windows re-arm exactly their UNDONE shards (completed
+        shards never retrain); nothing is lost because un-acked windows
+        replay from the deterministic source on demand.  The replacement
+        adopts the predecessor's metrics registry, so the released/lost
+        counters read as one continuous job."""
+        self.task_manager = TaskManager(
+            perpetual=True, clock=self._clock,
+            persist_path=self._journal_path,
+            metrics_registry=self.task_manager.counters.registry,
+        )
+        self.master_restarts += 1
+        # Per-window bookkeeping is in-memory master state: rebuild it
+        # from the restored ledger.  A window whose every shard was done
+        # but whose release was lost with the old master releases now.
+        self._window_tasks_left = {}
+        self._window_ids = {}
+        restored = self.task_manager.open_windows()
+        for entry in restored:
+            total = math.ceil(entry["records"] / entry["per_task"])
+            left = total - len(entry["done"])
+            self._window_ids[entry["name"]] = entry["window_id"]
+            if left > 0:
+                self._window_tasks_left[entry["name"]] = left
+            else:
+                acked = self.task_manager.release_window(
+                    entry["window_id"]
+                )
+                released = self.reader.release_window(entry["name"])
+                self._window_ids.pop(entry["name"], None)
+                logger.info(
+                    "window %s completed under the old master; released "
+                    "on restore (ledger=%s buffer=%s)",
+                    entry["name"], acked, released,
+                )
+        logger.info(
+            "master restarted (#%d): %d open windows restored",
+            self.master_restarts, len(restored),
+        )
+        return {
+            "windows_restored": len(restored),
+            "tasks_rearmed": sum(self._window_tasks_left.values()),
+        }
+
+    # ---- serve side -------------------------------------------------------
+
+    def predict(self, request):
+        """Route one predict through the live fleet (retries/failover per
+        the router's policy)."""
+        return self.router.predict(request)
+
+    def kill_replica(self, rid: int) -> None:
+        """Chaos helper: kill transport AND pod so the next fleet tick
+        sees a FAILED replica and relaunches it."""
+        client = self._fleet[rid]["client"]
+        if client is not None:
+            client.killed = True
+        pod = self.fleet_manager.snapshot()["replicas"][rid]["pod"]
+        self.k8s.emit(pod, PodStatus.FAILED, exit_code=1)
+
+    # ---- introspection ----------------------------------------------------
+
+    def online_snapshot(self) -> dict:
+        """The task manager's online progress, merged with the serving
+        side's last reloaded step — the `elasticdl top` online line."""
+        online = self.task_manager.online_snapshot() or {}
+        fleet = self.fleet_manager.snapshot()
+        steps = [
+            rep.get("model_step", 0)
+            for rep in fleet.get("replicas", {}).values()
+        ]
+        online["last_reload_step"] = max(steps) if steps else 0
+        store_stats = self.store.stats()
+        online["handoffs"] = store_stats["handoffs"]
+        online["pending_handoffs"] = store_stats["pending_handoffs"]
+        online["alive_trainers"] = len(self.pool.alive_workers())
+        online["master_restarts"] = self.master_restarts
+        return online
+
+    def snapshot(self) -> dict:
+        slo = self.evaluator.snapshot()
+        slo["history"] = self.history.snapshot()
+        # stream-lag coverage for `elasticdl slo` (same annotation the
+        # master makes for perpetual jobs)
+        slo["history"]["stream_lag_samples"] = len(
+            self.history.series("master_stream_watermark_lag_seconds")
+        )
+        return {
+            "ticks": self.ticks,
+            "online": self.online_snapshot(),
+            "stream": self.reader.snapshot(),
+            "tasks": self.task_manager.snapshot(),
+            "serving_fleet": self.fleet_manager.snapshot(),
+            "freshness": self.freshness.snapshot(),
+            "lineage": self.lineage.snapshot(),
+            "slo": slo,
+            "store": self.store.stats(),
+            "trainers": {
+                "alive": self.pool.alive_workers(),
+                "master_restarts": self.master_restarts,
+            },
+            "policy": (
+                self.policy.snapshot() if self.policy is not None else None
+            ),
+            "serving_policy": (
+                self.serving_policy.snapshot()
+                if self.serving_policy is not None else None
+            ),
+            "backpressure": {
+                "serving_pressure": self._serving_pressure,
+                "polls_skipped": self._polls_skipped,
+                "threshold": self.config.backpressure_threshold,
+                "stride": self.config.backpressure_stride,
+            },
+            "windows_trained": self._windows_trained,
+            "examples_trained": self._examples_trained,
+            "model_step": int(self.state.step),
+            "latest_saved_step": self._latest_saved,
+            "max_burn": round(self.max_burn, 6),
+        }
+
+    def shutdown(self) -> None:
+        self.lineage.close()
+        for rep in self._fleet.values():
+            rep["batcher"].shutdown()
+        self.saver.close()

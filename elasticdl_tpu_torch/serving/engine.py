@@ -126,7 +126,11 @@ class ServingEngine:
         if not buckets or any(b <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive: {buckets}")
         self.device = resolve_device(device)
-        self._model = model.eval()
+        # An engine owns its module: `functional_call` swaps the served
+        # variables into the module for the duration of a forward, so
+        # two engines over one zoo template (a fleet's replicas) would
+        # race on its parameters from their batchers' threads.
+        self._model = copy.deepcopy(model).eval()
         self._variables = self._place(variables)
         self._step = int(step)
         # wall time the producer stamped into the checkpoint manifest

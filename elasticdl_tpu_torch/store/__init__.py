@@ -16,9 +16,8 @@ back on eviction by a fold thread.
   tiered.py      TieredStore: the orchestrator and its threads
   checkpoint.py  the sidecar and the tiered <-> flat migration
   serving.py     TieredServingEngine: cold rows on Predict, hot swap
-
-The sharded store (`sharding.py`) waits for the online loop (ROADMAP.md
-item 10).
+  sharding.py    ShardedTieredStore: row-space shards over one host
+                 tier, shard handoff (the online loop's store)
 """
 
 from elasticdl_tpu_torch.store.cache import CachePlan, HotRowCache

@@ -65,7 +65,7 @@ def partition_plan(plan: "CachePlan", num_shards: int,
     slots (the device of a slot is slot // block).  Each sub-plan keeps
     the parent's admission order, and their union is the parent plan.
     On one card the store keeps `mesh_shards` at 1 and never splits; the
-    split is accounting for the sharded layout (ROADMAP.md item 10)."""
+    split is accounting for a row-sharded slot arena across cards."""
     num_shards = int(num_shards)
     if num_shards < 1 or cache_rows % num_shards:
         raise ValueError(
@@ -223,6 +223,13 @@ class HotRowCache:
             hits=hits,
             misses=misses,
         )
+
+    def reset(self) -> None:
+        """Drop every residency and score: a handed-off shard's successor
+        starts cold, and admission traffic rebuilds it."""
+        self._slot_of.clear()
+        self.row_of.fill(-1)
+        self._score.fill(0.0)
 
     # ---- serialization -------------------------------------------------
 

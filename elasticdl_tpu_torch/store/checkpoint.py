@@ -32,8 +32,10 @@ Migration:
   leaf (the dense layers) into a tiered template; the host tier then
   backfills grown rows from the flat tables (`flat_backfill`).
 
-The sharded store's sidecar waits with `sharding.py` (ROADMAP.md item
-10).
+The sharded store (`sharding.py`) has a sidecar of its own at
+`<dir>/.sharded/<step>/`: the shared host tier, every shard's cache
+residency and the shard -> worker map, with the JAX package's keys and
+meta.json written last.  `prune_sidecars` sweeps both roots.
 """
 
 from __future__ import annotations
@@ -232,15 +234,116 @@ def load_sidecar(checkpoint_dir: str, step: int) -> TieredSidecar:
                          cache_planes)
 
 
+SHARDED_ROOT = ".sharded"
+
+
+def sharded_sidecar_dir(checkpoint_dir: str, step: int) -> str:
+    return os.path.join(
+        os.path.abspath(checkpoint_dir), SHARDED_ROOT, str(int(step))
+    )
+
+
+def save_sharded_sidecar(checkpoint_dir: str, step: int, store) -> str:
+    """The sidecar of a `ShardedTieredStore`: the shared host tier,
+    every shard's cache residency and the shard -> worker map.
+    meta.json lands last, so its presence marks a whole sidecar."""
+    d = sharded_sidecar_dir(checkpoint_dir, step)
+    os.makedirs(d, exist_ok=True)
+    arrays: Dict[str, np.ndarray] = {}
+    for key, value in store.host.state_dict().items():
+        arrays[f"host__{key}"] = value
+    for key, value in store.cache_state().items():
+        arrays[f"cache__{key}"] = value
+
+    npz_path = os.path.join(d, NPZ_FILE)
+    tmp = npz_path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, npz_path)
+
+    meta = {
+        "step": int(step),
+        "num_shards": int(store.num_shards),
+        "per_shard_rows": int(store.per_shard_rows),
+        "num_fields": int(store.num_fields),
+        "host_dtype": store.host.host_dtype,
+        "planes": {name: int(dim) for name, dim in store.planes.items()},
+        "vocab_rows": int(store.host.size),
+        "shard_owners": {
+            str(s): int(w) for s, w in store.map.as_dict().items()
+        },
+    }
+    meta_path = os.path.join(d, META_FILE)
+    tmp = meta_path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, meta_path)
+    return d
+
+
+def has_sharded_sidecar(checkpoint_dir: str, step: int) -> bool:
+    return os.path.isfile(
+        os.path.join(sharded_sidecar_dir(checkpoint_dir, step), META_FILE)
+    )
+
+
+@dataclass
+class ShardedSidecar:
+    """Loaded sharded sidecar.  `host_state` feeds
+    `HostTier.load_state_dict`; `cache_arrays` feeds
+    `ShardedTieredStore.load_cache_state`; `latest_row_values` is the
+    interface `ShardedTieredStore.rebuild_shard` consumes."""
+
+    meta: dict
+    host_state: Dict[str, np.ndarray]
+    cache_arrays: Dict[str, np.ndarray]
+
+    def host_plane(self, name: str) -> np.ndarray:
+        if self.meta["host_dtype"] == "fp32":
+            return np.asarray(self.host_state[f"plane_{name}_fp32"],
+                              np.float32)
+        return dequantize_rows_host(
+            self.host_state[f"plane_{name}_codes"],
+            self.host_state[f"plane_{name}_scales"],
+        )
+
+    def latest_row_values(self, name: str) -> np.ndarray:
+        """(vocab_rows, dim) fp32.  The sharded store's values live on
+        the host (its caches hold bookkeeping only), so the host plane
+        is the newest state at save time."""
+        return self.host_plane(name).copy()
+
+
+def load_sharded_sidecar(checkpoint_dir: str, step: int) -> ShardedSidecar:
+    d = sharded_sidecar_dir(checkpoint_dir, step)
+    with open(os.path.join(d, META_FILE)) as f:
+        meta = json.load(f)
+    host_state: Dict[str, np.ndarray] = {}
+    cache_arrays: Dict[str, np.ndarray] = {}
+    with np.load(os.path.join(d, NPZ_FILE)) as npz:
+        for key in npz.files:
+            if key.startswith("host__"):
+                host_state[key[len("host__"):]] = npz[key]
+            elif key.startswith("cache__"):
+                cache_arrays[key[len("cache__"):]] = npz[key]
+    return ShardedSidecar(meta, host_state, cache_arrays)
+
+
 def prune_sidecars(checkpoint_dir: str, keep_steps: Iterable[int]) -> None:
-    """Remove the sidecars of steps not in `keep_steps`."""
+    """Remove the sidecars of steps not in `keep_steps`, under both the
+    tiered and the sharded root."""
     keep = {str(int(s)) for s in keep_steps}
-    root = os.path.join(os.path.abspath(checkpoint_dir), SIDECAR_ROOT)
-    if not os.path.isdir(root):
-        return
-    for name in os.listdir(root):
-        if name.isdigit() and name not in keep:
-            shutil.rmtree(os.path.join(root, name))
+    for root_name in (SIDECAR_ROOT, SHARDED_ROOT):
+        root = os.path.join(os.path.abspath(checkpoint_dir), root_name)
+        if not os.path.isdir(root):
+            continue
+        for name in os.listdir(root):
+            if name.isdigit() and name not in keep:
+                shutil.rmtree(os.path.join(root, name), ignore_errors=True)
 
 
 # ---- migration: tiered -> flat ----------------------------------------

@@ -296,6 +296,23 @@ class HostTier:
             for name, vals in values.items():
                 self._write_rows(name, rows, vals)
 
+    def reinit_rows(self, rows: np.ndarray) -> None:
+        """Rewrite `rows` with their deterministic init: the sharded
+        store's recovery of rows grown after the last sidecar.
+        `row_init_values` keys on (seed, plane, row) alone, so the value
+        is the one the row first grew with."""
+        rows = np.asarray(rows, np.int64).reshape(-1)
+        if rows.size == 0:
+            return
+        with self._lock:
+            if int(rows.max()) >= self.vocab.size:
+                raise IndexError("reinit_rows of unassigned store row")
+            for name, dim in self.planes.items():
+                values = row_init_values(
+                    self.seed, self._plane_index[name], rows, dim,
+                    self.init_scale)
+                self._write_rows(name, rows, values)
+
     # ---- serialization -------------------------------------------------
 
     def state_dict(self) -> Dict[str, np.ndarray]:

@@ -89,7 +89,7 @@ class TieredStore:
         self.cache_rows = int(cache_rows)
         self.cache_dtype = cache_dtype
         # the slot arena is not sharded on one card (cache.partition_plan
-        # is the accounting for a sharded one, ROADMAP.md item 10)
+        # is the accounting for one sharded across cards)
         self.mesh_shards = 1
         self.host = HostTier(planes, num_fields, host_dtype, seed)
         self.cache = HotRowCache(cache_rows, dtype=cache_dtype)

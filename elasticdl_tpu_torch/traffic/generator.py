@@ -1,0 +1,299 @@
+"""Seeded, replayable open-loop traffic for the serve tier (the port's
+copy of the JAX package's traffic/generator.py).
+
+The serving autoscaler (master/policy.py `ServingPolicyEngine`) is
+testable only if the load that drives it replays exactly, so the
+generator is open-loop (the offered schedule never depends on how the
+fleet answered) and a pure function of its seed:
+
+- each tick offers a Poisson count with rate `base_qps * factor(tick) *
+  tick_interval_s`, drawn by Knuth's product method from
+  `random.Random`, so the schedule is the JAX package's bit for bit;
+- `factor(tick)` comes from a profile of the closed TRAFFIC_PROFILES
+  vocabulary: `poisson` (flat), `spike` (`spike_factor`x for
+  `spike_ticks` ticks from `spike_at_tick`), `diurnal` (a sinusoid),
+  `ramp` (a climb to `spike_factor`x over `ramp_ticks`);
+- request rows come from the closed REQUEST_SHAPES catalog, spread
+  round-robin over `clients` logical clients that run interleaved on
+  the calling thread;
+- each tick draws from its own tick-keyed RNG, so a `traffic.tick`
+  fault (the load source stalls for a tick) shifts no later tick.
+
+The generator calls an injected `request_fn(client_id, rows,
+payload_seed) -> "ok" | "shed" | "failed"`; `router_request_fn` adapts a
+`FleetRouter` and a zoo encode function into that shape.
+"""
+
+from __future__ import annotations
+
+import random
+from dataclasses import dataclass
+from math import exp, pi, sin
+from typing import Callable, List
+
+from elasticdl_tpu_torch.common import faults
+from elasticdl_tpu_torch.common import metrics as metrics_lib
+from elasticdl_tpu_torch.common.log_utils import get_logger
+
+logger = get_logger(__name__)
+
+#: Closed profile vocabulary: `--traffic_profile` names one of these.
+TRAFFIC_PROFILES = frozenset({"poisson", "spike", "diurnal", "ramp"})
+
+#: Closed batch-row catalog: every generated request carries one of
+#: these row counts, so the serving batcher's fill ratio is driven by
+#: arrival rate, never by unbounded shape variety.
+REQUEST_SHAPES = (1, 2, 4, 8)
+
+_OUTCOMES = frozenset({"ok", "shed", "failed"})
+
+
+@dataclass
+class TrafficConfig:
+    """Knobs for one generator run."""
+
+    profile: str = "poisson"
+    base_qps: float = 50.0
+    clients: int = 4
+    seed: int = 0
+    tick_interval_s: float = 1.0
+    spike_at_tick: int = 10          # spike: first elevated tick
+    spike_ticks: int = 5             # spike: elevated tick count
+    spike_factor: float = 5.0        # spike/ramp: peak multiplier
+    ramp_ticks: int = 20             # ramp: ticks to reach the peak
+    diurnal_period_ticks: int = 24   # diurnal: sinusoid period
+    amplitude: float = 0.5           # diurnal: swing around 1.0
+
+    def __post_init__(self):
+        assert self.profile in TRAFFIC_PROFILES, self.profile
+        assert self.base_qps >= 0.0
+        assert self.clients >= 1
+        assert self.tick_interval_s > 0.0
+
+
+def _poisson(rng: random.Random, lam: float) -> int:
+    """Knuth's product method: exact Poisson from uniform draws only,
+    so the schedule replays bit-identically on any platform.  Rates in
+    here are tens per tick, so the O(lam) cost does not matter."""
+    if lam <= 0.0:
+        return 0
+    limit = exp(-lam)
+    k = 0
+    product = rng.random()
+    while product > limit:
+        k += 1
+        product *= rng.random()
+    return k
+
+
+def router_request_fn(router, encode_fn,
+                      ok_codes=None, shed_codes=None) -> Callable:
+    """Adapt a FleetRouter into the generator's request_fn shape.
+
+    `encode_fn(rows, payload_seed)` builds the model-specific feature
+    payload (seeded, so a replay offers byte-identical tensors); the
+    response code classifies the outcome against the serving proto's
+    shed vocabulary.  Transport exceptions — including a whole-fleet
+    sweep failure — classify as "failed"."""
+    from elasticdl_tpu_torch.proto import serving as spb
+    from elasticdl_tpu_torch.proto.service import SHED_CODES
+    from elasticdl_tpu_torch.serving.server import make_predict_request
+
+    ok_codes = ok_codes if ok_codes is not None else (spb.SERVING_OK,)
+    shed_codes = shed_codes if shed_codes is not None else SHED_CODES
+
+    def request_fn(client_id: int, rows: int, payload_seed: int) -> str:
+        del client_id  # identical clients; the id only orders the log
+        try:
+            response = router.predict(
+                make_predict_request(encode_fn(rows, payload_seed))
+            )
+        except Exception:   # a dropped request or a failed sweep
+            return "failed"
+        if response.code in ok_codes:
+            return "ok"
+        if response.code in shed_codes:
+            return "shed"
+        return "failed"
+
+    return request_fn
+
+
+class TrafficGenerator:
+    """Drives `request_fn` with the seeded open-loop schedule.
+
+    Tests and bench.py call `tick()` by hand (injectable clock-free
+    design: nothing here reads a wall clock); each tick fires the
+    `traffic.tick` fault point before offering anything, so chaos can
+    stall the load source for a tick without perturbing the schedule
+    of the ticks around it."""
+
+    def __init__(self, request_fn: Callable[[int, int, int], str],
+                 config: TrafficConfig):
+        self._request_fn = request_fn
+        self.config = config
+        self._tick = 0
+        self._offered = 0
+        self._ok = 0
+        self._shed = 0
+        self._failed = 0
+        self._tick_faults = 0
+        self._last_offered = 0
+        #: per-tick offered counts in tick order — the replayable
+        #: schedule the determinism tests byte-compare.
+        self.schedule: List[int] = []
+        #: per-tick outcome records (clock-free).
+        self.log: List[dict] = []
+
+        self.metrics_registry = metrics_lib.MetricsRegistry()
+        self._offered_total = self.metrics_registry.counter(
+            "traffic_requests_offered_total",
+            "requests the open-loop schedule offered the fleet",
+        )
+        self._ok_total = self.metrics_registry.counter(
+            "traffic_requests_ok_total",
+            "offered requests the fleet answered SERVING_OK",
+        )
+        self._shed_total = self.metrics_registry.counter(
+            "traffic_requests_shed_total",
+            "offered requests the whole fleet shed",
+        )
+        self._failed_total = self.metrics_registry.counter(
+            "traffic_requests_failed_total",
+            "offered requests that failed outright (transport error "
+            "or non-OK, non-shed response)",
+        )
+        self._ticks_total = self.metrics_registry.counter(
+            "traffic_ticks_total",
+            "generator ticks executed (faulted ticks included)",
+        )
+        self._tick_faults_total = self.metrics_registry.counter(
+            "traffic_tick_faults_total",
+            "ticks the traffic.tick fault point stalled (schedule "
+            "unchanged; the tick offered nothing)",
+        )
+        self.metrics_registry.gauge_fn(
+            "traffic_offered_per_sec",
+            lambda: self._last_offered / self.config.tick_interval_s,
+            "offered rate over the last tick",
+        )
+        self.metrics_registry.gauge_fn(
+            "traffic_shed_ratio",
+            lambda: self._shed / self._offered if self._offered else 0.0,
+            "lifetime fraction of offered requests the fleet shed",
+        )
+
+    # ---- the schedule --------------------------------------------------
+
+    def _factor(self, tick: int) -> float:
+        cfg = self.config
+        if cfg.profile == "spike":
+            inside = (cfg.spike_at_tick <= tick
+                      < cfg.spike_at_tick + cfg.spike_ticks)
+            return cfg.spike_factor if inside else 1.0
+        if cfg.profile == "diurnal":
+            phase = 2.0 * pi * tick / max(1, cfg.diurnal_period_ticks)
+            return max(0.0, 1.0 + cfg.amplitude * sin(phase))
+        if cfg.profile == "ramp":
+            frac = min(1.0, tick / max(1, cfg.ramp_ticks))
+            return 1.0 + (cfg.spike_factor - 1.0) * frac
+        return 1.0  # poisson: flat
+
+    def _tick_rng(self, tick: int) -> random.Random:
+        # Tick-keyed, not one consumed stream: a faulted (skipped) tick
+        # must not shift the draws of every later tick, or chaos runs
+        # and clean runs would see different schedules for the same
+        # seed.
+        return random.Random((self.config.seed << 20) ^ (tick + 1))
+
+    def plan(self, tick: int) -> List[tuple]:
+        """The (client_id, rows, payload_seed) entries tick `tick`
+        offers — pure function of (seed, config, tick)."""
+        cfg = self.config
+        rng = self._tick_rng(tick)
+        lam = cfg.base_qps * self._factor(tick) * cfg.tick_interval_s
+        count = _poisson(rng, lam)
+        entries = []
+        for i in range(count):
+            rows = REQUEST_SHAPES[rng.randrange(len(REQUEST_SHAPES))]
+            payload_seed = rng.randrange(1 << 31)
+            entries.append((i % cfg.clients, rows, payload_seed))
+        return entries
+
+    # ---- the loop body -------------------------------------------------
+
+    def tick(self) -> dict:
+        """Offer one tick's schedule; returns the clock-free tick
+        record (also appended to `self.log`)."""
+        tick = self._tick
+        self._tick += 1
+        self._ticks_total.inc()
+        entries = self.plan(tick)
+        self.schedule.append(len(entries))
+        try:
+            faults.fire(faults.POINT_TRAFFIC_TICK)
+        except faults.InjectedFault:
+            # The load source stalled for a tick.  Offer nothing; the
+            # schedule entry is already recorded, so the replay stays
+            # byte-identical with or without the chaos schedule.
+            self._tick_faults += 1
+            self._tick_faults_total.inc()
+            self._last_offered = 0
+            record = {"tick": tick, "offered": 0, "ok": 0, "shed": 0,
+                      "failed": 0, "faulted": True}
+            self.log.append(record)
+            return record
+        ok = shed = failed = 0
+        for client_id, rows, payload_seed in entries:
+            outcome = self._request_fn(client_id, rows, payload_seed)
+            assert outcome in _OUTCOMES, outcome
+            if outcome == "ok":
+                ok += 1
+            elif outcome == "shed":
+                shed += 1
+            else:
+                failed += 1
+        offered = len(entries)
+        self._offered += offered
+        self._ok += ok
+        self._shed += shed
+        self._failed += failed
+        self._last_offered = offered
+        self._offered_total.inc(offered)
+        self._ok_total.inc(ok)
+        self._shed_total.inc(shed)
+        self._failed_total.inc(failed)
+        record = {"tick": tick, "offered": offered, "ok": ok,
+                  "shed": shed, "failed": failed, "faulted": False}
+        self.log.append(record)
+        return record
+
+    def run(self, ticks: int) -> List[dict]:
+        return [self.tick() for _ in range(ticks)]
+
+    # ---- bookkeeping ---------------------------------------------------
+
+    def shed_ratio(self) -> float:
+        return self._shed / self._offered if self._offered else 0.0
+
+    def offered_qps(self) -> float:
+        """Mean offered rate over the run so far."""
+        if self._tick == 0:
+            return 0.0
+        return self._offered / (self._tick * self.config.tick_interval_s)
+
+    def snapshot(self) -> dict:
+        """Clock-free; byte-comparable across same-seed runs."""
+        return {
+            "profile": self.config.profile,
+            "seed": self.config.seed,
+            "ticks": self._tick,
+            "offered": self._offered,
+            "ok": self._ok,
+            "shed": self._shed,
+            "failed": self._failed,
+            "tick_faults": self._tick_faults,
+            "offered_qps": round(self.offered_qps(), 3),
+            "shed_ratio": round(self.shed_ratio(), 4),
+            "schedule": list(self.schedule),
+        }

@@ -212,8 +212,11 @@ def test_local_job_with_judgment_flags_ends_where_it_ends_without(
         data, tmp_path):
     """The master's history, SLO evaluator and flight recorder watch the
     job and change nothing in it: the final state is bit for bit the
-    plain job's.  A Local job serves nothing, so every SLO is
-    `no_data`; a manual capture writes a bundle that reads back."""
+    plain job's.  A Local job serves nothing: the ratio SLOs read `ok`
+    over the fleet router's request counters, which exist at zero once
+    proto/service.py is imported, as in the JAX package's Local job, and
+    the others are `no_data`; a manual capture writes a bundle that
+    reads back."""
     train_dir, val_dir = data
     flags = ["train", "--distribution_strategy", "Local",
              "--model_def", "deepfm.deepfm_functional_api.custom_model",
@@ -238,7 +241,10 @@ def test_local_job_with_judgment_flags_ends_where_it_ends_without(
     assert "slo" not in plain.master.snapshot()
     snap = master.snapshot()
     assert snap["slo"]["states"] == {
-        name: "no_data" for name in port_slo.SLO_NAMES}
+        port_slo.SLO_STALENESS_P99: "no_data",
+        port_slo.SLO_FLEET_SKEW: "no_data",
+        port_slo.SLO_PREDICT_AVAILABILITY: "ok",
+        port_slo.SLO_PREDICT_SHED_RATIO: "ok"}
     assert snap["slo"]["history"]["samples"] >= 1
     assert snap["flight"]["incident_dir"] == incident_dir
     assert snap["flight"]["captured"] == []

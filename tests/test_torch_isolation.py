@@ -120,6 +120,20 @@ JUDGMENT_MODULES = (
 )
 
 
+# the online loop: the k8s seam, the traffic generator, the sharded
+# store, the serving fleet, the policy engines and the pipeline
+ONLINE_MODULES = (
+    "elasticdl_tpu_torch.common.k8s_client",
+    "elasticdl_tpu_torch.traffic",
+    "elasticdl_tpu_torch.traffic.generator",
+    "elasticdl_tpu_torch.store.sharding",
+    "elasticdl_tpu_torch.master.serving_fleet",
+    "elasticdl_tpu_torch.master.policy",
+    "elasticdl_tpu_torch.online",
+    "elasticdl_tpu_torch.online.pipeline",
+)
+
+
 def test_every_port_module_imports_with_jax_and_reference_blocked():
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -131,8 +145,9 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
     # every module of the slices, down to the BERT zoo's data writer and
     # the serving front end
     assert len(names) >= 59 + len(ZOO_MODULES) + len(RESILIENCE_MODULES) \
-        + len(JUDGMENT_MODULES)
+        + len(JUDGMENT_MODULES) + len(ONLINE_MODULES)
     assert set(SERVING_MODULES) <= set(names)
+    assert set(ONLINE_MODULES) <= set(names)
     assert set(ZOO_MODULES) <= set(names)
     assert set(RESILIENCE_MODULES) <= set(names)
     assert set(JUDGMENT_MODULES) <= set(names)
