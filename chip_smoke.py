@@ -394,7 +394,7 @@ from elasticdl_tpu_torch.serving.server import (  # noqa: E402
 from elasticdl_tpu_torch.worker.task_data_service import (  # noqa: E402
     prefetch_batches,
 )
-from elasticdl_tpu_torch.worker.trainer import Trainer  # noqa: E402
+from elasticdl_tpu_torch.worker.trainer import Trainer, TrainState  # noqa: E402,E501
 
 SEED = 0
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
@@ -570,30 +570,12 @@ def time_ms(fn, iters: int) -> float:
 
 
 def attention_bound_ms(q, k, v, causal: bool, backward: bool = False):
-    """Least time for the kernel's work on this card: each input read
-    once and each output written once, over HBM; the products over the
-    peak rate of the input type (causal: only the unmasked pairs).  The
-    forward reads q, k, v and writes O and lse: QK^T and PV.  The
-    backward reads q, k, v, O, dO and lse and writes dQ, dK and dV: QK^T,
-    dO V^T, P^T dO, dS K and dS^T Q."""
-    batch, q_len, heads, dim = q.shape
-    k_len = k.shape[1]
-    elem = q.element_size()
-    lse_bytes = batch * q_len * heads * 4
-    if backward:
-        # q, O, dO and dQ; k and dK; v and dV
-        nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * elem \
-            + lse_bytes
-        products = 5
-    else:
-        nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * elem \
-            + lse_bytes
-        products = 2
-    if causal:
-        pairs = sum(min(i + 1, k_len) for i in range(q_len))
-    else:
-        pairs = q_len * k_len
-    flops = 2.0 * products * batch * heads * pairs * dim
+    """Least time for the kernel's work on this card: the bytes it must
+    move over HBM and its products over the peak rate of the input type,
+    from `ops/flash_attention.py::attention_cost`, the count the program
+    registry charges the kernel's custom op."""
+    flops, nbytes = fa.attention_cost(q.shape, k.shape, q.element_size(),
+                                      causal, backward=backward)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -1015,12 +997,13 @@ def make_criteo_batch(batch_size: int):
 
 
 def scatter_bound_ms(n: int, dim: int, touched: int):
-    """Least time for the scatter-add on this card: the ids (N*4) and
-    grads (N*D*4) read once, the U touched rows read and written once
-    (2*U*D*4), over HBM; one add per grads element, over the f32 rate."""
-    nbytes = n * 4 + n * dim * 4 + 2 * touched * dim * 4
+    """Least time for the scatter-add on this card, from
+    `ops/scatter_add.py::scatter_cost` (the count the program registry
+    charges the kernel's custom op): its bytes over HBM, its adds over
+    the f32 rate."""
+    flops, nbytes = sa.scatter_cost(n, dim, touched)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n * dim / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -2424,7 +2407,8 @@ STREAM_RESTART_TASKS = 16 * STREAM_TASKS_PER_WINDOW + 2
 STREAM_MAX_TICKS = 400
 STREAM_CPU_LOSS_TOL = 1e-5       # f32 MLP, 4 Adam steps, card vs CPU
 # span-event fields that are wall time, not the stream's fake clock
-WALL_FIELDS = ("ts", "pid", "capture_s", "write_s")
+# `seconds`: a program_compiled event's compile wall time
+WALL_FIELDS = ("ts", "pid", "capture_s", "write_s", "seconds")
 # (b): the Local judgment job's loops and the freshness drill
 JUDGE_INTERVAL_S = 0.5
 # A Local job serves nothing: the ratio SLOs read `ok` over the fleet
@@ -3244,14 +3228,16 @@ class CapacityGate:
         return self._inner.health(request, timeout=timeout)
 
 
-def traffic_spike_run(seed: int, device: str, root=None):
+def traffic_spike_run(seed: int, device: str, root=None, keep=None):
     """bench.py::_traffic_spike_run through the port: the seeded traffic
     generator offers a 5x spike to an autoscaling fleet whose replicas
     each serve ONLINE_CAPACITY_PER_TICK requests a tick, under a fake
     clock.
     Returns (canonical text, summary): the offered schedule, the serving
     policy's decisions, the fleet size per tick, the scale and SLO
-    events, and the incident bundles."""
+    events, and the incident bundles.  A `keep` dict receives the
+    pipeline's final snapshot and the generator's (the observatory's
+    `top` and `slo` render them)."""
     clock, _ = fake_clock(2_000_000.0)
     gates = {}
 
@@ -3315,6 +3301,8 @@ def traffic_spike_run(seed: int, device: str, root=None):
                     pressures.append(pipe._serving_pressure)
                 snap = pipe.snapshot()
                 traffic = gen.snapshot()
+                if keep is not None:
+                    keep.update(snapshot=snap, traffic=traffic)
                 recorder.flush()
                 bundles = (sorted(os.listdir(incident_dir))
                            if os.path.isdir(incident_dir) else [])
@@ -3417,8 +3405,14 @@ def online_loop(card: str, work: str) -> dict:
         raise AssertionError(f"the sustained online loop: {sustained}")
 
     t2 = time.perf_counter()
-    spike_a, spike_summary = traffic_spike_run(ONLINE_TRAFFIC_SEED, "cuda",
-                                               root)
+    # the observatory phase's `top`, `slo` and `lineage` read this run
+    surfaces = {"events": []}
+    events.add_observer(surfaces["events"].append)
+    try:
+        spike_a, spike_summary = traffic_spike_run(
+            ONLINE_TRAFFIC_SEED, "cuda", root, keep=surfaces)
+    finally:
+        events.remove_observer(surfaces["events"].append)
     spike_b, _ = traffic_spike_run(ONLINE_TRAFFIC_SEED, "cuda", root)
     spike = {"seed": ONLINE_TRAFFIC_SEED, "card": card,
              "rerun_identical": spike_a == spike_b, **spike_summary}
@@ -3457,7 +3451,444 @@ def online_loop(card: str, work: str) -> dict:
         raise AssertionError(f"online_loop took {wall:.1f} s, over its "
                              f"{ONLINE_BUDGET_S} s budget")
     return {"chaos": chaos, "sustained": sustained, "traffic": spike,
-            "walls": line}
+            "walls": line, "surfaces": surfaces}
+
+
+# ---- 18. the program observatory and the operator commands -----------
+
+OBSERVATORY_BUDGET_S = 30.0
+# the live ratios against the H100's datasheet peaks must read above 0
+# and at most this (a counted cost over the peak is a counting fault)
+RATIO_CEILING = 1.05
+STORM_BUCKETS = (4, 16)
+STORM_ROWS = (1, 3, 5, 7)        # none is a bucket
+STORM_CLOCK_STEP_S = 0.001
+EXPORT_ROWS = 8
+EXPORT_FM_TOL = 1e-4             # tests/test_torch_export.py's DeepFM
+EXPORT_BERT_TOL = 2e-3           # and BERT tolerances
+EXPORT_RUN_TIMEOUT_S = 300.0
+VARZ_POLL_S = 0.1
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def command_output(argv) -> tuple:
+    """(exit code, stdout) of one `client.main` command, echoed."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    print(f"$ {' '.join(argv[:1])} ...\n{out}", end="", flush=True)
+    return rc, out
+
+
+def observed_job(card: str, root: str, served: dict) -> dict:
+    """(a) local_deepfm's train job with --telemetry_port, --event_log
+    and --incident_dir, scraped while it runs: /varz, `programs` and
+    `top`; the live mfu and hbm_utilization against the H100's peaks;
+    2 scatter-add launches a step; the final state bit for bit
+    local_deepfm's; `trace` of its event log."""
+    from elasticdl_tpu_torch.client import top as top_cli
+    from elasticdl_tpu_torch.client import trace as trace_cli
+
+    ckpt = os.path.join(root, "ckpt")
+    log = os.path.join(root, "events.jsonl")
+    port = free_port()
+    addr = f"127.0.0.1:{port}"
+    argv = resilient_argv(
+        served["train_dir"], served["val_dir"], "--checkpoint_dir", ckpt,
+        "--checkpoint_steps", str(LOCAL_CKPT_STEPS),
+        "--keep_checkpoint_max", str(LOCAL_KEEP),
+        "--telemetry_port", str(port), "--event_log", log,
+        "--incident_dir", os.path.join(root, "incidents"))
+    done = {}
+
+    def run():
+        try:
+            done["job"], done["launches"], done["wall"] = run_counted(
+                cli.parse_args(argv))
+        except BaseException as exc:   # re-raised below
+            done["error"] = exc
+
+    thread = threading.Thread(target=run, name="observed-job")
+    thread.start()
+    live, scrapes, commands = None, 0, {}
+    while thread.is_alive():
+        try:
+            varz = top_cli.fetch_varz(addr, timeout_s=5.0)
+        except OSError:
+            time.sleep(VARZ_POLL_S)      # not serving yet, or done
+            continue
+        scrapes += 1
+        programs = varz.get("programs", {})
+        if programs.get("mfu", 0) > 0 and \
+                "worker_train_step" in programs.get("ledger", {}):
+            live = varz
+            if not commands:
+                # the operator commands against the running job
+                commands["programs"] = command_output(["programs", addr])
+                commands["top"] = command_output(["top", addr])
+        time.sleep(VARZ_POLL_S)
+    thread.join()
+    events.configure(None)
+    if "error" in done:
+        raise done["error"]
+    job, launches = done["job"], done["launches"]
+    summary = job_summary(job, done["wall"], launches, card)
+    if live is None:
+        raise AssertionError(f"{scrapes} /varz scrapes of the running job, "
+                             "none with a live mfu above 0")
+    programs = live["programs"]
+    step = programs["ledger"]["worker_train_step"]
+    counted = list(job.owner.trainer.train_step.counted.values())
+    evts = events.read_events(log)
+    chrome = os.path.join(root, "trace.json")
+    trace_rc, trace_out = command_output(["trace", log, "--chrome", chrome])
+    summary_rc, summary_out = command_output(["trace", log, "--summary"])
+    with open(chrome) as fh:
+        doc = json.load(fh)
+    task_slices = sum(1 for e in doc["traceEvents"]
+                      if e.get("cat") == "task"
+                      and e["name"].startswith("task "))
+    tracks = {e["args"]["name"] for e in doc["traceEvents"]
+              if e.get("name") == "process_name"}
+    summary.update({
+        "scrapes": scrapes,
+        "mfu": programs["mfu"],
+        "hbm_utilization": programs["hbm_utilization"],
+        "bytes_per_sec": programs["bytes_per_sec"],
+        "worker_train_step": {k: step[k] for k in (
+            "signatures", "compiles", "flops_per_execution",
+            "bytes_per_execution", "avals")},
+        "kernel_builds": sorted(n for n in programs["ledger"]
+                                if n.startswith("kernel_build_")),
+        "counted_train_calls": counted,
+        "commands_rc": {k: rc for k, (rc, _) in commands.items()},
+        "task_slices": task_slices,
+        "completed_tasks": len(trace_cli.task_durations(evts)),
+        "trace_tracks": sorted(tracks),
+        "trace_rc": [trace_rc, summary_rc],
+        "versus_local_deepfm": state_gap(
+            os.path.join(served["ckpt"], str(LOCAL_STEPS), "state.pt"),
+            os.path.join(ckpt, str(LOCAL_STEPS), "state.pt"))})
+    print(json.dumps({"observatory_programs": {
+        "card": card, "worker_train_step": summary["worker_train_step"],
+        "mfu": summary["mfu"], "hbm_utilization": summary["hbm_utilization"],
+        "bytes_per_sec": summary["bytes_per_sec"],
+        "kernel_builds": summary["kernel_builds"]}}), flush=True)
+    scatter_counted = [c["kernel_calls"].get(sa.OP_SCATTER_ADD, 0)
+                       for c in counted]
+    if not 0 < summary["mfu"] <= RATIO_CEILING or \
+            not 0 < summary["hbm_utilization"] <= RATIO_CEILING:
+        raise AssertionError(f"the live ratios read {summary['mfu']} and "
+                             f"{summary['hbm_utilization']}: {summary}")
+    if launches != 2 * LOCAL_STEPS or summary["exit_code"] != 0 or \
+            not summary["versus_local_deepfm"]["bitwise"]:
+        raise AssertionError(f"the observed job: {summary}")
+    if step["flops_per_execution"] <= 0 or step["bytes_per_execution"] <= 0 \
+            or 2 not in scatter_counted or not summary["kernel_builds"]:
+        raise AssertionError(f"the observed job's ledger: {summary}")
+    if commands.get("programs", (1,))[0] or commands.get("top", (1,))[0] \
+            or "worker_train_step" not in commands["programs"][1] \
+            or trace_rc or summary_rc or "programs" not in tracks \
+            or task_slices != summary["completed_tasks"] \
+            or "program compiles:" not in summary_out:
+        raise AssertionError(f"the operator commands on the job: {summary}")
+    return {"summary": summary, "job": job}
+
+
+def bert_base_model(seed: int, device: str = "cuda"):
+    spec = get_model_spec(ZOO_DIR, "bert.bert_finetune.custom_model",
+                          BERT_PARAMS + ";bf16=True")
+    model = spec.model.to(device)
+    init_parameters(model, torch.Generator(device=device).manual_seed(seed))
+    return model.eval()
+
+
+def storm_run(model, root: str, device: str = "cuda") -> dict:
+    """One run of the storm drill: a BERT-base engine that stopped
+    padding to its two buckets, under a fake registry clock, answers
+    requests at four sizes that are no bucket; the flight recorder takes
+    the registry's storm.  Returns the bundle's files and the flash
+    launches."""
+    from elasticdl_tpu_torch.common import metrics as metrics_lib
+    from elasticdl_tpu_torch.common import programs
+
+    clk = [0.0]
+
+    def clock():
+        clk[0] += STORM_CLOCK_STEP_S
+        return clk[0]
+
+    registry = programs.ProgramRegistry(
+        clock=clock, metrics=metrics_lib.MetricsRegistry())
+    recorder = FlightRecorder(incident_dir=root, program_registry=registry)
+    variables = {n: p.detach() for n, p in model.named_parameters()}
+    feature_spec = feature_meta({"input_ids": np.zeros((1, SEQ_LEN),
+                                                       np.int32)})
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, VOCAB, (max(STORM_ROWS), SEQ_LEN)).astype(np.int32)
+    real = programs.default_program_registry
+    # ---- the main path: counts start at 0 here ----
+    fa.reset_launch_counts()
+    programs.default_program_registry = lambda: registry
+    try:
+        engine = ServingEngine(model, variables, step=0,
+                               feature_spec=feature_spec,
+                               buckets=STORM_BUCKETS, device=device,
+                               pad_to_bucket=False)
+    finally:
+        programs.default_program_registry = real
+    for rows in STORM_ROWS:
+        preds, _ = engine.predict({"input_ids": ids[:rows]}, rows)
+        if preds.shape != (rows, 2) or not np.isfinite(preds).all():
+            raise AssertionError(f"storm drill: bad predictions {preds}")
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    # ---- end of the main path ----
+    recorder.close()
+    bundles = sorted(os.listdir(root))
+    files = {}
+    for name in bundles:
+        for f in sorted(os.listdir(os.path.join(root, name))):
+            with open(os.path.join(root, name, f), "rb") as fh:
+                files[f"{name}/{f}"] = fh.read()
+    return {"bundles": bundles, "files": files, "launches": launches,
+            "forwards": len(STORM_BUCKETS) + len(STORM_ROWS),
+            "engine_compiles": engine.compile_count}
+
+
+def storm_drill(model, root: str, device: str = "cuda") -> dict:
+    """(b) the storm drill twice: exactly one recompile_storm bundle
+    naming serving_forward, its budget and its signature count, with a
+    programs.json, the same bytes both times; `incident` renders it;
+    12 flash launches a forward."""
+    first = storm_run(model, os.path.join(root, "a"), device)
+    second = storm_run(model, os.path.join(root, "b"), device)
+    name = "incident-0001-recompile_storm"
+    manifest = json.loads(first["files"].get(f"{name}/manifest.json",
+                                             b"{}"))
+    rc, report = command_output(["incident", os.path.join(root, "a"),
+                                 "--bundle", "incident-0001"])
+    out = {"bundles": first["bundles"],
+           "files": sorted(f.split("/", 1)[1] for f in first["files"]),
+           "identical": first["files"] == second["files"],
+           "evidence": manifest.get("evidence"),
+           "flash_launches": [first["launches"], second["launches"]],
+           "forwards": first["forwards"],
+           "engine_compiles": first["engine_compiles"],
+           "incident_rc": rc}
+    print(json.dumps({"observatory_storm": out}), flush=True)
+    want = NUM_LAYERS * first["forwards"]
+    if out["bundles"] != [name] or not out["identical"] or \
+            "programs.json" not in out["files"] or out["evidence"] != {
+                "program": "serving_forward", "budget": len(STORM_BUCKETS),
+                "signatures": len(STORM_BUCKETS) + 1} or \
+            out["flash_launches"] != [want, want] or rc or \
+            "recompile_storm" not in report:
+        raise AssertionError(f"the storm drill: {out}")
+    return out
+
+
+def start_runner(root: str, device: str = "cuda") -> dict:
+    """(c) the process that runs the exports: started first, it imports
+    torch and the kernels' ops (never the zoo) and reaches the card
+    while the phase goes on, then runs each export triple it is sent."""
+    os.makedirs(root, exist_ok=True)
+    out = open(os.path.join(root, "runner.out"), "w+")
+    err = open(os.path.join(root, "runner.err"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "elasticdl_tpu_torch.serving.run_export",
+         "--device", device],
+        cwd=ROOT, stdin=subprocess.PIPE, stdout=out, stderr=err, text=True,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    return {"proc": proc, "out": out, "err": err, "root": root,
+            "device": device, "want": {}, "tols": {}, "export_s": {}}
+
+
+def send_export(runner: dict, name: str, state, feats: dict,
+                tol: float) -> None:
+    """Export `state`'s model over `feats`, compute its in-process
+    forward at EXPORT_ROWS rows and at 3, and send both runs to the
+    runner."""
+    from elasticdl_tpu_torch.common import export
+
+    root, device = runner["root"], runner["device"]
+    t0 = time.perf_counter()
+    path = export.export_saved_model(state, os.path.join(root, name), feats)
+    runner["export_s"][name] = time.perf_counter() - t0
+    runner["tols"][name] = tol
+    forward = export.ServingForward(state.model, False)
+    state.model.eval()
+    for rows in (EXPORT_ROWS, 3):
+        part = {k: v[:rows] for k, v in feats.items()}
+        stem = os.path.join(root, f"{name}_{rows}")
+        np.savez(stem + "_in.npz", **part)
+        with torch.no_grad():
+            runner["want"][(name, rows)] = forward({
+                k: torch.from_numpy(v).to(device) for k, v in part.items()
+            }).float().cpu().numpy()
+        runner["proc"].stdin.write(
+            f"{path} {stem}_in.npz {stem}_out.npz\n")
+        runner["proc"].stdin.flush()
+
+
+def stop_runner(runner: dict, timeout_s: float = 0.0) -> tuple:
+    """Close the runner's input, wait up to `timeout_s` for it to end,
+    kill it if it has not, and return (its stdout, its stderr)."""
+    proc = runner["proc"]
+    try:
+        proc.stdin.close()
+        proc.wait(timeout=timeout_s)
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for fh in (runner["out"], runner["err"]):
+            fh.seek(0)
+        stdout, stderr = runner["out"].read(), runner["err"].read()
+        runner["out"].close()
+        runner["err"].close()
+    return stdout, stderr
+
+
+def finish_runner(runner: dict) -> dict:
+    stdout, stderr = stop_runner(runner, EXPORT_RUN_TIMEOUT_S)
+    proc = runner["proc"]
+    if proc.returncode != 0:
+        raise AssertionError(f"the export runner failed: {stderr[-4000:]}")
+    report = json.loads(stdout.strip().splitlines()[-1])
+    errs = {}
+    for (name, rows), want in runner["want"].items():
+        got = np.load(os.path.join(runner["root"],
+                                   f"{name}_{rows}_out.npz"))["out"]
+        if got.shape != want.shape:
+            raise AssertionError(f"export {name} at {rows} rows: shape "
+                                 f"{got.shape}, in process {want.shape}")
+        errs[f"{name}_{rows}"] = float(np.abs(got - want).max())
+    out = {"export_s": runner["export_s"], "max_abs_err": errs,
+           "tols": runner["tols"],
+           "runner_seconds": report["seconds"],
+           "flash_launches_in_runner": report["flash_launches"],
+           "runner_port_modules": len(report["port_modules"]),
+           "runner_zoo_modules": [m for m in report["port_modules"]
+                                  if ".model_zoo" in m]}
+    print(json.dumps({"observatory_export": out}), flush=True)
+    want_flash = 2 * NUM_LAYERS        # BERT at EXPORT_ROWS rows and at 3
+    if out["runner_zoo_modules"] or \
+            out["flash_launches_in_runner"] != want_flash or any(
+                err > runner["tols"][key.split("_")[0]]
+                for key, err in errs.items()):
+        raise AssertionError(f"the torch exports: {out}")
+    return out
+
+
+def loop_surfaces(root: str, surfaces: dict) -> dict:
+    """(d) `top`'s online and traffic lines and `slo` over the online
+    loop's spike run (its pipeline's snapshot, the live fleet's SLO
+    report), `lineage` over its event log."""
+    from elasticdl_tpu_torch.client import slo as slo_cli
+    from elasticdl_tpu_torch.client import top as top_cli
+
+    snap = surfaces["snapshot"]
+    frame = top_cli.render({"snapshot": snap, "metrics": {
+        "traffic_offered_per_sec": surfaces["traffic"]["offered_qps"]}})
+    report = slo_cli.render_slo(snap["slo"])
+    log = os.path.join(root, "online_events.jsonl")
+    with open(log, "w") as fh:
+        for record in surfaces["events"]:
+            fh.write(json.dumps(record, default=str) + "\n")
+    rc, lineage_out = command_output(["lineage", log])
+    print(frame + "\n" + report, flush=True)
+    lines = {line.split(":", 1)[0] for line in frame.splitlines()}
+    out = {"top_lines": sorted(lines), "slo_rows": len(snap["slo"]["slos"]),
+           "lineage_rc": rc,
+           "lineage_head": lineage_out.splitlines()[0] if lineage_out
+           else ""}
+    if not {"online", "traffic", "fleet"} <= lines or rc or \
+            not out["lineage_head"].startswith("windows traced: ") or \
+            "stream lag:" not in report:
+        raise AssertionError(f"the online loop's surfaces: {out}")
+    return out
+
+
+def observatory(card: str, work: str, served: dict, online: dict) -> dict:
+    """The program observatory and the operator commands on the card:
+    (a) a full-width DeepFM Local job observed while it runs, (b) the
+    BERT-base recompile-storm drill, (c) DeepFM and BERT-base torch
+    exports run in a process without the zoo, (d) the online loop's
+    surfaces.  Budget OBSERVATORY_BUDGET_S."""
+    root = os.path.join(work, "observatory")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    runner = start_runner(os.path.join(root, "exports"))
+    try:
+        observed = observed_job(card, os.path.join(root, "job"), served)
+        a_s = time.perf_counter() - t0
+        job = observed.pop("job")
+        t1 = time.perf_counter()
+        send_export(runner, "deepfm", job.owner.state,
+                    {k: np.asarray(v)[:EXPORT_ROWS]
+                     for k, v in job.owner.sample_features.items()},
+                    EXPORT_FM_TOL)
+        c_s = time.perf_counter() - t1
+        del job
+        t2 = time.perf_counter()
+        bert = bert_base_model(SEED)
+        ids = np.random.RandomState(SEED + 1).randint(
+            0, VOCAB, (EXPORT_ROWS, SEQ_LEN)).astype(np.int32)
+        # sent before the storm drill, which runs while the runner loads
+        send_export(runner, "bert", TrainState(step=0, model=bert,
+                                               optimizer=None),
+                    {"input_ids": ids}, EXPORT_BERT_TOL)
+        c_s += time.perf_counter() - t2
+        t3 = time.perf_counter()
+        storm = storm_drill(bert, os.path.join(root, "storm"))
+        b_s = time.perf_counter() - t3
+        t4 = time.perf_counter()
+        surfaces = loop_surfaces(root, online["surfaces"])
+        d_s = time.perf_counter() - t4
+    except BaseException:
+        stop_runner(runner)
+        raise
+    t5 = time.perf_counter()
+    exported = finish_runner(runner)
+    runner_wait_s = time.perf_counter() - t5
+    del bert
+    wall = time.perf_counter() - t0
+    summary = observed["summary"]
+    line = {"card": card, "wall_s": wall, "budget_s": OBSERVATORY_BUDGET_S,
+            "a_s": a_s, "b_s": b_s, "c_exports_s": c_s, "d_s": d_s,
+            "runner_wait_s": runner_wait_s,
+            "mfu": summary["mfu"],
+            "hbm_utilization": summary["hbm_utilization"],
+            "train_step_flops": summary["worker_train_step"][
+                "flops_per_execution"],
+            "train_step_bytes": summary["worker_train_step"][
+                "bytes_per_execution"],
+            "scatter_launches": summary["scatter_launches"],
+            "bitwise_vs_local_deepfm":
+                summary["versus_local_deepfm"]["bitwise"],
+            "storm_identical": storm["identical"],
+            "export_max_abs_err": exported["max_abs_err"],
+            "export_s": exported["export_s"]}
+    print(json.dumps({"observatory": line}), flush=True)
+    if wall > OBSERVATORY_BUDGET_S:
+        raise AssertionError(f"observatory took {wall:.1f} s, over its "
+                             f"{OBSERVATORY_BUDGET_S} s budget")
+    return {"job": summary, "storm": storm, "exports": exported,
+            "surfaces": surfaces, "walls": line}, \
+        summary["scatter_launches"], storm["flash_launches"][0]
 
 
 def bert_launches() -> dict:
@@ -5380,6 +5811,9 @@ def run_phases(card: str, build: dict, work: str) -> int:
     stream, stream_launches = phase("stream_judgment", stream_judgment,
                                     card, work, fm_served)
     online = phase("online_loop", online_loop, card, work)
+    obs, obs_scatter, obs_flash = phase("observatory", observatory, card,
+                                        work, fm_served, online)
+    del online["surfaces"]
     serve_fm = phase("serve_cli_deepfm", serve_cli_deepfm, card, fm_served)
     wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
     del buffers
@@ -5403,6 +5837,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
         "local_deepfm_int8": local_launches["local_deepfm_int8"],
         **resilient_launches,
         "stream_judgment": stream_launches,
+        "observatory": obs_scatter,
         "wire_deepfm": wire_launches,
         "tiered_deepfm": tiered_launches,
         **local_t_launches,
@@ -5418,6 +5853,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
                   **bert_local_launches}
     entry["launches_by_path"] = {
         "serve_bert": launches["flash_attention_fwd"],
+        "observatory_storm": obs_flash,
         "serve_cli_bert": cli_launches["flash_attention_fwd"],
         **{path: n["flash_attention_fwd"] for path, n in
            bert_paths.items()}}
@@ -5442,6 +5878,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
                    "deepfm": deepfm, "local_deepfm": local,
                    "resilient_local": resilient,
                    "stream_judgment": stream, "online_loop": online,
+                   "observatory": obs,
                    "wire_deepfm": wire, "serve_cli_deepfm": serve_fm,
                    "tiered_deepfm": tiered, "local_tiered": local_t,
                    "zoo_local": zoo,

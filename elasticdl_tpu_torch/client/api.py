@@ -38,8 +38,11 @@ first training task.
 With `--history_interval`, `--slo_interval` or `--incident_dir` the
 master also samples its metrics, judges the SLOs and keeps an incident
 flight recorder (master/main.py); `run_local` starts those threads and
-`Master.stop` ends them.  The cluster strategies wait for their slice
-of the port and raise NotImplementedError.
+`Master.stop` ends them.  As in the JAX Local runner, the master's
+telemetry server (/metrics, /healthz, /varz on `--telemetry_port`, 0 =
+ephemeral) runs for the job's life: one process, so one server covers
+master and workers.  The cluster strategies wait for their slice of the
+port and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -146,6 +149,7 @@ def run_local(args, job_type: str = "train") -> LocalJob:
 
     master = Master(args)
     try:
+        master.start_telemetry(args.telemetry_port)
         # the metric-history and SLO threads (only at an interval > 0)
         master.start()
         client = InProcessMasterClient(master.servicer)

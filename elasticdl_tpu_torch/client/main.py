@@ -14,8 +14,20 @@ subcommands of the JAX package's client/main.py):
         (--export_dir DIR | --checkpoint_dir DIR --feature_spec JSON) \\
         [--port 50061] [--device cpu] ...
 
-Parsing is strict: an unknown flag is an error.  The exit code is 0 when
-the job succeeded.
+and the operator commands, with the JAX package's arguments:
+
+    python -m elasticdl_tpu_torch.client.main top HOST:PORT [--watch]
+    python -m elasticdl_tpu_torch.client.main slo HOST:PORT [--json]
+    python -m elasticdl_tpu_torch.client.main programs HOST:PORT [--json]
+    python -m elasticdl_tpu_torch.client.main trace EVENT_LOG \\
+        [--chrome OUT.json] [--summary]
+    python -m elasticdl_tpu_torch.client.main lineage EVENT_LOG [--window N]
+    python -m elasticdl_tpu_torch.client.main incident DIR [--bundle NAME]
+
+(`top`, `slo` and `programs` scrape a master's `--telemetry_port`).
+`zoo init|build|push` waits for the cluster slice (ROADMAP.md queue 1,
+item 12).  Parsing is strict: an unknown flag is an error.  The exit
+code is 0 when the job or command succeeded.
 """
 
 from __future__ import annotations
@@ -44,7 +56,76 @@ def _build_parser() -> argparse.ArgumentParser:
     args_lib.add_model_params(serve)
     args_lib.add_serve_params(serve)
     serve.set_defaults(func="serve")
+
+    top_parser = subparsers.add_parser(
+        "top", help="live job table from a master's /varz endpoint")
+    top_parser.add_argument(
+        "master_varz",
+        help="master telemetry address: host:port or http URL "
+        "(--telemetry_port of the master)")
+    top_parser.add_argument(
+        "--serving_addr", default="",
+        help="optionally also scrape a serving replica's telemetry "
+        "address for a serving summary row")
+    top_parser.add_argument(
+        "--watch", action="store_true",
+        help="refresh continuously instead of printing one frame")
+    top_parser.add_argument(
+        "--interval_s", type=float, default=2.0,
+        help="refresh interval with --watch")
+    top_parser.set_defaults(func="top")
+
+    slo_parser = subparsers.add_parser(
+        "slo", help="SLO report (state, burn rates, window evidence) "
+        "from a master's /varz endpoint")
+    slo_parser.add_argument(
+        "master_varz",
+        help="master telemetry address: host:port or http URL "
+        "(--telemetry_port of the master)")
+    slo_parser.add_argument(
+        "--json", action="store_true",
+        help="dump the raw SLO snapshot as JSON instead of the table")
+    slo_parser.set_defaults(func="slo")
+
+    programs_parser = subparsers.add_parser(
+        "programs",
+        help="program observatory (compiles, signatures, cost ledger, "
+        "live MFU) from a /varz endpoint")
+    programs_parser.add_argument(
+        "varz_addr",
+        help="telemetry address: host:port or http URL "
+        "(--telemetry_port of a master or a serving replica)")
+    programs_parser.add_argument(
+        "--json", action="store_true",
+        help="dump the raw program ledger as JSON instead of the table")
+    programs_parser.set_defaults(func="programs")
+
+    trace_parser = subparsers.add_parser(
+        "trace",
+        help="convert an --event_log JSONL to Chrome trace JSON "
+        "(Perfetto / chrome://tracing) or print a latency summary")
+    args_lib.add_trace_params(trace_parser)
+    trace_parser.set_defaults(func="trace")
+
+    lineage_parser = subparsers.add_parser(
+        "lineage",
+        help="per-window ingest->first-serve freshness waterfalls from "
+        "an --event_log JSONL (the train-path twin of `trace`)")
+    args_lib.add_lineage_params(lineage_parser)
+    lineage_parser.set_defaults(func="lineage")
+
+    incident_parser = subparsers.add_parser(
+        "incident",
+        help="list incident flight-recorder bundles (--incident_dir of "
+        "the master) or render one into a postmortem report")
+    args_lib.add_incident_params(incident_parser)
+    incident_parser.set_defaults(func="incident")
     return parser
+
+
+# each is the function of its own name in elasticdl_tpu_torch.client.<name>
+_OPERATOR_COMMANDS = ("top", "slo", "programs", "trace", "lineage",
+                      "incident")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -57,6 +138,13 @@ def main(argv=None) -> int:
     if not getattr(args, "func", None):
         parser.print_help()
         return 2
+
+    if args.func in _OPERATOR_COMMANDS:
+        import importlib
+
+        module = importlib.import_module(
+            f"elasticdl_tpu_torch.client.{args.func}")
+        return getattr(module, args.func)(args)
 
     from elasticdl_tpu_torch.client import api
 

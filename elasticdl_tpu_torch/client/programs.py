@@ -1,0 +1,104 @@
+"""`programs`: the program observatory from a /varz endpoint (the port of
+the JAX package's client/programs.py).
+
+Every telemetry server republishes the process-wide ProgramRegistry
+(common/programs.py) summary under the "programs" varz key: per program
+the compiles (first dispatches at a new signature; nvcc builds for the
+`kernel_build_*` programs), distinct signatures against the declared
+budget, recompile storms, compile-time quantiles and the counted cost
+(flops and bytes per execution), joined with the live step rate into
+MFU and bandwidth.  Like `top` this is a pure HTTP client;
+`render_programs` also takes a summary dict directly, so tests render
+the exact bytes the command prints.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+from elasticdl_tpu_torch.client.top import fetch_varz
+
+
+def _eng(value: float) -> str:
+    """Compact engineering notation for flops/bytes columns."""
+    value = float(value or 0.0)
+    if value <= 0:
+        return "-"
+    for unit, scale in (("T", 1e12), ("G", 1e9), ("M", 1e6), ("K", 1e3)):
+        if value >= scale:
+            return f"{value / scale:.2f}{unit}"
+    return f"{value:.0f}"
+
+
+def render_programs(summary: dict) -> str:
+    """One report frame from a ProgramRegistry.summary() dict: headline
+    totals + live roofline ratios, then a row per named program."""
+    lines = [
+        "elasticdl programs — {n} programs, {c} compiles, "
+        "{s} signatures, {st} storms".format(
+            n=summary.get("programs", 0),
+            c=summary.get("compiles_total", 0),
+            s=summary.get("signatures_total", 0),
+            st=summary.get("storms_total", 0),
+        ),
+        "live: mfu={mfu:.3f} hbm={hbm:.3f} bytes/s={bw}".format(
+            mfu=summary.get("mfu", 0.0),
+            hbm=summary.get("hbm_utilization", 0.0),
+            bw=_eng(summary.get("bytes_per_sec", 0.0)),
+        ),
+        "program".ljust(24) + "compiles".rjust(9) + "sigs".rjust(6)
+        + "budget".rjust(7) + "storms".rjust(7) + "c_p50".rjust(9)
+        + "c_p99".rjust(9) + "flops/x".rjust(9) + "bytes/x".rjust(9),
+    ]
+    ledger = summary.get("ledger", {})
+    for name in sorted(ledger):
+        rec = ledger[name]
+        budget = rec.get("budget")
+        lines.append(
+            str(name).ljust(24)
+            + str(rec.get("compiles", 0)).rjust(9)
+            + str(rec.get("signatures", 0)).rjust(6)
+            + (str(budget) if budget is not None else "-").rjust(7)
+            + str(rec.get("storms", 0)).rjust(7)
+            + "{:.3f}s".format(
+                rec.get("compile_seconds_p50", 0.0)
+            ).rjust(9)
+            + "{:.3f}s".format(
+                rec.get("compile_seconds_p99", 0.0)
+            ).rjust(9)
+            + _eng(rec.get("flops_per_execution", 0.0)).rjust(9)
+            + _eng(rec.get("bytes_per_execution", 0.0)).rjust(9)
+        )
+        avals = rec.get("avals", "")
+        if avals:
+            lines.append("  " + avals)
+    if not ledger:
+        lines.append("(no programs registered — has the role jitted "
+                     "anything yet?)")
+    return "\n".join(lines)
+
+
+def programs(args) -> int:
+    """Fetch a role's /varz and render the program observatory."""
+    try:
+        varz = fetch_varz(args.varz_addr)
+    except Exception as exc:
+        print(
+            f"elasticdl programs: cannot scrape {args.varz_addr}: {exc}",
+            file=sys.stderr,
+        )
+        return 1
+    payload = varz.get("programs")
+    if not payload:
+        print(
+            "elasticdl programs: endpoint exposes no \"programs\" varz "
+            "key (pre-observatory build?)",
+            file=sys.stderr,
+        )
+        return 1
+    if getattr(args, "json", False):
+        print(json.dumps(payload, indent=2, sort_keys=True))
+    else:
+        print(render_programs(payload))
+    return 0

@@ -1,0 +1,110 @@
+"""`slo`: the SLO report from the master's /varz endpoint (the port of the
+JAX package's client/slo.py).
+
+The master's SLO evaluator (common/slo.py) publishes its judgment (per
+SLO state, fast and slow burn rates and the window evidence behind them)
+inside `Master.snapshot()` under "slo", which the telemetry server
+republishes on /varz.  Like `top` this is a pure HTTP client;
+`render_slo` also takes a snapshot dict directly, so tests render the
+exact bytes the command prints.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+from elasticdl_tpu_torch.client.top import fetch_varz
+
+_STATE_MARK = {"ok": "OK", "breach": "BREACH", "no_data": "no-data"}
+
+
+def render_slo(slo: dict) -> str:
+    """One report frame from a Master.snapshot()["slo"] dict: a row per
+    shipped SLO with state, current burn rates, and window evidence."""
+    lines = [
+        "elasticdl slo — evaluator ticks={ticks} breaches={breaches}".format(
+            ticks=slo.get("ticks", 0),
+            breaches=sum(
+                1 for d in slo.get("decisions", [])
+                if d.get("event") == "slo_breach"
+            ),
+        ),
+        "slo".ljust(22) + "state".ljust(9) + "fast_burn".rjust(10)
+        + "slow_burn".rjust(10) + "objective".rjust(11)
+        + "target".rjust(8) + "windows".rjust(12),
+    ]
+    for row in slo.get("slos", []):
+        state = row.get("state", "no_data")
+        lines.append(
+            str(row.get("slo", "?")).ljust(22)
+            + _STATE_MARK.get(state, state).ljust(9)
+            + f"{row.get('fast_burn', 0.0):.2f}".rjust(10)
+            + f"{row.get('slow_burn', 0.0):.2f}".rjust(10)
+            + f"{row.get('objective', 0.0):g}".rjust(11)
+            + f"{row.get('target', 0.0):g}".rjust(8)
+            + "{:.0f}s/{:.0f}s".format(
+                row.get("fast_window_s", 0.0),
+                row.get("slow_window_s", 0.0),
+            ).rjust(12)
+        )
+    decisions = slo.get("decisions", [])
+    if decisions:
+        lines.append("")
+        lines.append("transitions (oldest first):")
+        for decision in decisions:
+            lines.append(
+                "  t{tick} {slo}: {event} fast_burn={fast} "
+                "slow_burn={slow}".format(
+                    tick=decision.get("tick", "?"),
+                    slo=decision.get("slo", "?"),
+                    event=decision.get("event", "?"),
+                    fast=decision.get("fast_burn", 0.0),
+                    slow=decision.get("slow_burn", 0.0),
+                )
+            )
+    history = slo.get("history")
+    if history:
+        lines.append("")
+        lines.append(
+            "history: {series} series, {hist} histograms, "
+            "{samples} samples (capacity {cap}/series)".format(
+                series=history.get("series", 0),
+                hist=history.get("histograms", 0),
+                samples=history.get("samples", 0),
+                cap=history.get("capacity", 0),
+            )
+        )
+        if "stream_lag_samples" in history:
+            # online (perpetual) jobs: the armed-watermark lag gauge is
+            # part of the evaluator's evidence — show its coverage
+            lines.append(
+                "  stream lag: {n} samples "
+                "(master_stream_watermark_lag_seconds)".format(
+                    n=history.get("stream_lag_samples", 0),
+                )
+            )
+    return "\n".join(lines)
+
+
+def slo(args) -> int:
+    """Fetch the master's /varz and render the SLO report."""
+    try:
+        varz = fetch_varz(args.master_varz)
+    except Exception as exc:
+        print(f"elasticdl slo: cannot scrape {args.master_varz}: {exc}",
+              file=sys.stderr)
+        return 1
+    payload = varz.get("snapshot", {}).get("slo")
+    if not payload:
+        print(
+            "elasticdl slo: master has no SLO evaluator — start it with "
+            "--history_interval/--slo_interval > 0",
+            file=sys.stderr,
+        )
+        return 1
+    if getattr(args, "json", False):
+        print(json.dumps(payload, indent=2, sort_keys=True))
+    else:
+        print(render_slo(payload))
+    return 0

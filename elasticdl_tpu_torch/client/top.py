@@ -1,0 +1,350 @@
+"""`top`: the live job table from the master's /varz endpoint (the port
+of the JAX package's client/top.py).
+
+The master gathers what `top` shows into `Master.snapshot()` (task
+progress, per-worker step rates and phases from the telemetry the
+workers send with their task reports, the online line of a perpetual
+queue, SLO states, fault and retry counters) and its telemetry server
+(common/telemetry.py) republishes it as JSON on /varz beside the program
+registry's summary.  `render` also takes the keys that only a cluster
+master or the online loop fills (pods, policy, fleet, traffic,
+freshness, lineage, recovery): `OnlinePipeline.online_snapshot()` and
+`TrafficGenerator.snapshot()` give the online and traffic lines.  `top`
+is a pure HTTP client, standard library only: point it at the master's
+`--telemetry_port` (and optionally a serving replica's).
+"""
+
+from __future__ import annotations
+
+import json
+import time
+import urllib.request
+from typing import Optional
+
+
+def fetch_varz(url: str, timeout_s: float = 5.0) -> dict:
+    """GET a telemetry /varz endpoint.  `url` may be 'host:port' or a
+    full http URL (with or without the /varz path)."""
+    if "://" not in url:
+        url = f"http://{url}"
+    if not url.rstrip("/").endswith("/varz"):
+        url = url.rstrip("/") + "/varz"
+    with urllib.request.urlopen(url, timeout=timeout_s) as resp:
+        return json.loads(resp.read().decode("utf-8"))
+
+
+def _dominant_phase(entry: dict) -> str:
+    """Where this worker's step time goes: the largest of the cumulative
+    `phase_<name>_ms` telemetry counters, with its share.  '-' until the
+    worker has reported phase telemetry."""
+    phases = {
+        key[len("phase_"):-len("_ms")]: value
+        for key, value in entry.items()
+        if key.startswith("phase_") and key.endswith("_ms") and value
+    }
+    total = sum(phases.values())
+    if not total:
+        return "-"
+    name = max(phases, key=phases.get)
+    return f"{name} {100 * phases[name] / total:.0f}%"
+
+
+def _fmt(value, width: int) -> str:
+    if isinstance(value, float):
+        text = f"{value:.2f}"
+    else:
+        text = str(value)
+    return text.rjust(width)
+
+
+def render(varz: dict, serving_varz: Optional[dict] = None,
+           clock=time.time) -> str:
+    """One refresh frame: cluster summary + per-worker table (+ serving
+    row when a serving /varz was scraped).  `clock` is injectable so
+    tests render deterministic "ago" columns."""
+    lines = []
+    snapshot = varz.get("snapshot", {})
+    tasks = snapshot.get("tasks", {})
+    counters = tasks.get("counters", {})
+    metrics = varz.get("metrics", {})
+    lines.append(
+        f"elasticdl top — master pid={varz.get('pid', '?')} "
+        f"role={varz.get('role', '?')} "
+        f"at {time.strftime('%H:%M:%S')}"
+    )
+    lines.append(
+        "tasks: todo={todo} doing={doing} finished={fin} failed={fail} "
+        "recovered={rec} expired={exp} records={records} "
+        "epoch={epoch}/{epochs}".format(
+            todo=tasks.get("todo", 0),
+            doing=tasks.get("doing", 0),
+            fin=counters.get("finished", 0),
+            fail=counters.get("failed", 0),
+            rec=counters.get("recovered", 0),
+            exp=counters.get("expired", 0),
+            records=counters.get("records_done", 0),
+            epoch=tasks.get("epoch", 0),
+            epochs=tasks.get("num_epochs", 0),
+        )
+    )
+    online = snapshot.get("online")
+    if online:
+        lines.append(
+            "online: window={win} lag={lag:.2f}s armed={armed} "
+            "tasks_rearmed={rearmed} rearm_faults={faults} "
+            "last_reload_step={reload}".format(
+                win=online.get("window", -1),
+                lag=online.get("watermark_lag_s", 0.0),
+                armed=online.get("windows_armed", 0),
+                rearmed=online.get("tasks_rearmed", 0),
+                faults=online.get("rearm_faults", 0),
+                reload=online.get("last_reload_step", "-"),
+            )
+        )
+    pods = snapshot.get("pods")
+    if pods:
+        lines.append(
+            f"pods: alive={pods.get('alive', 0)} "
+            f"losses={pods.get('losses_seen', 0)} "
+            f"relaunches={pods.get('relaunches', 0)} "
+            f"evictions={pods.get('evictions', 0)}"
+        )
+    policy = snapshot.get("policy")
+    if policy:
+        decisions = policy.get("decisions", [])
+        last = decisions[-1] if decisions else None
+        last_text = (
+            f" last={last['action']}/{last['reason']}@t{last['tick']}"
+            if last else ""
+        )
+        state = (
+            "off" if policy.get("interval_s", 0) <= 0
+            else f"every {policy['interval_s']:.0f}s"
+        )
+        lines.append(
+            f"policy [{state}]: ticks={policy.get('ticks', 0)} "
+            f"backlog/worker={policy.get('backlog_per_worker', 0.0):.2f} "
+            f"data_wait={policy.get('data_wait_ratio', 0.0):.2f} "
+            f"evictions={policy.get('evictions_used', 0)}"
+            f"/{policy.get('eviction_budget', 0)}{last_text}"
+        )
+    fleet = snapshot.get("serving_fleet")
+    if fleet:
+        slo = fleet.get("step_skew_slo", 0)
+        lines.append(
+            f"fleet: replicas={len(fleet.get('replicas', {}))} "
+            f"relaunches={fleet.get('relaunches', 0)} "
+            f"reload_steps={fleet.get('reload_steps', 0)} "
+            f"skew={fleet.get('model_step_skew', 0)}"
+            f"/slo={slo if slo else '-'}"
+        )
+    serving_policy = snapshot.get("serving_policy")
+    if serving_policy:
+        last = serving_policy.get("last_decision")
+        last_text = (
+            f" last={last['action']}/{last['reason']}@t{last['tick']}"
+            if last else ""
+        )
+        offered = metrics.get("traffic_offered_per_sec")
+        offered_text = (
+            f"offered={offered:.1f}/s " if offered is not None else ""
+        )
+        lines.append(
+            f"traffic: {offered_text}"
+            f"shed_ratio={serving_policy.get('shed_ratio', 0.0):.3f} "
+            f"burn={serving_policy.get('burn', 0.0):.2f}x "
+            f"fleet={serving_policy.get('live_replicas', 0)}"
+            f"[{serving_policy.get('min_replicas', 0)}"
+            f"-{serving_policy.get('max_replicas', 0)}]"
+            f" hold={serving_policy.get('hold_ticks', 0)}{last_text}"
+        )
+    slo = snapshot.get("slo")
+    if slo:
+        states = slo.get("states", {})
+        burns = {
+            row.get("slo"): row.get("fast_burn", 0.0)
+            for row in slo.get("slos", [])
+        }
+        lines.append(
+            "slo: " + " ".join(
+                f"{name}={states[name]}"
+                + (f"({burns[name]:.1f}x)" if burns.get(name) else "")
+                for name in sorted(states)
+            )
+        )
+    freshness = snapshot.get("freshness")
+    if freshness:
+        lines.append(
+            "freshness: latest_step={step} staleness "
+            "p50={p50:.2f}s p99={p99:.2f}s obs={obs}".format(
+                step=freshness.get("latest_step", 0),
+                p50=freshness.get("staleness_p50_s", 0.0),
+                p99=freshness.get("staleness_p99_s", 0.0),
+                obs=freshness.get("observations", 0),
+            )
+        )
+    lineage = snapshot.get("lineage")
+    if lineage:
+        p99 = lineage.get("e2e_p99_s")
+        lines.append(
+            "lineage: windows={tr} open={op} replayed={rep} "
+            "dropped={drop} e2e_p99={p99} dominant={dom}".format(
+                tr=lineage.get("windows_traced", 0),
+                op=lineage.get("windows_open", 0),
+                rep=lineage.get("replayed", 0),
+                drop=lineage.get("dropped", 0),
+                p99=f"{p99:.2f}s" if p99 is not None else "-",
+                dom=lineage.get("dominant_phase") or "-",
+            )
+        )
+    recovery = snapshot.get("recovery")
+    if recovery:
+        durations = recovery.get("recovery_durations_s", [])
+        tail = (
+            " last={:.2f}s".format(durations[-1]) if durations else ""
+        )
+        lines.append(
+            f"recovery: losses={recovery.get('losses', 0)} "
+            f"recovered={recovery.get('recoveries', 0)}"
+            f"{' PENDING' if recovery.get('pending') else ''}{tail}"
+        )
+    programs = varz.get("programs")
+    if programs and programs.get("programs"):
+        lines.append(
+            "programs: n={n} compiles={compiles} sigs={sigs} "
+            "storms={storms} mfu={mfu:.3f} "
+            "bw={bw:.2e}B/s".format(
+                n=programs.get("programs", 0),
+                compiles=programs.get("compiles_total", 0),
+                sigs=programs.get("signatures_total", 0),
+                storms=programs.get("storms_total", 0),
+                mfu=programs.get("mfu", 0.0),
+                bw=programs.get("bytes_per_sec", 0.0),
+            )
+        )
+    resilience = snapshot.get("resilience", {})
+    fault_stats = snapshot.get("faults", {})
+    lines.append(
+        f"rpc: retries={resilience.get('retries', 0)} "
+        f"giveups={resilience.get('giveups', 0)} "
+        f"faults_injected={fault_stats.get('injected', 0)}"
+    )
+    workers = snapshot.get("workers", {})
+    if workers:
+        lines.append("")
+        lines.append(
+            "worker".ljust(8)
+            + "steps".rjust(10)
+            + "steps/s".rjust(10)
+            + "model_step".rjust(12)
+            + "last_report".rjust(14)
+            + "top_phase".rjust(16)
+            + "flag".rjust(14)
+        )
+        now = clock()
+        for wid in sorted(workers, key=lambda w: int(w)):
+            entry = workers[wid]
+            ago = now - entry.get("last_report_unix_s", now)
+            lines.append(
+                str(wid).ljust(8)
+                + _fmt(entry.get("steps_total", 0), 10)
+                + _fmt(entry.get("steps_per_sec_milli", 0) / 1000.0, 10)
+                + _fmt(entry.get("model_step", 0), 12)
+                + _fmt(f"{ago:.0f}s ago", 14)
+                + _fmt(_dominant_phase(entry), 16)
+                + _fmt(
+                    "STRAGGLER {:.0f}s".format(
+                        entry.get("flagged_for_s", 0.0)
+                    )
+                    if entry.get("straggler") else "-",
+                    14,
+                )
+            )
+    if fleet and fleet.get("replicas"):
+        lines.append("")
+        lines.append(
+            "replica".ljust(8)
+            + "addr".ljust(26)
+            + "healthy".rjust(8)
+            + "model_step".rjust(12)
+            + "fill".rjust(8)
+            + "shed".rjust(8)
+            + "qwait_p99".rjust(11)
+            + "comp_p99".rjust(10)
+            + "relaunched".rjust(12)
+        )
+        for rid in sorted(fleet["replicas"], key=lambda r: int(r)):
+            entry = fleet["replicas"][rid]
+            lines.append(
+                str(rid).ljust(8)
+                + str(entry.get("addr", "-")).ljust(26)
+                + _fmt("yes" if entry.get("healthy") else "NO", 8)
+                + _fmt(entry.get("model_step", 0), 12)
+                + _fmt(entry.get("fill_ratio", 0.0), 8)
+                + _fmt(entry.get("shed", 0), 8)
+                + _fmt(
+                    "{:.1f}ms".format(
+                        entry.get("queue_wait_p99_s", 0.0) * 1e3
+                    ), 11,
+                )
+                + _fmt(
+                    "{:.1f}ms".format(
+                        entry.get("compute_p99_s", 0.0) * 1e3
+                    ), 10,
+                )
+                + _fmt(entry.get("incarnation", 0), 12)
+            )
+    if serving_varz is not None:
+        smetrics = serving_varz.get("metrics", {})
+        lines.append("")
+        lines.append(
+            "serving: rows={rows:.0f} shed={shed:.0f} "
+            "p50={p50:.4f}s p99={p99:.4f}s reloads={reloads:.0f} "
+            "model_step={step:.0f}".format(
+                rows=smetrics.get("serving_batch_rows_total", 0.0),
+                shed=smetrics.get(
+                    "serving_requests_rejected_total", 0.0
+                ),
+                p50=smetrics.get("serving_batch_latency_seconds_p50", 0.0),
+                p99=smetrics.get("serving_batch_latency_seconds_p99", 0.0),
+                reloads=smetrics.get("serving_reloads_total", 0.0),
+                step=smetrics.get("serving_model_step", 0.0),
+            )
+        )
+    return "\n".join(lines)
+
+
+def top(args, clock=time.time, sleep=time.sleep,
+        max_frames: Optional[int] = None) -> int:
+    """Render the cluster table; --watch redraws in place until
+    interrupted.  `clock`/`sleep` are injectable and `max_frames`
+    bounds the watch loop so tests run one deterministic iteration."""
+    interval = getattr(args, "interval_s", 2.0)
+    watch = getattr(args, "watch", False)
+    serving_addr = getattr(args, "serving_addr", "")
+    frames = 0
+    while True:
+        try:
+            varz = fetch_varz(args.master_varz)
+        except Exception as exc:
+            print(f"elasticdl top: cannot scrape {args.master_varz}: {exc}")
+            return 1
+        serving_varz = None
+        if serving_addr:
+            try:
+                serving_varz = fetch_varz(serving_addr)
+            except Exception:
+                pass  # serving replica down: keep showing the master
+        frame = render(varz, serving_varz, clock=clock)
+        if not watch:
+            print(frame)
+            return 0
+        # In-place redraw: wipe the screen once, then home the cursor,
+        # repaint, and clear whatever a previously-taller frame left
+        # below — no scrollback spam between refreshes.
+        prefix = "\033[2J\033[H" if frames == 0 else "\033[H"
+        print(prefix + frame + "\033[J", flush=True)
+        frames += 1
+        if max_frames is not None and frames >= max_frames:
+            return 0
+        sleep(interval)

@@ -20,7 +20,8 @@ judgment flags (`--history_interval`, `--history_capacity`,
 `--slo_interval`, `--slo_staleness_p99_s`, `--incident_dir`,
 `--incident_ring`, `--incident_max_bundles`: the master's metric
 history, SLO evaluator and incident flight recorder, master/main.py)
-run.
+and `--telemetry_port` (the master's /metrics, /healthz and /varz,
+which `top`, `slo` and `programs` read) run.
 
 `--device` is the port's own: `cuda` (the default) or `cpu`, the
 counterpart of the JAX package's JAX_PLATFORMS, resolved through
@@ -74,6 +75,10 @@ def add_common_params(parser: argparse.ArgumentParser):
         "--event_log", default="",
         help="Append-only JSONL span-event log (task dispatch/claim/"
         "train/report, checkpoint save/restore).")
+    parser.add_argument(
+        "--telemetry_port", type=non_neg_int, default=0,
+        help="HTTP port of the master's /metrics, /healthz and /varz "
+        "(0 = ephemeral); `top`, `slo` and `programs` scrape it.")
     parser.add_argument(
         "--device", default="cuda", choices=["cuda", "cpu"],
         help="Where the model runs: the GPU (default; raises without "
@@ -303,3 +308,64 @@ def add_serve_params(parser: argparse.ArgumentParser):
         "--device", default="cuda", choices=["cuda", "cpu"],
         help="Where the model serves: the GPU (default; raises without "
         "CUDA) or the CPU when asked by name.")
+
+
+def add_trace_params(parser: argparse.ArgumentParser):
+    """`trace`: offline event-log analysis (client/trace.py)."""
+    parser.add_argument(
+        "event_log",
+        help="span-event JSONL written by --event_log (a rolled "
+        "<path>.1 generation, if present, is read automatically)",
+    )
+    parser.add_argument(
+        "--chrome", default="",
+        help="write Chrome trace-event JSON here; open in "
+        "https://ui.perfetto.dev or chrome://tracing",
+    )
+    parser.add_argument(
+        "--summary", action="store_true",
+        help="print per-worker task-latency quantiles, slowest tasks "
+        "and the aggregate step-phase breakdown (default when --chrome "
+        "is not given)",
+    )
+    parser.add_argument(
+        "--slowest", type=non_neg_int, default=5,
+        help="how many slowest tasks the summary lists",
+    )
+
+
+def add_lineage_params(parser: argparse.ArgumentParser):
+    """`lineage`: per-window freshness waterfalls from an event log
+    (client/lineage.py)."""
+    parser.add_argument(
+        "event_log",
+        help="span-event JSONL written by --event_log (a rolled "
+        "<path>.1 generation, if present, is read automatically)",
+    )
+    parser.add_argument(
+        "--slowest", type=non_neg_int, default=3,
+        help="how many slowest windows get a full waterfall",
+    )
+    parser.add_argument(
+        "--window", type=int, default=None,
+        help="render the waterfall for this one window id only",
+    )
+
+
+def add_incident_params(parser: argparse.ArgumentParser):
+    """`incident`: postmortem reports from flight-recorder bundles
+    (client/incident.py)."""
+    parser.add_argument(
+        "incident_dir",
+        help="directory the master's --incident_dir flight recorder "
+        "wrote bundles into",
+    )
+    parser.add_argument(
+        "--bundle", default="",
+        help="bundle name (or unambiguous prefix) to render a full "
+        "postmortem report for; omitted = list all bundles",
+    )
+    parser.add_argument(
+        "--spans", type=non_neg_int, default=10,
+        help="how many of the slowest request spans the report lists",
+    )

@@ -8,18 +8,26 @@ in the port's own format:
 - `export_meta.json` — the JAX keys: `step`, `module`, `model_class`,
   `framework` ("elasticdl-tpu-torch"), `features` (the serving
   signature) and, when asked for, `saved_model`.
+- `saved_model/model.pt2` (with `saved_model=True`, the JAX package's
+  TF SavedModel in the port): a `torch.export` of the zoo model's
+  serving forward over the feature dict keyed by the serving signature,
+  with a dynamic batch dimension and the parameters embedded.  The hand
+  kernels stay in its graph as their custom ops (`elasticdl_torch::...`),
+  so on the card the exported BERT launches the flash kernel.  A process
+  that loads it imports `KERNEL_OP_MODULES` to register those ops, and
+  nothing of the zoo (`load_saved_model`; `serving/run_export.py` runs
+exports in a process of their own).  `meta["saved_model"]` is
+  "ok", or "failed: ..." when the export raised, as in the JAX package;
+  the weights export stands either way.
 
 A JAX export (`params.msgpack`, framework "elasticdl-tpu") is refused
 with a ValueError that names it: flax's msgpack cannot be read without
-flax.  The JAX package's optional TF SavedModel (`saved_model=True`)
-needs TensorFlow and jax2tf; the port records it as unavailable, as the
-JAX package does on a machine without TensorFlow, and the weights export
-stands.  A torch export in its place waits for its slice (ROADMAP.md
-queue 1, item 13).
+flax.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 from typing import Any, Dict
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.ops import KERNEL_OP_MODULES
 
 logger = get_logger(__name__)
 
@@ -41,10 +50,10 @@ META_FILE = "export_meta.json"
 # what the JAX package writes
 JAX_FRAMEWORK = "elasticdl-tpu"
 JAX_PARAMS_FILE = "params.msgpack"
-SAVED_MODEL_UNAVAILABLE = (
-    "unavailable: a TF SavedModel needs TensorFlow and jax2tf; a torch "
-    "export in its place waits for its slice of the port (ROADMAP.md "
-    "queue 1, item 13)")
+SAVED_MODEL_DIR = "saved_model"
+SAVED_MODEL_FILE = "model.pt2"
+# the kernels' launch grid bounds the batch (ops/flash_attention.py)
+MAX_EXPORT_BATCH = 65535
 
 
 def feature_meta(sample_features: Any) -> dict:
@@ -114,12 +123,87 @@ def export_model(
                 "SavedModel export requested but this worker captured no "
                 "sample features (no batch ever reached it); re-queueing"
             )
-        meta["saved_model"] = SAVED_MODEL_UNAVAILABLE
-        logger.error("SavedModel export %s; wrote %s only",
-                     SAVED_MODEL_UNAVAILABLE, PARAMS_FILE)
+        try:
+            export_saved_model(state,
+                               os.path.join(output_dir, SAVED_MODEL_DIR),
+                               sample_features)
+            meta["saved_model"] = "ok"
+        except Exception as exc:   # recorded in the meta; params.pt stands
+            meta["saved_model"] = f"failed: {exc}"
+            logger.error("torch export failed (%s); wrote %s only", exc,
+                         PARAMS_FILE)
     with open(os.path.join(output_dir, META_FILE), "w") as f:
         json.dump(meta, f, indent=2)
     return path
+
+
+class ServingForward(torch.nn.Module):
+    """The zoo model's serving forward over the feature dict keyed by the
+    serving signature (a single-array model reads its one key), as the
+    serving engine calls it."""
+
+    def __init__(self, model: torch.nn.Module, single: bool):
+        super().__init__()
+        from elasticdl_tpu_torch.worker.trainer import model_has_train_kwarg
+
+        self.model = model
+        self.single = single
+        self.kwargs = {"train": False} if model_has_train_kwarg(model) \
+            else {}
+
+    def forward(self, features: Dict[str, torch.Tensor]):
+        x = features[SINGLE_FEATURE_KEY] if self.single else features
+        return self.model(x, **self.kwargs)
+
+
+def export_saved_model(state, out_dir: str, sample_features: Any) -> str:
+    """`torch.export` the serving forward of `state`'s model (in eval
+    mode for the trace, then back in its own mode; on its device) over
+    `sample_features` with a dynamic batch dimension; writes
+    `<out_dir>/model.pt2` and returns its path."""
+    from elasticdl_tpu_torch.worker.trainer import to_tensor
+
+    for name in KERNEL_OP_MODULES:
+        importlib.import_module(name)
+    single = not isinstance(sample_features, dict)
+    feats = ({SINGLE_FEATURE_KEY: sample_features} if single
+             else dict(sample_features))
+    model = state.model
+    device = next(model.parameters()).device
+    example = {}
+    for name, value in feats.items():
+        value = np.asarray(value)
+        if value.shape[0] < 2:
+            # an example batch of 1 would specialize the batch dimension
+            value = np.concatenate([value] * 2)[:2]
+        example[name] = to_tensor(value, device)
+    batch = torch.export.Dim("batch", min=1, max=MAX_EXPORT_BATCH)
+    training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            exported = torch.export.export(
+                ServingForward(model, single), (example,),
+                dynamic_shapes=({name: {0: batch} for name in example},))
+    finally:
+        model.train(training)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, SAVED_MODEL_FILE)
+    tmp = os.path.join(out_dir, f"model.{os.getpid()}.tmp.pt2")
+    torch.export.save(exported, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_saved_model(path: str):
+    """The exported program at `path` (a `model.pt2` or the directory
+    that holds it), after registering the kernels' custom ops; call
+    `.module()(features)` on the result.  Imports nothing of the zoo."""
+    if os.path.isdir(path):
+        path = os.path.join(path, SAVED_MODEL_FILE)
+    for name in KERNEL_OP_MODULES:
+        importlib.import_module(name)
+    return torch.export.load(path)
 
 
 def load_exported(

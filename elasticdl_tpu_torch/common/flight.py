@@ -20,14 +20,13 @@ always listening, dumping state at the moment of the incident:
   (manifest + rings + `MetricHistory` windows + `Master.snapshot()` +
   fault-injection stats), rotation-capped so soak runs cannot fill the
   disk.
-- `list_bundles` / `load_bundle` read bundles back (the JAX package's
-  `elasticdl incident` CLI renders them; the port's waits for its
-  observability slice, ROADMAP.md queue 1, item 13).
-
-The port has no program registry yet (the JAX package's XLA program
-registry is item 13), so a port bundle has no `programs.json` section.
-`storm` stays callable, so a later registry can plug its on-storm hook
-in.
+- `list_bundles` / `load_bundle` read bundles back; the `incident`
+  command (client/incident.py) lists them and renders a postmortem
+  report from one.
+- With a program registry (common/programs.py), a recompile storm pends
+  an immediate capture through the registry's `on_storm` hook, and
+  every bundle gains `programs.json`: the registry's clock-free
+  `forensics()` ledger.
 
 Trigger detection is event-driven but capture is deferred to `flush()`
 on purpose: decision events are emitted under their component's lock
@@ -119,11 +118,18 @@ class FlightRecorder:
         max_bundles: int = 8,
         snapshot_fn: Optional[Callable[[], dict]] = None,
         history=None,
+        program_registry=None,
     ):
         self._dir = incident_dir or None
         self._max_bundles = max(1, int(max_bundles))
         self._snapshot_fn = snapshot_fn
         self._history = history
+        self._program_registry = program_registry
+        if program_registry is not None:
+            # the registry's storm hook runs with no locks held (on the
+            # dispatching thread, after its ledger lock is released), so
+            # an immediate pend+flush is a safe point, as for on_breach
+            program_registry.set_on_storm(self.storm)
         capacity = max(1, int(ring_capacity))
         self._spans: deque = deque(maxlen=capacity)
         self._decisions: deque = deque(maxlen=capacity)
@@ -221,9 +227,9 @@ class FlightRecorder:
         return self.flush()
 
     def storm(self, record: dict) -> List[str]:
-        """A program registry's `on_storm` hook (none in the port yet):
-        queue (deduped against the tap's copy of the same storm event)
-        and capture in the same tick; the hook must hold no locks."""
+        """The program registry's `on_storm` hook: queue (deduped
+        against the tap's copy of the same storm event) and capture in
+        the same tick; the hook holds no registry locks."""
         with self._lock:
             self._pend_locked(
                 "recompile_storm",
@@ -272,6 +278,9 @@ class FlightRecorder:
                 sections["history"] = _stable(self._history.snapshot())
             if self._snapshot_fn is not None:
                 sections["master"] = _stable(self._snapshot_fn())
+            if self._program_registry is not None:
+                sections["programs"] = _stable(
+                    self._program_registry.forensics())
             os.makedirs(path, exist_ok=True)
             files = []
             for section in sorted(sections):

@@ -39,8 +39,7 @@ always attributed to their original ingest timestamps.
 
 The module-level helpers (`new_state` / `apply_stamp` / `decompose` /
 `from_events`) are the same joining logic run offline over an event log
-(the JAX package's `elasticdl lineage`, `trace` and `incident` CLIs;
-the port's wait for ROADMAP.md queue 1, item 13).
+by the `lineage`, `trace` and `incident` commands (client/).
 """
 
 from __future__ import annotations

@@ -117,6 +117,14 @@ class PhaseTimer:
             payload, steps = self._take_pending_locked()
         events.emit(events.STEP_PHASES, phases=payload, steps=steps)
 
+    def totals_milli(self) -> dict:
+        """{phase: cumulative milliseconds} as ints: the shape a task
+        report's int64 telemetry can carry."""
+        with self._lock:
+            return {
+                p: int(round(v * 1000.0)) for p, v in self._totals.items()
+            }
+
     def snapshot(self) -> dict:
         """{phase: {"total_s", "mean_s", "share"}} over the job so far;
         `share` is the phase's fraction of all attributed time."""

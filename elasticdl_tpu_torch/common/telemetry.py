@@ -8,9 +8,11 @@ the JAX package's common/telemetry.py; standard library only).
 * `/varz`   — debug JSON: flat metric snapshot + role extras.
 
 Port 0 binds an ephemeral port (available as `.port`) so tests and
-several servers per host never collide.  The JAX server also carries the
-XLA program registry on /varz; the port's counterpart (a registry of
-kernel builds) waits for its slice (ROADMAP.md queue 1, item 13).
+several servers per host never collide.  Every server's /varz carries
+the process-wide program registry's summary under `programs`
+(common/programs.py: the trainer's and the serving engine's programs and
+the kernel builds), the surface `programs` and `top`'s programs line
+read.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Iterable, Optional
 
-from elasticdl_tpu_torch.common import metrics
+from elasticdl_tpu_torch.common import metrics, programs
 from elasticdl_tpu_torch.common.log_utils import get_logger
 
 logger = get_logger(__name__)
@@ -75,6 +77,8 @@ class TelemetryServer:
                 extra = self._varz_fn() or {}
             except Exception as exc:   # reported in the probe's answer
                 extra = {"varz_error": str(exc)}
+        if "programs" not in extra:
+            extra["programs"] = programs.default_program_registry().summary()
         return metrics.varz(self._registries, role=self._role, extra=extra)
 
     # ---- lifecycle ------------------------------------------------------

@@ -28,14 +28,25 @@ imported (as in the JAX package's Local job).  None of this touches
 training, so a job ends on the same state with the flags as without
 them.
 
-The serving fleet (master/serving_fleet.py), the `FreshnessTracker` it
-feeds and both policy engines (master/policy.py) are ported, and the
-online loop (online/pipeline.py) builds them.  The JAX master builds
-them only when it has pod machinery (a `PodManager`), and a Local
-master has none, so this master builds none of them, as the JAX Local
-master does: that wiring comes with the pods, rendezvous, the telemetry
-server and the gRPC server in the cluster slice (ROADMAP.md queue 1,
-item 12).
+Observability (the JAX Local runner's): `start_telemetry(port)` serves
+/metrics, /healthz and /varz over the master's registries
+(common/telemetry.py; `--telemetry_port`, 0 = ephemeral), and /varz
+carries `snapshot()` and the program registry's summary, which `top`,
+`slo` and `programs` render.  `snapshot()` builds what the JAX master's
+does for a job without pods: the task counters, the online line of a
+perpetual queue, the SLO report with the history's health, the
+per-worker rows (the telemetry workers send with their task reports,
+merged with the straggler stats), the fault and retry counters and the
+flight recorder's state.  The recorder takes the process's program
+registry, so a recompile storm captures a bundle at once and every
+bundle has a `programs.json`.
+
+What the JAX master builds only with a `PodManager` waits for the pods
+and stays with the cluster slice (ROADMAP.md queue 1, item 12): the
+serving fleet, the `FreshnessTracker` it feeds and both policy engines
+(ported in master/serving_fleet.py and master/policy.py, and built by
+the online loop, online/pipeline.py), the recovery clock, the pod rows
+of `snapshot()` and the gRPC server.
 """
 
 from __future__ import annotations
@@ -47,10 +58,12 @@ from typing import Optional
 
 from elasticdl_tpu_torch.common import faults, resilience
 from elasticdl_tpu_torch.common import metrics as metrics_lib
+from elasticdl_tpu_torch.common import telemetry as telemetry_lib
 from elasticdl_tpu_torch.common.flight import FlightRecorder
 from elasticdl_tpu_torch.common.history import MetricHistory
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_handler import load_module
+from elasticdl_tpu_torch.common.programs import default_program_registry
 from elasticdl_tpu_torch.common.save_utils import intact_steps
 from elasticdl_tpu_torch.common.slo import SloEvaluator, shipped_specs
 from elasticdl_tpu_torch.common.summary import SummaryWriter
@@ -74,6 +87,8 @@ class Master:
     metric_history = None
     slo_evaluator = None
     flight_recorder = None
+    # the /metrics, /healthz, /varz server, once start_telemetry ran
+    telemetry = None
 
     def __init__(self, args):
         self.args = args
@@ -157,6 +172,9 @@ class Master:
                 max_bundles=args.incident_max_bundles,
                 snapshot_fn=self.snapshot,
                 history=self.metric_history,
+                # a recompile storm pends an immediate capture, and every
+                # bundle gains a programs.json ledger section
+                program_registry=default_program_registry(),
             ).install()
             self.slo_evaluator = SloEvaluator(
                 self.metric_history,
@@ -218,16 +236,30 @@ class Master:
                 return True
 
     def snapshot(self) -> dict:
-        """Task progress, the per-worker straggler stats, the
-        process-wide retry and fault counters (common/resilience.py,
-        common/faults.py), and with judgment on the SLO report and the
-        flight recorder's state."""
+        """Task progress, the online line of a perpetual queue, the SLO
+        report, per-worker telemetry merged with the straggler stats,
+        the process-wide retry and fault counters (common/resilience.py,
+        common/faults.py) and the flight recorder's state: the JAX
+        master's snapshot of a job without pods."""
         out = {"tasks": self.task_manager.snapshot()}
+        online = self.task_manager.online_snapshot()
+        if online is not None:
+            out["online"] = online
         if self.slo_evaluator is not None:
             slo = self.slo_evaluator.snapshot()
             slo["history"] = self.metric_history.snapshot()
+            if online is not None:
+                # how many samples of the armed-watermark lag gauge the
+                # history holds (`slo`'s stream-lag line)
+                slo["history"]["stream_lag_samples"] = len(
+                    self.metric_history.series(
+                        "master_stream_watermark_lag_seconds"))
             out["slo"] = slo
-        out["workers"] = self.task_manager.straggler_snapshot()
+        out["workers"] = self.servicer.worker_telemetry()
+        # straggler stats come from the task manager's lease clock:
+        # merged onto the same per-worker rows
+        for wid, stats in self.task_manager.straggler_snapshot().items():
+            out["workers"].setdefault(wid, {}).update(stats)
         out["resilience"] = resilience.stats()
         out["faults"] = faults.stats()
         if self.flight_recorder is not None:
@@ -243,7 +275,33 @@ class Master:
             registries.append(self.slo_evaluator.metrics_registry)
         return registries
 
+    def start_telemetry(self, port: int = 0) -> Optional[int]:
+        """Serve /metrics, /healthz and /varz on `port` (0: ephemeral);
+        returns the bound port, or None when the server could not start
+        (telemetry never takes the job down)."""
+        if self.telemetry is not None:
+            return self.telemetry.port
+        self.telemetry = telemetry_lib.TelemetryServer(
+            registries=self.telemetry_registries(),
+            role="master",
+            port=port,
+            healthz_fn=lambda: {
+                "job_finished": self.task_manager.finished},
+            varz_fn=lambda: {"snapshot": self.snapshot()},
+        )
+        try:
+            started = self.telemetry.start()
+        except OSError:
+            logger.exception("telemetry server failed to start")
+            self.telemetry = None
+            return None
+        logger.info("Master telemetry on port %d", started)
+        return started
+
     def stop(self) -> None:
+        if self.telemetry is not None:
+            self.telemetry.stop()
+            self.telemetry = None
         if self.flight_recorder is not None:
             # write the tap's queued captures while the components can
             # still give a coherent snapshot, then untap

@@ -3,15 +3,25 @@ task, evaluation and version handlers of the JAX package's
 master/servicer.py).
 
 Handlers only touch the task queue and the metric dicts, never tensors.
-The SPMD, cluster-spec and keep-alive handlers wait for the cluster
-slice of the port.
+A task report's `__`-prefixed exec_counters are worker telemetry, kept
+per worker for `Master.snapshot()` (`worker_telemetry`).  The SPMD,
+cluster-spec and keep-alive handlers wait for the cluster slice of the
+port.
 """
 
 from __future__ import annotations
 
+import threading
+import time
+
 from elasticdl_tpu_torch.common import events
 from elasticdl_tpu_torch.master.task_manager import TaskManager
 from elasticdl_tpu_torch.proto import messages as pb
+
+# exec_counters keys carrying worker telemetry on task reports
+# (worker/task_data_service.py): a double underscore can never collide
+# with a real execution counter
+TELEMETRY_KEY_PREFIX = "__"
 
 
 class MasterServicer:
@@ -19,6 +29,9 @@ class MasterServicer:
         self._tm = task_manager
         self._eval = evaluation_service
         self._max_model_version = 0
+        # worker_id -> latest telemetry peeled from report exec_counters
+        self._telemetry_lock = threading.Lock()
+        self._worker_telemetry = {}
 
     # ---- task dispatch -------------------------------------------------
 
@@ -35,6 +48,7 @@ class MasterServicer:
 
     def report_task_result(self, req: pb.ReportTaskResultRequest, ctx):
         success = req.err_message == ""
+        self._absorb_telemetry(req)
         self._tm.report(
             req.task_id,
             success=success,
@@ -46,6 +60,27 @@ class MasterServicer:
         events.emit(events.TASK_REPORTED, task_id=req.task_id,
                     worker_id=req.worker_id, success=success)
         return pb.Empty()
+
+    def _absorb_telemetry(self, req: pb.ReportTaskResultRequest) -> None:
+        """Peel the `__`-prefixed keys from exec_counters into the
+        worker's telemetry entry, stamped with the report's wall time."""
+        fields = {
+            key[len(TELEMETRY_KEY_PREFIX):]: int(value)
+            for key, value in req.exec_counters.items()
+            if key.startswith(TELEMETRY_KEY_PREFIX)
+        }
+        if not fields:
+            return
+        with self._telemetry_lock:
+            entry = self._worker_telemetry.setdefault(req.worker_id, {})
+            entry.update(fields)
+            entry["last_report_unix_s"] = int(time.time())
+
+    def worker_telemetry(self) -> dict:
+        """worker_id -> latest reported telemetry (plain dict copy)."""
+        with self._telemetry_lock:
+            return {wid: dict(entry)
+                    for wid, entry in self._worker_telemetry.items()}
 
     # ---- evaluation ----------------------------------------------------
 

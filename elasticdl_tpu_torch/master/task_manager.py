@@ -79,19 +79,71 @@ class _DoingEntry:
     lease_start: float
 
 
+class _ByTypeView:
+    """Dict-shaped view (int task type -> count) over the labeled
+    by-type counter, so `counters.by_type[t] = ... .get(t, 0) + 1`
+    keeps working against registry storage."""
+
+    def __init__(self, family):
+        self._family = family
+
+    def get(self, task_type: int, default: int = 0) -> int:
+        value = self._family.value(type=str(task_type))
+        return int(value) if value else default
+
+    def __getitem__(self, task_type: int) -> int:
+        return self.get(task_type)
+
+    def __setitem__(self, task_type: int, value: int) -> None:
+        self._family.labels(type=str(task_type)).set(float(value))
+
+    def as_dict(self) -> Dict[int, int]:
+        return {
+            int(key[0]): int(value)
+            for key, value in sorted(self._family.child_values().items())
+            if value
+        }
+
+
+def _counter_property(attr: str):
+    return property(
+        lambda self: int(getattr(self, attr).value()),
+        lambda self, v: getattr(self, attr).set(float(v)),
+    )
+
+
 class TaskCounters:
-    """Plain task counters, mutated under the task manager's lock, and
-    the manager's metrics registry (its gauges and stream counters)."""
+    """Registry-backed task counters, as in the JAX package: the
+    attribute surface (`counters.finished += 1`, `counters.by_type[t]`)
+    stays, the storage is the manager's metrics registry.  A replacement
+    manager that adopts its predecessor's registry counts on from its
+    values (the families are get-or-create)."""
 
     def __init__(self,
                  registry: Optional[metrics_lib.MetricsRegistry] = None):
         self.registry = registry or metrics_lib.MetricsRegistry()
-        self.finished = 0
-        self.failed = 0
-        self.recovered = 0
-        self.expired = 0
-        self.records_done = 0
-        self.by_type: Dict[int, int] = {}
+        self._finished = self.registry.counter(
+            "master_tasks_finished_total", "tasks reported done")
+        self._failed = self.registry.counter(
+            "master_tasks_failed_total", "task reports carrying an error")
+        self._recovered = self.registry.counter(
+            "master_tasks_recovered_total",
+            "leases re-queued after a worker loss")
+        self._expired = self.registry.counter(
+            "master_tasks_expired_total", "leases reaped by timeout")
+        self._records = self.registry.counter(
+            "master_task_records_rows", "training records completed")
+        self._by_type = self.registry.counter(
+            "master_tasks_finished_by_type_total",
+            "tasks reported done, by task type enum value",
+            labelnames=("type",))
+        self.by_type = _ByTypeView(self._by_type)
+
+    finished = _counter_property("_finished")
+    failed = _counter_property("_failed")
+    recovered = _counter_property("_recovered")
+    expired = _counter_property("_expired")
+    records_done = _counter_property("_records")
 
     def as_dict(self) -> dict:
         return {
@@ -100,7 +152,7 @@ class TaskCounters:
             "recovered": self.recovered,
             "expired": self.expired,
             "records_done": self.records_done,
-            "by_type": {int(k): v for k, v in sorted(self.by_type.items())},
+            "by_type": self.by_type.as_dict(),
         }
 
 

@@ -9,7 +9,10 @@ named by a hash of every source in `csrc/` and of the flags, so a changed
 source builds anew and an unchanged one is loaded from the cache.
 
 Nothing is built at import time.  A missing `nvcc` or a failed build
-raises; there is no fallback.
+raises; there is no fallback.  Each nvcc build that runs is reported to
+the program registry (common/programs.py) as the program
+`kernel_build_<source stem>` with its wall seconds and the library's
+hash as its signature; a library found in the cache records nothing.
 
 Host code (`hostsrc/*.cc`, the native TFRecord scanner) takes a second
 route, `build_host`: `g++ -O3 -shared -fPIC` into the same directory,
@@ -25,8 +28,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List, Optional
+
+from elasticdl_tpu_torch.common import programs
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 HOSTSRC_DIR = Path(__file__).resolve().parent.parent / "hostsrc"
@@ -99,20 +105,36 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        log_path = out.with_name(f"{out.stem}.{os.getpid()}.log")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / name)]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        started.append((name, out, tmp, proc))
+        with open(log_path, "w") as log_file:
+            proc = subprocess.Popen(cmd, stdout=log_file,
+                                    stderr=subprocess.STDOUT)
+        started.append((name, out, tmp, log_path, proc, time.monotonic()))
+    # each build's own wall time: poll, so a quick build is not charged
+    # for a slow one started before it
+    seconds = {}
+    running = list(started)
+    while running:
+        for item in list(running):
+            if item[4].poll() is not None:
+                seconds[item[0]] = time.monotonic() - item[5]
+                running.remove(item)
+        if running:
+            time.sleep(0.01)
     failures = []
-    for name, out, tmp, proc in started:
-        log, _ = proc.communicate()
+    for name, out, tmp, log_path, proc, _ in started:
+        log = log_path.read_text()
+        log_path.unlink(missing_ok=True)
         build_logs[name] = log
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failures.append(f"nvcc failed for {name}:\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+        programs.register_compiled(
+            f"kernel_build_{Path(name).stem}", out, seconds=seconds[name],
+            signature=out.stem.rsplit("-", 1)[-1], avals=name)
     if failures:
         raise RuntimeError("\n".join(failures))
     return {name: library_path(name, nvcc) for name in names}

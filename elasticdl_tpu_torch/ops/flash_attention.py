@@ -41,6 +41,15 @@ predicate `backward_wgmma_ok`:
 It counts each call in `flash_attention.backward_launches` and, per
 variant, `flash_attention.backward_launches_by_kernel`.  On a CPU tensor
 it takes the plain `_flash_bwd`.
+
+Both directions are `torch.library` custom ops, `elasticdl_torch::
+flash_attention_fwd` and `elasticdl_torch::flash_attention_bwd`: the CPU
+implementation is the plain version, the CUDA one the hand kernel, and a
+fake implementation gives `torch.export` their output shapes, so an
+exported model keeps the kernel as a node of its graph.  Each op's cost,
+`attention_cost` (the flops of its products and the bytes it must move),
+is what the program registry (common/programs.py) charges for it and
+what `chip_smoke.py` divides by the card's peaks for its bound.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from elasticdl_tpu_torch.common import programs
 from elasticdl_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
@@ -210,6 +220,36 @@ def flash_attention_reference(
     return out.to(q.dtype), lse.transpose(1, 2).contiguous()
 
 
+def attention_cost(q_shape, k_shape, elem_size: int, causal: bool,
+                   backward: bool = False) -> Tuple[float, float]:
+    """(flops, bytes) of flash attention's work at these (B, L, H, D)
+    shapes: each input read once and each output written once, and the
+    products (causal: only the unmasked pairs).  The forward reads q, k,
+    v and writes O and the f32 lse: QK^T and PV.  The backward reads q,
+    k, v, O, dO and lse and writes dQ, dK and dV: QK^T, dO V^T, P^T dO,
+    dS K and dS^T Q."""
+    batch, q_len, heads, dim = (int(d) for d in q_shape)
+    k_len = int(k_shape[1])
+    q_numel = batch * q_len * heads * dim
+    k_numel = batch * k_len * heads * dim      # v is shaped like k
+    lse_bytes = batch * q_len * heads * 4
+    if backward:
+        # q, O, dO and dQ; k and dK; v and dV
+        nbytes = (4 * q_numel + 4 * k_numel) * elem_size + lse_bytes
+        products = 5
+    else:
+        nbytes = (2 * q_numel + 2 * k_numel) * elem_size + lse_bytes
+        products = 2
+    if not causal:
+        pairs = q_len * k_len
+    elif q_len <= k_len:
+        pairs = q_len * (q_len + 1) // 2      # row i sees i + 1 keys
+    else:
+        pairs = k_len * (k_len + 1) // 2 + (q_len - k_len) * k_len
+    flops = 2.0 * products * batch * heads * pairs * dim
+    return flops, float(nbytes)
+
+
 def _check_shapes(q, k, v) -> None:
     # The SAME predicate callers dispatch on; a separate inline copy here
     # could drift from flash_shapes_ok.
@@ -273,20 +313,56 @@ def _kernel_forward(q, k, v, causal: bool, scale: float):
     return out, lse
 
 
+OP_FORWARD = "elasticdl_torch::flash_attention_fwd"
+OP_BACKWARD = "elasticdl_torch::flash_attention_bwd"
+
+torch.library.define(
+    OP_FORWARD,
+    "(Tensor q, Tensor k, Tensor v, bool causal, float scale) "
+    "-> (Tensor, Tensor)")
+
+
+@torch.library.impl(OP_FORWARD, "cpu")
+def _forward_cpu(q, k, v, causal, scale):
+    return flash_attention_reference(q, k, v, causal=causal, scale=scale)
+
+
+@torch.library.impl(OP_FORWARD, "cuda")
+def _forward_cuda(q, k, v, causal, scale):
+    return _kernel_forward(q, k, v, causal, scale)
+
+
+@torch.library.register_fake(OP_FORWARD)
+def _forward_fake(q, k, v, causal, scale):
+    return (q.new_empty(q.shape),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+programs.register_kernel_cost(
+    OP_FORWARD,
+    lambda q, k, v, causal, scale: attention_cost(
+        q.shape, k.shape, q.element_size(), causal))
+
+
+def _check_device(q) -> None:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+
+
 def flash_attention_forward(
     q, k, v, causal: bool = False, scale: Optional[float] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) for (B, L, H, D) q/k/v: the Hopper kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors (the custom op
+    `elasticdl_torch::flash_attention_fwd`)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     _check_shapes(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    return _kernel_forward(q, k, v, causal, scale)
+    _check_device(q)
+    out, lse = torch.ops.elasticdl_torch.flash_attention_fwd(
+        q, k, v, bool(causal), float(scale))
+    return out, lse
 
 
 def _flash_bwd(causal: bool, scale: float, residuals, g):
@@ -388,22 +464,48 @@ def _kernel_backward(q, k, v, out, lse, g, causal: bool, scale: float):
     return dq, dk, dv
 
 
+torch.library.define(
+    OP_BACKWARD,
+    "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, Tensor g, "
+    "bool causal, float scale) -> (Tensor, Tensor, Tensor)")
+
+
+@torch.library.impl(OP_BACKWARD, "cpu")
+def _backward_cpu(q, k, v, out, lse, g, causal, scale):
+    return _flash_bwd(causal, scale, (q, k, v, out, lse), g)
+
+
+@torch.library.impl(OP_BACKWARD, "cuda")
+def _backward_cuda(q, k, v, out, lse, g, causal, scale):
+    return _kernel_backward(q, k, v, out, lse, g, causal, scale)
+
+
+@torch.library.register_fake(OP_BACKWARD)
+def _backward_fake(q, k, v, out, lse, g, causal, scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+programs.register_kernel_cost(
+    OP_BACKWARD,
+    lambda q, k, v, out, lse, g, causal, scale: attention_cost(
+        q.shape, k.shape, q.element_size(), causal, backward=True))
+
+
 def flash_attention_backward(
     q, k, v, out, lse, g, causal: bool = False,
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of flash attention from the forward's residuals
     (q, k, v, out, lse) and the output gradient g: the Hopper kernel for
-    CUDA tensors, the plain `_flash_bwd` for CPU tensors."""
+    CUDA tensors, the plain `_flash_bwd` for CPU tensors (the custom op
+    `elasticdl_torch::flash_attention_bwd`)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     _check_shapes(q, k, v)
-    if q.device.type == "cpu":
-        return _flash_bwd(causal, scale, (q, k, v, out, lse), g)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    return _kernel_backward(q, k, v, out, lse, g, causal, scale)
+    _check_device(q)
+    dq, dk, dv = torch.ops.elasticdl_torch.flash_attention_bwd(
+        q, k, v, out, lse, g, bool(causal), float(scale))
+    return dq, dk, dv
 
 
 class _Flash(torch.autograd.Function):

@@ -25,6 +25,12 @@ kernel (or raises) and counts the launch in `scatter_add.launches`; on a
 CPU tensor it takes `scatter_add_reference`, the plain version
 (`index_add_` on the CPU, which adds the rows serially in id order).
 Nothing falls back from the card to the plain version.
+
+The in-place sum is the `torch.library` custom op
+`elasticdl_torch::scatter_add_` (CPU: `index_add_`; CUDA: the kernel;
+a fake implementation for tracing).  Its cost, `scatter_cost`, is what
+the program registry (common/programs.py) charges for it and what
+`chip_smoke.py` divides by the card's peaks for its bound.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import threading
 
 import torch
 
+from elasticdl_tpu_torch.common import programs
 from elasticdl_tpu_torch.ops import _build
 
 SOURCE = "scatter_add.cu"
@@ -148,6 +155,41 @@ def _kernel_scatter_add_(table, ids, grads) -> torch.Tensor:
     return table
 
 
+def scatter_cost(n: int, dim: int, touched: int):
+    """(flops, bytes) of the scatter-add: the ids (N*4) and grads (N*D*4)
+    read once, the U touched rows read and written once (2*U*D*4); one
+    add per grads element."""
+    return float(n * dim), float(n * 4 + n * dim * 4 + 2 * touched * dim * 4)
+
+
+OP_SCATTER_ADD = "elasticdl_torch::scatter_add_"
+
+torch.library.define(
+    OP_SCATTER_ADD, "(Tensor(a!) table, Tensor ids, Tensor grads) -> ()")
+
+
+@torch.library.impl(OP_SCATTER_ADD, "cpu")
+def _scatter_add_cpu(table, ids, grads):
+    table.index_add_(0, ids.long(), grads)
+
+
+@torch.library.impl(OP_SCATTER_ADD, "cuda")
+def _scatter_add_cuda(table, ids, grads):
+    _kernel_scatter_add_(table, ids, grads)
+
+
+@torch.library.register_fake(OP_SCATTER_ADD)
+def _scatter_add_fake(table, ids, grads):
+    return None
+
+
+# U, the rows the ids touch, is what this call's data needs
+programs.register_kernel_cost(
+    OP_SCATTER_ADD,
+    lambda table, ids, grads: scatter_cost(
+        ids.numel(), table.shape[1], int(torch.unique(ids).numel())))
+
+
 def scatter_add_forward(table: torch.Tensor, ids: torch.Tensor,
                         grads: torch.Tensor,
                         inplace: bool = False) -> torch.Tensor:
@@ -156,15 +198,12 @@ def scatter_add_forward(table: torch.Tensor, ids: torch.Tensor,
     `inplace=True` the sums land in `table` itself and it is returned (the
     embedding backward does this on its fresh zero table)."""
     _check_inputs(table, ids, grads)
-    if table.device.type == "cpu":
-        if inplace:
-            return table.index_add_(0, ids.long(), grads)
-        return scatter_add_reference(table, ids, grads)
-    if table.device.type != "cuda":
+    if table.device.type not in ("cpu", "cuda"):
         raise ValueError(f"scatter_add runs on cuda or cpu, not "
                          f"{table.device}")
-    return _kernel_scatter_add_(table if inplace else table.clone(), ids,
-                                grads)
+    out = table if inplace else table.clone()
+    torch.ops.elasticdl_torch.scatter_add_(out, ids, grads)
+    return out
 
 
 def scatter_add(table: torch.Tensor, ids: torch.Tensor,

@@ -18,6 +18,11 @@ port of the JAX package's serving/engine.py).
 - **Serialized device execution.**  The forward runs under
   `run_device_serialized` (worker/trainer.py) from the batcher's
   dispatch thread.
+- **A registered program.**  The forward is `serving_forward` in the
+  program registry (common/programs.py), with the bucket count as its
+  signature budget: a distinct batch shape beyond the buckets within the
+  storm window is a recompile storm.  `pad_to_bucket=False` (a drill's
+  seam, as in the JAX engine) runs each request at its own size.
 
 The engine runs on CUDA unless it is given `device="cpu"`.  It loads
 from an export (`from_export`, common/export.py) or straight from a
@@ -42,6 +47,7 @@ import torch
 from torch.func import functional_call
 
 from elasticdl_tpu_torch.common import metrics as metrics_lib
+from elasticdl_tpu_torch.common import programs
 from elasticdl_tpu_torch.common.export import (
     SINGLE_FEATURE_KEY,
     feature_meta,
@@ -99,6 +105,19 @@ def _signature(variables: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
     }
 
 
+class _Served:
+    """The served variables as one leaf of the forward's signature:
+    `swap` keeps their names, shapes and dtypes, so a request's features
+    alone tell one signature from another (and flattening a model's
+    hundreds of tensors per request would cost more than a small
+    forward)."""
+
+    __slots__ = ("variables",)
+
+    def __init__(self, variables: Dict[str, torch.Tensor]):
+        self.variables = variables
+
+
 class ServingEngine:
     """Executes a model's forward pass over batch buckets.
 
@@ -122,6 +141,7 @@ class ServingEngine:
         device=None,
         state_template: Optional[TrainState] = None,
         arena_convert: bool = False,
+        pad_to_bucket: bool = True,
     ):
         if not buckets or any(b <= 0 for b in buckets):
             raise ValueError(f"buckets must be positive: {buckets}")
@@ -139,6 +159,9 @@ class ServingEngine:
         self._feature_spec = dict(feature_spec)
         self._buckets = tuple(sorted(set(int(b) for b in buckets)))
         self._single = set(self._feature_spec) == {SINGLE_FEATURE_KEY}
+        # storm-drill seam: without bucket padding every distinct request
+        # size is a new signature of the registered forward
+        self._pad_to_bucket = bool(pad_to_bucket)
         self._has_train = model_has_train_kwarg(model)
         self._lock = threading.Lock()
         self._shapes_seen = set()
@@ -167,6 +190,10 @@ class ServingEngine:
         # their arena dtype is converted on restore
         self.state_template = state_template
         self.arena_convert = bool(arena_convert)
+        # the bucket count IS the declared signature budget
+        self._program = programs.registered_jit(
+            "serving_forward", self._forward,
+            signature_budget=len(self._buckets))
         if precompile:
             self.warmup()
 
@@ -271,7 +298,8 @@ class ServingEngine:
             for name, t in dict(variables).items()
         }
 
-    def _forward(self, variables, feats):
+    def _forward(self, served: _Served, feats):
+        variables = served.variables
         shape = tuple(
             (name, tuple(feats[name].shape)) for name in sorted(feats)
         )
@@ -411,6 +439,8 @@ class ServingEngine:
                 f"batch of {rows} rows exceeds largest bucket "
                 f"{self.max_bucket}"
             )
+        if not self._pad_to_bucket:
+            bucket = rows
         t0 = self.clock()
         padded = {}
         for name, arr in features.items():
@@ -425,7 +455,7 @@ class ServingEngine:
             variables, step = self._variables, self._step
         t1 = self.clock()
         out = run_device_serialized(
-            self._forward, variables, padded, device=self.device
+            self._program, _Served(variables), padded, device=self.device
         )
         t2 = self.clock()
         # host transfer + row slice: the dequant/unpack leg of the span

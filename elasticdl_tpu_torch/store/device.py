@@ -28,15 +28,22 @@ item 14).  The admit and gather are plain PyTorch (`index_select`,
 Model layout: `param_paths` maps each store plane to the dotted name of
 its `TieredArena` in the model (DeepFM: `fm_embedding`, `fm_linear`);
 the arena holds `embedding`, and in int8 mode `q8` and `scale`.
+
+The gather of `read_rows` and the admission are registered programs
+(common/programs.py), `store_gather` and `store_admit`, one per layout
+and cache dtype as in the JAX package; their signatures are the padded
+index buckets.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from elasticdl_tpu_torch.common import programs
 from elasticdl_tpu_torch.layers.arena import dequantize_rows, quantize_rows
 from elasticdl_tpu_torch.worker.trainer import run_device_serialized
 
@@ -88,6 +95,22 @@ def _rows_of(arena, idx: torch.Tensor, cache_dtype: str) -> torch.Tensor:
     return arena.embedding.index_select(0, idx)
 
 
+def _layout(param_paths: Dict[str, str]) -> Tuple[Tuple[str, str], ...]:
+    """Hashable, order-stable (name, path) pairs: the key of the program
+    caches below."""
+    return tuple(sorted(param_paths.items()))
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_program(layout, cache_dtype: str):
+    def gather(model, idx):
+        with torch.no_grad():
+            return tuple(_rows_of(_arena(model, path), idx, cache_dtype)
+                         for _, path in layout)
+
+    return programs.registered_jit("store_gather", gather)
+
+
 def read_rows(state, param_paths: Dict[str, str], slots: np.ndarray,
               cache_dtype: str = "float32") -> Dict[str, np.ndarray]:
     """Owning fp32 host copies of cache rows `slots`, per plane: the
@@ -95,18 +118,17 @@ def read_rows(state, param_paths: Dict[str, str], slots: np.ndarray,
     n = int(np.asarray(slots).size)
     device = _device(state)
     idx_host = _pad_indices(np.asarray(slots, np.int64).reshape(-1))
+    layout = _layout(param_paths)
+    if cache_dtype == "int8":
+        for _, path in layout:
+            _check_int8(_arena(state.model, path), path)
+    gather = _gather_program(layout, cache_dtype)
 
     def _read():
         idx = torch.from_numpy(idx_host).to(device)
-        out = {}
-        with torch.no_grad():
-            for name, path in param_paths.items():
-                arena = _arena(state.model, path)
-                if cache_dtype == "int8":
-                    _check_int8(arena, path)
-                rows = _rows_of(arena, idx, cache_dtype)
-                out[name] = rows.float().cpu().numpy()[:n].copy()
-        return out
+        rows = gather(state.model, idx)
+        return {name: plane.float().cpu().numpy()[:n].copy()
+                for (name, _), plane in zip(layout, rows)}
 
     return run_device_serialized(_read, device=device)
 
@@ -188,15 +210,30 @@ def apply_admissions(state, param_paths: Dict[str, str], slots: np.ndarray,
             idx_host.size)
         for name in param_paths}
 
+    layout = _layout(param_paths)
+    if cache_dtype == "int8":
+        for _, path in layout:
+            _check_int8(_arena(state.model, path), path)
+    admit = _admit_program(layout, cache_dtype)
+
     def _apply():
         idx = torch.from_numpy(idx_host).to(device)
+        vals = tuple(torch.from_numpy(vals_host[name]).to(device)
+                     for name, _ in layout)
+        admit(state, idx, vals)
+        return state
+
+    return run_device_serialized(_apply, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _admit_program(layout, cache_dtype: str):
+    def admit(state, idx, vals):
         with torch.no_grad():
-            for name, path in param_paths.items():
+            for (_, path), v in zip(layout, vals):
                 arena = _arena(state.model, path)
-                vals = torch.from_numpy(vals_host[name]).to(device)
                 if cache_dtype == "int8":
-                    _check_int8(arena, path)
-                    codes, scales = quantize_rows(vals)
+                    codes, scales = quantize_rows(v)
                     arena.q8.index_copy_(0, idx, codes)
                     arena.scale.index_copy_(0, idx, scales)
                     # an admission is the row's new state: a carrier
@@ -204,11 +241,10 @@ def apply_admissions(state, param_paths: Dict[str, str], slots: np.ndarray,
                     arena.embedding.index_fill_(0, idx, 0.0)
                 else:
                     arena.embedding.index_copy_(
-                        0, idx, vals.to(arena.embedding.dtype))
+                        0, idx, v.to(arena.embedding.dtype))
                 _zero_moments(state.optimizer, arena.embedding, idx)
-        return state
 
-    return run_device_serialized(_apply, device=device)
+    return programs.registered_jit("store_admit", admit)
 
 
 def zero_cache_slots(state, param_paths: Dict[str, str], slots: np.ndarray,

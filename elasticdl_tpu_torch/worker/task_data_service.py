@@ -234,7 +234,8 @@ class TaskDataService:
             return task, False
 
     def report_task(self, task: pb.Task, err: str = "", records: int = 0,
-                    transient: bool = False, model_version: int = -1):
+                    transient: bool = False, model_version: int = -1,
+                    telemetry: Optional[dict] = None):
         req = pb.ReportTaskResultRequest(
             task_id=task.task_id, err_message=err,
             worker_id=self._worker_id, transient=transient)
@@ -243,6 +244,10 @@ class TaskDataService:
             # the model step at completion: the master's journal pairs a
             # done shard with it and trusts it up to the checkpoint's step
             req.exec_counters["model_version"] = model_version
+        # worker telemetry rides the same map under a `__` namespace; the
+        # master's servicer peels it into its snapshot
+        for key, value in (telemetry or {}).items():
+            req.exec_counters[f"__{key}"] = int(value)
         try:
             self._report_policy.call(
                 lambda: self._client.report_task_result(req),

@@ -21,6 +21,17 @@ sparse ids under `__store_sparse__` (deferred planning; prepared and
 applied here, inside the step-serialized region, in step order).
 `stage_batch` passes both through untouched.  The mesh, sharding and
 elastic prewarm wait for their slices of the port.
+
+The trainer's device entry points are registered programs
+(common/programs.py) under the JAX trainer's names: `worker_train_step`,
+`worker_train_step_many`, `worker_eval_step` and `worker_timed_fused`
+(one timed run of steps; its cost is counted on the one-step warm-up,
+the first call at a batch shape).  The first call at a new signature is
+timed and its flops and bytes counted on that call; every call runs the
+same arithmetic as an unregistered one.  `init_state` is the JAX
+trainer's unregistered `init_state`; its registered `worker_init_state`
+is the multi-process `init_state_global`, which waits for the cluster
+slice (ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from elasticdl_tpu_torch.common import programs
 from elasticdl_tpu_torch.data.wire import (
     BF16Bits,
     is_wire_planes,
@@ -185,6 +197,14 @@ class Trainer:
         self._has_train_kwarg = model_has_train_kwarg(model)
         # batch shapes timed_steps_per_sec has warmed up
         self._timing_warmed = set()
+        self.train_step = programs.registered_jit(
+            "worker_train_step", self._train_step)
+        self.train_step_many = programs.registered_jit(
+            "worker_train_step_many", self._train_steps)
+        self.eval_step = programs.registered_jit(
+            "worker_eval_step", self._eval_step)
+        self._timed_fused = programs.registered_jit(
+            "worker_timed_fused", self._timed_steps)
 
     # ---- state ---------------------------------------------------------
 
@@ -283,7 +303,7 @@ class Trainer:
         batch = self._apply_store(state, batch)
 
         def _step():
-            return self._train_step(state, _to_device(batch, self.device))
+            return self.train_step(state, _to_device(batch, self.device))
 
         loss = self._timed("compute", lambda: run_device_serialized(
             _step, device=self.device))
@@ -324,14 +344,19 @@ class Trainer:
         batches = self._apply_store_block(state, batches)
 
         def _steps():
-            return torch.stack([
-                self._train_step(state, _to_device(b, self.device))
-                for b in batches
-            ])
+            return self.train_step_many(
+                state, [_to_device(b, self.device) for b in batches])
 
         losses = self._timed("compute", lambda: run_device_serialized(
             _steps, device=self.device))
         return state, losses
+
+    def _train_steps(self, state: TrainState, batches) -> torch.Tensor:
+        return torch.stack([self._train_step(state, b) for b in batches])
+
+    def _timed_steps(self, state: TrainState, staged, iters: int) -> None:
+        for _ in range(iters):
+            self.train_on_batch(state, staged)
 
     def timed_steps_per_sec(self, state: TrainState, batch,
                             iters: int = 40) -> float:
@@ -347,12 +372,11 @@ class Trainer:
         staged = self.stage_batch(batch)
         key = _batch_key(staged)
         if key not in self._timing_warmed:
-            self.train_on_batch(state, staged)
+            self._timed_fused(state, staged, 1)
             self._timing_warmed.add(key)
 
         def steps():
-            for _ in range(iters):
-                self.train_on_batch(state, staged)
+            self._timed_fused(state, staged, iters)
 
         def anchor():
             # one element of every parameter: the last step's update of
@@ -374,13 +398,15 @@ class Trainer:
         anchor()
         return iters * 1e3 / start.elapsed_time(end)
 
+    def _eval_step(self, state: TrainState, features) -> torch.Tensor:
+        with torch.no_grad():
+            preds = self._forward(state.model, features, train=False)
+        return preds.float()
+
     def predict_on_batch(self, state: TrainState, features) -> np.ndarray:
         """f32 predictions as numpy."""
         def _predict():
-            with torch.no_grad():
-                preds = self._forward(
-                    state.model, _to_device(features, self.device),
-                    train=False)
-            return preds.float().cpu().numpy()
+            return self.eval_step(
+                state, _to_device(features, self.device)).cpu().numpy()
 
         return run_device_serialized(_predict, device=self.device)

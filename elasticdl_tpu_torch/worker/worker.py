@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.common import events, profiler
+from elasticdl_tpu_torch.common import programs as programs_lib
 from elasticdl_tpu_torch.common.export import export_model
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_handler import (
@@ -176,6 +177,16 @@ class Worker:
         # bounded: device tensors, converted lazily
         self.losses = deque(maxlen=1024)
         self.step_timer = StepTimer()
+        self._steps_total = 0
+        # the live step rate joined with the train program's counted
+        # cost: the worker_mfu_ratio and worker_hbm_utilization_ratio
+        # gauges (common/programs.py)
+        programs_lib.default_program_registry().bind_step_rate(
+            "worker_train_step_many"
+            if self.steps_per_execution > 1 else "worker_train_step",
+            lambda: self.step_timer.steps_per_sec,
+            steps_per_execution=self.steps_per_execution,
+        )
         self.predictions: Dict[int, np.ndarray] = {}
         self._stop_requested = False
         self._summary = SummaryWriter(tensorboard_dir or None)
@@ -225,7 +236,8 @@ class Worker:
                     self._data_service.report_task(
                         task, records=records,
                         model_version=(self._owner.step
-                                       if task.type == pb.TRAINING else -1))
+                                       if task.type == pb.TRAINING else -1),
+                        telemetry=self._telemetry_payload())
                 invoke_callbacks(self.spec.callbacks, "on_task_end", task,
                                  records)
                 if task.type == pb.TRAINING:
@@ -274,8 +286,24 @@ class Worker:
         self.losses.append(loss)
 
     def _step_done(self):
+        self._steps_total += 1
         self.step_timer.tick()
         self.phase_timer.step_done()
+
+    def _telemetry_payload(self) -> Dict[str, int]:
+        """Telemetry that rides a task report to the master (int64 on
+        the wire; the rate in milli units), as the JAX worker sends it:
+        this worker's steps, its rolling step rate, the model step and
+        the cumulative milliseconds of each step phase."""
+        payload = {
+            "steps_total": self._steps_total,
+            "steps_per_sec_milli": int(
+                self.step_timer.steps_per_sec * 1000),
+            "model_step": int(self._owner.step),
+        }
+        for phase, ms in self.phase_timer.totals_milli().items():
+            payload[f"phase_{phase}_ms"] = ms
+        return payload
 
     def _train_task(self, task: pb.Task) -> int:
         if self._profile_dir and not self._profiled:

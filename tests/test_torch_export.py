@@ -1,14 +1,22 @@
 """The port's model export (elasticdl_tpu_torch/common/export.py) and the
 engines built from it, on the CPU: a round trip, the metadata keys
 against the JAX export's, the feature-key drift guard's message, the
-refusal of a JAX export directory, `saved_model=True` recorded as
-unavailable, a Local `train --output` job that writes an export, and
+refusal of a JAX export directory, `saved_model=True` writing a torch
+export (`saved_model/model.pt2`) in the TF SavedModel's place, each of
+MNIST, DeepFM and a small BERT exported, run in a process that imports
+nothing of the zoo (serving/run_export.py) and held against the JAX
+forward through `params_from_jax` at the tolerances of
+tests/test_saved_model_export.py (1e-4 MNIST and DeepFM, 2e-3 BERT),
+also at a batch of 3, a failed export recorded while the weights stand,
+a Local `train --output` job that writes an export, and
 `ServingEngine.from_export` against `from_checkpoint` of the same step,
 bit for bit.
 """
 
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -29,9 +37,12 @@ from elasticdl_tpu_torch.model_zoo.deepfm.data import (
     write_dataset,
 )
 from elasticdl_tpu_torch.serving.engine import ServingEngine
-from elasticdl_tpu_torch.worker.trainer import Trainer
+from elasticdl_tpu_torch.worker.trainer import Trainer, TrainState
+from tests import _torch_zoo_parity as zoo
 
 torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODEL = "deepfm.deepfm_functional_api.custom_model"
 PARAMS = "vocab_capacity=4096;embed_dim=8;lr=0.005"
@@ -147,17 +158,111 @@ def test_a_jax_export_directory_is_refused(carried, tmp_path):
         export.load_exported(jax_dir)
 
 
-def test_saved_model_is_recorded_as_unavailable(carried, tmp_path):
+def test_saved_model_writes_a_torch_export(carried, tmp_path):
     export.export_model(carried["state"], carried["spec"], str(tmp_path),
                         saved_model=True, sample_features=carried["sample"])
     meta = export.read_export_meta(str(tmp_path))
-    assert meta["saved_model"].startswith("unavailable: ")
-    assert "item 13" in meta["saved_model"]
-    # the weights export stands
+    assert meta["saved_model"] == "ok"
+    program = export.load_saved_model(str(tmp_path / "saved_model"))
+    feats = {k: torch.from_numpy(v)
+             for k, v in _features(5, seed=4).items()}
+    with torch.no_grad():
+        want = carried["state"].model(feats)
+    assert torch.equal(program.module()(feats), want)
+    # the weights export stands beside it
     export.load_exported(str(tmp_path), template=carried["state"].model)
     with pytest.raises(RuntimeError, match="no sample features"):
         export.export_model(carried["state"], carried["spec"],
                             str(tmp_path / "b"), saved_model=True)
+
+
+def test_a_failed_torch_export_is_recorded_and_the_weights_stand(
+        carried, tmp_path, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise RuntimeError("cannot trace this model")
+
+    monkeypatch.setattr(torch.export, "export", refuse)
+    export.export_model(carried["state"], carried["spec"], str(tmp_path),
+                        saved_model=True, sample_features=carried["sample"])
+    meta = export.read_export_meta(str(tmp_path))
+    assert meta["saved_model"] == "failed: cannot trace this model"
+    assert not os.path.exists(tmp_path / "saved_model" / "model.pt2")
+    export.load_exported(str(tmp_path), template=carried["state"].model)
+
+
+def _mnist_case():
+    js, _, ps, pt = zoo.trainers("mnist.mnist_functional_api.custom_model")
+    rng = np.random.RandomState(0)
+    sample = rng.rand(8, 784).astype(np.float32)
+    variables = js.model.init(jax.random.PRNGKey(0), sample)
+    state = pt.init_state(0, sample)
+    zoo.carry(state.model, variables["params"])
+    return (ps, state, sample, {"features": sample},
+            lambda f: js.model.apply(variables, f["features"]), 1e-4)
+
+
+def _deepfm_case():
+    js, _, ps, pt = zoo.trainers(MODEL, PARAMS)
+    sample = _features(8, seed=1)
+    variables = js.model.init(jax.random.PRNGKey(1), sample)
+    state = pt.init_state(0, sample)
+    zoo.carry(state.model, variables["params"])
+    return (ps, state, sample, sample,
+            lambda f: js.model.apply(variables, f), 1e-4)
+
+
+def _bert_case():
+    from elasticdl_tpu_torch.model_zoo.bert import bert_finetune as port_bert
+    from model_zoo.bert import bert_finetune as jax_bert
+
+    cfg = dict(hidden=32, num_layers=2, heads=2, mlp_dim=64, max_len=16,
+               vocab_size=64)
+    ids = np.random.RandomState(2).randint(
+        0, 64, (8, 16)).astype(np.int32)
+    jmodel = jax_bert.custom_model(**cfg)
+    variables = jmodel.init(jax.random.PRNGKey(2), {"input_ids": ids})
+    ps = get_model_spec(ZOO_DIR, "bert.bert_finetune.custom_model",
+                        model_params=";".join(f"{k}={v}"
+                                              for k, v in cfg.items()))
+    model = port_bert.custom_model(**cfg)
+    zoo.carry(model, variables["params"])
+    state = TrainState(step=0, model=model, optimizer=None)
+    return (ps, state, {"input_ids": ids}, {"input_ids": ids},
+            lambda f: jmodel.apply(variables, f), 2e-3)
+
+
+@pytest.mark.parametrize("case", [_mnist_case, _deepfm_case, _bert_case],
+                         ids=["mnist", "deepfm", "bert"])
+def test_exports_run_without_the_zoo_and_match_the_jax_forward(case,
+                                                               tmp_path):
+    spec, state, sample, feats, jax_forward, tol = case()
+    export.export_model(state, spec, str(tmp_path), saved_model=True,
+                        sample_features=sample)
+    assert export.read_export_meta(str(tmp_path))["saved_model"] == "ok"
+    model = str(tmp_path / "saved_model" / "model.pt2")
+    three = {k: v[:3] for k, v in feats.items()}
+    argv = []
+    for name, f in (("full", feats), ("three", three)):
+        np.savez(tmp_path / f"{name}_in.npz", **f)
+        argv += [model, str(tmp_path / f"{name}_in.npz"),
+                 str(tmp_path / f"{name}_out.npz")]
+    proc = subprocess.run(
+        [sys.executable, "-m", "elasticdl_tpu_torch.serving.run_export",
+         "--device", "cpu", *argv],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert not any(".model_zoo" in m for m in report["port_modules"])
+    assert report["flash_launches"] == 0      # the CPU runs the plain op
+    # rows are independent: the 3-row run is held against the JAX
+    # forward's first 3 rows (the JAX BERT shards its batch over the
+    # 8-device CPU mesh, so it takes no batch of 3)
+    want = np.asarray(jax_forward(feats), np.float32)
+    for name, rows in (("full", want), ("three", want[:3])):
+        got = np.load(tmp_path / f"{name}_out.npz")["out"]
+        assert got.shape == rows.shape
+        np.testing.assert_allclose(got, rows, atol=tol)
 
 
 @pytest.fixture(scope="module")
@@ -186,7 +291,8 @@ def test_local_train_output_writes_an_export(trained_job):
     assert meta["step"] == 8
     assert meta["module"].endswith("deepfm.deepfm_functional_api")
     assert meta["model_class"] == "DeepFM"
-    assert meta["saved_model"].startswith("unavailable: ")
+    assert meta["saved_model"] == "ok"
+    assert os.path.exists(os.path.join(out, "saved_model", "model.pt2"))
     assert set(meta["features"]) == {"dense", "sparse"}
     loaded = export.load_exported(out, template=job.owner.state.model)
     for name, tensor in job.owner.state.model.state_dict().items():

@@ -262,7 +262,9 @@ def test_local_job_with_judgment_flags_ends_where_it_ends_without(
     assert bundle["master"]["tasks"]["counters"]["by_type"] == {
         str(k): v for k, v in snap["tasks"]["counters"]["by_type"].items()}
     assert bundle["history"]["samples"] >= 1
-    assert "programs" not in bundle
+    # the master's recorder takes the process's program registry: every
+    # bundle carries its clock-free ledger
+    assert "worker_train_step" in bundle["programs"]["ledger"]
 
 
 def test_judgment_wiring_off_without_the_flags_and_on_with_any(tmp_path):

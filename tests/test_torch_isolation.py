@@ -134,6 +134,19 @@ ONLINE_MODULES = (
 )
 
 
+# the program observatory, the operator commands and the export runner
+OBSERVATORY_MODULES = (
+    "elasticdl_tpu_torch.common.programs",
+    "elasticdl_tpu_torch.client.top",
+    "elasticdl_tpu_torch.client.slo",
+    "elasticdl_tpu_torch.client.programs",
+    "elasticdl_tpu_torch.client.trace",
+    "elasticdl_tpu_torch.client.lineage",
+    "elasticdl_tpu_torch.client.incident",
+    "elasticdl_tpu_torch.serving.run_export",
+)
+
+
 def test_every_port_module_imports_with_jax_and_reference_blocked():
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -145,12 +158,14 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
     # every module of the slices, down to the BERT zoo's data writer and
     # the serving front end
     assert len(names) >= 59 + len(ZOO_MODULES) + len(RESILIENCE_MODULES) \
-        + len(JUDGMENT_MODULES) + len(ONLINE_MODULES)
+        + len(JUDGMENT_MODULES) + len(ONLINE_MODULES) \
+        + len(OBSERVATORY_MODULES)
     assert set(SERVING_MODULES) <= set(names)
     assert set(ONLINE_MODULES) <= set(names)
     assert set(ZOO_MODULES) <= set(names)
     assert set(RESILIENCE_MODULES) <= set(names)
     assert set(JUDGMENT_MODULES) <= set(names)
+    assert set(OBSERVATORY_MODULES) <= set(names)
 
 
 @pytest.mark.parametrize(

@@ -4,9 +4,10 @@
 same events through each package's stream under one fake clock; the
 lineage records, snapshots, histograms and offline joins (`from_events`,
 `decompose`, `dominant_phase`) match exactly, and the two recorders
-write the same bundles, byte for byte.  The JAX recorder is built
-without a program registry, as the port's always is: a bundle of either
-has no `programs.json`."""
+write the same bundles, byte for byte.  Both recorders are built
+without a program registry here, so a bundle of either has no
+`programs.json` (tests/test_torch_programs.py holds the registry's
+bundles)."""
 
 import json
 import os

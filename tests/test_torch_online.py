@@ -4,11 +4,12 @@
   _online_chaos_run's canonical text byte for byte (fault trace, fleet
   and SLO decisions, normalized events, lineage decompositions) and its
   summary, for seeds 17 and 20260805; the traffic-spike driver gives
-  _traffic_spike_run's.  The JAX text carries `program_compiled` events
-  from the JAX program registry (its engines' and trainer's XLA
-  compiles); the port compiles nothing and has no registry yet
-  (ROADMAP.md item 13), so those events are taken out of the JAX text
-  before the comparison and nothing else is.
+  _traffic_spike_run's.  Both texts carry the `program_compiled` events
+  of their program registries (the replicas' `serving_forward` buckets
+  and the trainer's `worker_train_step`), at the same places; the raw
+  events agree in program names, order and `signatures`, with
+  `signature`, `seconds`, `flops` and `bytes` masked (reasons at
+  `_compiles`).
 - Three trainers, a faulted shard move, a master restart mid-window and
   a second kill (tests/test_online_pipeline.py:147), and the
   backpressure cadence (:287), each beside the JAX loop.
@@ -20,7 +21,6 @@
   GPU."""
 
 import importlib.util
-import json
 import os
 
 import jax
@@ -31,6 +31,8 @@ import torch
 import bench
 from elasticdl_tpu.common import events as jax_events
 from elasticdl_tpu.common import faults as jax_faults
+from elasticdl_tpu.common import metrics as jax_metrics
+from elasticdl_tpu.common import programs as jax_programs
 from elasticdl_tpu.common.model_handler import get_model_spec as jax_spec
 from elasticdl_tpu.online import OnlineConfig as JaxConfig
 from elasticdl_tpu.online import OnlinePipeline as JaxPipeline
@@ -39,6 +41,8 @@ from elasticdl_tpu.serving.server import (
 )
 from elasticdl_tpu_torch.common import events as port_events
 from elasticdl_tpu_torch.common import faults as port_faults
+from elasticdl_tpu_torch.common import metrics as port_metrics
+from elasticdl_tpu_torch.common import programs as port_programs
 from elasticdl_tpu_torch.common import model_handler as port_handler
 from elasticdl_tpu_torch.common.weights import (
     flatten_params,
@@ -85,11 +89,14 @@ def _chip_smoke():
     return module
 
 
-def _without_compiles(text: str) -> str:
-    ref = json.loads(text)
-    ref["events"] = [e for e in ref["events"]
-                     if e["event"] != "program_compiled"]
-    return json.dumps(ref, sort_keys=True)
+def _compiles(seen) -> list:
+    """(program, signatures) of each `program_compiled` event, in order.
+    Masked: `signature` hashes each package's own signature (jax avals
+    against torch leaves); `seconds` is wall time; `flops` and `bytes`
+    are 0 on the reference's dispatch path (XLA's cost model comes only
+    from its AOT query) and counted in the port."""
+    return [(e["program"], e["signatures"]) for e in seen
+            if e["event"] == "program_compiled"]
 
 
 def _fake_clock(start):
@@ -103,11 +110,33 @@ def _fake_clock(start):
 
 
 @pytest.mark.parametrize("seed", [17, 20260805])
-def test_chaos_replay_equals_the_jax_loops_byte_for_byte(seed):
+def test_chaos_replay_equals_the_jax_loops_byte_for_byte(seed, monkeypatch):
     cs = _chip_smoke()
-    text, summary, _ = cs.online_chaos_run(seed, "cpu")
-    jax_text, jax_summary = bench._online_chaos_run(seed)
-    assert text == _without_compiles(jax_text)
+    # a fresh program registry in each package: `signatures` counts the
+    # digests a registry has seen, which earlier runs in the process
+    # would otherwise add to
+    for programs in (jax_programs, port_programs):
+        fresh = programs.ProgramRegistry(
+            metrics=(jax_metrics if programs is jax_programs
+                     else port_metrics).MetricsRegistry())
+        monkeypatch.setattr(programs, "default_program_registry",
+                            lambda fresh=fresh: fresh)
+    seen, jax_seen = [], []
+    port_events.add_observer(seen.append)
+    try:
+        text, summary, _ = cs.online_chaos_run(seed, "cpu")
+    finally:
+        port_events.remove_observer(seen.append)
+    jax_events.add_observer(jax_seen.append)
+    try:
+        jax_text, jax_summary = bench._online_chaos_run(seed)
+    finally:
+        jax_events.remove_observer(jax_seen.append)
+    assert text == jax_text
+    assert _compiles(seen) == _compiles(jax_seen) == [
+        ("serving_forward", 1), ("serving_forward", 2),
+        ("serving_forward", 2), ("serving_forward", 2),
+        ("worker_train_step", 1)]
     assert summary == jax_summary
     cs.check_online_chaos(summary)
     assert summary["windows_lost"] == summary["duplicate_reports"] == 0
@@ -169,16 +198,13 @@ def test_three_trainers_survive_a_kill_and_a_master_restart(tmp_path):
                 "windows_trained", "examples_trained", "model_step",
                 "latest_saved_step"):
         assert snap[key] == j_snap[key], key
-    # The port's task counters are plain integers of each TaskManager,
-    # where the JAX ones live in the adopted registry: after the restart
-    # the port's count the replacement's tasks only (ROADMAP.md queue 3).
-    # The window counters, which the online snapshot reads, carry over in
-    # both.  The port's snapshot also has `training_records_done`.
+    # Both packages keep the task counters in the manager's registry,
+    # which the replacement master adopts: the counts go on across the
+    # restart.  The port's snapshot also has `training_records_done`.
     tasks, j_tasks = dict(snap["tasks"]), dict(j_snap["tasks"])
-    counters, j_counters = tasks.pop("counters"), j_tasks.pop("counters")
     tasks.pop("training_records_done")
     assert tasks == j_tasks
-    assert j_counters["finished"] == 28 and counters["finished"] == 15
+    assert tasks["counters"]["finished"] == 28
     assert snap["serving_fleet"]["decisions"] == \
         j_snap["serving_fleet"]["decisions"]
     assert killed["handoffs"] == 0

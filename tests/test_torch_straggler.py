@@ -152,12 +152,15 @@ def test_master_snapshot_merges_worker_stats():
     """Master.snapshot carries the straggler stats beside the retry and
     fault counters."""
     from elasticdl_tpu_torch.master.main import Master
+    from elasticdl_tpu_torch.master.servicer import MasterServicer
 
     master = Master.__new__(Master)
     clock = FakeClock()
     master.task_manager = _make_tm(port_tm_mod, clock,
                                    straggler_multiple=2.0,
                                    straggler_min_tasks=1)
+    # the per-worker rows start from the telemetry the servicer holds
+    master.servicer = MasterServicer(master.task_manager)
     _run_fleet(master.task_manager, clock, 1, {0: 0.1, 1: 0.9})
     snap = master.snapshot()
     assert snap["workers"][1]["straggler"] is True
