@@ -242,6 +242,33 @@
    backpressure skips polls, and the fleet returns to 1 replica.  The
    phase runs no kernel: ctr_mlp has no embedding, and the sharded
    store's statistics live on the host.
+18. The elastic cluster (`cluster`, after `observatory`; budget 75 s).
+   (a) DeepFM at bench width (vocab 2^20 per arena, dim 16, MLP
+   256/128), global batch 8192, 4 seeded Criteo steps, as two ranks on
+   cuda:0 (processes of their own, `chip_smoke.py --cluster-rank`; the
+   stated rule picks gloo: two ranks share one device) and as one rank
+   in this process, with the bf16 MLP and again with an f32 MLP: the
+   ranks' states bit-equal, 2 scatter-add launches a rank a step, the
+   f32 state within DP_F32_TOL of the one rank's and the bf16 state
+   within DP_BF16_TOL (Adam's bound) with every step's loss within
+   DP_LOSS_RTOL; one all-reduce of a gradient over a world-1 NCCL group
+   returns its input bit for bit.  In the ranks, BERT-base's timed
+   data-parallel steps at the job's shapes and the all-reduce of its
+   gradients (its share of the step); then (c) the scatter-add at a
+   rank's DeepFM rows (bitwise, on CPU copies) and the flash forward
+   and backward at a rank's BERT attention shape (TOL, BWD_TOL, the
+   sm90_wgmma variant), after the counts were read.  (b) BASELINE.md
+   #5: BERT-base (hidden 768, 12 layers, 12 heads, MLP 3072, vocab
+   8192, L 512, bf16, AdamW) fine-tuned through the master's entry point
+   (`master.main.main`) with ProcessK8sClient and 2 worker processes on
+   the card, 96 synthetic pair records in global batches of 16, a
+   checkpoint every 4 steps; worker 1 holds before its third task
+   (CLUSTER_HOLD_S) so step 4's checkpoint commits, and is SIGKILLed
+   once it has: the job exits 0 with every record trained, the
+   recovery clock holds one value under 120 s (the JAX test's budget),
+   the final epoch's two ranks log one state digest, and both counted
+   flash forward and backward launches on sm90_wgmma.  The phase's
+   seconds are printed beside its budget.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
@@ -263,6 +290,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -352,7 +380,12 @@ from elasticdl_tpu_torch.data.reader import (  # noqa: E402
     TFRecordDataReader,
     register_data_reader,
 )
+from elasticdl_tpu_torch.common.k8s_client import ProcessK8sClient  # noqa: E402,E501
+from elasticdl_tpu_torch.master import main as master_main  # noqa: E402
 from elasticdl_tpu_torch.master.freshness import FreshnessTracker  # noqa: E402,E501
+from elasticdl_tpu_torch.parallel import collectives  # noqa: E402
+from elasticdl_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
+from elasticdl_tpu_torch.worker import spmd as spmd_lib  # noqa: E402
 from elasticdl_tpu_torch.master.task_manager import TaskManager  # noqa: E402,E501
 from elasticdl_tpu_torch.model_zoo.census import data as census_data  # noqa: E402,E501
 from elasticdl_tpu_torch.model_zoo.census import (  # noqa: E402
@@ -2037,7 +2070,7 @@ def kill_after_commit(argv: list, ckpt: str, log: str, out: str) -> dict:
     """(a)'s first life: the train job through the port's CLI in a
     subprocess, SIGKILLed once its event log shows step CRASH_STEP's
     checkpoint committed and CRASH_TASKS training reports."""
-    hold = FaultRegistry([FaultSpec(faults.POINT_RPC_REPORT, CRASH_HOLD_HIT,
+    hold = FaultRegistry([FaultSpec(faults.POINT_RPC_GET_TASK, CRASH_HOLD_HIT,
                                     "delay", CRASH_HOLD_S)], seed=SEED)
     env = {**os.environ, **hold.env()}
     t0 = time.perf_counter()
@@ -5735,6 +5768,487 @@ def zoo_local(card: str, work: str, served: dict):
     return out, launches
 
 
+
+# ---- cluster: the elastic cluster (item 18) ---------------------------------
+
+CLUSTER_BUDGET_S = 75.0
+CLUSTER_RANKS = 2
+# (a) DeepFM at bench width, data-parallel: global batch, steps
+DP_BATCH = 8192
+DP_STEPS = 4
+DP_SEED = SEED + 11
+# the same width with an f32 MLP, for the f32 tolerance below
+DP_F32_PARAMS = DEEPFM_PARAMS.replace("bf16=True", "bf16=False")
+# World 2 vs world 1 after DP_STEPS Adam steps (f32 parameters).  f32
+# MLP: the runs differ only in the order of each gradient's sums (two
+# rank partials, then the all-reduce): 1.8e-6 measured on the CPU at
+# vocab 2^16, batch 512.  bf16 MLP (the bench configuration): its
+# matmuls round to bf16 at 4096 rows instead of 8192, gradients differ
+# by ~1e-3 relative, and Adam turns an element near 0 into an update of
+# up to lr = 0.005 either way: 2 * lr * DP_STEPS at worst, and each
+# step's global loss within DP_LOSS_RTOL.
+DP_F32_TOL = 1e-5
+DP_BF16_TOL = 2 * 0.005 * DP_STEPS
+DP_LOSS_RTOL = 1e-3
+# the BERT-base rank timing: global batch of the job below, timed steps
+CLUSTER_TIMED_STEPS = 2
+# (b) BASELINE.md #5: BERT-base fine-tuning under an induced preemption
+CLUSTER_BERT_BATCH = 16
+CLUSTER_BERT_RECORDS = 96
+CLUSTER_BERT_TASK = 32                      # records a task: 2 steps
+CLUSTER_BERT_CKPT_STEPS = 4
+# the victim's (worker 1's) get_spmd_task for the task after the first
+# checkpoint step (hits 0-based, one a task) sleeps CLUSTER_HOLD_S, and
+# rank 0 waits for it in the next step's all-reduce: that step's
+# checkpoint commits while the group holds, so the kill always lands
+# mid-job, after a committed step, and no report of the old group can
+# close the outage it opens
+CLUSTER_HOLD_HIT = (CLUSTER_BERT_CKPT_STEPS * CLUSTER_BERT_BATCH
+                    // CLUSTER_BERT_TASK)
+CLUSTER_HOLD_S = 6.0
+CLUSTER_RECOVERY_BUDGET_S = 120.0   # tests/test_elastic_cluster.py:401
+CLUSTER_WEDGE_GRACE_S = 30.0
+CLUSTER_JOB_TIMEOUT_S = 400.0
+# the master waits this long at most for its workers to exit after the
+# job (the leader flushes its last checkpoint first)
+CLUSTER_LINGER_S = 60.0
+
+
+def _rank_rows(batch, start: int, stop: int):
+    if isinstance(batch, dict):
+        return {k: _rank_rows(v, start, stop) for k, v in batch.items()}
+    return batch[start:stop]
+
+
+def _state_cpu(state) -> dict:
+    return {k: v.detach().cpu().clone()
+            for k, v in state.model.state_dict().items()}
+
+
+def cluster_rank(rank: int, work: str, port: int,
+                 device: str = "cuda") -> int:
+    """One rank of the cluster phase's data-parallel group (a process of
+    its own, `chip_smoke.py --cluster-rank R WORK PORT`): (a) DeepFM at
+    bench width over DP_STEPS global batches, then BERT-base's timed
+    steps and one all-reduce of its gradients; (c) each kernel those
+    steps ran, held against its plain version at one step's shapes.
+    The counts are read right after each path, before the checks."""
+    mesh = mesh_lib.create_mesh(CLUSTER_RANKS, rank, device,
+                                f"127.0.0.1:{port}", init_timeout_s=120.0,
+                                collective_timeout_s=120.0)
+    out = {"rank": rank, "device": str(mesh.device),
+           "backend": mesh.backend,
+           "device_count": torch.cuda.device_count()
+           if device == "cuda" else 0}
+    # (a) DeepFM, the bench configuration (bf16 MLP) and an f32 MLP
+    batches = _criteo_batches(DP_STEPS, DP_BATCH, seed=DP_SEED)
+    start, stop = mesh_lib.local_batch_range(mesh, DP_BATCH)
+    out["deepfm"] = {}
+    for label, params, bf16 in (("bf16", DEEPFM_PARAMS, True),
+                                ("f32", DP_F32_PARAMS, False)):
+        reset_counts()
+        state, losses = dp_deepfm(mesh, params, bf16, batches, start, stop)
+        out["deepfm"][label] = {"rows": [start, stop], "losses": losses,
+                                "launches": spmd_lib.kernel_launches(),
+                                "digest": spmd_lib.state_digest(state)}
+        if rank == 0:
+            torch.save(_state_cpu(state),
+                       os.path.join(work, f"dp_{label}_rank0.pt"))
+        del state
+        torch.cuda.empty_cache()
+    # BERT-base at the cluster job's shapes: step time, all-reduce share
+    spec = get_model_spec(ZOO_DIR, BERT, BERT_PARAMS + ";bf16=True")
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, use_bf16=True,
+                      device=mesh.device)
+    full = bert_train_batch()
+    full = _rank_rows(full, 0, CLUSTER_BERT_BATCH)
+    bstart, bstop = mesh_lib.local_batch_range(mesh, CLUSTER_BERT_BATCH)
+    local = _rank_rows(full, bstart, bstop)
+    reset_counts()
+    state = trainer.init_state_global(SEED, local["features"], mesh)
+    shard = mesh_lib.make_global_batch_from_local(
+        local, mesh, CLUSTER_BERT_BATCH, bstart, trainer.stage_batch)
+    trainer.train_on_global_batch(state, shard, mesh)   # warm-up
+    step_ms = []
+    for _ in range(CLUSTER_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_on_global_batch(state, shard, mesh)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    bert_launches_rank = spmd_lib.kernel_launches()
+    grads = [p.grad.clone() for p in state.model.parameters()
+             if p.grad is not None]
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    reduce_ms = []
+    for _ in range(CLUSTER_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        collectives.all_reduce_sum_(grads, mesh)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    out["bert"] = {"global_batch": CLUSTER_BERT_BATCH, "rows": [bstart,
+                                                                bstop],
+                   "step_ms": step_ms, "all_reduce_ms": reduce_ms,
+                   "grad_bytes": grad_bytes,
+                   "all_reduce_share": float(np.median(reduce_ms)
+                                             / np.median(step_ms)),
+                   "launches": bert_launches_rank}
+    del state, trainer, grads
+    torch.cuda.empty_cache()
+    # (c) the kernels these ranks ran, against their plain versions at
+    # one step's shapes (not counted: the counts were read above)
+    out["checks"] = rank_kernel_checks(batches[0], start, stop,
+                                       bstop - bstart, mesh.device)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    mesh_lib.destroy_mesh(mesh)
+    return 0
+
+
+def dp_deepfm(mesh, params: str, use_bf16: bool, batches, start: int,
+              stop: int) -> tuple:
+    """DeepFM over `batches` on this rank's rows [start, stop) of each:
+    (state, the global loss of each step)."""
+    spec = get_model_spec(ZOO_DIR, DEEPFM, params)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss,
+                      use_bf16=use_bf16, device=mesh.device)
+    state = trainer.init_state_global(
+        SEED, _rank_rows(batches[0], start, stop)["features"], mesh)
+    losses = []
+    for batch in batches:
+        shard = mesh_lib.make_global_batch_from_local(
+            _rank_rows(batch, start, stop), mesh, len(batch["labels"]),
+            start, trainer.stage_batch)
+        state, loss = trainer.train_on_global_batch(state, shard, mesh)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    return state, losses
+
+
+def rank_kernel_checks(batch, start: int, stop: int, bert_rows: int,
+                       device: torch.device):
+    """In a rank: the scatter-add at its DeepFM step's rows (D 16 and 1,
+    bitwise on CPU copies), the flash forward and backward at its BERT
+    step's attention shape (bf16, tolerances TOL / BWD_TOL)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    checks = []
+    ids_np = hash_field_rows_host(
+        batch["features"]["sparse"][start:stop], DEEPFM_VOCAB).reshape(-1)
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(device)
+    for dim in (DEEPFM_DIM, 1):
+        table = torch.randn((DEEPFM_VOCAB, dim), generator=gen,
+                            device=device)
+        grads = torch.randn((ids.numel(), dim), generator=gen,
+                            device=device)
+        got = sa.scatter_add_forward(table, ids, grads).cpu()
+        ref = sa.scatter_add_reference(table.cpu(), ids.cpu(), grads.cpu())
+        checks.append({"kernel": "scatter_add", "n": int(ids.numel()),
+                       "dim": dim, "bitwise_vs_plain":
+                           bool(torch.equal(got, ref)),
+                       "max_abs_err": float((got - ref).abs().max())})
+    shape = (bert_rows, SEQ_LEN, 12, 64)
+    q, k, v = make_qkv(shape, torch.bfloat16, gen, True)
+    fa.reset_launch_counts()
+    out_k, lse_k = fa.flash_attention_forward(q, k, v, causal=False)
+    variant = [n for n, c in fa.flash_attention.launches_by_kernel.items()
+               if c]
+    out_r, lse_r = fa.flash_attention_reference(q, k, v, causal=False)
+    err = float((out_k.float() - out_r.float()).abs().max())
+    checks.append({"kernel": "flash_attention_fwd", "shape": list(shape),
+                   "variant": variant, "max_abs_err": err,
+                   "ok": variant == [fa.SM90_WGMMA]
+                   and err <= TOL[torch.bfloat16]["out"]})
+    g = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    got = fa.flash_attention_backward(q, k, v, out_r, lse_r, g, False)
+    variant = [n for n, c in
+               fa.flash_attention.backward_launches_by_kernel.items() if c]
+    want = fa._flash_bwd(False, shape[-1] ** -0.5,
+                         (q, k, v, out_r, lse_r), g)
+    errs = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(got, want)]
+    scales = [float(b.float().abs().max()) for b in want]
+    tol = BWD_TOL[torch.bfloat16]
+    checks.append({"kernel": "flash_attention_bwd", "shape": list(shape),
+                   "variant": variant, "max_abs_err": max(errs),
+                   "max_abs_err_dq_dk_dv": errs,
+                   "ok": variant == [fa.SM90_WGMMA]
+                   and all(e <= tol * max(1.0, s)
+                           for e, s in zip(errs, scales))})
+    fa.reset_launch_counts()
+    sa.scatter_add.launches = 0
+    return checks
+
+
+def dp_parity(card: str, work: str, device: str = "cuda") -> dict:
+    """(a) two ranks on the card over the backend the rule picks (gloo:
+    they share cuda:0), against one rank in this process; then one
+    all-reduce of a gradient over a world-1 NCCL group."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cluster-rank",
+         str(rank), work, str(port), device], cwd=ROOT)
+        for rank in range(CLUSTER_RANKS)]
+    try:
+        # one rank in this process, the same batches and seed, while the
+        # ranks start (their DeepFM runs come after their imports and
+        # CUDA start-up, so the two overlap little on the card)
+        device = mesh_lib.device_for_rank(0, device)
+        mesh1 = mesh_lib.DataMesh(1, 0, device, "", None)
+        batches = _criteo_batches(DP_STEPS, DP_BATCH, seed=DP_SEED)
+        one_rank = {}
+        for label, params, bf16 in (("bf16", DEEPFM_PARAMS, True),
+                                    ("f32", DP_F32_PARAMS, False)):
+            reset_counts()
+            state, losses = dp_deepfm(mesh1, params, bf16, batches, 0,
+                                      DP_BATCH)
+            one_rank[label] = (_state_cpu(state), losses,
+                               sa.scatter_add.launches)
+            if label == "bf16":
+                last_state = state
+            del state
+        codes = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0] * CLUSTER_RANKS:
+        raise AssertionError(f"cluster ranks exited {codes}")
+    ranks = []
+    for rank in range(CLUSTER_RANKS):
+        with open(os.path.join(work, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    parity = {}
+    for label, bf16 in (("bf16", True), ("f32", False)):
+        one, losses, one_launches = one_rank.pop(label)
+        two = torch.load(os.path.join(work, f"dp_{label}_rank0.pt"))
+        err = max(float((two[k].float() - one[k].float()).abs().max())
+                  for k in one if one[k].is_floating_point())
+        rank_losses = [r["deepfm"][label]["losses"] for r in ranks]
+        parity[label] = {
+            "digests_equal": len({r["deepfm"][label]["digest"]
+                                  for r in ranks}) == 1,
+            "max_abs_err_vs_one_rank": err,
+            "tol": DP_BF16_TOL if bf16 else DP_F32_TOL,
+            "losses_by_rank": rank_losses, "losses_one_rank": losses,
+            "loss_max_rel_err": max(
+                abs(a - b) / abs(b) for a, b in zip(rank_losses[0],
+                                                    losses)),
+            "scatter_launches_by_rank": [
+                r["deepfm"][label]["launches"]["scatter_add"]
+                for r in ranks],
+            "scatter_launches_one_rank": one_launches}
+        del two, one
+    # world-1 NCCL: the rule picks nccl for a rank that owns its device;
+    # an all-reduce over one rank returns its input bit for bit
+    backend = mesh_lib.backend_for(1, device)
+    grads = torch.cat([p.grad.reshape(-1) for p in
+                       last_state.model.parameters() if p.grad is not None])
+    before = grads.clone()
+    dist.init_process_group(backend, store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        dist.all_reduce(grads)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    nccl_equal = bool(torch.equal(grads, before))
+    del last_state, grads, before
+    out = {"card": card, "ranks": CLUSTER_RANKS, "global_batch": DP_BATCH,
+           "steps": DP_STEPS,
+           "backend_by_rank": [r["backend"] for r in ranks],
+           "device_by_rank": [r["device"] for r in ranks],
+           "device_count": ranks[0]["device_count"],
+           "deepfm": parity,
+           "scatter_launches_by_rank":
+               parity["bf16"]["scatter_launches_by_rank"],
+           "nccl_world1": {"backend": backend, "bitwise": nccl_equal},
+           "bert_step_ms_by_rank": [r["bert"]["step_ms"] for r in ranks],
+           "bert_all_reduce_ms_by_rank": [r["bert"]["all_reduce_ms"]
+                                          for r in ranks],
+           "bert_grad_bytes": ranks[0]["bert"]["grad_bytes"],
+           "bert_all_reduce_share_by_rank": [
+               r["bert"]["all_reduce_share"] for r in ranks],
+           "bert_launches_by_rank": [r["bert"]["launches"] for r in ranks],
+           "checks_by_rank": [r["checks"] for r in ranks]}
+    print(json.dumps({"cluster_dp": out}), flush=True)
+    print(f"cluster DP: backend {out['backend_by_rank']} on "
+          f"{out['device_by_rank']} ({out['device_count']} device(s): "
+          "ranks share a device -> gloo); world-1 NCCL all-reduce "
+          f"bitwise={nccl_equal}; BERT-base step "
+          f"{np.median(out['bert_step_ms_by_rank'][0]):.1f} ms, all-reduce "
+          f"share {out['bert_all_reduce_share_by_rank'][0]:.3f} [{card}]",
+          flush=True)
+    want_scatter = 2 * DP_STEPS
+    bad_checks = [c for r in ranks for c in r["checks"]
+                  if not c.get("ok", c.get("bitwise_vs_plain"))]
+    bad_parity = {label: p for label, p in parity.items()
+                  if not p["digests_equal"]
+                  or not p["max_abs_err_vs_one_rank"] <= p["tol"]
+                  or not p["loss_max_rel_err"] <= DP_LOSS_RTOL
+                  or p["scatter_launches_by_rank"] != [want_scatter] * 2
+                  or p["scatter_launches_one_rank"] != want_scatter}
+    if bad_parity or not nccl_equal or bad_checks or \
+            out["backend_by_rank"] != ["gloo", "gloo"]:
+        raise AssertionError(f"cluster DP parity: {out}; bad checks "
+                             f"{bad_checks}")
+    for r in ranks:
+        bl = r["bert"]["launches"]
+        if not (bl["flash_attention_fwd"][fa.SM90_WGMMA] > 0
+                and bl["flash_attention_bwd"][fa.SM90_WGMMA] > 0):
+            raise AssertionError(f"BERT rank launches: {bl}")
+    return out
+
+
+class _VictimHoldK8s(ProcessK8sClient):
+    """Pods as local processes; worker 1's alone also gets `hold_env`
+    (its fault schedule)."""
+
+    def __init__(self, env: dict, hold_env: dict):
+        super().__init__(extra_env=env)
+        self._env = dict(env)
+        self._hold_env = dict(hold_env)
+
+    def create_pod(self, spec) -> None:
+        # the pod manager launches one pod at a time
+        self._extra_env = dict(self._env, **(
+            self._hold_env if spec.worker_id == 1 else {}))
+        super().create_pod(spec)
+
+
+def _rank_lines(k8s) -> list:
+    """Every pod's kernel-launch lines (worker/spmd.py logs one as a rank
+    exits), with the pod's name."""
+    lines = []
+    for name in sorted(k8s.pods):
+        for line in k8s.pod_output(name).splitlines():
+            tag = line.find(spmd_lib.KERNEL_LAUNCHES_TAG)
+            if tag >= 0:
+                entry = json.loads(
+                    line[tag + len(spmd_lib.KERNEL_LAUNCHES_TAG):])
+                entry["pod"] = name
+                lines.append(entry)
+    return lines
+
+
+def preempted_bert_job(card: str, work: str, device: str = "cuda") -> dict:
+    """(b) BASELINE.md #5: BERT-base fine-tuning through the master's
+    entry point with ProcessK8sClient, 2 worker processes on the card;
+    rank 1 is SIGKILLed once a checkpoint step has committed."""
+    root = os.path.join(work, "cluster_bert")
+    train_dir, _ = write_pairs(root, n_train=CLUSTER_BERT_RECORDS,
+                               n_val=16, max_len=SEQ_LEN, vocab=VOCAB,
+                               seed=SEED)
+    ckpt = os.path.join(root, "ckpt")
+    hold = FaultRegistry([FaultSpec(faults.POINT_RPC_GET_TASK,
+                                    CLUSTER_HOLD_HIT, "delay",
+                                    CLUSTER_HOLD_S)])
+    k8s = _VictimHoldK8s({"PYTHONPATH": ROOT},
+                         {faults.ENV_SCHEDULE: hold.schedule_json()})
+    job = "chip-bert"
+    argv = ["--distribution_strategy", "AllReduce", "--use_process_k8s",
+            "true", "--num_workers", str(CLUSTER_RANKS), "--job_name", job,
+            "--model_def", BERT, "--model_params",
+            BERT_PARAMS + ";bf16=True", "--use_bf16", "true",
+            "--minibatch_size", str(CLUSTER_BERT_BATCH),
+            "--records_per_task", str(CLUSTER_BERT_TASK),
+            "--num_epochs", "1", "--training_data", train_dir,
+            "--checkpoint_dir", ckpt,
+            "--checkpoint_steps", str(CLUSTER_BERT_CKPT_STEPS),
+            "--keep_checkpoint_max", "2",
+            "--port", str(free_port()),
+            "--coordinator_port", str(free_port()),
+            "--wedge_grace_s", str(CLUSTER_WEDGE_GRACE_S),
+            "--task_lease_timeout_s", "300", "--device", device]
+    held = {}
+    result = {}
+
+    def run():
+        result["rc"] = master_main.main(
+            argv, k8s_client=k8s, linger_s=CLUSTER_LINGER_S,
+            on_started=lambda m: held.setdefault("master", m))
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    try:
+        while not committed_steps(ckpt):
+            if not thread.is_alive() or \
+                    time.perf_counter() - t0 > CLUSTER_JOB_TIMEOUT_S:
+                raise AssertionError("no checkpoint step committed before "
+                                     "the kill")
+            time.sleep(0.05)
+        kill_s = time.perf_counter() - t0
+        k8s.kill_pod(f"{job}-worker-1")
+        thread.join(CLUSTER_JOB_TIMEOUT_S)
+        if thread.is_alive():
+            raise AssertionError("the preempted BERT job did not end")
+    finally:
+        k8s.stop()
+    wall_s = time.perf_counter() - t0
+    master = held["master"]
+    lines = _rank_lines(k8s)
+    final = [e for e in lines if "state_sha256" in e]
+    history = list(master.recovery_clock.history)
+    out = {"card": card, "exit_code": result.get("rc"), "wall_s": wall_s,
+           "kill_after_s": kill_s,
+           "records_done": master.task_manager.counters.records_done,
+           "records": CLUSTER_BERT_RECORDS,
+           "recovery_s": history,
+           "recovery_budget_s": CLUSTER_RECOVERY_BUDGET_S,
+           "pods": master.pod_manager.snapshot(),
+           "pod_commands": [spec.command[:3] for spec in k8s.create_calls],
+           "final_ranks": [{k: e[k] for k in ("pod", "rank", "epoch",
+                                               "world", "step",
+                                               "state_sha256",
+                                               "launches")}
+                           for e in final],
+           "exits": [{k: e[k] for k in ("pod", "rank", "epoch", "launches")}
+                     for e in lines if "state_sha256" not in e]}
+    print(json.dumps({"cluster_bert": out}), flush=True)
+    print(f"cluster BERT-base preemption: recovery "
+          f"{history} s (budget {CLUSTER_RECOVERY_BUDGET_S} s), job "
+          f"{wall_s:.1f} s [{card}]", flush=True)
+    ok_final = (len(final) == CLUSTER_RANKS
+                and len({e["state_sha256"] for e in final}) == 1
+                and len({e["epoch"] for e in final}) == 1
+                and all(e["launches"]["flash_attention_fwd"][fa.SM90_WGMMA]
+                        > 0 and e["launches"]["flash_attention_bwd"][
+                            fa.SM90_WGMMA] > 0 for e in final))
+    if out["exit_code"] != 0 or not ok_final or len(history) != 1 or \
+            history[0] >= CLUSTER_RECOVERY_BUDGET_S or \
+            out["records_done"] < CLUSTER_BERT_RECORDS:
+        logs = {name: k8s.pod_output(name)[-3000:] for name in k8s.pods}
+        raise AssertionError(f"the preempted BERT-base job: {out}; pod "
+                             f"logs {logs}")
+    return out
+
+
+def cluster(card: str, work: str) -> tuple:
+    """Item 18: (a) + (c) DP parity and the in-rank checks, (b) the
+    preempted BERT-base job.  Returns (summary, launches by path)."""
+    t0 = time.perf_counter()
+    root = os.path.join(work, "cluster")
+    os.makedirs(root, exist_ok=True)
+    try:
+        dp = dp_parity(card, root)
+        bert = preempted_bert_job(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"cluster phase: {seconds:.1f} s (budget {CLUSTER_BUDGET_S} s) "
+          f"[{card}]", flush=True)
+    launches = {f"cluster_dp_deepfm_rank{r}": n for r, n in
+                enumerate(dp["scatter_launches_by_rank"])}
+    for r, bl in enumerate(dp["bert_launches_by_rank"]):
+        launches[f"cluster_dp_bert_rank{r}"] = bl
+    for e in bert["final_ranks"]:
+        launches[f"cluster_bert_job_rank{e['rank']}"] = e["launches"]
+    return {"dp": dp, "bert_job": bert, "seconds": seconds,
+            "budget_s": CLUSTER_BUDGET_S}, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -5742,6 +6256,10 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--cluster-rank"]:
+        # one rank of the cluster phase's data-parallel group
+        rank, work, port, device = sys.argv[2:6]
+        return cluster_rank(int(rank), work, int(port), device)
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -5814,6 +6332,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
     obs, obs_scatter, obs_flash = phase("observatory", observatory, card,
                                         work, fm_served, online)
     del online["surfaces"]
+    clus, clus_launches = phase("cluster", cluster, card, work)
     serve_fm = phase("serve_cli_deepfm", serve_cli_deepfm, card, fm_served)
     wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
     del buffers
@@ -5847,21 +6366,29 @@ def run_phases(card: str, build: dict, work: str) -> int:
         "local_bert_tiny":
             bert_local_launches["local_bert_tiny"]["scatter_add"],
         "local_bert_full":
-            bert_local_launches["local_bert_full"]["scatter_add"]}
+            bert_local_launches["local_bert_full"]["scatter_add"],
+        **{path: (n if isinstance(n, int) else n["scatter_add"])
+           for path, n in clus_launches.items()}}
     bert_paths = {"train_bert": bert_launches_by["plain"],
                   "train_bert_remat": bert_launches_by["remat"],
                   **bert_local_launches}
+    cluster_bert = {path: n for path, n in clus_launches.items()
+                    if isinstance(n, dict)}
     entry["launches_by_path"] = {
         "serve_bert": launches["flash_attention_fwd"],
         "observatory_storm": obs_flash,
         "serve_cli_bert": cli_launches["flash_attention_fwd"],
         **{path: n["flash_attention_fwd"] for path, n in
-           bert_paths.items()}}
+           bert_paths.items()},
+        **{path: n["flash_attention_fwd"][fa.SM90_WGMMA]
+           for path, n in cluster_bert.items()}}
     # launches: the bare Trainer's timed steps at bench_bert's shape (the
     # BERT training path); each path's count beside it
     bwd_entry["launches"] = bert_launches_by["plain"]["flash_attention_bwd"]
     bwd_entry["launches_by_path"] = {
-        path: n["flash_attention_bwd"] for path, n in bert_paths.items()}
+        **{path: n["flash_attention_bwd"] for path, n in bert_paths.items()},
+        **{path: n["flash_attention_bwd"][fa.SM90_WGMMA]
+           for path, n in cluster_bert.items()}}
     kernels = {"kernels": [entry, scatter_entry, bwd_entry]}
 
     name = torch.cuda.get_device_name(0)
@@ -5878,7 +6405,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
                    "deepfm": deepfm, "local_deepfm": local,
                    "resilient_local": resilient,
                    "stream_judgment": stream, "online_loop": online,
-                   "observatory": obs,
+                   "observatory": obs, "cluster": clus,
                    "wire_deepfm": wire, "serve_cli_deepfm": serve_fm,
                    "tiered_deepfm": tiered, "local_tiered": local_t,
                    "zoo_local": zoo,

@@ -41,8 +41,10 @@ flight recorder (master/main.py); `run_local` starts those threads and
 `Master.stop` ends them.  As in the JAX Local runner, the master's
 telemetry server (/metrics, /healthz, /varz on `--telemetry_port`, 0 =
 ephemeral) runs for the job's life: one process, so one server covers
-master and workers.  The cluster strategies wait for their slice of the
-port and raise NotImplementedError.
+master and workers.  `train` with a cluster strategy raises
+NotImplementedError: the JAX client submits a master pod, which needs
+the real Kubernetes client; the master's own entry point
+(master/main.py, `--use_process_k8s`) runs a cluster job.
 """
 
 from __future__ import annotations
@@ -109,9 +111,13 @@ def predict(args) -> int:
 def _check_supported(args, job_type: str) -> None:
     if args.distribution_strategy != LOCAL:
         raise NotImplementedError(
-            f"--distribution_strategy {args.distribution_strategy} (a "
-            "cluster job) waits for the cluster slice of the port "
-            "(ROADMAP.md queue 1, item 12); use Local")
+            f"--distribution_strategy {args.distribution_strategy}: "
+            "submitting a master pod needs the real Kubernetes client "
+            "(ROADMAP.md queue 1, item 12).  Run the cluster job's master "
+            "directly: python -m elasticdl_tpu_torch.master.main "
+            f"--distribution_strategy {args.distribution_strategy} "
+            "--use_process_k8s true --num_workers N ... (worker processes "
+            "on this machine), or use Local")
     if job_type in ("evaluate", "predict") and \
             not args.checkpoint_dir_for_init:
         raise ValueError(

@@ -25,8 +25,11 @@ and the operator commands, with the JAX package's arguments:
     python -m elasticdl_tpu_torch.client.main incident DIR [--bundle NAME]
 
 (`top`, `slo` and `programs` scrape a master's `--telemetry_port`).
-`zoo init|build|push` waits for the cluster slice (ROADMAP.md queue 1,
-item 12).  Parsing is strict: an unknown flag is an error.  The exit
+A cluster job starts from the master's entry point, `python -m
+elasticdl_tpu_torch.master.main --distribution_strategy AllReduce
+--use_process_k8s true ...`; `train` here runs Local jobs.  `zoo
+init|build|push` (client/image_builder.py in the JAX package) waits
+for ROADMAP.md queue 1, item 12.  Parsing is strict: an unknown flag is an error.  The exit
 code is 0 when the job or command succeeded.
 """
 

@@ -1,14 +1,21 @@
-"""The command-line flags of a Local job and of `serve` (the port's copy
-of the subset of the JAX package's common/args.py that `_train_local`
-and `serve` read).
+"""The command-line flags of a Local job, of a cluster job's master and
+workers, and of `serve` (the port's copy of the subset of the JAX
+package's common/args.py that those read).
 
-Flags outside the subset are absent, so argparse rejects them.  A flag
-whose feature waits for a later slice of the port (a non-Local strategy)
-parses and then raises NotImplementedError where the job would use it;
-`--trace_sample_rate` parses and a Local job does not read it, as in the
-JAX package: its reader is the `FleetRouter` (proto/service.py) of the
-master's serving fleet, which the cluster slice wires (ROADMAP.md queue
-1, item 12).  The wire formats (`--wire_format
+Flags outside the subset are absent, so argparse rejects them.
+`elasticdl train` with a cluster strategy parses and then raises
+NotImplementedError (submitting a master pod needs the real
+`K8sClient`); the master's own entry point (`python -m
+elasticdl_tpu_torch.master.main`) runs the cluster job, with the JAX
+parser's cluster flags under their names and defaults
+(`add_cluster_params`: `--use_process_k8s`, `--use_fake_k8s`,
+`--workers_per_group`, `--wedge_grace_s`, `--coordinator_port`,
+`--rpc_retry_budget_s`, `--relaunch_on_worker_failure`, `--port`,
+`--job_name`, ...; the worker's `--worker_id` and `--master_addr`).
+`--trace_sample_rate` parses and no job reads it, as in the JAX
+package's jobs without a serving fleet: its reader is the fleet's
+`FleetRouter` (proto/service.py), which the master builds with a pod
+manager only in a later slice (ROADMAP.md queue 1, item 12).  The wire formats (`--wire_format
 plain|compact|dedup`, the legacy `--compact_wire`), the int8 arena
 (`--arena_dtype int8`), the tiered store's int8 cache
 (`--store_cache_dtype int8`), `--output` (a train job's model export,
@@ -67,8 +74,10 @@ def add_common_params(parser: argparse.ArgumentParser):
         "--distribution_strategy", default=DistributionStrategy.ALLREDUCE,
         choices=[DistributionStrategy.LOCAL, DistributionStrategy.ALLREDUCE,
                  DistributionStrategy.PARAMETER_SERVER],
-        help="Only Local (master and workers in this process) is ported; "
-        "the cluster strategies raise NotImplementedError.")
+        help="Local: master and workers in this process.  AllReduce (and "
+        "ParameterServer, which maps onto it): one data-parallel model "
+        "over worker processes that the master launches "
+        "(master/main.py).")
     parser.add_argument("--num_workers", type=pos_int, default=1,
                         help="worker threads sharing one model")
     parser.add_argument(
@@ -150,6 +159,70 @@ def add_common_params(parser: argparse.ArgumentParser):
         help="Bundles kept under --incident_dir before the oldest is "
         "rotated out — soak runs cannot fill the disk.",
     )
+    add_cluster_params(parser)
+
+
+def add_cluster_params(parser: argparse.ArgumentParser):
+    """A cluster job's flags: the master's pods, rendezvous and elastic
+    recovery (the JAX parser's names and defaults)."""
+    parser.add_argument(
+        "--job_name", default="elasticdl-job", help="Job / pod-name prefix")
+    parser.add_argument("--namespace", default="default")
+    parser.add_argument("--master_addr", default="",
+                        help="host:port of master")
+    parser.add_argument("--port", type=pos_int, default=50001,
+                        help="the master's RPC port")
+    parser.add_argument("--image_name", default="")
+    parser.add_argument("--worker_resource_request",
+                        default="cpu=1,memory=4096Mi")
+    parser.add_argument("--worker_pod_priority", default="")
+    parser.add_argument(
+        "--volume", default="",
+        help="Pod volume mounts: 'host_path=/a,mount_path=/b' or "
+        "'claim_name=pvc,mount_path=/b'; several separated by ';'.")
+    parser.add_argument(
+        "--use_fake_k8s", type=str2bool, default=False,
+        help="Use the in-memory fake cluster instead of the Kubernetes "
+        "API (the control plane with no worker processes)")
+    parser.add_argument(
+        "--use_process_k8s", type=str2bool, default=False,
+        help="Run worker pods as local OS subprocesses (the master and "
+        "worker entry points, rendezvous and torch.distributed with no "
+        "Kubernetes)")
+    parser.add_argument(
+        "--workers_per_group", type=pos_int, default=1,
+        help="Workers are partitioned into groups of this size; when one "
+        "member truly fails, the surviving members are restarted "
+        "(budget-free) instead of each waiting out its wedge-watchdog "
+        "grace.  1 = per-worker granularity.")
+    parser.add_argument(
+        "--preemption_notice_file", default="",
+        help="Path polled for an upcoming-disruption notice; when the "
+        "file holds one, the worker drains at the next task boundary.  "
+        "'gce-metadata' polls the GCE instance metadata server instead.")
+    parser.add_argument(
+        "--policy_interval", type=float, default=0.0,
+        help="Seconds between policy-engine ticks (straggler eviction + "
+        "autoscaling).  0 (the default) disables the control loop.")
+    parser.add_argument(
+        "--wedge_grace_s", type=float, default=20.0,
+        help="Seconds a rank may lag a membership-epoch change before its "
+        "watchdog assumes it is wedged in a collective with a dead peer "
+        "and restarts the process; also the bound of every collective")
+    parser.add_argument(
+        "--coordinator_port", type=pos_int, default=51001,
+        help="Port of the torch.distributed TCPStore that rank 0 hosts; "
+        "the rendezvous serves rank 0's address + this port as the "
+        "coordinator address")
+    parser.add_argument(
+        "--rpc_retry_budget_s", type=float, default=0.0,
+        help="Max elapsed seconds of backed-off retries any single "
+        "control-plane RPC may consume before the worker gives up and "
+        "exits with code 45 (charged relaunch).  0 defers to the "
+        "ELASTICDL_RPC_MAX_ELAPSED_S env var, default 120.")
+    parser.add_argument(
+        "--relaunch_on_worker_failure", type=non_neg_int, default=3,
+        help="max relaunches per failed worker pod")
 
 
 def add_model_params(parser: argparse.ArgumentParser):
@@ -369,3 +442,40 @@ def add_incident_params(parser: argparse.ArgumentParser):
         "--spans", type=non_neg_int, default=10,
         help="how many of the slowest request spans the report lists",
     )
+
+
+def parse_master_args(argv=None) -> argparse.Namespace:
+    """The master entry point's flags (master/main.py)."""
+    parser = argparse.ArgumentParser(description="elasticdl-tpu master")
+    add_common_params(parser)
+    add_model_params(parser)
+    add_train_params(parser)
+    parser.add_argument("--job_type", default="train",
+                        choices=["train", "evaluate", "predict"])
+    return parser.parse_args(argv)
+
+
+def parse_worker_args(argv=None) -> argparse.Namespace:
+    """A worker process's flags (worker/main.py): the master's, plus
+    the worker's id."""
+    parser = argparse.ArgumentParser(description="elasticdl-tpu worker")
+    add_common_params(parser)
+    add_model_params(parser)
+    add_train_params(parser)
+    parser.add_argument("--worker_id", type=int, default=0)
+    parser.add_argument("--job_type", default="train",
+                        choices=["train", "evaluate", "predict"])
+    return parser.parse_args(argv)
+
+
+def build_arguments_from_parsed_result(args, filter_args=None) -> list:
+    """Re-serialize a parsed namespace back into argv (the config wire
+    format from the master to its worker pods)."""
+    arguments = []
+    for key, value in vars(args).items():
+        if filter_args and key in filter_args:
+            continue
+        if value is None or value == "":
+            continue
+        arguments += ["--" + key, str(value)]
+    return arguments

@@ -1,8 +1,8 @@
 """Shared constants (the port's copy of the JAX package's
 common/constants.py): pod, job and task states, the strategy names and
-the worker environment variables.  The Local runner reads the strategy
-names and the lease default; the cluster strategies that read the rest
-wait for their slice of the port."""
+the worker environment variables, the keep-alive interval and the
+lease default.  The Local runner and a cluster job's master and workers
+read them."""
 
 
 class PodStatus:

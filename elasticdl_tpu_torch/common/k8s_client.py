@@ -1,22 +1,29 @@
-"""The Kubernetes client seam and its in-memory fake (the port's copy of
-the JAX package's common/k8s_client.py, its `PodSpec`, `parse_volumes`,
-`AbstractK8sClient` and `FakeK8sClient`).
+"""The Kubernetes client seam, its in-memory fake and a cluster of local
+processes (the port's copy of the JAX package's common/k8s_client.py).
 
 The master creates, watches and deletes pods through an
 `AbstractK8sClient`.  `FakeK8sClient` records the calls and lets a test
 or the online loop (`online/pipeline.py`) inject pod events: a created
 pod goes Pending -> Running at once, with a fabricated address, and
-`emit` drives a failure or a preemption.  The serving fleet places its
-replicas through it.
+`emit` drives a failure or a preemption.  `ProcessK8sClient` runs each
+pod's command as a subprocess on this machine (`--use_process_k8s`): a
+monitor thread maps a process's exit to the pod's phase, `delete_pod`
+terminates it, `kill_pod` SIGKILLs it as a preemption would, and
+`pod_output` returns what it printed.  Every pod's address is loopback,
+so the master's entry point, the workers' and the rendezvous run as
+they would across machines.
 
-The subprocess-backed `ProcessK8sClient` and the real `K8sClient` wait
-for the cluster slice of the port (ROADMAP.md queue 1, item 12).
-Nothing here imports a kubernetes package.
+The real `K8sClient` needs the `kubernetes` package, which the port's
+machines do not have: it raises at construction with a message naming
+the package (ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations
 
+import os
+import subprocess
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -208,3 +215,160 @@ class FakeK8sClient(AbstractK8sClient):
               exit_code=None):
         if self._callback is not None:
             self._callback(name, phase, address, exit_code)
+
+
+class ProcessK8sClient(AbstractK8sClient):
+    """A local cluster whose pods are OS subprocesses: `create_pod`
+    spawns the pod's command, a monitor thread maps its exit to the
+    pod's phase (0 -> Succeeded, else Failed, with the exit code), and
+    `delete_pod` terminates it.  `extra_env` is added to every pod's
+    environment."""
+
+    # seconds a deleted pod gets to exit on SIGTERM before SIGKILL
+    DELETE_GRACE_S = 15.0
+
+    def __init__(self, extra_env: Optional[Dict[str, str]] = None):
+        self._lock = threading.Lock()
+        self.pods: Dict[str, PodSpec] = {}
+        self.procs: Dict[str, subprocess.Popen] = {}
+        self.phases: Dict[str, str] = {}
+        self.create_calls: List[PodSpec] = []
+        self._output: Dict[str, List[bytes]] = {}
+        self._extra_env = dict(extra_env or {})
+        self._callback: Optional[EventCallback] = None
+        self._stop = threading.Event()
+        self._monitor: Optional[threading.Thread] = None
+
+    def master_host(self, job_name: str) -> str:
+        return "127.0.0.1"
+
+    def create_pod(self, spec: PodSpec) -> None:
+        env = dict(os.environ)
+        env.update(self._extra_env)
+        with self._lock:
+            self.pods[spec.name] = spec
+            self.create_calls.append(spec)
+            self.phases[spec.name] = PodStatus.PENDING
+        self._emit(spec.name, PodStatus.PENDING)
+        proc = subprocess.Popen(spec.command, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        # drain continuously: a child that fills an unread pipe blocks
+        # on write and looks hung
+        chunks: List[bytes] = []
+
+        def drain():
+            for line in proc.stdout:
+                chunks.append(line)
+
+        threading.Thread(target=drain, daemon=True).start()
+        with self._lock:
+            self.procs[spec.name] = proc
+            self._output[spec.name] = chunks
+            self.phases[spec.name] = PodStatus.RUNNING
+        self._emit(spec.name, PodStatus.RUNNING, "127.0.0.1")
+
+    def delete_pod(self, name: str) -> None:
+        with self._lock:
+            proc = self.procs.get(name)
+            self.phases[name] = PodStatus.DELETED
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+        # the event goes out as the delete starts, as Kubernetes sends
+        # the deletion at once: the epoch bump reaches the other ranks
+        # before the condemned process has left
+        self._emit(name, PodStatus.DELETED)
+        if proc is not None and proc.poll() is None:
+            try:
+                proc.wait(timeout=self.DELETE_GRACE_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+    def kill_pod(self, name: str) -> None:
+        """A hard preemption: SIGKILL; the monitor then reports the pod
+        Failed, as a spot reclaim would."""
+        with self._lock:
+            proc = self.procs.get(name)
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+
+    def get_pod_phase(self, name: str) -> str:
+        with self._lock:
+            return self.phases.get(name, PodStatus.UNKNOWN)
+
+    def get_pod_labels(self, name: str):
+        with self._lock:
+            spec = self.pods.get(name)
+            return dict(spec.labels) if spec is not None else {}
+
+    def list_pods(self):
+        with self._lock:
+            return [(name, spec.worker_id,
+                     self.phases.get(name, PodStatus.UNKNOWN), "127.0.0.1")
+                    for name, spec in self.pods.items()
+                    if spec.pod_type == PodType.WORKER]
+
+    def start_watch(self, callback: EventCallback) -> None:
+        self._callback = callback
+        self._monitor = threading.Thread(target=self._watch_loop,
+                                         daemon=True)
+        self._monitor.start()
+
+    def stop(self) -> None:
+        """Stop the monitor and SIGKILL every pod still running; waits
+        for them to exit."""
+        self._stop.set()
+        with self._lock:
+            procs = list(self.procs.values())
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+        for proc in procs:
+            proc.wait()
+        if self._monitor is not None:
+            self._monitor.join(timeout=5.0)
+
+    def pod_output(self, name: str) -> str:
+        with self._lock:
+            chunks = list(self._output.get(name, ()))
+        return b"".join(chunks).decode(errors="replace")
+
+    def _watch_loop(self):
+        while not self._stop.is_set():
+            with self._lock:
+                running = [(name, proc)
+                           for name, proc in self.procs.items()
+                           if self.phases.get(name) == PodStatus.RUNNING]
+            for name, proc in running:
+                rc = proc.poll()
+                if rc is None:
+                    continue
+                phase = PodStatus.SUCCEEDED if rc == 0 \
+                    else PodStatus.FAILED
+                with self._lock:
+                    # delete_pod may have won the race: its verdict stays
+                    if self.phases.get(name) != PodStatus.RUNNING:
+                        continue
+                    self.phases[name] = phase
+                self._emit(name, phase, exit_code=rc)
+            time.sleep(0.1)
+
+    def _emit(self, name: str, phase: str, address: str = "",
+              exit_code=None):
+        if self._callback is not None:
+            self._callback(name, phase, address, exit_code)
+
+
+class K8sClient(AbstractK8sClient):
+    """The real Kubernetes client.  It needs the `kubernetes` package,
+    which the port does not ship: constructing one raises (ROADMAP.md
+    queue 1, item 12); `--use_process_k8s` and `--use_fake_k8s` run
+    without it."""
+
+    def __init__(self, namespace: str = "default", job_name: str = "job"):
+        raise ImportError(
+            "The `kubernetes` package is required for a cluster job on "
+            "Kubernetes (the real K8sClient waits for ROADMAP.md queue 1, "
+            "item 12); run the master with --use_process_k8s true (worker "
+            "processes on this machine) or --use_fake_k8s true")

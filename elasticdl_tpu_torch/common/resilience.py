@@ -15,9 +15,9 @@ raise:
     faults.InjectedFault (and DroppedRequest)     yes
     ConnectionError (refused, reset, aborted)     yes
     socket.timeout / TimeoutError                 yes  (DEADLINE_EXCEEDED)
-    ServingRpcError, HTTP 503 (server stopping)   yes  (UNAVAILABLE)
-    ServingRpcError, HTTP 504                     yes  (DEADLINE_EXCEEDED)
-    ServingRpcError, HTTP 400, 404, 500           no   (INVALID_ARGUMENT,
+    HttpRpcError, HTTP 503 (server stopping)      yes  (UNAVAILABLE)
+    HttpRpcError, HTTP 504                        yes  (DEADLINE_EXCEEDED)
+    HttpRpcError, HTTP 400, 404, 500              no   (INVALID_ARGUMENT,
                                                         UNIMPLEMENTED,
                                                         INTERNAL)
     anything else                                 no
@@ -47,7 +47,11 @@ ENV_INITIAL_BACKOFF_S = "ELASTICDL_RPC_INITIAL_BACKOFF_S"
 ENV_MAX_BACKOFF_S = "ELASTICDL_RPC_MAX_BACKOFF_S"
 ENV_ATTEMPT_TIMEOUT_S = "ELASTICDL_RPC_ATTEMPT_TIMEOUT_S"
 
-# HTTP statuses of a ServingStub call that a retry may cure
+# A cluster worker whose master stayed unreachable past the retry budget
+# exits with this code: a charged relaunch (master/pod_manager.py)
+RETRY_EXHAUSTED_EXIT_CODE = 45
+
+# HTTP statuses of a stub's call that a retry may cure
 RETRYABLE_HTTP_STATUSES = frozenset({503, 504})
 
 
@@ -78,9 +82,9 @@ def is_retryable_error(exc: BaseException) -> bool:
     if isinstance(exc, (ConnectionError, socket.timeout, TimeoutError)):
         return True
     # proto/service imports this module: the reverse import waits
-    from elasticdl_tpu_torch.proto.service import ServingRpcError
+    from elasticdl_tpu_torch.proto.service import HttpRpcError
 
-    if isinstance(exc, ServingRpcError):
+    if isinstance(exc, HttpRpcError):
         return exc.status in RETRYABLE_HTTP_STATUSES
     return False
 

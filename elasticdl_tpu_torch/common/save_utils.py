@@ -17,6 +17,12 @@ first, so every listed step can be verified.  A step directory without
 - Restore: `torch.load(..., weights_only=True, map_location=<the
   template's device>)`.  `verify_step` checks a step against its
   manifest; `maybe_restore` falls back past a torn or corrupt step.
+  `restorable_step` is the step it lands on, found before any model
+  exists: the newest step that passes its manifest check and whose
+  `state.pt` loads.  A relaunched job's task journal is trusted up to
+  that step (master/main.py), so a step with no manifest whose state
+  does not load moves the cutoff back with the restore, where the JAX
+  master keeps trusting it.
 - Rotation: keep the newest `keep_max` steps, except those pinned with
   `pin_step` (a reader mid-restore).
 - Async save: `save` takes owning host copies of the parameters, the
@@ -65,6 +71,7 @@ import hashlib
 import inspect
 import json
 import os
+import pickle
 import shutil
 import threading
 import time
@@ -87,6 +94,10 @@ from elasticdl_tpu_torch.worker.trainer import TrainState
 logger = get_logger(__name__)
 
 STATE_FILE = "state.pt"
+# what a state.pt that does not load raises: a truncated or foreign file,
+# a missing key, a shape the template refuses
+LOAD_ERRORS = (RuntimeError, OSError, KeyError, ValueError, EOFError,
+               pickle.UnpicklingError)
 # the file orbax writes into every step directory it finalizes
 _ORBAX_MARKER = "_CHECKPOINT_METADATA"
 
@@ -270,6 +281,28 @@ def intact_steps(checkpoint_dir: str) -> List[int]:
             if verify_step(checkpoint_dir, step)]
 
 
+def _state_loads(checkpoint_dir: str, step: int) -> bool:
+    """True when the step's state.pt loads (on the CPU)."""
+    path = os.path.join(os.path.abspath(checkpoint_dir), str(int(step)),
+                        STATE_FILE)
+    try:
+        blob = torch.load(path, weights_only=True, map_location="cpu")
+    except LOAD_ERRORS as exc:
+        logger.warning("checkpoint step %d does not load (%s)", step, exc)
+        return False
+    return isinstance(blob, dict) and {"step", "model", "optimizer"} \
+        <= set(blob)
+
+
+def restorable_step(checkpoint_dir: str) -> Optional[int]:
+    """The step `CheckpointSaver.maybe_restore` restores: the newest
+    intact step whose state.pt loads; None when there is none."""
+    for step in reversed(intact_steps(checkpoint_dir)):
+        if _state_loads(checkpoint_dir, step):
+            return step
+    return None
+
+
 class CheckpointSaver:
     def __init__(self, checkpoint_dir: str, keep_max: int = 3,
                  clock=time.time):
@@ -297,6 +330,10 @@ class CheckpointSaver:
 
     def _manifest_path(self, step: int) -> str:
         return os.path.join(self._manifest_dir, f"{int(step)}.json")
+
+    @property
+    def checkpoint_dir(self) -> str:
+        return self._dir
 
     def all_steps(self) -> List[int]:
         """Finalized steps (those whose state.pt is in place), sorted."""
@@ -479,6 +516,15 @@ class CheckpointSaver:
                     "fp32 on restore", step)
         return dequantize_arena_tree(model_state)
 
+    def load_step_into(self, template: TrainState,
+                       step: int) -> TrainState:
+        """Load committed `step` into `template` in place (a cluster
+        rank's restore of the step its group agreed on).  A load error
+        raises; a later load of another step overwrites every tensor."""
+        restored = self._load_into(template, step)
+        logger.info("Restored checkpoint step %d", step)
+        return restored
+
     def restore_step(self, step: int, template: TrainState,
                      arena_convert: bool = False) -> Optional[TrainState]:
         """A separate TrainState holding checkpointed `step` (eval at a
@@ -513,7 +559,7 @@ class CheckpointSaver:
                 restored = self._load_into(template, step, arena_convert)
             except ArenaDtypeMismatch:
                 raise
-            except (RuntimeError, OSError, KeyError, ValueError) as exc:
+            except LOAD_ERRORS as exc:
                 last_exc = exc
                 logger.warning("checkpoint step %d failed to restore (%s); "
                                "falling back to the previous good step",

@@ -1,7 +1,20 @@
-"""The master of a Local job (the port's copy of the Local subset of the
-JAX package's master/main.py): shards from the readers -> task manager
--> evaluation service -> servicer -> wait for completion, with the final
-evaluation round injected when the queue first drains.
+"""The master of a job (the port of the JAX package's master/main.py):
+shards from the readers -> task manager -> evaluation service ->
+servicer -> wait for completion, with the final evaluation round
+injected when the queue first drains.
+
+A cluster job (`python -m elasticdl_tpu_torch.master.main
+--distribution_strategy AllReduce --use_process_k8s true ...`) gives
+the master a Kubernetes client (`main()` picks it: `--use_process_k8s`
+runs worker pods as local processes, `--use_fake_k8s` keeps them in
+memory, and the real client raises without its package).  The master
+then builds what the JAX master builds with one: the recovery clock,
+the rendezvous server, the pod manager (worker commands are the
+master's flags re-serialized, `_worker_command`) and the training
+policy engine over it, serves its methods on `--port`
+(master/server.py, HTTP in place of gRPC), and adds the pod rows to
+`snapshot()`.  A train job with `--output` ends with one SAVE_MODEL
+task, which the leading rank exports.
 
 A train job with `--checkpoint_dir` journals its finished training
 shards at `<checkpoint_dir>/task_state.json`, trusted up to the newest
@@ -41,34 +54,51 @@ flight recorder's state.  The recorder takes the process's program
 registry, so a recompile storm captures a bundle at once and every
 bundle has a `programs.json`.
 
-What the JAX master builds only with a `PodManager` waits for the pods
-and stays with the cluster slice (ROADMAP.md queue 1, item 12): the
-serving fleet, the `FreshnessTracker` it feeds and both policy engines
-(ported in master/serving_fleet.py and master/policy.py, and built by
-the online loop, online/pipeline.py), the recovery clock, the pod rows
-of `snapshot()` and the gRPC server.
+The serving fleet, the `FreshnessTracker` it feeds and the serving
+policy engine, which the JAX master also builds over a pod manager,
+wait for ROADMAP.md queue 1, item 12 (they are ported in
+master/serving_fleet.py and master/policy.py and built by the online
+loop, online/pipeline.py).
 """
 
 from __future__ import annotations
 
+import json
 import os
+import sys
 import threading
 import time
 from typing import Optional
 
-from elasticdl_tpu_torch.common import faults, resilience
+from elasticdl_tpu_torch.common import args as args_lib
+from elasticdl_tpu_torch.common import events, faults, resilience
 from elasticdl_tpu_torch.common import metrics as metrics_lib
 from elasticdl_tpu_torch.common import telemetry as telemetry_lib
 from elasticdl_tpu_torch.common.flight import FlightRecorder
+from elasticdl_tpu_torch.common.constants import (
+    KEEP_ALIVE_INTERVAL_S,
+    DistributionStrategy,
+)
 from elasticdl_tpu_torch.common.history import MetricHistory
+from elasticdl_tpu_torch.common.k8s_client import (
+    FakeK8sClient,
+    K8sClient,
+    ProcessK8sClient,
+    parse_volumes,
+)
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_handler import load_module
 from elasticdl_tpu_torch.common.programs import default_program_registry
-from elasticdl_tpu_torch.common.save_utils import intact_steps
+from elasticdl_tpu_torch.common.save_utils import restorable_step
 from elasticdl_tpu_torch.common.slo import SloEvaluator, shipped_specs
 from elasticdl_tpu_torch.common.summary import SummaryWriter
 from elasticdl_tpu_torch.data.reader import create_data_reader
 from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
+from elasticdl_tpu_torch.master.pod_manager import PodManager
+from elasticdl_tpu_torch.master.policy import PolicyConfig, PolicyEngine
+from elasticdl_tpu_torch.master.recovery import RecoveryClock
+from elasticdl_tpu_torch.master.rendezvous_server import RendezvousServer
+from elasticdl_tpu_torch.master.server import MasterServer
 from elasticdl_tpu_torch.master.servicer import MasterServicer
 from elasticdl_tpu_torch.master.task_manager import (
     TaskManager,
@@ -89,8 +119,16 @@ class Master:
     flight_recorder = None
     # the /metrics, /healthz, /varz server, once start_telemetry ran
     telemetry = None
+    # a cluster job's control plane: None without a k8s client
+    recovery_clock = None
+    rendezvous_server = None
+    pod_manager = None
+    policy_engine = None
+    # the RPC server and its port, once start_rpc ran
+    rpc_server = None
+    bound_port = None
 
-    def __init__(self, args):
+    def __init__(self, args, k8s_client=None):
         self.args = args
         self.job_type = args.job_type
         training_shards = (
@@ -155,8 +193,39 @@ class Master:
             summary_writer=self.eval_summary,
             eval_metrics=self._load_eval_metrics(args),
         )
+        self._k8s = k8s_client
+        if k8s_client is not None:
+            self.recovery_clock = RecoveryClock()
+            self.rendezvous_server = RendezvousServer(
+                coordinator_port=args.coordinator_port)
+            self.pod_manager = PodManager(
+                k8s_client,
+                task_manager=self.task_manager,
+                rendezvous_server=self.rendezvous_server,
+                job_name=args.job_name,
+                num_workers=args.num_workers,
+                image=args.image_name,
+                worker_command=self._worker_command,
+                relaunch_on_worker_failure=args.relaunch_on_worker_failure,
+                worker_resources=_parse_resources(
+                    args.worker_resource_request),
+                priority_class=args.worker_pod_priority,
+                on_job_abort=self._on_job_abort,
+                recovery_clock=self.recovery_clock,
+                volumes=parse_volumes(args.volume),
+                workers_per_group=args.workers_per_group,
+            )
         self.servicer = MasterServicer(
-            self.task_manager, evaluation_service=self.evaluation_service)
+            self.task_manager, evaluation_service=self.evaluation_service,
+            rendezvous_server=self.rendezvous_server,
+            recovery_clock=self.recovery_clock)
+        if self.pod_manager is not None:
+            # built with the pods so snapshot() and /metrics show it; its
+            # thread runs only at --policy_interval > 0
+            self.policy_engine = PolicyEngine(
+                self.task_manager, self.pod_manager,
+                PolicyConfig.from_args(args),
+                telemetry_fn=self.servicer.worker_telemetry)
         if (args.history_interval > 0 or args.slo_interval > 0
                 or args.incident_dir):
             self.metric_history = MetricHistory(
@@ -183,6 +252,7 @@ class Master:
                 on_breach=self.flight_recorder.breach,
             )
         self._done = threading.Event()
+        self._aborted: Optional[str] = None
         self.task_manager.add_all_done_callback(self._done.set)
         # The final evaluation over the validation set, injected by the
         # task manager the moment the queue first drains.
@@ -190,6 +260,12 @@ class Master:
         self._evaluation_shards = evaluation_shards
         if evaluation_shards and self.job_type == "train":
             self.task_manager.add_pre_finish_provider(self._final_eval_tasks)
+        # a cluster job's export rides the queue: one SAVE_MODEL task with
+        # the output dir in its rider, after the final evaluation round
+        self._save_model_done = False
+        if self.pod_manager is not None and self.job_type == "train" \
+                and args.output:
+            self.task_manager.add_pre_finish_provider(self._save_model_tasks)
 
     @staticmethod
     def _load_eval_metrics(args):
@@ -213,27 +289,98 @@ class Master:
         return [(shard, pb.EVALUATION, version)
                 for shard in self._evaluation_shards]
 
-    def start(self) -> None:
-        """Start the metric-history and SLO threads; each runs only at
-        an interval > 0 (at 0, a caller ticks by hand)."""
+    def _save_model_tasks(self):
+        if self._save_model_done:
+            return []
+        self._save_model_done = True
+        rider = json.dumps({"output": self.args.output,
+                            "saved_model": bool(
+                                self.args.export_saved_model)})
+        return [(pb.Shard(), pb.SAVE_MODEL, -1, rider)]
+
+    def _worker_command(self, worker_id: int):
+        """A worker pod's command: this master's flags re-serialized,
+        plus the worker's id and the master's address."""
+        worker_args = args_lib.build_arguments_from_parsed_result(
+            self.args, filter_args={"job_type", "worker_id",
+                                    "master_addr"})
+        port = self.bound_port or self.args.port
+        host = self._k8s.master_host(self.args.job_name)
+        return ([sys.executable, "-m", "elasticdl_tpu_torch.worker.main"]
+                + worker_args
+                + ["--master_addr", f"{host}:{port}",
+                   "--worker_id", str(worker_id),
+                   "--job_type", self.job_type])
+
+    def _on_job_abort(self, reason: str) -> None:
+        logger.error("Job aborted: %s", reason)
+        self._aborted = reason
+        self._done.set()
+
+    def start_rpc(self, port: Optional[int] = None) -> int:
+        """Serve the servicer's methods on `port` (default --port; 0:
+        ephemeral) and start the lease reaper; returns the bound port."""
+        self.rpc_server = MasterServer(self.servicer)
+        self.bound_port = self.rpc_server.start(
+            self.args.port if port is None else port)
+        logger.info("Master serving on port %d", self.bound_port)
+        self.task_manager.start_lease_reaper()
+        return self.bound_port
+
+    def start(self, port: Optional[int] = None) -> Optional[int]:
+        """Start the job's threads.  A cluster job (or a caller that
+        names a port) first serves the RPC methods, then creates the
+        worker pods and starts the policy engine (its loop only at
+        --policy_interval > 0).  The metric-history and SLO threads run
+        only at an interval > 0 (at 0, a caller ticks by hand).
+        Returns the RPC port, or None without one."""
+        if self.pod_manager is not None or port is not None:
+            self.start_rpc(port)
+        if self.pod_manager is not None:
+            self.pod_manager.start()
+        if self.policy_engine is not None and self.policy_engine.start():
+            logger.info("Policy engine ticking every %.1fs",
+                        self.policy_engine.config.interval_s)
         if self.metric_history is not None and self.metric_history.start():
             logger.info("Metric history sampling every %.1fs",
                         self.metric_history.interval_s)
         if self.slo_evaluator is not None and self.slo_evaluator.start():
             logger.info("SLO evaluator ticking every %.1fs",
                         self.slo_evaluator.interval_s)
+        if self.pod_manager is not None:
+            # a restored journal may already be terminal: no report will
+            # drain the queue, so check once now
+            self.task_manager.maybe_finish_if_drained()
+        return self.bound_port
 
     def wait(self, timeout: Optional[float] = None) -> bool:
-        """Block until the job finished (True) or `timeout` passed
-        (False)."""
+        """Block until the job finished (True), aborted or `timeout`
+        passed (False).  A cluster master logs its workers that went
+        silent (the lease reaper recovers their tasks)."""
         deadline = None if timeout is None else time.time() + timeout
+        stale_after = 3 * KEEP_ALIVE_INTERVAL_S
+        next_stale_check = time.time() + stale_after
         while True:
             remaining = None if deadline is None else deadline - time.time()
             if remaining is not None and remaining <= 0:
                 return False
             wait_s = 0.2 if remaining is None else min(0.2, remaining)
-            if self._done.wait(timeout=wait_s) and self.task_manager.finished:
-                return True
+            if self._done.wait(timeout=wait_s):
+                if self._aborted is not None:
+                    return False
+                if self.task_manager.finished:
+                    return True
+            if self.pod_manager is not None \
+                    and time.time() > next_stale_check:
+                next_stale_check = time.time() + stale_after
+                alive = set(self.pod_manager.alive_workers())
+                stale = {w: round(t, 1) for w, t in
+                         self.servicer.stale_workers(stale_after).items()
+                         if w in alive}
+                if stale:
+                    logger.warning("Workers silent > %.0fs (the lease "
+                                   "reaper will recover their tasks): %s",
+                                   stale_after, stale)
 
     def snapshot(self) -> dict:
         """Task progress, the online line of a perpetual queue, the SLO
@@ -245,6 +392,12 @@ class Master:
         online = self.task_manager.online_snapshot()
         if online is not None:
             out["online"] = online
+        if self.recovery_clock is not None:
+            out["recovery"] = self.recovery_clock.snapshot()
+        if self.pod_manager is not None:
+            out["pods"] = self.pod_manager.snapshot()
+        if self.policy_engine is not None:
+            out["policy"] = self.policy_engine.snapshot()
         if self.slo_evaluator is not None:
             slo = self.slo_evaluator.snapshot()
             slo["history"] = self.metric_history.snapshot()
@@ -271,6 +424,10 @@ class Master:
         manager's and, with judgment on, the SLO evaluator's."""
         registries = [metrics_lib.default_registry(),
                       self.task_manager.counters.registry]
+        for component in (self.recovery_clock, self.pod_manager,
+                          self.policy_engine):
+            if component is not None:
+                registries.append(component.metrics_registry)
         if self.slo_evaluator is not None:
             registries.append(self.slo_evaluator.metrics_registry)
         return registries
@@ -286,8 +443,10 @@ class Master:
             role="master",
             port=port,
             healthz_fn=lambda: {
-                "job_finished": self.task_manager.finished},
-            varz_fn=lambda: {"snapshot": self.snapshot()},
+                "job_finished": self.task_manager.finished,
+                "aborted": self._aborted},
+            varz_fn=lambda: {"snapshot": self.snapshot(),
+                             "rpc_port": self.bound_port},
         )
         try:
             started = self.telemetry.start()
@@ -299,6 +458,13 @@ class Master:
         return started
 
     def stop(self) -> None:
+        if self.policy_engine is not None:
+            self.policy_engine.stop()
+        if self.pod_manager is not None:
+            self.pod_manager.stop()
+        if self.rpc_server is not None:
+            self.rpc_server.stop(grace=1.0)
+            self.rpc_server = None
         if self.telemetry is not None:
             self.telemetry.stop()
             self.telemetry = None
@@ -316,8 +482,84 @@ class Master:
 
 def latest_model_checkpoint_step(checkpoint_dir: str) -> Optional[int]:
     """The step a relaunch restores: the newest committed model
-    checkpoint (its `state.pt` in place) that passes its manifest check,
-    by the rule `CheckpointSaver.maybe_restore` applies; None when there
-    is none.  Step-based, never a clock comparison."""
-    steps = intact_steps(checkpoint_dir)
-    return steps[-1] if steps else None
+    checkpoint that passes its manifest check and whose state loads
+    (`save_utils.restorable_step`, the rule `maybe_restore` and a
+    cluster group's restore apply); None when there is none.
+    Step-based, never a clock comparison."""
+    return restorable_step(checkpoint_dir)
+
+
+def _parse_resources(spec: str) -> dict:
+    """'cpu=1,memory=4096Mi' -> {'cpu': '1', 'memory': '4096Mi'}"""
+    out = {}
+    for part in (spec or "").split(","):
+        if "=" in part:
+            key, value = part.split("=", 1)
+            out[key.strip()] = value.strip()
+    return out
+
+
+def k8s_client_for(args):
+    """The cluster a job's pods run on: local processes
+    (--use_process_k8s), memory (--use_fake_k8s), or Kubernetes, whose
+    client raises without its package.  None for a Local job."""
+    if args.distribution_strategy == DistributionStrategy.LOCAL:
+        return None
+    if args.use_process_k8s:
+        return ProcessK8sClient()
+    if args.use_fake_k8s:
+        return FakeK8sClient()
+    return K8sClient(namespace=args.namespace, job_name=args.job_name)
+
+
+def main(argv=None, k8s_client=None, linger_s: float = 60.0,
+         on_started=None) -> int:
+    """The master process's entry point.  A cluster strategy builds the
+    elastic control plane over the client `k8s_client_for` picks (a
+    caller may pass one); `on_started(master)`, when given, is called
+    once the master serves and its pods are created.  Exit code 0 when
+    the job finished, 1 when it aborted."""
+    args = args_lib.parse_master_args(argv)
+    if k8s_client is None:
+        k8s_client = k8s_client_for(args)
+    # a chaos run's fault schedule travels in the environment
+    faults.configure_from_env()
+    # --event_log wins; else the environment's; export_env hands the
+    # path to the worker processes the same way
+    if args.event_log:
+        events.configure(args.event_log, role="master", export_env=True)
+    else:
+        events.configure_from_env(role="master")
+    master = Master(args, k8s_client=k8s_client)
+    try:
+        master.start()
+        master.start_telemetry(args.telemetry_port)
+        if on_started is not None:
+            on_started(master)
+        ok = master.wait()
+        logger.info("Job complete: %s", master.snapshot())
+        if master.recovery_clock is not None and \
+                master.recovery_clock.history:
+            logger.info("Elastic recoveries this job: %s",
+                        [round(s, 2) for s in master.recovery_clock.history])
+        metrics = master.evaluation_service.latest_metrics()
+        if metrics:
+            logger.info("Final metrics: %s", metrics)
+        # linger: the workers see job_finished, flush and exit before
+        # the server goes (a cluster master waits for them, at most
+        # linger_s; the pods still alive then are stopped)
+        deadline = time.time() + linger_s
+        while master.pod_manager is not None \
+                and master.pod_manager.alive_workers() \
+                and time.time() < deadline:
+            time.sleep(0.1)
+    finally:
+        master.stop()
+        stop = getattr(k8s_client, "stop", None)
+        if stop is not None:
+            stop()
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -953,6 +953,21 @@ class TaskManager:
         must not call back into this TaskManager."""
         self._pre_finish_providers.append(provider)
 
+    def start_lease_reaper(self, interval_s: float = 30.0
+                           ) -> threading.Thread:
+        """A daemon thread that reaps expired leases every `interval_s`
+        until the job finishes (a cluster master's; the Local runner's
+        leases end with its workers)."""
+        def loop():
+            while not self.finished:
+                time.sleep(interval_s)
+                self.reap_expired_tasks()
+
+        thread = threading.Thread(target=loop, daemon=True,
+                                  name="lease-reaper")
+        thread.start()
+        return thread
+
     def maybe_finish_if_drained(self) -> None:
         """Run the finish check outside any report (a job whose queue is
         already drained at start would otherwise never finish)."""

@@ -6,10 +6,11 @@ JAX package's proto/service.py, its method tables and clients).
   is `servicer.get_task(req, None)`.  The Local runner's master and
   workers share a process; tests and in-process benches drive serving
   the same way.
-- `ServingStub` calls a serving server (serving/server.py) over HTTP/1.1
-  from the standard library, where the JAX stub speaks gRPC: `POST
-  /elasticdl_tpu.Serving/<method>` with the serialized request as the
-  body, the serialized response back.  The stub and the in-process
+- `ServingStub` calls a serving server (serving/server.py) and
+  `MasterStub` a master (master/server.py) over HTTP/1.1 from the
+  standard library, where the JAX stubs speak gRPC: `POST
+  /elasticdl_tpu.<Service>/<method>` with the serialized request as the
+  body, the serialized response back.  Each stub and its in-process
   client are interchangeable.
 
 Fault points and retries (`common/faults`, `common/resilience`), as in
@@ -19,7 +20,9 @@ attempt, so a chaos schedule drives the in-process path and the socket
 alike.  The in-process clients do not retry: an exception, an injected
 one included, reaches the caller unchanged (a Local job's
 `TaskDataService` retries `get_task` and `report_task_result` itself).
-A `ServingStub` given a `retry_policy` retries a call under it.
+A stub given a `retry_policy` retries a call under it, as the JAX
+`MasterStub` does (an injected fault, a refused or reset connection, a
+socket timeout, HTTP 503 and 504 retry).
 
 `FleetRouter` fans Predict requests out over serving replicas, one
 client per replica (a `ServingStub` or an `InProcessServingClient`), as
@@ -36,20 +39,27 @@ from typing import Optional
 
 from elasticdl_tpu_torch.common import events, faults
 from elasticdl_tpu_torch.common import metrics as _metrics
+from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.proto import serving as spb
 
 SERVICE_NAME = "elasticdl_tpu.Master"
 SERVING_SERVICE_NAME = "elasticdl_tpu.Serving"
 
-MASTER_METHODS = (
-    "get_task",
-    "report_task_result",
-    "report_evaluation_metrics",
-    "report_version",
-)
+# method name -> (request class, response class)
+MASTER_METHOD_TYPES = {
+    "get_task": (pb.GetTaskRequest, pb.GetTaskResponse),
+    "get_spmd_task": (pb.GetSpmdTaskRequest, pb.SpmdTaskResponse),
+    "report_task_result": (pb.ReportTaskResultRequest, pb.Empty),
+    "report_evaluation_metrics": (pb.ReportEvaluationMetricsRequest,
+                                  pb.Empty),
+    "report_version": (pb.ReportVersionRequest, pb.Empty),
+    "get_cluster_spec": (pb.GetClusterSpecRequest, pb.ClusterSpec),
+    "keep_alive": (pb.KeepAliveRequest, pb.Empty),
+}
+MASTER_METHODS = tuple(MASTER_METHOD_TYPES)
 
 # method name -> fault-injection point (common/faults.py), the JAX
-# package's table; the port's master serves the first four methods.
+# package's table
 METHOD_FAULT_POINTS = {
     "get_task": faults.POINT_RPC_GET_TASK,
     "get_spmd_task": faults.POINT_RPC_GET_TASK,
@@ -115,7 +125,7 @@ class InProcessServingClient(_InProcessClient):
     _fault_points = SERVING_METHOD_FAULT_POINTS
 
 
-class ServingRpcError(RuntimeError):
+class HttpRpcError(RuntimeError):
     """The server answered with an HTTP status other than 200: 400 (the
     request did not parse), 404, 500 (the handler raised) or 503 (the
     server is stopping).  In-band codes are not errors."""
@@ -126,25 +136,33 @@ class ServingRpcError(RuntimeError):
         self.message = message
 
 
-class ServingStub:
-    """Client of a ServingServer at `target` ("host:port").  Each thread
-    that calls the stub holds its own persistent connection; a call that
-    fails closes it, and the next call opens a new one.  `timeout` (per
-    call, else the stub's default) bounds the connect and each socket
-    read and write, in seconds; None waits forever.
+class ServingRpcError(HttpRpcError):
+    """A serving server's HTTP error."""
 
-    Every attempt fires the method's fault point (`rpc.predict`,
-    `rpc.health_probe`).  With a `retry_policy`, a call retries under it
-    (common/resilience.py: an injected fault, a refused or reset
-    connection, a socket timeout, HTTP 503 and 504 retry), and the
-    policy's `attempt_timeout_s` bounds each attempt when the call gives
-    no timeout of its own."""
+
+class MasterRpcError(HttpRpcError):
+    """A master's HTTP error."""
+
+
+class _HttpStub:
+    """Client of an HTTP RPC server (common/http_rpc.py) at `target`
+    ("host:port").  Each thread that calls the stub holds its own
+    persistent connection; a call that fails closes it, and the next call
+    opens a new one.  `timeout` (per call, else the stub's default)
+    bounds the connect and each socket read and write, in seconds; None
+    waits forever, unless a `retry_policy` gives an `attempt_timeout_s`.
+    Every attempt fires the method's fault point."""
+
+    _service = ""
+    _methods: dict = {}
+    _fault_points: dict = {}
+    _error = HttpRpcError
 
     def __init__(self, target: str, timeout: Optional[float] = None,
                  retry_policy=None):
         host, _, port = target.rpartition(":")
         if not host or not port.isdigit():
-            raise ValueError(f"serving target {target!r} is not host:port")
+            raise ValueError(f"target {target!r} is not host:port")
         self._host = host.strip("[]")
         self._port = int(port)
         self._timeout = timeout
@@ -156,8 +174,8 @@ class ServingStub:
             name: _with_faults(
                 lambda request, timeout, _name=name: self._call(
                     _name, request, timeout),
-                SERVING_METHOD_FAULT_POINTS[name], retry_policy, name)
-            for name in SERVING_METHODS}
+                self._fault_points.get(name), retry_policy, name)
+            for name in self._methods}
 
     def _connection(self, timeout) -> http.client.HTTPConnection:
         conn = getattr(self._local, "conn", None)
@@ -180,7 +198,7 @@ class ServingStub:
             self._connections.discard(conn)
 
     def _call(self, name: str, request, timeout):
-        response_cls = SERVING_METHODS[name][1]
+        response_cls = self._methods[name][1]
         if timeout is None:
             timeout = self._timeout
         if timeout is None and self._retry_policy is not None:
@@ -188,7 +206,7 @@ class ServingStub:
         body = request.SerializeToString()
         conn = self._connection(timeout)
         try:
-            conn.request("POST", f"/{SERVING_SERVICE_NAME}/{name}", body,
+            conn.request("POST", f"/{self._service}/{name}", body,
                          headers={"Content-Type": "application/x-protobuf"})
             reply = conn.getresponse()
             data = reply.read()
@@ -198,9 +216,27 @@ class ServingStub:
         if reply.will_close:
             self._drop(conn)
         if reply.status != 200:
-            raise ServingRpcError(reply.status,
-                                  data.decode("utf-8", "replace"))
+            raise self._error(reply.status,
+                              data.decode("utf-8", "replace"))
         return response_cls.FromString(data)
+
+    def close(self) -> None:
+        """Close every thread's connection."""
+        with self._lock:
+            connections = list(self._connections)
+            self._connections.clear()
+        for conn in connections:
+            conn.close()
+
+
+class ServingStub(_HttpStub):
+    """Client of a ServingServer.  Fault points `rpc.predict` and
+    `rpc.health_probe`."""
+
+    _service = SERVING_SERVICE_NAME
+    _methods = SERVING_METHODS
+    _fault_points = SERVING_METHOD_FAULT_POINTS
+    _error = ServingRpcError
 
     def predict(self, request: spb.PredictRequest,
                 timeout: Optional[float] = None) -> spb.PredictResponse:
@@ -210,13 +246,22 @@ class ServingStub:
                timeout: Optional[float] = None) -> spb.HealthResponse:
         return self._calls["health"](request, timeout)
 
-    def close(self) -> None:
-        """Close every thread's connection."""
-        with self._lock:
-            connections = list(self._connections)
-            self._connections.clear()
-        for conn in connections:
-            conn.close()
+
+class MasterStub(_HttpStub):
+    """Client of a master's server (master/server.py): one method per
+    entry of MASTER_METHODS, each taking (request, timeout=None), as the
+    in-process client does."""
+
+    _service = SERVICE_NAME
+    _methods = MASTER_METHOD_TYPES
+    _fault_points = METHOD_FAULT_POINTS
+    _error = MasterRpcError
+
+    def __init__(self, target: str, timeout: Optional[float] = None,
+                 retry_policy=None):
+        super().__init__(target, timeout=timeout, retry_policy=retry_policy)
+        for name, call in self._calls.items():
+            setattr(self, name, call)
 
 
 # Router-side fan-out counters: how often a request left its first-choice

@@ -9,7 +9,8 @@ in-process client (proto/service.py InProcessServingClient) and a real
 socket exercise identical code.  Status rides in-band as ServingCode:
 overload/shutdown are expected outcomes, not transport failures.
 
-ServingServer carries gRPC's unary calls on `http.server`:
+ServingServer carries gRPC's unary calls on `http.server`
+(common/http_rpc.py, which the master's transport shares):
 
 - `POST /elasticdl_tpu.Serving/<method>` with the serialized request as
   the body; the methods are gRPC's, `predict` and `health`, and the
@@ -27,10 +28,7 @@ in flight finish), then the batcher, then the reloader, then telemetry.
 
 from __future__ import annotations
 
-import socket
-import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
@@ -38,6 +36,7 @@ import numpy as np
 from elasticdl_tpu_torch.common import events
 from elasticdl_tpu_torch.common import metrics as metrics_lib
 from elasticdl_tpu_torch.common import telemetry as telemetry_lib
+from elasticdl_tpu_torch.common.http_rpc import HttpRpcServer, routes_for
 from elasticdl_tpu_torch.common.export import SINGLE_FEATURE_KEY
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.proto import serving as spb
@@ -57,10 +56,6 @@ assert batcher_lib.OVERLOADED == spb.SERVING_OVERLOADED
 assert batcher_lib.SHUTTING_DOWN == spb.SERVING_SHUTTING_DOWN
 assert batcher_lib.INVALID == spb.SERVING_INVALID
 assert batcher_lib.INTERNAL == spb.SERVING_INTERNAL
-
-CONTENT_TYPE = "application/x-protobuf"
-# seconds an idle keep-alive connection stays open
-IDLE_TIMEOUT_S = 300.0
 
 
 def to_tensor_proto(arr: np.ndarray) -> spb.TensorProto:
@@ -203,128 +198,6 @@ class ServingServicer:
         return response
 
 
-class _Intake:
-    """The server's open connections and in-flight requests, so stop()
-    can refuse new requests, let the running ones finish, and then
-    close the idle keep-alive connections."""
-
-    def __init__(self):
-        self._cond = threading.Condition()
-        self._in_flight = 0
-        self._connections = set()
-        self.stopping = False
-
-    def opened(self, conn) -> None:
-        with self._cond:
-            self._connections.add(conn)
-
-    def closed(self, conn) -> None:
-        with self._cond:
-            self._connections.discard(conn)
-
-    def begin(self) -> bool:
-        with self._cond:
-            if self.stopping:
-                return False
-            self._in_flight += 1
-            return True
-
-    def end(self) -> None:
-        with self._cond:
-            self._in_flight -= 1
-            self._cond.notify_all()
-
-    def drain(self, grace: float) -> None:
-        """Refuse new requests, wait up to `grace` seconds for the ones
-        in flight, then shut every connection."""
-        deadline = time.monotonic() + grace
-        with self._cond:
-            self.stopping = True
-            while self._in_flight:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    logger.warning("stopping with %d requests in flight",
-                                   self._in_flight)
-                    break
-                self._cond.wait(left)
-            connections = list(self._connections)
-        for conn in connections:
-            try:
-                conn.shutdown(socket.SHUT_RDWR)
-            except OSError:
-                pass   # the peer closed it already
-
-
-def _handler_class(servicer, intake: _Intake, slots: threading.Semaphore):
-    routes = {}
-    for name, (request_cls, _) in SERVING_METHODS.items():
-        routes[f"/{SERVING_SERVICE_NAME}/{name}".lower()] = (
-            getattr(servicer, name), request_cls)
-
-    class _Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"      # keep-alive
-        disable_nagle_algorithm = True     # headers and body go at once
-        timeout = IDLE_TIMEOUT_S           # an idle connection closes
-
-        def setup(self):
-            super().setup()
-            intake.opened(self.connection)
-
-        def finish(self):
-            intake.closed(self.connection)
-            super().finish()
-
-        def _reply(self, status: int, body: bytes, ctype: str) -> None:
-            self.send_response(status)
-            self.send_header("Content-Type", ctype)
-            self.send_header("Content-Length", str(len(body)))
-            if status == 503:
-                self.send_header("Connection", "close")
-                self.close_connection = True
-            self.end_headers()
-            self.wfile.write(body)
-
-        def _error(self, status: int, message: str) -> None:
-            self._reply(status, message.encode("utf-8", "replace"),
-                        "text/plain; charset=utf-8")
-
-        def do_POST(self):  # noqa: N802 (http.server API)
-            body = self.rfile.read(int(self.headers.get("Content-Length",
-                                                         0)))
-            route = routes.get(self.path.lower())
-            if route is None:
-                self._error(404, f"unknown method {self.path}")
-                return
-            if not intake.begin():
-                self._error(503, "server is stopping")
-                return
-            try:
-                handler, request_cls = route
-                try:
-                    request = request_cls.FromString(body)
-                except spb.DecodeError as exc:
-                    self._error(400, f"malformed {request_cls.__name__}: "
-                                     f"{exc}")
-                    return
-                with slots:
-                    try:
-                        response = handler(request, None)
-                    except Exception as exc:   # answered as HTTP 500
-                        logger.exception("serving handler %s failed",
-                                         self.path)
-                        self._error(500, f"{type(exc).__name__}: {exc}")
-                        return
-                self._reply(200, response.SerializeToString(),
-                            CONTENT_TYPE)
-            finally:
-                intake.end()
-
-        def log_message(self, fmt, *args):
-            pass   # one line per request would swamp the log
-
-    return _Handler
-
-
 class ServingServer:
     """Owns the HTTP server plus the batcher/reloader lifecycle.
     `workers` bounds the requests handled at once (the JAX server's gRPC
@@ -343,9 +216,7 @@ class ServingServer:
         )
         self._workers = workers
         self._host = host
-        self._httpd: Optional[ThreadingHTTPServer] = None
-        self._thread: Optional[threading.Thread] = None
-        self._intake: Optional[_Intake] = None
+        self._rpc: Optional[HttpRpcServer] = None
         self.port: Optional[int] = None
         self._telemetry_port = telemetry_port
         self.telemetry: Optional[telemetry_lib.TelemetryServer] = None
@@ -394,19 +265,14 @@ class ServingServer:
 
     def start(self, port: int = 0) -> int:
         """Bind (port 0 = ephemeral), start serving; returns the port."""
-        self._intake = _Intake()
-        handler = _handler_class(
-            self.servicer, self._intake,
-            threading.BoundedSemaphore(self._workers))
-        self._httpd = ThreadingHTTPServer((self._host, port), handler)
-        self._httpd.daemon_threads = True
-        self.port = self._httpd.server_address[1]
+        self._rpc = HttpRpcServer(
+            routes_for(SERVING_SERVICE_NAME, self.servicer,
+                       {name: classes[0]
+                        for name, classes in SERVING_METHODS.items()}),
+            workers=self._workers, host=self._host, name="serving-http")
+        self.port = self._rpc.start(port)
         if self._reloader is not None:
             self._reloader.start()
-        self._thread = threading.Thread(
-            target=self._httpd.serve_forever, name="serving-http",
-            daemon=True)
-        self._thread.start()
         self._start_telemetry()
         logger.info("serving on port %d", self.port)
         return self.port
@@ -415,13 +281,8 @@ class ServingServer:
         """Drain order: stop intake (the socket), drain the batcher, stop
         the reloader, stop telemetry — requests in flight complete
         before the process exits."""
-        if self._httpd is not None:
-            self._httpd.shutdown()          # no new connections
-            self._intake.drain(grace)       # in-flight requests finish
-            self._httpd.server_close()
-            self._thread.join(timeout=grace)
-            self._httpd = None
-            self._thread = None
+        if self._rpc is not None:
+            self._rpc.stop(grace)
         self._batcher.shutdown()
         if self._reloader is not None:
             self._reloader.stop()
@@ -431,6 +292,5 @@ class ServingServer:
 
     def wait(self) -> None:
         """Block until stop() (from another thread) ends the server."""
-        thread = self._thread
-        while thread is not None and thread.is_alive():
-            thread.join(timeout=1.0)
+        if self._rpc is not None:
+            self._rpc.wait()

@@ -11,7 +11,8 @@ The port's TrainState is updated in place (`optimizer.step()` rewrites
 the parameters), where the JAX state is immutable and donated.  So a
 state that must stay put while training goes on (an eval task's, an
 export's) is an owning copy taken under the lock: `snapshot_state`.
-The remesh path waits for the parallel slice of the port.
+A cluster job has no shared owner: each rank holds its own copy of one
+model and restarts its process for a new topology (worker/spmd.py).
 """
 
 from __future__ import annotations
@@ -31,9 +32,10 @@ logger = get_logger(__name__)
 INIT_SEED = 0
 
 
-def _first_rows(tree):
+def first_rows(tree):
+    """One host row of each leaf (a sample for export signatures)."""
     if isinstance(tree, dict):
-        return {k: _first_rows(v) for k, v in tree.items()}
+        return {k: first_rows(v) for k, v in tree.items()}
     return np.asarray(tree[:1])
 
 
@@ -61,7 +63,7 @@ class ModelOwner:
         with self.lock:
             if self.sample_features is None:
                 # one host row, kept for export signatures
-                self.sample_features = _first_rows(batch["features"])
+                self.sample_features = first_rows(batch["features"])
             if self.state is not None:
                 return
             state = self.trainer.init_state(INIT_SEED, batch["features"])

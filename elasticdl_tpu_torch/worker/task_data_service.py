@@ -13,9 +13,8 @@ package: a transport failure or an injected fault (which behaves like
 one) retries with backoff (`resilience.is_retryable_error`); any other
 exception propagates at once.  A master unreachable past the get budget
 (`MASTER_GRACE_S`) ends the worker; a report that exhausts its budget is logged as lost, and the
-task's lease is what brings it back (at-least-once).  The SPMD
-slice-local batches (`local_batches_for_task`) wait for the cluster
-slice of the port.
+task's lease is what brings it back (at-least-once).  A cluster rank
+reads only its rows of each global batch (`local_batches_for_task`).
 """
 
 from __future__ import annotations
@@ -341,3 +340,44 @@ class TaskDataService:
                 buf = []
         if buf:
             yield pad_to_multiple(feed(buf), batch_size)
+
+    def local_batches_for_task(
+        self,
+        task: pb.Task,
+        batch_size: int,
+        feed: Callable,
+        feed_bulk: Optional[Callable],
+        local_start: int,
+        local_stop: int,
+    ) -> Iterator[Tuple[dict, int, bool]]:
+        """A cluster rank's batches: (batch, global_real, is_local).
+
+        For each full global batch of `batch_size` records this rank
+        reads only rows [local_start, local_stop) of it (its slice of
+        the data axis), so the ranks together read each record once;
+        those batches come with `is_local=True`.  The task's last partial
+        batch, if any, is read in full and wrap-padded identically on
+        every rank (`is_local=False`), so padding agrees without any
+        exchange between ranks."""
+        shard = task.shard
+        total = shard.end - shard.start
+        full = total // batch_size
+        for i in range(full):
+            base = shard.start + i * batch_size
+            sub = pb.Task(task_id=task.task_id, type=task.type,
+                          shard=pb.Shard(name=shard.name,
+                                         start=base + local_start,
+                                         end=base + local_stop))
+            for batch, _ in self.batches_for_task(
+                    sub, local_stop - local_start, feed,
+                    feed_bulk=feed_bulk):
+                yield batch, batch_size, True
+        if total - full * batch_size:
+            tail = pb.Task(task_id=task.task_id, type=task.type,
+                           shard=pb.Shard(
+                               name=shard.name,
+                               start=shard.start + full * batch_size,
+                               end=shard.end))
+            for batch, real in self.batches_for_task(
+                    tail, batch_size, feed, feed_bulk=feed_bulk):
+                yield batch, real, False

@@ -19,8 +19,20 @@ may carry host bookkeeping beside its data: an admission plan under
 `__store_plan__` (eager planning; applied before the step) or the raw
 sparse ids under `__store_sparse__` (deferred planning; prepared and
 applied here, inside the step-serialized region, in step order).
-`stage_batch` passes both through untouched.  The mesh, sharding and
-elastic prewarm wait for their slices of the port.
+`stage_batch` passes both through untouched.
+
+A cluster job's ranks train one model data-parallel over a `DataMesh`
+(parallel/mesh.py): `init_state_global` gives every rank rank 0's
+initial state, and `train_on_global_batch` runs the step of the JAX
+package's one program over the global batch: each rank computes the
+zoo's loss (a mean over rows) on its rows, its backward weighted by its
+share of the global rows, and one all-reduce sums the gradients together
+with the per-row loss sum and the row count.  The step's loss is the
+mean over every row of the global batch, whatever each rank holds, and
+every rank applies the same summed gradients, so all ranks hold the same
+parameters bit for bit after every step.  Mesh axes other than data,
+param sharding and elastic prewarm wait for ROADMAP.md queue 1, item
+12.
 
 The trainer's device entry points are registered programs
 (common/programs.py) under the JAX trainer's names: `worker_train_step`,
@@ -29,9 +41,8 @@ The trainer's device entry points are registered programs
 the first call at a batch shape).  The first call at a new signature is
 timed and its flops and bytes counted on that call; every call runs the
 same arithmetic as an unregistered one.  `init_state` is the JAX
-trainer's unregistered `init_state`; its registered `worker_init_state`
-is the multi-process `init_state_global`, which waits for the cluster
-slice (ROADMAP.md queue 1, item 12).
+trainer's unregistered `init_state`; the registered `worker_init_state`
+is the cluster's `init_state_global`, as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -55,7 +66,8 @@ from elasticdl_tpu_torch.data.wire import (
 )
 from elasticdl_tpu_torch.device import resolve_device
 from elasticdl_tpu_torch.layers.arena import fold_quantized_updates
-from elasticdl_tpu_torch.layers.linen import init_parameters
+from elasticdl_tpu_torch.layers.linen import BatchNorm, init_parameters
+from elasticdl_tpu_torch.parallel import collectives
 
 # Process-wide execution lock for the CPU.  CPU work runs synchronously
 # on the calling thread and spreads over PyTorch's intra-op threads;
@@ -205,6 +217,10 @@ class Trainer:
             "worker_eval_step", self._eval_step)
         self._timed_fused = programs.registered_jit(
             "worker_timed_fused", self._timed_steps)
+        self._init_global = programs.registered_jit(
+            "worker_init_state", self._init_state_global)
+        self.train_step_global = programs.registered_jit(
+            "worker_train_step", self._train_step_global)
 
     # ---- state ---------------------------------------------------------
 
@@ -230,6 +246,27 @@ class Trainer:
                           train=False)
         return TrainState(step=0, model=model,
                           optimizer=self.optimizer(model.parameters()))
+
+    def init_state_global(self, rng: Union[int, torch.Generator],
+                          sample_features, mesh) -> TrainState:
+        """A cluster rank's fresh state: `init_state` on this rank, then
+        rank 0's parameters and buffers broadcast to every rank, so the
+        group starts from one state (the JAX trainer gets the same from
+        one init program over the global mesh)."""
+        refuse_per_rank_statistics(self.model, mesh)
+        return run_device_serialized(self._init_global, rng,
+                                     sample_features, mesh,
+                                     device=self.device)
+
+    def _init_state_global(self, rng, sample_features, mesh) -> TrainState:
+        state = self._init_state_impl(rng, sample_features)
+        with torch.no_grad():
+            collectives.broadcast_(
+                [t for t in state.model.state_dict().values()
+                 if t.is_floating_point() or t.dtype in
+                 (torch.int8, torch.int32, torch.int64, torch.uint8)],
+                mesh)
+        return state
 
     def _cast(self, features):
         if not self.use_bf16:
@@ -398,6 +435,65 @@ class Trainer:
         anchor()
         return iters * 1e3 / start.elapsed_time(end)
 
+    # ---- data parallel ---------------------------------------------------
+
+    def _train_step_global(self, state: TrainState, shard,
+                           mesh) -> torch.Tensor:
+        """One step of the group over a global batch; `shard` is this
+        rank's rows (a mesh.LocalShard, already on the device)."""
+        batch = shard.batch
+        preds = self._forward(state.model, batch["features"], train=True)
+        loss = self.loss_fn(batch["labels"], preds.float()).float()
+        state.optimizer.zero_grad(set_to_none=True)
+        # the zoo's loss is a mean over this rank's rows: weighted by the
+        # rank's share, the summed gradients are those of the mean over
+        # the global batch
+        (loss * (shard.rows / shard.global_rows)).backward()
+        params = [p for p in state.model.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:
+                # a parameter the step did not reach: a zero gradient, as
+                # JAX's, so every rank reduces the same layout
+                p.grad = torch.zeros_like(p)
+        totals = torch.stack([loss.detach() * shard.rows,
+                              torch.tensor(float(shard.rows),
+                                           device=loss.device)])
+        collectives.all_reduce_sum_([p.grad for p in params] + [totals],
+                                    mesh)
+        state.optimizer.step()
+        fold_quantized_updates(state.model, state.step)
+        state.step += 1
+        return totals[0] / totals[1]
+
+    def train_on_global_batch(self, state: TrainState, shard, mesh):
+        """One data-parallel step; returns (state, loss), the loss the
+        mean over every row of the global batch (a 0-d f32 tensor on the
+        device, the same on every rank)."""
+        def _step():
+            return self.train_step_global(state, shard, mesh)
+
+        loss = self._timed("compute", lambda: run_device_serialized(
+            _step, device=self.device))
+        return state, loss
+
+    def train_on_global_batch_stack(self, state: TrainState, shards, mesh):
+        """len(shards) data-parallel steps in order (steps_per_execution);
+        returns (state, losses (K,)), the same bits as K single steps."""
+        losses = [self.train_on_global_batch(state, shard, mesh)[1]
+                  for shard in shards]
+        return state, torch.stack(losses)
+
+    def predict_on_global_batch(self, state: TrainState, shard,
+                                mesh) -> np.ndarray:
+        """Every rank's predictions for the global batch, in row order,
+        on every rank (this rank predicts its rows; a gather joins
+        them)."""
+        def _predict():
+            return self.eval_step(state, shard.batch["features"])
+
+        local = run_device_serialized(_predict, device=self.device)
+        return collectives.host_allgather(local, mesh)
+
     def _eval_step(self, state: TrainState, features) -> torch.Tensor:
         with torch.no_grad():
             preds = self._forward(state.model, features, train=False)
@@ -410,3 +506,16 @@ class Trainer:
                 state, _to_device(features, self.device)).cpu().numpy()
 
         return run_device_serialized(_predict, device=self.device)
+
+
+def refuse_per_rank_statistics(model: nn.Module, mesh) -> None:
+    """A model with BatchNorm cannot train on more than one rank here:
+    the JAX step computes its statistics over the global batch, and
+    per-rank statistics would silently differ (ROADMAP.md queue 1, item
+    12 keeps the cross-rank moments)."""
+    if mesh.world_size > 1 and any(isinstance(m, BatchNorm)
+                                   for m in model.modules()):
+        raise NotImplementedError(
+            "a model with BatchNorm trains on one rank only: its "
+            "statistics must cover the global batch, and the all-reduce "
+            "of the moments waits for ROADMAP.md queue 1, item 12")

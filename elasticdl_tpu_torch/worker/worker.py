@@ -22,8 +22,9 @@ step) and `train/steps_per_sec`, and each evaluation task its shard's
 training task this worker runs is traced (common/profiler.py
 `trace`, under a `task-<id>` annotation, the device synchronized before
 the trace closes).  The Local runner gives `profile_dir` to worker 0
-only: one process, one profiler.  The remesh path and the program
-registry binding wait for their slices of the port.
+only: one process, one profiler.  A cluster job's ranks run
+worker/spmd.py instead, which restarts its process for a new topology
+(the remesh path).
 """
 
 from __future__ import annotations

@@ -147,6 +147,27 @@ OBSERVATORY_MODULES = (
 )
 
 
+# the elastic cluster: the data axis, collectives, the rendezvous, the
+# pod manager, the recovery clock, the master's socket transport, the
+# ranks and their entry point
+CLUSTER_MODULES = (
+    "elasticdl_tpu_torch.parallel",
+    "elasticdl_tpu_torch.parallel.mesh",
+    "elasticdl_tpu_torch.parallel.collectives",
+    "elasticdl_tpu_torch.parallel.elastic",
+    "elasticdl_tpu_torch.master.rendezvous_server",
+    "elasticdl_tpu_torch.master.spmd_assigner",
+    "elasticdl_tpu_torch.master.recovery",
+    "elasticdl_tpu_torch.master.pod_manager",
+    "elasticdl_tpu_torch.master.server",
+    "elasticdl_tpu_torch.common.http_rpc",
+    "elasticdl_tpu_torch.common.net_utils",
+    "elasticdl_tpu_torch.common.preemption",
+    "elasticdl_tpu_torch.worker.spmd",
+    "elasticdl_tpu_torch.worker.main",
+)
+
+
 def test_every_port_module_imports_with_jax_and_reference_blocked():
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -159,13 +180,14 @@ def test_every_port_module_imports_with_jax_and_reference_blocked():
     # the serving front end
     assert len(names) >= 59 + len(ZOO_MODULES) + len(RESILIENCE_MODULES) \
         + len(JUDGMENT_MODULES) + len(ONLINE_MODULES) \
-        + len(OBSERVATORY_MODULES)
+        + len(OBSERVATORY_MODULES) + len(CLUSTER_MODULES)
     assert set(SERVING_MODULES) <= set(names)
     assert set(ONLINE_MODULES) <= set(names)
     assert set(ZOO_MODULES) <= set(names)
     assert set(RESILIENCE_MODULES) <= set(names)
     assert set(JUDGMENT_MODULES) <= set(names)
     assert set(OBSERVATORY_MODULES) <= set(names)
+    assert set(CLUSTER_MODULES) <= set(names)
 
 
 @pytest.mark.parametrize(

@@ -236,13 +236,17 @@ def test_non_dict_journal_falls_back(tmp_path):
 
 def test_master_cutoff_is_the_newest_committed_step(tmp_path):
     """The Master's cutoff is the newest step whose state.pt is in
-    place and passes its manifest check, the step a restore takes; a
-    torn step directory and a step that fails its check do not count."""
+    place, passes its manifest check and loads, the step a restore
+    takes; a torn step directory and a step that fails its check do not
+    count."""
+    import torch
+
     ckpt = tmp_path / "ckpt"
     for step, committed in ((8, True), (16, True), (20, True), (24, False)):
         (ckpt / str(step)).mkdir(parents=True)
         if committed:
-            (ckpt / str(step) / "state.pt").write_bytes(b"")
+            torch.save({"step": step, "model": {}, "optimizer": {}},
+                       str(ckpt / str(step) / "state.pt"))
     (ckpt / ".manifests").mkdir()
     (ckpt / ".manifests" / "20.json").write_text(json.dumps(
         {"files": {"state.pt": {"size": 0, "sha256": "0" * 64}}}))
