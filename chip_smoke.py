@@ -261,14 +261,26 @@
    #5: BERT-base (hidden 768, 12 layers, 12 heads, MLP 3072, vocab
    8192, L 512, bf16, AdamW) fine-tuned through the master's entry point
    (`master.main.main`) with ProcessK8sClient and 2 worker processes on
-   the card, 96 synthetic pair records in global batches of 16, a
-   checkpoint every 4 steps; worker 1 holds before its third task
-   (CLUSTER_HOLD_S) so step 4's checkpoint commits, and is SIGKILLed
-   once it has: the job exits 0 with every record trained, the
-   recovery clock holds one value under 120 s (the JAX test's budget),
-   the final epoch's two ranks log one state digest, and both counted
-   flash forward and backward launches on sm90_wgmma.  The phase's
-   seconds are printed beside its budget.
+   the card, 96 synthetic pair records in global batches of 16 (tasks
+   of 2 steps), a checkpoint every 2 steps, and two preemptions.  Worker
+   1 holds before its second task (CLUSTER_HOLD_S) so step 2's
+   checkpoint commits, and is SIGKILLed once it has.  Once that outage
+   has closed and the second group has committed step 4 (its rank 0
+   holds in its version report), the pod that holds the second group's
+   rank 0, read from the rendezvous' current spec, is SIGKILLed: rank 0
+   hosts the group's TCPStore.  The job exits 0 with every record trained, the recovery
+   clock holds two values, each under 120 s (the JAX test's budget), the
+   relaunch chains stay within --relaunch_on_worker_failure, the third
+   group's two ranks log one epoch and one state digest, and both
+   counted flash forward and backward launches on sm90_wgmma.  Each
+   recovery is split into its parts from the master's recovery events,
+   the pods' create times and the ranks' log lines (`recovery_split`):
+   the master's detection (before the clock opens), then the survivor's
+   wait, the relaunch, the process's imports, the model spec and
+   rendezvous, the CUDA context, the group join and trainer, the first
+   batch with the init and its broadcast, the checkpoint load and the
+   first report, which sum to the clock's value.  The phase's seconds
+   are printed beside its budget.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
@@ -5792,26 +5804,52 @@ DP_BF16_TOL = 2 * 0.005 * DP_STEPS
 DP_LOSS_RTOL = 1e-3
 # the BERT-base rank timing: global batch of the job below, timed steps
 CLUSTER_TIMED_STEPS = 2
-# (b) BASELINE.md #5: BERT-base fine-tuning under an induced preemption
+# (b) BASELINE.md #5: BERT-base fine-tuning that survives two
+# preemptions.  Three groups train in turn: the first and the second each
+# commit a checkpoint step and then lose a rank (worker 1, then the pod
+# that holds rank 0 of the second group), the third finishes the job.
 CLUSTER_BERT_BATCH = 16
-CLUSTER_BERT_RECORDS = 96
 CLUSTER_BERT_TASK = 32                      # records a task: 2 steps
-CLUSTER_BERT_CKPT_STEPS = 4
-# the victim's (worker 1's) get_spmd_task for the task after the first
+CLUSTER_BERT_CKPT_STEPS = 2                 # a commit every task
+# 3 tasks, 6 steps: one task for each of the three groups
+CLUSTER_BERT_RECORDS = 96
+CLUSTER_KILLS = 2
+# tasks a group trains between its restore and its next commit
+CLUSTER_TASKS_PER_CKPT = (CLUSTER_BERT_CKPT_STEPS * CLUSTER_BERT_BATCH
+                          // CLUSTER_BERT_TASK)
+# first kill: worker 1's get_spmd_task for the task after the first
 # checkpoint step (hits 0-based, one a task) sleeps CLUSTER_HOLD_S, and
 # rank 0 waits for it in the next step's all-reduce: that step's
 # checkpoint commits while the group holds, so the kill always lands
 # mid-job, after a committed step, and no report of the old group can
 # close the outage it opens
-CLUSTER_HOLD_HIT = (CLUSTER_BERT_CKPT_STEPS * CLUSTER_BERT_BATCH
-                    // CLUSTER_BERT_TASK)
-CLUSTER_HOLD_S = 6.0
+CLUSTER_HOLD_HIT = CLUSTER_TASKS_PER_CKPT
+# second kill: the pods of the second group sleep CLUSTER_HOLD_S in the
+# version report of the task that ends at their checkpoint step (two
+# report hits a task: the task's, then the version's).  Only rank 0
+# reports, so only the victim holds; the task's own report has reached
+# the master, and rank 1 waits in the next step's all-reduce
+CLUSTER_REPORT_HOLD_HIT = 2 * CLUSTER_TASKS_PER_CKPT - 1
+CLUSTER_HOLD_S = 10.0
 CLUSTER_RECOVERY_BUDGET_S = 120.0   # tests/test_elastic_cluster.py:401
 CLUSTER_WEDGE_GRACE_S = 30.0
 CLUSTER_JOB_TIMEOUT_S = 400.0
 # the master waits this long at most for its workers to exit after the
 # job (the leader flushes its last checkpoint first)
 CLUSTER_LINGER_S = 60.0
+# the split's parts must account for the recovery clock's value within
+# this many seconds (the clock and the events read time.time() apart)
+CLUSTER_SPLIT_TOL_S = 0.05
+
+
+def bytecode_env(work: str) -> dict:
+    """The environment that gives a worker process a bytecode cache under
+    `work`, shared by the phase's processes: the card's Python writes no
+    bytecode (PYTHONDONTWRITEBYTECODE=1) and its site-packages hold
+    none, so each new process compiles torch's sources again, where a
+    pod's image would carry them compiled."""
+    return {"PYTHONPYCACHEPREFIX": os.path.join(work, "pycache"),
+            "PYTHONDONTWRITEBYTECODE": ""}
 
 
 def _rank_rows(batch, start: int, stop: int):
@@ -5832,7 +5870,15 @@ def cluster_rank(rank: int, work: str, port: int,
     bench width over DP_STEPS global batches, then BERT-base's timed
     steps and one all-reduce of its gradients; (c) each kernel those
     steps ran, held against its plain version at one step's shapes.
-    The counts are read right after each path, before the checks."""
+    The counts are read right after each path, before the checks; the
+    wall seconds of each part are kept (`seconds`)."""
+    seconds, last = {}, [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        seconds[part] = now - last[0]
+        last[0] = now
+
     mesh = mesh_lib.create_mesh(CLUSTER_RANKS, rank, device,
                                 f"127.0.0.1:{port}", init_timeout_s=120.0,
                                 collective_timeout_s=120.0)
@@ -5840,6 +5886,7 @@ def cluster_rank(rank: int, work: str, port: int,
            "backend": mesh.backend,
            "device_count": torch.cuda.device_count()
            if device == "cuda" else 0}
+    lap("join")
     # (a) DeepFM, the bench configuration (bf16 MLP) and an f32 MLP
     batches = _criteo_batches(DP_STEPS, DP_BATCH, seed=DP_SEED)
     start, stop = mesh_lib.local_batch_range(mesh, DP_BATCH)
@@ -5856,6 +5903,7 @@ def cluster_rank(rank: int, work: str, port: int,
                        os.path.join(work, f"dp_{label}_rank0.pt"))
         del state
         torch.cuda.empty_cache()
+        lap(f"deepfm_{label}")
     # BERT-base at the cluster job's shapes: step time, all-reduce share
     spec = get_model_spec(ZOO_DIR, BERT, BERT_PARAMS + ";bf16=True")
     trainer = Trainer(spec.model, spec.optimizer, spec.loss, use_bf16=True,
@@ -5866,6 +5914,18 @@ def cluster_rank(rank: int, work: str, port: int,
     local = _rank_rows(full, bstart, bstop)
     reset_counts()
     state = trainer.init_state_global(SEED, local["features"], mesh)
+    # the init's broadcast of rank 0's state as collectives.broadcast_
+    # sends it (one broadcast a tensor), against one flat buffer a dtype
+    tensors = list(state.model.state_dict().values())
+    broadcast_ms = {"per_tensor": [], "flat_per_dtype": []}
+    for _ in range(CLUSTER_TIMED_STEPS):
+        for label, fn in (("per_tensor", collectives.broadcast_),
+                          ("flat_per_dtype", _flat_broadcast)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(tensors, mesh)
+            torch.cuda.synchronize()
+            broadcast_ms[label].append((time.perf_counter() - t0) * 1e3)
     shard = mesh_lib.make_global_batch_from_local(
         local, mesh, CLUSTER_BERT_BATCH, bstart, trainer.stage_batch)
     trainer.train_on_global_batch(state, shard, mesh)   # warm-up
@@ -5893,17 +5953,39 @@ def cluster_rank(rank: int, work: str, port: int,
                    "grad_bytes": grad_bytes,
                    "all_reduce_share": float(np.median(reduce_ms)
                                              / np.median(step_ms)),
+                   "state_tensors": len(tensors),
+                   "state_bytes": sum(t.numel() * t.element_size()
+                                      for t in tensors),
+                   "broadcast_ms": broadcast_ms,
                    "launches": bert_launches_rank}
-    del state, trainer, grads
+    del state, trainer, grads, tensors
     torch.cuda.empty_cache()
+    lap("bert")
     # (c) the kernels these ranks ran, against their plain versions at
     # one step's shapes (not counted: the counts were read above)
     out["checks"] = rank_kernel_checks(batches[0], start, stop,
                                        bstop - bstart, mesh.device)
+    lap("checks")
+    out["seconds"] = seconds
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     mesh_lib.destroy_mesh(mesh)
     return 0
+
+
+def _flat_broadcast(tensors, mesh) -> None:
+    """Rank 0's values of `tensors` on every rank, as one flat buffer a
+    dtype (the layout collectives.all_reduce_sum_ sends)."""
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        dist.broadcast(flat, src=0, group=mesh.group)
+        offset = 0
+        for t in group:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
 
 
 def dp_deepfm(mesh, params: str, use_bf16: bool, batches, start: int,
@@ -5985,9 +6067,10 @@ def dp_parity(card: str, work: str, device: str = "cuda") -> dict:
     they share cuda:0), against one rank in this process; then one
     all-reduce of a gradient over a world-1 NCCL group."""
     port = free_port()
+    env = dict(os.environ, **bytecode_env(work))
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--cluster-rank",
-         str(rank), work, str(port), device], cwd=ROOT)
+         str(rank), work, str(port), device], cwd=ROOT, env=env)
         for rank in range(CLUSTER_RANKS)]
     try:
         # one rank in this process, the same batches and seed, while the
@@ -6071,14 +6154,24 @@ def dp_parity(card: str, work: str, device: str = "cuda") -> dict:
            "bert_all_reduce_share_by_rank": [
                r["bert"]["all_reduce_share"] for r in ranks],
            "bert_launches_by_rank": [r["bert"]["launches"] for r in ranks],
-           "checks_by_rank": [r["checks"] for r in ranks]}
+           "bert_state_tensors": ranks[0]["bert"]["state_tensors"],
+           "bert_state_bytes": ranks[0]["bert"]["state_bytes"],
+           "bert_init_broadcast_ms_by_rank": [r["bert"]["broadcast_ms"]
+                                              for r in ranks],
+           "checks_by_rank": [r["checks"] for r in ranks],
+           "rank_seconds_by_rank": [r["seconds"] for r in ranks]}
     print(json.dumps({"cluster_dp": out}), flush=True)
     print(f"cluster DP: backend {out['backend_by_rank']} on "
           f"{out['device_by_rank']} ({out['device_count']} device(s): "
           "ranks share a device -> gloo); world-1 NCCL all-reduce "
           f"bitwise={nccl_equal}; BERT-base step "
           f"{np.median(out['bert_step_ms_by_rank'][0]):.1f} ms, all-reduce "
-          f"share {out['bert_all_reduce_share_by_rank'][0]:.3f} [{card}]",
+          f"share {out['bert_all_reduce_share_by_rank'][0]:.3f}; the init's "
+          f"broadcast of {out['bert_state_tensors']} tensors "
+          f"{ranks[0]['bert']['broadcast_ms']['per_tensor']} ms, one flat "
+          f"buffer a dtype "
+          f"{ranks[0]['bert']['broadcast_ms']['flat_per_dtype']} ms "
+          f"[{card}]",
           flush=True)
     want_scatter = 2 * DP_STEPS
     bad_checks = [c for r in ranks for c in r["checks"]
@@ -6101,19 +6194,23 @@ def dp_parity(card: str, work: str, device: str = "cuda") -> dict:
     return out
 
 
-class _VictimHoldK8s(ProcessK8sClient):
-    """Pods as local processes; worker 1's alone also gets `hold_env`
-    (its fault schedule)."""
+class _HoldK8s(ProcessK8sClient):
+    """Pods as local processes.  Worker 1's pod also gets `victim_env`;
+    every pod created while `hold_env` is set gets that; each pod's
+    create time is kept (`created`, time.time())."""
 
-    def __init__(self, env: dict, hold_env: dict):
+    def __init__(self, env: dict, victim_env: dict):
         super().__init__(extra_env=env)
         self._env = dict(env)
-        self._hold_env = dict(hold_env)
+        self._victim_env = dict(victim_env)
+        self.hold_env: dict = {}
+        self.created: dict = {}
 
     def create_pod(self, spec) -> None:
         # the pod manager launches one pod at a time
-        self._extra_env = dict(self._env, **(
-            self._hold_env if spec.worker_id == 1 else {}))
+        self._extra_env = dict(self._env, **self.hold_env, **(
+            self._victim_env if spec.worker_id == 1 else {}))
+        self.created[spec.name] = time.time()
         super().create_pod(spec)
 
 
@@ -6132,10 +6229,81 @@ def _rank_lines(k8s) -> list:
     return lines
 
 
+# the ranks' own log lines that mark a relaunched rank's way back, in the
+# order a rank passes them (worker/main.py, worker/spmd.py,
+# parallel/mesh.py), each with the part of the recovery that ends there
+RECOVERY_MARKS = (
+    ("imports", " telemetry on port "),
+    ("model_spec_and_rendezvous", " joined epoch "),
+    ("cuda_context", " group at "),
+    ("group_join_and_trainer", "SPMD rank "),
+    ("first_batch_init_and_broadcast", "elastic prewarm: "),
+    ("checkpoint_load", " restored checkpoint step "),
+)
+SURVIVOR_EXITS = ("topology change; restarting the process",
+                  " wedged: epoch moved ")
+
+
+def _log_time(line: str):
+    """The time.time() of a port log line (`[%Y-%m-%d %H:%M:%S,mmm]`,
+    local time), or None."""
+    if not line.startswith("["):
+        return None
+    stamp = line[1:line.find("]")]
+    try:
+        whole, ms = stamp.split(",")
+        return time.mktime(time.strptime(whole, "%Y-%m-%d %H:%M:%S")) \
+            + int(ms) / 1000.0
+    except ValueError:
+        return None
+
+
+def _first_mark(text: str, needle: str):
+    for line in text.splitlines():
+        if needle in line:
+            return _log_time(line)
+    return None
+
+
+def recovery_split(k8s, kill_ts: float, loss_ts: float, done_ts: float,
+                   survivor: str, relaunched: list, clock_s: float) -> dict:
+    """One recovery's parts, on the host's clock: the master's detection
+    (the kill to its loss event, before the clock opens), then a chain
+    that ends at the clock's close: the survivor's wait for the epoch to
+    move (its exit line), the master's relaunch of it (the last pod
+    create), each mark of RECOVERY_MARKS at the later of the two
+    relaunched ranks, and the first post-restore report (the master's
+    done event).  The chain's parts sum to done - loss, the clock's
+    value."""
+    out = {"detection": loss_ts - kill_ts}
+    chain = [("survivor_wait", min(
+        t for t in (_first_mark(k8s.pod_output(survivor), n)
+                    for n in SURVIVOR_EXITS) if t is not None))]
+    chain.append(("relaunch", max(k8s.created[p] for p in relaunched)))
+    for part, needle in RECOVERY_MARKS:
+        stamps = [_first_mark(k8s.pod_output(p), needle) for p in relaunched]
+        if None in stamps:
+            raise AssertionError(f"no {needle!r} line in {relaunched}")
+        chain.append((part, max(stamps)))
+    chain.append(("first_report", done_ts))
+    prev = loss_ts
+    for part, at in chain:
+        out[part] = at - prev
+        prev = at
+    out["parts_sum"] = done_ts - loss_ts
+    out["clock_s"] = clock_s
+    out["survivor"] = survivor
+    out["relaunched"] = list(relaunched)
+    return out
+
+
 def preempted_bert_job(card: str, work: str, device: str = "cuda") -> dict:
     """(b) BASELINE.md #5: BERT-base fine-tuning through the master's
-    entry point with ProcessK8sClient, 2 worker processes on the card;
-    rank 1 is SIGKILLed once a checkpoint step has committed."""
+    entry point with ProcessK8sClient, 2 worker processes on the card.
+    Worker 1 is SIGKILLed once a checkpoint step has committed; once that
+    outage has closed and the new group has committed a further step,
+    the pod that holds the new group's rank 0 (read from the rendezvous)
+    is SIGKILLed too.  Each recovery is split into its parts."""
     root = os.path.join(work, "cluster_bert")
     train_dir, _ = write_pairs(root, n_train=CLUSTER_BERT_RECORDS,
                                n_val=16, max_len=SEQ_LEN, vocab=VOCAB,
@@ -6144,8 +6312,11 @@ def preempted_bert_job(card: str, work: str, device: str = "cuda") -> dict:
     hold = FaultRegistry([FaultSpec(faults.POINT_RPC_GET_TASK,
                                     CLUSTER_HOLD_HIT, "delay",
                                     CLUSTER_HOLD_S)])
-    k8s = _VictimHoldK8s({"PYTHONPATH": ROOT},
-                         {faults.ENV_SCHEDULE: hold.schedule_json()})
+    report_hold = FaultRegistry([FaultSpec(faults.POINT_RPC_REPORT,
+                                           CLUSTER_REPORT_HOLD_HIT, "delay",
+                                           CLUSTER_HOLD_S)])
+    k8s = _HoldK8s({"PYTHONPATH": ROOT, **bytecode_env(work)},
+                   {faults.ENV_SCHEDULE: hold.schedule_json()})
     job = "chip-bert"
     argv = ["--distribution_strategy", "AllReduce", "--use_process_k8s",
             "true", "--num_workers", str(CLUSTER_RANKS), "--job_name", job,
@@ -6163,41 +6334,99 @@ def preempted_bert_job(card: str, work: str, device: str = "cuda") -> dict:
             "--task_lease_timeout_s", "300", "--device", device]
     held = {}
     result = {}
+    # the master's recovery events, on the host's clock
+    marks = {events.RECOVERY_STARTED: [], events.RECOVERY_DONE: []}
+
+    def observe(record):
+        if record["event"] in marks:
+            marks[record["event"]].append(record["ts"])
 
     def run():
         result["rc"] = master_main.main(
             argv, k8s_client=k8s, linger_s=CLUSTER_LINGER_S,
             on_started=lambda m: held.setdefault("master", m))
 
+    def wait_for(what, ready):
+        while not ready():
+            if not thread.is_alive() or \
+                    time.perf_counter() - t0 > CLUSTER_JOB_TIMEOUT_S:
+                raise AssertionError(f"the job ended or timed out before "
+                                     f"{what}")
+            time.sleep(0.05)
+
+    kills = []
+    events.add_observer(observe)
     t0 = time.perf_counter()
     thread = threading.Thread(target=run, daemon=True)
     thread.start()
     try:
-        while not committed_steps(ckpt):
-            if not thread.is_alive() or \
-                    time.perf_counter() - t0 > CLUSTER_JOB_TIMEOUT_S:
-                raise AssertionError("no checkpoint step committed before "
-                                     "the kill")
-            time.sleep(0.05)
-        kill_s = time.perf_counter() - t0
+        wait_for("a checkpoint step committed", lambda: committed_steps(ckpt))
+        first_step = max(committed_steps(ckpt))
+        group1 = sorted(k8s.pods)
+        # the pods created while the first outage is open (the second
+        # group) hold in rank 0's version report after their commit
+        k8s.hold_env = {faults.ENV_SCHEDULE: report_hold.schedule_json()}
+        kills.append({"pod": f"{job}-worker-1", "rank": 1,
+                      "after_step": first_step,
+                      "after_s": time.perf_counter() - t0,
+                      "ts": time.time()})
         k8s.kill_pod(f"{job}-worker-1")
+        master = held["master"]
+        wait_for("the first recovery closed and the next commit",
+                 lambda: len(master.recovery_clock.history) == 1 and max(
+                     committed_steps(ckpt), default=0) > first_step)
+        k8s.hold_env = {}
+        spec = master.rendezvous_server.cluster_spec()
+        victim = next(w for w in spec.workers if w.rank == 0)
+        group2 = [p for p in sorted(k8s.pods) if p not in group1]
+        victim_pod = f"{job}-worker-{victim.worker_id}"
+        if victim_pod not in group2:
+            raise AssertionError(f"rank 0 {victim_pod} is not of the "
+                                 f"second group {group2}")
+        kills.append({"pod": victim_pod, "rank": 0,
+                      "worker_id": victim.worker_id,
+                      "epoch": spec.rendezvous_id,
+                      "after_step": max(committed_steps(ckpt)),
+                      "after_s": time.perf_counter() - t0,
+                      "ts": time.time()})
+        k8s.kill_pod(victim_pod)
         thread.join(CLUSTER_JOB_TIMEOUT_S)
         if thread.is_alive():
             raise AssertionError("the preempted BERT job did not end")
     finally:
         k8s.stop()
+        events.remove_observer(observe)
     wall_s = time.perf_counter() - t0
     master = held["master"]
     lines = _rank_lines(k8s)
     final = [e for e in lines if "state_sha256" in e]
     history = list(master.recovery_clock.history)
+    group3 = [p for p in sorted(k8s.pods)
+              if p not in group1 and p not in group2]
+    groups = (group1, group2, group3)
+    splits = []
+    if len(history) == CLUSTER_KILLS and \
+            len(marks[events.RECOVERY_STARTED]) == CLUSTER_KILLS and \
+            len(marks[events.RECOVERY_DONE]) == CLUSTER_KILLS:
+        for i, kill in enumerate(kills):
+            survivor = next(p for p in groups[i] if p != kill["pod"])
+            splits.append(recovery_split(
+                k8s, kill["ts"], marks[events.RECOVERY_STARTED][i],
+                marks[events.RECOVERY_DONE][i], survivor, groups[i + 1],
+                history[i]))
+    budget = int(master.args.relaunch_on_worker_failure)
+    relaunch_counts = dict(master.pod_manager._relaunch_count)
     out = {"card": card, "exit_code": result.get("rc"), "wall_s": wall_s,
-           "kill_after_s": kill_s,
+           "kills": kills,
            "records_done": master.task_manager.counters.records_done,
            "records": CLUSTER_BERT_RECORDS,
            "recovery_s": history,
+           "recovery_split": splits,
            "recovery_budget_s": CLUSTER_RECOVERY_BUDGET_S,
+           "groups": [list(g) for g in groups],
            "pods": master.pod_manager.snapshot(),
+           "relaunch_counts": relaunch_counts,
+           "relaunch_budget": budget,
            "pod_commands": [spec.command[:3] for spec in k8s.create_calls],
            "final_ranks": [{k: e[k] for k in ("pod", "rank", "epoch",
                                                "world", "step",
@@ -6207,18 +6436,34 @@ def preempted_bert_job(card: str, work: str, device: str = "cuda") -> dict:
            "exits": [{k: e[k] for k in ("pod", "rank", "epoch", "launches")}
                      for e in lines if "state_sha256" not in e]}
     print(json.dumps({"cluster_bert": out}), flush=True)
-    print(f"cluster BERT-base preemption: recovery "
-          f"{history} s (budget {CLUSTER_RECOVERY_BUDGET_S} s), job "
-          f"{wall_s:.1f} s [{card}]", flush=True)
+    for i, split in enumerate(splits):
+        parts = ", ".join(f"{k} {split[k]:.3f}" for k in split
+                          if k not in ("parts_sum", "clock_s", "survivor",
+                                       "relaunched"))
+        print(f"cluster BERT-base recovery {i + 1}: clock "
+              f"{split['clock_s']:.3f} s, parts sum "
+              f"{split['parts_sum']:.3f} s: {parts} [{card}]", flush=True)
+    print(f"cluster BERT-base, two preemptions: recovery {history} s "
+          f"(budget {CLUSTER_RECOVERY_BUDGET_S} s), job {wall_s:.1f} s "
+          f"[{card}]", flush=True)
     ok_final = (len(final) == CLUSTER_RANKS
+                and {e["pod"] for e in final} == set(group3)
                 and len({e["state_sha256"] for e in final}) == 1
                 and len({e["epoch"] for e in final}) == 1
                 and all(e["launches"]["flash_attention_fwd"][fa.SM90_WGMMA]
                         > 0 and e["launches"]["flash_attention_bwd"][
                             fa.SM90_WGMMA] > 0 for e in final))
-    if out["exit_code"] != 0 or not ok_final or len(history) != 1 or \
-            history[0] >= CLUSTER_RECOVERY_BUDGET_S or \
-            out["records_done"] < CLUSTER_BERT_RECORDS:
+    ok_split = len(splits) == CLUSTER_KILLS and all(
+        abs(s["parts_sum"] - s["clock_s"]) <= CLUSTER_SPLIT_TOL_S
+        and all(s[k] >= -CLUSTER_SPLIT_TOL_S for k in s
+                if isinstance(s[k], float))
+        for s in splits)
+    if out["exit_code"] != 0 or not ok_final or not ok_split or \
+            len(history) != CLUSTER_KILLS or \
+            max(history) >= CLUSTER_RECOVERY_BUDGET_S or \
+            out["records_done"] < CLUSTER_BERT_RECORDS or \
+            max(relaunch_counts.values()) > budget or \
+            len(group3) != CLUSTER_RANKS:
         logs = {name: k8s.pod_output(name)[-3000:] for name in k8s.pods}
         raise AssertionError(f"the preempted BERT-base job: {out}; pod "
                              f"logs {logs}")

@@ -12,10 +12,14 @@ parser's cluster flags under their names and defaults
 `--workers_per_group`, `--wedge_grace_s`, `--coordinator_port`,
 `--rpc_retry_budget_s`, `--relaunch_on_worker_failure`, `--port`,
 `--job_name`, ...; the worker's `--worker_id` and `--master_addr`).
-`--trace_sample_rate` parses and no job reads it, as in the JAX
-package's jobs without a serving fleet: its reader is the fleet's
-`FleetRouter` (proto/service.py), which the master builds with a pod
-manager only in a later slice (ROADMAP.md queue 1, item 12).  The wire formats (`--wire_format
+The master's serving fleet has the JAX flags too (`--serving_replicas`,
+`--serving_probe_interval`, `--serving_probe_failures`,
+`--serving_step_skew_slo`, `--serving_port`, `--max_serving_replicas`,
+`--min_serving_replicas`, `--serving_policy_interval`;
+master/serving_fleet.py, master/policy.py).  `--trace_sample_rate`
+parses, and, as in the JAX package, the master hands it to nothing: a
+`FleetRouter` (proto/service.py) takes its rate from whoever builds
+it.  The wire formats (`--wire_format
 plain|compact|dedup`, the legacy `--compact_wire`), the int8 arena
 (`--arena_dtype int8`), the tiered store's int8 cache
 (`--store_cache_dtype int8`), `--output` (a train job's model export,
@@ -223,6 +227,42 @@ def add_cluster_params(parser: argparse.ArgumentParser):
     parser.add_argument(
         "--relaunch_on_worker_failure", type=non_neg_int, default=3,
         help="max relaunches per failed worker pod")
+    # ---- the serving fleet (master/serving_fleet.py) -------------------
+    parser.add_argument(
+        "--serving_replicas", type=non_neg_int, default=0,
+        help="Serving replicas the master places and supervises behind "
+        "the job.  0 (the default) disables the serving fleet.")
+    parser.add_argument(
+        "--serving_probe_interval", type=float, default=0.0,
+        help="Seconds between fleet health-probe ticks (probe every "
+        "replica's Health RPC, relaunch the dead, sequence rolling "
+        "reloads).  0 disables the background loop; tests tick by hand.")
+    parser.add_argument(
+        "--serving_probe_failures", type=pos_int, default=3,
+        help="Consecutive failed health probes before a serving replica "
+        "is relaunched (pod-phase death relaunches immediately).")
+    parser.add_argument(
+        "--serving_step_skew_slo", type=non_neg_int, default=0,
+        help="Max allowed cross-replica model_step spread.  A rolling "
+        "reload that would exceed it is refused.  0 disables the bound.")
+    parser.add_argument(
+        "--serving_port", type=pos_int, default=50061,
+        help="Port each serving replica listens on (the fleet manager "
+        "probes {replica-service}:{this port}).")
+    # ---- the serving autoscaler (master/policy.py ServingPolicyEngine)
+    parser.add_argument(
+        "--max_serving_replicas", type=non_neg_int, default=0,
+        help="Upper bound the serving policy engine may scale the fleet "
+        "to.  0 (the default) disables serving autoscaling; the fleet "
+        "stays at --serving_replicas.")
+    parser.add_argument(
+        "--min_serving_replicas", type=non_neg_int, default=0,
+        help="Lower bound the serving policy engine may scale the fleet "
+        "down to.  0 defaults to --serving_replicas (the placed size).")
+    parser.add_argument(
+        "--serving_policy_interval", type=float, default=0.0,
+        help="Seconds between serving policy engine ticks.  0 disables "
+        "the background loop; tests tick by hand.")
 
 
 def add_model_params(parser: argparse.ArgumentParser):

@@ -21,8 +21,8 @@ master read the manifest's own wall-time stamp
 (`common/save_utils.py::read_produced_meta`) instead of observing late.
 
 The online loop (online/pipeline.py) builds one beside its serving
-fleet, whose router scores every response through it; the master builds
-one with its fleet in the cluster slice (ROADMAP.md queue 1, item 12).
+fleet, whose router scores every response through it; a cluster job's
+master (master/main.py) builds one with its serving fleet.
 """
 
 from __future__ import annotations

@@ -54,11 +54,21 @@ flight recorder's state.  The recorder takes the process's program
 registry, so a recompile storm captures a bundle at once and every
 bundle has a `programs.json`.
 
-The serving fleet, the `FreshnessTracker` it feeds and the serving
-policy engine, which the JAX master also builds over a pod manager,
-wait for ROADMAP.md queue 1, item 12 (they are ported in
-master/serving_fleet.py and master/policy.py and built by the online
-loop, online/pipeline.py).
+The serving fleet (the JAX master's gates and order): with a pod
+manager and `--serving_replicas > 0` the master builds a
+`FreshnessTracker` (a step's produced time read from its manifest when
+`--checkpoint_dir` is set) and a `ServingFleetManager` whose replica
+pods run `python -m elasticdl_tpu_torch.client.main serve` over the
+job's checkpoint directory (`_serving_command`); with
+`--max_serving_replicas > 0` too, a `ServingPolicyEngine` over the
+fleet.  `start()` places the fleet (its probe loop runs only at
+`--serving_probe_interval > 0`, the policy engine's only at
+`--serving_policy_interval > 0`), `stop()` stops both, and `snapshot()`
+gains `serving_fleet`, `serving_policy` and `freshness`.  A replica pod
+over a checkpoint directory also gets `--feature_spec`, the serving
+signature of one training record through the zoo's feed: `serve`
+refuses a checkpoint directory without one, and the JAX master's
+command passes none (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -79,6 +89,7 @@ from elasticdl_tpu_torch.common.constants import (
     KEEP_ALIVE_INTERVAL_S,
     DistributionStrategy,
 )
+from elasticdl_tpu_torch.common.export import feature_meta
 from elasticdl_tpu_torch.common.history import MetricHistory
 from elasticdl_tpu_torch.common.k8s_client import (
     FakeK8sClient,
@@ -89,17 +100,30 @@ from elasticdl_tpu_torch.common.k8s_client import (
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_handler import load_module
 from elasticdl_tpu_torch.common.programs import default_program_registry
-from elasticdl_tpu_torch.common.save_utils import restorable_step
+from elasticdl_tpu_torch.common.save_utils import (
+    read_produced_meta,
+    restorable_step,
+)
 from elasticdl_tpu_torch.common.slo import SloEvaluator, shipped_specs
 from elasticdl_tpu_torch.common.summary import SummaryWriter
 from elasticdl_tpu_torch.data.reader import create_data_reader
 from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
+from elasticdl_tpu_torch.master.freshness import FreshnessTracker
 from elasticdl_tpu_torch.master.pod_manager import PodManager
-from elasticdl_tpu_torch.master.policy import PolicyConfig, PolicyEngine
+from elasticdl_tpu_torch.master.policy import (
+    PolicyConfig,
+    PolicyEngine,
+    ServingPolicyConfig,
+    ServingPolicyEngine,
+)
 from elasticdl_tpu_torch.master.recovery import RecoveryClock
 from elasticdl_tpu_torch.master.rendezvous_server import RendezvousServer
 from elasticdl_tpu_torch.master.server import MasterServer
 from elasticdl_tpu_torch.master.servicer import MasterServicer
+from elasticdl_tpu_torch.master.serving_fleet import (
+    ServingFleetConfig,
+    ServingFleetManager,
+)
 from elasticdl_tpu_torch.master.task_manager import (
     TaskManager,
     create_shards_from_ranges,
@@ -124,6 +148,12 @@ class Master:
     rendezvous_server = None
     pod_manager = None
     policy_engine = None
+    # the serving fleet: None without a pod manager and replicas
+    serving_fleet = None
+    serving_policy = None
+    freshness = None
+    # the replicas' --feature_spec, once serving_signature computed it
+    _serving_signature = None
     # the RPC server and its port, once start_rpc ran
     rpc_server = None
     bound_port = None
@@ -226,6 +256,22 @@ class Master:
                 self.task_manager, self.pod_manager,
                 PolicyConfig.from_args(args),
                 telemetry_fn=self.servicer.worker_telemetry)
+        if self.pod_manager is not None and args.serving_replicas > 0:
+            produced_time_fn = None
+            if args.checkpoint_dir:
+                def produced_time_fn(step, _dir=args.checkpoint_dir):
+                    meta = read_produced_meta(_dir, step)
+                    return meta.get("produced_unix_s") if meta else None
+            self.freshness = FreshnessTracker(
+                produced_time_fn=produced_time_fn)
+            self.serving_fleet = ServingFleetManager(
+                k8s_client,
+                ServingFleetConfig.from_args(args),
+                job_name=args.job_name,
+                image=args.image_name,
+                command_fn=self._serving_command,
+                freshness=self.freshness,
+            )
         if (args.history_interval > 0 or args.slo_interval > 0
                 or args.incident_dir):
             self.metric_history = MetricHistory(
@@ -250,6 +296,15 @@ class Master:
                 specs=shipped_specs(args),
                 interval_s=args.slo_interval,
                 on_breach=self.flight_recorder.breach,
+            )
+        if self.serving_fleet is not None and args.max_serving_replicas > 0:
+            # without the history and SLO loops the burn and shed signals
+            # read 0, and the engine only scales down on batch fill
+            self.serving_policy = ServingPolicyEngine(
+                self.serving_fleet,
+                ServingPolicyConfig.from_args(args),
+                history=self.metric_history,
+                evaluator=self.slo_evaluator,
             )
         self._done = threading.Event()
         self._aborted: Optional[str] = None
@@ -312,6 +367,34 @@ class Master:
                    "--worker_id", str(worker_id),
                    "--job_type", self.job_type])
 
+    def _serving_command(self, replica_id: int):
+        """A serving replica pod's command: `serve` over the job's
+        checkpoint directory, so every replica hot-reloads the steps the
+        trainer writes, on --device as the workers run."""
+        command = [sys.executable, "-m", "elasticdl_tpu_torch.client.main",
+                   "serve", "--model_zoo", self.args.model_zoo,
+                   "--model_def", self.args.model_def,
+                   "--port", str(self.args.serving_port)]
+        if self.args.checkpoint_dir:
+            command += ["--checkpoint_dir", self.args.checkpoint_dir,
+                        "--feature_spec", self.serving_signature()]
+        return command + ["--device", self.args.device]
+
+    def serving_signature(self) -> str:
+        """The serving signature (`feature_meta` as JSON) of the first
+        training record through the zoo's feed; computed once."""
+        if self._serving_signature is None:
+            module, _ = load_module(self.args.model_zoo, self.args.model_def)
+            feed = getattr(module, self.args.dataset_fn)
+            reader = create_data_reader(self.args.training_data)
+            name, start, _ = reader.create_shards()[0]
+            records = list(reader.read_records(pb.Task(
+                shard=pb.Shard(name=name, start=start, end=start + 1))))
+            batch = feed(records, getattr(reader, "metadata", {}))
+            self._serving_signature = json.dumps(
+                feature_meta(batch["features"]))
+        return self._serving_signature
+
     def _on_job_abort(self, reason: str) -> None:
         logger.error("Job aborted: %s", reason)
         self._aborted = reason
@@ -341,12 +424,23 @@ class Master:
         if self.policy_engine is not None and self.policy_engine.start():
             logger.info("Policy engine ticking every %.1fs",
                         self.policy_engine.config.interval_s)
+        if self.serving_fleet is not None:
+            self.serving_fleet.start()
+            logger.info("Serving fleet: %d replicas placed (probe interval "
+                        "%.1fs)", self.serving_fleet.config.replicas,
+                        self.serving_fleet.config.interval_s)
         if self.metric_history is not None and self.metric_history.start():
             logger.info("Metric history sampling every %.1fs",
                         self.metric_history.interval_s)
         if self.slo_evaluator is not None and self.slo_evaluator.start():
             logger.info("SLO evaluator ticking every %.1fs",
                         self.slo_evaluator.interval_s)
+        if self.serving_policy is not None and self.serving_policy.start():
+            logger.info("Serving policy engine ticking every %.1fs (fleet "
+                        "bounds [%d, %d])",
+                        self.serving_policy.config.interval_s,
+                        self.serving_policy.config.min_replicas,
+                        self.serving_policy.config.max_replicas)
         if self.pod_manager is not None:
             # a restored journal may already be terminal: no report will
             # drain the queue, so check once now
@@ -398,6 +492,12 @@ class Master:
             out["pods"] = self.pod_manager.snapshot()
         if self.policy_engine is not None:
             out["policy"] = self.policy_engine.snapshot()
+        if self.serving_fleet is not None:
+            out["serving_fleet"] = self.serving_fleet.snapshot()
+        if self.serving_policy is not None:
+            out["serving_policy"] = self.serving_policy.snapshot()
+        if self.freshness is not None:
+            out["freshness"] = self.freshness.snapshot()
         if self.slo_evaluator is not None:
             slo = self.slo_evaluator.snapshot()
             slo["history"] = self.metric_history.snapshot()
@@ -425,7 +525,8 @@ class Master:
         registries = [metrics_lib.default_registry(),
                       self.task_manager.counters.registry]
         for component in (self.recovery_clock, self.pod_manager,
-                          self.policy_engine):
+                          self.policy_engine, self.serving_fleet,
+                          self.serving_policy, self.freshness):
             if component is not None:
                 registries.append(component.metrics_registry)
         if self.slo_evaluator is not None:
@@ -458,8 +559,12 @@ class Master:
         return started
 
     def stop(self) -> None:
+        if self.serving_policy is not None:
+            self.serving_policy.stop()
         if self.policy_engine is not None:
             self.policy_engine.stop()
+        if self.serving_fleet is not None:
+            self.serving_fleet.stop()
         if self.pod_manager is not None:
             self.pod_manager.stop()
         if self.rpc_server is not None:

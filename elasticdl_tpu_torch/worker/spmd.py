@@ -41,6 +41,7 @@ import json
 import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -54,7 +55,11 @@ from elasticdl_tpu_torch.common.model_handler import (
     ModelSpec,
     resolve_wire_format,
 )
-from elasticdl_tpu_torch.common.save_utils import LOAD_ERRORS, intact_steps
+from elasticdl_tpu_torch.common.save_utils import (
+    LOAD_ERRORS,
+    committed_steps,
+    verify_step,
+)
 from elasticdl_tpu_torch.common.summary import SummaryWriter
 from elasticdl_tpu_torch.ops import flash_attention as fa
 from elasticdl_tpu_torch.ops import scatter_add as sa
@@ -292,23 +297,57 @@ class SPMDWorker:
             self.sample_features = first_rows(batch["features"])
         if self.state is not None:
             return
+        checking = self._check_newest_step()
         self.state = self.trainer.init_state_global(
             self._seed, batch["features"], self.mesh)
         self._maybe_prewarm()
-        self._restore()
+        self._restore(checking)
 
-    def _restore(self) -> None:
+    def _check_newest_step(self):
+        """Rank 0 starts checking the newest committed step against its
+        manifest on a thread, so the hash of its files runs beside the
+        state's init (hashlib and file reads release the GIL): (step, a
+        future of `verify_step`), or None."""
+        if self._saver is None or not self.is_leader:
+            return None
+        steps = committed_steps(self._saver.checkpoint_dir)
+        if not steps:
+            return None
+        executor = ThreadPoolExecutor(max_workers=1)
+        future = executor.submit(verify_step, self._saver.checkpoint_dir,
+                                 steps[-1])
+        executor.shutdown(wait=False)
+        return steps[-1], future
+
+    def _restore(self, checking=None) -> None:
         """Every rank restores the same step, or falls back together:
-        rank 0's list of intact steps (newest first) goes to every rank,
-        each rank loads the candidate, and the group moves to the next
-        older step unless every rank loaded it.  When every step fails
-        on some rank, the load error raises on all of them."""
+        rank 0 checks the committed steps newest first against their
+        manifests and sends the first intact one to every rank, each rank
+        loads it, and the group moves to the next older intact step
+        unless every rank loaded it.  A step older than the one restored
+        is never read.  When every intact step fails on some rank, the
+        load error raises on all of them.  `checking` is the check that
+        `_check_newest_step` started."""
         if self._saver is None:
             return
-        steps = collectives.broadcast_ints(
-            list(reversed(intact_steps(self._saver.checkpoint_dir)))
-            if self.is_leader else [], self.mesh)
-        for step in steps:
+
+        def intact(step):
+            if checking is not None and step == checking[0]:
+                return checking[1].result()
+            return verify_step(self._saver.checkpoint_dir, step)
+
+        # newest first; checked one at a time, on rank 0 only
+        candidates = (iter(reversed(committed_steps(
+            self._saver.checkpoint_dir))) if self.is_leader else iter(()))
+        tried = []
+        while True:
+            step = next((s for s in candidates if intact(s)), None)
+            got = collectives.broadcast_ints(
+                [] if step is None else [step], self.mesh)
+            if not got:
+                break
+            step = got[0]
+            tried.append(step)
             error = None
             try:
                 self._saver.load_step_into(self.state, step)
@@ -322,9 +361,9 @@ class SPMDWorker:
                 "checkpoint step %d did not restore on every rank (here: "
                 "%s); the group falls back to the previous step", step,
                 error or "loaded")
-        if steps:
+        if tried:
             raise RuntimeError(
-                f"no checkpoint step of {steps} restored on every rank")
+                f"no checkpoint step of {tried} restored on every rank")
 
     def _maybe_prewarm(self) -> None:
         """The JAX worker compiles the train step ahead for the mesh

@@ -33,6 +33,7 @@ from elasticdl_tpu_torch.client.api import run_local
 from elasticdl_tpu_torch.common import args as port_args
 from elasticdl_tpu_torch.common.model_handler import ZOO_DIR, get_model_spec
 from elasticdl_tpu_torch.common.save_utils import (
+    committed_steps,
     intact_steps,
     restorable_step,
 )
@@ -196,3 +197,43 @@ def test_a_step_that_fails_on_one_rank_makes_the_group_fall_back(
     # step 8 loaded on rank 0 only: both ranks fall back to step 6
     assert [g["step"] for g in got] == [6, 6]
     assert got[0]["digest"] == got[1]["digest"]
+
+
+def test_a_relaunched_rank_checks_only_the_steps_it_needs(
+        mnist, tmp_path, monkeypatch):
+    """The group's restore checks the committed steps newest first and
+    stops at the first that restores: the older steps' files are never
+    hashed, so a damaged older step goes unnoticed, and a damaged newest
+    step costs one more check.  The newest step's check, started on a
+    thread before the init, is the one the restore reads."""
+    from elasticdl_tpu_torch.common.save_utils import CheckpointSaver
+    from elasticdl_tpu_torch.parallel.mesh import DataMesh
+    from elasticdl_tpu_torch.worker import spmd
+    from elasticdl_tpu_torch.worker.trainer import Trainer
+
+    ckpt = str(tmp_path / "ckpt")
+    job = run_local(cli.parse_args(_local_argv(mnist, ckpt)))
+    job.owner.checkpoint_saver.wait_until_finished()
+    assert committed_steps(ckpt) == [4, 6, 8]
+    _damage(ckpt, 4)
+    checked = []
+    verify = spmd.verify_step
+    monkeypatch.setattr(spmd, "verify_step", lambda d, s: (
+        checked.append(s), verify(d, s))[1])
+    spec = get_model_spec(ZOO_DIR, MNIST)
+
+    def restored_step():
+        rank = SPMDWorker.__new__(SPMDWorker)
+        rank.process_id = 0
+        rank.mesh = DataMesh(1, 0, torch.device("cpu"), "", None)
+        rank._saver = CheckpointSaver(ckpt)
+        rank.state = Trainer(spec.model, spec.optimizer, spec.loss,
+                             device="cpu").init_state(
+            0, np.zeros((1, 784), np.float32))
+        rank._restore(rank._check_newest_step())
+        return int(rank.state.step)
+
+    assert restored_step() == 8 and checked == [8]
+    del checked[:]
+    _damage(ckpt, 8)
+    assert restored_step() == 6 and checked == [8, 6]
