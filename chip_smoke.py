@@ -281,6 +281,31 @@
    batch with the init and its broadcast, the checkpoint load and the
    first report, which sum to the clock's value.  The phase's seconds
    are printed beside its budget.
+19. The model, seq, expert and pipe axes (`parallel_axes`, after
+   `cluster`; budget 90 s).  One world of PAR_RANKS = 4 processes on
+   cuda:0 (`chip_smoke.py --parallel-rank`; gloo: they share the card)
+   runs each part on its own mesh over the one default group: (a)
+   BERT-base (hidden 768, 12 layers, L 512, bf16, global batch 16) on
+   model=2 x seq=2 from the init this process wrote: 3 steps against
+   this process's one-rank run (PAR_LOSS_RTOL), 2 ring blocks x 12
+   layers of flash forwards and backwards a step a rank on
+   `sm90_wgmma`, the token table's shard, a predict and a checkpoint;
+   then one ring of 2 blocks at a rank's shape (16, 256, 12x64) against
+   the plain ring body (twice TOL / BWD_TOL: each block's partial is
+   rounded to bf16); (b) BERT-base with 4 experts on data=2 x expert=2
+   (2 experts a rank), 3 steps on one batch whose loss falls, and
+   layer_0's MoE on seeded tokens against the one-rank layer with its
+   experts gathered (PAR_MOE_TOL); (c) BERT-base with 4 microbatches on
+   data=2 x pipe=2 (6 layers a stage): the logits and the step-1
+   gradients against the gathered model run sequentially on rank 0
+   (PAR_LOGITS_TOL, PAR_PIPE_TOL); (d) DeepFM at the bench's vocab on
+   data=2 x model=2 (2^19 rows of each table a rank), 4 steps against
+   one rank (DP_F32_TOL, DP_LOSS_RTOL), 2 scatter-adds a step a rank,
+   and the kernel against its plain version at the shard's ids
+   (bitwise, on CPU copies); (e) (a)'s step restored on one rank in
+   this process, its logits against the ranks' (PAR_LOGITS_TOL).  Each
+   part's seconds, host-staging ms a step (`collectives.STAGING`) and
+   peak memory a rank are printed with the card's name and power limit.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
@@ -291,6 +316,7 @@ with each phase's wall seconds, also go to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import shutil
@@ -378,7 +404,12 @@ from elasticdl_tpu_torch.common.save_utils import (  # noqa: E402
     ArenaDtypeMismatch,
     CheckpointSaver,
     committed_steps,
+    gathered_state,
     read_produced_meta,
+)
+from elasticdl_tpu_torch.common.weights import (  # noqa: E402
+    gather_tensor,
+    shard_tree,
 )
 from elasticdl_tpu_torch.common.slo import (  # noqa: E402
     SloEvaluator,
@@ -440,6 +471,7 @@ from elasticdl_tpu_torch.worker.task_data_service import (  # noqa: E402
     prefetch_batches,
 )
 from elasticdl_tpu_torch.worker.trainer import Trainer, TrainState  # noqa: E402,E501
+from elasticdl_tpu_torch.worker.trainer import _to_device  # noqa: E402
 
 SEED = 0
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
@@ -3743,20 +3775,23 @@ def storm_drill(model, root: str, device: str = "cuda") -> dict:
     return out
 
 
-def start_runner(root: str, device: str = "cuda") -> dict:
+def start_runner(root: str, work: str, device: str = "cuda") -> dict:
     """(c) the process that runs the exports: started first, it imports
     torch and the kernels' ops (never the zoo) and reaches the card
-    while the phase goes on, then runs each export triple it is sent."""
+    while the phase goes on, then runs each export triple it is sent.
+    It reads and writes the bytecode cache under `work`."""
     os.makedirs(root, exist_ok=True)
     out = open(os.path.join(root, "runner.out"), "w+")
     err = open(os.path.join(root, "runner.err"), "w+")
+    popen_at = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "elasticdl_tpu_torch.serving.run_export",
          "--device", device],
         cwd=ROOT, stdin=subprocess.PIPE, stdout=out, stderr=err, text=True,
-        env={**os.environ, "PYTHONPATH": ROOT})
+        env={**os.environ, "PYTHONPATH": ROOT, **bytecode_env(work)})
     return {"proc": proc, "out": out, "err": err, "root": root,
-            "device": device, "want": {}, "tols": {}, "export_s": {}}
+            "device": device, "want": {}, "tols": {}, "export_s": {},
+            "popen_at": popen_at, "sent_at": []}
 
 
 def send_export(runner: dict, name: str, state, feats: dict,
@@ -3784,6 +3819,7 @@ def send_export(runner: dict, name: str, state, feats: dict,
         runner["proc"].stdin.write(
             f"{path} {stem}_in.npz {stem}_out.npz\n")
         runner["proc"].stdin.flush()
+        runner["sent_at"].append(time.perf_counter())
 
 
 def stop_runner(runner: dict, timeout_s: float = 0.0) -> tuple:
@@ -3807,8 +3843,52 @@ def stop_runner(runner: dict, timeout_s: float = 0.0) -> tuple:
     return stdout, stderr
 
 
+def start_bytecode_warmup(work: str) -> dict:
+    """The export runner on the CPU with no export to run, started with
+    the script: it compiles the modules the observatory's runner imports
+    (torch, torch.export and its loader, the kernels' ops) into the
+    bytecode cache under `work` (`bytecode_env`) while the kernels build
+    and the first phases run.  Without it the runner spends most of the
+    observatory compiling torch's sources, which the card's Python ships
+    without bytecode; a deployed image carries them compiled."""
+    warm = start_runner(os.path.join(work, "bytecode_warmup"), work, "cpu")
+    warm["proc"].stdin.close()
+    return warm
+
+
+def finish_bytecode_warmup(warm: dict) -> float:
+    """Wait for the warm-up runner to end; its exit code must be 0.
+    Returns the seconds waited."""
+    t0 = time.perf_counter()
+    _, stderr = stop_runner(warm, EXPORT_RUN_TIMEOUT_S)
+    if warm["proc"].returncode != 0:
+        raise AssertionError("the bytecode warm-up runner failed: "
+                             f"{stderr[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def runner_timeline(runner: dict, report: dict, closed_at: float,
+                    exited_at: float) -> dict:
+    """The runner's life in seconds from its Popen: when its module
+    began (`started`: Python up, the package and torch imported), when
+    it was ready (`ready`: the card reached, the loader warm), each
+    triple's send from this process and its arrival and end there, when
+    its input was closed and when it had exited.  Both processes read
+    `time.perf_counter`, which on Linux is the one CLOCK_MONOTONIC of
+    the machine."""
+    t0 = runner["popen_at"]
+    return {"started": report["started_at"] - t0,
+            "ready": report["ready_at"] - t0,
+            "sent": [t - t0 for t in runner["sent_at"]],
+            "arrived": [s["arrived_at"] - t0 for s in report["seconds"]],
+            "done": [s["done_at"] - t0 for s in report["seconds"]],
+            "closed": closed_at - t0, "exited": exited_at - t0}
+
+
 def finish_runner(runner: dict) -> dict:
+    closed_at = time.perf_counter()
     stdout, stderr = stop_runner(runner, EXPORT_RUN_TIMEOUT_S)
+    exited_at = time.perf_counter()
     proc = runner["proc"]
     if proc.returncode != 0:
         raise AssertionError(f"the export runner failed: {stderr[-4000:]}")
@@ -3824,6 +3904,8 @@ def finish_runner(runner: dict) -> dict:
     out = {"export_s": runner["export_s"], "max_abs_err": errs,
            "tols": runner["tols"],
            "runner_seconds": report["seconds"],
+           "runner_timeline_s": runner_timeline(runner, report, closed_at,
+                                                exited_at),
            "flash_launches_in_runner": report["flash_launches"],
            "runner_port_modules": len(report["port_modules"]),
            "runner_zoo_modules": [m for m in report["port_modules"]
@@ -3867,36 +3949,38 @@ def loop_surfaces(root: str, surfaces: dict) -> dict:
     return out
 
 
-def observatory(card: str, work: str, served: dict, online: dict) -> dict:
+def observatory(card: str, work: str, served: dict, online: dict,
+                warm: dict) -> dict:
     """The program observatory and the operator commands on the card:
     (a) a full-width DeepFM Local job observed while it runs, (b) the
-    BERT-base recompile-storm drill, (c) DeepFM and BERT-base torch
+    BERT-base recompile-storm drill, (c) BERT-base and DeepFM torch
     exports run in a process without the zoo, (d) the online loop's
-    surfaces.  Budget OBSERVATORY_BUDGET_S."""
+    surfaces.  The runner starts on the bytecode that `warm` compiled
+    (waited for first, in the phase's time) and loads the BERT-base
+    export, its largest, while this process exports DeepFM.  Budget
+    OBSERVATORY_BUDGET_S."""
     root = os.path.join(work, "observatory")
     os.makedirs(root, exist_ok=True)
     t0 = time.perf_counter()
-    runner = start_runner(os.path.join(root, "exports"))
+    warm_wait_s = finish_bytecode_warmup(warm)
+    runner = start_runner(os.path.join(root, "exports"), work)
     try:
         observed = observed_job(card, os.path.join(root, "job"), served)
         a_s = time.perf_counter() - t0
         job = observed.pop("job")
         t1 = time.perf_counter()
+        bert = bert_base_model(SEED)
+        ids = np.random.RandomState(SEED + 1).randint(
+            0, VOCAB, (EXPORT_ROWS, SEQ_LEN)).astype(np.int32)
+        send_export(runner, "bert", TrainState(step=0, model=bert,
+                                               optimizer=None),
+                    {"input_ids": ids}, EXPORT_BERT_TOL)
         send_export(runner, "deepfm", job.owner.state,
                     {k: np.asarray(v)[:EXPORT_ROWS]
                      for k, v in job.owner.sample_features.items()},
                     EXPORT_FM_TOL)
         c_s = time.perf_counter() - t1
         del job
-        t2 = time.perf_counter()
-        bert = bert_base_model(SEED)
-        ids = np.random.RandomState(SEED + 1).randint(
-            0, VOCAB, (EXPORT_ROWS, SEQ_LEN)).astype(np.int32)
-        # sent before the storm drill, which runs while the runner loads
-        send_export(runner, "bert", TrainState(step=0, model=bert,
-                                               optimizer=None),
-                    {"input_ids": ids}, EXPORT_BERT_TOL)
-        c_s += time.perf_counter() - t2
         t3 = time.perf_counter()
         storm = storm_drill(bert, os.path.join(root, "storm"))
         b_s = time.perf_counter() - t3
@@ -3913,8 +3997,10 @@ def observatory(card: str, work: str, served: dict, online: dict) -> dict:
     wall = time.perf_counter() - t0
     summary = observed["summary"]
     line = {"card": card, "wall_s": wall, "budget_s": OBSERVATORY_BUDGET_S,
+            "warm_wait_s": warm_wait_s,
             "a_s": a_s, "b_s": b_s, "c_exports_s": c_s, "d_s": d_s,
             "runner_wait_s": runner_wait_s,
+            "runner_timeline_s": exported["runner_timeline_s"],
             "mfu": summary["mfu"],
             "hbm_utilization": summary["hbm_utilization"],
             "train_step_flops": summary["worker_train_step"][
@@ -6008,6 +6094,62 @@ def dp_deepfm(mesh, params: str, use_bf16: bool, batches, start: int,
     return state, losses
 
 
+def flash_pair_checks(shape, gen, device) -> list:
+    """The flash forward and backward kernels against their plain
+    versions at `shape`, bf16 on the model's fused QKV views
+    (tolerances TOL / BWD_TOL): one check row each, with "ok"."""
+    q, k, v = make_qkv(shape, torch.bfloat16, gen, True)
+    fa.reset_launch_counts()
+    out_k, lse_k = fa.flash_attention_forward(q, k, v, causal=False)
+    variant = [n for n, c in fa.flash_attention.launches_by_kernel.items()
+               if c]
+    out_r, lse_r = fa.flash_attention_reference(q, k, v, causal=False)
+    err = float((out_k.float() - out_r.float()).abs().max())
+    rows = [{"kernel": "flash_attention_fwd", "shape": list(shape),
+             "variant": variant, "max_abs_err": err,
+             "scale": float(out_r.float().abs().max()),
+             "ok": variant == [fa.SM90_WGMMA]
+             and err <= TOL[torch.bfloat16]["out"]}]
+    g = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    got = fa.flash_attention_backward(q, k, v, out_r, lse_r, g, False)
+    variant = [n for n, c in
+               fa.flash_attention.backward_launches_by_kernel.items() if c]
+    want = fa._flash_bwd(False, shape[-1] ** -0.5,
+                         (q, k, v, out_r, lse_r), g)
+    errs = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(got, want)]
+    scales = [float(b.float().abs().max()) for b in want]
+    tol = BWD_TOL[torch.bfloat16]
+    rows.append({"kernel": "flash_attention_bwd", "shape": list(shape),
+                 "variant": variant, "max_abs_err": max(errs),
+                 "max_abs_err_dq_dk_dv": errs, "scale_dq_dk_dv": scales,
+                 "ok": variant == [fa.SM90_WGMMA]
+                 and all(e <= tol * max(1.0, s)
+                         for e, s in zip(errs, scales))})
+    return rows
+
+
+def shard_scatter_check(ids_np, first: int, rows: int, dim: int, gen,
+                        device) -> dict:
+    """The scatter-add kernel against its plain version, bit for bit on
+    CPU copies, as a table's lookup hands it a step's ids: `ids_np` are
+    rows of the whole table, this rank holds [first, first + rows); ids
+    of other shards come as row 0 with zero gradient rows, into a zero
+    table (`layers/embedding.py::lookup_rows`, `_Lookup`)."""
+    ids = torch.from_numpy(ids_np.reshape(-1).astype(np.int64)) - first
+    inside = (ids >= 0) & (ids < rows)
+    local = torch.where(inside, ids, 0).to(torch.int32).to(device)
+    table = torch.zeros((rows, dim), device=device)
+    grads = torch.randn((local.numel(), dim), generator=gen,
+                        device=device) * inside.to(device)[:, None]
+    got = sa.scatter_add_forward(table, local, grads).cpu()
+    ref = sa.scatter_add_reference(table.cpu(), local.cpu(), grads.cpu())
+    return {"kernel": "scatter_add", "rows": rows, "dim": dim,
+            "n": int(local.numel()), "inside": int(inside.sum()),
+            "max_abs_err": float((got - ref).abs().max()),
+            "ok": bool(torch.equal(got, ref))}
+
+
 def rank_kernel_checks(batch, start: int, stop: int, bert_rows: int,
                        device: torch.device):
     """In a rank: the scatter-add at its DeepFM step's rows (D 16 and 1,
@@ -6029,34 +6171,8 @@ def rank_kernel_checks(batch, start: int, stop: int, bert_rows: int,
                        "dim": dim, "bitwise_vs_plain":
                            bool(torch.equal(got, ref)),
                        "max_abs_err": float((got - ref).abs().max())})
-    shape = (bert_rows, SEQ_LEN, 12, 64)
-    q, k, v = make_qkv(shape, torch.bfloat16, gen, True)
-    fa.reset_launch_counts()
-    out_k, lse_k = fa.flash_attention_forward(q, k, v, causal=False)
-    variant = [n for n, c in fa.flash_attention.launches_by_kernel.items()
-               if c]
-    out_r, lse_r = fa.flash_attention_reference(q, k, v, causal=False)
-    err = float((out_k.float() - out_r.float()).abs().max())
-    checks.append({"kernel": "flash_attention_fwd", "shape": list(shape),
-                   "variant": variant, "max_abs_err": err,
-                   "ok": variant == [fa.SM90_WGMMA]
-                   and err <= TOL[torch.bfloat16]["out"]})
-    g = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
-    got = fa.flash_attention_backward(q, k, v, out_r, lse_r, g, False)
-    variant = [n for n, c in
-               fa.flash_attention.backward_launches_by_kernel.items() if c]
-    want = fa._flash_bwd(False, shape[-1] ** -0.5,
-                         (q, k, v, out_r, lse_r), g)
-    errs = [float((a.float() - b.float()).abs().max())
-            for a, b in zip(got, want)]
-    scales = [float(b.float().abs().max()) for b in want]
-    tol = BWD_TOL[torch.bfloat16]
-    checks.append({"kernel": "flash_attention_bwd", "shape": list(shape),
-                   "variant": variant, "max_abs_err": max(errs),
-                   "max_abs_err_dq_dk_dv": errs,
-                   "ok": variant == [fa.SM90_WGMMA]
-                   and all(e <= tol * max(1.0, s)
-                           for e, s in zip(errs, scales))})
+    checks.extend(flash_pair_checks((bert_rows, SEQ_LEN, 12, 64), gen,
+                                    device))
     fa.reset_launch_counts()
     sa.scatter_add.launches = 0
     return checks
@@ -6494,6 +6610,533 @@ def cluster(card: str, work: str) -> tuple:
             "budget_s": CLUSTER_BUDGET_S}, launches
 
 
+# ---- parallel_axes: the model, seq, expert and pipe axes ---------------
+
+PAR_BUDGET_S = 90.0
+PAR_RANKS = 4
+PAR_BERT_BATCH = 16         # (a) and (c): global rows of 512 ids
+PAR_MOE_BATCH = 8           # (b)
+PAR_STEPS = 3
+PAR_HIDDEN, PAR_HEADS = 768, 12       # BERT_PARAMS' widths
+PAR_RING_PARAMS = BERT_PARAMS + ";bf16=True"
+# (b) at a rate that moves the loss within 3 steps of one batch
+PAR_MOE_PARAMS = BERT_PARAMS + ";bf16=True;moe_experts=4;lr=1e-4"
+# (a) bf16 BERT-base, 4 ranks (ring of 2 blocks, a row-sharded token
+# table) against one rank from the same init: the ring merges
+# bf16-rounded partial outputs, each rank sums its gradients in another
+# order, and Adam's first steps move elements by about lr whatever their
+# gradient's size; a step's loss within this times max(1, the loss)
+# (measured 0.016 at a loss of 3.35 on an H100), and (e)'s restored
+# logits within PAR_LOGITS_TOL
+PAR_LOSS_RTOL = 2.0 ** -6
+PAR_LOGITS_TOL = 2.0 ** -4
+# (a) one ring of 2 blocks through the flash kernels against the plain
+# ring body, bf16: O within this of its largest magnitude (each block's
+# partial is rounded to bf16 before the f32 merge, the merged O once
+# more, and the plain body rounds its own products: four rounding steps
+# of 2^-8; measured 2^-8 at a largest |O| of 0.65 to 0.96 on an NVIDIA
+# H100 80GB HBM3 at 700 W), the gradients within twice BWD_TOL of
+# max(1, their largest magnitude)
+PAR_RING_OUT_RTOL = 2.0 ** -6
+# (b) the MoE layer's f32 output, sharded against one rank: the same
+# einsums over other slices
+PAR_MOE_TOL = 1e-4
+# (c) bf16 GPipe logits and step-1 gradients against the one-rank
+# sequential stack: the same arithmetic per row, microbatched; an
+# element within this times max(1, the parameter's largest gradient)
+PAR_PIPE_TOL = 2.0 ** -7
+PAR_PIPE_MICRO = 4
+PAR_PIPE_PARAMS = (BERT_PARAMS + ";bf16=True;pipeline_microbatches="
+                   f"{PAR_PIPE_MICRO}")
+
+
+def _par_state_full(state) -> dict:
+    """Rank 0's copy of a (possibly sharded) state's model, whole."""
+    return {k: v.detach().cpu() for k, v in
+            gathered_state(state).model.state_dict().items()}
+
+
+def _par_counts(steps: int) -> dict:
+    torch.cuda.synchronize()
+    totals = collectives.staging_totals()
+    return {"launches": bert_launches(),
+            "host_staging_ms_per_step": totals["ms"] / steps,
+            "host_staging_bytes_per_step": totals["bytes"] / steps,
+            "host_staging_by_op": {k: dict(v) for k, v in
+                                   collectives.STAGING.items()},
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _par_start() -> float:
+    reset_counts()
+    collectives.reset_staging()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter()
+
+
+def _wait_for(path: str, timeout_s: float = 120.0) -> None:
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"{path} did not appear")
+        time.sleep(0.1)
+
+
+def _par_kernel_checks(mesh, batch, attention_rows: int | None) -> list:
+    """The kernels at the shapes this rank's BERT part gives them: the
+    scatter-add into its token table (its row shard over `model`) at its
+    rows and sequence chunk, and, unless the ring check holds them, the
+    flash pair at one attention call's shape (`attention_rows` rows of
+    the chunk)."""
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 29)
+    start, stop = mesh_lib.local_batch_range(mesh, len(batch["labels"]))
+    chunk = SEQ_LEN // mesh.shape["seq"]
+    first = mesh.coords["seq"] * chunk
+    ids = hash_ids_host(batch["features"]["input_ids"][
+        start:stop, first:first + chunk], VOCAB, mix=False)
+    rows = VOCAB // mesh.shape["model"]
+    checks = [shard_scatter_check(ids, mesh.coords["model"] * rows, rows,
+                                  PAR_HIDDEN, gen, mesh.device)]
+    if attention_rows is not None:
+        checks += flash_pair_checks(
+            (attention_rows, chunk, PAR_HEADS, PAR_HIDDEN // PAR_HEADS),
+            gen, mesh.device)
+    return checks
+
+
+def par_ring(mesh, work: str) -> dict:
+    """(a) BERT-base on model=2 x seq=2 from the carried init: 3 steps,
+    a predict, the step saved; then one ring (2 blocks) of the flash
+    kernels against the plain body at a rank's attention shape."""
+    from elasticdl_tpu_torch.ops import ring_attention as ra
+
+    t0 = time.perf_counter()
+    spec = get_model_spec(ZOO_DIR, BERT, PAR_RING_PARAMS)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, use_bf16=True,
+                      device=mesh.device,
+                      param_sharding_fn=spec.param_sharding)
+    batch = _rank_rows(bert_train_batch(), 0, PAR_BERT_BATCH)
+    evals = _rank_rows(bert_train_batch(), PAR_BERT_BATCH,
+                       2 * PAR_BERT_BATCH)["features"]
+    state = trainer.init_state_global(SEED, batch["features"], mesh)
+    init = os.path.join(work, "bert_init.pt")
+    _wait_for(init)
+    full = torch.load(init, map_location=mesh.device, weights_only=True)
+    state.model.load_state_dict(
+        shard_tree(full, state.shardings, mesh), strict=True)
+    del full
+    shard = mesh_lib.make_global_batch(batch, mesh, trainer.stage_batch)
+    t_steps = _par_start()
+    losses = [float(trainer.train_on_global_batch(state, shard, mesh)[1])
+              for _ in range(PAR_STEPS)]
+    out = _par_counts(PAR_STEPS)
+    out["steps_s"] = time.perf_counter() - t_steps
+    out["losses"] = losses
+    out["shards"] = {n: list(state.model.get_parameter(n).shape)
+                     for n in state.shardings}
+    out["predict"] = trainer.predict_on_global_batch(
+        state, mesh_lib.make_global_batch({"features": evals}, mesh,
+                                          trainer.stage_batch),
+        mesh).tolist()
+    saver = CheckpointSaver(os.path.join(work, "ckpt_ring"))
+    saver.save(state)
+    saver.close()
+    dist.barrier()
+    del state, trainer, shard
+    torch.cuda.empty_cache()
+    # one ring of the kernels against the plain body (not counted)
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + mesh.rank)
+    shape = (PAR_BERT_BATCH, SEQ_LEN // 2, PAR_HEADS,
+             PAR_HIDDEN // PAR_HEADS)
+    q, k, v = (t.detach().requires_grad_() for t in
+               make_qkv(shape, torch.bfloat16, gen, False))
+    g = torch.randn(shape, generator=gen, device=mesh.device).to(
+        torch.bfloat16)
+    got, want = [], []
+    for fn, into in ((lambda: ra._RingFlash.apply(
+            q, k, v, mesh, "seq", False, shape[-1] ** -0.5), got),
+            (lambda: ra._ring_attention_local(
+                q, k, v, causal=False, scale=shape[-1] ** -0.5, mesh=mesh,
+                axis="seq"), want)):
+        q.grad = k.grad = v.grad = None
+        y = fn()
+        y.backward(g)
+        into.extend([y.detach(), q.grad, k.grad, v.grad])
+    errs = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(got, want)]
+    scales = [float(b.float().abs().max()) for b in want]
+    out["ring_check"] = {
+        "shape": list(shape), "max_abs_err_out_dq_dk_dv": errs,
+        "scales": scales,
+        "ok": errs[0] <= PAR_RING_OUT_RTOL * scales[0] and all(
+            e <= 2 * BWD_TOL[torch.bfloat16] * max(1.0, s)
+            for e, s in zip(errs[1:], scales[1:]))}
+    out["kernel_checks"] = _par_kernel_checks(mesh, batch, None)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def par_moe(mesh) -> dict:
+    """(b) BERT-base with 4 experts on data=2 x expert=2: 3 steps on one
+    batch; then layer_0's MoE on seeded tokens against the one-rank
+    layer (its experts gathered) on the global tokens."""
+    t0 = time.perf_counter()
+    spec = get_model_spec(ZOO_DIR, BERT, PAR_MOE_PARAMS)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, use_bf16=True,
+                      device=mesh.device,
+                      param_sharding_fn=spec.param_sharding)
+    batch = _rank_rows(bert_train_batch(), 0, PAR_MOE_BATCH)
+    state = trainer.init_state_global(SEED, batch["features"], mesh)
+    shard = mesh_lib.make_global_batch(batch, mesh, trainer.stage_batch)
+    t_steps = _par_start()
+    losses = [float(trainer.train_on_global_batch(state, shard, mesh)[1])
+              for _ in range(PAR_STEPS)]
+    out = _par_counts(PAR_STEPS)
+    out["steps_s"] = time.perf_counter() - t_steps
+    out["losses"] = losses
+    out["shards"] = {n: list(state.model.get_parameter(n).shape)
+                     for n in state.shardings}
+    layer = state.model.layer_0.moe_mlp
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 17)
+    x = torch.randn((PAR_MOE_BATCH, SEQ_LEN, PAR_HIDDEN), generator=gen,
+                    device=mesh.device)
+    start, stop = mesh_lib.local_batch_range(mesh, PAR_MOE_BATCH)
+    with torch.no_grad():
+        mesh_lib.set_current_mesh(mesh)
+        mine = layer(x[start:stop])
+        whole = copy.deepcopy(layer)
+        for name, p in whole.named_parameters():
+            spec_p = state.shardings.get(f"layer_0.moe_mlp.{name}")
+            if spec_p is not None:
+                p.data = gather_tensor(p.data, spec_p, mesh)
+        with mesh_lib.using_mesh(mesh_lib.ProcessMesh()):
+            ref = whole(x)[start:stop]
+    err = float((mine - ref).abs().max())
+    out["layer_check"] = {"experts_here": int(layer.expert_w_in.shape[0]),
+                          "max_abs_err": err,
+                          "scale": float(ref.abs().max()),
+                          "ok": err <= PAR_MOE_TOL * max(
+                              1.0, float(ref.abs().max()))}
+    del state, trainer, shard, whole
+    torch.cuda.empty_cache()
+    out["kernel_checks"] = _par_kernel_checks(mesh, batch, stop - start)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def par_pipe(mesh) -> dict:
+    """(c) BERT-base with 4 microbatches on data=2 x pipe=2 (6 layers a
+    stage): the logits and the step-1 gradients against the one-rank
+    sequential run of the gathered model (on rank 0)."""
+    t0 = time.perf_counter()
+    spec = get_model_spec(ZOO_DIR, BERT, PAR_PIPE_PARAMS)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, use_bf16=True,
+                      device=mesh.device,
+                      param_sharding_fn=spec.param_sharding)
+    batch = _rank_rows(bert_train_batch(), 0, PAR_BERT_BATCH)
+    state = trainer.init_state_global(SEED, batch["features"], mesh)
+    whole = gathered_state(state).model
+    if mesh.rank != 0:
+        del whole
+    shard = mesh_lib.make_global_batch(batch, mesh, trainer.stage_batch)
+    logits = trainer.predict_on_global_batch(state, shard, mesh)
+    t_steps = _par_start()
+    loss = float(trainer.train_on_global_batch(state, shard, mesh)[1])
+    out = _par_counts(1)
+    out["steps_s"] = time.perf_counter() - t_steps
+    out["loss"] = loss
+    out["shards"] = {n: list(state.model.get_parameter(n).shape)
+                     for n in list(state.shardings)[:2]}
+    grads = {n: gather_tensor(p.grad, state.shardings.get(n), mesh)
+             for n, p in state.model.named_parameters()}
+    if mesh.rank == 0:
+        feats = _to_device(batch["features"], mesh.device)
+        labels = _to_device(batch["labels"], mesh.device)
+        with mesh_lib.using_mesh(mesh_lib.ProcessMesh()):
+            whole.eval()
+            with torch.no_grad():
+                ref_logits = whole(feats).float().cpu().numpy()
+            whole.train()
+            spec.loss(labels, whole(feats).float()).backward()
+        logit_err = float(np.abs(logits - ref_logits).max())
+        errs = {}
+        for name, p in whole.named_parameters():
+            scale = max(1.0, float(p.grad.float().abs().max()))
+            errs[name] = float((grads[name].float() - p.grad.float())
+                               .abs().max()) / scale
+        worst = max(errs, key=errs.get)
+        out["check"] = {"logits_max_abs_err": logit_err,
+                        "grad_worst": worst,
+                        "grad_worst_scaled_err": errs[worst],
+                        "ok": logit_err <= PAR_LOGITS_TOL
+                        and errs[worst] <= PAR_PIPE_TOL}
+        del whole
+    del state, trainer, shard, grads
+    torch.cuda.empty_cache()
+    # the reference above runs the same kernel: hold it against its
+    # plain version at a stage's microbatch
+    start, stop = mesh_lib.local_batch_range(mesh, PAR_BERT_BATCH)
+    out["kernel_checks"] = _par_kernel_checks(
+        mesh, batch, (stop - start) // PAR_PIPE_MICRO)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def par_deepfm(mesh, work: str) -> dict:
+    """(d) DeepFM at the bench's vocab on data=2 x model=2: 4 steps, its
+    shards, its scatter-add launches; then the kernel against its plain
+    version at this shard's ids (bitwise, on CPU copies)."""
+    t0 = time.perf_counter()
+    batches = _criteo_batches(DP_STEPS, DP_BATCH, seed=DP_SEED)
+    start, stop = mesh_lib.local_batch_range(mesh, DP_BATCH)
+    spec = get_model_spec(ZOO_DIR, DEEPFM, DP_F32_PARAMS)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss,
+                      device=mesh.device,
+                      param_sharding_fn=spec.param_sharding)
+    state = trainer.init_state_global(
+        SEED, _rank_rows(batches[0], start, stop)["features"], mesh)
+    t_steps = _par_start()
+    losses = []
+    for batch in batches:
+        shard = mesh_lib.make_global_batch_from_local(
+            _rank_rows(batch, start, stop), mesh, DP_BATCH, start,
+            trainer.stage_batch)
+        losses.append(float(trainer.train_on_global_batch(
+            state, shard, mesh)[1]))
+    out = _par_counts(DP_STEPS)
+    out["steps_s"] = time.perf_counter() - t_steps
+    out["losses"] = losses
+    out["shards"] = {n: list(state.model.get_parameter(n).shape)
+                     for n in state.shardings}
+    full = _par_state_full(state)
+    if mesh.rank == 0:
+        torch.save(full, os.path.join(work, "pa_deepfm_rank0.pt"))
+    del full, state, trainer
+    # the kernel at this shard's ids
+    rows = DEEPFM_VOCAB // mesh.shape["model"]
+    ids = hash_field_rows_host(batches[0]["features"]["sparse"][start:stop],
+                               DEEPFM_VOCAB)
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 23)
+    out["kernel_checks"] = [
+        shard_scatter_check(ids, mesh.coords["model"] * rows, rows, dim,
+                            gen, mesh.device) for dim in (DEEPFM_DIM, 1)]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def parallel_rank(rank: int, work: str, port: int,
+                  device: str = "cuda") -> int:
+    """One rank of the parallel_axes world (a process of its own,
+    `chip_smoke.py --parallel-rank R WORK PORT DEVICE`): (a) to (d), each
+    on its own mesh over the one default group."""
+    t0 = time.perf_counter()
+    mesh = mesh_lib.create_mesh(PAR_RANKS, rank, device,
+                                f"127.0.0.1:{port}", init_timeout_s=120.0,
+                                collective_timeout_s=300.0, model=2, seq=2)
+    out = {"rank": rank, "backend": mesh.backend,
+           "join_s": time.perf_counter() - t0}
+    out["ring"] = par_ring(mesh, work)
+    torch.cuda.empty_cache()
+    mesh = mesh_lib.create_mesh(PAR_RANKS, rank, device, data=2, expert=2)
+    out["moe"] = par_moe(mesh)
+    torch.cuda.empty_cache()
+    mesh = mesh_lib.create_mesh(PAR_RANKS, rank, device, data=2, pipe=2)
+    out["gpipe"] = par_pipe(mesh)
+    torch.cuda.empty_cache()
+    mesh = mesh_lib.create_mesh(PAR_RANKS, rank, device, data=2, model=2)
+    out["deepfm"] = par_deepfm(mesh, work)
+    out["coords"] = {"deepfm": dict(mesh.coords)}
+    with open(os.path.join(work, f"par_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    mesh_lib.destroy_mesh(mesh)
+    return 0
+
+
+def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
+    """Item 19: one world of 4 processes sharing the card (gloo) runs
+    (a) to (d) in turn, each on its own mesh; this process writes the
+    carried BERT init, runs the one-rank references of (a) and (d) while
+    the ranks work, then (e) restores (a)'s step on one rank.  Returns
+    (summary, launches by path)."""
+    t0 = time.perf_counter()
+    root = os.path.join(work, "parallel_axes")
+    os.makedirs(root, exist_ok=True)
+    port = free_port()
+    env = dict(os.environ, **bytecode_env(work))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(rank), root, str(port), device], cwd=ROOT, env=env)
+        for rank in range(PAR_RANKS)]
+    try:
+        dev = mesh_lib.device_for_rank(0, device)
+        # (a)'s one-rank run, from the init the ranks carry
+        spec = get_model_spec(ZOO_DIR, BERT, PAR_RING_PARAMS)
+        trainer = Trainer(spec.model, spec.optimizer, spec.loss,
+                          use_bf16=True, device=dev)
+        batch = _rank_rows(bert_train_batch(), 0, PAR_BERT_BATCH)
+        evals = _rank_rows(bert_train_batch(), PAR_BERT_BATCH,
+                           2 * PAR_BERT_BATCH)["features"]
+        state = trainer.init_state(SEED, batch["features"])
+        init = os.path.join(root, "bert_init.pt")
+        torch.save(state.model.state_dict(), init + ".tmp")
+        os.replace(init + ".tmp", init)
+        one_rank_losses = [float(trainer.train_on_batch(state, batch)[1])
+                           for _ in range(PAR_STEPS)]
+        del state
+        # (d)'s one-rank run
+        mesh1 = mesh_lib.DataMesh(1, 0, dev, "", None)
+        batches = _criteo_batches(DP_STEPS, DP_BATCH, seed=DP_SEED)
+        fm_state, fm_losses = dp_deepfm(mesh1, DP_F32_PARAMS, False,
+                                        batches, 0, DP_BATCH)
+        fm_one = _state_cpu(fm_state)
+        del fm_state
+        torch.cuda.empty_cache()
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0] * PAR_RANKS:
+        raise AssertionError(f"parallel_axes ranks exited {codes}")
+    ranks = []
+    for rank in range(PAR_RANKS):
+        with open(os.path.join(root, f"par_rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    # (e) (a)'s step, saved on 4 ranks, restored on one
+    t_e = time.perf_counter()
+    state = trainer.init_state(SEED + 1, evals)
+    restored = CheckpointSaver(os.path.join(root, "ckpt_ring")
+                               ).maybe_restore(state)
+    logits = trainer.predict_on_batch(restored, evals)
+    ring_logits = np.asarray(ranks[0]["ring"]["predict"])
+    restore = {"step": int(restored.step),
+               "logits_max_abs_err_vs_ranks": float(
+                   np.abs(logits - ring_logits).max()),
+               "seconds": time.perf_counter() - t_e}
+    del state, restored
+    two = torch.load(os.path.join(root, "pa_deepfm_rank0.pt"))
+    fm_err = max(float((two[k].float() - fm_one[k].float()).abs().max())
+                 for k in fm_one if fm_one[k].is_floating_point())
+    shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    layers = NUM_LAYERS
+    want = {
+        # 2 ring blocks a layer, 3 steps; the token table's shard
+        "ring": {"fwd": 2 * layers * PAR_STEPS,
+                 "bwd": 2 * layers * PAR_STEPS, "scatter": PAR_STEPS},
+        "moe": {"fwd": layers * PAR_STEPS, "bwd": layers * PAR_STEPS,
+                "scatter": PAR_STEPS},
+        # 4 microbatches x 6 layers a stage, one step; every stage runs
+        # the token table (stage 1's backward scatters zero rows: its
+        # input took no gradient)
+        "gpipe": {"fwd": 4 * layers // 2, "bwd": 4 * layers // 2,
+                  "scatter": 1},
+        "deepfm": {"scatter": 2 * DP_STEPS}}
+    bad = []
+    for r in ranks:
+        for part, counts in want.items():
+            got = r[part]["launches"]
+            if "fwd" in counts and (
+                    got["flash_attention_fwd_by_variant"]
+                    != {fa.SM90_WGMMA: counts["fwd"], fa.CUDA_CORE: 0}
+                    or got["flash_attention_bwd_by_variant"]
+                    != {fa.SM90_WGMMA: counts["bwd"], fa.CUDA_CORE: 0}):
+                bad.append((r["rank"], part, got))
+            if got["scatter_add"] != counts["scatter"]:
+                bad.append((r["rank"], part, "scatter", got["scatter_add"]))
+    summary = {
+        "card": card, "ranks": PAR_RANKS, "backend_by_rank": [
+            r["backend"] for r in ranks],
+        "seconds": seconds, "budget_s": PAR_BUDGET_S,
+        "ring": {"losses_by_rank": [r["ring"]["losses"] for r in ranks],
+                 "one_rank_losses": one_rank_losses,
+                 "loss_max_scaled_err": max(
+                     abs(a - b) / max(1.0, abs(b)) for r in ranks
+                     for a, b in zip(r["ring"]["losses"],
+                                     one_rank_losses)),
+                 "shards": ranks[0]["ring"]["shards"],
+                 "ring_check_by_rank": [r["ring"]["ring_check"]
+                                        for r in ranks]},
+        "moe": {"losses_by_rank": [r["moe"]["losses"] for r in ranks],
+                "shards": ranks[0]["moe"]["shards"],
+                "layer_check_by_rank": [r["moe"]["layer_check"]
+                                        for r in ranks]},
+        "gpipe": {"loss_by_rank": [r["gpipe"]["loss"] for r in ranks],
+                  "shards": ranks[0]["gpipe"]["shards"],
+                  "check": ranks[0]["gpipe"]["check"]},
+        "deepfm": {"losses_by_rank": [r["deepfm"]["losses"]
+                                      for r in ranks],
+                   "one_rank_losses": fm_losses,
+                   "loss_max_rel_err": max(
+                       abs(a - b) / abs(b) for r in ranks for a, b in
+                       zip(r["deepfm"]["losses"], fm_losses)),
+                   "max_abs_err_vs_one_rank": fm_err,
+                   "shards": ranks[0]["deepfm"]["shards"]},
+        "restore": restore,
+        # each kernel against its plain version at the shapes each part
+        # gives it on each rank
+        "kernel_checks_by_part": {part: [r[part]["kernel_checks"]
+                                         for r in ranks] for part in want},
+        "by_part": {part: {
+            "seconds_by_rank": [r[part]["seconds"] for r in ranks],
+            "steps_s_by_rank": [r[part]["steps_s"] for r in ranks],
+            "host_staging_ms_per_step_by_rank": [
+                r[part]["host_staging_ms_per_step"] for r in ranks],
+            "host_staging_by_op_rank0": r0[part]["host_staging_by_op"],
+            "peak_memory_bytes_by_rank": [r[part]["peak_memory_bytes"]
+                                          for r in ranks]}
+            for r0 in ranks[:1] for part in ("ring", "moe", "gpipe",
+                                             "deepfm")},
+        "launches_by_rank": {part: [r[part]["launches"] for r in ranks]
+                             for part in want}}
+    print(json.dumps({"parallel_axes": summary}), flush=True)
+    for part, row in summary["by_part"].items():
+        print(f"parallel_axes {part}: {np.max(row['seconds_by_rank']):.1f} "
+              f"s, host staging "
+              f"{np.max(row['host_staging_ms_per_step_by_rank']):.1f} "
+              f"ms/step, peak "
+              f"{np.max(row['peak_memory_bytes_by_rank']) / 2**30:.2f} "
+              f"GiB/rank [{card}]", flush=True)
+    print(f"parallel_axes phase: {seconds:.1f} s (budget {PAR_BUDGET_S} s) "
+          f"[{card}]", flush=True)
+    ring, moe, pipe, fm = (summary[k] for k in ("ring", "moe", "gpipe",
+                                                "deepfm"))
+    failures = {
+        "launches": bad,
+        "backend": summary["backend_by_rank"] != ["gloo"] * PAR_RANKS,
+        "ring_losses": not ring["loss_max_scaled_err"] <= PAR_LOSS_RTOL,
+        "ring_check": not all(c["ok"] for c in ring["ring_check_by_rank"]),
+        "ring_shards": ring["shards"] != {
+            "token_embedding.embedding": [VOCAB // 2, PAR_HIDDEN]},
+        "moe_layer": not all(c["ok"] and c["experts_here"] == 2
+                             for c in moe["layer_check_by_rank"]),
+        "moe_loss_falls": not all(l[-1] < l[0]
+                                  for l in moe["losses_by_rank"]),
+        "gpipe": not pipe["check"]["ok"],
+        "deepfm": not (fm["loss_max_rel_err"] <= DP_LOSS_RTOL
+                       and fm["max_abs_err_vs_one_rank"] <= DP_F32_TOL
+                       and fm["shards"]["fm_embedding.embedding"]
+                       == [DEEPFM_VOCAB // 2, DEEPFM_DIM]),
+        "kernel_checks": [(part, r, c) for part, by_rank in
+                          summary["kernel_checks_by_part"].items()
+                          for r, cs in enumerate(by_rank) for c in cs
+                          if not c["ok"]],
+        "restore": not (restore["step"] == PAR_STEPS
+                        and restore["logits_max_abs_err_vs_ranks"]
+                        <= PAR_LOGITS_TOL)}
+    failed = {k: v for k, v in failures.items() if v}
+    if failed:
+        raise AssertionError(f"parallel_axes: {failed}; {summary}")
+    launches = {}
+    for r in ranks:
+        for part in want:
+            launches[f"parallel_{part}_rank{r['rank']}"] = \
+                r[part]["launches"]
+    return summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -6505,10 +7148,27 @@ def main() -> int:
         # one rank of the cluster phase's data-parallel group
         rank, work, port, device = sys.argv[2:6]
         return cluster_rank(int(rank), work, int(port), device)
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        # one rank of the parallel_axes phase's world
+        rank, work, port, device = sys.argv[2:6]
+        return parallel_rank(int(rank), work, int(port), device)
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    # the Local jobs' data, checkpoints and exports, which the serve_cli
+    # phases serve, and the processes' bytecode cache
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    warm = start_bytecode_warmup(work)
+    try:
+        return build_and_run(card, work, warm)
+    finally:
+        if not warm["out"].closed:       # a phase before observatory failed
+            stop_runner(warm)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def build_and_run(card: str, work: str, warm: dict) -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
@@ -6538,16 +7198,10 @@ def main() -> int:
 
     build = {"build_s": build_s, "build_resources": build_resources,
              "hgmma": hgmma, "bwd_sass_by_kernel": sass_stats}
-    # the Local jobs' data, checkpoints and exports, which the serve_cli
-    # phases serve
-    work = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        return run_phases(card, build, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    return run_phases(card, build, work, warm)
 
 
-def run_phases(card: str, build: dict, work: str) -> int:
+def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
     # wall seconds of each phase, the build's included
     phase_s = {"build": build["build_s"]}
 
@@ -6575,9 +7229,10 @@ def run_phases(card: str, build: dict, work: str) -> int:
                                     card, work, fm_served)
     online = phase("online_loop", online_loop, card, work)
     obs, obs_scatter, obs_flash = phase("observatory", observatory, card,
-                                        work, fm_served, online)
+                                        work, fm_served, online, warm)
     del online["surfaces"]
     clus, clus_launches = phase("cluster", cluster, card, work)
+    par, par_launches = phase("parallel_axes", parallel_axes, card, work)
     serve_fm = phase("serve_cli_deepfm", serve_cli_deepfm, card, fm_served)
     wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
     del buffers
@@ -6613,7 +7268,8 @@ def run_phases(card: str, build: dict, work: str) -> int:
         "local_bert_full":
             bert_local_launches["local_bert_full"]["scatter_add"],
         **{path: (n if isinstance(n, int) else n["scatter_add"])
-           for path, n in clus_launches.items()}}
+           for path, n in clus_launches.items()},
+        **{path: n["scatter_add"] for path, n in par_launches.items()}}
     bert_paths = {"train_bert": bert_launches_by["plain"],
                   "train_bert_remat": bert_launches_by["remat"],
                   **bert_local_launches}
@@ -6626,14 +7282,18 @@ def run_phases(card: str, build: dict, work: str) -> int:
         **{path: n["flash_attention_fwd"] for path, n in
            bert_paths.items()},
         **{path: n["flash_attention_fwd"][fa.SM90_WGMMA]
-           for path, n in cluster_bert.items()}}
+           for path, n in cluster_bert.items()},
+        **{path: n["flash_attention_fwd"] for path, n in
+           par_launches.items() if "deepfm" not in path}}
     # launches: the bare Trainer's timed steps at bench_bert's shape (the
     # BERT training path); each path's count beside it
     bwd_entry["launches"] = bert_launches_by["plain"]["flash_attention_bwd"]
     bwd_entry["launches_by_path"] = {
         **{path: n["flash_attention_bwd"] for path, n in bert_paths.items()},
         **{path: n["flash_attention_bwd"][fa.SM90_WGMMA]
-           for path, n in cluster_bert.items()}}
+           for path, n in cluster_bert.items()},
+        **{path: n["flash_attention_bwd"] for path, n in
+           par_launches.items() if "deepfm" not in path}}
     kernels = {"kernels": [entry, scatter_entry, bwd_entry]}
 
     name = torch.cuda.get_device_name(0)
@@ -6651,6 +7311,7 @@ def run_phases(card: str, build: dict, work: str) -> int:
                    "resilient_local": resilient,
                    "stream_judgment": stream, "online_loop": online,
                    "observatory": obs, "cluster": clus,
+                   "parallel_axes": par,
                    "wire_deepfm": wire, "serve_cli_deepfm": serve_fm,
                    "tiered_deepfm": tiered, "local_tiered": local_t,
                    "zoo_local": zoo,

@@ -20,6 +20,13 @@ exports in a process of their own).  `meta["saved_model"]` is
   "ok", or "failed: ..." when the export raised, as in the JAX package;
   the weights export stands either way.
 
+A state sharded over a mesh (the model, seq, expert or pipe variants)
+exports its gathered tree: `export_model` gathers it on every rank (a
+collective: every rank calls it) and rank 0 writes, and the trace runs
+in the mesh's export mode (parallel/mesh.py `export_mode`): the ring is
+of one over the whole sequence, the pipeline sequential and every
+expert local, the same parameter tree as on any mesh.
+
 A JAX export (`params.msgpack`, framework "elasticdl-tpu") is refused
 with a ValueError that names it: flax's msgpack cannot be read without
 flax.
@@ -37,6 +44,7 @@ import torch
 
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.ops import KERNEL_OP_MODULES
+from elasticdl_tpu_torch.parallel.mesh import export_mode
 
 logger = get_logger(__name__)
 
@@ -97,7 +105,16 @@ def export_model(
     sample_features: Any = None,
 ) -> str:
     """Write `state` (a TrainState or a snapshot of one) to `output_dir`;
-    returns the params path."""
+    returns the params path.  A sharded state is gathered first (every
+    rank calls this; only rank 0 writes, the others return None)."""
+    from elasticdl_tpu_torch.common.save_utils import gathered_state, \
+        is_sharded
+
+    if is_sharded(state):
+        rank = state.mesh.rank
+        state = gathered_state(state)
+        if rank != 0:
+            return None
     os.makedirs(output_dir, exist_ok=True)
     host = {name: t.detach().to("cpu", copy=True)
             for name, t in state.model.state_dict().items()}
@@ -181,7 +198,7 @@ def export_saved_model(state, out_dir: str, sample_features: Any) -> str:
     training = model.training
     model.eval()
     try:
-        with torch.no_grad():
+        with torch.no_grad(), export_mode():
             exported = torch.export.export(
                 ServingForward(model, single), (example,),
                 dynamic_shapes=({name: {0: batch} for name in example},))

@@ -56,6 +56,9 @@ class ModelSpec:
     # prediction batch (e.g. streaming rows to a sink)
     prediction_outputs_processor: Any = None
     module: Any = None
+    # (parameter name, tensor) -> mesh spec or None: the zoo's
+    # `param_sharding`, for Trainer(param_sharding_fn=...)
+    param_sharding: Optional[Callable] = None
 
 
 def resolve_wire_format(spec: ModelSpec, wire_format: str = "",
@@ -186,4 +189,5 @@ def get_model_spec(
         callbacks=callbacks_factory() if callbacks_factory else [],
         prediction_outputs_processor=processor,
         module=module,
+        param_sharding=opt("param_sharding", required=False),
     )

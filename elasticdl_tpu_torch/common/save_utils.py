@@ -33,6 +33,16 @@ first, so every listed step can be verified.  A step directory without
   handing it to the writer would save step N+1's values as step N.
   `wait_until_finished` joins the writer and re-raises its failures.
 
+- Sharded states (a TrainState with `shardings` over a live mesh,
+  worker/trainer.py `shard_state`): `save` is called on every rank; the
+  sharded leaves, the parameters and their optimizer moments, are
+  gathered over their axes to the whole tree (`host_state`), and rank 0
+  writes it.  The checkpoint is so the same on every mesh.  A restore
+  loads the whole tree and slices this rank's shards for the
+  template's mesh and specs, so a step saved on one layout restores on
+  one rank or on another layout.  The manifest and sha256 rules are
+  unchanged.
+
 - Fault point `checkpoint.write` (common/faults.py), fired at the top of
   every `save`: an injected fault skips that save with a warning and
   the next crossing saves again, as in the JAX package.  Only injected
@@ -80,6 +90,7 @@ from typing import Any, Dict, FrozenSet, List, Optional
 import torch
 
 from elasticdl_tpu_torch.common import events, faults
+from elasticdl_tpu_torch.common.weights import gather_tensor, shard_tensor
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.layers.arena import (
     dequantize_arena_tree,
@@ -185,13 +196,83 @@ def _host_copy(tree):
     return copy.deepcopy(tree)
 
 
+def is_sharded(state: TrainState) -> bool:
+    """Whether `state` holds shards over a live mesh (its save and
+    export gather)."""
+    mesh = getattr(state, "mesh", None)
+    return bool(getattr(state, "shardings", None)) and mesh is not None \
+        and mesh.distributed
+
+
+def _moment_specs(state: TrainState) -> Dict[int, tuple]:
+    """{optimizer state index: spec} of the sharded parameters (the
+    optimizer was built over `model.parameters()`, in that order)."""
+    return {i: state.shardings[name] for i, (name, _) in
+            enumerate(state.model.named_parameters())
+            if name in state.shardings}
+
+
+def _map_moments(opt_state, specs, fn):
+    """The optimizer state dict with fn(tensor, spec) applied to every
+    per-parameter tensor of a sharded parameter."""
+    out = dict(opt_state)
+    out["state"] = {
+        idx: {k: fn(v, specs[idx]) if idx in specs and isinstance(
+            v, torch.Tensor) and v.dim() > 0 else v
+            for k, v in entry.items()}
+        for idx, entry in opt_state["state"].items()}
+    return out
+
+
 def host_state(state: TrainState) -> Dict[str, Any]:
-    """{"step", "model", "optimizer"}: owning host copies of a state."""
+    """{"step", "model", "optimizer"}: owning host copies of a state,
+    its sharded leaves gathered to the whole tree (a collective on a
+    sharded state: every rank calls it)."""
+    model = state.model.state_dict()
+    optim = state.optimizer.state_dict()
+    if is_sharded(state):
+        def gather(value, spec):
+            return gather_tensor(value, spec, state.mesh)
+
+        model = {k: gather(v, state.shardings[k]) if k in state.shardings
+                 else v for k, v in model.items()}
+        optim = _map_moments(optim, _moment_specs(state), gather)
     return {
         "step": int(state.step),
-        "model": _host_copy(state.model.state_dict()),
-        "optimizer": _host_copy(state.optimizer.state_dict()),
+        "model": _host_copy(model),
+        "optimizer": _host_copy(optim),
     }
+
+
+def shard_blob(state: TrainState, model_state, optim_state):
+    """A whole checkpoint's (model, optimizer) state sliced to `state`'s
+    shards (as they are when `state` holds no shards)."""
+    if not getattr(state, "shardings", None) or state.mesh is None:
+        return model_state, optim_state
+
+    def cut(value, spec):
+        return shard_tensor(value, spec, state.mesh).contiguous()
+
+    model_state = {k: cut(v, state.shardings[k]) if k in state.shardings
+                   else v for k, v in model_state.items()}
+    return model_state, _map_moments(optim_state, _moment_specs(state), cut)
+
+
+def gathered_state(state: TrainState) -> TrainState:
+    """A one-device TrainState of the whole model (a collective on a
+    sharded state): a copy of the model with every sharded parameter
+    gathered, for an export or a predict on one rank.  `state` itself
+    when it holds no shards."""
+    if not is_sharded(state):
+        return state
+    model = copy.deepcopy(state.model)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name in state.shardings:
+                p.data = gather_tensor(p.data, state.shardings[name],
+                                       state.mesh)
+    return TrainState(step=state.step, model=model,
+                      optimizer=state.optimizer)
 
 
 def empty_like(template: TrainState) -> TrainState:
@@ -205,7 +286,9 @@ def empty_like(template: TrainState) -> TrainState:
     takes = inspect.signature(type(opt).__init__).parameters
     settings = {k: v for k, v in opt.defaults.items() if k in takes}
     return TrainState(step=template.step, model=model,
-                      optimizer=type(opt)(model.parameters(), **settings))
+                      optimizer=type(opt)(model.parameters(), **settings),
+                      shardings=dict(template.shardings),
+                      mesh=template.mesh)
 
 
 def read_produced_meta(checkpoint_dir: str,
@@ -348,7 +431,14 @@ class CheckpointSaver:
     def save(self, state: TrainState) -> bool:
         """Start saving `state` at its step (the write runs on the
         writer thread); False when that step is already saved or being
-        saved, or when an injected `checkpoint.write` fault skipped it."""
+        saved, or when an injected `checkpoint.write` fault skipped it.
+        A sharded state is gathered first on every rank (every rank
+        calls this), and rank 0 writes it; the others return False."""
+        gathered = None
+        if is_sharded(state):
+            gathered = host_state(state)
+            if state.mesh.rank != 0:
+                return False
         try:
             faults.fire(faults.POINT_CHECKPOINT_WRITE)
         except faults.InjectedFault as exc:
@@ -363,7 +453,7 @@ class CheckpointSaver:
                     os.path.join(self._step_dir(step), STATE_FILE)):
                 return False
             start = time.perf_counter()
-            blob = host_state(state)
+            blob = gathered if gathered is not None else host_state(state)
             # the store's sidecar beside the state, from the same point
             # between two steps
             sidecar = None if self._tiered_store is None else \
@@ -467,8 +557,10 @@ class CheckpointSaver:
                           weights_only=True, map_location=device)
         model_state = self._arena_compat(step, blob["model"], state,
                                          arena_convert)
+        model_state, optim_state = shard_blob(state, model_state,
+                                              blob["optimizer"])
         state.model.load_state_dict(model_state, strict=True)
-        state.optimizer.load_state_dict(blob["optimizer"])
+        state.optimizer.load_state_dict(optim_state)
         state.step = int(blob["step"])
         events.emit(events.CHECKPOINT_RESTORED, step=state.step)
         return state

@@ -25,6 +25,17 @@ their tables, int8 planes and zero carriers map by the same rules.
 BatchNorm statistics live in flax's `batch_stats` collection
 (`BatchNorm_0/mean`, `.../var`); passed as `batch_stats`, they land on
 the port BatchNorm's `running_mean` and `running_var` buffers.
+
+Stacked leaves: a GPipe stack's kernels (`.../gpipe_stack/.../kernel`,
+(L, in, out) from flax's vmapped init) go to (L, out, in), the layer
+axis kept; the MoE expert stacks (`expert_w_in` (E, H, F), ...) keep
+their names and layouts.
+
+Sharding (`shard_tensor`, `shard_tree`): a spec is a tuple of mesh axis
+names or None, one per leading dim, as the JAX `PartitionSpec`s the zoo's
+`param_sharding` returns; dim i of a leaf split `shape[axis]` ways gives
+the rank at `coords[axis]` its slice.  `gather_tensor` is the inverse
+over a live mesh (parallel/collectives.py `all_gather`).
 """
 
 from __future__ import annotations
@@ -89,9 +100,12 @@ def _stat_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
             if name.rsplit(".", 1)[-1] in _STAT_BUFFERS.values()}
 
 
-def _kernel_to_torch(value: np.ndarray) -> np.ndarray:
+def _kernel_to_torch(value: np.ndarray, stacked: bool = False
+                     ) -> np.ndarray:
     """A flax kernel in torch's layout: (in, out) -> (out, in); HWIO ->
-    OIHW."""
+    OIHW; a stacked (L, in, out) -> (L, out, in)."""
+    if stacked:
+        return np.swapaxes(value, -1, -2)
     if value.ndim == 4:
         return value.transpose(3, 2, 0, 1)
     return value.T
@@ -145,7 +159,8 @@ def params_from_jax(module: nn.Module, flat: Mapping[str, np.ndarray],
             continue
         value = np.asarray(value)
         if path.rsplit("/", 1)[-1] == "kernel":
-            value = _kernel_to_torch(value)
+            value = _kernel_to_torch(
+                value, stacked="gpipe_stack" in path.split("/"))
         out[name] = _leaf_tensor(path, name, value, target)
     missing = sorted((set(params) | set(buffers) | set(stats)) - set(out))
     if unused or missing:
@@ -166,3 +181,41 @@ def _leaf_tensor(path: str, name: str, value: np.ndarray,
     return torch.from_numpy(np.array(value, copy=True)).to(
         device=target.device, dtype=target.dtype
     )
+
+
+def shard_tensor(value, spec, mesh):
+    """This rank's slice of `value` (a tensor or array) under `spec`."""
+    for dim, axis in enumerate(spec or ()):
+        if axis is None or mesh.shape[axis] == 1:
+            continue
+        parts, index = mesh.shape[axis], mesh.coords[axis]
+        size = value.shape[dim]
+        if size % parts:
+            raise ValueError(
+                f"dim {dim} of size {size} does not split over "
+                f"'{axis}' of size {parts}")
+        width = size // parts
+        value = value[(slice(None),) * dim
+                      + (slice(index * width, (index + 1) * width),)]
+    return value
+
+
+def shard_tree(tree: Mapping[str, object], shardings: Mapping[str, tuple],
+               mesh) -> Dict[str, object]:
+    """{name: this rank's slice} of a full {name: tensor or array} tree
+    under {name: spec} (names without a spec are whole)."""
+    return {name: shard_tensor(value, shardings.get(name), mesh)
+            for name, value in tree.items()}
+
+
+def gather_tensor(value: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole tensor from every rank's `shard_tensor` slice: a
+    gather over each sharded axis (a collective: every rank calls it)."""
+    from elasticdl_tpu_torch.parallel.collectives import all_gather
+
+    for dim in reversed(range(len(spec or ()))):
+        axis = spec[dim]
+        if axis is None or mesh.shape[axis] == 1:
+            continue
+        value = all_gather(value.contiguous(), mesh, axis, dim=dim)
+    return value

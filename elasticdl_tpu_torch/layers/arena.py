@@ -4,9 +4,11 @@
 Feature i owns rows [offset_i, offset_i + capacity_i) of the one table;
 its ids are hashed mod its own capacity and shifted by its offset, so
 collisions are those of an isolated table of that capacity.  All
-features' rows are concatenated and looked up with one `_lookup`: one
-gather forward and one scatter-add backward (the Hopper kernel on the
-card) per arena, whatever the feature count.  The parameter is named
+features' rows are concatenated and looked up with one `lookup_rows`
+(layers/embedding.py's `_lookup`, on this rank's row shard where the
+table is sharded over `model`): one gather forward and one scatter-add
+backward (the Hopper kernel on the card) per arena, whatever the
+feature count.  The parameter is named
 `embedding`, as in the JAX arena.
 
 Quantized storage (`arena_dtype="int8"`): rows live as int8 codes with a
@@ -41,9 +43,10 @@ import torch
 from torch import nn
 
 from elasticdl_tpu_torch.layers.embedding import (
-    _lookup,
     hash_ids,
     hash_ids_host,
+    lookup_rows,
+    shard_of,
 )
 from elasticdl_tpu_torch.ops.scatter_add import scatter_add_forward
 
@@ -163,6 +166,8 @@ class _ArenaTable(nn.Module):
                 f"arena_dtype must be one of {ARENA_DTYPES}, got "
                 f"{arena_dtype!r}")
         self.arena_dtype = arena_dtype
+        # the whole table's rows (a rank may hold a 'model' shard of them)
+        self.rows = int(rows)
         shape = (int(rows), int(dim))
         if arena_dtype == "int8":
             # the trainable zero carrier; the planes are buffers
@@ -191,7 +196,12 @@ class _ArenaTable(nn.Module):
 
     def _gather(self, flat_rows: torch.Tensor) -> torch.Tensor:
         if self.arena_dtype != "int8":
-            return _lookup(self.embedding, flat_rows)
+            return lookup_rows(self.embedding, flat_rows, self.rows)
+        if shard_of(self.embedding.shape[0], self.rows) is not None:
+            raise NotImplementedError(
+                "an int8 arena row-sharded over the 'model' axis is not "
+                "ported (ROADMAP.md queue 1, item 12.6): shard the fp32 "
+                "arena, or train the int8 one on a mesh without 'model'")
         # dequantize inside the gather (code gather, scale gather, one
         # multiply); the tap adds exact zeros forward and collects the
         # scatter-add backward
@@ -314,6 +324,10 @@ class TieredArena(_ArenaTable):
         return self.arena_dtype
 
     def forward(self, slots: torch.Tensor, overlay=None) -> torch.Tensor:
+        if shard_of(self.embedding.shape[0], self.rows) is not None:
+            raise NotImplementedError(
+                "the tiered store's cache row-sharded over the 'model' "
+                "axis is not ported (ROADMAP.md queue 1, item 12.6)")
         rows = slots.to(torch.int32)
         flat = torch.clamp_min(rows.reshape(-1), 0)
         hot = self._gather(flat).reshape(rows.shape + (self.output_dim,))

@@ -9,6 +9,15 @@ scatter-add.  Ids map to rows by the same uint32 arithmetic as the JAX
 multiplicative constant mod 2^32, then mod the capacity.  The arithmetic
 runs in int64 with explicit 32-bit masks, so negative ids wrap exactly
 as they do there.
+
+Row-sharded tables over the mesh `model` axis (the JAX package's
+`embedding_param_sharding`, `P("model", None)`): the trainer gives each
+`model` position the rows [r0, r1) of every table the zoo's
+`param_sharding` names, and `lookup_rows` sees it from the table's row
+count.  Ids outside the shard give zero rows, and a sum over `model`
+(`axis_sum`) makes the output.  The backward reaches only the local
+shard: the scatter-add (kernel 2 on the card) runs at the shard's own
+row count, the ids of other shards carrying zero rows.
 """
 
 from __future__ import annotations
@@ -20,6 +29,8 @@ import torch
 from torch import nn
 
 from elasticdl_tpu_torch.ops.scatter_add import scatter_add_forward
+from elasticdl_tpu_torch.parallel.collectives import axis_sum
+from elasticdl_tpu_torch.parallel.mesh import MODEL_AXIS, get_current_mesh
 
 # Knuth's multiplicative hash constant (2^32 / phi)
 _MIX = 2654435761
@@ -76,6 +87,50 @@ def _lookup(table: torch.Tensor, flat_rows: torch.Tensor) -> torch.Tensor:
     return _Lookup.apply(table, flat_rows)
 
 
+def shard_of(table_rows: int, capacity: int, mesh=None):
+    """(mesh, first row) when a table of `table_rows` rows is this
+    rank's shard of a `capacity`-row table row-sharded over `model`,
+    else None (a whole table)."""
+    mesh = get_current_mesh() if mesh is None else mesh
+    shards = mesh.shape[MODEL_AXIS]
+    if shards == 1 or table_rows == capacity:
+        return None
+    if table_rows * shards != capacity:
+        raise ValueError(
+            f"a table of {table_rows} rows is neither the whole "
+            f"{capacity}-row table nor its 1/{shards} shard over "
+            f"'{MODEL_AXIS}'")
+    return mesh, mesh.coords[MODEL_AXIS] * table_rows
+
+
+def lookup_rows(table: torch.Tensor, flat_rows: torch.Tensor,
+                capacity: int, gather=_lookup) -> torch.Tensor:
+    """Rows `flat_rows` in [0, capacity) of a table that may be this
+    rank's row shard (`shard_of`): the local rows, zeros for ids of
+    other shards, summed over `model`.  `gather(table, rows)` is the
+    one-shard gather."""
+    shard = shard_of(table.shape[0], capacity)
+    if shard is None:
+        return gather(table, flat_rows)
+    mesh, first = shard
+    local = flat_rows - first
+    inside = (local >= 0) & (local < table.shape[0])
+    vecs = gather(table, torch.where(inside, local,
+                                     torch.zeros_like(local)))
+    vecs = torch.where(inside[:, None], vecs, torch.zeros_like(vecs))
+    return axis_sum(vecs, mesh, MODEL_AXIS)
+
+
+def embedding_param_sharding(name: str, value) -> Optional[tuple]:
+    """`param_sharding` helper for zoo modules: every embedding table
+    (a parameter named `embedding`, 2-D or more) row-sharded over the
+    `model` axis, the rest replicated (None).  Specs are tuples of axis
+    names or None, one per dim, as the JAX `PartitionSpec`s."""
+    if "embedding" in name.split(".") and getattr(value, "ndim", 0) >= 2:
+        return (MODEL_AXIS, None)
+    return None
+
+
 class DistributedEmbedding(nn.Module):
     """The port of `elasticdl_tpu.layers.embedding.DistributedEmbedding`.
 
@@ -114,7 +169,9 @@ class DistributedEmbedding(nn.Module):
         if prehashed:
             # ids are already table rows in [0, input_dim) (hashed on the
             # host by `hash_ids_host`); no hash and no pad masking
-            vecs = _lookup(self.embedding, ids.reshape(-1).to(torch.int32))
+            vecs = lookup_rows(self.embedding,
+                               ids.reshape(-1).to(torch.int32),
+                               self.input_dim)
             vecs = vecs.reshape(ids.shape + (self.output_dim,))
             if self.combiner is None:
                 return vecs
@@ -122,7 +179,8 @@ class DistributedEmbedding(nn.Module):
         valid = ids != self.pad_id
         rows = hash_ids(torch.where(valid, ids, torch.zeros_like(ids)),
                         self.input_dim, mix=self.hash_input)
-        vecs = _lookup(self.embedding, rows.reshape(-1))
+        vecs = lookup_rows(self.embedding, rows.reshape(-1),
+                           self.input_dim)
         vecs = vecs.reshape(rows.shape + (self.output_dim,))
         vecs = torch.where(valid[..., None], vecs, torch.zeros_like(vecs))
         if self.combiner is None:

@@ -24,7 +24,11 @@ flax's numerics and initialisers rather than PyTorch's defaults.
   momentum * running + (1 - momentum) * batch (flax's momentum 0.9 is
   torch's 0.1); with `train=False` it reads the running statistics.
   The statistics live in the buffers `running_mean` / `running_var`
-  (flax's `batch_stats` collection).
+  (flax's `batch_stats` collection).  On a mesh whose `data` axis has
+  more than one position the batch statistics cover the global batch,
+  as the JAX step computes them over its global arrays: the per-channel
+  sums of x and x^2 and the row counts are summed over `data`
+  (`axis_sum`, whose backward sums the cotangents).
 - `max_pool`: flax's max_pool with "VALID" padding.
 - `init_parameters`: every submodule's `reset_parameters(generator)`,
   then the model's own `reset_own_parameters(generator)` if it has one.
@@ -38,6 +42,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from elasticdl_tpu_torch.parallel import collectives
+from elasticdl_tpu_torch.parallel.mesh import DATA_AXIS, get_current_mesh
 
 # stddev of a unit normal truncated to [-2, 2]: flax's variance_scaling
 # divides by it so the truncated draw keeps the requested variance
@@ -177,9 +184,21 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             axes = (0, 2, 3)
-            mean = xf.mean(dim=axes)
-            var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean,
-                                  0.0)
+            mesh = get_current_mesh()
+            if mesh.axis_group(DATA_AXIS) is None:
+                mean = xf.mean(dim=axes)
+                var = torch.clamp_min(
+                    (xf * xf).mean(dim=axes) - mean * mean, 0.0)
+            else:
+                # global-batch moments: sums and counts over `data`
+                sums = collectives.axis_sum(
+                    torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]),
+                    mesh, DATA_AXIS)
+                count = collectives.axis_reduce(
+                    torch.tensor(float(xf.numel() // xf.shape[1]),
+                                 device=xf.device), mesh, DATA_AXIS)
+                mean = sums[0] / count
+                var = torch.clamp_min(sums[1] / count - mean * mean, 0.0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(
                     (1.0 - self.momentum) * mean.detach())

@@ -16,8 +16,21 @@ and zoo contract.
   the same parameter names, the same numbers, less activation memory;
   the flash forward then runs twice per block per step.
 
-Only the dense single-device encoder is ported: moe_experts and
-pipeline_microbatches wait for the parallel-layer slice.
+On a mesh (parallel/mesh.py, set by the trainer) the variants of the
+JAX zoo run over its axes:
+
+- `seq`: each position embeds its chunk of the sequence with the
+  position offset, attention is the ring (ops/ring_attention.py), and
+  the pool is `axis_max` over `seq`;
+- `model`: the token table is row-sharded (`param_sharding`);
+- moe_experts > 0: the FFN is a Switch `MoEMLP` (layers/moe.py), its
+  expert stacks sharded over `expert`;
+- pipeline_microbatches > 0: the encoder is `GPipeBlocks` of
+  `PipelinedBlock`s (layers/pipeline.py) over `pipe`; their attention is
+  the ring of one (no `seq` axis), so the flash kernel where
+  `flash_shapes_ok` holds (the JAX code uses flash on its TPU backend).
+
+In export mode each runs its one-device form on the gathered tree.
 
 Record format: max_len int32 token ids | 1 uint8 label.
 """
@@ -33,10 +46,20 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from elasticdl_tpu_torch.layers.embedding import DistributedEmbedding
+from elasticdl_tpu_torch.layers.embedding import (
+    DistributedEmbedding,
+    embedding_param_sharding,
+)
 from elasticdl_tpu_torch.layers.linen import Dense, LayerNorm, gelu
+from elasticdl_tpu_torch.layers.moe import MoEMLP, moe_param_sharding
+from elasticdl_tpu_torch.layers.pipeline import (
+    GPipeBlocks,
+    pipeline_param_sharding,
+)
 from elasticdl_tpu_torch.model_zoo.common.metrics import auc
 from elasticdl_tpu_torch.ops.ring_attention import ring_self_attention
+from elasticdl_tpu_torch.parallel.collectives import axis_max
+from elasticdl_tpu_torch.parallel.mesh import SEQ_AXIS, get_current_mesh
 
 MAX_LEN = 128
 VOCAB_SIZE = 8192
@@ -61,20 +84,18 @@ class RingSelfAttention(nn.Module):
         shape = (self.heads, head_dim)
         out = ring_self_attention(
             q.unflatten(-1, shape), k.unflatten(-1, shape),
-            v.unflatten(-1, shape), mesh=None, causal=False,
+            v.unflatten(-1, shape), mesh=get_current_mesh(), causal=False,
         )
         return self.out(out.reshape(batch, length, self.hidden))
 
 
-class TransformerBlock(nn.Module):
+class PipelinedBlock(nn.Module):
+    """Shape-preserving block of the GPipe stack: local attention and a
+    dense FFN."""
+
     def __init__(self, hidden: int, heads: int, mlp_dim: int,
-                 moe_experts: int = 0, dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        if moe_experts > 0:
-            raise NotImplementedError(
-                "moe_experts > 0 (the Switch MoE FFN over the expert "
-                "axis) comes with the parallel-layer slice of the port"
-            )
         self.attention = RingSelfAttention(hidden, heads, dtype=dtype)
         self.LayerNorm_0 = LayerNorm(hidden, dtype=dtype)
         self.Dense_0 = Dense(hidden, mlp_dim, dtype=dtype)
@@ -88,6 +109,32 @@ class TransformerBlock(nn.Module):
         return self.LayerNorm_1(x + y)
 
 
+class TransformerBlock(nn.Module):
+    def __init__(self, hidden: int, heads: int, mlp_dim: int,
+                 moe_experts: int = 0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.attention = RingSelfAttention(hidden, heads, dtype=dtype)
+        self.LayerNorm_0 = LayerNorm(hidden, dtype=dtype)
+        if moe_experts > 0:
+            # the Switch FFN, experts sharded over `expert` (f32, as the
+            # JAX block builds it)
+            self.moe_mlp = MoEMLP(hidden, num_experts=moe_experts,
+                                  ffn_dim=mlp_dim)
+        else:
+            self.Dense_0 = Dense(hidden, mlp_dim, dtype=dtype)
+            self.Dense_1 = Dense(mlp_dim, hidden, dtype=dtype)
+        self.LayerNorm_1 = LayerNorm(hidden, dtype=dtype)
+
+    def forward(self, x):
+        y = self.attention(x)
+        x = self.LayerNorm_0(x + y)
+        if hasattr(self, "moe_mlp"):
+            y = self.moe_mlp(x)
+        else:
+            y = self.Dense_1(gelu(self.Dense_0(x)))
+        return self.LayerNorm_1(x + y)
+
+
 class BertClassifier(nn.Module):
     def __init__(self, vocab_size: int = VOCAB_SIZE, hidden: int = 768,
                  num_layers: int = 12, heads: int = 12, mlp_dim: int = 3072,
@@ -95,12 +142,12 @@ class BertClassifier(nn.Module):
                  moe_experts: int = 0, pipeline_microbatches: int = 0,
                  remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if pipeline_microbatches > 0:
-            raise NotImplementedError(
-                "pipeline_microbatches > 0 (the GPipe schedule over the "
-                "pipe axis) comes with the parallel-layer slice of the port"
-            )
+        if pipeline_microbatches > 0 and moe_experts > 0:
+            raise ValueError(
+                "pipeline_microbatches and moe_experts are mutually "
+                "exclusive")
         self.num_layers = num_layers
+        self.pipelined = pipeline_microbatches > 0
         # recompute each block in the backward; the parameters, and so
         # the checkpoints, are the same either way
         self.remat = remat
@@ -109,10 +156,17 @@ class BertClassifier(nn.Module):
         )
         self.position_embedding = nn.Parameter(torch.empty(max_len, hidden))
         self.LayerNorm_0 = LayerNorm(hidden)
-        for i in range(num_layers):
-            self.add_module(f"layer_{i}", TransformerBlock(
-                hidden, heads, mlp_dim, moe_experts=moe_experts, dtype=dtype
-            ))
+        if self.pipelined:
+            self.encoder_pipeline = GPipeBlocks(
+                functools.partial(PipelinedBlock, hidden, heads, mlp_dim,
+                                  dtype=dtype),
+                num_layers=num_layers,
+                num_microbatches=pipeline_microbatches, remat=remat)
+        else:
+            for i in range(num_layers):
+                self.add_module(f"layer_{i}", TransformerBlock(
+                    hidden, heads, mlp_dim, moe_experts=moe_experts,
+                    dtype=dtype))
         self.classifier = Dense(hidden, num_classes)
         # the submodules drew their own parameters; only this one is left
         self.reset_own_parameters()
@@ -127,17 +181,36 @@ class BertClassifier(nn.Module):
 
     def forward(self, features):
         ids = features["input_ids"].to(torch.int32)         # (B, L)
+        mesh = get_current_mesh()
+        chunks = mesh.shape[SEQ_AXIS]
+        start = 0
+        if chunks > 1:
+            # this position's chunk of the sequence
+            if self.pipelined:
+                raise ValueError(
+                    "the pipelined encoder attends locally: it cannot "
+                    f"run on a '{SEQ_AXIS}' axis of {chunks}")
+            if ids.shape[1] % chunks:
+                raise ValueError(
+                    f"sequence length {ids.shape[1]} does not split over "
+                    f"'{SEQ_AXIS}' of size {chunks}")
+            width = ids.shape[1] // chunks
+            start = mesh.coords[SEQ_AXIS] * width
+            ids = ids[:, start:start + width]
         tok = self.token_embedding(ids)
-        x = tok + self.position_embedding[None, : ids.shape[1]]
+        x = tok + self.position_embedding[None, start:start + ids.shape[1]]
         x = self.LayerNorm_0(x)
-        for i in range(self.num_layers):
+        if self.pipelined:
+            x = self.encoder_pipeline(x)
+        for i in range(0 if self.pipelined else self.num_layers):
             block = getattr(self, f"layer_{i}")
             if self.remat and torch.is_grad_enabled():
                 x = checkpoint(block, x, use_reentrant=False)
             else:
                 x = block(x)
-        # max-pool over the sequence
-        pooled = x.amax(dim=1)
+        # max-pool over the sequence (and over its chunks)
+        pooled = axis_max(x, mesh, SEQ_AXIS, dim=1) if chunks > 1 \
+            else x.amax(dim=1)
         return self.classifier(pooled)
 
 
@@ -232,3 +305,15 @@ def eval_metrics_fn():
             labels, predictions[:, 1] - predictions[:, 0]
         ),
     }
+
+
+def param_sharding(name: str, value):
+    """The token table row-sharded over `model`, expert stacks over
+    `expert`, the pipelined layer stack over `pipe`; everything else
+    replicated (the JAX zoo's `param_sharding`)."""
+    for rule in (pipeline_param_sharding, moe_param_sharding,
+                 embedding_param_sharding):
+        spec = rule(name, value)
+        if spec is not None:
+            return spec
+    return None

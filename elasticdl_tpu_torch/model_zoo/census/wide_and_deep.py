@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from elasticdl_tpu_torch.layers.arena import EmbeddingArena
+from elasticdl_tpu_torch.layers.embedding import embedding_param_sharding
 from elasticdl_tpu_torch.layers.linen import Dense
 from elasticdl_tpu_torch.model_zoo.common.metrics import auc, binary_accuracy
 from elasticdl_tpu_torch.preprocessing.layers import fnv1a_hash
@@ -143,3 +144,7 @@ def feed(records, metadata=None):
 
 def eval_metrics_fn():
     return {"auc": auc, "accuracy": binary_accuracy}
+
+
+# every arena table row-sharded over the mesh `model` axis
+param_sharding = embedding_param_sharding

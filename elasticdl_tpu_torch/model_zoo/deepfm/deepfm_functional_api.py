@@ -49,7 +49,10 @@ from elasticdl_tpu_torch.data.wire import (
     unpack_uint24,
 )
 from elasticdl_tpu_torch.layers.arena import EmbeddingArena
-from elasticdl_tpu_torch.layers.embedding import hash_ids_host
+from elasticdl_tpu_torch.layers.embedding import (
+    embedding_param_sharding,
+    hash_ids_host,
+)
 from elasticdl_tpu_torch.layers.linen import Dense
 from elasticdl_tpu_torch.model_zoo.common.metrics import auc, binary_accuracy
 
@@ -290,3 +293,7 @@ def feed_bulk_dedup(buffer, sizes, metadata=None):
 
 def eval_metrics_fn():
     return {"auc": auc, "accuracy": binary_accuracy}
+
+
+# every arena table row-sharded over the mesh `model` axis
+param_sharding = embedding_param_sharding

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from elasticdl_tpu_torch.layers.arena import EmbeddingArena
+from elasticdl_tpu_torch.layers.embedding import embedding_param_sharding
 from elasticdl_tpu_torch.layers.linen import Dense
 from elasticdl_tpu_torch.model_zoo.common.metrics import auc, binary_accuracy
 from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_functional_api as _fm
@@ -49,7 +50,7 @@ from elasticdl_tpu_torch.model_zoo.deepfm.deepfm_functional_api import (  # noqa
 __all__ = [
     "custom_model", "loss", "optimizer", "feed", "feed_bulk",
     "feed_bulk_compact", "feed_bulk_dedup", "eval_metrics_fn",
-    "RECORD_BYTES", "NUM_DENSE", "NUM_SPARSE",
+    "param_sharding", "RECORD_BYTES", "NUM_DENSE", "NUM_SPARSE",
 ]
 
 
@@ -149,3 +150,7 @@ def custom_model(vocab_capacity: int = 1 << 18, embed_dim: int = 16,
 
 def eval_metrics_fn():
     return {"auc": auc, "accuracy": binary_accuracy}
+
+
+# every arena table row-sharded over the mesh `model` axis
+param_sharding = embedding_param_sharding

@@ -12,8 +12,13 @@ no triples on the command line it reads them from standard input, one
 exports exist).  The process loads each export once through
 `load_saved_model`, which registers the hand kernels' custom ops and
 imports nothing of the zoo, and prints one JSON line: the flash
-kernel's launches during the runs, the port modules it imported and
-the seconds it spent loading and running each triple.
+kernel's launches during the runs, the port modules it imported, the
+seconds it spent loading and running each triple, and its timeline as
+`time.perf_counter` readings (on Linux one clock for every process of
+the machine, so a caller can set them beside its own): `started_at`
+(this module begins, after the package's own import of torch),
+`ready_at` (the device reached and the loader warm), each triple's
+`arrived_at` and `done_at`.
 """
 
 from __future__ import annotations
@@ -24,10 +29,12 @@ import json
 import sys
 import time
 
-import numpy as np
-import torch
+STARTED_AT = time.perf_counter()
 
-from elasticdl_tpu_torch.common.export import load_saved_model
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from elasticdl_tpu_torch.common.export import load_saved_model  # noqa: E402
 
 
 class _Probe(torch.nn.Module):
@@ -69,12 +76,13 @@ def main(argv=None) -> int:
     flash_attention.launches = 0
     torch.empty(1, device=args.device)       # the device, up front
     _warm_loader()
+    ready_at = time.perf_counter()
     loaded, seconds = {}, []
     for triple in _triples(args):
         if len(triple) != 3:
             parser.error(f"not a MODEL FEATURES OUT triple: {triple}")
         model_path, features_path, out_path = triple
-        t0 = time.perf_counter()
+        t0 = arrived_at = time.perf_counter()
         if model_path not in loaded:
             loaded[model_path] = load_saved_model(model_path).module()
         t1 = time.perf_counter()
@@ -84,13 +92,16 @@ def main(argv=None) -> int:
         with torch.no_grad():
             out = loaded[model_path](features).float().cpu().numpy()
         np.savez(out_path, out=out)
-        seconds.append({"load_s": t1 - t0,
-                        "run_s": time.perf_counter() - t1})
+        done_at = time.perf_counter()
+        seconds.append({"load_s": t1 - t0, "run_s": done_at - t1,
+                        "arrived_at": arrived_at, "done_at": done_at})
     print(json.dumps({
         "flash_launches": flash_attention.launches,
         "port_modules": sorted(m for m in sys.modules
                                if m.startswith("elasticdl_tpu_torch")),
         "seconds": seconds,
+        "started_at": STARTED_AT,
+        "ready_at": ready_at,
     }, sort_keys=True))
     return 0
 

@@ -58,6 +58,7 @@ from elasticdl_tpu_torch.common.model_handler import (
 from elasticdl_tpu_torch.common.save_utils import (
     LOAD_ERRORS,
     committed_steps,
+    is_sharded,
     verify_step,
 )
 from elasticdl_tpu_torch.common.summary import SummaryWriter
@@ -199,6 +200,7 @@ class SPMDWorker:
         wire_format: str = "",
         rpc_policy: Optional[resilience.RetryPolicy] = None,
         device: str = "cuda",
+        mesh: Optional[mesh_lib.ProcessMesh] = None,
     ):
         self.worker_id = worker_id
         # one policy for every control-plane call this rank makes; an
@@ -233,6 +235,9 @@ class SPMDWorker:
         self._use_bf16 = use_bf16
         self._seed = seed
         self._device = device
+        # a mesh the caller built (any axes; the cluster path builds a
+        # data-only one per epoch, as the JAX worker does)
+        self._given_mesh = mesh
         self._saver = checkpoint_saver
         self._saver_factory = checkpoint_saver_factory
         self._checkpoint_steps = checkpoint_steps
@@ -276,7 +281,7 @@ class SPMDWorker:
             # epoch can only be saved by a process restart
             self._watchdog_started = True
             threading.Thread(target=self._watchdog, daemon=True).start()
-        self.mesh = mesh_lib.create_mesh(
+        self.mesh = self._given_mesh or mesh_lib.create_mesh(
             self.num_processes, self.process_id, self._device,
             self._coordinator, init_timeout_s=self.INIT_TIMEOUT_S,
             collective_timeout_s=self._wedge_grace_s)
@@ -285,7 +290,8 @@ class SPMDWorker:
         self.trainer = Trainer(
             model=self.spec.model, optimizer=self.spec.optimizer,
             loss_fn=self.spec.loss, use_bf16=self._use_bf16,
-            device=self.mesh.device)
+            device=self.mesh.device,
+            param_sharding_fn=self.spec.param_sharding)
         self.trainer.phase_timer = _phase_timer
         logger.info("SPMD rank %d/%d up on %s (backend %s), epoch %d",
                     self.process_id, self.num_processes, self.mesh.device,
@@ -524,14 +530,18 @@ class SPMDWorker:
                 self._data_service.report_task(task, records=records)
         elif task.type == pb.SAVE_MODEL:
             self._save()
-            if self.is_leader:
+            # a sharded state's export gathers on every rank; the leader
+            # writes and reports
+            if self.is_leader or is_sharded(self.state):
                 try:
                     export_for_task(self.state, self.spec, task,
                                     sample_features=self.sample_features)
                 except RuntimeError as exc:
-                    self._data_service.report_task(task, err=str(exc))
+                    if self.is_leader:
+                        self._data_service.report_task(task, err=str(exc))
                 else:
-                    self._data_service.report_task(task, records=0)
+                    if self.is_leader:
+                        self._data_service.report_task(task, records=0)
         else:
             logger.warning("SPMD worker ignoring task type %s", task.type)
             if self.is_leader:
@@ -810,9 +820,10 @@ class SPMDWorker:
             self._saver.wait_until_finished()
 
     def _save(self) -> None:
-        # the leader writes; every rank holds the same state
-        if self._saver is not None and self.state is not None \
-                and self.is_leader:
+        # the leader writes; every rank holds the same state, or its
+        # shards, which every rank's save gathers
+        if self._saver is not None and self.state is not None and (
+                self.is_leader or is_sharded(self.state)):
             self._saver.save(self.state)
 
     def _maybe_checkpoint(self, stride: int = 1) -> None:

@@ -21,18 +21,27 @@ sparse ids under `__store_sparse__` (deferred planning; prepared and
 applied here, inside the step-serialized region, in step order).
 `stage_batch` passes both through untouched.
 
-A cluster job's ranks train one model data-parallel over a `DataMesh`
+A cluster job's ranks train one model over a `ProcessMesh`
 (parallel/mesh.py): `init_state_global` gives every rank rank 0's
-initial state, and `train_on_global_batch` runs the step of the JAX
-package's one program over the global batch: each rank computes the
-zoo's loss (a mean over rows) on its rows, its backward weighted by its
-share of the global rows, and one all-reduce sums the gradients together
-with the per-row loss sum and the row count.  The step's loss is the
-mean over every row of the global batch, whatever each rank holds, and
-every rank applies the same summed gradients, so all ranks hold the same
-parameters bit for bit after every step.  Mesh axes other than data,
-param sharding and elastic prewarm wait for ROADMAP.md queue 1, item
-12.
+initial state and, with a `param_sharding_fn` (the zoo's
+`param_sharding`), keeps only this rank's shard of each parameter it
+names (`common/weights.py::shard_tree`; AdamW and Adam then run on the
+shards unchanged).  `train_on_global_batch` runs the step of the JAX
+package's one program over the global batch.  Each rank computes the
+zoo's loss (a mean over its rows); the loss is the same on every rank
+of a data coordinate (the model's collectives make it so), so each
+rank's backward is weighted by its data share over the number of ranks
+that share it (`objective_weight`), and the axis collectives' backwards
+are exact transposes (parallel/collectives.py).  A parameter's gradient
+is then the sum over the ranks that hold the same values of it: over
+every axis of size > 1 except those its spec shards it on.  The step's
+loss is the mean over every row of the global batch, and every rank
+holding a parameter applies the same summed gradient, so the shards of
+a parameter stay one parameter bit for bit.  An MoE model's aux loss
+(`layers.moe.collect_aux_loss`) joins the objective, as the JAX step
+adds the sown values; it is the same on every rank and weighted by
+1/world there.  Elastic prewarm waits for ROADMAP.md queue 1, item
+12.4 (after item 14).
 
 The trainer's device entry points are registered programs
 (common/programs.py) under the JAX trainer's names: `worker_train_step`,
@@ -51,7 +60,7 @@ import copy
 import inspect
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
@@ -66,8 +75,10 @@ from elasticdl_tpu_torch.data.wire import (
 )
 from elasticdl_tpu_torch.device import resolve_device
 from elasticdl_tpu_torch.layers.arena import fold_quantized_updates
-from elasticdl_tpu_torch.layers.linen import BatchNorm, init_parameters
+from elasticdl_tpu_torch.layers.linen import init_parameters
+from elasticdl_tpu_torch.layers.moe import collect_aux_loss
 from elasticdl_tpu_torch.parallel import collectives
+from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 
 # Process-wide execution lock for the CPU.  CPU work runs synchronously
 # on the calling thread and spreads over PyTorch's intra-op threads;
@@ -170,6 +181,10 @@ class TrainState:
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    # {parameter name: spec} of the parameters this rank holds a shard
+    # of (a tuple of mesh axis names or None per dim), and their mesh
+    shardings: Dict[str, tuple] = field(default_factory=dict)
+    mesh: Optional[object] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -200,9 +215,13 @@ class Trainer:
 
     def __init__(self, model: nn.Module, optimizer: Callable,
                  loss_fn: Callable, use_bf16: bool = False,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 param_sharding_fn: Optional[Callable] = None):
         self.device = resolve_device(device)
         self.model = model
+        # (parameter name, tensor) -> spec or None: the zoo's
+        # `param_sharding`, applied by init_state_global
+        self.param_sharding_fn = param_sharding_fn
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.use_bf16 = use_bf16
@@ -241,7 +260,8 @@ class Trainer:
                 int(rng))
         model = copy.deepcopy(self.model).to(self.device)
         init_parameters(model, generator)
-        with torch.no_grad():
+        # the whole model, checked on one device
+        with torch.no_grad(), mesh_lib.using_mesh(mesh_lib.ProcessMesh()):
             self._forward(model, _to_device(sample_features, self.device),
                           train=False)
         return TrainState(step=0, model=model,
@@ -252,8 +272,8 @@ class Trainer:
         """A cluster rank's fresh state: `init_state` on this rank, then
         rank 0's parameters and buffers broadcast to every rank, so the
         group starts from one state (the JAX trainer gets the same from
-        one init program over the global mesh)."""
-        refuse_per_rank_statistics(self.model, mesh)
+        one init program over the global mesh); with a
+        `param_sharding_fn` each rank then keeps its shards."""
         return run_device_serialized(self._init_global, rng,
                                      sample_features, mesh,
                                      device=self.device)
@@ -266,6 +286,8 @@ class Trainer:
                  if t.is_floating_point() or t.dtype in
                  (torch.int8, torch.int32, torch.int64, torch.uint8)],
                 mesh)
+        if self.param_sharding_fn is not None:
+            shard_state(state, self.param_sharding_fn, mesh)
         return state
 
     def _cast(self, features):
@@ -293,6 +315,9 @@ class Trainer:
     def _train_step(self, state: TrainState, batch) -> torch.Tensor:
         preds = self._forward(state.model, batch["features"], train=True)
         loss = self.loss_fn(batch["labels"], preds.float()).float()
+        aux = collect_aux_loss(state.model)
+        if aux is not None:
+            loss = loss + aux
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
@@ -441,29 +466,25 @@ class Trainer:
                            mesh) -> torch.Tensor:
         """One step of the group over a global batch; `shard` is this
         rank's rows (a mesh.LocalShard, already on the device)."""
+        mesh_lib.set_current_mesh(mesh)
         batch = shard.batch
         preds = self._forward(state.model, batch["features"], train=True)
         loss = self.loss_fn(batch["labels"], preds.float()).float()
+        aux = collect_aux_loss(state.model)
         state.optimizer.zero_grad(set_to_none=True)
-        # the zoo's loss is a mean over this rank's rows: weighted by the
-        # rank's share, the summed gradients are those of the mean over
-        # the global batch
-        (loss * (shard.rows / shard.global_rows)).backward()
-        params = [p for p in state.model.parameters() if p.requires_grad]
-        for p in params:
-            if p.grad is None:
-                # a parameter the step did not reach: a zero gradient, as
-                # JAX's, so every rank reduces the same layout
-                p.grad = torch.zeros_like(p)
+        objective = loss * objective_weight(shard, mesh)
+        if aux is not None:
+            objective = objective + aux / mesh.world_size
+        objective.backward()
         totals = torch.stack([loss.detach() * shard.rows,
                               torch.tensor(float(shard.rows),
                                            device=loss.device)])
-        collectives.all_reduce_sum_([p.grad for p in params] + [totals],
-                                    mesh)
+        reduce_gradients(state, mesh, extra=totals)
         state.optimizer.step()
         fold_quantized_updates(state.model, state.step)
         state.step += 1
-        return totals[0] / totals[1]
+        mean = totals[0] / totals[1]
+        return mean if aux is None else mean + aux.detach()
 
     def train_on_global_batch(self, state: TrainState, shard, mesh):
         """One data-parallel step; returns (state, loss), the loss the
@@ -489,6 +510,7 @@ class Trainer:
         on every rank (this rank predicts its rows; a gather joins
         them)."""
         def _predict():
+            mesh_lib.set_current_mesh(mesh)
             return self.eval_step(state, shard.batch["features"])
 
         local = run_device_serialized(_predict, device=self.device)
@@ -508,14 +530,52 @@ class Trainer:
         return run_device_serialized(_predict, device=self.device)
 
 
-def refuse_per_rank_statistics(model: nn.Module, mesh) -> None:
-    """A model with BatchNorm cannot train on more than one rank here:
-    the JAX step computes its statistics over the global batch, and
-    per-rank statistics would silently differ (ROADMAP.md queue 1, item
-    12 keeps the cross-rank moments)."""
-    if mesh.world_size > 1 and any(isinstance(m, BatchNorm)
-                                   for m in model.modules()):
-        raise NotImplementedError(
-            "a model with BatchNorm trains on one rank only: its "
-            "statistics must cover the global batch, and the all-reduce "
-            "of the moments waits for ROADMAP.md queue 1, item 12")
+def objective_weight(shard, mesh) -> float:
+    """This rank's weight on its loss (a mean over its rows): its share
+    of the global rows, over the number of ranks that hold the same rows
+    and so compute the same loss."""
+    replicas = mesh.world_size // mesh.shape[mesh_lib.DATA_AXIS]
+    return shard.rows / shard.global_rows / replicas
+
+
+def reduce_gradients(state: TrainState, mesh, extra=None) -> None:
+    """Sum each parameter's gradient over the ranks that hold the same
+    values of it: every axis of size > 1 but those its spec shards it
+    on (a parameter the step did not reach gets a zero gradient, as
+    JAX's, so every rank reduces the same layout).  `extra` (the loss
+    totals) is summed over `data` with the gradients that reduce there,
+    in one buffer."""
+    live = tuple(a for a in mesh_lib.AXES if mesh.shape[a] > 1)
+    buckets: Dict[tuple, list] = {}
+    for name, p in state.model.named_parameters():
+        if not p.requires_grad:
+            continue
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        spec = state.shardings.get(name) or ()
+        axes = tuple(a for a in live if a not in spec)
+        buckets.setdefault(axes, []).append(p.grad)
+    if extra is not None:
+        data = (mesh_lib.DATA_AXIS,) if mesh_lib.DATA_AXIS in live else ()
+        buckets.setdefault(data, []).append(extra)
+    for axes, tensors in buckets.items():
+        if axes:
+            collectives.all_reduce_sum_(tensors, mesh, axes)
+
+
+def shard_state(state: TrainState, param_sharding_fn, mesh) -> None:
+    """Keep this rank's shard of every parameter `param_sharding_fn`
+    gives a spec (before the optimizer has state); records the specs
+    and the mesh on `state`."""
+    from elasticdl_tpu_torch.common.weights import shard_tensor
+
+    specs = {}
+    with torch.no_grad():
+        for name, p in state.model.named_parameters():
+            spec = param_sharding_fn(name, p)
+            if spec is None:
+                continue
+            specs[name] = tuple(spec)
+            p.data = shard_tensor(p.data, specs[name], mesh).clone()
+    state.shardings = specs
+    state.mesh = mesh

@@ -167,15 +167,25 @@ def test_compact_ids_serve_like_int32_ids(pair):
     assert torch.equal(a, b)
 
 
-# remat alone is ported (tests/test_torch_bert_train.py); remat of a
-# GPipe stack waits with the pipeline
+# the parallel variants on one device: the MoE FFN (every expert local)
+# and the GPipe stack (sequential), from the flax init, f32
 @pytest.mark.parametrize("kwargs", [{"moe_experts": 4},
                                     {"pipeline_microbatches": 2},
                                     {"pipeline_microbatches": 2,
                                      "remat": True}])
-def test_unported_variants_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        port_bert.custom_model(**CFG, **kwargs)
+def test_variants_match_flax_on_one_device(kwargs):
+    cfg = dict(CFG, max_len=16)
+    ids = _ids()[:, :16]
+    jax_model = jax_bert.custom_model(**cfg, **kwargs)
+    variables = jax_model.init(jax.random.PRNGKey(0), {"input_ids": ids})
+    port_model = port_bert.custom_model(**cfg, **kwargs)
+    flat = flatten_params(jax.tree.map(np.asarray, variables["params"]))
+    port_model.load_state_dict(params_from_jax(port_model, flat),
+                               strict=True)
+    want = np.asarray(jax_model.apply(variables, {"input_ids": ids}))
+    with torch.no_grad():
+        got = port_model({"input_ids": torch.from_numpy(ids)}).numpy()
+    np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
 
 
 def test_get_model_spec_loads_port_zoo_by_qualified_name():

@@ -114,13 +114,6 @@ def test_seq1_ring_self_attention_matches_jax(length):
         _np(got))
 
 
-def test_ring_over_seq_axis_waits_for_parallel_slice():
-    _, (tq, tk, tv) = _both(_qkv(length=64), "float32")
-    mesh = types.SimpleNamespace(shape={"data": 1, "seq": 2})
-    with pytest.raises(NotImplementedError, match="parallel-layer slice"):
-        port_ring.ring_self_attention(tq, tk, tv, mesh=mesh)
-
-
 # (q shape, k shape, port predicate, JAX predicate)
 PREDICATE_CASES = [
     ((64, 512, 12, 64), (64, 512, 12, 64), True, True),   # the slice

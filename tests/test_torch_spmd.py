@@ -333,22 +333,6 @@ def test_row_split_and_batches():
     assert jax_mesh.pad_to_multiple({"x": np.arange(5)}, 4)[1] == real
 
 
-@pytest.mark.parametrize("axis", ["model", "seq", "expert", "pipe"])
-def test_axes_other_than_data_raise(axis):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        mesh_lib.create_mesh(1, 0, "cpu", **{axis: 2})
-
-
-def test_batchnorm_models_train_on_one_rank_only():
-    spec = get_model_spec(ZOO_DIR, "cifar10.resnet.custom_model",
-                          model_params="stage_sizes=(1, 1)")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_trainer.refuse_per_rank_statistics(
-            spec.model, mesh_lib.DataMesh(2, 0, torch.device("cpu")))
-    port_trainer.refuse_per_rank_statistics(
-        spec.model, mesh_lib.DataMesh(1, 0, torch.device("cpu")))
-
-
 _REBIND = """
 import datetime, sys, torch, torch.distributed as dist
 rank, port = int(sys.argv[1]), int(sys.argv[2])
