@@ -284,28 +284,46 @@
 19. The model, seq, expert and pipe axes (`parallel_axes`, after
    `cluster`; budget 90 s).  One world of PAR_RANKS = 4 processes on
    cuda:0 (`chip_smoke.py --parallel-rank`; gloo: they share the card)
-   runs each part on its own mesh over the one default group: (a)
-   BERT-base (hidden 768, 12 layers, L 512, bf16, global batch 16) on
-   model=2 x seq=2 from the init this process wrote: 3 steps against
-   this process's one-rank run (PAR_LOSS_RTOL), 2 ring blocks x 12
-   layers of flash forwards and backwards a step a rank on
-   `sm90_wgmma`, the token table's shard, a predict and a checkpoint;
-   then one ring of 2 blocks at a rank's shape (16, 256, 12x64) against
-   the plain ring body (twice TOL / BWD_TOL: each block's partial is
-   rounded to bf16); (b) BERT-base with 4 experts on data=2 x expert=2
-   (2 experts a rank), 3 steps on one batch whose loss falls, and
-   layer_0's MoE on seeded tokens against the one-rank layer with its
-   experts gathered (PAR_MOE_TOL); (c) BERT-base with 4 microbatches on
-   data=2 x pipe=2 (6 layers a stage): the logits and the step-1
-   gradients against the gathered model run sequentially on rank 0
-   (PAR_LOGITS_TOL, PAR_PIPE_TOL); (d) DeepFM at the bench's vocab on
-   data=2 x model=2 (2^19 rows of each table a rank), 4 steps against
-   one rank (DP_F32_TOL, DP_LOSS_RTOL), 2 scatter-adds a step a rank,
-   and the kernel against its plain version at the shard's ids
-   (bitwise, on CPU copies); (e) (a)'s step restored on one rank in
-   this process, its logits against the ranks' (PAR_LOGITS_TOL).  Each
-   part's seconds, host-staging ms a step (`collectives.STAGING`) and
-   peak memory a rank are printed with the card's name and power limit.
+   runs each part on its own mesh over the one default group (the
+   older parts (a)-(c) at BERT-base's widths cut to 6 layers, the ring
+   to 2 steps, so that (f)-(h) fit the budget): (a) BERT-base (hidden
+   768, L 512, bf16, global batch 16) on model=2 x seq=2 from the init
+   this process wrote: 2 steps against this process's one-rank run
+   (PAR_LOSS_RTOL), 2 ring blocks a layer of flash forwards and
+   backwards a step a rank on `sm90_wgmma`, the token table's shard, a
+   predict and a checkpoint; then one ring of 2 blocks at a rank's
+   shape (16, 256, 12x64) against the plain ring body (twice TOL /
+   BWD_TOL: each block's partial is rounded to bf16); (b) BERT-base with
+   4 experts on data=2 x expert=2 (2 experts a rank), 3 steps on one
+   batch whose loss falls, and layer_0's MoE on seeded tokens against
+   the one-rank layer with its experts gathered (PAR_MOE_TOL); (c)
+   BERT-base with 4 microbatches on data=2 x pipe=2 (3 layers a stage):
+   the logits and the step-1 gradients against the gathered model run
+   sequentially on rank 0 (PAR_LOGITS_TOL, PAR_PIPE_TOL); (d) DeepFM at
+   the bench's vocab on data=2 x model=2 (2^19 rows of each table a
+   rank), 4 steps against one rank (DP_F32_TOL, DP_LOSS_RTOL), 2
+   scatter-adds a step a rank, and the kernel against its plain version
+   at the shard's ids (bitwise, on CPU copies); (e) (a)'s step restored
+   on one rank in this process, its logits against the ranks'
+   (PAR_LOGITS_TOL); (f) DeepFM at the bench's width with int8 arenas
+   on data=2 x model=2, 4 steps against one rank (DP_LOSS_RTOL), every
+   fold replayed whole on each rank and equal bit for bit, the carrier
+   zero after it; then on data=1 x model=4, the gathered state bit for
+   bit the one-rank run's; (g) the tiered DeepFM with a 2^20-row cache,
+   fp32 and int8, a vocabulary past the cache (planned once by this
+   process), 3 steps of REAL_BATCH zipf(1.2) rows on data=2 x model=2
+   (against one rank, DP_LOSS_RTOL) and on data=1 x model=4 (the
+   gathered state, cache tables and host tier bit for bit one rank's):
+   every plan equal on every rank and one rank, each rank admitting its
+   sub-plan, evictions every step, hit rate and prepare ms; (h)
+   BERT-base (12 layers) with 4 experts on seq=2 x expert=2, 3 steps
+   against one rank (PAR_LOSS_RTOL), and layer_0's MoE at a capacity
+   that drops tokens against the one-rank layer (PAR_MOE_TOL; bitwise
+   reported).  After the ranks exit this process times the scatter-add
+   at (f)'s and (g)'s shards, the flash pair at (h)'s ring block and
+   the fold of a shard.  Each part's seconds, host-staging ms a step
+   (`collectives.STAGING`) and peak memory a rank are printed with the
+   card's name and power limit.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
@@ -6126,6 +6144,12 @@ def flash_pair_checks(shape, gen, device) -> list:
                  "ok": variant == [fa.SM90_WGMMA]
                  and all(e <= tol * max(1.0, s)
                          for e, s in zip(errs, scales))})
+    if torch.device(device).type == "cuda":
+        # each kernel's CUDA-event ms at this shape (after the checks)
+        rows[0]["ms"] = time_ms(lambda: fa.flash_attention_forward(
+            q, k, v, causal=False), 10)
+        rows[1]["ms"] = time_ms(lambda: fa.flash_attention_backward(
+            q, k, v, out_r, lse_r, g, False), 10)
     return rows
 
 
@@ -6144,10 +6168,15 @@ def shard_scatter_check(ids_np, first: int, rows: int, dim: int, gen,
                         device=device) * inside.to(device)[:, None]
     got = sa.scatter_add_forward(table, local, grads).cpu()
     ref = sa.scatter_add_reference(table.cpu(), local.cpu(), grads.cpu())
-    return {"kernel": "scatter_add", "rows": rows, "dim": dim,
-            "n": int(local.numel()), "inside": int(inside.sum()),
-            "max_abs_err": float((got - ref).abs().max()),
-            "ok": bool(torch.equal(got, ref))}
+    out = {"kernel": "scatter_add", "rows": rows, "dim": dim,
+           "n": int(local.numel()), "inside": int(inside.sum()),
+           "max_abs_err": float((got - ref).abs().max()),
+           "ok": bool(torch.equal(got, ref))}
+    if torch.device(device).type == "cuda":
+        # the wrapper (sort, plan, kernel) at these ids, CUDA events
+        out["ms"] = time_ms(lambda: sa.scatter_add_forward(
+            table, local, grads), 20)
+    return out
 
 
 def rank_kernel_checks(batch, start: int, stop: int, bert_rows: int,
@@ -6617,10 +6646,19 @@ PAR_RANKS = 4
 PAR_BERT_BATCH = 16         # (a) and (c): global rows of 512 ids
 PAR_MOE_BATCH = 8           # (b)
 PAR_STEPS = 3
+# (a)-(c), the older parts, cut so that (f)-(h) fit the budget: the
+# ring to 2 steps (PR 17: 3), all three to 6 of BERT-base's 12 layers
+# (the widths whole)
+PAR_RING_STEPS = 2
+PAR_CUT_LAYERS = 6
 PAR_HIDDEN, PAR_HEADS = 768, 12       # BERT_PARAMS' widths
-PAR_RING_PARAMS = BERT_PARAMS + ";bf16=True"
-# (b) at a rate that moves the loss within 3 steps of one batch
-PAR_MOE_PARAMS = BERT_PARAMS + ";bf16=True;moe_experts=4;lr=1e-4"
+PAR_CUT_PARAMS = BERT_PARAMS.replace(f"num_layers={NUM_LAYERS}",
+                                     f"num_layers={PAR_CUT_LAYERS}")
+PAR_RING_PARAMS = PAR_CUT_PARAMS + ";bf16=True"
+# (b) at a rate that moves the loss within 3 steps of one batch; (h)
+# the same at BERT-base's depth
+PAR_MOE_PARAMS = PAR_CUT_PARAMS + ";bf16=True;moe_experts=4;lr=1e-4"
+PAR_MOE_SEQ_PARAMS = BERT_PARAMS + ";bf16=True;moe_experts=4;lr=1e-4"
 # (a) bf16 BERT-base, 4 ranks (ring of 2 blocks, a row-sharded token
 # table) against one rank from the same init: the ring merges
 # bf16-rounded partial outputs, each rank sums its gradients in another
@@ -6646,8 +6684,19 @@ PAR_MOE_TOL = 1e-4
 # element within this times max(1, the parameter's largest gradient)
 PAR_PIPE_TOL = 2.0 ** -7
 PAR_PIPE_MICRO = 4
-PAR_PIPE_PARAMS = (BERT_PARAMS + ";bf16=True;pipeline_microbatches="
+# the parts whose steps run the flash kernels
+PAR_FLASH_PATHS = ("parallel_ring", "parallel_moe", "parallel_gpipe",
+                   "parallel_moe_seq")
+PAR_PIPE_PARAMS = (PAR_CUT_PARAMS + ";bf16=True;pipeline_microbatches="
                    f"{PAR_PIPE_MICRO}")
+
+
+def _timeline(t0: float, marks: dict) -> dict:
+    """{label: seconds since the previous mark} of ordered marks."""
+    out, last = {}, t0
+    for label, t in marks.items():
+        out[label], last = t - last, t
+    return out
 
 
 def _par_state_full(state) -> dict:
@@ -6706,7 +6755,7 @@ def _par_kernel_checks(mesh, batch, attention_rows: int | None) -> list:
 
 
 def par_ring(mesh, work: str) -> dict:
-    """(a) BERT-base on model=2 x seq=2 from the carried init: 3 steps,
+    """(a) BERT-base on model=2 x seq=2 from the carried init: 2 steps,
     a predict, the step saved; then one ring (2 blocks) of the flash
     kernels against the plain body at a rank's attention shape."""
     from elasticdl_tpu_torch.ops import ring_attention as ra
@@ -6720,29 +6769,35 @@ def par_ring(mesh, work: str) -> dict:
     evals = _rank_rows(bert_train_batch(), PAR_BERT_BATCH,
                        2 * PAR_BERT_BATCH)["features"]
     state = trainer.init_state_global(SEED, batch["features"], mesh)
+    marks = {"init": time.perf_counter()}
     init = os.path.join(work, "bert_init.pt")
     _wait_for(init)
+    marks["wait_init"] = time.perf_counter()
     full = torch.load(init, map_location=mesh.device, weights_only=True)
     state.model.load_state_dict(
         shard_tree(full, state.shardings, mesh), strict=True)
     del full
+    marks["load"] = time.perf_counter()
     shard = mesh_lib.make_global_batch(batch, mesh, trainer.stage_batch)
     t_steps = _par_start()
     losses = [float(trainer.train_on_global_batch(state, shard, mesh)[1])
-              for _ in range(PAR_STEPS)]
-    out = _par_counts(PAR_STEPS)
+              for _ in range(PAR_RING_STEPS)]
+    out = _par_counts(PAR_RING_STEPS)
     out["steps_s"] = time.perf_counter() - t_steps
     out["losses"] = losses
     out["shards"] = {n: list(state.model.get_parameter(n).shape)
                      for n in state.shardings}
+    marks["steps"] = time.perf_counter()
     out["predict"] = trainer.predict_on_global_batch(
         state, mesh_lib.make_global_batch({"features": evals}, mesh,
                                           trainer.stage_batch),
         mesh).tolist()
+    marks["predict"] = time.perf_counter()
     saver = CheckpointSaver(os.path.join(work, "ckpt_ring"))
     saver.save(state)
     saver.close()
     dist.barrier()
+    marks["save"] = time.perf_counter()
     del state, trainer, shard
     torch.cuda.empty_cache()
     # one ring of the kernels against the plain body (not counted)
@@ -6773,6 +6828,8 @@ def par_ring(mesh, work: str) -> dict:
             e <= 2 * BWD_TOL[torch.bfloat16] * max(1.0, s)
             for e, s in zip(errs[1:], scales[1:]))}
     out["kernel_checks"] = _par_kernel_checks(mesh, batch, None)
+    marks["checks"] = time.perf_counter()
+    out["timeline_s"] = _timeline(t0, marks)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -6826,7 +6883,7 @@ def par_moe(mesh) -> dict:
 
 
 def par_pipe(mesh) -> dict:
-    """(c) BERT-base with 4 microbatches on data=2 x pipe=2 (6 layers a
+    """(c) BERT-base with 4 microbatches on data=2 x pipe=2 (3 layers a
     stage): the logits and the step-1 gradients against the one-rank
     sequential run of the gathered model (on rank 0)."""
     t0 = time.perf_counter()
@@ -6925,11 +6982,427 @@ def par_deepfm(mesh, work: str) -> dict:
     return out
 
 
+# (f) the int8 arena over `model`: DeepFM at the bench's width (f32 MLP,
+# as (d)) with int8 arenas, data=2 x model=2 against the one-rank run
+# (losses within DP_LOSS_RTOL, each fold replayed whole, bit for bit),
+# then data=1 x model=4, where no layout splits the batch, bit for bit
+PAR_INT8_PARAMS = DP_F32_PARAMS + ";arena_dtype='int8'"
+# (g) the tiered cache over `model`: a 2^20-row cache, batches of
+# REAL_BATCH from the zipf(1.2) stream, f32 MLP.  The store is warmed
+# to a vocabulary past the cache (PAR_TIERED_WARM batches planned in two
+# blocks, as a resumed job's sidecar holds it: the ranks load it and
+# write its resident rows), then PAR_TIERED_STEPS steps admit and evict
+# (the stream's first evictions come in its 22nd batch)
+PAR_TIERED_WARM = 22
+PAR_TIERED_STEPS = 3
+PAR_TIERED_SEED = SEED + 7
+
+
+def par_tiered_params(cache_dtype: str) -> str:
+    return (f"embed_dim={DEEPFM_DIM};bf16=False;lr=0.005;"
+            f"cache_rows={REAL_CACHE};cache_dtype='{cache_dtype}'")
+
+
+# (h) Switch MoE on tokens split over `seq`: BERT-base with 4 experts on
+# seq=2 x expert=2, then layer_0's MoE at a capacity that drops tokens
+PAR_MOE_SEQ_FACTOR = 0.5
+PAR_MOE_SEQ_STEPS = 3
+
+
+def _digests(tree: dict) -> dict:
+    """sha256 of each tensor or array's bytes: two runs with equal
+    digests hold the same bits."""
+    import hashlib
+
+    out = {}
+    for name, value in sorted(tree.items()):
+        arr = value.detach().cpu().contiguous().numpy() if isinstance(
+            value, torch.Tensor) else np.ascontiguousarray(value)
+        out[name] = hashlib.sha256(
+            f"{arr.dtype}{arr.shape}".encode() + arr.tobytes()).hexdigest()
+    return out
+
+
+def _par_fold_replay(state, checks: list):
+    """Wrap the trainer's fold: before each fold the rank gathers every
+    int8 plane and carrier (a collective), folds the whole plane itself,
+    and after the fold holds the gathered shards against that, bit for
+    bit; the carrier must be zero after it.  Returns the unwrap."""
+    from elasticdl_tpu_torch.layers import arena as arena_lib
+    from elasticdl_tpu_torch.worker import trainer as trainer_lib
+
+    fold = trainer_lib.fold_quantized_updates
+    prefixes = ("fm_embedding", "fm_linear")
+
+    def whole(name):
+        return gather_tensor(state.model.state_dict()[name],
+                             ("model", None), state.mesh)
+
+    def replayed(model, step):
+        want = {}
+        for p in prefixes:
+            gen = arena_lib._fold_generator(step, (p, "embedding"),
+                                            state.mesh.device)
+            want[p] = arena_lib._requantize_plane(
+                whole(f"{p}.q8"), whole(f"{p}.scale"),
+                whole(f"{p}.embedding"), gen)
+        n = fold(model, step)
+        for p in prefixes:
+            q8, scale = whole(f"{p}.q8"), whole(f"{p}.scale")
+            checks.append({
+                "step": int(step), "plane": p,
+                "q8_equal": bool(torch.equal(q8, want[p][0])),
+                "scale_equal": bool(torch.equal(scale, want[p][1])),
+                "carrier_zero": not bool(model.get_parameter(
+                    f"{p}.embedding").detach().any())})
+        return n
+
+    trainer_lib.fold_quantized_updates = replayed
+    return lambda: setattr(trainer_lib, "fold_quantized_updates", fold)
+
+
+def par_int8_layout(mesh, batches, replay: bool) -> dict:
+    """int8 DeepFM over `batches` on `mesh` from SEED's init: losses,
+    launches, the gathered state's digests (rank 0) and, with `replay`,
+    every fold replayed whole."""
+    spec = get_model_spec(ZOO_DIR, DEEPFM, PAR_INT8_PARAMS)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss,
+                      device=mesh.device,
+                      param_sharding_fn=spec.param_sharding)
+    start, stop = mesh_lib.local_batch_range(mesh, DP_BATCH)
+    state = trainer.init_state_global(
+        SEED, _rank_rows(batches[0], start, stop)["features"], mesh)
+    checks = []
+    unwrap = _par_fold_replay(state, checks) if replay else None
+    t_steps = _par_start()
+    losses = []
+    for batch in batches:
+        shard = mesh_lib.make_global_batch_from_local(
+            _rank_rows(batch, start, stop), mesh, DP_BATCH, start,
+            trainer.stage_batch)
+        losses.append(float(trainer.train_on_global_batch(
+            state, shard, mesh)[1]))
+    out = _par_counts(len(batches))
+    out["steps_s"] = time.perf_counter() - t_steps
+    if unwrap is not None:
+        unwrap()
+        out["fold_checks"] = checks
+    out["losses"] = losses
+    out["shards"] = {n: list(state.model.state_dict()[n].shape)
+                     for n in state.shardings}
+    whole = _par_state_full(state)
+    out["digests"] = _digests(whole) if mesh.rank == 0 else None
+    del state, trainer, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_int8(mesh, rank: int, device: str) -> dict:
+    """(f) on data=2 x model=2 (`mesh`), then on data=1 x model=4; the
+    kernel against its plain version at this rank's shard ids."""
+    t0 = time.perf_counter()
+    batches = _criteo_batches(DP_STEPS, DP_BATCH, seed=DP_SEED)
+    out = par_int8_layout(mesh, batches, replay=True)
+    m4 = mesh_lib.create_mesh(PAR_RANKS, rank, device, data=1, model=4)
+    out["model4"] = par_int8_layout(m4, batches, replay=False)
+    start, stop = mesh_lib.local_batch_range(mesh, DP_BATCH)
+    rows = DEEPFM_VOCAB // mesh.shape["model"]
+    ids = hash_field_rows_host(batches[0]["features"]["sparse"][start:stop],
+                               DEEPFM_VOCAB)
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 31)
+    out["kernel_checks"] = [
+        shard_scatter_check(ids, mesh.coords["model"] * rows, rows, dim,
+                            gen, mesh.device) for dim in (DEEPFM_DIM, 1)]
+    out["seconds"] = time.perf_counter() - t0
+    return out, m4
+
+
+def par_alone_times(device, tiered_slots) -> dict:
+    """After the ranks exit, the card to itself: the kernels against
+    their plain versions, with their CUDA-event ms, at the new parts'
+    shapes (the scatter-add at (f)'s ids of data coordinate 0 into each
+    2^19-row shard, at (g)'s slots of those rows into each cache block;
+    the flash pair at (h)'s ring block), and the fold of a 2^19-row
+    shard with the whole plane's draw and with the shard's own."""
+    if torch.device(device).type == "cuda":
+        # the card idled while this process waited for the ranks: busy
+        # it first, so the timings start at its working clocks
+        a = torch.randn((4096, 4096), device=device)
+        for _ in range(150):      # ~2 ms each in f32
+            a = torch.tanh(a @ a)
+        torch.cuda.synchronize()
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    sparse = _criteo_batches(1, DP_BATCH, seed=DP_SEED)[0]["features"][
+        "sparse"][:DP_BATCH // 2]
+    ids = hash_field_rows_host(sparse, DEEPFM_VOCAB)
+    rows, block = DEEPFM_VOCAB // 2, REAL_CACHE // 2
+    return {
+        "int8_shard": [shard_scatter_check(ids, m * rows, rows, dim, gen,
+                                           device)
+                       for m in (0, 1) for dim in (DEEPFM_DIM, 1)],
+        "tiered_block": [shard_scatter_check(tiered_slots, m * block, block,
+                                             dim, gen, device)
+                         for m in (0, 1) for dim in (DEEPFM_DIM, 1)],
+        "flash_ring_block": flash_pair_checks(
+            (PAR_MOE_BATCH, SEQ_LEN // 2, PAR_HEADS,
+             PAR_HIDDEN // PAR_HEADS), gen, device),
+        "fold_ms": par_fold_draw_ms(rows, rows, gen, device)}
+
+
+def par_fold_draw_ms(rows: int, first: int, gen, device) -> dict:
+    """The fold of one (rows, 16) shard of a 2^20-row plane (every row
+    touched), with the uniforms drawn for the whole plane and kept for
+    the shard's rows (the port's) and drawn for the shard alone: CUDA
+    event ms per fold."""
+    from elasticdl_tpu_torch.layers import arena as arena_lib
+
+    q8, scale = arena_lib.quantize_rows(torch.randn(
+        (rows, DEEPFM_DIM), generator=gen, device=device) * 0.05)
+    delta = torch.randn((rows, DEEPFM_DIM), generator=gen,
+                        device=device) * 1e-3
+    fold_gen = torch.Generator(device=device).manual_seed(SEED)
+    whole = lambda: arena_lib._requantize_plane(  # noqa: E731
+        q8, scale, delta, fold_gen, first, DEEPFM_VOCAB)
+    alone = lambda: arena_lib._requantize_plane(  # noqa: E731
+        q8, scale, delta, fold_gen)
+    if torch.device(device).type != "cuda":
+        return {}
+    return {"whole_plane_draw": time_ms(whole, 20),
+            "shard_draw": time_ms(alone, 20),
+            "whole_plane_draw_again": time_ms(whole, 20)}
+
+
+_PAR_TIERED_BATCHES = []
+
+
+def par_tiered_batches() -> tuple:
+    """The zipf stream's warm-up batches' sparse ids and the steps'
+    batches (made once a process)."""
+    if not _PAR_TIERED_BATCHES:
+        stream = zipf_stream(PAR_TIERED_SEED)
+        warm = [next(stream)["features"]["sparse"]
+                for _ in range(PAR_TIERED_WARM)]
+        _PAR_TIERED_BATCHES.extend(
+            (warm, [next(stream) for _ in range(PAR_TIERED_STEPS)]))
+    return tuple(_PAR_TIERED_BATCHES)
+
+
+def par_tiered_warm(path: str) -> None:
+    """Plan the warm-up batches in two blocks on a store and save its
+    host tier and cache map (what a sidecar holds) at `path`."""
+    warm, _ = par_tiered_batches()
+    store = tiered_zoo.TieredStore(TIERED_PLANES, NUM_SPARSE, REAL_CACHE)
+    half = PAR_TIERED_WARM // 2
+    store.prepare_block(warm[:half])
+    store.prepare_block(warm[half:])
+    row_of, score, _ = store.cache.state_arrays()
+    np.savez(path + ".tmp.npz", row_of=row_of, score=score,
+             **{f"host__{k}": v for k, v in store.host.state_dict().items()})
+    os.replace(path + ".tmp.npz", path)
+
+
+_PAR_WARM = {}
+
+
+def _par_warm_arrays(path: str) -> dict:
+    """The warm store's arrays, read once a process."""
+    if path not in _PAR_WARM:
+        with np.load(path) as warm:
+            _PAR_WARM[path] = {k: warm[k] for k in warm.files}
+    return _PAR_WARM[path]
+
+
+def par_tiered_run(mesh, cache_dtype: str, warm_path: str,
+                   digests: bool) -> dict:
+    """The tiered DeepFM on `mesh` (a world of one for the reference):
+    the warm store loaded and its resident rows written to the cache,
+    then the steps; per step the plan's digest and counts, prepare ms,
+    and whether this rank admitted exactly its sub-plan; the hit rate
+    and the launches; with `digests`, those of the gathered state,
+    cache tables and host tier at the end (rank 0)."""
+    spec = get_model_spec(ZOO_DIR, TIERED, par_tiered_params(cache_dtype))
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss,
+                      device=mesh.device,
+                      param_sharding_fn=spec.param_sharding)
+    store = tiered_zoo.build_tiered_store()
+    trainer.tiered_store = store
+    _, steps = par_tiered_batches()
+    sample = {"dense": steps[0]["features"]["dense"],
+              "slots": np.zeros((REAL_BATCH, NUM_SPARSE), np.int32)}
+    setup = {"t0": time.perf_counter()}
+    state = trainer.init_state_global(SEED, sample, mesh)
+    setup["init"] = time.perf_counter()
+    warm = _par_warm_arrays(warm_path)
+    store.load_sidecar_state(
+        {k[6:]: v for k, v in warm.items() if k.startswith("host__")},
+        warm["row_of"], warm["score"])
+    setup["load"] = time.perf_counter()
+    # the resident rows of this rank's block, written as a restore
+    # writes the checkpoint's cache values
+    slots = np.nonzero(store.cache.row_of >= 0)[0]
+    block = REAL_CACHE // mesh.shape["model"]
+    slots = slots[slots // block == mesh.coords["model"]]
+    store_device.apply_admissions(
+        state, store.param_paths, slots,
+        store.host.gather(store.cache.row_of[slots]),
+        cache_dtype=cache_dtype)
+    setup["admit"] = time.perf_counter()
+    admitted = []
+    admit = store_device.apply_admissions
+
+    def recorded(state_, paths, slots_, *args, **kwargs):
+        admitted.append(np.asarray(slots_).copy())
+        return admit(state_, paths, slots_, *args, **kwargs)
+
+    store_device.apply_admissions = recorded
+    model = mesh.coords["model"]
+    t_steps = _par_start()
+    per_step = []
+    try:
+        for batch in steps:
+            t0 = time.perf_counter()
+            batch = store.attach(batch)
+            prepare_ms = (time.perf_counter() - t0) * 1e3
+            plan = batch["__store_plan__"]
+            del admitted[:]
+            shard = mesh_lib.make_global_batch(batch, mesh,
+                                               trainer.stage_batch)
+            if not per_step:
+                start, stop = mesh_lib.local_batch_range(mesh, REAL_BATCH)
+                first_slots = plan.slots[start:stop]
+            loss = float(trainer.train_on_global_batch(state, shard,
+                                                       mesh)[1])
+            mine = np.concatenate(admitted) if admitted else np.zeros(0)
+            want = plan.admit_slots if plan.sub_plans is None else \
+                plan.sub_plans[model]["admit_slots"]
+            per_step.append({
+                "loss": loss, "digest": plan.digest(),
+                "admits": int(plan.admit_rows.size),
+                "evicts": int(plan.evict_rows.size),
+                "prepare_ms": prepare_ms,
+                "admits_sub_plan": bool(np.array_equal(mine, want))})
+    finally:
+        store_device.apply_admissions = admit
+    out = _par_counts(len(steps))
+    out["steps_s"] = time.perf_counter() - t_steps
+    out["setup_s"] = {k: setup[k] - setup[p] for p, k in (
+        ("t0", "init"), ("init", "load"), ("load", "admit"))}
+    out["steps"] = per_step
+    out["losses"] = [s["loss"] for s in per_step]
+    stats = store.stats()
+    out["hit_rate"] = stats["hit_rate"]
+    out["vocab_rows"] = stats["vocab_rows"]
+    out["mesh_shards"] = store.mesh_shards
+    out["first_slots"] = first_slots
+    if digests:
+        tables = store_device.read_full_tables(state, store.param_paths,
+                                               cache_dtype=cache_dtype)
+        whole = _par_state_full(state)
+        if mesh.rank == 0:
+            out["digests"] = {"state": _digests(whole),
+                              "cache": _digests(tables),
+                              "host": _digests(store.host.state_dict())}
+        del whole, tables
+    del state, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_tiered(meshes: dict, work: str) -> dict:
+    """(g) each cache dtype on data=2 x model=2 and data=1 x model=4;
+    the kernel against its plain version at a cache block's slots."""
+    t0 = time.perf_counter()
+    warm = os.path.join(work, "tiered_warm.npz")
+    _wait_for(warm, timeout_s=300.0)
+    out = {"wait_warm_s": time.perf_counter() - t0}
+    for cache_dtype in ("float32", "int8"):
+        for layout, mesh in meshes.items():
+            # model=4 splits no batch: its state is held bit for bit
+            t_run = time.perf_counter()
+            out[f"{cache_dtype}_{layout}"] = par_tiered_run(
+                mesh, cache_dtype, warm, digests=layout == "m4")
+            out[f"{cache_dtype}_{layout}"]["run_s"] = \
+                time.perf_counter() - t_run
+    first = out["float32_dm"]
+    for key in ("launches", "steps_s", "host_staging_ms_per_step",
+                "host_staging_by_op", "peak_memory_bytes"):
+        out[key] = first[key]
+    # the kernel at the slots of this rank's rows of the first step
+    mesh = meshes["dm"]
+    rows = REAL_CACHE // mesh.shape["model"]
+    slots = first.pop("first_slots")
+    for run in out.values():
+        if isinstance(run, dict):
+            run.pop("first_slots", None)
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 37)
+    out["kernel_checks"] = [
+        shard_scatter_check(slots, mesh.coords["model"] * rows, rows, dim,
+                            gen, mesh.device) for dim in (DEEPFM_DIM, 1)]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def par_moe_seq(mesh) -> dict:
+    """(h) BERT-base with 4 experts on seq=2 x expert=2:
+    PAR_MOE_SEQ_STEPS steps on one batch; then layer_0's MoE at
+    PAR_MOE_SEQ_FACTOR on seeded f32 tokens against the one-rank layer
+    (its experts gathered) on the global tokens."""
+    t0 = time.perf_counter()
+    spec = get_model_spec(ZOO_DIR, BERT, PAR_MOE_SEQ_PARAMS)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, use_bf16=True,
+                      device=mesh.device,
+                      param_sharding_fn=spec.param_sharding)
+    batch = _rank_rows(bert_train_batch(), 0, PAR_MOE_BATCH)
+    state = trainer.init_state_global(SEED, batch["features"], mesh)
+    shard = mesh_lib.make_global_batch(batch, mesh, trainer.stage_batch)
+    t_steps = _par_start()
+    losses = [float(trainer.train_on_global_batch(state, shard, mesh)[1])
+              for _ in range(PAR_MOE_SEQ_STEPS)]
+    out = _par_counts(PAR_MOE_SEQ_STEPS)
+    out["steps_s"] = time.perf_counter() - t_steps
+    out["losses"] = losses
+    out["shards"] = {n: list(state.model.get_parameter(n).shape)
+                     for n in state.shardings}
+    layer = state.model.layer_0.moe_mlp
+    layer.capacity_factor = PAR_MOE_SEQ_FACTOR
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 19)
+    x = torch.randn((PAR_MOE_BATCH, SEQ_LEN, PAR_HIDDEN), generator=gen,
+                    device=mesh.device)
+    chunk = SEQ_LEN // mesh.shape["seq"]
+    first = mesh.coords["seq"] * chunk
+    with torch.no_grad():
+        mesh_lib.set_current_mesh(mesh)
+        mine = layer(x[:, first:first + chunk])
+        whole = copy.deepcopy(layer)
+        for name, p in whole.named_parameters():
+            spec_p = state.shardings.get(f"layer_0.moe_mlp.{name}")
+            if spec_p is not None:
+                p.data = gather_tensor(p.data, spec_p, mesh)
+        with mesh_lib.using_mesh(mesh_lib.ProcessMesh()):
+            ref = whole(x)
+    dropped = int((ref.abs().sum(-1) == 0).sum())
+    ref = ref[:, first:first + chunk]
+    err = float((mine - ref).abs().max())
+    out["layer_check"] = {
+        "experts_here": int(layer.expert_w_in.shape[0]),
+        "capacity_factor": PAR_MOE_SEQ_FACTOR,
+        "dropped_tokens": dropped, "max_abs_err": err,
+        "bitwise": bool(torch.equal(mine, ref)),
+        "scale": float(ref.abs().max()),
+        "ok": dropped > 0 and err <= PAR_MOE_TOL * max(
+            1.0, float(ref.abs().max()))}
+    del state, trainer, shard, whole
+    torch.cuda.empty_cache()
+    out["kernel_checks"] = _par_kernel_checks(mesh, batch, PAR_MOE_BATCH)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def parallel_rank(rank: int, work: str, port: int,
                   device: str = "cuda") -> int:
     """One rank of the parallel_axes world (a process of its own,
-    `chip_smoke.py --parallel-rank R WORK PORT DEVICE`): (a) to (d), each
-    on its own mesh over the one default group."""
+    `chip_smoke.py --parallel-rank R WORK PORT DEVICE`): (a) to (d) and
+    (f) to (h), each on its own mesh over the one default group."""
     t0 = time.perf_counter()
     mesh = mesh_lib.create_mesh(PAR_RANKS, rank, device,
                                 f"127.0.0.1:{port}", init_timeout_s=120.0,
@@ -6947,6 +7420,11 @@ def parallel_rank(rank: int, work: str, port: int,
     mesh = mesh_lib.create_mesh(PAR_RANKS, rank, device, data=2, model=2)
     out["deepfm"] = par_deepfm(mesh, work)
     out["coords"] = {"deepfm": dict(mesh.coords)}
+    torch.cuda.empty_cache()
+    out["int8"], model4 = par_int8(mesh, rank, device)
+    out["tiered"] = par_tiered({"dm": mesh, "m4": model4}, work)
+    mesh = mesh_lib.create_mesh(PAR_RANKS, rank, device, seq=2, expert=2)
+    out["moe_seq"] = par_moe_seq(mesh)
     with open(os.path.join(work, f"par_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     mesh_lib.destroy_mesh(mesh)
@@ -6982,7 +7460,7 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
         torch.save(state.model.state_dict(), init + ".tmp")
         os.replace(init + ".tmp", init)
         one_rank_losses = [float(trainer.train_on_batch(state, batch)[1])
-                           for _ in range(PAR_STEPS)]
+                           for _ in range(PAR_RING_STEPS)]
         del state
         # (d)'s one-rank run
         mesh1 = mesh_lib.DataMesh(1, 0, dev, "", None)
@@ -6992,12 +7470,31 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
         fm_one = _state_cpu(fm_state)
         del fm_state
         torch.cuda.empty_cache()
+        # (g)'s warm store, which the ranks wait for; then the one-rank
+        # runs of (f), (g) and (h)
+        warm = os.path.join(root, "tiered_warm.npz")
+        t_warm = time.perf_counter()
+        par_tiered_warm(warm)
+        warm_s = time.perf_counter() - t_warm
+        int8_one = par_int8_layout(mesh1, batches, replay=False)
+        tiered_one = {d: par_tiered_run(mesh1, d, warm, digests=True)
+                      for d in ("float32", "int8")}
+        spec = get_model_spec(ZOO_DIR, BERT, PAR_MOE_SEQ_PARAMS)
+        trainer = Trainer(spec.model, spec.optimizer, spec.loss,
+                          use_bf16=True, device=dev)
+        batch = _rank_rows(bert_train_batch(), 0, PAR_MOE_BATCH)
+        state = trainer.init_state(SEED, batch["features"])
+        moe_one_losses = [float(trainer.train_on_batch(state, batch)[1])
+                          for _ in range(PAR_MOE_SEQ_STEPS)]
+        del state, trainer
+        torch.cuda.empty_cache()
         codes = [p.wait(timeout=600) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    t_ranks = time.perf_counter()
     if codes != [0] * PAR_RANKS:
         raise AssertionError(f"parallel_axes ranks exited {codes}")
     ranks = []
@@ -7006,6 +7503,9 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
             ranks.append(json.load(f))
     # (e) (a)'s step, saved on 4 ranks, restored on one
     t_e = time.perf_counter()
+    spec = get_model_spec(ZOO_DIR, BERT, PAR_RING_PARAMS)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss,
+                      use_bf16=True, device=dev)
     state = trainer.init_state(SEED + 1, evals)
     restored = CheckpointSaver(os.path.join(root, "ckpt_ring")
                                ).maybe_restore(state)
@@ -7016,24 +7516,35 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
                    np.abs(logits - ring_logits).max()),
                "seconds": time.perf_counter() - t_e}
     del state, restored
+    alone = par_alone_times(dev, tiered_one["float32"]["first_slots"][
+        :REAL_BATCH // 2])
     two = torch.load(os.path.join(root, "pa_deepfm_rank0.pt"))
     fm_err = max(float((two[k].float() - fm_one[k].float()).abs().max())
                  for k in fm_one if fm_one[k].is_floating_point())
     shutil.rmtree(root, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    layers = NUM_LAYERS
+    layers, cut = NUM_LAYERS, PAR_CUT_LAYERS
     want = {
-        # 2 ring blocks a layer, 3 steps; the token table's shard
-        "ring": {"fwd": 2 * layers * PAR_STEPS,
-                 "bwd": 2 * layers * PAR_STEPS, "scatter": PAR_STEPS},
-        "moe": {"fwd": layers * PAR_STEPS, "bwd": layers * PAR_STEPS,
+        # 2 ring blocks a layer a step; the token table's shard
+        "ring": {"fwd": 2 * cut * PAR_RING_STEPS,
+                 "bwd": 2 * cut * PAR_RING_STEPS,
+                 "scatter": PAR_RING_STEPS},
+        "moe": {"fwd": cut * PAR_STEPS, "bwd": cut * PAR_STEPS,
                 "scatter": PAR_STEPS},
-        # 4 microbatches x 6 layers a stage, one step; every stage runs
+        # 4 microbatches x 3 layers a stage, one step; every stage runs
         # the token table (stage 1's backward scatters zero rows: its
         # input took no gradient)
-        "gpipe": {"fwd": 4 * layers // 2, "bwd": 4 * layers // 2,
+        "gpipe": {"fwd": 4 * cut // 2, "bwd": 4 * cut // 2,
                   "scatter": 1},
-        "deepfm": {"scatter": 2 * DP_STEPS}}
+        "deepfm": {"scatter": 2 * DP_STEPS},
+        # two arenas a step, on data=2 x model=2
+        "int8": {"scatter": 2 * DP_STEPS},
+        # two cache planes a step, the fp32 cache on data=2 x model=2
+        "tiered": {"scatter": 2 * PAR_TIERED_STEPS},
+        # 2 ring blocks a layer, 3 steps; the whole token table
+        "moe_seq": {"fwd": 2 * layers * PAR_MOE_SEQ_STEPS,
+                    "bwd": 2 * layers * PAR_MOE_SEQ_STEPS,
+                    "scatter": PAR_MOE_SEQ_STEPS}}
     bad = []
     for r in ranks:
         for part, counts in want.items():
@@ -7046,10 +7557,84 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
                 bad.append((r["rank"], part, got))
             if got["scatter_add"] != counts["scatter"]:
                 bad.append((r["rank"], part, "scatter", got["scatter_add"]))
+        # the other runs of (f) and (g): one scatter-add per table a step
+        runs = [("int8_model4", r["int8"]["model4"], DP_STEPS)] + [
+            (f"tiered_{k}", v, PAR_TIERED_STEPS) for k, v in
+            r["tiered"].items() if k.startswith(("float32_", "int8_"))]
+        for label, run, steps in runs:
+            if run["launches"]["scatter_add"] != 2 * steps:
+                bad.append((r["rank"], label, "scatter",
+                            run["launches"]["scatter_add"]))
+    int8 = {"losses_by_rank": [r["int8"]["losses"] for r in ranks],
+            "one_rank_losses": int8_one["losses"],
+            "loss_max_rel_err": max(
+                abs(a - b) / abs(b) for r in ranks for a, b in
+                zip(r["int8"]["losses"], int8_one["losses"])),
+            "folds_replayed": sum(len(r["int8"]["fold_checks"])
+                                  for r in ranks),
+            "folds_bitwise": all(
+                c["q8_equal"] and c["scale_equal"] and c["carrier_zero"]
+                for r in ranks for c in r["int8"]["fold_checks"]),
+            "model4_losses_equal": all(
+                r["int8"]["model4"]["losses"] == int8_one["losses"]
+                for r in ranks),
+            "model4_state_bitwise":
+                ranks[0]["int8"]["model4"]["digests"]
+                == int8_one["digests"],
+            "shards": ranks[0]["int8"]["shards"],
+            "model4_shards": ranks[0]["int8"]["model4"]["shards"]}
+    tiered = {"warm_s": warm_s,
+              "wait_warm_s_by_rank": [r["tiered"]["wait_warm_s"]
+                                      for r in ranks]}
+    for d, one in tiered_one.items():
+        runs = {layout: [r["tiered"][f"{d}_{layout}"] for r in ranks]
+                for layout in ("dm", "m4")}
+        plan_digests = [s["digest"] for s in one["steps"]]
+        tiered[d] = {
+            "one_rank_losses": one["losses"],
+            "losses_by_layout_rank0": {k: v[0]["losses"]
+                                       for k, v in runs.items()},
+            "dm_loss_max_rel_err": max(
+                abs(a - b) / abs(b) for run in runs["dm"] for a, b in
+                zip(run["losses"], one["losses"])),
+            "plans_equal": all([s["digest"] for s in run["steps"]]
+                               == plan_digests for v in runs.values()
+                               for run in v),
+            "admits_sub_plans": all(s["admits_sub_plan"]
+                                    for v in runs.values() for run in v
+                                    for s in run["steps"]),
+            "evicts_by_step": [s["evicts"] for s in one["steps"]],
+            "admits_by_step": [s["admits"] for s in one["steps"]],
+            "mesh_shards": {k: v[0]["mesh_shards"] for k, v in runs.items()},
+            "m4_bitwise": runs["m4"][0]["digests"] == one["digests"],
+            "m4_losses_equal": all(run["losses"] == one["losses"]
+                                   for run in runs["m4"]),
+            "hit_rate": {"one": one["hit_rate"],
+                         **{k: v[0]["hit_rate"] for k, v in runs.items()}},
+            "vocab_rows": one["vocab_rows"],
+            "prepare_ms_by_step_rank0": {
+                k: [s["prepare_ms"] for s in v[0]["steps"]]
+                for k, v in runs.items()},
+            "setup_s_rank0": {k: v[0]["setup_s"] for k, v in runs.items()},
+            "run_s_rank0": {k: v[0]["run_s"] for k, v in runs.items()},
+            "steps_s_rank0": {k: v[0]["steps_s"] for k, v in runs.items()}}
+    moe_seq = {"losses_by_rank": [r["moe_seq"]["losses"] for r in ranks],
+               "one_rank_losses": moe_one_losses,
+               "loss_max_scaled_err": max(
+                   abs(a - b) / max(1.0, abs(b)) for r in ranks
+                   for a, b in zip(r["moe_seq"]["losses"],
+                                   moe_one_losses)),
+               "shards": ranks[0]["moe_seq"]["shards"],
+               "layer_check_by_rank": [r["moe_seq"]["layer_check"]
+                                       for r in ranks]}
     summary = {
         "card": card, "ranks": PAR_RANKS, "backend_by_rank": [
             r["backend"] for r in ranks],
         "seconds": seconds, "budget_s": PAR_BUDGET_S,
+        # the ranks' start and group join, and this process's work after
+        # they exit ((e), the kernels alone, the checks)
+        "join_s_by_rank": [r["join_s"] for r in ranks],
+        "after_ranks_s": seconds - (t_ranks - t0),
         "ring": {"losses_by_rank": [r["ring"]["losses"] for r in ranks],
                  "one_rank_losses": one_rank_losses,
                  "loss_max_scaled_err": max(
@@ -7058,7 +7643,8 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
                                      one_rank_losses)),
                  "shards": ranks[0]["ring"]["shards"],
                  "ring_check_by_rank": [r["ring"]["ring_check"]
-                                        for r in ranks]},
+                                        for r in ranks],
+                 "timeline_s_rank0": ranks[0]["ring"]["timeline_s"]},
         "moe": {"losses_by_rank": [r["moe"]["losses"] for r in ranks],
                 "shards": ranks[0]["moe"]["shards"],
                 "layer_check_by_rank": [r["moe"]["layer_check"]
@@ -7074,7 +7660,8 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
                        zip(r["deepfm"]["losses"], fm_losses)),
                    "max_abs_err_vs_one_rank": fm_err,
                    "shards": ranks[0]["deepfm"]["shards"]},
-        "restore": restore,
+        "int8": int8, "tiered": tiered, "moe_seq": moe_seq,
+        "kernels_alone": alone, "restore": restore,
         # each kernel against its plain version at the shapes each part
         # gives it on each rank
         "kernel_checks_by_part": {part: [r[part]["kernel_checks"]
@@ -7087,8 +7674,7 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
             "host_staging_by_op_rank0": r0[part]["host_staging_by_op"],
             "peak_memory_bytes_by_rank": [r[part]["peak_memory_bytes"]
                                           for r in ranks]}
-            for r0 in ranks[:1] for part in ("ring", "moe", "gpipe",
-                                             "deepfm")},
+            for r0 in ranks[:1] for part in want},
         "launches_by_rank": {part: [r[part]["launches"] for r in ranks]
                              for part in want}}
     print(json.dumps({"parallel_axes": summary}), flush=True)
@@ -7123,9 +7709,30 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
                           summary["kernel_checks_by_part"].items()
                           for r, cs in enumerate(by_rank) for c in cs
                           if not c["ok"]],
-        "restore": not (restore["step"] == PAR_STEPS
+        "restore": not (restore["step"] == PAR_RING_STEPS
                         and restore["logits_max_abs_err_vs_ranks"]
-                        <= PAR_LOGITS_TOL)}
+                        <= PAR_LOGITS_TOL),
+        "int8": not (int8["loss_max_rel_err"] <= DP_LOSS_RTOL
+                     and int8["folds_replayed"] == PAR_RANKS * 2 * DP_STEPS
+                     and int8["folds_bitwise"]
+                     and int8["model4_losses_equal"]
+                     and int8["model4_state_bitwise"]
+                     and int8["shards"]["fm_embedding.q8"]
+                     == [DEEPFM_VOCAB // 2, DEEPFM_DIM]
+                     and int8["model4_shards"]["fm_embedding.scale"]
+                     == [DEEPFM_VOCAB // 4, 1]),
+        "tiered": [d for d in ("float32", "int8") if not (
+            tiered[d]["dm_loss_max_rel_err"] <= DP_LOSS_RTOL
+            and tiered[d]["plans_equal"] and tiered[d]["admits_sub_plans"]
+            and all(e > 0 for e in tiered[d]["evicts_by_step"])
+            and tiered[d]["mesh_shards"] == {"dm": 2, "m4": 4}
+            and tiered[d]["m4_bitwise"] and tiered[d]["m4_losses_equal"])],
+        "kernels_alone": [c for part in ("int8_shard", "tiered_block",
+                                         "flash_ring_block")
+                          for c in alone[part] if not c["ok"]],
+        "moe_seq": not (moe_seq["loss_max_scaled_err"] <= PAR_LOSS_RTOL
+                        and all(c["ok"] and c["experts_here"] == 2
+                                for c in moe_seq["layer_check_by_rank"]))}
     failed = {k: v for k, v in failures.items() if v}
     if failed:
         raise AssertionError(f"parallel_axes: {failed}; {summary}")
@@ -7284,7 +7891,8 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
         **{path: n["flash_attention_fwd"][fa.SM90_WGMMA]
            for path, n in cluster_bert.items()},
         **{path: n["flash_attention_fwd"] for path, n in
-           par_launches.items() if "deepfm" not in path}}
+           par_launches.items()
+           if path.rsplit("_rank", 1)[0] in PAR_FLASH_PATHS}}
     # launches: the bare Trainer's timed steps at bench_bert's shape (the
     # BERT training path); each path's count beside it
     bwd_entry["launches"] = bert_launches_by["plain"]["flash_attention_bwd"]
@@ -7293,7 +7901,8 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
         **{path: n["flash_attention_bwd"][fa.SM90_WGMMA]
            for path, n in cluster_bert.items()},
         **{path: n["flash_attention_bwd"] for path, n in
-           par_launches.items() if "deepfm" not in path}}
+           par_launches.items()
+           if path.rsplit("_rank", 1)[0] in PAR_FLASH_PATHS}}
     kernels = {"kernels": [entry, scatter_entry, bwd_entry]}
 
     name = torch.cuda.get_device_name(0)

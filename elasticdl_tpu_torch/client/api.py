@@ -41,10 +41,16 @@ flight recorder (master/main.py); `run_local` starts those threads and
 `Master.stop` ends them.  As in the JAX Local runner, the master's
 telemetry server (/metrics, /healthz, /varz on `--telemetry_port`, 0 =
 ephemeral) runs for the job's life: one process, so one server covers
-master and workers.  `train` with a cluster strategy raises
-NotImplementedError: the JAX client submits a master pod, which needs
-the real Kubernetes client; the master's own entry point
-(master/main.py, `--use_process_k8s`) runs a cluster job.
+master and workers.
+
+`train`, `evaluate` and `predict` with a cluster strategy submit the
+job's master pod (`_submit_master_pod`, the JAX client's): a pod that
+runs `python -m elasticdl_tpu_torch.master.main` with the job's flags,
+and a Service on `--port` in front of it, which the workers dial.  The
+client is injectable; the default, the real `K8sClient`, needs the
+`kubernetes` package and raises naming it.  The master's own entry
+point (master/main.py, `--use_process_k8s`) runs a cluster job on one
+machine.
 """
 
 from __future__ import annotations
@@ -56,8 +62,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from elasticdl_tpu_torch.common import args as args_lib
 from elasticdl_tpu_torch.common import events, faults
-from elasticdl_tpu_torch.common.constants import DistributionStrategy
+from elasticdl_tpu_torch.common.constants import DistributionStrategy, PodType
 from elasticdl_tpu_torch.common.export import SINGLE_FEATURE_KEY, export_model
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.metrics import default_registry
@@ -96,28 +103,62 @@ class LocalJob:
         return 0 if self.ok else 1
 
 
-def train(args) -> int:
+def train(args, client=None) -> int:
+    if args.distribution_strategy != LOCAL:
+        return _submit_master_pod(args, "train", client)
     return run_local(args, job_type="train").exit_code
 
 
-def evaluate(args) -> int:
+def evaluate(args, client=None) -> int:
+    if args.distribution_strategy != LOCAL:
+        return _submit_master_pod(args, "evaluate", client)
     return run_local(args, job_type="evaluate").exit_code
 
 
-def predict(args) -> int:
+def predict(args, client=None) -> int:
+    if args.distribution_strategy != LOCAL:
+        return _submit_master_pod(args, "predict", client)
     return run_local(args, job_type="predict").exit_code
+
+
+def _submit_master_pod(args, job_type: str, client=None) -> int:
+    """Cluster mode: create the master's pod, and the Service the workers
+    dial it by (`{job_name}-master:{port}`), through `client` (the real
+    `K8sClient` by default)."""
+    from elasticdl_tpu_torch.common.k8s_client import (
+        K8sClient,
+        PodSpec,
+        parse_volumes,
+    )
+
+    # `command` names the subcommand, which the master's parser lacks
+    master_args = args_lib.build_arguments_from_parsed_result(
+        args, filter_args={"func", "command"})
+    command = (["python", "-m", "elasticdl_tpu_torch.master.main"]
+               + master_args + ["--job_type", job_type])
+    if client is None:
+        client = K8sClient(namespace=args.namespace, job_name=args.job_name)
+    master_name = f"{args.job_name}-master"
+    client.create_pod(PodSpec(
+        name=master_name, pod_type=PodType.MASTER, image=args.image_name,
+        command=command, resources={},
+        volumes=parse_volumes(getattr(args, "volume", ""))))
+    client.create_service(
+        master_name,
+        selector={"elasticdl-job": args.job_name,
+                  "elasticdl-type": PodType.MASTER},
+        port=args.port)
+    logger.info("Submitted master pod %s to namespace %s", master_name,
+                args.namespace)
+    return 0
 
 
 def _check_supported(args, job_type: str) -> None:
     if args.distribution_strategy != LOCAL:
-        raise NotImplementedError(
-            f"--distribution_strategy {args.distribution_strategy}: "
-            "submitting a master pod needs the real Kubernetes client "
-            "(ROADMAP.md queue 1, item 12).  Run the cluster job's master "
-            "directly: python -m elasticdl_tpu_torch.master.main "
-            f"--distribution_strategy {args.distribution_strategy} "
-            "--use_process_k8s true --num_workers N ... (worker processes "
-            "on this machine), or use Local")
+        raise ValueError(
+            f"--distribution_strategy {args.distribution_strategy} is a "
+            "cluster job: `train` submits its master pod; run_local runs "
+            "Local jobs only")
     if job_type in ("evaluate", "predict") and \
             not args.checkpoint_dir_for_init:
         raise ValueError(

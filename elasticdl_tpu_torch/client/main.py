@@ -24,13 +24,21 @@ and the operator commands, with the JAX package's arguments:
     python -m elasticdl_tpu_torch.client.main lineage EVENT_LOG [--window N]
     python -m elasticdl_tpu_torch.client.main incident DIR [--bundle NAME]
 
+and the job-image commands (client/image_builder.py):
+
+    python -m elasticdl_tpu_torch.client.main zoo init [--model_zoo DIR] \
+        [--base_image IMAGE]
+    python -m elasticdl_tpu_torch.client.main zoo build --image IMAGE \
+        [--model_zoo DIR]
+    python -m elasticdl_tpu_torch.client.main zoo push IMAGE
+
 (`top`, `slo` and `programs` scrape a master's `--telemetry_port`).
-A cluster job starts from the master's entry point, `python -m
+`train`, `evaluate` and `predict` with a cluster strategy submit the
+job's master pod through the Kubernetes client (client/api.py); on one
+machine a cluster job starts from the master's entry point, `python -m
 elasticdl_tpu_torch.master.main --distribution_strategy AllReduce
---use_process_k8s true ...`; `train` here runs Local jobs.  `zoo
-init|build|push` (client/image_builder.py in the JAX package) waits
-for ROADMAP.md queue 1, item 12.  Parsing is strict: an unknown flag is an error.  The exit
-code is 0 when the job or command succeeded.
+--use_process_k8s true ...`.  Parsing is strict: an unknown flag is an
+error.  The exit code is 0 when the job or command succeeded.
 """
 
 from __future__ import annotations
@@ -123,6 +131,20 @@ def _build_parser() -> argparse.ArgumentParser:
         "the master) or render one into a postmortem report")
     args_lib.add_incident_params(incident_parser)
     incident_parser.set_defaults(func="incident")
+
+    zoo_parser = subparsers.add_parser("zoo", help="model zoo image tools")
+    zoo_sub = zoo_parser.add_subparsers(dest="zoo_command")
+    zoo_init = zoo_sub.add_parser("init", help="scaffold a model zoo dir")
+    zoo_init.add_argument("--model_zoo", default="model_zoo")
+    zoo_init.add_argument("--base_image", default="python:3.12")
+    zoo_init.set_defaults(func="zoo_init")
+    zoo_build = zoo_sub.add_parser("build", help="build the job image")
+    zoo_build.add_argument("--model_zoo", default="model_zoo")
+    zoo_build.add_argument("--image", required=True)
+    zoo_build.set_defaults(func="zoo_build")
+    zoo_push = zoo_sub.add_parser("push", help="push the job image")
+    zoo_push.add_argument("image")
+    zoo_push.set_defaults(func="zoo_push")
     return parser
 
 
@@ -149,7 +171,14 @@ def main(argv=None) -> int:
             f"elasticdl_tpu_torch.client.{args.func}")
         return getattr(module, args.func)(args)
 
-    from elasticdl_tpu_torch.client import api
+    from elasticdl_tpu_torch.client import api, image_builder
+
+    if args.func == "zoo_init":
+        return image_builder.init_zoo(args.model_zoo, args.base_image)
+    if args.func == "zoo_build":
+        return image_builder.build_image(args.model_zoo, args.image)
+    if args.func == "zoo_push":
+        return image_builder.push_image(args.image)
 
     try:
         return getattr(api, args.func)(args)

@@ -3,10 +3,11 @@ workers, and of `serve` (the port's copy of the subset of the JAX
 package's common/args.py that those read).
 
 Flags outside the subset are absent, so argparse rejects them.
-`elasticdl train` with a cluster strategy parses and then raises
-NotImplementedError (submitting a master pod needs the real
-`K8sClient`); the master's own entry point (`python -m
-elasticdl_tpu_torch.master.main`) runs the cluster job, with the JAX
+`elasticdl train` with a cluster strategy submits the master's pod
+(client/api.py `_submit_master_pod`, its argv rebuilt by
+`build_arguments_from_parsed_result`); the master's own entry point
+(`python -m elasticdl_tpu_torch.master.main`) runs the cluster job,
+with the JAX
 parser's cluster flags under their names and defaults
 (`add_cluster_params`: `--use_process_k8s`, `--use_fake_k8s`,
 `--workers_per_group`, `--wedge_grace_s`, `--coordinator_port`,
@@ -484,6 +485,24 @@ def add_incident_params(parser: argparse.ArgumentParser):
     )
 
 
+def add_evaluate_params(parser: argparse.ArgumentParser):
+    """An evaluation job's data flags (the JAX parser's)."""
+    parser.add_argument("--minibatch_size", type=pos_int, default=64)
+    parser.add_argument("--validation_data", default="")
+    parser.add_argument("--checkpoint_dir_for_init", default="")
+    parser.add_argument("--records_per_task", type=pos_int, default=4096)
+    parser.add_argument("--data_reader_params", default="")
+
+
+def add_predict_params(parser: argparse.ArgumentParser):
+    """A prediction job's data flags (the JAX parser's)."""
+    parser.add_argument("--minibatch_size", type=pos_int, default=64)
+    parser.add_argument("--prediction_data", default="")
+    parser.add_argument("--checkpoint_dir_for_init", default="")
+    parser.add_argument("--records_per_task", type=pos_int, default=4096)
+    parser.add_argument("--data_reader_params", default="")
+
+
 def parse_master_args(argv=None) -> argparse.Namespace:
     """The master entry point's flags (master/main.py)."""
     parser = argparse.ArgumentParser(description="elasticdl-tpu master")
@@ -519,3 +538,9 @@ def build_arguments_from_parsed_result(args, filter_args=None) -> list:
             continue
         arguments += ["--" + key, str(value)]
     return arguments
+
+
+def wrap_python_args_with_string(args: list) -> list:
+    """`args` with every value quoted, so an argv survives a shell
+    boundary in a pod command."""
+    return [a if a.startswith("--") else f"'{a}'" for a in args]

@@ -15,7 +15,7 @@ they would across machines.
 
 The real `K8sClient` needs the `kubernetes` package, which the port's
 machines do not have: it raises at construction with a message naming
-the package (ROADMAP.md queue 1, item 12).
+the package (ROADMAP.md queue 1, item 3, not queued).
 """
 
 from __future__ import annotations
@@ -363,12 +363,12 @@ class ProcessK8sClient(AbstractK8sClient):
 class K8sClient(AbstractK8sClient):
     """The real Kubernetes client.  It needs the `kubernetes` package,
     which the port does not ship: constructing one raises (ROADMAP.md
-    queue 1, item 12); `--use_process_k8s` and `--use_fake_k8s` run
+    queue 1, item 3); `--use_process_k8s` and `--use_fake_k8s` run
     without it."""
 
     def __init__(self, namespace: str = "default", job_name: str = "job"):
         raise ImportError(
             "The `kubernetes` package is required for a cluster job on "
-            "Kubernetes (the real K8sClient waits for ROADMAP.md queue 1, "
-            "item 12); run the master with --use_process_k8s true (worker "
+            "Kubernetes (the real K8sClient, ROADMAP.md queue 1, item 3); "
+            "run the master with --use_process_k8s true (worker "
             "processes on this machine) or --use_fake_k8s true")

@@ -41,7 +41,7 @@ the scatter-add runs only in the backward).
 **A difference kept on purpose.**  In the reference, a dispatch-path
 compile carries flops 0 and bytes 0 (XLA's cost model comes only from an
 AOT query); the port's carry the counted cost.  The reference's
-`aot_compile` (prewarm) has no eager counterpart (ROADMAP.md item 12),
+`aot_compile` (prewarm) has no eager counterpart (ROADMAP.md item 12.4),
 and `cost_for` returns the cost counted for a signature that has run,
 raising for one that has not: an abstract cost query waits for a CUDA
 graph capture to be the port's compile (ROADMAP.md item 14).

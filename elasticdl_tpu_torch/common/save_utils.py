@@ -271,6 +271,12 @@ def gathered_state(state: TrainState) -> TrainState:
             if name in state.shardings:
                 p.data = gather_tensor(p.data, state.shardings[name],
                                        state.mesh)
+        # an int8 arena's q8 and scale, sharded with their carrier
+        for name, b in list(model.named_buffers()):
+            if name in state.shardings:
+                owner, _, leaf = name.rpartition(".")
+                setattr(model.get_submodule(owner), leaf, gather_tensor(
+                    b, state.shardings[name], state.mesh))
     return TrainState(step=state.step, model=model,
                       optimizer=state.optimizer)
 

@@ -29,6 +29,15 @@ time.
 table, gather, scatter-add backward and int8 planes over `cache_rows`
 cache slots instead of the whole vocabulary, plus the serving overlay
 for cold rows.
+
+Row-sharded over `model` (the trainer's `shard_state`): `q8` and `scale`
+are sliced with their carrier, as the JAX trainer shards the
+"quantized" collection by the params' rule.  The gather dequantizes
+this rank's rows through `lookup_rows` (zeros off the shard, a sum over
+`model`), the tap's scatter-add runs at the shard's row count, and the
+fold draws the whole plane's uniforms and keeps the shard's rows, so
+the codes are those of the unsharded fold (the JAX draw does not depend
+on the sharding either).
 """
 
 from __future__ import annotations
@@ -101,11 +110,17 @@ def dequantize_rows_host(q8: np.ndarray, scale: np.ndarray) -> np.ndarray:
     return q8.astype(np.float32) * np.asarray(scale, np.float32)
 
 
-def stochastic_round(x: torch.Tensor, generator: torch.Generator):
+def stochastic_round(x: torch.Tensor, generator: torch.Generator,
+                     first_row: int = 0, plane_rows: int = 0):
     """Unbiased integer rounding: floor(x + U[0,1)), so E[result] == x
-    and exact integers return exactly (floor(k + u) == k for u < 1)."""
-    u = torch.rand(x.shape, generator=generator, device=x.device,
-                   dtype=x.dtype)
+    and exact integers return exactly (floor(k + u) == k for u < 1).
+    `x` may be rows [first_row, first_row + len(x)) of a plane of
+    `plane_rows` rows: the uniforms are drawn for the whole plane and
+    this block's rows kept, so a shard rounds as the whole plane does."""
+    rows = max(int(plane_rows), x.shape[0])
+    u = torch.rand((rows,) + tuple(x.shape[1:]), generator=generator,
+                   device=x.device, dtype=x.dtype)
+    u = u[first_row:first_row + x.shape[0]]
     return torch.clamp(torch.floor(x + u), -_Q_MAX, _Q_MAX).to(torch.int8)
 
 
@@ -197,18 +212,18 @@ class _ArenaTable(nn.Module):
     def _gather(self, flat_rows: torch.Tensor) -> torch.Tensor:
         if self.arena_dtype != "int8":
             return lookup_rows(self.embedding, flat_rows, self.rows)
-        if shard_of(self.embedding.shape[0], self.rows) is not None:
-            raise NotImplementedError(
-                "an int8 arena row-sharded over the 'model' axis is not "
-                "ported (ROADMAP.md queue 1, item 12.6): shard the fp32 "
-                "arena, or train the int8 one on a mesh without 'model'")
-        # dequantize inside the gather (code gather, scale gather, one
-        # multiply); the tap adds exact zeros forward and collects the
-        # scatter-add backward
+        return lookup_rows(self.embedding, flat_rows, self.rows,
+                           gather=self._int8_gather)
+
+    def _int8_gather(self, carrier: torch.Tensor,
+                     rows: torch.Tensor) -> torch.Tensor:
+        """Rows of this rank's planes: dequantize inside the gather (code
+        gather, scale gather, one multiply); the tap adds exact zeros
+        forward and collects the scatter-add backward."""
         with torch.profiler.record_function("int8_lookup"):
-            deq = dequantize_rows(self.q8.index_select(0, flat_rows),
-                                  self.scale.index_select(0, flat_rows))
-        return deq + _grad_tap(self.embedding, flat_rows)
+            deq = dequantize_rows(self.q8.index_select(0, rows),
+                                  self.scale.index_select(0, rows))
+        return deq + _grad_tap(carrier, rows)
 
 
 class EmbeddingArena(_ArenaTable):
@@ -324,10 +339,6 @@ class TieredArena(_ArenaTable):
         return self.arena_dtype
 
     def forward(self, slots: torch.Tensor, overlay=None) -> torch.Tensor:
-        if shard_of(self.embedding.shape[0], self.rows) is not None:
-            raise NotImplementedError(
-                "the tiered store's cache row-sharded over the 'model' "
-                "axis is not ported (ROADMAP.md queue 1, item 12.6)")
         rows = slots.to(torch.int32)
         flat = torch.clamp_min(rows.reshape(-1), 0)
         hot = self._gather(flat).reshape(rows.shape + (self.output_dim,))
@@ -366,27 +377,33 @@ def _fold_generator(step: int, path: Tuple[str, ...],
 
 
 def _requantize_plane(q8: torch.Tensor, scale: torch.Tensor,
-                      delta: torch.Tensor, generator: torch.Generator):
+                      delta: torch.Tensor, generator: torch.Generator,
+                      first_row: int = 0, plane_rows: int = 0):
     """(new q8, new scale) with `delta` folded in.  Rows whose delta is
     all zero (Adam's update is 0 while m = v = 0) keep their codes and
-    scales bit for bit, so idle rows do not random-walk."""
+    scales bit for bit, so idle rows do not random-walk.  The planes may
+    be rows [first_row, ...) of a `plane_rows`-row plane
+    (`stochastic_round`)."""
     touched = (delta != 0.0).any(dim=1, keepdim=True)
     table = dequantize_rows(q8, scale) + delta
     max_abs = table.abs().amax(dim=1, keepdim=True)
     new_scale = torch.where(max_abs > 0, max_abs / _Q_MAX,
                             torch.ones_like(max_abs))
-    new_q8 = stochastic_round(table / new_scale, generator)
+    new_q8 = stochastic_round(table / new_scale, generator, first_row,
+                              plane_rows)
     return (torch.where(touched, new_q8, q8),
             torch.where(touched, new_scale, scale))
 
 
 def fold_quantized_updates(model: nn.Module, step: int) -> int:
     """The write-back after `optimizer.step()`: in each int8 arena (flat
-    or tiered, keyed on the same plane path) the carrier holds this step's fp32 delta; fold it into the codes (table
-    = dequant + delta, new per-row scale, stochastic rounding keyed on
-    (seed, step, plane path)) and zero the carrier.  Returns the number
-    of planes folded; with no int8 arena it changes nothing and returns
-    0."""
+    or tiered, keyed on the same plane path) the carrier holds this
+    step's fp32 delta; fold it into the codes (table = dequant + delta,
+    new per-row scale, stochastic rounding keyed on (seed, step, plane
+    path)) and zero the carrier.  A rank holding a row shard over
+    `model` folds its rows as the whole plane's fold does.  Returns the
+    number of planes folded; with no int8 arena it changes nothing and
+    returns 0."""
     arenas = [(name, m) for name, m in model.named_modules()
               if isinstance(m, _ArenaTable) and m.arena_dtype == "int8"]
     if not arenas:
@@ -394,8 +411,11 @@ def fold_quantized_updates(model: nn.Module, step: int) -> int:
     with torch.no_grad(), torch.profiler.record_function("int8_fold"):
         for name, arena in arenas:
             gen = _fold_generator(step, plane_path(name), arena.q8.device)
+            shard = shard_of(arena.embedding.shape[0], arena.rows)
+            first = 0 if shard is None else shard[1]
             q8, scale = _requantize_plane(arena.q8, arena.scale,
-                                          arena.embedding, gen)
+                                          arena.embedding, gen, first,
+                                          arena.rows)
             arena.q8.copy_(q8)
             arena.scale.copy_(scale)
             arena.embedding.zero_()

@@ -3,8 +3,9 @@ mesh `expert` axis (the port of the JAX package's layers/moe.py).
 
 The JAX layer is traced at global shapes: its capacity comes from the
 global token count, and a token's slot from a cumsum over every token of
-the global batch.  Here a rank holds one data shard's tokens (the same
-tokens on every `expert` position of its data coordinate), so:
+the global batch in (b, l) order.  Here a rank holds one data shard's
+rows (the same tokens on every `expert` position of its data
+coordinate), and on a `seq` axis one chunk of their positions, so:
 
 - top-1 router, softmax gates, dense one-hot dispatch and combine with
   static capacity `ceil(tokens * capacity_factor / experts)` over the
@@ -13,6 +14,11 @@ tokens on every `expert` position of its data coordinate), so:
   expert in the data shards before it: one all_gather over `data` of
   each shard's per-expert counts (and token count) gives that exclusive
   prefix, the global count and the global density of the aux loss;
+- on a `seq` axis the tokens before a token (b, l) of a data shard are
+  every token of its earlier rows, then the earlier chunks of row b,
+  then its own chunk's prefix: one all_gather over `seq` of each
+  chunk's per-row, per-expert counts gives the first two, and the
+  shard's counts for the exchange over `data`;
 - the expert stacks (`expert_w_in` (E, H, F), `expert_b_in`,
   `expert_w_out`, `expert_b_out`) are sharded over `expert` on their
   leading dim (`moe_param_sharding`): a rank runs its E/expert experts
@@ -25,14 +31,15 @@ tokens on every `expert` position of its data coordinate), so:
   partitioner emits in the JAX step);
 - the Switch aux loss (coef * E * sum(density * mean gate)) over the
   global tokens: the density from the gathered counts, the mean gate
-  through an `axis_sum` over `data`.  flax `sow`s it; here the layer
-  keeps it in `aux_loss`, and the trainer adds `collect_aux_loss(model)`
-  to the objective (JAX worker/trainer.py `_sown_aux_loss`).
+  through an `axis_sum` over `data` and `seq`.  flax `sow`s it; here the
+  layer keeps it in `aux_loss`, and the trainer adds
+  `collect_aux_loss(model)` to the objective (JAX worker/trainer.py
+  `_sown_aux_loss`).
 
 Overflowing tokens get zeros (standard Switch semantics: callers add
-the residual).  The MoE einsums are plain products, as in the JAX layer,
-which XLA compiles outside any Pallas kernel.  Tokens split over `seq`
-as well are not ported: their global order interleaves the chunks.
+the residual); the global order decides which.  The MoE einsums are
+plain products, as in the JAX layer, which XLA compiles outside any
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -120,13 +127,26 @@ class MoEMLP(nn.Module):
                 f"'{EXPERT_AXIS}' of size {mesh.shape[EXPERT_AXIS]}")
         return mesh.coords[EXPERT_AXIS] * here, here
 
+    def _seq_positions(self, onehot: torch.Tensor, rows: int, mesh):
+        """(inclusive count of each token's expert up to it within this
+        data shard (N, E), the shard's per-expert counts (E,)) for tokens
+        (rows, chunk) of a `seq` chunk, in the global (b, l) order."""
+        per_row = onehot.reshape(rows, -1, onehot.shape[-1])  # (b, l, E)
+        row_counts = per_row.sum(dim=1)                       # (b, E)
+        chunks = collectives.all_gather(row_counts[None], mesh, SEQ_AXIS)
+        row_totals = chunks.sum(dim=0)
+        before = (torch.cumsum(row_totals, dim=0) - row_totals
+                  + chunks[:mesh.coords[SEQ_AXIS]].sum(dim=0))
+        cum = torch.cumsum(per_row, dim=1) + before[:, None, :]
+        return cum.reshape(onehot.shape), row_totals.sum(dim=0)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mesh = get_current_mesh()
-        if mesh.shape[SEQ_AXIS] > 1:
-            raise NotImplementedError(
-                "MoEMLP on tokens split over 'seq' is not ported (their "
-                "global order interleaves the chunks; ROADMAP.md queue 1, "
-                "item 12.6): use the 'data' and 'expert' axes")
+        seq_split = mesh.axis_group(SEQ_AXIS) is not None
+        if seq_split and x.dim() != 3:
+            raise ValueError(
+                f"MoEMLP on a '{SEQ_AXIS}' axis takes (batch, sequence "
+                f"chunk, hidden) tokens, got shape {tuple(x.shape)}")
         *batch_dims, hidden = x.shape
         experts = self.num_experts
         tokens = x.reshape(-1, hidden)                      # (N, H)
@@ -137,10 +157,17 @@ class MoEMLP(nn.Module):
         onehot = (expert_idx[:, None] == torch.arange(
             experts, device=x.device)).to(torch.int64)      # (N, E)
 
-        # the global token count and, per expert, the counts of the data
-        # shards before this one (an exclusive prefix) and of all shards
-        counts = onehot.sum(dim=0)
-        prefix, n_global = 0, tokens.shape[0]
+        # each token's count of its expert so far in this data shard,
+        # the shard's counts; then the global token count and, per
+        # expert, the counts of the data shards before this one (an
+        # exclusive prefix) and of all shards
+        if seq_split:
+            cum, counts = self._seq_positions(onehot, x.shape[0], mesh)
+            n_global = tokens.shape[0] * mesh.shape[SEQ_AXIS]
+        else:
+            cum, counts = torch.cumsum(onehot, dim=0), onehot.sum(dim=0)
+            n_global = tokens.shape[0]
+        prefix = 0
         if mesh.axis_group(DATA_AXIS) is not None:
             local = torch.cat([counts, torch.tensor([n_global],
                                                     device=x.device)])
@@ -150,7 +177,7 @@ class MoEMLP(nn.Module):
             n_global = int(shards[:, experts].sum())
         capacity = expert_capacity(n_global, experts, self.capacity_factor)
 
-        position = (torch.cumsum(onehot, dim=0) + prefix) * onehot - 1
+        position = (cum + prefix) * onehot - 1
         kept = (position >= 0) & (position < capacity)
         slot = torch.clamp(position, 0, capacity - 1)
         dispatch = ((slot[..., None] == torch.arange(
@@ -177,8 +204,8 @@ class MoEMLP(nn.Module):
 
         # Switch load-balancing loss over the global tokens, pre-scaled
         density = counts.float() / n_global
-        density_proxy = collectives.axis_sum(probs.sum(dim=0), mesh,
-                                             DATA_AXIS) / n_global
+        density_proxy = collectives.axis_sum(
+            probs.sum(dim=0), mesh, (DATA_AXIS, SEQ_AXIS)) / n_global
         self.aux_loss = (self.aux_loss_coef * experts
                          * torch.sum(density * density_proxy))
         return out.to(x.dtype).reshape(*batch_dims, hidden)

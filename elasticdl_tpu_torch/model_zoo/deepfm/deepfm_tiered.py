@@ -13,7 +13,10 @@ Features arrive translated by the store:
   cold_linear  (B, 26, 1)         serving-only overlay for cold rows
 
 Training never passes overlays (every row is admitted before its step);
-serving passes them for slot -1 (store/serving.py).  The Local runner
+serving passes them for slot -1 (store/serving.py).  On a mesh with
+`model` > 1 the cache tables row-shard as the flat tables do
+(`param_sharding`), and the store applies each rank's block of every
+plan (store/tiered.py).  The Local runner
 (client/api.py) finds `build_tiered_store` here, wraps the feeds with
 the store's id -> slot translation and starts the store's threads.  The
 feeds rank each batch's field-encoded ids with the dedup packer (its
@@ -40,6 +43,8 @@ from elasticdl_tpu_torch.model_zoo.deepfm.deepfm_functional_api import (  # noqa
     feed_bulk as _base_feed_bulk,
     loss,
     optimizer,
+    # the cache tables row-shard over `model` by the flat tables' rule
+    param_sharding,
 )
 from elasticdl_tpu_torch.store.tiered import TieredStore
 from elasticdl_tpu_torch.worker.trainer import RANKING_KEY

@@ -349,9 +349,18 @@ class LocalShard:
     global_rows: int
 
 
+def _host_key(key) -> bool:
+    """A batch's host bookkeeping ("__name__": a tiered store's plan or
+    raw ids, worker/trainer.py STORE_KEYS) rides whole beside its rows:
+    every rank plans on the global batch."""
+    return isinstance(key, str) and key.startswith("__") \
+        and key.endswith("__")
+
+
 def _rows_of(tree, start: int, stop: int):
     if isinstance(tree, dict):
-        return {k: _rows_of(v, start, stop) for k, v in tree.items()}
+        return {k: v if _host_key(k) else _rows_of(v, start, stop)
+                for k, v in tree.items()}
     out = tree[start:stop]
     return out.view(type(tree)) if isinstance(tree, np.ndarray) else out
 
@@ -387,7 +396,8 @@ def make_global_batch(batch: dict, mesh: ProcessMesh, stage) -> LocalShard:
 
 def _leaves(tree):
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            if not _host_key(k):
+                yield from _leaves(v)
     else:
         yield tree

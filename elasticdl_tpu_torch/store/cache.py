@@ -21,6 +21,7 @@ keep every touched row resident.
 
 from __future__ import annotations
 
+import hashlib
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, Optional
@@ -64,8 +65,8 @@ def partition_plan(plan: "CachePlan", num_shards: int,
     arena of `num_shards` contiguous blocks of cache_rows / num_shards
     slots (the device of a slot is slot // block).  Each sub-plan keeps
     the parent's admission order, and their union is the parent plan.
-    On one card the store keeps `mesh_shards` at 1 and never splits; the
-    split is accounting for a row-sharded slot arena across cards."""
+    The rank at `model` coordinate d applies sub-plan d
+    (`TieredStore.apply_plan`)."""
     num_shards = int(num_shards)
     if num_shards < 1 or cache_rows % num_shards:
         raise ValueError(
@@ -115,6 +116,20 @@ class CachePlan:
     # batches this plan's admissions cover (K for a steps_per_execution
     # block)
     block_batches: int = 1
+    # per-block sub-plans of a slot arena row-sharded over `model`
+    # (`partition_plan`; None on one block)
+    sub_plans: Optional[list] = None
+
+    def digest(self) -> str:
+        """sha256 of the slots and the admit and evict arrays: two ranks
+        that plan alike give the same digest."""
+        h = hashlib.sha256()
+        for arr in (self.slots, self.admit_slots, self.admit_rows,
+                    self.evict_slots, self.evict_rows):
+            arr = np.ascontiguousarray(arr)
+            h.update(f"{arr.dtype}{arr.shape}".encode())
+            h.update(arr.tobytes())
+        return h.hexdigest()
 
 
 class HotRowCache:
@@ -258,8 +273,8 @@ class HotRowCache:
             raise ValueError(
                 f"cache map shape {row_of.shape} != ({self.capacity},)")
         self.row_of = row_of.copy()
-        self._slot_of = {
-            int(r): int(s) for s, r in enumerate(row_of) if r >= 0}
+        slots = np.nonzero(row_of >= 0)[0]
+        self._slot_of = dict(zip(row_of[slots].tolist(), slots.tolist()))
         self._score = (
             np.asarray(score, np.float64).copy()
             if score is not None else np.zeros(self.capacity, np.float64))

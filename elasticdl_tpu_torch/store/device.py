@@ -29,6 +29,14 @@ Model layout: `param_paths` maps each store plane to the dotted name of
 its `TieredArena` in the model (DeepFM: `fm_embedding`, `fm_linear`);
 the arena holds `embedding`, and in int8 mode `q8` and `scale`.
 
+Cache tables row-sharded over `model` (`state.mesh`; `cache_block`):
+a rank holds one contiguous block of the slots.  `apply_admissions`
+writes only the slots of its block, at their offsets in the block; the
+reads return whole rows on every rank whatever block holds them (the
+block's rows, zeros elsewhere, summed over `model`; the whole tables
+gathered), so every rank's host tier takes the same values.  These are
+collectives: every rank reads the same slots at the same point.
+
 The gather of `read_rows` and the admission are registered programs
 (common/programs.py), `store_gather` and `store_admit`, one per layout
 and cache dtype as in the JAX package; their signatures are the padded
@@ -45,6 +53,9 @@ import torch
 
 from elasticdl_tpu_torch.common import programs
 from elasticdl_tpu_torch.layers.arena import dequantize_rows, quantize_rows
+from elasticdl_tpu_torch.layers.embedding import shard_of
+from elasticdl_tpu_torch.parallel import collectives
+from elasticdl_tpu_torch.parallel.mesh import MODEL_AXIS
 from elasticdl_tpu_torch.worker.trainer import run_device_serialized
 
 
@@ -95,6 +106,29 @@ def _rows_of(arena, idx: torch.Tensor, cache_dtype: str) -> torch.Tensor:
     return arena.embedding.index_select(0, idx)
 
 
+def _shard(state, param_paths: Dict[str, str]):
+    """(mesh, first slot, block rows) when `state`'s cache tables are its
+    rank's row block over `model`, else None."""
+    mesh = getattr(state, "mesh", None)
+    if mesh is None:
+        return None
+    arena = _arena(state.model, next(iter(param_paths.values())))
+    shard = shard_of(arena.embedding.shape[0], arena.rows, mesh)
+    if shard is None:
+        return None
+    return shard + (arena.embedding.shape[0],)
+
+
+def cache_block(state, param_paths: Dict[str, str]):
+    """(index, count) of the block of the slot arena `state`'s cache
+    tables hold over `model`, or None for whole tables."""
+    shard = _shard(state, param_paths)
+    if shard is None:
+        return None
+    mesh, first, rows = shard
+    return first // rows, mesh.shape[MODEL_AXIS]
+
+
 def _layout(param_paths: Dict[str, str]) -> Tuple[Tuple[str, str], ...]:
     """Hashable, order-stable (name, path) pairs: the key of the program
     caches below."""
@@ -123,10 +157,20 @@ def read_rows(state, param_paths: Dict[str, str], slots: np.ndarray,
         for _, path in layout:
             _check_int8(_arena(state.model, path), path)
     gather = _gather_program(layout, cache_dtype)
+    shard = _shard(state, param_paths)
 
     def _read():
         idx = torch.from_numpy(idx_host).to(device)
-        rows = gather(state.model, idx)
+        if shard is None:
+            rows = gather(state.model, idx)
+        else:
+            mesh, first, block = shard
+            local = idx - first
+            inside = ((local >= 0) & (local < block))[:, None]
+            rows = tuple(collectives.axis_reduce(
+                torch.where(inside, plane, torch.zeros_like(plane)), mesh,
+                MODEL_AXIS) for plane in gather(
+                    state.model, torch.where(inside[:, 0], local, 0)))
         return {name: plane.float().cpu().numpy()[:n].copy()
                 for (name, _), plane in zip(layout, rows)}
 
@@ -138,6 +182,7 @@ def read_full_tables(state, param_paths: Dict[str, str],
     """Owning fp32 host copies of each plane's whole cache table (int8:
     the dequantized view plus the carrier)."""
     device = _device(state)
+    whole = _whole(state, param_paths)
 
     def _read():
         out = {}
@@ -150,7 +195,8 @@ def read_full_tables(state, param_paths: Dict[str, str],
                         + arena.embedding
                 else:
                     table = arena.embedding
-                out[name] = table.detach().float().cpu().numpy().copy()
+                out[name] = whole(table.detach()).float().cpu().numpy(
+                ).copy()
         return out
 
     return run_device_serialized(_read, device=device)
@@ -162,6 +208,7 @@ def read_full_planes(state, param_paths: Dict[str, str]
     "scale"}}: the sidecar stores them as they are, so an int8 -> int8
     restore is exact."""
     device = _device(state)
+    whole = _whole(state, param_paths)
 
     def _read():
         out = {}
@@ -169,12 +216,24 @@ def read_full_planes(state, param_paths: Dict[str, str]
             arena = _arena(state.model, path)
             _check_int8(arena, path)
             out[name] = {
-                "q8": arena.q8.detach().cpu().numpy().copy(),
-                "scale": arena.scale.detach().float().cpu().numpy().copy(),
+                "q8": whole(arena.q8.detach()).cpu().numpy().copy(),
+                "scale": whole(arena.scale.detach()).float().cpu().numpy(
+                ).copy(),
             }
         return out
 
     return run_device_serialized(_read, device=device)
+
+
+def _whole(state, param_paths: Dict[str, str]):
+    """table -> the whole table: the identity, or on a row block the
+    gather of every block over `model`."""
+    shard = _shard(state, param_paths)
+    if shard is None:
+        return lambda table: table
+    mesh = shard[0]
+    return lambda table: collectives.all_gather(table.contiguous(), mesh,
+                                                MODEL_AXIS)
 
 
 def _zero_moments(optimizer, param: torch.nn.Parameter,
@@ -198,17 +257,26 @@ def apply_admissions(state, param_paths: Dict[str, str], slots: np.ndarray,
                      cache_dtype: str = "float32"):
     """Write fp32 host values into cache rows `slots` of every plane, in
     place, and zero those rows' optimizer moments (int8: quantize into
-    the planes and zero the carrier rows too).  Returns `state`."""
-    n = int(np.asarray(slots).size)
-    if n == 0:
+    the planes and zero the carrier rows too).  On a row block over
+    `model` only the slots of the block are written, at their offsets
+    in it.  Returns `state`."""
+    slots = np.asarray(slots, np.int64).reshape(-1)
+    if slots.size == 0:
         return state
+    values = {name: np.asarray(values[name], np.float32).reshape(
+        slots.size, -1) for name in param_paths}
+    shard = _shard(state, param_paths)
+    if shard is not None:
+        _, first, block = shard
+        mine = (slots >= first) & (slots < first + block)
+        slots = slots[mine] - first
+        values = {name: v[mine] for name, v in values.items()}
+        if slots.size == 0:
+            return state
     device = _device(state)
-    idx_host = _pad_indices(np.asarray(slots, np.int64).reshape(-1))
-    vals_host = {
-        name: _pad_values(
-            np.asarray(values[name], np.float32).reshape(n, -1),
-            idx_host.size)
-        for name in param_paths}
+    idx_host = _pad_indices(slots)
+    vals_host = {name: _pad_values(values[name], idx_host.size)
+                 for name in param_paths}
 
     layout = _layout(param_paths)
     if cache_dtype == "int8":

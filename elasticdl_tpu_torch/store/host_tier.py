@@ -150,8 +150,10 @@ class LazyVocabulary:
         fields = np.asarray(fields, np.int64)
         ids = np.asarray(ids, np.int64)
         rows = np.asarray(rows, np.int64)
-        for f, v, r in zip(fields, ids, rows):
-            vocab._maps[int(f)][int(v)] = int(r)
+        for f in range(vocab.num_fields):
+            mine = fields == f
+            vocab._maps[f] = dict(zip(ids[mine].tolist(),
+                                      rows[mine].tolist()))
         vocab._next_row = int(rows.max()) + 1 if rows.size else 0
         return vocab
 

@@ -58,6 +58,7 @@ from elasticdl_tpu_torch.store.cache import (
     CachePlan,
     HotRowCache,
     device_cache_bytes,
+    partition_plan,
 )
 from elasticdl_tpu_torch.store.host_tier import HostTier
 from elasticdl_tpu_torch.worker.trainer import (
@@ -88,8 +89,7 @@ class TieredStore:
         self.num_fields = int(num_fields)
         self.cache_rows = int(cache_rows)
         self.cache_dtype = cache_dtype
-        # the slot arena is not sharded on one card (cache.partition_plan
-        # is the accounting for one sharded across cards)
+        # blocks of the slot arena over `model` (set_mesh_shards)
         self.mesh_shards = 1
         self.host = HostTier(planes, num_fields, host_dtype, seed)
         self.cache = HotRowCache(cache_rows, dtype=cache_dtype)
@@ -159,6 +159,18 @@ class TieredStore:
         out)."""
         return device_cache_bytes(self.planes, self.cache_rows,
                                   self.cache_dtype)
+
+    def set_mesh_shards(self, n: int) -> None:
+        """Declare the `model` size the cache tables are row-sharded over:
+        every rank holds an equal contiguous block of cache_rows / n
+        slots (the blocks of `shard_tensor`), and plans carry each
+        block's sub-plan."""
+        n = int(n)
+        if n < 1 or self.cache_rows % n:
+            raise ValueError(
+                f"cache_rows={self.cache_rows} must divide evenly over "
+                f"{n} mesh shards")
+        self.mesh_shards = n
 
     def _hit_ratio(self) -> float:
         with self._lock:
@@ -341,6 +353,9 @@ class TieredStore:
             (int(r) in self._pending_writeback for r in plan.admit_rows),
             bool, plan.admit_rows.size)
         plan.prefetch_rows = plan.admit_rows[~plan.deferred]
+        if self.mesh_shards > 1:
+            plan.sub_plans = partition_plan(plan, self.mesh_shards,
+                                            self.cache_rows)
         self._unapplied += 1
         self._tally["hits"] += plan.hits
         self._tally["misses"] += plan.misses
@@ -398,14 +413,33 @@ class TieredStore:
                     arr[missing] = cold[name]
                     full[name] = arr
                 values = full
+            slots = plan.admit_slots
+            block = store_device.cache_block(state, self.param_paths)
+            if block is not None:
+                # this rank's block of the slot arena: its sub-plan
+                sub = self._sub_plan(plan, block)
+                mine = np.isin(slots, sub["admit_slots"])
+                slots = slots[mine]
+                values = {name: v[mine] for name, v in values.items()}
             state = store_device.apply_admissions(
-                state, self.param_paths, plan.admit_slots, values,
+                state, self.param_paths, slots, values,
                 cache_dtype=self.cache_dtype)
         with self._lock:
             self._applied_row_of[plan.evict_slots] = -1
             self._applied_row_of[plan.admit_slots] = plan.admit_rows
             self._unapplied -= 1
         return state
+
+    def _sub_plan(self, plan: CachePlan, block) -> dict:
+        """The sub-plan of the block (index, count) a rank's cache tables
+        hold; the plan must have been made for that many blocks."""
+        index, count = block
+        if plan.sub_plans is None or len(plan.sub_plans) != count:
+            raise ValueError(
+                f"the cache tables are {count} blocks over 'model' but "
+                f"the plan was made for {self.mesh_shards}: call "
+                f"set_mesh_shards({count}) before planning")
+        return plan.sub_plans[index]
 
     def _drain_fold_queue_inline(self) -> None:
         """The fold, synchronously, when the threads do not run."""

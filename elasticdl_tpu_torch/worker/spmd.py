@@ -375,12 +375,12 @@ class SPMDWorker:
         """The JAX worker compiles the train step ahead for the mesh
         sizes a failure would leave.  Eager PyTorch has nothing to
         compile ahead (common/programs.py): a no-op, logged once
-        (ROADMAP.md queue 1, item 12)."""
+        (ROADMAP.md queue 1, item 12.4)."""
         if self.num_processes > 1 and not getattr(self, "_prewarmed",
                                                   False):
             self._prewarmed = True
             logger.info("elastic prewarm: nothing to compile ahead in "
-                        "eager mode (ROADMAP.md queue 1, item 12)")
+                        "eager mode (ROADMAP.md queue 1, item 12.4)")
 
     @property
     def is_leader(self) -> bool:

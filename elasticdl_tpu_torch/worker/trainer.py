@@ -57,6 +57,7 @@ is the cluster's `init_state_global`, as in the JAX trainer.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import inspect
 import threading
 import time
@@ -74,7 +75,12 @@ from elasticdl_tpu_torch.data.wire import (
     plane_tensor,
 )
 from elasticdl_tpu_torch.device import resolve_device
-from elasticdl_tpu_torch.layers.arena import fold_quantized_updates
+from elasticdl_tpu_torch.layers.arena import (
+    PLANE_KEYS,
+    fold_quantized_updates,
+    plane_key,
+    plane_prefixes,
+)
 from elasticdl_tpu_torch.layers.linen import init_parameters
 from elasticdl_tpu_torch.layers.moe import collect_aux_loss
 from elasticdl_tpu_torch.parallel import collectives
@@ -288,6 +294,11 @@ class Trainer:
                 mesh)
         if self.param_sharding_fn is not None:
             shard_state(state, self.param_sharding_fn, mesh)
+            if self.tiered_store is not None:
+                # the cache tables are row-sharded with the others: plans
+                # carry each block's sub-plan
+                self.tiered_store.set_mesh_shards(
+                    mesh.shape[mesh_lib.MODEL_AXIS])
         return state
 
     def _cast(self, features):
@@ -486,10 +497,29 @@ class Trainer:
         mean = totals[0] / totals[1]
         return mean if aux is None else mean + aux.detach()
 
+    def _apply_store_global(self, state: TrainState, shard, mesh):
+        """A tiered batch on a mesh: its plan (or its raw ids, planned
+        here) covers the global batch, so every rank plans alike; the
+        store applies this rank's block of the admissions, and the rank
+        keeps its rows of the global slots.  Returns the shard without
+        the store keys."""
+        if not any(k in shard.batch for k in STORE_KEYS):
+            return shard
+        deferred = STORE_SPARSE_KEY in shard.batch
+        batch = self._apply_store(state, shard.batch)
+        if deferred:
+            start, stop = mesh_lib.local_batch_range(mesh, shard.global_rows)
+            batch = _with_slots(batch, to_tensor(
+                batch["features"]["slots"][start:stop], self.device))
+        return dataclasses.replace(shard, batch=batch)
+
     def train_on_global_batch(self, state: TrainState, shard, mesh):
         """One data-parallel step; returns (state, loss), the loss the
         mean over every row of the global batch (a 0-d f32 tensor on the
-        device, the same on every rank)."""
+        device, the same on every rank).  A tiered batch's admissions
+        run first (`_apply_store_global`)."""
+        shard = self._apply_store_global(state, shard, mesh)
+
         def _step():
             return self.train_step_global(state, shard, mesh)
 
@@ -565,8 +595,10 @@ def reduce_gradients(state: TrainState, mesh, extra=None) -> None:
 
 def shard_state(state: TrainState, param_sharding_fn, mesh) -> None:
     """Keep this rank's shard of every parameter `param_sharding_fn`
-    gives a spec (before the optimizer has state); records the specs
-    and the mesh on `state`."""
+    gives a spec (before the optimizer has state), and of an int8
+    arena's `q8` and `scale` buffers by its carrier's spec (the JAX
+    trainer shards the "quantized" collection by the params' rule);
+    records the specs and the mesh on `state`."""
     from elasticdl_tpu_torch.common.weights import shard_tensor
 
     specs = {}
@@ -577,5 +609,14 @@ def shard_state(state: TrainState, param_sharding_fn, mesh) -> None:
                 continue
             specs[name] = tuple(spec)
             p.data = shard_tensor(p.data, specs[name], mesh).clone()
+        for prefix in plane_prefixes(dict(state.model.named_buffers())):
+            spec = specs.get(plane_key(prefix, "embedding"))
+            if spec is None:
+                continue
+            arena = state.model.get_submodule(prefix)
+            for leaf in PLANE_KEYS:
+                specs[plane_key(prefix, leaf)] = spec
+                setattr(arena, leaf, shard_tensor(
+                    getattr(arena, leaf), spec, mesh).clone())
     state.shardings = specs
     state.mesh = mesh

@@ -188,13 +188,14 @@ def gpipe(rank, world, stack, x, w, num_microbatches):
 # ---- a zoo model trained on a mesh --------------------------------------
 
 
-def carry_full(state, template, flat, stats=None):
+def carry_full(state, template, flat, stats=None, quantized=None):
     """Load a whole flax tree (flattened) into `state`, sliced to its
     shards: the full tensors come from `template` (the zoo's full-size
     model)."""
     from elasticdl_tpu_torch.common.weights import params_from_jax, shard_tree
 
-    full = params_from_jax(template, flat, batch_stats=stats)
+    full = params_from_jax(template, flat, batch_stats=stats,
+                           quantized=quantized)
     state.model.load_state_dict(
         shard_tree(full, state.shardings, state.mesh), strict=True)
 
@@ -359,3 +360,288 @@ def spmd_job(rank, world, job, params, mesh):
     return {"ok": ok, "losses": losses, "step": int(worker.state.step),
             "table": tuple(worker.state.model.get_parameter(
                 "token_embedding.embedding").shape)}
+
+
+# ---- the int8 arena and the tiered cache over `model` ---------------------
+
+
+def _whole_state(state):
+    """The whole model's state dict (a collective on a sharded state)."""
+    from elasticdl_tpu_torch.common.save_utils import gathered_state
+
+    return {k: v.detach().clone() for k, v in
+            gathered_state(state).model.state_dict().items()}
+
+
+def _count_scatters(calls):
+    """Record the table shape of every scatter-add the arenas launch."""
+    from elasticdl_tpu_torch.layers import arena, embedding
+
+    for module in (arena, embedding):
+        original = module.scatter_add_forward
+
+        def counted(*args, _original=original, **kwargs):
+            calls.append(tuple(args[0].shape))
+            return _original(*args, **kwargs)
+
+        module.scatter_add_forward = counted
+
+
+def _record_folds(folds):
+    """Each fold's gathered planes and carrier delta before it (a
+    collective: every rank records), and its step."""
+    from elasticdl_tpu_torch.layers.arena import (
+        PLANE_KEYS,
+        plane_key,
+        plane_prefixes,
+    )
+    from elasticdl_tpu_torch.worker import trainer as trainer_lib
+
+    fold = trainer_lib.fold_quantized_updates
+
+    def recorded(model, step):
+        state = recorded.state
+        whole = _whole_state(state)
+        folds.append({"step": int(step), "before": {
+            k: whole[plane_key(prefix, leaf)] for prefix in
+            plane_prefixes(whole)
+            for leaf in PLANE_KEYS + ("embedding",)
+            for k in (plane_key(prefix, leaf),)}})
+        return fold(model, step)
+
+    trainer_lib.fold_quantized_updates = recorded
+    return recorded
+
+
+def _sample(batch, store):
+    """A batch's features for the init forward: a tiered model takes
+    slots where the batch has raw ids."""
+    features = dict(batch["features"])
+    if store is None:
+        return features
+    return {"dense": features["dense"],
+            "slots": np.zeros(features["sparse"].shape, np.int32)}
+
+
+def _one_rank_run(model_def, params, flat, quantized, batches, store=None):
+    """The port on one rank from the same init: losses and the whole
+    state (with a store: its host tier and cache tables too)."""
+    from elasticdl_tpu_torch.common.model_handler import ZOO_DIR, \
+        get_model_spec
+    from elasticdl_tpu_torch.common.weights import params_from_jax
+    from elasticdl_tpu_torch.parallel import mesh as mesh_lib
+    from elasticdl_tpu_torch.worker.trainer import Trainer
+
+    spec = get_model_spec(ZOO_DIR, model_def, model_params=params)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, device="cpu")
+    trainer.tiered_store = store
+    with mesh_lib.using_mesh(mesh_lib.ProcessMesh()):
+        state = trainer.init_state(0, _sample(batches[0], store))
+        state.model.load_state_dict(params_from_jax(
+            state.model, flat, quantized=quantized), strict=True)
+        losses = []
+        for batch in batches:
+            if store is not None:
+                batch = store.attach(dict(batch))
+            losses.append(float(trainer.train_on_batch(state, batch)[1]))
+    out = {"losses": losses, "state": _whole_state(state)}
+    if store is not None:
+        from elasticdl_tpu_torch.store import device as store_device
+
+        out["host"] = store.host.state_dict()
+        out["cache_tables"] = store_device.read_full_tables(
+            state, store.param_paths, cache_dtype=store.cache_dtype)
+    return out
+
+
+def _mesh_run(rank, world, axes, model_def, params, flat, quantized,
+              batches, store=None, folds=None, ckpt_dir=None):
+    """The zoo model on a mesh of `axes` from the carried init through
+    the Trainer's global step (with `store`, each global batch attached
+    on every rank first): losses, scatter-add shapes per step, the whole
+    state at the end; with `folds`, each fold's inputs; with
+    `ckpt_dir`, the step saved and restored on the same mesh."""
+    from elasticdl_tpu_torch.common.model_handler import ZOO_DIR, \
+        get_model_spec
+    from elasticdl_tpu_torch.common.save_utils import CheckpointSaver
+    from elasticdl_tpu_torch.parallel import mesh as mesh_lib
+    from elasticdl_tpu_torch.worker.trainer import Trainer
+
+    calls = []
+    _count_scatters(calls)
+    mesh = _mesh(rank, world, **axes)
+    spec = get_model_spec(ZOO_DIR, model_def, model_params=params)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, device="cpu",
+                      param_sharding_fn=spec.param_sharding)
+    trainer.tiered_store = store
+    sample = _sample(batches[0], store)
+    state = trainer.init_state_global(0, sample, mesh)
+    carry_full(state, spec.model, flat, quantized=quantized)
+    if folds is not None:
+        _record_folds(folds).state = state
+    losses, per_step, digests, applied = [], [], [], []
+    if store is not None:
+        from elasticdl_tpu_torch.store import device as store_device
+
+        admit = store_device.apply_admissions
+
+        def recorded(state_, paths, slots, *args, **kwargs):
+            applied[-1].append(np.asarray(slots).copy())
+            return admit(state_, paths, slots, *args, **kwargs)
+
+        store_device.apply_admissions = recorded
+    for batch in batches:
+        if store is not None:
+            batch = store.attach(dict(batch))
+            plan = batch["__store_plan__"]
+            digests.append(plan.digest())
+            applied.append([])
+            sub = plan.sub_plans[mesh.coords["model"]] \
+                if plan.sub_plans else None
+        shard = mesh_lib.make_global_batch(batch, mesh, trainer.stage_batch)
+        before = len(calls)
+        state, loss = trainer.train_on_global_batch(state, shard, mesh)
+        losses.append(float(loss))
+        per_step.append(calls[before:])
+        if store is not None:
+            got = np.concatenate(applied[-1]) if applied[-1] else \
+                np.zeros(0, np.int64)
+            applied[-1] = (got, None if sub is None else sub["admit_slots"])
+    if folds is not None:
+        from elasticdl_tpu_torch.layers.arena import fold_quantized_updates
+        from elasticdl_tpu_torch.worker import trainer as trainer_lib
+
+        trainer_lib.fold_quantized_updates = fold_quantized_updates
+    out = {"coords": dict(mesh.coords), "losses": losses,
+           "scatters": per_step, "shardings": dict(state.shardings),
+           "shapes": {k: tuple(v.shape) for k, v in
+                      state.model.state_dict().items()},
+           "state": _whole_state(state), "folds": folds}
+    if store is not None:
+        from elasticdl_tpu_torch.store import device as store_device
+
+        store_device.apply_admissions = admit
+        out["digests"] = digests
+        out["applied"] = applied
+        out["host"] = store.host.state_dict()
+        out["stats"] = store.stats()
+        out["mesh_shards"] = store.mesh_shards
+        out["cache_tables"] = store_device.read_full_tables(
+            state, store.param_paths, cache_dtype=store.cache_dtype)
+    if ckpt_dir is not None:
+        # every rank saves (rank 0 writes the gathered tree and, with a
+        # store, its sidecar); a fresh state and store restore it
+        saver = CheckpointSaver(ckpt_dir)
+        if store is not None:
+            saver.attach_tiered_store(store)
+        saver.save(state)
+        saver.close()
+        torch.distributed.barrier()
+        restorer = CheckpointSaver(ckpt_dir)
+        if store is not None:
+            from elasticdl_tpu_torch.store.tiered import TieredStore
+
+            trainer.tiered_store = TieredStore(
+                store.planes, store.num_fields, store.cache_rows,
+                cache_dtype=store.cache_dtype)
+            restorer.attach_tiered_store(trainer.tiered_store)
+        fresh = trainer.init_state_global(1, sample, mesh)
+        assert restorer.maybe_restore(fresh) is fresh
+        out["restored_step"] = int(fresh.step)
+        out["restored"] = {k: v.detach().clone() for k, v in
+                           fresh.model.state_dict().items()}
+        if store is not None:
+            out["restored_host"] = trainer.tiered_store.host.state_dict()
+            out["restored_row_of"] = trainer.tiered_store.cache.row_of
+    return out
+
+
+def int8_on_meshes(rank, world, model_def, params, flat, quantized,
+                   batches, ckpt_dir):
+    """int8 DeepFM from the carried JAX init: (1) data=2 x model=2 with
+    each fold's inputs recorded, saved and restored on the mesh; (2)
+    data=1 x model=4 (no layout splits the batch); (3) on rank 0 the
+    one-rank run."""
+    out = {"dm": _mesh_run(rank, world, dict(data=2, model=2), model_def,
+                           params, flat, quantized, batches, folds=[],
+                           ckpt_dir=ckpt_dir)}
+    out["m4"] = _mesh_run(rank, world, dict(data=1, model=4), model_def,
+                          params, flat, quantized, batches)
+    if rank == 0:
+        out["one"] = _one_rank_run(model_def, params, flat, quantized,
+                                   batches)
+    return out
+
+
+# ---- MoE on tokens split over `seq` ----------------------------------------
+
+
+def _moe_on_mesh(rank, world, axes, flat, x, w, layer_kwargs):
+    """MoEMLP on a mesh of `axes`, this rank holding its data rows and
+    seq chunk of the (B, L, H) tokens: its output chunk, the aux loss,
+    and its parameter gradients after the trainer's sums."""
+    from elasticdl_tpu_torch.common.weights import params_from_jax
+    from elasticdl_tpu_torch.layers.moe import MoEMLP, moe_param_sharding
+    from elasticdl_tpu_torch.parallel import mesh as mesh_lib
+    from elasticdl_tpu_torch.worker.trainer import (
+        TrainState,
+        reduce_gradients,
+        shard_state,
+    )
+
+    mesh = _mesh(rank, world, **axes)
+    mesh_lib.set_current_mesh(mesh)
+    layer = MoEMLP(**layer_kwargs)
+    layer.load_state_dict(params_from_jax(layer, flat), strict=True)
+    state = TrainState(step=0, model=layer, optimizer=None)
+    shard_state(state, moe_param_sharding, mesh)
+
+    def mine(a):
+        return _chunk(_chunk(a, mesh, "data", 0), mesh, "seq", 1)
+
+    y = layer(_t(mine(x)))
+    holders = world // (mesh.shape["data"] * mesh.shape["seq"])
+    objective = (y * _t(mine(w))).sum() / holders + layer.aux_loss / world
+    aux = float(layer.aux_loss)
+    objective.backward()
+    reduce_gradients(state, mesh)
+    return {"coords": dict(mesh.coords), "out": y.detach(), "aux": aux,
+            "grads": {n: p.grad for n, p in layer.named_parameters()}}
+
+
+def moe_seq(rank, world, layer_cases, bert):
+    """Each layer case (name -> (axes, flat, x, w, kwargs)) on its mesh;
+    then BERT with experts trained on seq=2 x expert=2 from the carried
+    init (`bert`: params, flat, batches)."""
+    out = {name: _moe_on_mesh(rank, world, *case)
+           for name, case in layer_cases.items()}
+    params, flat, batches = bert
+    out["bert"] = train_on_mesh(rank, world, dict(seq=2, expert=2),
+                                "bert.bert_finetune.custom_model", params,
+                                flat, None, batches)
+    return out
+
+
+def tiered_on_meshes(rank, world, params, flat, quantized, batches,
+                     planes, cache_rows, cache_dtype, ckpt_dir):
+    """The tiered DeepFM (`cache_dtype` cache) from the carried JAX
+    init, each layout with its own store planning every global batch:
+    data=2 x model=2 (saved at the end with the store's sidecar and
+    restored on the mesh), data=1 x model=4, and on rank 0 the one-rank
+    run."""
+    from elasticdl_tpu_torch.store.tiered import TieredStore
+
+    model_def = "deepfm.deepfm_tiered.custom_model"
+
+    def store():
+        return TieredStore(planes, 26, cache_rows, cache_dtype=cache_dtype)
+
+    out = {layout: _mesh_run(rank, world, axes, model_def, params, flat,
+                             quantized, batches, store=store(),
+                             ckpt_dir=ckpt)
+           for layout, axes, ckpt in (("dm", dict(data=2, model=2), ckpt_dir),
+                                      ("m4", dict(data=1, model=4), None))}
+    if rank == 0:
+        out["one"] = _one_rank_run(model_def, params, flat, quantized,
+                                   batches, store=store())
+    return out

@@ -153,18 +153,31 @@ def test_a_cluster_job_survives_a_killed_rank(tmp_path, kill_worker_id):
     assert "restored checkpoint step" in k8s.pod_output("kill-worker-2")
 
 
-def test_elasticdl_train_points_a_cluster_job_at_the_master():
-    """`elasticdl train` submits no master pod (that needs the real
-    Kubernetes client): its message names the master's entry point."""
-    import pytest
-
+def test_elasticdl_train_points_a_cluster_job_at_the_master(monkeypatch):
+    """`elasticdl train` with a cluster strategy submits the master's
+    pod, `python -m elasticdl_tpu_torch.master.main` with the job's
+    flags, and a Service the workers dial it by; with the real
+    Kubernetes client (the default) it raises naming its package."""
+    from elasticdl_tpu_torch.client import api
     from elasticdl_tpu_torch.client import main as cli
+    from elasticdl_tpu_torch.common import k8s_client
+    from elasticdl_tpu_torch.common.args import parse_master_args
 
-    with pytest.raises(NotImplementedError) as err:
-        cli.main(["train", "--distribution_strategy", "ParameterServer",
-                  "--model_def", "mnist.mnist_functional_api.custom_model",
-                  "--training_data", "/nonexistent", "--device", "cpu"])
-    message = str(err.value)
-    assert "python -m elasticdl_tpu_torch.master.main" in message
-    assert "--use_process_k8s true" in message
-    assert "item 12" in message
+    argv = ["train", "--distribution_strategy", "ParameterServer",
+            "--model_def", "mnist.mnist_functional_api.custom_model",
+            "--training_data", "/nonexistent", "--device", "cpu",
+            "--job_name", "mnist", "--port", "50123"]
+    with pytest.raises(ImportError, match="kubernetes"):
+        api.train(cli.parse_args(argv))
+    fake = k8s_client.FakeK8sClient()
+    monkeypatch.setattr(k8s_client, "K8sClient", lambda **_: fake)
+    assert cli.main(argv) == 0
+    (pod,) = fake.create_calls
+    assert pod.name == "mnist-master"
+    assert pod.command[:3] == ["python", "-m",
+                               "elasticdl_tpu_torch.master.main"]
+    master = parse_master_args(pod.command[3:])
+    assert master.distribution_strategy == "ParameterServer"
+    assert master.training_data == "/nonexistent"
+    assert master.job_type == "train" and master.port == 50123
+    assert fake.services["mnist-master"]["port"] == 50123

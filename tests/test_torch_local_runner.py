@@ -292,10 +292,14 @@ def test_cli_rejects_and_raises(data, monkeypatch, tmp_path):
         with pytest.raises(SystemExit):
             cli.parse_args(["train", *bad])
     flags = _flags(train_dir, val_dir)
+    # a cluster strategy submits the master's pod: the default client,
+    # the real Kubernetes one, raises naming its package
     for extra, match in (
-            (["--distribution_strategy", "AllReduce"], "cluster"),):
-        with pytest.raises(NotImplementedError, match=match):
-            cli.main(["train", *flags, "--device", "cpu", *extra])
+            (["--distribution_strategy", "AllReduce"], "kubernetes"),):
+        with pytest.raises(ImportError, match=match):
+            api.train(cli.parse_args(["train", *flags, "--device", "cpu",
+                                      *extra]))
+        assert cli.main(["train", *flags, "--device", "cpu", *extra]) == 1
     # evaluate needs a checkpoint
     assert cli.main(["evaluate", *flags, "--device", "cpu"]) == 1
     # the card by default: without CUDA and without --device cpu, raise

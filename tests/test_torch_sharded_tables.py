@@ -139,20 +139,3 @@ def test_the_scatter_add_runs_on_the_shard(sharded):
         assert result["scatters"] == [[(VOCAB // 2, 1), (VOCAB // 2, 4)]
                                       ] * STEPS or result["scatters"] == [
             [(VOCAB // 2, 4), (VOCAB // 2, 1)]] * STEPS
-
-
-def test_int8_and_tiered_tables_over_model_raise():
-    """The cases item 12.6 leaves: an int8 arena and the tiered cache
-    hold a 'model' shard only by raising, naming the item."""
-    from elasticdl_tpu_torch.layers.arena import EmbeddingArena, TieredArena
-    from elasticdl_tpu_torch.parallel import mesh as mesh_lib
-
-    int8 = EmbeddingArena((("sparse", 8),), 4, arena_dtype="int8")
-    tiered = TieredArena(8, 4)
-    for table in (int8, tiered):
-        table.embedding.data = table.embedding.data[:4].clone()
-    with mesh_lib.using_mesh(ProcessMesh(2, 1, axis_sizes=dict(model=2))):
-        with pytest.raises(NotImplementedError, match="item 12.6"):
-            int8(torch.zeros(2, 3, dtype=torch.int32), prehashed=True)
-        with pytest.raises(NotImplementedError, match="item 12.6"):
-            tiered(torch.zeros(2, 3, dtype=torch.int32))
