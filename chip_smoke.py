@@ -282,7 +282,7 @@
    first report, which sum to the clock's value.  The phase's seconds
    are printed beside its budget.
 19. The model, seq, expert and pipe axes (`parallel_axes`, after
-   `cluster`; budget 90 s).  One world of PAR_RANKS = 4 processes on
+   `kube_cluster`; budget 90 s).  One world of PAR_RANKS = 4 processes on
    cuda:0 (`chip_smoke.py --parallel-rank`; gloo: they share the card)
    runs each part on its own mesh over the one default group (the
    older parts (a)-(c) at BERT-base's widths cut to 6 layers, the ring
@@ -324,6 +324,33 @@
    the fold of a shard.  Each part's seconds, host-staging ms a step
    (`collectives.STAGING`) and peak memory a rank are printed with the
    card's name and power limit.
+
+20. The real Kubernetes client (`kube_cluster`, after `cluster`; budget
+   60 s).  A cluster job that goes through the port's REST client only:
+   the stub API server (common/k8s_stub_apiserver.py) on 127.0.0.1 over
+   TLS with the test-only PEMs of tests/data/k8s_tls/, accepting the
+   client certificate alone; `elasticdl train --distribution_strategy
+   AllReduce` runs in this process with KUBECONFIG at a JSON kubeconfig
+   (the CA and the client certificate and key inline, so they go
+   through temporary files) and submits the master pod and its Service;
+   the stub's kubelet runs the master entry point, whose default
+   `K8sClient` loads the kubeconfig the stub gives its pods and creates
+   2 worker pods: DeepFM at the `cluster` phase's bench width (vocab
+   2^20, dim 16, bf16 MLP, global batch 8192), 8 tasks of 2 steps, a
+   checkpoint every task, two ranks on cuda:0 over gloo.  Once a step
+   has committed, this process deletes worker 1's pod through the API
+   (the asynchronous writer lets the group run on a few steps before a
+   commit shows, so the 16 steps leave the preemption room before the
+   job's end):
+   MODIFIED with deletionTimestamp, SIGTERM, the exit code, DELETED.
+   The master relaunches it, the survivor restarts for the new
+   topology, the new group restores and finishes.  Printed and checked:
+   the master pod's Succeeded read from this process's watch, every
+   training shard done once (the task journal), one recovery (the
+   master's event log) under 120 s, 2 scatter-add launches a step in
+   each final rank (the survivor may count one cut step more), the API
+   requests by verb and path, every one with the client certificate
+   over TLS, and the phase's seconds beside its budget.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
@@ -442,6 +469,12 @@ from elasticdl_tpu_torch.data.reader import (  # noqa: E402
     register_data_reader,
 )
 from elasticdl_tpu_torch.common.k8s_client import ProcessK8sClient  # noqa: E402,E501
+from elasticdl_tpu_torch.common.constants import PodStatus  # noqa: E402
+from elasticdl_tpu_torch.common.k8s_client import K8sClient  # noqa: E402
+from elasticdl_tpu_torch.common.k8s_stub_apiserver import (  # noqa: E402
+    StubApiServer,
+    write_kubeconfig,
+)
 from elasticdl_tpu_torch.master import main as master_main  # noqa: E402
 from elasticdl_tpu_torch.master.freshness import FreshnessTracker  # noqa: E402,E501
 from elasticdl_tpu_torch.parallel import collectives  # noqa: E402
@@ -6359,12 +6392,12 @@ class _HoldK8s(ProcessK8sClient):
         super().create_pod(spec)
 
 
-def _rank_lines(k8s) -> list:
+def _rank_lines(logs: dict) -> list:
     """Every pod's kernel-launch lines (worker/spmd.py logs one as a rank
-    exits), with the pod's name."""
+    exits), with the pod's name, from {pod: log}."""
     lines = []
-    for name in sorted(k8s.pods):
-        for line in k8s.pod_output(name).splitlines():
+    for name in sorted(logs):
+        for line in logs[name].splitlines():
             tag = line.find(spmd_lib.KERNEL_LAUNCHES_TAG)
             if tag >= 0:
                 entry = json.loads(
@@ -6543,7 +6576,7 @@ def preempted_bert_job(card: str, work: str, device: str = "cuda") -> dict:
         events.remove_observer(observe)
     wall_s = time.perf_counter() - t0
     master = held["master"]
-    lines = _rank_lines(k8s)
+    lines = _rank_lines({name: k8s.pod_output(name) for name in k8s.pods})
     final = [e for e in lines if "state_sha256" in e]
     history = list(master.recovery_clock.history)
     group3 = [p for p in sorted(k8s.pods)
@@ -6637,6 +6670,227 @@ def cluster(card: str, work: str) -> tuple:
         launches[f"cluster_bert_job_rank{e['rank']}"] = e["launches"]
     return {"dp": dp, "bert_job": bert, "seconds": seconds,
             "budget_s": CLUSTER_BUDGET_S}, launches
+
+
+# ---- kube_cluster: the real Kubernetes client ----------------------------
+
+KUBE_BUDGET_S = 60.0
+KUBE_JOB = "chip-kube"
+# DeepFM at the `cluster` phase's bench width and global batch: tasks of
+# 2 steps, a checkpoint committed every task, 8 tasks (the first commit
+# shows a few steps after it was taken; the delete must land well
+# before the last task)
+KUBE_TASK = 2 * DP_BATCH
+KUBE_RECORDS = 8 * KUBE_TASK
+KUBE_CKPT_STEPS = 2
+KUBE_SEED = SEED + 19
+KUBE_TIMEOUT_S = 300.0
+# the stub API server's test-only CA, server and client certificates
+KUBE_TLS = os.path.join(ROOT, "tests", "data", "k8s_tls")
+# what a deleted pod's container may exit with: the preemption hook's
+# 143 on SIGTERM, or 137 when the stub's grace ran out first
+KUBE_DELETE_EXITS = (143, 137)
+
+
+def _restored_step(log: str) -> int:
+    """The checkpoint step a rank's log says it restored (0: none)."""
+    needle = " restored checkpoint step "
+    for line in log.splitlines():
+        at = line.find(needle)
+        if at >= 0:
+            return int(line[at + len(needle):].split()[0])
+    return 0
+
+
+def kube_cluster(card: str, work: str, device: str = "cuda") -> tuple:
+    """A DeepFM job on the card through the real Kubernetes client only:
+    `elasticdl train --distribution_strategy AllReduce` in this process
+    submits the master pod to the stub API server over TLS (a JSON
+    kubeconfig with the test CA and an inline client certificate); the
+    stub's kubelet runs the master entry point, whose default client
+    loads the kubeconfig the stub gives its pods and creates 2 worker
+    pods; once a checkpoint step has committed, this process deletes
+    worker 1's pod through the API.  Returns (summary, launches)."""
+    t0 = time.perf_counter()
+    root = os.path.join(work, "kube_cluster")
+    os.makedirs(root, exist_ok=True)
+    # (the writer needs a few validation records; the job reads none)
+    train_dir, _ = write_dataset(os.path.join(root, "data"),
+                                 n_train=KUBE_RECORDS, n_val=16,
+                                 seed=KUBE_SEED)
+    ckpt = os.path.join(root, "ckpt")
+    event_log = os.path.join(root, "events.jsonl")
+    kubeconfig = os.path.join(root, "kubeconfig.json")
+    argv = ["train", "--distribution_strategy", "AllReduce",
+            "--num_workers", str(CLUSTER_RANKS), "--job_name", KUBE_JOB,
+            "--model_def", DEEPFM, "--model_params", DEEPFM_PARAMS,
+            "--use_bf16", "true", "--minibatch_size", str(DP_BATCH),
+            "--records_per_task", str(KUBE_TASK), "--num_epochs", "1",
+            "--training_data", train_dir, "--checkpoint_dir", ckpt,
+            "--checkpoint_steps", str(KUBE_CKPT_STEPS),
+            "--keep_checkpoint_max", "2",
+            "--port", str(free_port()),
+            "--coordinator_port", str(free_port()),
+            "--wedge_grace_s", str(CLUSTER_WEDGE_GRACE_S),
+            "--task_lease_timeout_s", "300", "--event_log", event_log,
+            "--device", device]
+    master_pod, victim = f"{KUBE_JOB}-master", f"{KUBE_JOB}-worker-1"
+    seen, lock = [], threading.Lock()
+
+    def on_event(*event):
+        with lock:
+            seen.append((time.perf_counter() - t0, *event))
+
+    def phases(pod):
+        with lock:
+            return [e[2:] for e in seen if e[1] == pod]
+
+    def wait_for(what, ready):
+        while not ready():
+            if time.perf_counter() - t0 > KUBE_TIMEOUT_S or any(
+                    p[0] in (PodStatus.SUCCEEDED, PodStatus.FAILED)
+                    for p in phases(master_pod)):
+                raise AssertionError(f"the job ended or timed out before "
+                                     f"{what}: {phases(master_pod)}; "
+                                     f"{stub.pod_log(master_pod)[-3000:]}")
+            time.sleep(0.05)
+
+    # the cluster is the stub's, reached through the kubeconfig: never an
+    # in-cluster service this machine may know of
+    saved = {k: os.environ.pop(k, None) for k in (
+        "KUBECONFIG", "KUBERNETES_SERVICE_HOST", "KUBERNETES_SERVICE_PORT")}
+    stub = StubApiServer(KUBE_TLS, pod_kubeconfig=kubeconfig, pod_env={
+        "PYTHONPATH": ROOT, **bytecode_env(work)})
+    watcher = None
+    marks = {}
+    try:
+        os.environ["KUBECONFIG"] = write_kubeconfig(kubeconfig, stub.url,
+                                                    KUBE_TLS)
+        watcher = K8sClient(namespace="default", job_name=KUBE_JOB)
+        watcher.start_watch(on_event)
+        submit_rc = cli.main(argv)
+        marks["submitted_s"] = time.perf_counter() - t0
+        if submit_rc != 0:
+            raise AssertionError(f"elasticdl train exited {submit_rc}")
+        wait_for("a committed checkpoint step",
+                 lambda: committed_steps(ckpt))
+        marks["deleted_after_step"] = max(committed_steps(ckpt))
+        marks["deleted_s"] = time.perf_counter() - t0
+        watcher.delete_pod(victim)
+        while not any(p[0] in (PodStatus.SUCCEEDED, PodStatus.FAILED)
+                      for p in phases(master_pod)):
+            if time.perf_counter() - t0 > KUBE_TIMEOUT_S:
+                raise AssertionError("the kube_cluster job timed out")
+            time.sleep(0.05)
+        marks["master_done_s"] = time.perf_counter() - t0
+    finally:
+        if watcher is not None:
+            watcher.stop()
+        logs = {name: stub.pod_log(name) for name in stub.pod_names()}
+        stub.stop()
+        for key, value in saved.items():
+            os.environ.pop(key, None)
+            if value is not None:
+                os.environ[key] = value
+    with open(os.path.join(ckpt, "task_state.json")) as f:
+        journal = json.load(f)
+    shards = sorted(tuple(entry[:3])
+                    for entry in journal["done_training_shards"])
+    with open(event_log) as f:
+        recoveries = [e["duration_s"] for e in map(json.loads, f)
+                      if e["event"] == events.RECOVERY_DONE]
+    shutil.rmtree(root, ignore_errors=True)
+    ranks = []
+    for line in _rank_lines(logs):
+        restored = _restored_step(logs[line["pod"]])
+        ranks.append({"pod": line["pod"], "final": "state_sha256" in line,
+                      "rank": line["rank"], "epoch": line["epoch"],
+                      "world": line["world"], "step": line.get("step"),
+                      "restored": restored,
+                      "steps": line.get("step", 0) - restored,
+                      "scatter_launches": line["launches"]["scatter_add"],
+                      "state_sha256": line.get("state_sha256")})
+    requests = {}
+    for r in stub.requests:
+        key = f"{r['verb']} {r['path']}" + (
+            "?watch" if r["query"].get("watch") else "")
+        requests[key] = requests.get(key, 0) + 1
+    credentials = sorted({str(r["credential"]) for r in stub.requests})
+    tls = sorted({str(r["tls"]) for r in stub.requests})
+    seconds = time.perf_counter() - t0
+    out = {"card": card, "records": KUBE_RECORDS, "global_batch": DP_BATCH,
+           "tasks": KUBE_RECORDS // KUBE_TASK,
+           "steps": KUBE_RECORDS // DP_BATCH,
+           "master_phases": phases(master_pod),
+           "victim_phases": phases(victim),
+           "pods": sorted(logs), "marks_s": marks,
+           "journal_records_done": journal["records_done"],
+           "journal_shards": len(shards),
+           "journal_unique_shards": len(set(shards)),
+           "recovery_s": recoveries,
+           "recovery_budget_s": CLUSTER_RECOVERY_BUDGET_S,
+           "ranks": ranks, "requests": requests,
+           "request_count": len(stub.requests),
+           "credentials": credentials, "tls": tls,
+           "refused_handshakes": len(stub.refused_handshakes),
+           "plumbing": stub.plumbing,
+           "seconds": seconds, "budget_s": KUBE_BUDGET_S}
+    print(json.dumps({"kube_cluster": out}), flush=True)
+    master_end = phases(master_pod)[-1]
+    restored = [r["restored"] for r in ranks if r["final"]]
+    print(f"kube_cluster: master pod {master_end[0]} (exit "
+          f"{master_end[2]}) on the watch; tasks "
+          f"{len(shards)}/{out['tasks']} done once, "
+          f"{journal['records_done']} of {KUBE_RECORDS} records; the "
+          f"delete after step {marks['deleted_after_step']}'s commit, the "
+          f"final ranks from step {restored} of {out['steps']}; "
+          f"recovery {recoveries} s; scatter-add launches by rank "
+          f"{[(r['pod'], r['scatter_launches'], r['steps']) for r in ranks]}"
+          f" (launches, steps) [{card}]", flush=True)
+    print(f"kube_cluster: {len(stub.requests)} API requests, all "
+          f"{credentials} over {tls}, {len(stub.refused_handshakes)} "
+          f"refused: {requests}", flush=True)
+    print(f"kube_cluster phase: {seconds:.1f} s (budget {KUBE_BUDGET_S} s) "
+          f"[{card}]", flush=True)
+    final = [r for r in ranks if r["final"]]
+    survivor = [r for r in ranks if not r["final"]]
+    deleted = [p for p in phases(victim) if p[0] == PodStatus.FAILED]
+    bad = []
+    if master_end != (PodStatus.SUCCEEDED, "127.0.0.1", 0):
+        bad.append(f"master pod ended {master_end}")
+    if shards != sorted(set(shards)) or len(shards) != out["tasks"] or \
+            journal["records_done"] != KUBE_RECORDS:
+        bad.append("a training shard not done exactly once")
+    if len(recoveries) != 1 or recoveries[0] >= CLUSTER_RECOVERY_BUDGET_S:
+        bad.append(f"recoveries {recoveries}")
+    if len(deleted) != 1 or deleted[0][2] not in KUBE_DELETE_EXITS or \
+            phases(victim)[-1][0] != PodStatus.DELETED:
+        bad.append(f"the deleted pod's events {phases(victim)}")
+    if out["pods"] != [master_pod] + [f"{KUBE_JOB}-worker-{i}"
+                                      for i in range(4)]:
+        bad.append(f"pods {out['pods']}")
+    if len(final) != CLUSTER_RANKS or \
+            {r["pod"] for r in final} != {f"{KUBE_JOB}-worker-2",
+                                          f"{KUBE_JOB}-worker-3"} or \
+            len({r["state_sha256"] for r in final}) != 1 or \
+            any(r["steps"] <= 0 or r["scatter_launches"] != 2 * r["steps"]
+                for r in final):
+        bad.append("the final ranks' states or launches")
+    # the survivor's last step may have launched its backward before
+    # the all-reduce with the deleted peer failed: 2 launches more
+    if len(survivor) != 1 or survivor[0]["steps"] <= 0 or \
+            survivor[0]["scatter_launches"] - 2 * survivor[0]["steps"] \
+            not in (0, 2):
+        bad.append("the survivor's launches")
+    if credentials != ["client-certificate"] or \
+            any(not t.startswith("TLS") for t in tls):
+        bad.append("a request without the client certificate")
+    if bad:
+        raise AssertionError(f"kube_cluster: {bad}: {out}; pod logs "
+                             f"{ {n: t[-3000:] for n, t in logs.items()} }")
+    launches = {f"kube_cluster_rank{r['rank']}": r["scatter_launches"]
+                for r in final}
+    return out, launches
 
 
 # ---- parallel_axes: the model, seq, expert and pipe axes ---------------
@@ -7839,6 +8093,7 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
                                         work, fm_served, online, warm)
     del online["surfaces"]
     clus, clus_launches = phase("cluster", cluster, card, work)
+    kube, kube_launches = phase("kube_cluster", kube_cluster, card, work)
     par, par_launches = phase("parallel_axes", parallel_axes, card, work)
     serve_fm = phase("serve_cli_deepfm", serve_cli_deepfm, card, fm_served)
     wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
@@ -7876,6 +8131,7 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
             bert_local_launches["local_bert_full"]["scatter_add"],
         **{path: (n if isinstance(n, int) else n["scatter_add"])
            for path, n in clus_launches.items()},
+        **kube_launches,
         **{path: n["scatter_add"] for path, n in par_launches.items()}}
     bert_paths = {"train_bert": bert_launches_by["plain"],
                   "train_bert_remat": bert_launches_by["remat"],
@@ -7920,6 +8176,7 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
                    "resilient_local": resilient,
                    "stream_judgment": stream, "online_loop": online,
                    "observatory": obs, "cluster": clus,
+                   "kube_cluster": kube,
                    "parallel_axes": par,
                    "wire_deepfm": wire, "serve_cli_deepfm": serve_fm,
                    "tiered_deepfm": tiered, "local_tiered": local_t,

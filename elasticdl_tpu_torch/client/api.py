@@ -47,9 +47,11 @@ master and workers.
 job's master pod (`_submit_master_pod`, the JAX client's): a pod that
 runs `python -m elasticdl_tpu_torch.master.main` with the job's flags,
 and a Service on `--port` in front of it, which the workers dial.  The
-client is injectable; the default, the real `K8sClient`, needs the
-`kubernetes` package and raises naming it.  The master's own entry
-point (master/main.py, `--use_process_k8s`) runs a cluster job on one
+client is injectable; the default, the real `K8sClient`, reaches the
+cluster's API server through the in-cluster configuration or the
+kubeconfig (`KUBECONFIG`, else ~/.kube/config) and raises
+K8sConfigError when there is neither.  The master's own entry point
+(master/main.py, `--use_process_k8s`) runs a cluster job on one
 machine.
 """
 

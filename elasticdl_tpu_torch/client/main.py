@@ -34,10 +34,12 @@ and the job-image commands (client/image_builder.py):
 
 (`top`, `slo` and `programs` scrape a master's `--telemetry_port`).
 `train`, `evaluate` and `predict` with a cluster strategy submit the
-job's master pod through the Kubernetes client (client/api.py); on one
-machine a cluster job starts from the master's entry point, `python -m
-elasticdl_tpu_torch.master.main --distribution_strategy AllReduce
---use_process_k8s true ...`.  Parsing is strict: an unknown flag is an
+job's master pod through the Kubernetes client (client/api.py) to the
+cluster of the in-cluster configuration or of the kubeconfig
+(`KUBECONFIG`, else ~/.kube/config); with neither they print why and
+return 1.  On one machine a cluster job starts from the master's entry
+point, `python -m elasticdl_tpu_torch.master.main
+--distribution_strategy AllReduce --use_process_k8s true ...`.  Parsing is strict: an unknown flag is an
 error.  The exit code is 0 when the job or command succeeded.
 """
 
@@ -172,6 +174,7 @@ def main(argv=None) -> int:
         return getattr(module, args.func)(args)
 
     from elasticdl_tpu_torch.client import api, image_builder
+    from elasticdl_tpu_torch.common.k8s_config import K8sConfigError
 
     if args.func == "zoo_init":
         return image_builder.init_zoo(args.model_zoo, args.base_image)
@@ -182,6 +185,10 @@ def main(argv=None) -> int:
 
     try:
         return getattr(api, args.func)(args)
+    except K8sConfigError as exc:
+        print(f"{parser.prog} {args.func}: no Kubernetes cluster to "
+              f"submit to: {exc}", file=sys.stderr)
+        return 1
     except ImportError as exc:
         print(f"{parser.prog} {args.func}: cannot load --model_def "
               f"{args.model_def!r} from --model_zoo {args.model_zoo!r}: "

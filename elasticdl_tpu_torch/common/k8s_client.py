@@ -13,9 +13,13 @@ terminates it, `kill_pod` SIGKILLs it as a preemption would, and
 so the master's entry point, the workers' and the rendezvous run as
 they would across machines.
 
-The real `K8sClient` needs the `kubernetes` package, which the port's
-machines do not have: it raises at construction with a message naming
-the package (ROADMAP.md queue 1, item 3, not queued).
+The real `K8sClient` does what the JAX package's does through the
+`kubernetes` package, over the API server's REST interface with the
+standard library: the configuration comes from common/k8s_config.py
+(in-cluster, else the kubeconfig), the requests go through
+common/k8s_rest.py, and the bodies are the dicts the package would
+serialize for the JAX client's objects (`pod_body`, `service_body`).
+common/k8s_stub_apiserver.py is a local API server to run it against.
 """
 
 from __future__ import annotations
@@ -26,8 +30,11 @@ import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
+from urllib.parse import quote
 
+from elasticdl_tpu_torch.common import k8s_config
 from elasticdl_tpu_torch.common.constants import PodStatus, PodType
+from elasticdl_tpu_torch.common.k8s_rest import K8sApiError, RestClient
 from elasticdl_tpu_torch.common.log_utils import get_logger
 
 logger = get_logger(__name__)
@@ -360,15 +367,203 @@ class ProcessK8sClient(AbstractK8sClient):
             self._callback(name, phase, address, exit_code)
 
 
+def pod_body(spec: PodSpec, job_name: str) -> dict:
+    """The pod the JAX client builds from `spec`, as the `kubernetes`
+    package serializes it: unset fields dropped (an object with none set
+    stays {}), attribute names in the API's camelCase, dict keys as
+    given, no apiVersion or kind."""
+    volumes, mounts = [], []
+    for i, entry in enumerate(spec.volumes):
+        name = f"vol-{i}"
+        if "claim_name" in entry:
+            source = {"persistentVolumeClaim": {
+                "claimName": entry["claim_name"]}}
+        else:
+            source = {"hostPath": {"path": entry["host_path"],
+                                   "type": "DirectoryOrCreate"}}
+        volumes.append({"name": name, **source})
+        mounts.append({"name": name, "mountPath": entry["mount_path"]})
+    container = {"name": "main", "image": spec.image,
+                 "command": list(spec.command),
+                 "resources": ({"requests": dict(spec.resources)}
+                               if spec.resources else {})}
+    if mounts:
+        container["volumeMounts"] = mounts
+    pod_spec = {"containers": [container], "restartPolicy": "Never"}
+    if spec.priority_class:
+        pod_spec["priorityClassName"] = spec.priority_class
+    if volumes:
+        pod_spec["volumes"] = volumes
+    labels = {"elasticdl-job": job_name, "elasticdl-type": spec.pod_type,
+              "elasticdl-worker-id": str(spec.worker_id), **spec.labels}
+    return {"metadata": {"name": spec.name, "labels": labels},
+            "spec": pod_spec}
+
+
+def service_body(name: str, selector: Dict[str, str], port: int,
+                 job_name: str) -> dict:
+    """The JAX client's Service, serialized as `pod_body` says."""
+    return {"metadata": {"name": name, "labels": {"elasticdl-job": job_name}},
+            "spec": {"selector": dict(selector),
+                     "ports": [{"port": port, "targetPort": port}]}}
+
+
+def pod_event(event: dict) -> Tuple[str, str, str, Optional[int]]:
+    """A watch event as the callback's (name, phase, podIP or "",
+    exit code): DELETED is PodStatus.DELETED, the exit code the last
+    container's `state.terminated.exitCode`."""
+    pod = event.get("object") or {}
+    status = pod.get("status") or {}
+    phase = status.get("phase")
+    if event.get("type") == "DELETED":
+        phase = PodStatus.DELETED
+    exit_code = None
+    for container in status.get("containerStatuses") or []:
+        terminated = (container.get("state") or {}).get("terminated")
+        if terminated:
+            exit_code = terminated.get("exitCode")
+    return ((pod.get("metadata") or {}).get("name"), phase,
+            status.get("podIP") or "", exit_code)
+
+
 class K8sClient(AbstractK8sClient):
-    """The real Kubernetes client.  It needs the `kubernetes` package,
-    which the port does not ship: constructing one raises (ROADMAP.md
-    queue 1, item 3); `--use_process_k8s` and `--use_fake_k8s` run
-    without it."""
+    """The real Kubernetes client: pod create, read, list, delete and
+    watch, and a Service, in a namespace, over the API server's REST
+    interface.  The configuration is the in-cluster one, else the
+    kubeconfig (common/k8s_config.py); a missing one raises
+    K8sConfigError, and a reply outside 2xx raises K8sApiError."""
+
+    # the JAX loop's reconnect backoff: doubling from 1 s to 60 s
+    WATCH_BACKOFF_S = (1.0, 60.0)
 
     def __init__(self, namespace: str = "default", job_name: str = "job"):
-        raise ImportError(
-            "The `kubernetes` package is required for a cluster job on "
-            "Kubernetes (the real K8sClient, ROADMAP.md queue 1, item 3); "
-            "run the master with --use_process_k8s true (worker "
-            "processes on this machine) or --use_fake_k8s true")
+        self._rest = RestClient(k8s_config.load_config())
+        self._namespace = namespace
+        self._job_name = job_name
+        self._callback: Optional[EventCallback] = None
+        # the labels of the pods the last list_pods returned: a
+        # replacement master adopts its workers with one list, not a
+        # read a pod
+        self._labels_cache: Dict[str, Dict[str, str]] = {}
+        self._stop = threading.Event()
+        self._stream_lock = threading.Lock()
+        self._stream = None
+        self._thread: Optional[threading.Thread] = None
+
+    def _path(self, kind: str, name: str = "") -> str:
+        path = f"/api/v1/namespaces/{quote(self._namespace, safe='')}/{kind}"
+        return f"{path}/{quote(name, safe='')}" if name else path
+
+    def create_pod(self, spec: PodSpec) -> None:
+        self._rest.request("POST", self._path("pods"),
+                           body=pod_body(spec, self._job_name))
+
+    def create_service(
+        self, name: str, selector: Dict[str, str], port: int
+    ) -> None:
+        self._rest.request("POST", self._path("services"),
+                           body=service_body(name, selector, port,
+                                             self._job_name))
+
+    def delete_pod(self, name: str) -> None:
+        self._rest.request("DELETE", self._path("pods", name))
+
+    def get_pod_phase(self, name: str) -> str:
+        pod = self._rest.request("GET", self._path("pods", name))
+        return (pod.get("status") or {}).get("phase")
+
+    def get_pod_labels(self, name: str):
+        cached = self._labels_cache.get(name)
+        if cached is not None:
+            return dict(cached)
+        pod = self._rest.request("GET", self._path("pods", name))
+        return dict((pod.get("metadata") or {}).get("labels") or {})
+
+    def list_pods(self):
+        pods = self._rest.request(
+            "GET", self._path("pods"),
+            query={"labelSelector": f"elasticdl-job={self._job_name},"
+                                    "elasticdl-type=worker"})
+        out = []
+        labels_cache = {}
+        for pod in pods.get("items") or []:
+            metadata = pod.get("metadata") or {}
+            labels = metadata.get("labels") or {}
+            try:
+                worker_id = int(labels.get("elasticdl-worker-id", -1))
+            except (TypeError, ValueError):
+                worker_id = -1
+            labels_cache[metadata.get("name")] = dict(labels)
+            status = pod.get("status") or {}
+            out.append((metadata.get("name"), worker_id,
+                        status.get("phase"), status.get("podIP") or ""))
+        self._labels_cache = labels_cache
+        return out
+
+    def start_watch(self, callback: EventCallback) -> None:
+        self._callback = callback
+        self._thread = threading.Thread(target=self._watch_loop,
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        """End the watch thread (the JAX client's is a daemon that never
+        ends)."""
+        self._stop.set()
+        with self._stream_lock:
+            stream = self._stream
+        if stream is not None:
+            stream.close()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+
+    def _watch_once(self, query: dict):
+        """One watch request's events, then the resourceVersion a clean
+        end reopens from."""
+        stream = self._rest.watch(self._path("pods"), query)
+        with self._stream_lock:
+            self._stream = stream
+        if self._stop.is_set():
+            stream.close()
+        try:
+            for event in stream:
+                if event.get("type") == "ERROR":
+                    status = event.get("object") or {}
+                    raise K8sApiError(status.get("code", 0),
+                                      status.get("reason", ""),
+                                      status.get("message", ""))
+                yield event
+        finally:
+            with self._stream_lock:
+                self._stream = None
+            stream.close()
+
+    def _watch_loop(self):
+        """The `kubernetes` package's Watch.stream under the JAX loop: a
+        fresh watch replays the job's pods as ADDED; a stream that ends
+        cleanly reopens from the last event's resourceVersion; an ERROR
+        event (410 Gone: the version is too old) or any failure waits
+        the backoff and opens a fresh watch."""
+        first, cap = self.WATCH_BACKOFF_S
+        backoff = first
+        while not self._stop.is_set():
+            try:
+                version = None
+                while not self._stop.is_set():
+                    query = {"labelSelector":
+                             f"elasticdl-job={self._job_name}"}
+                    if version is not None:
+                        query["resourceVersion"] = version
+                    for event in self._watch_once(query):
+                        backoff = first         # a healthy stream
+                        version = ((event.get("object") or {}).get(
+                            "metadata") or {}).get("resourceVersion",
+                                                   version)
+                        self._callback(*pod_event(event))
+            except Exception as exc:
+                if self._stop.is_set():
+                    break
+                logger.warning("k8s watch reconnecting in %.0fs after: %s",
+                               backoff, exc)
+                self._stop.wait(backoff)
+                backoff = min(backoff * 2, cap)

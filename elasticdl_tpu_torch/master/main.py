@@ -606,8 +606,9 @@ def _parse_resources(spec: str) -> dict:
 
 def k8s_client_for(args):
     """The cluster a job's pods run on: local processes
-    (--use_process_k8s), memory (--use_fake_k8s), or Kubernetes, whose
-    client raises without its package.  None for a Local job."""
+    (--use_process_k8s), memory (--use_fake_k8s), or Kubernetes through
+    its API server (the in-cluster configuration, else the kubeconfig;
+    K8sConfigError when there is neither).  None for a Local job."""
     if args.distribution_strategy == DistributionStrategy.LOCAL:
         return None
     if args.use_process_k8s:

@@ -5,7 +5,8 @@ fake): the same master pod (name, type, image, resources, volumes) and
 the same Service, the command naming the port's master entry point
 with the job's flags, which the port's master parser reads back.  With
 the default client, the real Kubernetes one, the submission raises
-naming the `kubernetes` package.  Also the JAX parser's helpers the
+naming KUBECONFIG when no cluster is configured, and reaches the stub
+API server when a kubeconfig names it.  Also the JAX parser's helpers the
 port carries: `add_evaluate_params`, `add_predict_params` and
 `wrap_python_args_with_string`.
 """
@@ -15,6 +16,7 @@ import dataclasses
 
 import pytest
 
+import _torch_k8s_stub
 from elasticdl_tpu.client import api as jax_api
 from elasticdl_tpu.client import main as jax_cli
 from elasticdl_tpu.common import args as jax_args
@@ -23,6 +25,7 @@ from elasticdl_tpu_torch.client import api
 from elasticdl_tpu_torch.client import main as cli
 from elasticdl_tpu_torch.common import args as port_args
 from elasticdl_tpu_torch.common import k8s_client as port_k8s
+from elasticdl_tpu_torch.common.k8s_config import K8sConfigError
 
 ARGV = ["--distribution_strategy", "AllReduce",
         "--model_def", "mnist.mnist_functional_api.custom_model",
@@ -91,14 +94,29 @@ def test_the_master_pod_and_service_are_the_jax_clients(monkeypatch,
             assert getattr(master, key) == value, key
 
 
-def test_the_default_client_needs_kubernetes(capsys):
+def test_the_default_client_needs_kubernetes(capsys, monkeypatch,
+                                             tmp_path):
+    """The JAX default client needs the `kubernetes` package.  The
+    port's talks to the API server itself: with no cluster configured it
+    raises naming KUBECONFIG, and with a kubeconfig for the stub API
+    server it creates the master pod and its Service there."""
+    _torch_k8s_stub.no_cluster(monkeypatch, tmp_path)
     args = cli.parse_args(["train", *ARGV])
-    with pytest.raises(ImportError, match="kubernetes"):
+    with pytest.raises(K8sConfigError, match="KUBECONFIG"):
         api.train(args)
     with pytest.raises(ImportError, match="kubernetes"):
         jax_api.train(jax_cli._build_parser().parse_args(["train", *ARGV]))
     assert cli.main(["train", *ARGV]) == 1
-    assert "kubernetes" in capsys.readouterr().err
+    assert "KUBECONFIG" in capsys.readouterr().err
+    with _torch_k8s_stub.stub_cluster(monkeypatch, tmp_path,
+                                      kubelet=False) as stub:
+        assert cli.main(["train", *ARGV]) == 0
+    assert [(kind, body["metadata"]["name"])
+            for kind, body in stub.bodies] == [
+        ("pod", "mnist-job-master"), ("service", "mnist-job-master")]
+    assert [(r["verb"], r["path"]) for r in stub.requests] == [
+        ("POST", "/api/v1/namespaces/research/pods"),
+        ("POST", "/api/v1/namespaces/research/services")]
 
 
 def test_run_local_still_refuses_a_cluster_strategy():

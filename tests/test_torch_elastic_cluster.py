@@ -19,6 +19,7 @@ import time
 
 import pytest
 
+import _torch_k8s_stub
 from elasticdl_tpu_torch.common.k8s_client import ProcessK8sClient
 from elasticdl_tpu_torch.common.save_utils import committed_steps
 from elasticdl_tpu_torch.master import main as master_main
@@ -153,31 +154,36 @@ def test_a_cluster_job_survives_a_killed_rank(tmp_path, kill_worker_id):
     assert "restored checkpoint step" in k8s.pod_output("kill-worker-2")
 
 
-def test_elasticdl_train_points_a_cluster_job_at_the_master(monkeypatch):
+def test_elasticdl_train_points_a_cluster_job_at_the_master(monkeypatch,
+                                                            tmp_path):
     """`elasticdl train` with a cluster strategy submits the master's
     pod, `python -m elasticdl_tpu_torch.master.main` with the job's
-    flags, and a Service the workers dial it by; with the real
-    Kubernetes client (the default) it raises naming its package."""
+    flags, and a Service the workers dial it by, through the real
+    Kubernetes client (the default) to the cluster its kubeconfig names;
+    with no cluster configured it raises naming KUBECONFIG."""
     from elasticdl_tpu_torch.client import api
     from elasticdl_tpu_torch.client import main as cli
-    from elasticdl_tpu_torch.common import k8s_client
     from elasticdl_tpu_torch.common.args import parse_master_args
+    from elasticdl_tpu_torch.common.k8s_config import K8sConfigError
 
     argv = ["train", "--distribution_strategy", "ParameterServer",
             "--model_def", "mnist.mnist_functional_api.custom_model",
             "--training_data", "/nonexistent", "--device", "cpu",
             "--job_name", "mnist", "--port", "50123"]
-    with pytest.raises(ImportError, match="kubernetes"):
+    _torch_k8s_stub.no_cluster(monkeypatch, tmp_path)
+    with pytest.raises(K8sConfigError, match="KUBECONFIG"):
         api.train(cli.parse_args(argv))
-    fake = k8s_client.FakeK8sClient()
-    monkeypatch.setattr(k8s_client, "K8sClient", lambda **_: fake)
-    assert cli.main(argv) == 0
-    (pod,) = fake.create_calls
-    assert pod.name == "mnist-master"
-    assert pod.command[:3] == ["python", "-m",
-                               "elasticdl_tpu_torch.master.main"]
-    master = parse_master_args(pod.command[3:])
+    with _torch_k8s_stub.stub_cluster(monkeypatch, tmp_path,
+                                      kubelet=False) as stub:
+        assert cli.main(argv) == 0
+    (_, pod), (_, service) = stub.bodies
+    assert pod["metadata"]["name"] == "mnist-master"
+    command = pod["spec"]["containers"][0]["command"]
+    assert command[:3] == ["python", "-m", "elasticdl_tpu_torch.master.main"]
+    master = parse_master_args(command[3:])
     assert master.distribution_strategy == "ParameterServer"
     assert master.training_data == "/nonexistent"
     assert master.job_type == "train" and master.port == 50123
-    assert fake.services["mnist-master"]["port"] == 50123
+    assert service["metadata"]["name"] == "mnist-master"
+    assert service["spec"]["ports"] == [{"port": 50123,
+                                         "targetPort": 50123}]

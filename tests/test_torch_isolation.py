@@ -1,7 +1,8 @@
 """The port stands alone: no module of elasticdl_tpu_torch, and not
 chip_smoke.py, imports jax, flax, optax, orbax, protobuf, grpc, msgpack,
-ml_dtypes, elasticdl_tpu or model_zoo — at import time (checked in a subprocess
-that blocks them) or lazily inside a function (checked on the source).
+ml_dtypes, kubernetes, elasticdl_tpu or model_zoo — at import time
+(checked in a subprocess that blocks them) or lazily inside a function
+(checked on the source).
 And the entry points pick the GPU unless told "cpu"."""
 
 import ast
@@ -18,7 +19,8 @@ from elasticdl_tpu_torch import device as device_lib
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "elasticdl_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "elasticdl_tpu",
-           "model_zoo", "google.protobuf", "grpc", "ml_dtypes", "msgpack")
+           "model_zoo", "google.protobuf", "grpc", "ml_dtypes", "msgpack",
+           "kubernetes")
 
 
 def _blocked(name: str) -> bool:

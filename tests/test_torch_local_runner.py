@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_k8s_stub
 from elasticdl_tpu.common import args as jax_args
 from elasticdl_tpu.common.model_handler import get_model_spec as jax_spec
 from elasticdl_tpu.data.reader import TFRecordDataReader as JaxReader
@@ -38,6 +39,7 @@ from elasticdl_tpu.worker.worker import Worker as JaxWorker
 from elasticdl_tpu_torch.client import api
 from elasticdl_tpu_torch.client import main as cli
 from elasticdl_tpu_torch.common import events
+from elasticdl_tpu_torch.common.k8s_config import K8sConfigError
 from elasticdl_tpu_torch.common.model_handler import ZOO_DIR, get_model_spec
 from elasticdl_tpu_torch.common.weights import flatten_params, params_from_jax
 from elasticdl_tpu_torch.data.reader import TFRecordDataReader
@@ -292,14 +294,20 @@ def test_cli_rejects_and_raises(data, monkeypatch, tmp_path):
         with pytest.raises(SystemExit):
             cli.parse_args(["train", *bad])
     flags = _flags(train_dir, val_dir)
-    # a cluster strategy submits the master's pod: the default client,
-    # the real Kubernetes one, raises naming its package
-    for extra, match in (
-            (["--distribution_strategy", "AllReduce"], "kubernetes"),):
-        with pytest.raises(ImportError, match=match):
-            api.train(cli.parse_args(["train", *flags, "--device", "cpu",
-                                      *extra]))
-        assert cli.main(["train", *flags, "--device", "cpu", *extra]) == 1
+    # a cluster strategy submits the master's pod through the default
+    # client, the real Kubernetes one: with no cluster configured it
+    # raises naming KUBECONFIG; a kubeconfig for the stub API server
+    # takes the master pod and its Service
+    cluster = ["train", *flags, "--device", "cpu",
+               "--distribution_strategy", "AllReduce"]
+    _torch_k8s_stub.no_cluster(monkeypatch, tmp_path)
+    with pytest.raises(K8sConfigError, match="KUBECONFIG"):
+        api.train(cli.parse_args(cluster))
+    assert cli.main(cluster) == 1
+    with _torch_k8s_stub.stub_cluster(monkeypatch, tmp_path,
+                                      kubelet=False) as stub:
+        assert cli.main(cluster) == 0
+    assert [kind for kind, _ in stub.bodies] == ["pod", "service"]
     # evaluate needs a checkpoint
     assert cli.main(["evaluate", *flags, "--device", "cpu"]) == 1
     # the card by default: without CUDA and without --device cpu, raise

@@ -7,6 +7,7 @@ the wire format is the JAX package's protobuf bytes."""
 import numpy as np
 import pytest
 
+import _torch_k8s_stub
 from elasticdl_tpu.proto import elasticdl_pb2 as jax_pb
 from elasticdl_tpu_torch.common import args as args_lib
 from elasticdl_tpu_torch.common import faults, resilience
@@ -255,16 +256,33 @@ def test_a_503_from_a_stopping_server_is_retryable():
     assert not resilience.is_retryable_error(MasterRpcError(400, "bad"))
 
 
-def test_the_master_entry_point_refuses_the_real_kubernetes_client(mnist):
+def test_the_master_entry_point_refuses_the_real_kubernetes_client(
+        mnist, monkeypatch, tmp_path):
     """Without --use_process_k8s or --use_fake_k8s, a cluster master asks
-    for the real client, which names the package it needs."""
+    for the real client, which refuses to start without a cluster
+    configuration (naming KUBECONFIG) and talks to the cluster a
+    kubeconfig names."""
+    from elasticdl_tpu_torch.common.k8s_client import K8sClient
+    from elasticdl_tpu_torch.common.k8s_config import K8sConfigError
     from elasticdl_tpu_torch.master import main as master_main
 
     train_dir, _ = mnist
-    with pytest.raises(ImportError, match="kubernetes"):
-        master_main.main(["--distribution_strategy", "AllReduce",
-                          "--training_data", train_dir,
-                          "--model_def",
-                          "mnist.mnist_functional_api.custom_model"])
+    argv = ["--distribution_strategy", "AllReduce",
+            "--training_data", train_dir,
+            "--model_def", "mnist.mnist_functional_api.custom_model"]
+    _torch_k8s_stub.no_cluster(monkeypatch, tmp_path)
+    with pytest.raises(K8sConfigError, match="KUBECONFIG"):
+        master_main.main(argv)
+    with _torch_k8s_stub.stub_cluster(monkeypatch, tmp_path,
+                                      kubelet=False) as stub:
+        client = master_main.k8s_client_for(args_lib.parse_master_args(
+            argv + ["--job_name", "adopt"]))
+        assert isinstance(client, K8sClient)
+        assert client.list_pods() == []
+    assert [(r["verb"], r["query"], r["credential"])
+            for r in stub.requests] == [
+        ("GET", {"labelSelector": "elasticdl-job=adopt,"
+                                  "elasticdl-type=worker"},
+         "client-certificate")]
     args = args_lib.parse_master_args(["--distribution_strategy", "Local"])
     assert master_main.k8s_client_for(args) is None
