@@ -352,6 +352,25 @@
    requests by verb and path, every one with the client certificate
    over TLS, and the phase's seconds beside its budget.
 
+21. The master's autoscaling loop, live (`autoscale_cluster`, after
+   `kube_cluster`; budget 60 s).  DeepFM at the bench width (vocab 2^20,
+   dim 16, bf16 MLP, global batch 8192, 32 tasks of 2 steps, a
+   checkpoint every task) through the master's entry point over
+   ProcessK8sClient, in a process of its own (`--autoscale-master`),
+   with one worker, `--min_workers 1 --max_workers 2 --policy_interval
+   0.5 --backlog_per_worker 2 --backlog_ticks 2 --scale_hold_ticks 2
+   --data_wait_share 1.0` and `--compilation_cache_dir` at a fresh
+   directory.  The loop is held at its `policy.tick` fault point until
+   the first world has committed a step; then the engine alone decides.
+   Checked: one scale_up for the backlog that launched one pod, exit 0
+   on a world of two, every shard once, 2 scatter-adds a step in each
+   final rank and the kernel bit for bit its plain version at a final
+   rank's rows, worker 0's nvcc build into the fresh cache (its
+   `kernel_build_scatter_add` seconds) and no build in the added pod or
+   the relaunched one.  Printed: the decision's tick, its latency to the
+   world of two's first step and first report, the cold build's
+   seconds, the card's name and power limit.
+
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
 JSON; the last is {"ok": true, "device": {...}}.  The measured numbers,
@@ -365,6 +384,7 @@ import copy
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -6893,6 +6913,268 @@ def kube_cluster(card: str, work: str, device: str = "cuda") -> tuple:
     return out, launches
 
 
+# ---- autoscale_cluster: the master's autoscaling loop, live ---------------
+
+AUTOSCALE_BUDGET_S = 60.0
+AUTOSCALE_JOB = "chip-scale"
+# DeepFM at the `cluster` phase's bench width and global batch (8192,
+# which splits evenly over one rank and over two): tasks of 2 steps, a
+# checkpoint committed every task.  On an H100 80GB HBM3 at 700 W one
+# rank alone ran ~14 steps a second, and the commit the hold waits for
+# showed some steps after it was taken, so 16 tasks left 6 in the queue
+# at the decision (backlog 6.0, the world of two 12 steps); 32 keep the
+# backlog far above 2 a worker until the world of two has trained
+AUTOSCALE_TASK = 2 * DP_BATCH
+AUTOSCALE_RECORDS = 32 * AUTOSCALE_TASK
+AUTOSCALE_CKPT_STEPS = 2
+AUTOSCALE_SEED = SEED + 20
+AUTOSCALE_TIMEOUT_S = 300.0
+# the policy engine's bounds and thresholds.  --data_wait_share 1.0: the
+# engine scales down on a share strictly above it, so never; the DeepFM
+# step is host-bound (busy 0.17, PERF.md section 5) and a data-wait
+# scale-down could land in the middle of the phase and turn the check
+# of one decision into a race
+AUTOSCALE_FLAGS = ["--num_workers", "1", "--min_workers", "1",
+                   "--max_workers", "2", "--policy_interval", "0.5",
+                   "--backlog_per_worker", "2", "--backlog_ticks", "2",
+                   "--scale_hold_ticks", "2", "--data_wait_share", "1.0"]
+# ticks the loop's hold can cover: far more than the job lasts
+AUTOSCALE_HOLD_TICKS = 100000
+
+
+def autoscale_cluster(card: str, work: str, device: str = "cuda") -> tuple:
+    """The master's autoscaling loop on a live job: DeepFM at bench width
+    through the master's entry point over ProcessK8sClient (in a process
+    of its own, `chip_smoke.py --autoscale-master`, since the master
+    applies --compilation_cache_dir first and this process has loaded
+    its kernels from the checkout's cache), one worker to start, the
+    AUTOSCALE_FLAGS bounds, and --compilation_cache_dir at a fresh
+    directory.  Nothing here calls scale_up: the policy engine alone
+    grows the job.  Its ticks are held at the engine's own fault point
+    (`policy.tick`: a skipped tick freezes the streaks) until the first
+    world has committed a checkpoint step, so the decision lands
+    mid-job; unheld, two ticks of a full queue decide within a
+    second of the master's start, before the first worker's process
+    has imported torch, and the job never runs a world of one.
+    Checked: one scale_up for the backlog that launched one pod, the
+    job's exit 0 on a world of two, every shard done once, 2
+    scatter-adds a step in each final rank and the kernel against its
+    plain version at a final rank's rows, the first rank's nvcc build
+    into the fresh cache (its kernel_build_* program and seconds), and
+    no build in the pod the scale-up added (nor in the relaunched
+    first rank).  Returns (summary, launches)."""
+    t0 = time.perf_counter()
+    root = os.path.join(work, "autoscale_cluster")
+    os.makedirs(root, exist_ok=True)
+    # (the writer needs a few validation records; the job reads none)
+    train_dir, _ = write_dataset(os.path.join(root, "data"),
+                                 n_train=AUTOSCALE_RECORDS, n_val=16,
+                                 seed=AUTOSCALE_SEED)
+    cache = os.path.join(root, "kernel_cache")
+    written_s = time.perf_counter() - t0
+    env = dict(os.environ, **bytecode_env(work))
+    # a session of its own: a master that times out goes with its pods
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--autoscale-master",
+         root, work, device], cwd=ROOT, env=env, start_new_session=True)
+    try:
+        code = proc.wait(timeout=AUTOSCALE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if code != 0:
+        raise AssertionError(f"the autoscale master's process exited "
+                             f"{code}")
+    with open(os.path.join(root, "master.json")) as f:
+        job = json.load(f)
+    ckpt = os.path.join(root, "ckpt")
+    with open(os.path.join(ckpt, "task_state.json")) as f:
+        journal = json.load(f)
+    done = [tuple(entry[:3]) for entry in journal["done_training_shards"]]
+    with open(os.path.join(root, "events.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    decided = [e for e in log if e["event"] == events.POLICY_DECISION]
+    logs = job["pod_logs"]
+    ranks = []
+    for line in _rank_lines(logs):
+        restored = _restored_step(logs[line["pod"]])
+        ranks.append({"pod": line["pod"], "final": "state_sha256" in line,
+                      "rank": line["rank"], "epoch": line["epoch"],
+                      "world": line["world"], "step": line.get("step"),
+                      "restored": restored,
+                      "steps": line.get("step", 0) - restored,
+                      "scatter_launches": line["launches"]["scatter_add"],
+                      "kernel_builds": line.get("kernel_builds"),
+                      "state_sha256": line.get("state_sha256")})
+    final = [r for r in ranks if r["final"]]
+    first_pod = f"{AUTOSCALE_JOB}-worker-0"
+    first = [r for r in ranks if r["pod"] == first_pod]
+    decision_ts = decided[0]["ts"] if decided else None
+    # the pod the scale-up launched: the first created after the release
+    added = [p for p, ts in sorted(job["created"].items(),
+                                   key=lambda kv: kv[1])
+             if ts >= job["released_ts"]][:1]
+    # the world of two's first step: its ranks' restores done (the later
+    # of the two log lines), and its first reported task
+    restores = [_first_mark(logs[r["pod"]], " restored checkpoint step ")
+                for r in final]
+    final_ids = {int(r["pod"].rsplit("-", 1)[1]) for r in final}
+    reports = [e["ts"] for e in log if e["event"] == events.TASK_REPORTED
+               and e.get("worker_id") in final_ids]
+    latency = {}
+    if decision_ts is not None and final and None not in restores:
+        latency = {"to_first_step_s": max(restores) - decision_ts,
+                   "to_first_report_s": min(reports) - decision_ts
+                   if reports else None,
+                   "release_to_decision_s":
+                       decision_ts - job["released_ts"]}
+    builds = {r["pod"]: r["kernel_builds"] for r in ranks}
+    cold = (first[0]["kernel_builds"] or {}).get(
+        "kernel_build_scatter_add") if first else None
+    libraries = sorted(os.listdir(cache)) if os.path.isdir(cache) else []
+    # the scatter-add at a final rank's rows: the first global batch of
+    # the last shard the job finished (the world of two's), hashed as
+    # the rank's feed hashes it, held against its plain version
+    reader = TFRecordDataReader(train_dir)
+    name, start, _ = done[-1]
+    records = list(reader.read_records(pb.Task(shard=pb.Shard(
+        name=name, start=start, end=start + DP_BATCH))))
+    sparse = fm_zoo.feed(records, getattr(reader, "metadata", {}))[
+        "features"]["sparse"]
+    rows = DP_BATCH // 2
+    ids_np = hash_field_rows_host(sparse[rows:2 * rows], DEEPFM_VOCAB)
+    gen = torch.Generator(device=device).manual_seed(AUTOSCALE_SEED)
+    checks = [shard_scatter_check(ids_np, 0, DEEPFM_VOCAB, dim, gen, device)
+              for dim in (DEEPFM_DIM, 1)]
+    shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    out = {"card": card, "records": AUTOSCALE_RECORDS,
+           "global_batch": DP_BATCH,
+           "tasks": AUTOSCALE_RECORDS // AUTOSCALE_TASK,
+           "steps": AUTOSCALE_RECORDS // DP_BATCH,
+           "flags": AUTOSCALE_FLAGS, "exit_code": job["rc"],
+           "decisions": job["decisions"], "policy": job["policy"],
+           "decision_events": decided, "released": job["released"],
+           "pods": sorted(job["created"]), "added": added,
+           "journal_records_done": journal["records_done"],
+           "journal_shards": len(done),
+           "journal_unique_shards": len(set(done)),
+           "ranks": ranks, "latency": latency, "cold_build_s": cold,
+           "kernel_builds": builds, "cache_libraries": libraries,
+           "kernel_checks": checks, "recovery_s": job["recovery_s"],
+           "data_s": written_s, "seconds": seconds,
+           "budget_s": AUTOSCALE_BUDGET_S}
+    print(json.dumps({"autoscale_cluster": out}), flush=True)
+    decisions = [(d["tick"], d["action"], d["reason"],
+                  d.get("backlog_per_worker"), d.get("launched"))
+                 for d in job["decisions"]]
+    nan = float("nan")
+    print(f"autoscale_cluster: decisions (tick, action, reason, backlog a "
+          f"worker, launched) {decisions}, "
+          f"{latency.get('release_to_decision_s', nan):.2f} s after the "
+          f"loop's release at step {job['released'].get('step')}; the "
+          f"world of two's first step "
+          f"{latency.get('to_first_step_s', nan):.2f} s after the decision "
+          f"(its first report {latency.get('to_first_report_s') or nan:.2f}"
+          f" s); the cold nvcc build of scatter_add.cu {cold} s in "
+          f"{first_pod} into the fresh cache {libraries}; builds by pod "
+          f"{builds}; {len(set(done))}/{out['tasks']} shards done "
+          f"[{card}]", flush=True)
+    print(f"autoscale_cluster phase: {seconds:.1f} s (budget "
+          f"{AUTOSCALE_BUDGET_S} s) [{card}]", flush=True)
+    bad = []
+    if job["rc"] != 0:
+        bad.append(f"the job exited {job['rc']}")
+    if [(d["action"], d["reason"], d["requested"], d["launched"])
+            for d in job["decisions"]] != [("scale_up", "backlog", 1, 1)]:
+        bad.append(f"decisions {job['decisions']}")
+    if len(set(done)) != len(done) or len(done) != out["tasks"] or \
+            journal["records_done"] != AUTOSCALE_RECORDS:
+        bad.append("a training shard not done exactly once")
+    if not first or first[0]["world"] != 1 or not first[0]["step"]:
+        bad.append(f"the first rank did not train alone: {first}")
+    if len(final) != 2 or {r["world"] for r in final} != {2} or \
+            len({r["state_sha256"] for r in final}) != 1 or \
+            any(r["steps"] <= 0 or r["scatter_launches"] != 2 * r["steps"]
+                for r in final):
+        bad.append("the final ranks' world, states or launches")
+    if not cold or cold <= 0 or not any(
+            lib.startswith("scatter_add-") for lib in libraries):
+        bad.append(f"no cold build into the fresh cache: {builds}, "
+                   f"{libraries}")
+    if added != [f"{AUTOSCALE_JOB}-worker-1"] or \
+            added[0] not in {r["pod"] for r in final} or any(
+                b for pod, b in builds.items() if pod != first_pod):
+        bad.append(f"the added pod {added} built or is not final: "
+                   f"{builds}")
+    if not all(c["ok"] for c in checks):
+        bad.append(f"the scatter-add at a final rank's rows: {checks}")
+    if bad:
+        raise AssertionError(f"autoscale_cluster: {bad}: {out}; pod logs "
+                             f"{ {n: t[-3000:] for n, t in logs.items()} }")
+    launches = {f"autoscale_cluster_rank{r['rank']}": r["scatter_launches"]
+                for r in final}
+    return out, launches
+
+
+def autoscale_master(root: str, work: str, device: str = "cuda") -> int:
+    """The autoscale_cluster job's master (a process of its own): the
+    master's entry point over ProcessK8sClient with the policy loop held
+    at `policy.tick` until a checkpoint step has committed; writes what
+    the phase checks to ROOT/master.json."""
+    ckpt = os.path.join(root, "ckpt")
+    argv = ["--distribution_strategy", "AllReduce", "--use_process_k8s",
+            "true", "--job_name", AUTOSCALE_JOB,
+            "--model_def", DEEPFM, "--model_params", DEEPFM_PARAMS,
+            "--use_bf16", "true", "--minibatch_size", str(DP_BATCH),
+            "--records_per_task", str(AUTOSCALE_TASK), "--num_epochs", "1",
+            "--training_data", os.path.join(root, "data", "train"),
+            "--checkpoint_dir", ckpt,
+            "--checkpoint_steps", str(AUTOSCALE_CKPT_STEPS),
+            "--keep_checkpoint_max", "2",
+            "--port", str(free_port()),
+            "--coordinator_port", str(free_port()),
+            "--wedge_grace_s", str(CLUSTER_WEDGE_GRACE_S),
+            "--task_lease_timeout_s", "300",
+            "--event_log", os.path.join(root, "events.jsonl"),
+            "--compilation_cache_dir", os.path.join(root, "kernel_cache"),
+            "--device", device, *AUTOSCALE_FLAGS]
+    k8s = _HoldK8s({"PYTHONPATH": ROOT, **bytecode_env(work)}, {})
+    held, released = {}, {}
+
+    def release():
+        while not committed_steps(ckpt):
+            time.sleep(0.05)
+        released.update(step=max(committed_steps(ckpt)), ts=time.time())
+        faults.uninstall()
+
+    def started(master):
+        held["master"] = master
+        threading.Thread(target=release, daemon=True).start()
+
+    faults.install(FaultRegistry([
+        FaultSpec(faults.POINT_POLICY_TICK, hit, "raise")
+        for hit in range(AUTOSCALE_HOLD_TICKS)]))
+    try:
+        rc = master_main.main(argv, k8s_client=k8s,
+                              linger_s=CLUSTER_LINGER_S, on_started=started)
+    finally:
+        faults.uninstall()
+        k8s.stop()
+    master = held["master"]
+    with open(os.path.join(root, "master.json"), "w") as f:
+        json.dump({"rc": rc, "decisions": master.policy_engine.decisions,
+                   "policy": master.policy_engine.snapshot(),
+                   "released": released,
+                   "released_ts": released.get("ts"),
+                   "created": k8s.created,
+                   "recovery_s": list(master.recovery_clock.history),
+                   "pod_logs": {name: k8s.pod_output(name)
+                                for name in k8s.pods}}, f, default=str)
+    return 0
+
+
 # ---- parallel_axes: the model, seq, expert and pipe axes ---------------
 
 PAR_BUDGET_S = 90.0
@@ -8009,6 +8291,10 @@ def main() -> int:
         # one rank of the cluster phase's data-parallel group
         rank, work, port, device = sys.argv[2:6]
         return cluster_rank(int(rank), work, int(port), device)
+    if sys.argv[1:2] == ["--autoscale-master"]:
+        # the autoscale_cluster phase's master
+        root, work, device = sys.argv[2:5]
+        return autoscale_master(root, work, device)
     if sys.argv[1:2] == ["--parallel-rank"]:
         # one rank of the parallel_axes phase's world
         rank, work, port, device = sys.argv[2:6]
@@ -8094,6 +8380,8 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
     del online["surfaces"]
     clus, clus_launches = phase("cluster", cluster, card, work)
     kube, kube_launches = phase("kube_cluster", kube_cluster, card, work)
+    scale, scale_launches = phase("autoscale_cluster", autoscale_cluster,
+                                  card, work)
     par, par_launches = phase("parallel_axes", parallel_axes, card, work)
     serve_fm = phase("serve_cli_deepfm", serve_cli_deepfm, card, fm_served)
     wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
@@ -8132,6 +8420,7 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
         **{path: (n if isinstance(n, int) else n["scatter_add"])
            for path, n in clus_launches.items()},
         **kube_launches,
+        **scale_launches,
         **{path: n["scatter_add"] for path, n in par_launches.items()}}
     bert_paths = {"train_bert": bert_launches_by["plain"],
                   "train_bert_remat": bert_launches_by["remat"],
@@ -8176,7 +8465,7 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
                    "resilient_local": resilient,
                    "stream_judgment": stream, "online_loop": online,
                    "observatory": obs, "cluster": clus,
-                   "kube_cluster": kube,
+                   "kube_cluster": kube, "autoscale_cluster": scale,
                    "parallel_axes": par,
                    "wire_deepfm": wire, "serve_cli_deepfm": serve_fm,
                    "tiered_deepfm": tiered, "local_tiered": local_t,

@@ -33,7 +33,8 @@ of the job; the workers' data services retry the master calls under the
 `ELASTICDL_RPC_*` policy (common/resilience.py).  `--tensorboard_log_dir`
 gives the master and each worker a summary writer
 (`<dir>/master`, `<dir>/worker-<id>`); `--profile_dir` traces worker 0's
-first training task.
+first training task.  `--compilation_cache_dir`, applied first, is where
+the job's kernel libraries are built and loaded (ops/_build.py).
 
 With `--history_interval`, `--slo_interval` or `--incident_dir` the
 master also samples its metrics, judges the SLOs and keeps an incident
@@ -76,6 +77,7 @@ from elasticdl_tpu_torch.common.save_utils import CheckpointSaver
 from elasticdl_tpu_torch.data.reader import create_data_reader
 from elasticdl_tpu_torch.device import resolve_device
 from elasticdl_tpu_torch.master.main import Master
+from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.proto.service import InProcessMasterClient
 from elasticdl_tpu_torch.worker.sync import ModelOwner
 from elasticdl_tpu_torch.worker.trainer import Trainer
@@ -173,6 +175,8 @@ def run_local(args, job_type: str = "train") -> LocalJob:
     job.  A worker thread that dies outside its task loop's reporting
     path fails the job and its exception re-raises here."""
     _check_supported(args, job_type)
+    # the libraries' directory before anything is built or loaded
+    _build.set_cache_dir(getattr(args, "compilation_cache_dir", ""))
     device = resolve_device(args.device)
     spec = get_model_spec(
         args.model_zoo, args.model_def,

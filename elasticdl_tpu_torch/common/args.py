@@ -1,44 +1,48 @@
 """The command-line flags of a Local job, of a cluster job's master and
-workers, and of `serve` (the port's copy of the subset of the JAX
-package's common/args.py that those read).
+workers, and of `serve`: the port's copy of the JAX package's
+common/args.py, every flag under its JAX name, type, default, `nargs`
+and `const` (tests/test_torch_args_parity.py holds the two parsers
+equal).  The port adds one flag, `--device`; the default of
+`--model_zoo` is the port's own zoo.
 
-Flags outside the subset are absent, so argparse rejects them.
 `elasticdl train` with a cluster strategy submits the master's pod
 (client/api.py `_submit_master_pod`, its argv rebuilt by
 `build_arguments_from_parsed_result`); the master's own entry point
-(`python -m elasticdl_tpu_torch.master.main`) runs the cluster job,
-with the JAX
-parser's cluster flags under their names and defaults
-(`add_cluster_params`: `--use_process_k8s`, `--use_fake_k8s`,
-`--workers_per_group`, `--wedge_grace_s`, `--coordinator_port`,
-`--rpc_retry_budget_s`, `--relaunch_on_worker_failure`, `--port`,
-`--job_name`, ...; the worker's `--worker_id` and `--master_addr`).
-The master's serving fleet has the JAX flags too (`--serving_replicas`,
-`--serving_probe_interval`, `--serving_probe_failures`,
-`--serving_step_skew_slo`, `--serving_port`, `--max_serving_replicas`,
-`--min_serving_replicas`, `--serving_policy_interval`;
-master/serving_fleet.py, master/policy.py).  `--trace_sample_rate`
-parses, and, as in the JAX package, the master hands it to nothing: a
-`FleetRouter` (proto/service.py) takes its rate from whoever builds
-it.  The wire formats (`--wire_format
-plain|compact|dedup`, the legacy `--compact_wire`), the int8 arena
-(`--arena_dtype int8`), the tiered store's int8 cache
-(`--store_cache_dtype int8`), `--output` (a train job's model export,
-common/export.py), the straggler flags, `--task_lease_timeout_s`,
-`--profile_dir` (a torch.profiler trace of worker 0's first training
-task), `--tensorboard_log_dir` (scalars through
-torch.utils.tensorboard, inert without the tensorboard package) and the
-judgment flags (`--history_interval`, `--history_capacity`,
-`--slo_interval`, `--slo_staleness_p99_s`, `--incident_dir`,
-`--incident_ring`, `--incident_max_bundles`: the master's metric
-history, SLO evaluator and incident flight recorder, master/main.py)
-and `--telemetry_port` (the master's /metrics, /healthz and /varz,
-which `top`, `slo` and `programs` read) run.
+(`python -m elasticdl_tpu_torch.master.main`) runs the cluster job and
+re-serializes the same flags into each worker pod's argv
+(master/main.py `_worker_command`).  `add_cluster_params` holds the
+cluster's flags: the pods, the rendezvous and elastic recovery, the
+policy engine's bounds and thresholds (`--min_workers`, `--max_workers`,
+`--straggler_dwell_s`, `--eviction_budget`, `--eviction_cooldown_s`,
+`--backlog_per_worker`, `--backlog_ticks`, `--data_wait_share`,
+`--data_wait_ticks`, `--scale_step`, `--scale_hold_ticks`, read by
+master/policy.py `PolicyConfig.from_args`), `--compilation_cache_dir`,
+and the serving fleet's flags with its autoscaler's thresholds and the
+backpressure flags (`ServingPolicyConfig.from_args`,
+`ServingFleetConfig.from_args`).
+
+`--compilation_cache_dir` is the directory of the hand kernels'
+libraries and the host scanner's (ops/_build.py `set_cache_dir`, which
+the master, the worker and the Local runner call first): with
+`--volume` it is a mount shared across pod relaunches, so a relaunched
+or added pod loads the libraries instead of building them.  Empty
+keeps the default, `build/elasticdl_tpu_torch/` in the checkout.
+
+`--trace_sample_rate` parses, and, as in the JAX package, the master
+hands it to nothing: a `FleetRouter` (proto/service.py) takes its rate
+from whoever builds it.  Nine flags exist so that a command line of
+upstream ElasticDL parses, and neither package reads them:
+`--num_minibatches_per_task`, `--log_level`, `--worker_resource_limit`,
+`--restart_policy` (the pod's policy is always "Never"),
+`--image_pull_policy`, `--need_tf_config`, `--grads_to_wait`,
+`--task_fault_tolerance` and a training job's `--data_reader_params`.
 
 `--device` is the port's own: `cuda` (the default) or `cpu`, the
 counterpart of the JAX package's JAX_PLATFORMS, resolved through
 `device.py::resolve_device` (which raises when CUDA is wanted and
-absent).
+absent).  The master and worker parsers call `parse_args`, where the
+JAX ones call `parse_known_args`: with the same flags in both, they
+differ only on a flag neither package knows, which the port refuses.
 """
 
 from __future__ import annotations
@@ -85,6 +89,12 @@ def add_common_params(parser: argparse.ArgumentParser):
         "(master/main.py).")
     parser.add_argument("--num_workers", type=pos_int, default=1,
                         help="worker threads sharing one model")
+    parser.add_argument("--num_minibatches_per_task", type=pos_int,
+                        default=8, help="Parsed for upstream command "
+                        "lines; read nowhere.")
+    parser.add_argument("--log_level", default="INFO",
+                        help="Parsed for upstream command lines; read "
+                        "nowhere.")
     parser.add_argument(
         "--event_log", default="",
         help="Append-only JSONL span-event log (task dispatch/claim/"
@@ -180,11 +190,26 @@ def add_cluster_params(parser: argparse.ArgumentParser):
     parser.add_argument("--image_name", default="")
     parser.add_argument("--worker_resource_request",
                         default="cpu=1,memory=4096Mi")
+    parser.add_argument("--worker_resource_limit", default="",
+                        help="Parsed for upstream command lines; read "
+                        "nowhere.")
     parser.add_argument("--worker_pod_priority", default="")
+    parser.add_argument("--restart_policy", default="Never",
+                        help="Parsed for upstream command lines; read "
+                        "nowhere (a pod's policy is always Never).")
     parser.add_argument(
         "--volume", default="",
         help="Pod volume mounts: 'host_path=/a,mount_path=/b' or "
-        "'claim_name=pvc,mount_path=/b'; several separated by ';'.")
+        "'claim_name=pvc,mount_path=/b'; several separated by ';'.  "
+        "Mounted into the master pod and every worker pod (e.g. the "
+        "--compilation_cache_dir volume).")
+    parser.add_argument("--image_pull_policy", default="IfNotPresent",
+                        help="Parsed for upstream command lines; read "
+                        "nowhere.")
+    parser.add_argument(
+        "--need_tf_config", type=str2bool, default=False, nargs="?",
+        const=True,
+        help="Parsed for upstream command lines; read nowhere.")
     parser.add_argument(
         "--use_fake_k8s", type=str2bool, default=False,
         help="Use the in-memory fake cluster instead of the Kubernetes "
@@ -210,6 +235,47 @@ def add_cluster_params(parser: argparse.ArgumentParser):
         help="Seconds between policy-engine ticks (straggler eviction + "
         "autoscaling).  0 (the default) disables the control loop.")
     parser.add_argument(
+        "--min_workers", type=pos_int, default=1,
+        help="Autoscaling floor: the policy engine never scales the "
+        "fleet below this many workers.")
+    parser.add_argument(
+        "--max_workers", type=int, default=0,
+        help="Autoscaling ceiling.  0 means --num_workers (a fixed "
+        "fleet unless raised).")
+    parser.add_argument(
+        "--straggler_dwell_s", type=float, default=30.0,
+        help="A straggler flag must persist this long before the policy "
+        "engine evicts the worker.")
+    parser.add_argument(
+        "--eviction_budget", type=pos_int, default=2,
+        help="Lifetime cap on policy-engine evictions.")
+    parser.add_argument(
+        "--eviction_cooldown_s", type=float, default=60.0,
+        help="Minimum seconds between two policy-engine evictions.")
+    parser.add_argument(
+        "--backlog_per_worker", type=float, default=4.0,
+        help="Scale up when queued tasks per alive worker exceed this "
+        "for --backlog_ticks consecutive policy ticks.")
+    parser.add_argument(
+        "--backlog_ticks", type=pos_int, default=3,
+        help="Consecutive over-threshold ticks before a backlog "
+        "scale-up (hysteresis).")
+    parser.add_argument(
+        "--data_wait_share", type=float, default=0.6,
+        help="Scale down when the fleet-wide data_wait share of step "
+        "time exceeds this for --data_wait_ticks consecutive ticks.")
+    parser.add_argument(
+        "--data_wait_ticks", type=pos_int, default=3,
+        help="Consecutive over-threshold ticks before a data_wait "
+        "scale-down (hysteresis).")
+    parser.add_argument(
+        "--scale_step", type=pos_int, default=1,
+        help="Workers added/removed per policy action, rounded to whole "
+        "--workers_per_group groups.")
+    parser.add_argument(
+        "--scale_hold_ticks", type=pos_int, default=2,
+        help="Quiet ticks after any scale action before the next one.")
+    parser.add_argument(
         "--wedge_grace_s", type=float, default=20.0,
         help="Seconds a rank may lag a membership-epoch change before its "
         "watchdog assumes it is wedged in a collective with a dead peer "
@@ -225,6 +291,16 @@ def add_cluster_params(parser: argparse.ArgumentParser):
         "control-plane RPC may consume before the worker gives up and "
         "exits with code 45 (charged relaunch).  0 defers to the "
         "ELASTICDL_RPC_MAX_ELAPSED_S env var, default 120.")
+    parser.add_argument(
+        "--compilation_cache_dir", default="",
+        help="Directory of the hand kernels' and the host scanner's "
+        "libraries (ops/_build.py), applied first by the master, the "
+        "worker and the Local runner.  A relaunched or added worker then "
+        "loads them instead of building them.  Empty keeps "
+        "build/elasticdl_tpu_torch/ in the checkout.  On a real cluster "
+        "pair it with --volume so the directory is a mount shared across "
+        "pod relaunches (e.g. --volume 'claim_name=cache,mount_path="
+        "/cache' --compilation_cache_dir /cache).")
     parser.add_argument(
         "--relaunch_on_worker_failure", type=non_neg_int, default=3,
         help="max relaunches per failed worker pod")
@@ -264,6 +340,46 @@ def add_cluster_params(parser: argparse.ArgumentParser):
         "--serving_policy_interval", type=float, default=0.0,
         help="Seconds between serving policy engine ticks.  0 disables "
         "the background loop; tests tick by hand.")
+    parser.add_argument(
+        "--serving_burn_threshold", type=float, default=1.0,
+        help="Fast-window SLO burn rate at or above which a serving "
+        "scale-up streak accrues (1.0 = spending exactly the error "
+        "budget).")
+    parser.add_argument(
+        "--serving_shed_threshold", type=float, default=0.02,
+        help="Windowed whole-fleet shed ratio at or above which a "
+        "serving scale-up streak accrues.")
+    parser.add_argument(
+        "--serving_fill_low", type=float, default=0.2,
+        help="Mean healthy-replica batch fill at or below which a calm "
+        "fleet accrues a scale-down streak.")
+    parser.add_argument(
+        "--serving_up_ticks", type=pos_int, default=2,
+        help="Consecutive overloaded ticks before the serving policy "
+        "engine scales up.")
+    parser.add_argument(
+        "--serving_down_ticks", type=pos_int, default=3,
+        help="Consecutive calm, underfilled ticks before the serving "
+        "policy engine scales down.")
+    parser.add_argument(
+        "--serving_scale_step", type=pos_int, default=1,
+        help="Replicas added or retired per serving scale action.")
+    parser.add_argument(
+        "--serving_scale_hold_ticks", type=non_neg_int, default=2,
+        help="Quiet ticks after any serving scale action before the "
+        "next one.")
+    parser.add_argument(
+        "--serving_shed_window_s", type=float, default=30.0,
+        help="Metric-history window the serving policy engine computes "
+        "its shed ratio over.")
+    parser.add_argument(
+        "--backpressure_threshold", type=float, default=0.25,
+        help="serving_pressure (SLO burn rate x fleet shed ratio) above "
+        "which the online pipeline slows its stream poll/arm cadence.")
+    parser.add_argument(
+        "--backpressure_stride", type=pos_int, default=4,
+        help="While backpressured, the online pipeline polls/arms only "
+        "every this-many-th tick.")
 
 
 def add_model_params(parser: argparse.ArgumentParser):
@@ -307,6 +423,11 @@ def add_train_params(parser: argparse.ArgumentParser):
         help="Run this many train steps per Trainer call "
         "(train_on_batch_stack); bitwise equal to single steps.")
     parser.add_argument("--num_epochs", type=pos_int, default=1)
+    parser.add_argument(
+        "--grads_to_wait", type=pos_int, default=1,
+        help="Parsed for upstream command lines (the sync-PS "
+        "accumulation knob); read nowhere: every step is synchronous "
+        "over the group.")
     parser.add_argument("--training_data", default="")
     parser.add_argument("--validation_data", default="")
     parser.add_argument("--prediction_data", default="")
@@ -343,6 +464,9 @@ def add_train_params(parser: argparse.ArgumentParser):
         "aggregated eval metrics (master) as TensorBoard event files "
         "under this directory (inert, with one warning, without the "
         "tensorboard package)")
+    parser.add_argument("--task_fault_tolerance", type=str2bool,
+                        default=True, help="Parsed for upstream command "
+                        "lines; read nowhere.")
     parser.add_argument("--use_bf16", type=str2bool, default=True,
                         help="cast floating features to bf16")
     parser.add_argument(
@@ -357,6 +481,9 @@ def add_train_params(parser: argparse.ArgumentParser):
         "(feed_bulk_dedup: host-hashed rows dedup'd per field).  A "
         "format the zoo lacks falls back dedup -> compact -> plain "
         "with a warning.  Empty defers to --compact_wire.")
+    parser.add_argument("--data_reader_params", default="",
+                        help="Parsed for upstream command lines; read "
+                        "nowhere.")
     parser.add_argument("--records_per_task", type=pos_int, default=4096)
     parser.add_argument(
         "--task_lease_timeout_s", type=pos_int,
@@ -522,8 +649,7 @@ def parse_worker_args(argv=None) -> argparse.Namespace:
     add_model_params(parser)
     add_train_params(parser)
     parser.add_argument("--worker_id", type=int, default=0)
-    parser.add_argument("--job_type", default="train",
-                        choices=["train", "evaluate", "predict"])
+    parser.add_argument("--job_type", default="train")
     return parser.parse_args(argv)
 
 

@@ -3,11 +3,13 @@ JAX package's data/native_io.py over its own copy of the C++ source,
 `hostsrc/recordio.cc`).
 
 The library is built with g++ at first use, once per process
-(`ops/_build.py::build_host`, cached under `build/elasticdl_tpu_torch/`
-by the source's hash); nothing is built at import.  When it cannot be
-built or loaded, `available()` is False and data/record_io.py builds
-indexes and writes in Python, as the JAX package does: this is host
-code, not a device kernel, and both paths give the same bytes.
+(`ops/_build.py::build_host`, cached by the source's hash in the kernel
+cache directory: `build/elasticdl_tpu_torch/` unless
+`--compilation_cache_dir` moves it); nothing is built at import.  When
+it cannot be built or loaded, `available()` is False and
+data/record_io.py builds indexes and writes in Python, as the JAX
+package does: this is host code, not a device kernel, and both paths
+give the same bytes.
 record_io counts which path served each call (`record_io.served()`), so
 a caller can see it.  record_io's readers do not call `read_records` /
 `read_records_np`: its Python `read_bulk` was faster on the H100 host

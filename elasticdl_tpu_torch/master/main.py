@@ -14,7 +14,11 @@ master's flags re-serialized, `_worker_command`) and the training
 policy engine over it, serves its methods on `--port`
 (master/server.py, HTTP in place of gRPC), and adds the pod rows to
 `snapshot()`.  A train job with `--output` ends with one SAVE_MODEL
-task, which the leading rank exports.
+task, which the leading rank exports.  `main()` applies
+`--compilation_cache_dir` first (ops/_build.py `set_cache_dir`), and the
+worker commands carry it, with the policy engine's bounds and
+thresholds (`--min_workers`, `--max_workers`, ...), which
+`PolicyConfig.from_args` reads.
 
 A train job with `--checkpoint_dir` journals its finished training
 shards at `<checkpoint_dir>/task_state.json`, trusted up to the newest
@@ -128,6 +132,7 @@ from elasticdl_tpu_torch.master.task_manager import (
     TaskManager,
     create_shards_from_ranges,
 )
+from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.proto import messages as pb
 
 logger = get_logger(__name__)
@@ -626,6 +631,9 @@ def main(argv=None, k8s_client=None, linger_s: float = 60.0,
     once the master serves and its pods are created.  Exit code 0 when
     the job finished, 1 when it aborted."""
     args = args_lib.parse_master_args(argv)
+    # the libraries' directory before anything is built or loaded (the
+    # host scanner indexes the training data)
+    _build.set_cache_dir(args.compilation_cache_dir)
     if k8s_client is None:
         k8s_client = k8s_client_for(args)
     # a chaos run's fault schedule travels in the environment

@@ -3,10 +3,18 @@
 Each `csrc/*.cu` file is compiled by `nvcc` into a shared library with a
 plain C interface, loaded through `ctypes`.  PyTorch's headers are never
 included: such a build takes minutes, a plain one seconds.  Libraries go
-to `build/elasticdl_tpu_torch/` at the root of the checkout that holds
-this package (resolved from this file, not from the working directory),
-named by a hash of every source in `csrc/` and of the flags, so a changed
-source builds anew and an unchanged one is loaded from the cache.
+to the cache directory, by default `build/elasticdl_tpu_torch/` at the
+root of the checkout that holds this package (resolved from this file,
+not from the working directory), named by a hash of every source in
+`csrc/` and of the flags, so a changed source builds anew and an
+unchanged one is loaded from the cache.  `set_cache_dir` (the
+`--compilation_cache_dir` flag, applied first by the master, the worker
+and the Local runner) moves the cache before anything is built or
+loaded: a directory shared by the pods of a job (a `--volume` mount)
+lets a relaunched or added pod load what the first one built.  Each
+library is written under a temporary name and renamed into place, so a
+process never loads half of one.  Once a library has loaded, the
+directory cannot move.
 
 Nothing is built at import time.  A missing `nvcc` or a failed build
 raises; there is no fallback.  Each nvcc build that runs is reported to
@@ -51,9 +59,38 @@ HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# hostsrc/ source name -> the library path build_host handed out
+_HOST_PATHS: Dict[str, Path] = {}
+# set_cache_dir's directory; None: BUILD_DIR
+_cache_dir: Optional[Path] = None
 # source name -> nvcc's output (ptxas resource usage), for the builds
 # this process ran
 build_logs: Dict[str, str] = {}
+
+
+def cache_dir() -> Path:
+    """Where the libraries are built and looked for."""
+    return BUILD_DIR if _cache_dir is None else _cache_dir
+
+
+def set_cache_dir(path: str) -> Path:
+    """Build and load the libraries under `path` (an empty `path` keeps
+    the current directory); returns the directory in use.  Raises once
+    a library has loaded from another directory: what this process runs
+    must come from one place."""
+    global _cache_dir
+    if not path:
+        return cache_dir()
+    new = Path(path).expanduser().resolve()
+    with _LOCK:
+        if new != cache_dir():
+            if _LOADED or _HOST_PATHS:
+                raise RuntimeError(
+                    f"the kernel cache directory cannot move to {new}: "
+                    f"{sorted(_LOADED) + sorted(_HOST_PATHS)} already "
+                    f"loaded from {cache_dir()}")
+            _cache_dir = new
+    return new
 
 
 def find_nvcc() -> str:
@@ -89,7 +126,7 @@ def _digest(nvcc: str) -> str:
 
 def library_path(source: str, nvcc: Optional[str] = None) -> Path:
     stem = Path(source).stem
-    return BUILD_DIR / f"{stem}-{_digest(nvcc or find_nvcc())}.so"
+    return cache_dir() / f"{stem}-{_digest(nvcc or find_nvcc())}.so"
 
 
 def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
@@ -98,7 +135,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
     on the first failure, after every started compile has ended."""
     nvcc = find_nvcc()
     names = list(names or sources())
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cache_dir().mkdir(parents=True, exist_ok=True)
     started = []
     for name in names:
         out = library_path(name, nvcc)
@@ -164,18 +201,25 @@ def host_library_path(source: str, cxx: Optional[str] = None) -> Path:
     h.update((HOSTSRC_DIR / source).read_bytes())
     h.update(" ".join(HOST_FLAGS).encode())
     h.update(cxx.encode())
-    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+    return cache_dir() / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_host(source: str) -> Path:
     """Compile `hostsrc/<source>` with g++ unless its library is cached;
     the output is renamed into place, so a concurrent loader never sees
-    half of it.  Raises on a failed compile."""
+    half of it.  Raises on a failed compile.  The caller loads the path
+    returned, so the cache directory stays where it is from then on."""
+    with _LOCK:
+        out = _HOST_PATHS[source] = _build_host(source)
+    return out
+
+
+def _build_host(source: str) -> Path:
     cxx = find_cxx()
     out = host_library_path(source, cxx)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run(
         [cxx, *HOST_FLAGS, "-o", str(tmp), str(HOSTSRC_DIR / source)],

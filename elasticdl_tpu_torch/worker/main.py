@@ -11,7 +11,10 @@ flags re-serialized.  The worker reaches the master over HTTP
 rendezvous, and runs one rank of the data-parallel group
 (worker/spmd.py).  A master that stays unreachable past the retry
 budget ends the worker with exit code 45 (a charged relaunch); the
-ranks' own restarts exit 43 (wedged) and 44 (a new topology).
+ranks' own restarts exit 43 (wedged) and 44 (a new topology).  It
+applies `--compilation_cache_dir` first: with the directory shared by
+the job's pods, a relaunched or added worker loads the kernel libraries
+an earlier pod built.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from elasticdl_tpu_torch.common.resilience import (
 from elasticdl_tpu_torch.common.save_utils import CheckpointSaver
 from elasticdl_tpu_torch.common.telemetry import TelemetryServer
 from elasticdl_tpu_torch.data.reader import create_data_reader
+from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.proto import messages as pb
 from elasticdl_tpu_torch.proto.service import MasterStub
 from elasticdl_tpu_torch.worker.spmd import (
@@ -102,6 +106,9 @@ def main(argv=None) -> int:
 
 def _main(argv=None) -> int:
     args = args_lib.parse_worker_args(argv)
+    # the job's shared library cache: a relaunched or added worker loads
+    # the libraries an earlier pod built instead of building them
+    _build.set_cache_dir(args.compilation_cache_dir)
     worker_id = int(os.environ.get(WorkerEnv.WORKER_ID, args.worker_id))
     master_addr = os.environ.get(WorkerEnv.MASTER_ADDR, args.master_addr)
     if args.event_log:

@@ -29,8 +29,9 @@ that hangs) is restarted by the watchdog thread (exit code 43).  Both
 codes relaunch without charge (master/pod_manager.py).
 
 Each rank logs its kernel launches as one JSON line when it exits
-(`KERNEL_LAUNCHES_TAG`), so a driver reads every rank's counts from the
-pods' output.
+(`KERNEL_LAUNCHES_TAG`), with the nvcc builds it ran and their seconds
+(`kernel_builds`), so whoever ran the job reads every rank's counts
+from the pods' output.
 """
 
 from __future__ import annotations
@@ -100,6 +101,14 @@ def kernel_launches() -> dict:
             fa.flash_attention.backward_launches_by_kernel),
         "scatter_add": sa.scatter_add.launches,
     }
+
+
+def kernel_builds() -> dict:
+    """The hand kernels' nvcc builds this process ran, with their
+    seconds (a library loaded from the cache records none)."""
+    return {name: rec["compile_seconds_total"] for name, rec in
+            programs_lib.default_program_registry().ledger().items()
+            if name.startswith("kernel_build_")}
 
 
 def state_digest(state) -> str:
@@ -737,7 +746,8 @@ class SPMDWorker:
         state's step and, when `digest` (the job's end), its sha256."""
         line = {"worker_id": self.worker_id, "rank": self.process_id,
                 "epoch": self._epoch, "world": self.num_processes,
-                "launches": kernel_launches()}
+                "launches": kernel_launches(),
+                "kernel_builds": kernel_builds()}
         if self.state is not None:
             line["step"] = int(self.state.step)
             if digest:

@@ -3,7 +3,9 @@ port's `_submit_master_pod` against the JAX client's, each on its
 package's `FakeK8sClient` (the JAX side's `K8sClient` patched to the
 fake): the same master pod (name, type, image, resources, volumes) and
 the same Service, the command naming the port's master entry point
-with the job's flags, which the port's master parser reads back.  With
+with the job's flags (the policy engine's and `--compilation_cache_dir`
+among them) as the JAX command carries them, which the port's master
+parser reads back.  With
 the default client, the real Kubernetes one, the submission raises
 naming KUBECONFIG when no cluster is configured, and reaches the stub
 API server when a kubeconfig names it.  Also the JAX parser's helpers the
@@ -34,7 +36,14 @@ ARGV = ["--distribution_strategy", "AllReduce",
         "--job_name", "mnist-job", "--namespace", "research",
         "--image_name", "registry/mnist:1", "--port", "50123",
         "--volume", "host_path=/a,mount_path=/b;claim_name=pvc,"
-        "mount_path=/c"]
+        "mount_path=/c",
+        # the policy engine's bounds and thresholds, and the library cache
+        "--policy_interval", "0.5", "--min_workers", "1",
+        "--max_workers", "4", "--backlog_per_worker", "2.0",
+        "--backlog_ticks", "2", "--data_wait_share", "1.0",
+        "--scale_hold_ticks", "2", "--straggler_dwell_s", "15.0",
+        "--eviction_budget", "1", "--scale_step", "2",
+        "--compilation_cache_dir", "/c/cache"]
 
 
 def _pairs(command):
@@ -87,6 +96,11 @@ def test_the_master_pod_and_service_are_the_jax_clients(monkeypatch,
     assert jflags.pop("command") == job_type and "command" not in pflags
     for flag, value in {**_pairs(ARGV), "job_type": job_type}.items():
         assert pflags[flag] == jflags[flag] == value, flag
+    # and every other flag of the JAX command, defaults included, as the
+    # JAX command carries it (the zoo is each package's own)
+    assert set(jflags) - {"model_zoo"} <= set(pflags)
+    for flag in set(jflags) - {"model_zoo"}:
+        assert pflags[flag] == jflags[flag], flag
     # the master reads the command back into the client's settings
     master = port_args.parse_master_args(ppod.command[3:])
     for key, value in vars(pargs).items():
