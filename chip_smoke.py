@@ -371,6 +371,36 @@
    world of two's first step and first report, the cold build's
    seconds, the card's name and power limit.
 
+22. The train programs as captured CUDA graphs (`graph_steps`, after
+   `wire_deepfm`; budget 90 s).  On CUDA a world-of-one Trainer runs
+   `train_on_batch`, `train_on_batch_stack` and its timed steps as one
+   graph per state and batch shapes (worker/graphs.py; the first call
+   at a shape eager, the next captures and replays).  Each check runs
+   the same calls on the eager loop (`graphs.eager_loop()`) and as graphs
+   from one seed, and holds losses, parameters and buffers,
+   Adam's m, v and step, the step count and each kernel's launch count
+   bit for bit: (a) DeepFM at the bench shape (vocab 2^20, dim 16, bf16
+   MLP, batch 16384) on fp32 arenas, 6 single steps and 3 K=4 stacks;
+   (b) the same on int8 arenas (the fold's counter-based draw on a
+   device step); (c) the dedup wire at batch 65536, 3 K=8 stacks; (d)
+   BERT-base training (batch 64, L 512, bf16), 4 steps without and with
+   remat, with the flash forward, flash backward and scatter-add among
+   the launches a graph captured.  (e) `aot_compile` of the train step
+   at (a)'s and (d)'s signatures (fake tensors on the card's device) must
+   count the flops of the eager trainer's first call, and its bytes but
+   for the scatter-add's U term (min(N, R) there).  (f) Eager and graph
+   ms a step (CUDA events and host wall) and the device's busy share of
+   a profiled step for (a) and (d) are printed with the card's name and
+   power limit: smoke figures, no claim.  (g) The world-of-one step on
+   the graphs' Adam (capturable, float64 step counts) against plain Adam
+   on the data-parallel check's data (DeepFM, f32 MLP, 4 batches of
+   8192): one step within ADAM_STEP_UNITS ulps, four within DP_F32_TOL
+   and DP_LOSS_RTOL; PyTorch's float32 counts and plain Adam with its
+   updates shrunk as those counts shrink them are printed beside it.  In
+   `parallel_axes` (h) also prints how many token routings chose another
+   expert than one rank's run (its steps again on the eager loop, with
+   the routers hooked), beside its loss gap.
+
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
 JSON; the last is {"ok": true, "device": {...}}.  The measured numbers,
@@ -500,6 +530,8 @@ from elasticdl_tpu_torch.master.freshness import FreshnessTracker  # noqa: E402,
 from elasticdl_tpu_torch.parallel import collectives  # noqa: E402
 from elasticdl_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from elasticdl_tpu_torch.worker import spmd as spmd_lib  # noqa: E402
+from elasticdl_tpu_torch.worker import graphs as graphs_lib  # noqa: E402
+from elasticdl_tpu_torch.common import programs as programs_lib  # noqa: E402,E501
 from elasticdl_tpu_torch.master.task_manager import TaskManager  # noqa: E402,E501
 from elasticdl_tpu_torch.model_zoo.census import data as census_data  # noqa: E402,E501
 from elasticdl_tpu_torch.model_zoo.census import (  # noqa: E402
@@ -1557,9 +1589,14 @@ def _is_flash_bwd(name: str) -> bool:
 def step_breakdown(trainer, state, batch):
     """Device time of one synced training step by group (torch.profiler)
     and the device's busy share of its host wall time.  "other" holds the
-    elementwise passes (LayerNorm, GELU, casts, residuals)."""
+    elementwise passes (LayerNorm, GELU, casts, residuals).  Where the
+    step runs as a captured graph whose shape has run before, the graph
+    is captured first, so the profiled call is a replay (whose named
+    ranges, Python, do not run: they read None)."""
     from torch.profiler import ProfilerActivity, profile
 
+    # where the step is a graph, its capture runs now, not in the trace
+    trainer.capture_step(state, batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1763,8 +1800,9 @@ def _wire_run(fmt: str, buffers, device) -> tuple:
         "step_breakdown": breakdown,
     }
     if arena:
+        step = torch.tensor(state.step, device=device)
         summary["fold_ms"] = time_ms(
-            lambda: fold_quantized_updates(state.model, state.step), 10)
+            lambda: fold_quantized_updates(state.model, step), 10)
     if launches != 2 * steps or not torch.isfinite(losses).all():
         raise AssertionError(
             f"wire_deepfm {fmt}: {launches} scatter-add launches in "
@@ -1773,6 +1811,443 @@ def _wire_run(fmt: str, buffers, device) -> tuple:
     del staged, state, trainer
     torch.cuda.empty_cache()
     return summary, losses, launches
+
+
+# ---- graph_steps: the train programs as captured CUDA graphs ---------------
+
+GRAPH_BUDGET_S = 90.0
+# single-step calls of each check: the eager first call, the capture and
+# its replay, then replays
+GRAPH_CALLS = 6
+# K-step calls: eager, capture + replay, replay
+GRAPH_STACK_CALLS = 3
+GRAPH_STACK_K = 4
+GRAPH_DEDUP_K = 8
+# BERT-base: eager, capture + replay, 2 replays
+GRAPH_BERT_CALLS = 4
+
+
+def _scatter_cost_recorder():
+    """Wrap the scatter-add's cost in the program registry: each charged
+    call appends (abstract, touched rows U, D) to the list returned (an
+    abstract call counts U = min(N, R)); the second value unwraps."""
+    calls = []
+    cost = programs_lib._KERNEL_COSTS[sa.OP_SCATTER_ADD]
+
+    def recorded(table, ids, grads):
+        abstract = programs_lib.is_abstract(ids)
+        touched = (min(ids.numel(), table.shape[0]) if abstract
+                   else int(torch.unique(ids).numel()))
+        calls.append((abstract, touched, int(table.shape[1])))
+        return cost(table, ids, grads)
+
+    programs_lib._KERNEL_COSTS[sa.OP_SCATTER_ADD] = recorded
+    return calls, lambda: programs_lib._KERNEL_COSTS.__setitem__(
+        sa.OP_SCATTER_ADD, cost)
+
+
+def _adam_tensors(state) -> list:
+    return [v for p in state.model.parameters()
+            for v in state.optimizer.state.get(p, {}).values()
+            if isinstance(v, torch.Tensor)]
+
+
+def graph_vs_eager(label: str, make_trainer, sample, calls: list,
+                   scatter_calls: list) -> dict:
+    """The same calls (("one", batch) -> train_on_batch, ("stack",
+    batches) -> train_on_batch_stack) on an eager trainer and on one that
+    runs graphs, from one seed: losses, parameters and buffers, Adam's
+    m, v and step, and the step count must be equal bit for bit, and
+    each kernel's launch count too.  Returns the comparison, the per
+    call CUDA-event ms and host wall ms, and (per mode) the trainer and
+    state for later use."""
+    runs = {}
+    for mode in ("eager", "graph"):
+        trainer = make_trainer()
+        state = trainer.init_state(SEED, sample)
+        torch.cuda.synchronize()
+        before = graphs_lib.launch_counts()
+        losses, event_ms, wall_ms, first = [], [], [], None
+        for i, (kind, batch) in enumerate(calls):
+            loop = (graphs_lib.eager_loop() if mode == "eager"
+                    else contextlib.nullcontext())
+            n0 = len(scatter_calls)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            with loop:
+                if kind == "one":
+                    losses.append(trainer.train_on_batch(state, batch)[1]
+                                  .reshape(1))
+                else:
+                    losses.append(trainer.train_on_batch_stack(
+                        state, batch)[1])
+            end.record()
+            end.synchronize()
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            event_ms.append(start.elapsed_time(end))
+            if i == 0:
+                first = scatter_calls[n0:]
+        after = graphs_lib.launch_counts()
+        runs[mode] = {
+            "trainer": trainer, "state": state,
+            "losses": torch.cat(losses),
+            "launches": {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]},
+            "event_ms": event_ms, "wall_ms": wall_ms,
+            "first_call_scatter": first}
+    e, g = runs["eager"], runs["graph"]
+    es, gs = e["state"], g["state"]
+    checks = {
+        "losses": bool(torch.equal(e["losses"], g["losses"])),
+        "model": all(torch.equal(a, b) for a, b in zip(
+            es.model.state_dict().values(), gs.model.state_dict().values())),
+        "adam": all(torch.equal(a, b) for a, b in zip(
+            _adam_tensors(es), _adam_tensors(gs))) and len(
+                _adam_tensors(es)) == len(_adam_tensors(gs)) > 0,
+        "step": es.step == gs.step,
+        "launches": e["launches"] == g["launches"]}
+    graphs = {key[0]: dict(entry.captured.launches) for key, entry in
+              gs.graphs.items() if entry.captured is not None}
+    out = {"calls": [kind for kind, _ in calls], "steps": es.step,
+           "bitwise": checks, "launches": e["launches"],
+           "graph_launches": g["launches"],
+           "captured_launches_by_program": graphs,
+           "event_ms_by_call": {"eager": e["event_ms"],
+                                "graph": g["event_ms"]},
+           "wall_ms_by_call": {"eager": e["wall_ms"],
+                               "graph": g["wall_ms"]}}
+    if not all(checks.values()):
+        raise AssertionError(f"graph_steps {label}: graph steps differ "
+                             f"from eager steps: {checks}; {out}")
+    return out, runs
+
+
+def _per_step(out: dict, calls: slice, k: int = 1) -> dict:
+    """Median CUDA-event ms and host wall ms per step over the calls
+    `calls` of K steps each (eager: warm calls; graph: replays only)."""
+    res = {}
+    for mode in ("eager", "graph"):
+        ev = out["event_ms_by_call"][mode][calls]
+        wall = out["wall_ms_by_call"][mode][calls]
+        res[mode] = {"event_ms_per_step": float(np.median(ev)) / k,
+                     "wall_ms_per_step": float(np.median(wall)) / k,
+                     "event_over_wall": float(np.median(ev))
+                     / float(np.median(wall))}
+    return res
+
+
+def _busy(trainer, state, staged, mode: str) -> dict:
+    """The profiler's view of one more step (on the eager loop in mode
+    "eager", a replay in mode "graph"): its device ms and busy share of
+    the host wall."""
+    with (graphs_lib.eager_loop() if mode == "eager"
+          else contextlib.nullcontext()):
+        b = step_breakdown(trainer, state, staged)
+    return {k: b[k] for k in ("profiled_wall_ms", "device_ms",
+                              "device_busy_share")}
+
+
+def abstract_vs_counted(label: str, make_trainer, staged, counted: dict,
+                        eager_scatter: list, scatter_calls: list) -> dict:
+    """`aot_compile` of the train step at `staged`'s signature on a
+    fresh trainer (a fake state and batch on the card's device) against
+    the counted cost of the eager trainer's first call: equal flops, and
+    bytes equal apart from the scatter-add's U term (an abstract call
+    counts U = min(N, R))."""
+    trainer = make_trainer()
+    n0 = len(scatter_calls)
+    t0 = time.perf_counter()
+    got = trainer.train_step.aot_compile(trainer.abstract_state(),
+                                         programs_lib.abstract_like(staged))
+    seconds = time.perf_counter() - t0
+    abstract = scatter_calls[n0:]
+    extra = sum(2 * (ua - ue) * dim * 4 for (_, ua, dim), (_, ue, _)
+                in zip(abstract, eager_scatter))
+    out = {"seconds": seconds, "abstract_flops": got["cost"]["flops"],
+           "abstract_bytes": got["cost"]["bytes accessed"],
+           "counted_flops": counted["flops"],
+           "counted_bytes": counted["bytes"], "scatter_u_term": extra,
+           "libraries": got["libraries"],
+           "kernel_calls": got["kernel_calls"],
+           "flops_equal": got["cost"]["flops"] == counted["flops"],
+           "bytes_equal_but_u": got["cost"]["bytes accessed"]
+           == counted["bytes"] + extra,
+           "scatter_calls": [len(abstract), len(eager_scatter)]}
+    if not (out["flops_equal"] and out["bytes_equal_but_u"]
+            and len(abstract) == len(eager_scatter)):
+        raise AssertionError(f"graph_steps {label} aot_compile: {out}")
+    return out
+
+
+# (g) the graphs' Adam against plain Adam.  One step from one state:
+# every element within ADAM_STEP_UNITS units of (its ulp + lr's ulp).
+# The two differ in the order of the update's last multiply and divide:
+# two roundings of the update and one of the parameter (at most 2.91
+# units over 6 steps' first step on the CPU, tests/test_torch_compile.py).
+ADAM_STEP_UNITS = 4.0
+
+
+def _adam_shrink(betas) -> float:
+    """The factor by which PyTorch's capturable Adam with float32 step
+    counts scales the first update against plain Adam's: its bias
+    corrections 1 - beta**t are computed from float32 betas."""
+    b1, b2 = betas
+    f1, f2 = float(np.float32(b1)), float(np.float32(b2))
+    return ((1.0 - f2) / (1.0 - b2)) ** 0.5 * (1.0 - b1) / (1.0 - f1)
+
+
+def _units(a: torch.Tensor, b: torch.Tensor, lr: float) -> float:
+    """max |a - b| in units of (the ulp of |b| + the ulp of lr)."""
+    ref = b.abs()
+    ulp = torch.nextafter(ref, torch.full_like(ref, float("inf"))) - ref
+    unit = ulp + float(np.spacing(np.float32(lr)))
+    return float(((a - b).abs() / unit).max())
+
+
+def adam_vs_plain(card: str, device) -> dict:
+    """(g) The world-of-one train step on the graphs' Adam (capturable,
+    float64 step counts: `graphs_lib.capturable_adam`) against plain
+    Adam on the same data: DeepFM at bench width with an f32 MLP over
+    DP_STEPS batches of DP_BATCH (the data-parallel check's), one init.
+    After one step every parameter within ADAM_STEP_UNITS; after DP_STEPS
+    within DP_F32_TOL, each loss within DP_LOSS_RTOL (the bounds of the
+    runs that differ by rounding alone).  Printed beside it, the cause
+    of the difference the float64 counts remove: PyTorch's capturable
+    Adam as it comes (float32 counts), and plain Adam with every update
+    scaled by `_adam_shrink` (the float32 counts' first-step factor)."""
+    spec = get_model_spec(ZOO_DIR, DEEPFM, DP_F32_PARAMS)
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss,
+                      use_bf16=False, device=device)
+    batches = [_to_device(b, device) for b in _criteo_batches(
+        DP_STEPS, DP_BATCH, seed=DP_SEED)]
+
+    def plain(state):
+        return spec.optimizer(list(state.model.parameters()))
+
+    def float32_counts(state):
+        opt = plain(state)
+        for group in opt.param_groups:
+            group["capturable"] = True
+        return opt
+
+    def shrunk(state):
+        opt = plain(state)
+        for group in opt.param_groups:
+            group["lr"] *= _adam_shrink(group["betas"])
+        return opt
+
+    runs = {}
+    for label, make_opt in (("plain", plain), ("graphs", None),
+                            ("float32_counts", float32_counts),
+                            ("plain_shrunk", shrunk)):
+        state = trainer.init_state(SEED, batches[0]["features"])
+        if make_opt is not None:
+            state.optimizer = make_opt(state)
+        losses, first = [], None
+        for batch in batches:
+            losses.append(float(trainer.train_on_batch(state, batch)[1]))
+            if first is None:
+                first = {n: p.detach().clone()
+                         for n, p in state.model.named_parameters()}
+        step_dtype = str(next(iter(state.optimizer.state.values()))[
+            "step"].dtype)
+        runs[label] = {
+            "first": first, "losses": losses, "step_dtype": step_dtype,
+            "graphs": sorted(key[0] for key, entry in state.graphs.items()
+                             if entry.captured is not None),
+            "last": {n: p.detach().clone()
+                     for n, p in state.model.named_parameters()}}
+        del state
+    settings = spec.optimizer([torch.nn.Parameter(torch.zeros(1))]).defaults
+    lr = settings["lr"]
+    ref = runs["plain"]
+    out = {"card": card, "config": DP_F32_PARAMS, "batch": DP_BATCH,
+           "steps": DP_STEPS, "lr": lr, "step_units_bound": ADAM_STEP_UNITS,
+           "tol": DP_F32_TOL, "loss_rtol": DP_LOSS_RTOL,
+           "plain_losses": ref["losses"]}
+    for label in ("graphs", "float32_counts", "plain_shrunk"):
+        run = runs[label]
+        errs = {n: float((run["last"][n] - ref["last"][n]).abs().max())
+                for n in ref["last"]}
+        out[label] = {
+            "step_dtype": run["step_dtype"], "graphs": run["graphs"],
+            "one_step_units": max(_units(run["first"][n], ref["first"][n],
+                                         lr) for n in ref["first"]),
+            "one_step_max_abs": max(float(
+                (run["first"][n] - ref["first"][n]).abs().max())
+                for n in ref["first"]),
+            "max_abs_err": max(errs.values()),
+            "max_abs_err_by_tensor": errs,
+            # elements a tenth of a full Adam step or more apart
+            "elements_off_by_lr_tenth": int(sum(
+                int(((run["last"][n] - ref["last"][n]).abs()
+                     > lr / 10).sum()) for n in ref["last"])),
+            "losses": run["losses"],
+            "loss_max_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+                run["losses"], ref["losses"]))}
+    out["shrink"] = _adam_shrink(settings["betas"])
+    g = out["graphs"]
+    print(f"graph_steps adam_vs_plain: graphs' Adam ({g['step_dtype']} "
+          f"counts) vs plain after 1 step {g['one_step_units']:.2f} units "
+          f"(bound {ADAM_STEP_UNITS}), after {DP_STEPS} "
+          f"{g['max_abs_err']:.3g} (tol {DP_F32_TOL}); PyTorch's float32 "
+          f"counts {out['float32_counts']['one_step_units']:.2f} units, "
+          f"{out['float32_counts']['max_abs_err']:.3g}; plain x "
+          f"{out['shrink']:.9f} {out['plain_shrunk']['one_step_units']:.2f}"
+          f" units, {out['plain_shrunk']['max_abs_err']:.3g} [{card}]",
+          flush=True)
+    if not (g["step_dtype"] == "torch.float64" and g["graphs"]
+            and g["one_step_units"] <= ADAM_STEP_UNITS
+            and g["max_abs_err"] <= DP_F32_TOL
+            and g["loss_max_rel_err"] <= DP_LOSS_RTOL):
+        raise AssertionError(f"graph_steps adam_vs_plain: {out}")
+    return out
+
+
+def graph_steps(card: str, buffers) -> tuple:
+    """The train programs as captured CUDA graphs, each held against the
+    eager loop bit for bit: (a) DeepFM at the bench shape (vocab 2^20,
+    dim 16, bf16 MLP, batch 16384) on fp32 arenas, single steps and a
+    K=4 stack; (b) the same on int8 arenas (the counter-based fold
+    draw); (c) the dedup wire at batch 65536, K = 8; (d) BERT-base
+    training at batch 64, L 512, bf16, without and with remat, the flash
+    forward and backward and the scatter-add counted inside the graphs;
+    (e) `aot_compile`'s abstract cost at (a)'s and (d)'s signatures
+    against the counted cost of their first eager call; (f) eager and
+    graph ms per step and the device's busy share for (a) and (d) (smoke
+    figures); (g) `adam_vs_plain`.  Returns (summary, launches by
+    path)."""
+    t0 = time.perf_counter()
+    device = torch.device("cuda", 0)
+    scatter_calls, unwrap = _scatter_cost_recorder()
+    out, launches = {}, {}
+    try:
+        for label, arena in (("deepfm_fp32", ""), ("deepfm_int8", "int8")):
+            spec = get_model_spec(ZOO_DIR, DEEPFM, DEEPFM_PARAMS,
+                                  arena_dtype=arena)
+
+            def make(spec=spec):
+                return Trainer(spec.model, spec.optimizer, spec.loss,
+                               use_bf16=True, device=device)
+
+            one = [_to_device(b, device) for b in _criteo_batches(
+                GRAPH_CALLS, TIMED_BATCH, seed=11)]
+            stack = [[_to_device(b, device) for b in _criteo_batches(
+                GRAPH_STACK_K, TIMED_BATCH, seed=12 + i)]
+                for i in range(GRAPH_STACK_CALLS)]
+            calls = [("one", b) for b in one] + [("stack", b)
+                                                  for b in stack]
+            row, runs = graph_vs_eager(label, make, one[0]["features"],
+                                       calls, scatter_calls)
+            row["config"] = DEEPFM_PARAMS + (f";arena_dtype={arena}"
+                                             if arena else "")
+            row["batch"] = TIMED_BATCH
+            # the single steps' calls
+            row["per_step"] = _per_step(row, slice(2, GRAPH_CALLS))
+            if not arena:
+                counted = next(iter(
+                    runs["eager"]["trainer"].train_step.counted.values()))
+                row["aot"] = abstract_vs_counted(
+                    label, make, one[0], counted,
+                    runs["eager"]["first_call_scatter"], scatter_calls)
+                row["busy"] = {m: _busy(runs[m]["trainer"],
+                                        runs[m]["state"], one[0], m)
+                               for m in ("eager", "graph")}
+            launches[f"graph_steps_{label}"] = row["graph_launches"]
+            out[label] = row
+            print(json.dumps({f"graph_steps_{label}": {
+                k: v for k, v in row.items()
+                if not k.endswith("_by_call")}}), flush=True)
+            del runs, one, stack, calls
+            torch.cuda.empty_cache()
+
+        # (c) the dedup wire, K = 8
+        spec = get_model_spec(ZOO_DIR, DEEPFM, DEEPFM_PARAMS)
+        fm_zoo._DEDUP_PACKER = DedupPacker()
+
+        def make(spec=spec):
+            return Trainer(spec.model, spec.optimizer, spec.loss,
+                           use_bf16=True, device=device)
+
+        sizes = np.full(WIRE_BATCH, RECORD_BYTES, np.int64)
+        dedup = [_to_device(spec.feed_bulk_dedup(buf, sizes), device)
+                 for buf in buffers[:GRAPH_DEDUP_K]]
+        row, runs = graph_vs_eager(
+            "dedup", make, dedup[0]["features"],
+            [("stack", dedup)] * GRAPH_STACK_CALLS, scatter_calls)
+        row.update(batch=WIRE_BATCH, k=GRAPH_DEDUP_K, wire="dedup",
+                   per_step=_per_step(row, slice(2, None), GRAPH_DEDUP_K))
+        launches["graph_steps_dedup"] = row["graph_launches"]
+        out["dedup_k8"] = row
+        print(json.dumps({"graph_steps_dedup_k8": {
+            k: v for k, v in row.items() if not k.endswith("_by_call")}}),
+            flush=True)
+        del runs, dedup
+        torch.cuda.empty_cache()
+
+        # (d) BERT-base, without and with remat
+        batch = bert_train_batch()
+        for tag, extra in (("plain", ""), ("remat", ";remat=True")):
+            params = BERT_PARAMS + ";bf16=True" + extra
+            spec = get_model_spec(ZOO_DIR, BERT, params)
+
+            def make(spec=spec):
+                return Trainer(spec.model, spec.optimizer, spec.loss,
+                               use_bf16=True, device=device)
+
+            staged = _to_device(batch, device)
+            row, runs = graph_vs_eager(
+                f"bert_{tag}", make, staged["features"],
+                [("one", staged)] * GRAPH_BERT_CALLS, scatter_calls)
+            captured = row["captured_launches_by_program"].get("step", {})
+            row["config"] = params
+            row["per_step"] = _per_step(row, slice(2, None))
+            counted = next(iter(
+                runs["eager"]["trainer"].train_step.counted.values()))
+            row["aot"] = abstract_vs_counted(
+                f"bert_{tag}", make, staged, counted,
+                runs["eager"]["first_call_scatter"], scatter_calls)
+            if tag == "plain":
+                row["busy"] = {m: _busy(runs[m]["trainer"],
+                                        runs[m]["state"], staged, m)
+                               for m in ("eager", "graph")}
+            need = ("flash_attention_fwd", "flash_attention_bwd",
+                    "scatter_add")
+            if not all(captured.get(k, 0) > 0 for k in need):
+                raise AssertionError(
+                    f"graph_steps bert_{tag}: the graph captured "
+                    f"launches {captured}; want each of {need}")
+            launches[f"graph_steps_bert_{tag}"] = row["graph_launches"]
+            out[f"bert_{tag}"] = row
+            print(json.dumps({f"graph_steps_bert_{tag}": {
+                k: v for k, v in row.items()
+                if not k.endswith("_by_call")}}), flush=True)
+            del runs, staged
+            torch.cuda.empty_cache()
+
+        # (g) the graphs' Adam against plain Adam
+        out["adam_vs_plain"] = adam_vs_plain(card, device)
+        torch.cuda.empty_cache()
+    finally:
+        unwrap()
+    seconds = time.perf_counter() - t0
+    out.update(card=card, seconds=seconds, budget_s=GRAPH_BUDGET_S)
+    for label in ("deepfm_fp32", "bert_plain", "bert_remat"):
+        per = out[label]["per_step"]
+        busy = out[label].get("busy", {})
+        print(f"graph_steps {label}: eager "
+              f"{per['eager']['event_ms_per_step']:.3f} ms/step (host "
+              f"{per['eager']['wall_ms_per_step']:.3f}), graph "
+              f"{per['graph']['event_ms_per_step']:.3f} ms/step (host "
+              f"{per['graph']['wall_ms_per_step']:.3f}); busy share "
+              f"eager {busy.get('eager', {}).get('device_busy_share')} "
+              f"graph {busy.get('graph', {}).get('device_busy_share')} "
+              f"[{card}]", flush=True)
+    print(f"graph_steps phase: {seconds:.1f} s (budget {GRAPH_BUDGET_S} "
+          f"s) [{card}]", flush=True)
+    return out, launches
 
 
 def wire_buffers() -> list:
@@ -6304,13 +6779,15 @@ def dp_parity(card: str, work: str, device: str = "cuda") -> dict:
     for label, bf16 in (("bf16", True), ("f32", False)):
         one, losses, one_launches = one_rank.pop(label)
         two = torch.load(os.path.join(work, f"dp_{label}_rank0.pt"))
-        err = max(float((two[k].float() - one[k].float()).abs().max())
-                  for k in one if one[k].is_floating_point())
+        errs = {k: float((two[k].float() - one[k].float()).abs().max())
+                for k in one if one[k].is_floating_point()}
+        err = max(errs.values())
         rank_losses = [r["deepfm"][label]["losses"] for r in ranks]
         parity[label] = {
             "digests_equal": len({r["deepfm"][label]["digest"]
                                   for r in ranks}) == 1,
             "max_abs_err_vs_one_rank": err,
+            "max_abs_err_by_tensor": errs,
             "tol": DP_BF16_TOL if bf16 else DP_F32_TOL,
             "losses_by_rank": rank_losses, "losses_one_rank": losses,
             "loss_max_rel_err": max(
@@ -7195,6 +7672,7 @@ PAR_RING_PARAMS = PAR_CUT_PARAMS + ";bf16=True"
 # the same at BERT-base's depth
 PAR_MOE_PARAMS = PAR_CUT_PARAMS + ";bf16=True;moe_experts=4;lr=1e-4"
 PAR_MOE_SEQ_PARAMS = BERT_PARAMS + ";bf16=True;moe_experts=4;lr=1e-4"
+PAR_SEQ_CHUNKS = 2      # (h)'s seq axis
 # (a) bf16 BERT-base, 4 ranks (ring of 2 blocks, a row-sharded token
 # table) against one rank from the same init: the ring merges
 # bf16-rounded partial outputs, each rank sums its gradients in another
@@ -7577,11 +8055,10 @@ def _par_fold_replay(state, checks: list):
     def replayed(model, step):
         want = {}
         for p in prefixes:
-            gen = arena_lib._fold_generator(step, (p, "embedding"),
-                                            state.mesh.device)
+            key = arena_lib.fold_key(step, (p, "embedding"))
             want[p] = arena_lib._requantize_plane(
                 whole(f"{p}.q8"), whole(f"{p}.scale"),
-                whole(f"{p}.embedding"), gen)
+                whole(f"{p}.embedding"), key)
         n = fold(model, step)
         for p in prefixes:
             q8, scale = whole(f"{p}.q8"), whole(f"{p}.scale")
@@ -7659,7 +8136,7 @@ def par_alone_times(device, tiered_slots) -> dict:
     shapes (the scatter-add at (f)'s ids of data coordinate 0 into each
     2^19-row shard, at (g)'s slots of those rows into each cache block;
     the flash pair at (h)'s ring block), and the fold of a 2^19-row
-    shard with the whole plane's draw and with the shard's own."""
+    shard (its rows' draw alone) and of the whole plane."""
     if torch.device(device).type == "cuda":
         # the card idled while this process waited for the ranks: busy
         # it first, so the timings start at its working clocks
@@ -7686,26 +8163,28 @@ def par_alone_times(device, tiered_slots) -> dict:
 
 
 def par_fold_draw_ms(rows: int, first: int, gen, device) -> dict:
-    """The fold of one (rows, 16) shard of a 2^20-row plane (every row
-    touched), with the uniforms drawn for the whole plane and kept for
-    the shard's rows (the port's) and drawn for the shard alone: CUDA
-    event ms per fold."""
+    """The fold of one (rows, 16) shard at global row `first` of a
+    2^20-row plane (every row touched), which draws only the shard's
+    uniforms (keyed on their global rows), against the fold of the whole
+    plane: CUDA event ms per fold."""
     from elasticdl_tpu_torch.layers import arena as arena_lib
 
     q8, scale = arena_lib.quantize_rows(torch.randn(
-        (rows, DEEPFM_DIM), generator=gen, device=device) * 0.05)
-    delta = torch.randn((rows, DEEPFM_DIM), generator=gen,
+        (DEEPFM_VOCAB, DEEPFM_DIM), generator=gen, device=device) * 0.05)
+    delta = torch.randn((DEEPFM_VOCAB, DEEPFM_DIM), generator=gen,
                         device=device) * 1e-3
-    fold_gen = torch.Generator(device=device).manual_seed(SEED)
+    key = arena_lib.fold_key(torch.tensor(SEED, device=device),
+                             ("fm_embedding", "embedding"))
+    part = slice(first, first + rows)
+    shard = lambda: arena_lib._requantize_plane(  # noqa: E731
+        q8[part], scale[part], delta[part], key, first)
     whole = lambda: arena_lib._requantize_plane(  # noqa: E731
-        q8, scale, delta, fold_gen, first, DEEPFM_VOCAB)
-    alone = lambda: arena_lib._requantize_plane(  # noqa: E731
-        q8, scale, delta, fold_gen)
+        q8, scale, delta, key)
     if torch.device(device).type != "cuda":
         return {}
-    return {"whole_plane_draw": time_ms(whole, 20),
-            "shard_draw": time_ms(alone, 20),
-            "whole_plane_draw_again": time_ms(whole, 20)}
+    return {"shard_fold": time_ms(shard, 20),
+            "whole_plane_fold": time_ms(whole, 20),
+            "shard_fold_again": time_ms(shard, 20)}
 
 
 _PAR_TIERED_BATCHES = []
@@ -7878,11 +8357,38 @@ def par_tiered(meshes: dict, work: str) -> dict:
     return out
 
 
-def par_moe_seq(mesh) -> dict:
+def record_routes(model) -> tuple:
+    """Hooks on every MoE router of `model`: each forward appends its
+    tokens' chosen experts (the router's argmax, uint8 on the host) to
+    the list returned; the second value removes the hooks."""
+    routes = []
+    handles = [m.router.register_forward_hook(
+        lambda mod, inp, out: routes.append(
+            out.argmax(-1).to(torch.uint8).cpu()))
+        for name, m in model.named_modules() if name.endswith("moe_mlp")]
+    return routes, lambda: [h.remove() for h in handles]
+
+
+def rerouted_tokens(rank_routes: list, one_routes: list, seq: int,
+                    chunks: int) -> list:
+    """Per router call, how many of a seq chunk's tokens chose another
+    expert than the one-rank run chose for them (its routes cut to the
+    chunk's columns)."""
+    out = []
+    for mine, one in zip(rank_routes, one_routes):
+        cols = one.reshape(PAR_MOE_BATCH, -1)
+        width = cols.shape[1] // chunks
+        want = cols[:, seq * width:(seq + 1) * width].reshape(-1)
+        out.append(int((mine.reshape(-1) != want).sum()))
+    return out
+
+
+def par_moe_seq(mesh, work: str) -> dict:
     """(h) BERT-base with 4 experts on seq=2 x expert=2:
-    PAR_MOE_SEQ_STEPS steps on one batch; then layer_0's MoE at
-    PAR_MOE_SEQ_FACTOR on seeded f32 tokens against the one-rank layer
-    (its experts gathered) on the global tokens."""
+    PAR_MOE_SEQ_STEPS steps on one batch, every router's choice of each
+    token recorded (`moe_routes_rank<R>.pt` in `work`); then layer_0's
+    MoE at PAR_MOE_SEQ_FACTOR on seeded f32 tokens against the one-rank
+    layer (its experts gathered) on the global tokens."""
     t0 = time.perf_counter()
     spec = get_model_spec(ZOO_DIR, BERT, PAR_MOE_SEQ_PARAMS)
     trainer = Trainer(spec.model, spec.optimizer, spec.loss, use_bf16=True,
@@ -7891,12 +8397,16 @@ def par_moe_seq(mesh) -> dict:
     batch = _rank_rows(bert_train_batch(), 0, PAR_MOE_BATCH)
     state = trainer.init_state_global(SEED, batch["features"], mesh)
     shard = mesh_lib.make_global_batch(batch, mesh, trainer.stage_batch)
+    routes, unhook = record_routes(state.model)
     t_steps = _par_start()
     losses = [float(trainer.train_on_global_batch(state, shard, mesh)[1])
               for _ in range(PAR_MOE_SEQ_STEPS)]
+    unhook()
+    torch.save(routes, os.path.join(work, f"moe_routes_rank{mesh.rank}.pt"))
     out = _par_counts(PAR_MOE_SEQ_STEPS)
     out["steps_s"] = time.perf_counter() - t_steps
     out["losses"] = losses
+    out["coords"] = dict(mesh.coords)
     out["shards"] = {n: list(state.model.get_parameter(n).shape)
                      for n in state.shardings}
     layer = state.model.layer_0.moe_mlp
@@ -7959,8 +8469,9 @@ def parallel_rank(rank: int, work: str, port: int,
     torch.cuda.empty_cache()
     out["int8"], model4 = par_int8(mesh, rank, device)
     out["tiered"] = par_tiered({"dm": mesh, "m4": model4}, work)
-    mesh = mesh_lib.create_mesh(PAR_RANKS, rank, device, seq=2, expert=2)
-    out["moe_seq"] = par_moe_seq(mesh)
+    mesh = mesh_lib.create_mesh(PAR_RANKS, rank, device, seq=PAR_SEQ_CHUNKS,
+                                expert=2)
+    out["moe_seq"] = par_moe_seq(mesh, work)
     with open(os.path.join(work, f"par_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     mesh_lib.destroy_mesh(mesh)
@@ -8015,6 +8526,8 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
         int8_one = par_int8_layout(mesh1, batches, replay=False)
         tiered_one = {d: par_tiered_run(mesh1, d, warm, digests=True)
                       for d in ("float32", "int8")}
+        # (h)'s one-rank run (its steps as graphs), then the same steps
+        # on the eager loop for the routes (a replay runs no hook)
         spec = get_model_spec(ZOO_DIR, BERT, PAR_MOE_SEQ_PARAMS)
         trainer = Trainer(spec.model, spec.optimizer, spec.loss,
                           use_bf16=True, device=dev)
@@ -8022,6 +8535,13 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
         state = trainer.init_state(SEED, batch["features"])
         moe_one_losses = [float(trainer.train_on_batch(state, batch)[1])
                           for _ in range(PAR_MOE_SEQ_STEPS)]
+        state = trainer.init_state(SEED, batch["features"])
+        one_routes, unhook = record_routes(state.model)
+        with graphs_lib.eager_loop():
+            moe_eager_losses = [
+                float(trainer.train_on_batch(state, batch)[1])
+                for _ in range(PAR_MOE_SEQ_STEPS)]
+        unhook()
         del state, trainer
         torch.cuda.empty_cache()
         codes = [p.wait(timeout=600) for p in procs]
@@ -8037,6 +8557,17 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
     for rank in range(PAR_RANKS):
         with open(os.path.join(root, f"par_rank{rank}.json")) as f:
             ranks.append(json.load(f))
+    # (h): the tokens each seq chunk routed to another expert than the
+    # one-rank run did, per router call (the ranks of one expert
+    # coordinate cover the tokens once)
+    reroutes = {}
+    for r in ranks:
+        coords = r["moe_seq"]["coords"]
+        if coords["expert"] == 0:
+            reroutes[coords["seq"]] = rerouted_tokens(
+                torch.load(os.path.join(root,
+                                        f"moe_routes_rank{r['rank']}.pt")),
+                one_routes, coords["seq"], PAR_SEQ_CHUNKS)
     # (e) (a)'s step, saved on 4 ranks, restored on one
     t_e = time.perf_counter()
     spec = get_model_spec(ZOO_DIR, BERT, PAR_RING_PARAMS)
@@ -8156,6 +8687,8 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
             "steps_s_rank0": {k: v[0]["steps_s"] for k, v in runs.items()}}
     moe_seq = {"losses_by_rank": [r["moe_seq"]["losses"] for r in ranks],
                "one_rank_losses": moe_one_losses,
+               # the routes' run: the same steps on the eager loop
+               "one_rank_eager_losses": moe_eager_losses,
                "loss_max_scaled_err": max(
                    abs(a - b) / max(1.0, abs(b)) for r in ranks
                    for a, b in zip(r["moe_seq"]["losses"],
@@ -8163,6 +8696,20 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
                "shards": ranks[0]["moe_seq"]["shards"],
                "layer_check_by_rank": [r["moe_seq"]["layer_check"]
                                        for r in ranks]}
+    by_call = [sum(calls) for calls in zip(*reroutes.values())]
+    moe_seq["rerouted_tokens"] = {
+        "total": sum(by_call), "router_calls": len(by_call),
+        "tokens_per_call": int(one_routes[0].numel()) if one_routes else 0,
+        "by_call": by_call,
+        # the calls run step by step, every router once a forward
+        "by_step": [int(part.sum()) for part in np.array_split(
+            np.asarray(by_call, np.int64), PAR_MOE_SEQ_STEPS)]}
+    print(f"parallel_axes moe_seq: {moe_seq['rerouted_tokens']['total']} "
+          f"token routings of {len(by_call)} x "
+          f"{moe_seq['rerouted_tokens']['tokens_per_call']} chose another "
+          f"expert than one rank's, beside a loss gap of "
+          f"{moe_seq['loss_max_scaled_err']:.5f} (bound {PAR_LOSS_RTOL}) "
+          f"[{card}]", flush=True)
     summary = {
         "card": card, "ranks": PAR_RANKS, "backend_by_rank": [
             r["backend"] for r in ranks],
@@ -8385,6 +8932,7 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
     par, par_launches = phase("parallel_axes", parallel_axes, card, work)
     serve_fm = phase("serve_cli_deepfm", serve_cli_deepfm, card, fm_served)
     wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
+    graph, graph_launches = phase("graph_steps", graph_steps, card, buffers)
     del buffers
     tiered, tiered_launches = phase("tiered_deepfm", tiered_deepfm, card)
     local_t, local_t_launches = phase("local_tiered", local_tiered, card,
@@ -8408,6 +8956,8 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
         "stream_judgment": stream_launches,
         "observatory": obs_scatter,
         "wire_deepfm": wire_launches,
+        **{path: n.get("scatter_add", 0)
+           for path, n in graph_launches.items()},
         "tiered_deepfm": tiered_launches,
         **local_t_launches,
         **zoo_launches,
@@ -8437,7 +8987,9 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
            for path, n in cluster_bert.items()},
         **{path: n["flash_attention_fwd"] for path, n in
            par_launches.items()
-           if path.rsplit("_rank", 1)[0] in PAR_FLASH_PATHS}}
+           if path.rsplit("_rank", 1)[0] in PAR_FLASH_PATHS},
+        **{path: n.get("flash_attention_fwd", 0) for path, n in
+           graph_launches.items() if "bert" in path}}
     # launches: the bare Trainer's timed steps at bench_bert's shape (the
     # BERT training path); each path's count beside it
     bwd_entry["launches"] = bert_launches_by["plain"]["flash_attention_bwd"]
@@ -8447,7 +8999,9 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
            for path, n in cluster_bert.items()},
         **{path: n["flash_attention_bwd"] for path, n in
            par_launches.items()
-           if path.rsplit("_rank", 1)[0] in PAR_FLASH_PATHS}}
+           if path.rsplit("_rank", 1)[0] in PAR_FLASH_PATHS},
+        **{path: n.get("flash_attention_bwd", 0) for path, n in
+           graph_launches.items() if "bert" in path}}
     kernels = {"kernels": [entry, scatter_entry, bwd_entry]}
 
     name = torch.cuda.get_device_name(0)
@@ -8467,7 +9021,8 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
                    "observatory": obs, "cluster": clus,
                    "kube_cluster": kube, "autoscale_cluster": scale,
                    "parallel_axes": par,
-                   "wire_deepfm": wire, "serve_cli_deepfm": serve_fm,
+                   "wire_deepfm": wire, "graph_steps": graph,
+                   "serve_cli_deepfm": serve_fm,
                    "tiered_deepfm": tiered, "local_tiered": local_t,
                    "zoo_local": zoo,
                    "serve_cli_bert": serve_bert_cli, **kernels}, f,

@@ -38,13 +38,27 @@ carries the dispatch mode of the thread that called `backward()`, so the
 backward's ops are counted too (`chip_smoke.py` checks it on the card:
 the scatter-add runs only in the backward).
 
+**The abstract compile.**  `RegisteredProgram.aot_compile(*args)` is
+the reference's AOT path: it takes abstract arguments, fake tensors
+made by :func:`abstract_like` (the port's `ShapeDtypeStruct`) and
+states built on them, runs the program once under the process's
+`FakeTensorMode` with a :class:`CostCounter`, and records one compile
+with its wall seconds, flops and bytes.  Nothing is dispatched to a
+device and no kernel runs; the state it runs on is a fake copy, so no
+real state changes (the counterpart of `jax.eval_shape`).  It builds
+into the library cache (ops/_build.py) each hand-kernel library that
+the custom ops it reached will need at those shapes, chosen by the same
+predicates as the wrappers' (:func:`register_kernel_libraries`).  A
+cost that reads the data (the scatter-add's touched rows) takes its
+upper bound there, and the ledger marks such an entry `"abstract":
+true`.  `cost_for` answers for a signature that has not run through
+`aot_compile`, as the reference's does.  What a process cannot hand on
+is the CUDA graph that a world-of-one train program captures
+(worker/graphs.py): it lives in that process.
+
 **A difference kept on purpose.**  In the reference, a dispatch-path
 compile carries flops 0 and bytes 0 (XLA's cost model comes only from an
-AOT query); the port's carry the counted cost.  The reference's
-`aot_compile` (prewarm) has no eager counterpart (ROADMAP.md item 12.4),
-and `cost_for` returns the cost counted for a signature that has run,
-raising for one that has not: an abstract cost query waits for a CUDA
-graph capture to be the port's compile (ROADMAP.md item 14).
+AOT query); the port's carry the counted cost.
 
 Joining per-program cost against the worker's step rate
 (``bind_step_rate``) gives the live ``worker_program_bytes_per_sec`` /
@@ -61,12 +75,14 @@ to capture an incident bundle with a ``programs.json`` ledger section.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -174,6 +190,92 @@ def register_kernel_cost(op_name: str,
     _KERNEL_COSTS[op_name] = cost
 
 
+# custom op name -> needs(*args, **kwargs) -> the `csrc/` sources whose
+# libraries the op's kernel loads at these arguments (none off CUDA)
+_KERNEL_LIBRARIES: Dict[str, Callable[..., Tuple[str, ...]]] = {}
+
+
+def register_kernel_libraries(op_name: str,
+                              needs: Callable[..., Tuple[str, ...]]) -> None:
+    """Name the libraries the custom op `op_name` loads for given
+    arguments, by the predicates its wrapper dispatches on, so an
+    abstract compile builds them ahead."""
+    _KERNEL_LIBRARIES[op_name] = needs
+
+
+def is_abstract(x) -> bool:
+    """Whether `x` is a fake tensor: shapes and dtypes, no data."""
+    return isinstance(x, FakeTensor)
+
+
+# ---- abstract arguments ----------------------------------------------------
+
+# one fake mode for the process: fake tensors of two modes cannot meet
+# in one program, and the mode's bookkeeping is not thread-safe
+_ABSTRACT_LOCK = threading.RLock()
+_ABSTRACT_MODE: Optional[FakeTensorMode] = None
+
+
+def abstract_mode() -> FakeTensorMode:
+    """The process's FakeTensorMode, in which every abstract argument is
+    made and every abstract compile runs."""
+    global _ABSTRACT_MODE
+    with _ABSTRACT_LOCK:
+        if _ABSTRACT_MODE is None:
+            _ABSTRACT_MODE = FakeTensorMode(allow_non_fake_inputs=False)
+        return _ABSTRACT_MODE
+
+
+@contextlib.contextmanager
+def in_abstract_mode():
+    """Run the block in the process's abstract mode (its lock held)."""
+    with _ABSTRACT_LOCK, abstract_mode():
+        yield
+
+
+def _fake_of(x: torch.Tensor, device) -> torch.Tensor:
+    """A fake tensor of x's shape, strides and dtype on `device` (x's own
+    when None); a parameter stays a parameter.  Called in the mode."""
+    fake = torch.empty_strided(
+        tuple(x.shape), tuple(x.stride()), dtype=x.dtype,
+        device=x.device if device is None else device)
+    if isinstance(x, torch.nn.Parameter):
+        return torch.nn.Parameter(fake, requires_grad=x.requires_grad)
+    return fake
+
+
+def abstract_like(tree, device=None):
+    """`tree` with every tensor replaced by a fake tensor of its shape,
+    strides and dtype, on `device` (default: the leaf's own), made in
+    the process's abstract mode.  A module is copied with fake
+    parameters and buffers (the copy shares nothing with the original,
+    whose data is not read).  Making a fake CUDA tensor touches no GPU.
+    """
+    def fake(leaf):
+        if isinstance(leaf, torch.nn.Module):
+            return _abstract_module(leaf, device)
+        if isinstance(leaf, torch.Tensor) and not (
+                is_abstract(leaf) and device is None):
+            return _fake_of(leaf, device)
+        return leaf
+
+    with in_abstract_mode():
+        return pytree.tree_map(fake, tree)
+
+
+def _abstract_module(module: torch.nn.Module, device) -> torch.nn.Module:
+    """A copy of `module` whose parameters and buffers are fake tensors
+    (deepcopy with each tensor's fake given in the memo, so no data is
+    copied)."""
+    import copy
+
+    memo = {}
+    for t in list(module.parameters()) + list(module.buffers()):
+        if id(t) not in memo:
+            memo[id(t)] = _fake_of(t, device)
+    return copy.deepcopy(module, memo)
+
+
 def _tensor_bytes(tree, seen: set) -> int:
     total = 0
     for leaf in pytree.tree_leaves(tree):
@@ -202,6 +304,8 @@ class CostCounter(TorchDispatchMode):
         # custom op name -> calls charged by its kernel formula
         self.kernel_calls: Dict[str, int] = {}
         self.threads: set = set()
+        # the `csrc/` sources the kernels reached load
+        self.libraries: set = set()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.utils.flop_counter import flop_registry
@@ -224,10 +328,16 @@ class CostCounter(TorchDispatchMode):
         if kernel is not None:
             flops, nbytes = kernel(*args, **kwargs)
             self.kernel_calls[name] = self.kernel_calls.get(name, 0) + 1
+            needs = _KERNEL_LIBRARIES.get(name)
+            if needs is not None:
+                self.libraries.update(needs(*args, **kwargs))
         else:
             flops = (formula(*args, **kwargs, out_val=out)
                      if formula is not None else 0)
-            if func.is_view or name in _ALLOCATIONS:
+            if func.is_view or name in _ALLOCATIONS \
+                    or func is torch.ops.prim.device.default:
+                # views, allocations and a fake tensor's device query
+                # move nothing
                 nbytes = 0
             else:
                 # an input read once, each output written once (an
@@ -352,6 +462,8 @@ class ProgramRegistry:
                 # never zero a known cost (a kernel build carries none)
                 sig["flops"] = flops
                 sig["bytes"] = bytes_
+                if cost.get("abstract"):
+                    sig["abstract"] = True
             if avals:
                 sig["avals"] = avals
             rec["compiles"] += 1
@@ -461,6 +573,10 @@ class ProgramRegistry:
                     "bytes_per_execution": latest.get("bytes", 0.0),
                     "avals": latest.get("avals", ""),
                 }
+                if latest.get("abstract"):
+                    # counted by an abstract compile: a data-dependent
+                    # term is at its upper bound
+                    out[name]["abstract"] = True
         return out
 
     def summary(self) -> dict:
@@ -522,6 +638,8 @@ class RegisteredProgram:
         self._seen: Dict[tuple, bool] = {}
         self._pending: set = set()
         self._costs: Dict[tuple, dict] = {}
+        # signature -> what its abstract compile found
+        self._aot: Dict[tuple, dict] = {}
         self._stormed = False
         # signature digest -> what the counted call saw (flops, bytes,
         # kernel calls, threads): the card's check that the backward's
@@ -563,18 +681,55 @@ class RegisteredProgram:
         self._record(sig, seconds, describe_avals((args, kwargs)), cost)
         return out
 
+    def aot_compile(self, *args, **kwargs) -> dict:
+        """The abstract compile at this signature, once: run the program
+        on abstract arguments (fake tensors from `abstract_like`, and
+        states built on them) under the process's fake mode and a
+        CostCounter, record one compile with its wall seconds, flops and
+        bytes, and build the hand-kernel libraries the custom ops it
+        reached load at these shapes.  Nothing is dispatched and no
+        kernel runs.  Returns {"cost", "libraries", "seconds",
+        "kernel_calls"}; a real call at the signature afterwards records
+        no second compile.  Real tensors among the arguments are replaced
+        by their fakes first."""
+        sig = signature_of((args, kwargs))
+        with self._lock:
+            if sig in self._aot:
+                return dict(self._aot[sig])
+        # real tensors and modules among the arguments take their fakes
+        # (a state object must be built abstract by its owner)
+        args, kwargs = abstract_like((args, kwargs))
+        clock = self._registry.clock
+        counter = CostCounter()
+        start = clock()
+        with in_abstract_mode(), counter:
+            self._fn(*args, **kwargs)
+        libraries = sorted(counter.libraries)
+        if libraries:
+            from elasticdl_tpu_torch.ops import _build
+
+            _build.ensure_built(libraries)
+        seconds = max(clock() - start, 0.0)
+        cost = dict(counter.cost(), abstract=True)
+        entry = {"cost": cost, "libraries": libraries, "seconds": seconds,
+                 "kernel_calls": dict(counter.kernel_calls)}
+        with self._lock:
+            self._aot[sig] = entry
+            self._costs.setdefault(sig, cost)
+        self._record(sig, seconds, describe_avals((args, kwargs)), cost)
+        return dict(entry)
+
     def cost_for(self, *args, **kwargs) -> dict:
-        """The {"flops", "bytes accessed"} counted for this signature's
-        first call.  Raises KeyError for a signature that has not run:
-        an eager program has no cost before it runs."""
+        """The {"flops", "bytes accessed"} of this signature: the cost
+        counted on its first call, or, for a signature that has not run,
+        its abstract compile's (`aot_compile`, once, recorded; marked
+        "abstract": true).  Abstract arguments are what an unrun
+        signature takes."""
         sig = signature_of((args, kwargs))
         with self._lock:
             cost = self._costs.get(sig)
         if cost is None:
-            raise KeyError(
-                f"{self.name} has not run at this signature "
-                f"({describe_avals((args, kwargs))}); its cost is counted "
-                "on its first call")
+            cost = self.aot_compile(*args, **kwargs)["cost"]
         return dict(cost)
 
     def _record(self, sig, seconds, avals, cost) -> None:

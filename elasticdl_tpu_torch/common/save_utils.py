@@ -100,6 +100,7 @@ from elasticdl_tpu_torch.layers.arena import (
     quantize_arena_tree,
 )
 from elasticdl_tpu_torch.store import checkpoint as store_ckpt
+from elasticdl_tpu_torch.worker import graphs as graphs_lib
 from elasticdl_tpu_torch.worker.trainer import TrainState
 
 logger = get_logger(__name__)
@@ -242,6 +243,26 @@ def host_state(state: TrainState) -> Dict[str, Any]:
         "model": _host_copy(model),
         "optimizer": _host_copy(optim),
     }
+
+
+def load_optimizer_state(optimizer, optim_state) -> None:
+    """`optimizer.load_state_dict(optim_state)`, keeping the live
+    optimizer's `capturable` setting: a CUDA trainer builds Adam and
+    AdamW capturable (worker/trainer.py) and the CPU cannot run them so,
+    so a checkpoint from either side restores on the other.  PyTorch
+    moves each `step` count to its parameter's device when the group is
+    capturable (cast to float32, which `graphs_lib.float64_step_counts`
+    takes back to the float64 the graphs' Adam counts in) and leaves it
+    on the host otherwise."""
+    groups = optimizer.param_groups
+    saved = optim_state["param_groups"]
+    if len(groups) == len(saved) and any("capturable" in g for g in groups):
+        optim_state = dict(optim_state)
+        optim_state["param_groups"] = [
+            dict(ng, capturable=g.get("capturable", False))
+            if "capturable" in g else ng for g, ng in zip(groups, saved)]
+    optimizer.load_state_dict(optim_state)
+    graphs_lib.float64_step_counts(optimizer)
 
 
 def shard_blob(state: TrainState, model_state, optim_state):
@@ -566,7 +587,7 @@ class CheckpointSaver:
         model_state, optim_state = shard_blob(state, model_state,
                                               blob["optimizer"])
         state.model.load_state_dict(model_state, strict=True)
-        state.optimizer.load_state_dict(optim_state)
+        load_optimizer_state(state.optimizer, optim_state)
         state.step = int(blob["step"])
         events.emit(events.CHECKPOINT_RESTORED, step=state.step)
         return state

@@ -19,8 +19,11 @@ name and shape (so optimizer state and checkpoint names do not change
 with the mode), `_GradTap` routes the scatter-add gradient into it (the
 same Hopper kernel as `_lookup`'s backward), and `fold_quantized_updates`
 folds the optimizer's per-step delta back into the codes with
-stochastic rounding seeded from (step, plane path), then zeroes the
-carrier.  All int8 plane arithmetic lives in this module.  The int8
+stochastic rounding, then zeroes the carrier.  The rounding's uniforms
+are a counter-based draw computed on the device (`uniform_draw`): a hash
+of (0x51A7, the step, the plane path, the element's global row and
+column), with the step a device tensor, so a captured CUDA graph draws
+anew as its step counter advances.  All int8 plane arithmetic lives in this module.  The int8
 gather and the fold run inside the named profiler ranges `int8_lookup`
 and `int8_fold`, so a torch.profiler trace attributes their device
 time.
@@ -35,14 +38,13 @@ are sliced with their carrier, as the JAX trainer shards the
 "quantized" collection by the params' rule.  The gather dequantizes
 this rank's rows through `lookup_rows` (zeros off the shard, a sum over
 `model`), the tap's scatter-add runs at the shard's row count, and the
-fold draws the whole plane's uniforms and keeps the shard's rows, so
-the codes are those of the unsharded fold (the JAX draw does not depend
-on the sharding either).
+fold draws only the shard's rows, keyed on their global row, so the
+codes are those of the unsharded fold (the JAX draw does not depend on
+the sharding either).
 """
 
 from __future__ import annotations
 
-import hashlib
 import zlib
 from collections.abc import Mapping
 from typing import Dict, List, Tuple
@@ -68,6 +70,10 @@ _Q_MAX = 127.0
 # RNG namespace for the training write-back rounding, combined with the
 # step and the plane path so every run rounds the same step alike
 _FOLD_SEED = 0x51A7
+
+# the counter-based draw works on 32-bit values held in int64 tensors
+_MASK32 = 0xFFFFFFFF
+_GOLDEN32 = 0x9E3779B9
 
 # the state-dict names of an int8 arena's planes, beside its `embedding`
 PLANE_KEYS = ("q8", "scale")
@@ -110,18 +116,68 @@ def dequantize_rows_host(q8: np.ndarray, scale: np.ndarray) -> np.ndarray:
     return q8.astype(np.float32) * np.asarray(scale, np.float32)
 
 
-def stochastic_round(x: torch.Tensor, generator: torch.Generator,
-                     first_row: int = 0, plane_rows: int = 0):
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for x in [0, 2**32) held in int64 (or a Python
+    int) and a 32-bit constant c: c's 16-bit halves keep every product
+    below 2**48, so no int64 overflows."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _MASK32
+
+
+def _mix32(x):
+    """A bijection of [0, 2**32) in which every output bit depends on
+    every input bit (the xor-shift-multiply finaliser "lowbias32"), on
+    int64 tensors or Python ints alike.  Inputs are non-negative, so the
+    right shifts are logical."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+_SEED_MIX = _mix32(_FOLD_SEED)
+
+
+def fold_key(step, path: Tuple[str, ...]) -> torch.Tensor:
+    """The fold's key for one step and plane: a 0-d int64 tensor of 32
+    bits mixed from (_FOLD_SEED, step, the path's crc).  `step` is an int
+    or a 0-d integer tensor (a device step counter: no host read)."""
+    step = torch.as_tensor(step, dtype=torch.int64)
+    key = _mix32((step & _MASK32) ^ _SEED_MIX)
+    key = _mix32(key ^ ((step >> 32) & _MASK32))
+    return _mix32(key ^ _path_seed(path))
+
+
+def uniform_draw(key: torch.Tensor, rows: int, cols: int,
+                 first_row: int = 0) -> torch.Tensor:
+    """(rows, cols) f32 uniforms in [0, 1), element (i, j) a hash of
+    (key, global row first_row + i, column j) in the manner of
+    splitmix: a mixed row value plus a Weyl step per column, mixed
+    again.  A block of rows draws what the whole plane draws there, and
+    nothing is drawn for other rows.  24 bits per draw, so each value is
+    exact in f32."""
+    device = key.device
+    row = torch.arange(first_row, first_row + rows, dtype=torch.int64,
+                       device=device)
+    row_hash = _mix32((row & _MASK32) ^ key)
+    col = torch.arange(cols, dtype=torch.int64, device=device)
+    weyl = (col * _GOLDEN32) & _MASK32
+    bits = _mix32((row_hash[:, None] + weyl[None, :]) & _MASK32)
+    return (bits >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def stochastic_round(x: torch.Tensor, key, first_row: int = 0):
     """Unbiased integer rounding: floor(x + U[0,1)), so E[result] == x
     and exact integers return exactly (floor(k + u) == k for u < 1).
-    `x` may be rows [first_row, first_row + len(x)) of a plane of
-    `plane_rows` rows: the uniforms are drawn for the whole plane and
-    this block's rows kept, so a shard rounds as the whole plane does."""
-    rows = max(int(plane_rows), x.shape[0])
-    u = torch.rand((rows,) + tuple(x.shape[1:]), generator=generator,
-                   device=x.device, dtype=x.dtype)
-    u = u[first_row:first_row + x.shape[0]]
-    return torch.clamp(torch.floor(x + u), -_Q_MAX, _Q_MAX).to(torch.int8)
+    The uniforms are `uniform_draw(key, ...)` at x's rows, which are
+    rows [first_row, first_row + len(x)) of their plane, so a shard
+    rounds as the whole plane does.  `key` is a 0-d int64 tensor (see
+    `fold_key`) or an int."""
+    key = torch.as_tensor(key, dtype=torch.int64).to(x.device)
+    flat = x.reshape(x.shape[0], -1)
+    u = uniform_draw(key, flat.shape[0], flat.shape[1], first_row)
+    out = torch.clamp(torch.floor(flat + u.to(x.dtype)), -_Q_MAX, _Q_MAX)
+    return out.reshape(x.shape).to(torch.int8)
 
 
 class _GradTap(torch.autograd.Function):
@@ -366,41 +422,36 @@ def plane_path(prefix: str) -> Tuple[str, ...]:
     return tuple(p for p in prefix.split(".") if p) + ("embedding",)
 
 
-def _fold_generator(step: int, path: Tuple[str, ...],
-                    device: torch.device) -> torch.Generator:
-    """A generator on `device` keyed on (_FOLD_SEED, step, path): one
-    step and plane round the same way on every run."""
-    key = f"{_FOLD_SEED}/{int(step)}/{_path_seed(path)}".encode()
-    seed = int.from_bytes(hashlib.blake2b(key, digest_size=8).digest(),
-                          "little") & ((1 << 63) - 1)
-    return torch.Generator(device=device).manual_seed(seed)
-
-
 def _requantize_plane(q8: torch.Tensor, scale: torch.Tensor,
-                      delta: torch.Tensor, generator: torch.Generator,
-                      first_row: int = 0, plane_rows: int = 0):
+                      delta: torch.Tensor, key, first_row: int = 0):
     """(new q8, new scale) with `delta` folded in.  Rows whose delta is
     all zero (Adam's update is 0 while m = v = 0) keep their codes and
     scales bit for bit, so idle rows do not random-walk.  The planes may
-    be rows [first_row, ...) of a `plane_rows`-row plane
-    (`stochastic_round`)."""
+    be rows [first_row, ...) of a larger plane (`stochastic_round`)."""
     touched = (delta != 0.0).any(dim=1, keepdim=True)
     table = dequantize_rows(q8, scale) + delta
     max_abs = table.abs().amax(dim=1, keepdim=True)
     new_scale = torch.where(max_abs > 0, max_abs / _Q_MAX,
                             torch.ones_like(max_abs))
-    new_q8 = stochastic_round(table / new_scale, generator, first_row,
-                              plane_rows)
+    new_q8 = stochastic_round(table / new_scale, key, first_row)
     return (torch.where(touched, new_q8, q8),
             torch.where(touched, new_scale, scale))
 
 
-def fold_quantized_updates(model: nn.Module, step: int) -> int:
+def has_int8_arena(model: nn.Module) -> bool:
+    """Whether `model` holds an int8 arena, whose planes a step folds."""
+    return any(isinstance(m, _ArenaTable) and m.arena_dtype == "int8"
+               for m in model.modules())
+
+
+def fold_quantized_updates(model: nn.Module, step) -> int:
     """The write-back after `optimizer.step()`: in each int8 arena (flat
     or tiered, keyed on the same plane path) the carrier holds this
     step's fp32 delta; fold it into the codes (table = dequant + delta,
     new per-row scale, stochastic rounding keyed on (seed, step, plane
-    path)) and zero the carrier.  A rank holding a row shard over
+    path, element)) and zero the carrier.  `step` is an int or a 0-d
+    integer tensor on the planes' device (the trainer's step counter,
+    which a captured graph advances).  A rank holding a row shard over
     `model` folds its rows as the whole plane's fold does.  Returns the
     number of planes folded; with no int8 arena it changes nothing and
     returns 0."""
@@ -410,12 +461,11 @@ def fold_quantized_updates(model: nn.Module, step: int) -> int:
         return 0
     with torch.no_grad(), torch.profiler.record_function("int8_fold"):
         for name, arena in arenas:
-            gen = _fold_generator(step, plane_path(name), arena.q8.device)
+            key = fold_key(step, plane_path(name)).to(arena.q8.device)
             shard = shard_of(arena.embedding.shape[0], arena.rows)
             first = 0 if shard is None else shard[1]
             q8, scale = _requantize_plane(arena.q8, arena.scale,
-                                          arena.embedding, gen, first,
-                                          arena.rows)
+                                          arena.embedding, key, first)
             arena.q8.copy_(q8)
             arena.scale.copy_(scale)
             arena.embedding.zero_()

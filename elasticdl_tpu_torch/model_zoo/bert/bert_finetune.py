@@ -205,7 +205,11 @@ class BertClassifier(nn.Module):
         for i in range(0 if self.pipelined else self.num_layers):
             block = getattr(self, f"layer_{i}")
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                # the block draws no random numbers, so the recompute
+                # needs no saved RNG state (a CUDA graph capture cannot
+                # read the generator's)
+                x = checkpoint(block, x, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = block(x)
         # max-pool over the sequence (and over its chunks)

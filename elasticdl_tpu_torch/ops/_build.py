@@ -177,6 +177,14 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
     return {name: library_path(name, nvcc) for name in names}
 
 
+def ensure_built(names: List[str]) -> None:
+    """`build_all(names)` under the loader's lock, so that a library
+    another thread is loading (or building) at the same time is built
+    once."""
+    with _LOCK:
+        build_all(names)
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<source>`, built first if needed."""
     with _LOCK:

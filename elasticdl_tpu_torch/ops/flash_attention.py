@@ -137,13 +137,23 @@ def _hd_contiguous(x) -> bool:
     return x.stride(3) == 1 and x.stride(2) == x.shape[3]
 
 
+def _base_aligned(x) -> bool:
+    """Whether x's first element lies on a 16-byte boundary.  A fake
+    tensor (an abstract compile, common/programs.py) has no pointer: its
+    offset into its storage answers, as the caching allocator's blocks
+    are 512-byte aligned."""
+    if programs.is_abstract(x):
+        return x.storage_offset() * x.element_size() % 16 == 0
+    return x.data_ptr() % 16 == 0
+
+
 def _bf16_rows_aligned(x, dim: int) -> bool:
     """Whether x is a bf16 (B, L, H, dim) tensor with contiguous (H, D)
     dims, a 16-byte aligned base pointer, and row and batch strides that
     are multiples of 16 bytes (8 elements)."""
     return (x.dtype == torch.bfloat16 and x.dim() == 4
             and x.shape[3] == dim and _hd_contiguous(x)
-            and x.data_ptr() % 16 == 0
+            and _base_aligned(x)
             and x.stride(1) % 8 == 0 and x.stride(0) % 8 == 0)
 
 
@@ -324,7 +334,10 @@ torch.library.define(
 
 @torch.library.impl(OP_FORWARD, "cpu")
 def _forward_cpu(q, k, v, causal, scale):
-    return flash_attention_reference(q, k, v, causal=causal, scale=scale)
+    # contiguous, as the kernels and the fake implementation lay it out
+    out, lse = flash_attention_reference(q, k, v, causal=causal,
+                                         scale=scale)
+    return out.contiguous(), lse
 
 
 @torch.library.impl(OP_FORWARD, "cuda")
@@ -342,6 +355,15 @@ programs.register_kernel_cost(
     OP_FORWARD,
     lambda q, k, v, causal, scale: attention_cost(
         q.shape, k.shape, q.element_size(), causal))
+
+
+def _forward_libraries(q, k, v, causal, scale):
+    if q.device.type != "cuda":
+        return ()
+    return (SOURCE_SM90 if tensor_core_ok(q, k, v) else SOURCE,)
+
+
+programs.register_kernel_libraries(OP_FORWARD, _forward_libraries)
 
 
 def _check_device(q) -> None:
@@ -392,14 +414,20 @@ def _flash_bwd(causal: bool, scale: float, residuals, g):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _kernel_backward(q, k, v, out, lse, g, causal: bool, scale: float):
-    # O and dO are read with their own strides but need their (H, D)
-    # dims contiguous; q, k and v are the caller's views and must be so
+def _backward_operands(q, out, g):
+    """(out, g) as the backward kernel reads them: g in q's dtype, and
+    each with contiguous (H, D) dims (O and dO are read with their own
+    strides; q, k and v are the caller's views and must be so)."""
     g = g.to(q.dtype)
     if not _hd_contiguous(g):
         g = g.contiguous()
     if not _hd_contiguous(out):
         out = out.contiguous()
+    return out, g
+
+
+def _kernel_backward(q, k, v, out, lse, g, causal: bool, scale: float):
+    out, g = _backward_operands(q, out, g)
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("g", g)):
         if x.device != q.device or x.dtype != q.dtype:
             raise ValueError(
@@ -472,7 +500,9 @@ torch.library.define(
 
 @torch.library.impl(OP_BACKWARD, "cpu")
 def _backward_cpu(q, k, v, out, lse, g, causal, scale):
-    return _flash_bwd(causal, scale, (q, k, v, out, lse), g)
+    # contiguous, as the kernels and the fake implementation lay them out
+    return tuple(t.contiguous() for t in
+                 _flash_bwd(causal, scale, (q, k, v, out, lse), g))
 
 
 @torch.library.impl(OP_BACKWARD, "cuda")
@@ -489,6 +519,17 @@ programs.register_kernel_cost(
     OP_BACKWARD,
     lambda q, k, v, out, lse, g, causal, scale: attention_cost(
         q.shape, k.shape, q.element_size(), causal, backward=True))
+
+
+def _backward_libraries(q, k, v, out, lse, g, causal, scale):
+    if q.device.type != "cuda":
+        return ()
+    out, g = _backward_operands(q, out, g)
+    variant = SM90_WGMMA if backward_wgmma_ok(q, k, v, out, g) else CUDA_CORE
+    return (_BWD_ENTRIES[variant][0],)
+
+
+programs.register_kernel_libraries(OP_BACKWARD, _backward_libraries)
 
 
 def flash_attention_backward(

@@ -183,11 +183,21 @@ def _scatter_add_fake(table, ids, grads):
     return None
 
 
-# U, the rows the ids touch, is what this call's data needs
-programs.register_kernel_cost(
+def _op_cost(table, ids, grads):
+    """U, the rows the ids touch, is what this call's data needs; an
+    abstract call has no data and counts U's bound, min(N, R)."""
+    if programs.is_abstract(ids):
+        touched = min(ids.numel(), table.shape[0])
+    else:
+        touched = int(torch.unique(ids).numel())
+    return scatter_cost(ids.numel(), table.shape[1], touched)
+
+
+programs.register_kernel_cost(OP_SCATTER_ADD, _op_cost)
+programs.register_kernel_libraries(
     OP_SCATTER_ADD,
-    lambda table, ids, grads: scatter_cost(
-        ids.numel(), table.shape[1], int(torch.unique(ids).numel())))
+    lambda table, ids, grads: (SOURCE,) if table.device.type == "cuda"
+    else ())
 
 
 def scatter_add_forward(table: torch.Tensor, ids: torch.Tensor,

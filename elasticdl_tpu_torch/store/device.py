@@ -21,9 +21,11 @@ Index vectors are padded to a power-of-four bucket (`_pad_bucket`) by
 repeating their first entry with its own value, so duplicate writes
 carry identical values and `index_copy_`'s unspecified order among
 duplicates cannot change the result.  The JAX package pads for XLA's
-compile cache; here it keeps the shapes few for CUDA graphs (ROADMAP.md
-item 14).  The admit and gather are plain PyTorch (`index_select`,
-`index_copy_`): ROADMAP.md queue 2's later hand kernel 7.
+compile cache; here it keeps the shapes few, as a CUDA graph per shape
+would need (the train step's graphs, worker/graphs.py, leave the seam
+eager: `apply_plan` runs before the captured step).  The admit and
+gather are plain PyTorch (`index_select`, `index_copy_`): ROADMAP.md
+queue 2's later hand kernel 7.
 
 Model layout: `param_paths` maps each store plane to the dotted name of
 its `TieredArena` in the model (DeepFM: `fm_embedding`, `fm_linear`);

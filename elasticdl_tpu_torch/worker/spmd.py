@@ -77,7 +77,7 @@ from elasticdl_tpu_torch.worker.task_data_service import (
     TaskDataService,
     prefetch_batches,
 )
-from elasticdl_tpu_torch.worker.trainer import Trainer
+from elasticdl_tpu_torch.worker.trainer import Trainer, map_host_batch
 from elasticdl_tpu_torch.worker.worker import (
     export_for_task,
     invoke_callbacks,
@@ -182,6 +182,8 @@ class SPMDWorker:
     WEDGED_EXIT_CODE = 43
     # a clean restart for a new topology
     TOPOLOGY_RESTART_EXIT_CODE = 44
+    # how long a finished run waits for its background prewarm
+    PREWARM_JOIN_S = 120.0
 
     def __init__(
         self,
@@ -254,6 +256,9 @@ class SPMDWorker:
         self._epoch = initial_epoch
         self.state = None
         self.trainer: Optional[Trainer] = None
+        # the prewarm's (sample batch, world sizes), until it starts
+        self._prewarm_plan = None
+        self._prewarm_thread = None
         self.last_loss = None
         self.remesh_count = 0
         self._preempted = False
@@ -315,7 +320,7 @@ class SPMDWorker:
         checking = self._check_newest_step()
         self.state = self.trainer.init_state_global(
             self._seed, batch["features"], self.mesh)
-        self._maybe_prewarm()
+        self._maybe_prewarm(batch)
         self._restore(checking)
 
     def _check_newest_step(self):
@@ -380,16 +385,68 @@ class SPMDWorker:
             raise RuntimeError(
                 f"no checkpoint step of {tried} restored on every rank")
 
-    def _maybe_prewarm(self) -> None:
-        """The JAX worker compiles the train step ahead for the mesh
-        sizes a failure would leave.  Eager PyTorch has nothing to
-        compile ahead (common/programs.py): a no-op, logged once
-        (ROADMAP.md queue 1, item 12.4)."""
-        if self.num_processes > 1 and not getattr(self, "_prewarmed",
-                                                  False):
-            self._prewarmed = True
-            logger.info("elastic prewarm: nothing to compile ahead in "
-                        "eager mode (ROADMAP.md queue 1, item 12.4)")
+    def _maybe_prewarm(self, batch) -> None:
+        """Plan the compile of the train step ahead for the world sizes a
+        failure would leave (world - 1 and world / 2): its abstract
+        compile records the cost and builds the kernel libraries that
+        world's step loads into the library cache
+        (`--compilation_cache_dir`), so a relaunched rank of that world
+        loads them instead of building.  The captured CUDA graph is not
+        handed on: it lives in the process that captured it.  Once,
+        after the first init; a group of more than one rank only; a
+        failure is logged and never fails the task.  It runs in the
+        background from the end of the rank's first task
+        (`_start_prewarm`): tracing on fake tensors holds the
+        interpreter lock, which would slow the restore and the first
+        steps that a recovery waits for.  In the port's zoo no world size
+        changes the libraries a step loads (the flash kernels are chosen
+        by dtype, head size and alignment, the scatter-add by device),
+        and the first task's steps have loaded them: the libraries the
+        prewarm names are in the cache already, and what it adds is the
+        cost record of that world's step in the ledger."""
+        if self.num_processes <= 1 or getattr(self, "_prewarmed", False):
+            return
+        self._prewarmed = True
+        try:
+            worlds = sorted({self.num_processes - 1,
+                             self.num_processes // 2}
+                            - {0, self.num_processes})
+            if not worlds or "labels" not in batch:
+                # prediction-only feeds carry no labels; the train step
+                # (the thing worth prewarming) is not on their path
+                return
+            local_rows = len(np.asarray(batch["labels"]))
+            rows = self.minibatch_size
+
+            def zeros_like_rows(a):
+                a = np.asanyarray(a)
+                if a.ndim == 0 or a.shape[0] != local_rows:
+                    return a
+                return np.zeros((rows,) + a.shape[1:], a.dtype).view(
+                    type(a))
+
+            sample = {
+                "features": map_host_batch(zeros_like_rows,
+                                           batch["features"]),
+                "labels": zeros_like_rows(batch["labels"]),
+            }
+            logger.info("elastic prewarm: the train step for %s-rank "
+                        "worlds, after the first task",
+                        "/".join(str(w) for w in worlds))
+            self._prewarm_plan = (sample, worlds)
+        except Exception:  # advisory path: never fail the task for it
+            logger.exception("elastic prewarm setup skipped")
+
+    def _start_prewarm(self) -> None:
+        """Start the planned prewarm (`_maybe_prewarm`), once."""
+        plan, self._prewarm_plan = self._prewarm_plan, None
+        if plan is None:
+            return
+        try:
+            self._prewarm_thread = self.trainer.prewarm_for_device_counts(
+                *plan)
+        except Exception:  # advisory path: never fail the task for it
+            logger.exception("elastic prewarm skipped")
 
     @property
     def is_leader(self) -> bool:
@@ -434,6 +491,16 @@ class SPMDWorker:
         self._preempted = True
 
     def run(self) -> bool:
+        try:
+            return self._run()
+        finally:
+            # a prewarm still running in the background ends before the
+            # interpreter does (a thread torn down inside torch aborts
+            # the process)
+            if self._prewarm_thread is not None:
+                self._prewarm_thread.join(timeout=self.PREWARM_JOIN_S)
+
+    def _run(self) -> bool:
         if self.trainer is None:
             self.setup()
         seq = 0
@@ -476,6 +543,7 @@ class SPMDWorker:
                 continue
             try:
                 self._process_task(task)
+                self._start_prewarm()
             except Exception:
                 if self.num_processes > 1 and self._epoch_moved():
                     logger.exception(

@@ -40,8 +40,28 @@ holding a parameter applies the same summed gradient, so the shards of
 a parameter stay one parameter bit for bit.  An MoE model's aux loss
 (`layers.moe.collect_aux_loss`) joins the objective, as the JAX step
 adds the sown values; it is the same on every rank and weighted by
-1/world there.  Elastic prewarm waits for ROADMAP.md queue 1, item
-12.4 (after item 14).
+1/world there.
+
+The port's compile.  On CUDA, for a world of one, `worker_train_step`,
+`worker_train_step_many` and `worker_timed_fused` run as captured CUDA
+graphs (worker/graphs.py), one per state and batch shapes, dispatched on
+the explicit predicate `graph_ok`: the first call at a signature runs
+eagerly (the registry's counted call), the next captures and replays,
+later ones replay.  The eager loop is the graphs' plain version: the CPU
+runs it, and `graphs_lib.eager_loop()` keeps a CUDA thread on it.  Host
+bookkeeping stays outside the graph (`state.step += K`; the losses are
+copied out of the static output), and the device work inside reads the
+step from a device counter (`TrainState.fold_counter`, the int8 fold's
+key).  On CUDA a world of one's Adam and AdamW are capturable with
+float64 step counts (`graphs_lib.capturable_adam`), so eager and graph
+steps are the same arithmetic, and each update plain Adam's to an ulp;
+a cluster rank's state keeps plain Adam, as its data-parallel step
+stays eager (`graph_ok` says why).
+`prewarm_for_device_counts` is the JAX trainer's prewarm: for the world
+sizes a failure would leave, it runs
+the train step's abstract compile (`aot_compile` on a fake state and a
+fake batch of that world's local rows), which records its cost and
+builds the kernel libraries that step loads into the library cache.
 
 The trainer's device entry points are registered programs
 (common/programs.py) under the JAX trainer's names: `worker_train_step`,
@@ -59,16 +79,19 @@ from __future__ import annotations
 import copy
 import dataclasses
 import inspect
+import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import _pytree as pytree
 
 from elasticdl_tpu_torch.common import programs
+from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.data.wire import (
     BF16Bits,
     is_wire_planes,
@@ -78,6 +101,7 @@ from elasticdl_tpu_torch.device import resolve_device
 from elasticdl_tpu_torch.layers.arena import (
     PLANE_KEYS,
     fold_quantized_updates,
+    has_int8_arena,
     plane_key,
     plane_prefixes,
 )
@@ -85,6 +109,9 @@ from elasticdl_tpu_torch.layers.linen import init_parameters
 from elasticdl_tpu_torch.layers.moe import collect_aux_loss
 from elasticdl_tpu_torch.parallel import collectives
 from elasticdl_tpu_torch.parallel import mesh as mesh_lib
+from elasticdl_tpu_torch.worker import graphs as graphs_lib
+
+logger = get_logger(__name__)
 
 # Process-wide execution lock for the CPU.  CPU work runs synchronously
 # on the calling thread and spreads over PyTorch's intra-op threads;
@@ -191,6 +218,14 @@ class TrainState:
     # of (a tuple of mesh axis names or None per dim), and their mesh
     shardings: Dict[str, tuple] = field(default_factory=dict)
     mesh: Optional[object] = None
+    # the step on the device, for the int8 fold's key (None: not made
+    # yet; False: the model has no int8 arena)
+    fold_counter: Any = field(default=None, init=False, repr=False,
+                              compare=False)
+    # the captured train programs over this state's tensors
+    # (worker/graphs.py), by program and batch shapes
+    graphs: Dict[tuple, Any] = field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -224,6 +259,7 @@ class Trainer:
                  device: Optional[Union[str, torch.device]] = None,
                  param_sharding_fn: Optional[Callable] = None):
         self.device = resolve_device(device)
+        self._graphs = graphs_lib.StepGraphs(self.device)
         self.model = model
         # (parameter name, tensor) -> spec or None: the zoo's
         # `param_sharding`, applied by init_state_global
@@ -235,7 +271,7 @@ class Trainer:
         # batch shapes timed_steps_per_sec has warmed up
         self._timing_warmed = set()
         self.train_step = programs.registered_jit(
-            "worker_train_step", self._train_step)
+            "worker_train_step", self._train_step_program)
         self.train_step_many = programs.registered_jit(
             "worker_train_step_many", self._train_steps)
         self.eval_step = programs.registered_jit(
@@ -256,9 +292,11 @@ class Trainer:
         generator on the trainer's device), a new optimizer.  One forward
         on `sample_features` checks that the model takes them."""
         return run_device_serialized(self._init_state_impl, rng,
-                                     sample_features, device=self.device)
+                                     sample_features, True,
+                                     device=self.device)
 
-    def _init_state_impl(self, rng, sample_features) -> TrainState:
+    def _init_state_impl(self, rng, sample_features,
+                         graphable: bool) -> TrainState:
         if isinstance(rng, torch.Generator):
             generator = rng
         else:
@@ -270,8 +308,44 @@ class Trainer:
         with torch.no_grad(), mesh_lib.using_mesh(mesh_lib.ProcessMesh()):
             self._forward(model, _to_device(sample_features, self.device),
                           train=False)
-        return TrainState(step=0, model=model,
-                          optimizer=self.optimizer(model.parameters()))
+        return TrainState(step=0, model=model, optimizer=self._new_optimizer(
+            model.parameters(), graphable))
+
+    def _new_optimizer(self, params, graphable: bool = True
+                       ) -> torch.optim.Optimizer:
+        """The zoo's optimizer over `params`.  For a state whose programs
+        may run as graphs (`graphable`: a world of one's) on CUDA, Adam
+        and AdamW are built as a graph holds them
+        (`graphs_lib.capturable_adam`: capturable, float64 step counts),
+        so eager and captured steps are the same arithmetic, and each
+        update plain Adam's to an ulp (`chip_smoke.py`'s adam_vs_plain
+        holds the two).  A cluster rank's state, whose data-parallel
+        step never runs as a graph (`graph_ok`), keeps the plain
+        setting, and so does the CPU (PyTorch refuses capturable for CPU
+        parameters)."""
+        opt = self.optimizer(list(params))
+        if graphable and self.device.type == "cuda":
+            opt = graphs_lib.capturable_adam(opt)
+        return opt
+
+    def abstract_state(self, device=None) -> TrainState:
+        """A fake TrainState of this trainer's model on `device` (the
+        trainer's by default): fake parameters and buffers shaped like
+        the template's, a new optimizer over them.  No data is drawn or
+        copied; it is what `aot_compile` runs a train step on (the
+        counterpart of the JAX prewarm's `jax.eval_shape` of init)."""
+        device = self.device if device is None else torch.device(device)
+        model = programs.abstract_like(self.model, device)
+        with programs.in_abstract_mode():
+            optimizer = self._new_optimizer(model.parameters())
+        if device.type == "cuda":
+            # PyTorch picks the foreach implementation for real CUDA
+            # parameters by their type, which a fake tensor does not
+            # pass; make the same choice here
+            for group in optimizer.param_groups:
+                if group.get("foreach", False) is None:
+                    group["foreach"] = True
+        return TrainState(step=0, model=model, optimizer=optimizer)
 
     def init_state_global(self, rng: Union[int, torch.Generator],
                           sample_features, mesh) -> TrainState:
@@ -279,13 +353,14 @@ class Trainer:
         rank 0's parameters and buffers broadcast to every rank, so the
         group starts from one state (the JAX trainer gets the same from
         one init program over the global mesh); with a
-        `param_sharding_fn` each rank then keeps its shards."""
+        `param_sharding_fn` each rank then keeps its shards.  Its
+        optimizer keeps the plain setting (`_new_optimizer`)."""
         return run_device_serialized(self._init_global, rng,
                                      sample_features, mesh,
                                      device=self.device)
 
     def _init_state_global(self, rng, sample_features, mesh) -> TrainState:
-        state = self._init_state_impl(rng, sample_features)
+        state = self._init_state_impl(rng, sample_features, False)
         with torch.no_grad():
             collectives.broadcast_(
                 [t for t in state.model.state_dict().values()
@@ -323,7 +398,26 @@ class Trainer:
 
     # ---- steps ---------------------------------------------------------
 
-    def _train_step(self, state: TrainState, batch) -> torch.Tensor:
+    def _fold_counter(self, state: TrainState) -> Optional[torch.Tensor]:
+        """The state's step on the device, set to `state.step` now (a
+        launch, no sync), for the int8 fold's key; None for a model
+        without an int8 arena."""
+        counter = state.fold_counter
+        if counter is None:
+            counter = state.fold_counter = (
+                torch.zeros((), dtype=torch.int64,
+                            device=next(state.model.parameters()).device)
+                if has_int8_arena(state.model) else False)
+        if counter is False:
+            return None
+        counter.fill_(state.step)
+        return counter
+
+    def _step_body(self, state: TrainState, batch, counter) -> torch.Tensor:
+        """One step's device work: forward, loss, backward, optimizer
+        step and, with int8 arenas, the fold keyed on `counter` (the
+        step before the increment, as the JAX step does), which then
+        advances.  No host bookkeeping: a graph captures this."""
         preds = self._forward(state.model, batch["features"], train=True)
         loss = self.loss_fn(batch["labels"], preds.float()).float()
         aux = collect_aux_loss(state.model)
@@ -332,11 +426,67 @@ class Trainer:
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
-        # int8 arenas: fold the carrier's delta into the codes, keyed on
-        # the step before the increment, as the JAX step does
-        fold_quantized_updates(state.model, state.step)
-        state.step += 1
+        if counter is not None:
+            # int8 arenas: fold the carrier's delta into the codes
+            fold_quantized_updates(state.model, counter)
+            counter.add_(1)
         return loss.detach()
+
+    def _train_step(self, state: TrainState, batch) -> torch.Tensor:
+        """One eager step (the graphs' plain version)."""
+        loss = self._step_body(state, batch, self._fold_counter(state))
+        state.step += 1
+        return loss
+
+    def graph_ok(self, state: TrainState, batches: Sequence) -> bool:
+        """Whether a train program over `batches` runs as a captured CUDA
+        graph: a CUDA trainer outside `graphs_lib.eager_loop`, a state of
+        one rank (a data-parallel step runs its collectives through gloo
+        on the host when ranks share the card, and a capture over NCCL is
+        not done) whose optimizer keeps any step count on the device
+        (`graphs_lib.graphs_ok_for`), real tensors (an abstract compile's
+        fakes run the eager body), batches of tensors on the card only,
+        and no capture already under way."""
+        if self.device.type != "cuda" or graphs_lib.in_eager_loop():
+            return False
+        if state.mesh is not None and state.mesh.world_size > 1:
+            return False
+        if not graphs_lib.graphs_ok_for(state.optimizer):
+            return False
+        leaves = pytree.tree_leaves(list(batches))
+        if not leaves or not all(
+                isinstance(x, torch.Tensor) and x.device.type == "cuda"
+                and not programs.is_abstract(x) for x in leaves):
+            return False
+        if programs.is_abstract(next(state.model.parameters())):
+            return False
+        return not torch.cuda.is_current_stream_capturing()
+
+    def _run_steps(self, name: str, state: TrainState, batches,
+                   repeat: int = 1) -> torch.Tensor:
+        """`repeat` x len(batches) steps; the last run's losses (K,).
+        As a graph where `graph_ok`, else the eager loop."""
+        if not self.graph_ok(state, batches):
+            _check_abstract_device(state)
+            for _ in range(repeat):
+                losses = torch.stack([self._train_step(state, b)
+                                      for b in batches])
+            return losses
+        losses = self._graphs.run(
+            state, (name, graphs_lib.batch_shapes(batches)), batches,
+            self._steps_body(state), repeat=repeat)
+        state.step += repeat * len(batches)
+        return losses
+
+    def _steps_body(self, state: TrainState):
+        """The device work of K steps over K batches, with the fold
+        counter set to `state.step` first (outside any capture)."""
+        counter = self._fold_counter(state)
+        return lambda batches: torch.stack(
+            [self._step_body(state, b, counter) for b in batches])
+
+    def _train_step_program(self, state: TrainState, batch) -> torch.Tensor:
+        return self._run_steps("step", state, [batch])[0]
 
     def stage_batch(self, batch):
         """`batch`'s tensors on the device now, for a later
@@ -425,11 +575,10 @@ class Trainer:
         return state, losses
 
     def _train_steps(self, state: TrainState, batches) -> torch.Tensor:
-        return torch.stack([self._train_step(state, b) for b in batches])
+        return self._run_steps("steps", state, list(batches))
 
     def _timed_steps(self, state: TrainState, staged, iters: int) -> None:
-        for _ in range(iters):
-            self.train_on_batch(state, staged)
+        self._run_steps("timed", state, [staged], repeat=iters)
 
     def timed_steps_per_sec(self, state: TrainState, batch,
                             iters: int = 40) -> float:
@@ -437,16 +586,20 @@ class Trainer:
         on one staged batch: the counterpart of the JAX Trainer's
         `timed_steps_per_sec_fused`, which runs them as one program.
         The first call for a batch shape warms up with one step (the
-        kernels' build and first launch, the allocator's first blocks).
-        On CUDA the steps are timed with CUDA events and the timing ends
-        on a value read from the final parameters, so no step is left
+        kernels' build and first launch, the allocator's first blocks);
+        where `graph_ok`, the step is then captured before the timing
+        starts, and the timed steps are `iters` replays of it.  On CUDA
+        the steps are timed with CUDA events and the timing ends on a
+        value read from the final parameters, so no step is left
         queued.  The state trains on: it advances by the warm-up and
         `iters` steps."""
         staged = self.stage_batch(batch)
         key = _batch_key(staged)
-        if key not in self._timing_warmed:
+        if key not in self._timing_warmed or not self._capture_ahead(
+                "timed", state, staged):
             self._timed_fused(state, staged, 1)
             self._timing_warmed.add(key)
+            self._capture_ahead("timed", state, staged)
 
         def steps():
             self._timed_fused(state, staged, iters)
@@ -471,6 +624,100 @@ class Trainer:
         anchor()
         return iters * 1e3 / start.elapsed_time(end)
 
+    def _capture_ahead(self, name: str, state: TrainState, staged) -> bool:
+        """Capture program `name`'s graph for one staged batch before its
+        next call, where `graph_ok` and the key's eager first call has
+        run (no step runs).  Returns whether the next call replays or,
+        off the graph path, whether no warm-up is owed: False only for a
+        graphable key whose eager call has not run."""
+        if not self.graph_ok(state, [staged]):
+            return True
+        key = (name, graphs_lib.batch_shapes([staged]))
+        if not self._graphs.warmed(state, key):
+            return False
+        self._graphs.capture(state, key, [staged], self._steps_body(state))
+        return True
+
+    def capture_step(self, state: TrainState, batch) -> bool:
+        """Capture `train_on_batch`'s graph for `batch` (host or staged,
+        without tiered-store keys) ahead of its next call, so that a
+        timed or profiled call replays; no step runs.  False where that
+        call will not replay: off the graph path, or before the batch
+        shape's eager first call."""
+        staged = _to_device(
+            {k: v for k, v in batch.items() if k not in STORE_KEYS},
+            self.device)
+        return self.graph_ok(state, [staged]) and self._capture_ahead(
+            "step", state, staged)
+
+    # ---- elastic prewarm ----------------------------------------------
+
+    def prewarm_for_device_counts(self, sample_batch, world_sizes,
+                                  block: bool = False):
+        """The JAX trainer's prewarm for the world sizes a failure would
+        leave: for each, the train step's abstract compile at that
+        world's local rows (`aot_compile` on `abstract_state()` and a
+        fake batch of rank 0's rows of `sample_batch`, a global batch of
+        host arrays).  Nothing runs on the device; the ledger records
+        each compile and its cost, and the kernel libraries the step
+        loads at those shapes are built into the library cache
+        (ops/_build.py, `--compilation_cache_dir`), where a relaunched
+        rank of that world loads them without building.  What a
+        relaunched process cannot inherit is the captured CUDA graph
+        (worker/graphs.py), which lives in the process that captured
+        it.
+
+        Runs in a daemon thread unless `block` (tests); a world size
+        outside [1, ...) is skipped, and a failure is logged and never
+        raised.  On a host of fewer than 4 cores a background prewarm
+        would compete with the training loop, so it is skipped there
+        unless ELASTICDL_FORCE_PREWARM=1."""
+        force = os.environ.get("ELASTICDL_FORCE_PREWARM") == "1"
+        if not force and not block and (os.cpu_count() or 1) < 4:
+            logger.info(
+                "prewarm skipped: %s cores is too few to compile in the "
+                "background without starving the training loop",
+                os.cpu_count())
+            return None
+
+        def work():
+            for world in world_sizes:
+                try:
+                    self._prewarm_one(int(world), sample_batch)
+                except Exception as exc:  # advisory path, never fatal
+                    logger.info("prewarm for %s-rank world skipped: %s",
+                                world, exc)
+
+        if block:
+            work()
+            return None
+        thread = threading.Thread(target=work, daemon=True)
+        thread.start()
+        return thread
+
+    def _prewarm_one(self, world: int, sample_batch) -> None:
+        t0 = time.perf_counter()
+        global_rows = len(np.asarray(sample_batch["labels"]))
+        if not 0 < world <= global_rows:
+            return
+        rows = -(-global_rows // world)     # rank 0's rows at that world
+
+        def local(leaf):
+            arr = np.asanyarray(leaf)
+            return arr[:rows] if arr.ndim and arr.shape[0] == global_rows \
+                else arr
+
+        host = _to_device(map_host_batch(local, sample_batch),
+                          torch.device("cpu"))
+        batch = programs.abstract_like(host, self.device)
+        # one rank's step: the thread must not read the group's mesh
+        # (a rank's default), whose collectives would run on the fakes
+        with mesh_lib.using_mesh(mesh_lib.ProcessMesh()):
+            self.train_step.aot_compile(self.abstract_state(), batch)
+        logger.info(
+            "prewarmed train step for %d-rank world in %.1fs (library "
+            "cache populated)", world, time.perf_counter() - t0)
+
     # ---- data parallel ---------------------------------------------------
 
     def _train_step_global(self, state: TrainState, shard,
@@ -492,7 +739,9 @@ class Trainer:
                                            device=loss.device)])
         reduce_gradients(state, mesh, extra=totals)
         state.optimizer.step()
-        fold_quantized_updates(state.model, state.step)
+        counter = self._fold_counter(state)
+        if counter is not None:
+            fold_quantized_updates(state.model, counter)
         state.step += 1
         mean = totals[0] / totals[1]
         return mean if aux is None else mean + aux.detach()
@@ -558,6 +807,27 @@ class Trainer:
                 state, _to_device(features, self.device)).cpu().numpy()
 
         return run_device_serialized(_predict, device=self.device)
+
+
+def _check_abstract_device(state: TrainState) -> None:
+    """An abstract train step on CUDA needs a PyTorch built with CUDA:
+    autograd asks the device of each parameter for a stream, and a
+    build without CUDA ends the process there.  Raise first."""
+    first = next(state.model.parameters())
+    if (programs.is_abstract(first) and first.device.type == "cuda"
+            and not torch.backends.cuda.is_built()):
+        raise RuntimeError(
+            "an abstract train step on CUDA needs a CUDA build of "
+            "PyTorch (autograd asks the device for a stream); this one "
+            "has none")
+
+
+def map_host_batch(fn, tree):
+    """fn over the leaves of a host batch's nested dicts (numpy arrays,
+    which a pytree map would take apart no further either)."""
+    if isinstance(tree, dict):
+        return {k: map_host_batch(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def objective_weight(shard, mesh) -> float:

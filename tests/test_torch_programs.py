@@ -164,20 +164,30 @@ def test_concurrent_first_calls_are_counted_exactly_once_each(rows):
 
 
 def test_cost_for_reads_the_counted_cost_and_raises_before_a_run():
+    """Before a run, `cost_for` answers with the abstract compile's cost
+    (once, recorded, marked abstract), as the reference's AOT query
+    does; the first run at that signature records no second compile."""
     port = _registry()
     prog = programs.registered_jit("p", lambda x: x @ x.T, registry=port)
     x = torch.ones(8, 8)
-    with pytest.raises(KeyError, match="has not run"):
-        prog.cost_for(x)
+    before = prog.cost_for(x)
+    assert before["flops"] == 2 * 8 * 8 * 8
+    assert before["abstract"] is True
+    rec = port.ledger()["p"]
+    assert rec["compiles"] == 1 and rec["abstract"] is True
+    assert rec["flops_per_execution"] == before["flops"]
+    assert rec["bytes_per_execution"] == before["bytes accessed"]
     prog(x)
     cost = prog.cost_for(x)
-    assert cost["flops"] == 2 * 8 * 8 * 8
-    rec = port.ledger()["p"]
-    assert rec["flops_per_execution"] == cost["flops"]
-    assert rec["bytes_per_execution"] == cost["bytes accessed"]
-    assert rec["compiles"] == 1
-    with pytest.raises(KeyError):
-        prog.cost_for(torch.ones(4, 4))
+    assert cost["flops"] == before["flops"]
+    assert cost["bytes accessed"] == before["bytes accessed"]
+    assert port.ledger()["p"]["compiles"] == 1
+    # a signature that has run answers with its counted cost
+    y = torch.ones(4, 4)
+    prog(y)
+    assert prog.cost_for(y)["flops"] == 2 * 4 * 4 * 4
+    assert "abstract" not in prog.cost_for(y)
+    assert port.ledger()["p"]["compiles"] == 2
 
 
 def test_storm_fires_once_per_program_and_names_the_churn():
