@@ -401,6 +401,34 @@
    expert than one rank's run (its steps again on the eager loop, with
    the routers hooked), beside its loss gap.
 
+23. The registered programs that are not train steps, as captured CUDA
+   graphs (`graph_programs`, after `graph_steps`; budget 60 s).  Each is
+   held bit for bit against its eager version (`graphs.eager_loop()`):
+   (a) BERT-base serving (L 512, bf16, buckets 1, 4, 16, 64): `warmup`
+   runs each bucket eagerly and captures it, every graph holds 12 flash
+   forward launches, and each bucket's replay of a padded request equals
+   the eager forward of the same static weights; (b) four client
+   threads send requests of 1-64 rows while a hot swap to a second
+   generation lands among them: every response equals the eager forward
+   of the generation its step names, and the swap captured nothing and
+   kept the static tensors' addresses; (c) DeepFM serving at the bench
+   shape (vocab 2^20, dim 16, bf16 MLP), fp32 and int8 arenas, each
+   bucket's replay against the eager forward; (d) `worker_eval_step` as
+   a graph for DeepFM at batch 16384 and BERT-base at batch 64 (12 flash
+   forwards inside its graph), and the AUC of local_deepfm's checkpoint
+   evaluated by a Local `evaluate` job through eval graphs and with
+   them off: the same value; (e) the tiered seam at 2^20 cache rows,
+   batch 16384: 3 plans of distinct ids fill the cache (the third
+   evicts), then 4 zipf(1.2) plans; every read and admit on the graphed
+   state is mirrored on a second state on the eager loop, and the read
+   rows, planes, carriers and Adam moments are equal after each call,
+   fp32 and int8; (f) eager and graph ms per BERT-base and DeepFM
+   serving bucket and per eval step (CUDA events, median of 10), with
+   the device's busy share of one call of the largest bucket and of
+   each eval step, beside the card's name and power limit: smoke
+   figures, no claim.  The phase's seconds are printed beside its
+   budget.
+
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
 JSON; the last is {"ok": true, "device": {...}}.  The measured numbers,
@@ -490,6 +518,7 @@ from elasticdl_tpu_torch.model_zoo.deepfm.deepfm_functional_api import (  # noqa
 )
 from elasticdl_tpu_torch.ops import _build  # noqa: E402
 from elasticdl_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from elasticdl_tpu_torch.ops import launches as ops_launches  # noqa: E402
 from elasticdl_tpu_torch.ops import scatter_add as sa  # noqa: E402
 from elasticdl_tpu_torch.serving.batcher import (  # noqa: E402
     OK,
@@ -1866,7 +1895,7 @@ def graph_vs_eager(label: str, make_trainer, sample, calls: list,
         trainer = make_trainer()
         state = trainer.init_state(SEED, sample)
         torch.cuda.synchronize()
-        before = graphs_lib.launch_counts()
+        before = ops_launches.snapshot()
         losses, event_ms, wall_ms, first = [], [], [], None
         for i, (kind, batch) in enumerate(calls):
             loop = (graphs_lib.eager_loop() if mode == "eager"
@@ -1889,7 +1918,7 @@ def graph_vs_eager(label: str, make_trainer, sample, calls: list,
             event_ms.append(start.elapsed_time(end))
             if i == 0:
                 first = scatter_calls[n0:]
-        after = graphs_lib.launch_counts()
+        after = ops_launches.snapshot()
         runs[mode] = {
             "trainer": trainer, "state": state,
             "losses": torch.cat(losses),
@@ -2247,6 +2276,484 @@ def graph_steps(card: str, buffers) -> tuple:
               f"[{card}]", flush=True)
     print(f"graph_steps phase: {seconds:.1f} s (budget {GRAPH_BUDGET_S} "
           f"s) [{card}]", flush=True)
+    return out, launches
+
+
+# ---- graph_programs: serving, eval and the store seam as graphs ---------
+
+GRAPH_PROGRAMS_BUDGET_S = 60.0
+# (f): timed calls per serving bucket and eval step, in each mode
+GRAPH_TIMED_REPEATS = 10
+# (b): client threads and requests each; the swap lands after the first
+# SWAP_CLIENTS responses
+SWAP_THREADS = 4
+SWAP_REQUESTS = 12
+# (d): eager, capture + replay, then replays
+EVAL_CALLS = 4
+# (e): plans of distinct ids that fill the 2^20-row cache (the third
+# evicts), then zipf(1.2) plans that admit and evict
+SEAM_FILL_PLANS = 3
+SEAM_ZIPF_PLANS = 4
+
+
+def _in_mode(mode: str):
+    return (graphs_lib.eager_loop() if mode == "eager"
+            else contextlib.nullcontext())
+
+
+def _event_call(fn) -> tuple:
+    """(fn(), CUDA-event ms, host wall ms) of one call, synced."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def _profiled_call(fn) -> dict:
+    """The device's busy share of one synced call (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = _device_ms_by_kernel(prof)
+    device_ms = sum(by_kernel.values())
+    return {"profiled_wall_ms": wall_ms,
+            "device_ms": device_ms if by_kernel else None,
+            "device_busy_share": device_ms / wall_ms if by_kernel else None}
+
+
+def eager_vs_graph_ms(fn, busy: bool = False) -> dict:
+    """Median CUDA-event ms and host wall ms of GRAPH_TIMED_REPEATS calls
+    of fn on the eager loop and as graphs (the graphs captured already),
+    and with `busy` the device's busy share of one more call of each."""
+    out = {}
+    for mode in ("eager", "graph"):
+        with _in_mode(mode):
+            fn()
+            runs = [_event_call(fn)[1:] for _ in range(GRAPH_TIMED_REPEATS)]
+            out[mode] = {"event_ms": float(np.median([r[0] for r in runs])),
+                         "wall_ms": float(np.median([r[1] for r in runs]))}
+            if busy:
+                out[mode].update(_profiled_call(fn))
+    return out
+
+
+def _replays(runner, program: str) -> int:
+    return runner.replays.get(program, 0)
+
+
+def graph_serve_bert(card: str, device) -> tuple:
+    """(a) BERT-base serving as one graph per bucket, each bucket's replay
+    against its eager forward bit for bit, the flash forward counted
+    inside the graphs; (b) a hot swap in the middle of the traffic; (f)
+    eager and graph ms per bucket.  Returns (summary, flash launches)."""
+    spec = get_model_spec(ZOO_DIR, BERT, BERT_PARAMS + ";bf16=True")
+    model = spec.model.to(device)
+    init_parameters(model, torch.Generator(device=device).manual_seed(
+        SEED + 20))
+    gen_a = {n: p.detach() for n, p in model.named_parameters()}
+    feature_spec = feature_meta(
+        {"input_ids": np.zeros((1, SEQ_LEN), np.int32)})
+    rng = np.random.RandomState(SEED + 21)
+
+    def ids(rows, r=rng):
+        return {"input_ids": r.randint(0, VOCAB, (rows, SEQ_LEN)).astype(
+            np.int32)}
+
+    # ---- the main path: counts start at 0 here ----
+    reset_counts()
+    engine = ServingEngine(model, gen_a, step=0, feature_spec=feature_spec,
+                           buckets=BUCKETS, device=device)
+    warm = fa.flash_attention.launches
+    captured = {str(e.captured.static["input_ids"].shape[0]):
+                e.captured.launches for e in engine.graphs.values()
+                if e.captured is not None}
+    want_graph = {"flash_attention_fwd": NUM_LAYERS,
+                  f"flash_attention_fwd.{fa.SM90_WGMMA}": NUM_LAYERS}
+    runner = engine._graphs
+    # (a) each bucket, a padded request: a replay against the eager
+    # forward of the same static weights
+    by_bucket = {}
+    for b in BUCKETS:
+        rows = max(1, b - 1)
+        x = ids(rows)
+        r0, n0 = _replays(runner, "serving_forward"), \
+            fa.flash_attention.launches
+        got, _ = engine.predict(x, rows)
+        replay_launches = fa.flash_attention.launches - n0
+        with graphs_lib.eager_loop():
+            want, _ = engine.predict(x, rows)
+        by_bucket[str(b)] = {
+            "rows": rows, "bitwise": bool(np.array_equal(got, want)),
+            "replayed": _replays(runner, "serving_forward") - r0,
+            "replay_launches": replay_launches}
+    # (b) a hot swap between two generations in the middle of traffic
+    other = get_model_spec(ZOO_DIR, BERT, BERT_PARAMS + ";bf16=True").model
+    other = other.to(device)
+    init_parameters(other, torch.Generator(device=device).manual_seed(
+        SEED + 22))
+    gen_b = {n: p.detach() for n, p in other.named_parameters()}
+    keep_a = {k: v.clone() for k, v in engine.variables.items()}
+    graphs_before = {k: id(e.captured) for k, e in engine.graphs.items()}
+    ptrs = [t.data_ptr() for t in engine.variables.values()]
+    results, errors, lock = [], [], threading.Lock()
+
+    def client(c):
+        r = np.random.RandomState(SEED + 30 + c)
+        try:
+            for _ in range(SWAP_REQUESTS):
+                rows = int(r.randint(1, BUCKETS[-1] + 1))
+                x = ids(rows, r)
+                preds, step = engine.predict(x, rows)
+                with lock:
+                    results.append((x, rows, preds, step))
+        except BaseException as exc:     # re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SWAP_THREADS)]
+    for t in threads:
+        t.start()
+    wait_until(lambda: len(results) >= SWAP_THREADS or errors, 120,
+               "traffic before the swap")
+    t_swap = time.perf_counter()
+    engine.swap(gen_b, 1)
+    swap_s = time.perf_counter() - t_swap
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    # ---- end of the main path ----
+    graphs_after = {k: id(e.captured) for k, e in engine.graphs.items()}
+    own = {}
+    for step, gen in ((0, keep_a), (1, gen_b)):
+        engine.swap(gen, step)
+        with graphs_lib.eager_loop():
+            own[step] = [bool(np.array_equal(
+                engine.predict(x, rows)[0], preds))
+                for x, rows, preds, s in results if s == step]
+    swap = {"requests": len(results),
+            "by_step": {str(s): len(v) for s, v in own.items()},
+            "all_equal_own_step": all(all(v) for v in own.values()),
+            "swap_s": swap_s,
+            "recaptured": graphs_before != graphs_after,
+            "static_addresses_kept":
+                [t.data_ptr() for t in engine.variables.values()] == ptrs}
+    # (f) eager and graph ms per bucket
+    timing = {str(b): eager_vs_graph_ms(
+        lambda x=ids(b), b=b: engine.predict(x, b), busy=b == BUCKETS[-1])
+        for b in BUCKETS}
+    out = {"warm_launches": warm, "captured_launches_by_bucket": captured,
+           "by_bucket": by_bucket, "hot_swap": swap, "ms_by_bucket": timing,
+           "launches": launches, "card": card}
+    print(json.dumps({"graph_programs_serve_bert": out}), flush=True)
+    ok = (warm == NUM_LAYERS * len(BUCKETS)
+          and sorted(captured, key=int) == [str(b) for b in BUCKETS]
+          and all(v == want_graph for v in captured.values())
+          and all(v["bitwise"] and v["replayed"] == 1
+                  and v["replay_launches"] == NUM_LAYERS
+                  for v in by_bucket.values())
+          and swap["all_equal_own_step"] and not swap["recaptured"]
+          and swap["static_addresses_kept"]
+          and all(swap["by_step"].get(s) for s in ("0", "1"))
+          and swap["requests"] == SWAP_THREADS * SWAP_REQUESTS)
+    if not ok:
+        raise AssertionError(f"graph_programs (a)/(b) BERT serving: {out}")
+    del engine, model, other, gen_a, gen_b, keep_a
+    return out, launches
+
+
+def graph_serve_deepfm(device) -> dict:
+    """(c) DeepFM serving at the bench shape (vocab 2^20, dim 16, bf16
+    MLP), fp32 and int8 arenas: each bucket's replay against the eager
+    forward bit for bit; (f) eager and graph ms per bucket (fp32)."""
+    out = {}
+    for label, arena in (("fp32", ""), ("int8", "int8")):
+        spec = get_model_spec(ZOO_DIR, DEEPFM, DEEPFM_PARAMS,
+                              arena_dtype=arena)
+        batch = _criteo_batches(1, BUCKETS[-1], seed=31)[0]
+        state = Trainer(spec.model, spec.optimizer, spec.loss,
+                        use_bf16=True, device=device).init_state(
+                            SEED, batch["features"])
+        fspec = feature_meta({k: v[:1] for k, v in
+                              batch["features"].items()})
+        engine = ServingEngine(spec.model, state.model.state_dict(), step=0,
+                               feature_spec=fspec, buckets=BUCKETS,
+                               device=device)
+        del state
+        runner = engine._graphs
+        rows = {}
+        for b in BUCKETS:
+            x = {k: v[:b] for k, v in batch["features"].items()}
+            r0 = _replays(runner, "serving_forward")
+            got, _ = engine.predict(x, b)
+            with graphs_lib.eager_loop():
+                want, _ = engine.predict(x, b)
+            rows[str(b)] = {"bitwise": bool(np.array_equal(got, want)),
+                            "replayed": _replays(runner, "serving_forward")
+                            - r0}
+        row = {"by_bucket": rows,
+               "captures": dict(runner.captures),
+               "int8_planes": sorted(k for k in engine.variables
+                                     if k.endswith((".q8", ".scale")))}
+        if not arena:
+            row["ms_by_bucket"] = {str(b): eager_vs_graph_ms(
+                lambda b=b: engine.predict(
+                    {k: v[:b] for k, v in batch["features"].items()}, b))
+                for b in BUCKETS}
+        out[label] = row
+        print(json.dumps({f"graph_programs_serve_deepfm_{label}": row}),
+              flush=True)
+        if not (all(v["bitwise"] and v["replayed"] == 1
+                    for v in rows.values())
+                and row["captures"] == {"serving_forward": len(BUCKETS)}
+                and bool(row["int8_planes"]) == bool(arena)):
+            raise AssertionError(f"graph_programs (c) DeepFM {label}: {row}")
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def graph_eval_steps(device) -> tuple:
+    """(d) `worker_eval_step` as a graph: DeepFM at batch 16384 and
+    BERT-base at batch 64, L 512, each call's predictions against the
+    eager loop's bit for bit, BERT's flash forward counted inside the
+    graph; (f) eager and graph ms and the busy share.  Returns (summary,
+    the BERT eval's flash launches)."""
+    out, launches = {}, 0
+    cases = (
+        ("deepfm", DEEPFM, DEEPFM_PARAMS, [
+            b["features"] for b in _criteo_batches(EVAL_CALLS, TIMED_BATCH,
+                                                   seed=41)]),
+        ("bert", BERT, BERT_PARAMS + ";bf16=True",
+         [{"input_ids": np.random.RandomState(SEED + 42 + i).randint(
+             0, VOCAB, (TRAIN_BATCH, SEQ_LEN)).astype(np.int32)}
+          for i in range(EVAL_CALLS)]))
+    for label, model_def, params, feats in cases:
+        spec = get_model_spec(ZOO_DIR, model_def, params)
+        trainer = Trainer(spec.model, spec.optimizer, spec.loss,
+                          use_bf16=True, device=device)
+        state = trainer.init_state(SEED, feats[0])
+        reset_counts()
+        got = [trainer.predict_on_batch(state, f) for f in feats]
+        torch.cuda.synchronize()
+        n = fa.flash_attention.launches
+        with graphs_lib.eager_loop():
+            want = [trainer.predict_on_batch(state, f) for f in feats]
+        (key, entry), = [(k, e) for k, e in state.graphs.items()
+                         if k[0] == "eval"]
+        row = {"batch": len(next(iter(feats[0].values()))),
+               "bitwise": all(np.array_equal(a, b)
+                              for a, b in zip(got, want)),
+               "replays": _replays(trainer._graphs, "eval"),
+               "captures": trainer._graphs.captures.get("eval", 0),
+               "captured_launches": entry.captured.launches,
+               "flash_launches": n,
+               "ms": eager_vs_graph_ms(
+                   lambda: trainer.predict_on_batch(state, feats[0]),
+                   busy=True)}
+        out[label] = row
+        print(json.dumps({f"graph_programs_eval_{label}": row}), flush=True)
+        flash = row["captured_launches"].get("flash_attention_fwd", 0)
+        if not (row["bitwise"] and row["captures"] == 1
+                and row["replays"] == EVAL_CALLS - 1
+                and flash == (NUM_LAYERS if label == "bert" else 0)
+                and n == (EVAL_CALLS * NUM_LAYERS if label == "bert"
+                          else 0)):
+            raise AssertionError(f"graph_programs (d) eval {label}: {row}")
+        if label == "bert":
+            launches = n
+        del trainer, state, entry
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def graph_eval_auc(card: str, served: dict) -> dict:
+    """(d) The AUC of an eval round of the Local DeepFM job's checkpoint
+    (its `evaluate` job) through eval graphs and on the eager loop (the
+    trainer's `eval_graph_ok` off): the same value."""
+    out = {}
+    # the Trainer class the Local job builds
+    real_ok = api.Trainer.eval_graph_ok
+    for mode in ("graph", "eager"):
+        if mode == "eager":
+            api.Trainer.eval_graph_ok = lambda self, state, features: False
+        try:
+            t0 = time.perf_counter()
+            ev = api.run_local(cli.parse_args(local_argv(
+                "evaluate", "--validation_data", served["val_dir"],
+                "--checkpoint_dir_for_init", served["ckpt"])), "evaluate")
+            wall = time.perf_counter() - t0
+        finally:
+            api.Trainer.eval_graph_ok = real_ok
+        runner = ev.owner.trainer._graphs
+        out[mode] = {"exit_code": ev.exit_code,
+                     "auc": (ev.metrics or {}).get("auc"), "wall_s": wall,
+                     "eval_captures": runner.captures.get("eval", 0),
+                     "eval_replays": runner.replays.get("eval", 0)}
+        del ev
+    out["card"] = card
+    out["job_auc"] = served["auc"]
+    print(json.dumps({"graph_programs_eval_auc": out}), flush=True)
+    g, e = out["graph"], out["eager"]
+    if not (g["exit_code"] == e["exit_code"] == 0 and g["auc"] is not None
+            and g["auc"] == e["auc"] and g["eval_replays"] > 0
+            and e["eval_captures"] == e["eval_replays"] == 0):
+        raise AssertionError(f"graph_programs (d) eval AUC: {out}")
+    return out
+
+
+def _seam_equal(a, b) -> bool:
+    """Cache planes, every model tensor and the moments of two states."""
+    if not all(torch.equal(x, y) for x, y in zip(
+            a.model.state_dict().values(), b.model.state_dict().values())):
+        return False
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        ma, mb = a.optimizer.state.get(p, {}), b.optimizer.state.get(q, {})
+        if ma.keys() != mb.keys() or not all(
+                torch.equal(ma[k], mb[k]) for k in ma):
+            return False
+    return True
+
+
+def graph_seam(device, cache_dtype: str) -> dict:
+    """(e) The tiered seam at tiered_deepfm (b)'s shape (2^20 cache rows,
+    batch 16384): plans that fill the cache with distinct ids, then
+    zipf(1.2) plans.  Each plan is applied through the store on a state
+    whose admits and eviction reads run as graphs, and every seam call
+    is mirrored on a second state on the eager loop: equal read rows,
+    cache planes, carriers and Adam moments after every call."""
+    spec = get_model_spec(ZOO_DIR, TIERED,
+                          tiered_params(REAL_CACHE, cache_dtype))
+    trainer = Trainer(spec.model, spec.optimizer, spec.loss, use_bf16=True,
+                      device=device)
+    store = tiered_zoo.build_tiered_store()
+    stream = zipf_stream(SEED + 43)
+    first = next(stream)
+    sample = dict(first["features"])
+    sample["slots"] = np.zeros_like(sample.pop("sparse"), dtype=np.int32)
+    states = {m: trainer.init_state(SEED, sample) for m in ("graph", "eager")}
+    # one step on each, eagerly, so the moments an admit zeroes exist
+    with graphs_lib.eager_loop():
+        for state in states.values():
+            trainer.train_on_batch(state, {"features": sample,
+                                           "labels": first["labels"]})
+    g, e = states["graph"], states["eager"]
+    calls = {"read": [], "admit": []}
+    orig = (store_device.read_rows, store_device.apply_admissions)
+
+    def read(state, paths, slots, cache_dtype="float32"):
+        got = orig[0](state, paths, slots, cache_dtype=cache_dtype)
+        with graphs_lib.eager_loop():
+            want = orig[0](e, paths, slots, cache_dtype=cache_dtype)
+        calls["read"].append((int(np.asarray(slots).size), all(
+            np.array_equal(got[k], want[k]) for k in want)))
+        return got
+
+    def admit(state, paths, slots, values, cache_dtype="float32"):
+        out = orig[1](state, paths, slots, values, cache_dtype=cache_dtype)
+        with graphs_lib.eager_loop():
+            orig[1](e, paths, slots, values, cache_dtype=cache_dtype)
+        calls["admit"].append((int(np.asarray(slots).size),
+                               _seam_equal(g, e)))
+        return out
+
+    runners = {p: store_device._graphs(device, p)
+               for p in ("store_gather", "store_admit")}
+    before = {p: (dict(r.captures), dict(r.replays))
+              for p, r in runners.items()}
+    n_ids = REAL_BATCH * NUM_SPARSE
+    store_device.read_rows, store_device.apply_admissions = read, admit
+    try:
+        t0 = time.perf_counter()
+        for i in range(SEAM_FILL_PLANS + SEAM_ZIPF_PLANS):
+            if i < SEAM_FILL_PLANS:
+                sparse = np.arange(i * n_ids, (i + 1) * n_ids,
+                                   dtype=np.int64).reshape(REAL_BATCH,
+                                                           NUM_SPARSE)
+            else:
+                sparse = next(stream)["features"]["sparse"]
+            _, plan = store.prepare(sparse)
+            store.apply_plan(g, plan)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        store_device.read_rows, store_device.apply_admissions = orig
+    graphs = {p: {"captures": r.captures.get(p, 0)
+                  - before[p][0].get(p, 0),
+                  "replays": r.replays.get(p, 0) - before[p][1].get(p, 0)}
+              for p, r in runners.items()}
+    row = {"cache_dtype": cache_dtype, "plans": SEAM_FILL_PLANS
+           + SEAM_ZIPF_PLANS, "seconds": seconds,
+           "reads": [n for n, _ in calls["read"]],
+           "admits": [n for n, _ in calls["admit"]],
+           "reads_equal": all(ok for _, ok in calls["read"]),
+           "admits_equal": all(ok for _, ok in calls["admit"]),
+           "graphs": graphs, "final_equal": _seam_equal(g, e)}
+    print(json.dumps({f"graph_programs_seam_{cache_dtype}": row}),
+          flush=True)
+    if not (row["reads_equal"] and row["admits_equal"]
+            and row["final_equal"] and len(calls["read"]) >= 2
+            and len(calls["admit"]) == row["plans"]
+            and all(v["captures"] >= 1 and v["replays"] >= 1
+                    for v in graphs.values())):
+        raise AssertionError(f"graph_programs (e) seam {cache_dtype}: "
+                             f"{row}")
+    del states, g, e, store, trainer
+    torch.cuda.empty_cache()
+    return row
+
+
+def graph_programs(card: str, served: dict) -> tuple:
+    """The registered programs that are not train steps, as captured
+    CUDA graphs, each held against its eager version (`eager_loop()`)
+    bit for bit: (a) BERT-base serving per bucket, (b) a hot swap in its
+    traffic, (c) DeepFM serving fp32 and int8, (d) `worker_eval_step`
+    for DeepFM and BERT-base and a Local eval round's AUC, (e) the tiered
+    seam's admits and gathers fp32 and int8; (f) eager and graph ms.
+    Returns (summary, flash launches by path)."""
+    t0 = time.perf_counter()
+    device = torch.device("cuda", 0)
+    out, launches = {}, {}
+    out["serve_bert"], launches["graph_programs_serve_bert"] = \
+        graph_serve_bert(card, device)
+    torch.cuda.empty_cache()
+    out["serve_deepfm"] = graph_serve_deepfm(device)
+    out["eval"], launches["graph_programs_eval_bert"] = \
+        graph_eval_steps(device)
+    out["eval_auc"] = graph_eval_auc(card, served)
+    out["seam"] = {dtype: graph_seam(device, dtype)
+                   for dtype in ("float32", "int8")}
+    seconds = time.perf_counter() - t0
+    out.update(card=card, seconds=seconds, budget_s=GRAPH_PROGRAMS_BUDGET_S)
+    for b, ms in out["serve_bert"]["ms_by_bucket"].items():
+        print(f"graph_programs serve_bert bucket {b}: eager "
+              f"{ms['eager']['event_ms']:.3f} ms (host "
+              f"{ms['eager']['wall_ms']:.3f}), graph "
+              f"{ms['graph']['event_ms']:.3f} ms (host "
+              f"{ms['graph']['wall_ms']:.3f}) [{card}]", flush=True)
+    for label in ("deepfm", "bert"):
+        ms = out["eval"][label]["ms"]
+        print(f"graph_programs eval_{label}: eager "
+              f"{ms['eager']['event_ms']:.3f} ms, graph "
+              f"{ms['graph']['event_ms']:.3f} ms; busy share eager "
+              f"{ms['eager'].get('device_busy_share')} graph "
+              f"{ms['graph'].get('device_busy_share')} [{card}]",
+              flush=True)
+    print(f"graph_programs phase: {seconds:.1f} s (budget "
+          f"{GRAPH_PROGRAMS_BUDGET_S} s) [{card}]", flush=True)
     return out, launches
 
 
@@ -5052,7 +5559,9 @@ def serve_cli_deepfm(card: str, served: dict) -> dict:
         with torch.no_grad():
             newer.model.mlp_out.bias += SWAP_SHIFT
         newer.step = LOCAL_STEPS + 1
-        old_vars = engine.variables
+        # the served generation, copied: a swap overwrites the engine's
+        # static tensors in place
+        old_vars = {k: v.clone() for k, v in engine.variables.items()}
         new_vars = {k: v.to(device) for k, v in
                     newer.model.state_dict().items()}
         swap_results, lock = [], threading.Lock()
@@ -8933,6 +9442,8 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
     serve_fm = phase("serve_cli_deepfm", serve_cli_deepfm, card, fm_served)
     wire, wire_launches = phase("wire_deepfm", wire_deepfm, buffers)
     graph, graph_launches = phase("graph_steps", graph_steps, card, buffers)
+    gprog, gprog_launches = phase("graph_programs", graph_programs, card,
+                                  fm_served)
     del buffers
     tiered, tiered_launches = phase("tiered_deepfm", tiered_deepfm, card)
     local_t, local_t_launches = phase("local_tiered", local_tiered, card,
@@ -8989,7 +9500,8 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
            par_launches.items()
            if path.rsplit("_rank", 1)[0] in PAR_FLASH_PATHS},
         **{path: n.get("flash_attention_fwd", 0) for path, n in
-           graph_launches.items() if "bert" in path}}
+           graph_launches.items() if "bert" in path},
+        **gprog_launches}
     # launches: the bare Trainer's timed steps at bench_bert's shape (the
     # BERT training path); each path's count beside it
     bwd_entry["launches"] = bert_launches_by["plain"]["flash_attention_bwd"]
@@ -9022,6 +9534,7 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
                    "kube_cluster": kube, "autoscale_cluster": scale,
                    "parallel_axes": par,
                    "wire_deepfm": wire, "graph_steps": graph,
+                   "graph_programs": gprog,
                    "serve_cli_deepfm": serve_fm,
                    "tiered_deepfm": tiered, "local_tiered": local_t,
                    "zoo_local": zoo,

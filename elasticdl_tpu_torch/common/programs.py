@@ -53,8 +53,16 @@ cost that reads the data (the scatter-add's touched rows) takes its
 upper bound there, and the ledger marks such an entry `"abstract":
 true`.  `cost_for` answers for a signature that has not run through
 `aot_compile`, as the reference's does.  What a process cannot hand on
-is the CUDA graph that a world-of-one train program captures
-(worker/graphs.py): it lives in that process.
+is the CUDA graphs its programs capture (worker/graphs.py): they live in
+that process.
+
+**Graphs.**  On CUDA the train steps, `worker_eval_step`,
+`serving_forward`, `store_gather` and `store_admit` run as captured CUDA
+graphs.  A signature's first call runs eagerly and is its counted call,
+as above; a capture records no second compile (a serving engine's
+warm-up captures outside the registered call, and a capture inside one
+is a later call at a signature already seen); a replay is an execution
+of its program at the cost the counted call recorded.
 
 **A difference kept on purpose.**  In the reference, a dispatch-path
 compile carries flops 0 and bytes 0 (XLA's cost model comes only from an

@@ -62,6 +62,7 @@ import torch
 
 from elasticdl_tpu_torch.common import programs
 from elasticdl_tpu_torch.ops import _build
+from elasticdl_tpu_torch.ops import launches as launches_lib
 
 _NEG_INF = -1e30
 SOURCE = "flash_attention_fwd.cu"
@@ -318,8 +319,7 @@ def _kernel_forward(q, k, v, causal: bool, scale: float):
             f"flash_attention {variant} kernel launch failed with error "
             f"{err} for q {tuple(q.shape)} {q.dtype}"
         )
-    flash_attention.launches += 1
-    flash_attention.launches_by_kernel[variant] += 1
+    launches_lib.count("flash_attention_fwd", variant)
     return out, lse
 
 
@@ -487,8 +487,7 @@ def _kernel_backward(q, k, v, out, lse, g, causal: bool, scale: float):
         raise RuntimeError(
             f"flash_attention backward {variant} kernel launch failed with "
             f"error {err} for q {tuple(q.shape)} {q.dtype}")
-    flash_attention.backward_launches += 1
-    flash_attention.backward_launches_by_kernel[variant] += 1
+    launches_lib.count("flash_attention_bwd", variant)
     return dq, dk, dv
 
 
@@ -589,6 +588,10 @@ flash_attention.launches = 0
 flash_attention.launches_by_kernel = {SM90_WGMMA: 0, CUDA_CORE: 0}
 flash_attention.backward_launches = 0
 flash_attention.backward_launches_by_kernel = {SM90_WGMMA: 0, CUDA_CORE: 0}
+launches_lib.register("flash_attention_fwd", flash_attention, "launches",
+                      "launches_by_kernel")
+launches_lib.register("flash_attention_bwd", flash_attention,
+                      "backward_launches", "backward_launches_by_kernel")
 
 
 def reset_launch_counts() -> None:

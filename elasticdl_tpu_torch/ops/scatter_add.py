@@ -42,6 +42,7 @@ import torch
 
 from elasticdl_tpu_torch.common import programs
 from elasticdl_tpu_torch.ops import _build
+from elasticdl_tpu_torch.ops import launches as launches_lib
 
 SOURCE = "scatter_add.cu"
 _MAX_IDS = 2 ** 31 - 1
@@ -151,7 +152,7 @@ def _kernel_scatter_add_(table, ids, grads) -> torch.Tensor:
         raise RuntimeError(
             f"scatter_add_segments kernel launch failed with CUDA error "
             f"{err} for {n} ids into a {tuple(table.shape)} table")
-    scatter_add.launches += 1
+    launches_lib.count("scatter_add")
     return table
 
 
@@ -226,3 +227,4 @@ def scatter_add(table: torch.Tensor, ids: torch.Tensor,
 
 
 scatter_add.launches = 0
+launches_lib.register("scatter_add", scatter_add, "launches")

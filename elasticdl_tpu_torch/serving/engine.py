@@ -3,18 +3,36 @@ port of the JAX package's serving/engine.py).
 
 - **Batch buckets.**  Requests arrive at arbitrary batch sizes; every
   batch is padded up to the nearest configured bucket, so the device
-  only ever sees `len(buckets)` distinct batch shapes.  PyTorch runs
-  eagerly and traces nothing, so `serving_engine_compiles_total` keeps
-  the JAX engine's name and counts the distinct batch shapes executed;
-  after `warmup()` it equals `len(buckets)` and stays there.
+  only ever sees `len(buckets)` distinct batch shapes.
+- **One captured graph per bucket.**  On CUDA the forward at each batch
+  shape runs as a captured CUDA graph (worker/graphs.py), the port of
+  the JAX engine's compile: `warmup()` runs each bucket once eagerly and
+  captures it on the warming thread, so the batcher's dispatch thread
+  only replays.  The padding stays on the host; the padded features are
+  copied into the bucket's static inputs before the replay, and the
+  result is copied out of the static output before the next replay.
+  Dispatch is on `graph_ok`; a failed capture raises, and
+  `graphs_lib.eager_loop()` keeps a thread on the eager forward, which
+  the CPU always runs.  `serving_engine_compiles_total` keeps the JAX
+  engine's name and counts the distinct batch shapes executed: after
+  `warmup()` it equals `len(buckets)` and stays there.  With
+  `precompile=False`, or `pad_to_bucket=False`, a shape's first call
+  runs eagerly and its second captures.
 - **The model's own kernels.**  The JAX engine traces under
   `export_mode()`, which swaps the Pallas flash kernel for the O(L^2)
   reference because jax2tf cannot stage a Pallas call.  The port has no
-  such limit: on the card the forward runs the Hopper flash kernel.
-- **Atomic hot swap.**  `swap()` validates names, shapes and dtypes
-  against the served variables and replaces the dict under a lock.  The
-  forward runs `torch.func.functional_call(model, variables, ...)` on
-  the dict it read, so in-flight batches keep their reference.
+  such limit: on the card the forward runs the Hopper flash kernel,
+  inside the graphs.
+- **Atomic hot swap.**  The served generation is one set of static
+  tensors, the engine's own copies (`_Served`), which the graphs bake
+  in.  `swap()` validates names, shapes and dtypes against it and
+  copies the new tensors into it in place, capturing nothing.  A
+  predict holds the engine's serve lock from reading the step through
+  copying out its result, and a swap holds it while it copies and sets
+  the new step, so a response's step always names the weights it was
+  computed with; both queue their device work on one stream.  At its
+  peak a reload holds two generations: the restored tensors and the
+  static set.
 - **Serialized device execution.**  The forward runs under
   `run_device_serialized` (worker/trainer.py) from the batcher's
   dispatch thread.
@@ -37,6 +55,7 @@ restore.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import threading
 import time
@@ -63,6 +82,7 @@ from elasticdl_tpu_torch.worker.trainer import (
     run_device_serialized,
     to_tensor,
 )
+from elasticdl_tpu_torch.worker import graphs as graphs_lib
 
 logger = get_logger(__name__)
 
@@ -99,6 +119,12 @@ def packed_feature_spec(feature_spec: Dict[str, dict]) -> Dict[str, dict]:
     }
 
 
+def _served_fingerprint(engine) -> tuple:
+    """What a forward's graph bakes in: the served tensors' addresses
+    (fixed for an engine's life: a swap copies in place)."""
+    return tuple(t.data_ptr() for t in engine.variables.values())
+
+
 def _signature(variables: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
     return {
         name: (tuple(t.shape), t.dtype) for name, t in variables.items()
@@ -106,7 +132,9 @@ def _signature(variables: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
 
 
 class _Served:
-    """The served variables as one leaf of the forward's signature:
+    """The served generation: one set of static tensors, the engine's own
+    copies, which every forward reads and a graph bakes in, and which a
+    swap overwrites in place.  One leaf of the forward's signature:
     `swap` keeps their names, shapes and dtypes, so a request's features
     alone tell one signature from another (and flattening a model's
     hundreds of tensors per request would cost more than a small
@@ -151,7 +179,7 @@ class ServingEngine:
         # two engines over one zoo template (a fleet's replicas) would
         # race on its parameters from their batchers' threads.
         self._model = copy.deepcopy(model).eval()
-        self._variables = self._place(variables)
+        self._served = _Served(self._place(variables))
         self._step = int(step)
         # wall time the producer stamped into the checkpoint manifest
         # (None when unknown), for end-to-end staleness tracing
@@ -164,7 +192,19 @@ class ServingEngine:
         self._pad_to_bucket = bool(pad_to_bucket)
         self._has_train = model_has_train_kwarg(model)
         self._lock = threading.Lock()
+        # one generation at a time: a predict holds it from reading the
+        # step to copying out its result, a swap while it copies the new
+        # generation in, so their device work queues in lock order on
+        # the engine's stream
+        self._serve_lock = threading.Lock()
+        self._stream = (torch.cuda.default_stream(self.device)
+                        if self.device.type == "cuda" else None)
         self._shapes_seen = set()
+        # the captured forward per batch shape (worker/graphs.py), over
+        # the served generation's static tensors; one memory pool
+        self.graphs: Dict[tuple, Any] = {}
+        self._graphs = graphs_lib.ProgramGraphs(
+            self.device, fingerprint=_served_fingerprint)
         # phase-timing clock; public so deterministic tests can inject a
         # fake
         self.clock = time.perf_counter
@@ -174,8 +214,8 @@ class ServingEngine:
         self._compiles = self.metrics_registry.counter(
             "serving_engine_compiles_total",
             "distinct batch shapes executed (== buckets after warm-up; "
-            "eager PyTorch compiles nothing, the name is the JAX "
-            "engine's)",
+            "on CUDA each is one captured graph, the JAX engine's "
+            "compile)",
         )
         self._swaps = self.metrics_registry.counter(
             "serving_engine_swaps_total",
@@ -293,13 +333,42 @@ class ServingEngine:
         )
 
     def _place(self, variables) -> Dict[str, torch.Tensor]:
+        """The engine's own copies of `variables` on its device."""
         return {
-            name: t.detach().to(self.device)
+            name: t.detach().to(self.device, copy=True)
             for name, t in dict(variables).items()
         }
 
+    def graph_ok(self) -> bool:
+        """Whether the forward runs as captured CUDA graphs, one per batch
+        shape: a CUDA engine outside `graphs_lib.eager_loop`, whose
+        served tensors are real (the engine places them on its device),
+        and no capture already under way."""
+        return (self.device.type == "cuda" and not graphs_lib.in_eager_loop()
+                and not torch.cuda.is_current_stream_capturing())
+
+    def _body(self, served: _Served):
+        """The forward's device work over input tensors on the device."""
+        kwargs = {"train": False} if self._has_train else {}
+
+        def body(tensors):
+            x = tensors[SINGLE_FEATURE_KEY] if self._single else tensors
+            with torch.inference_mode():
+                return functional_call(self._model, served.variables, (x,),
+                                       kwargs)
+
+        return body
+
+    @staticmethod
+    def _host(feats) -> Dict[str, torch.Tensor]:
+        cpu = torch.device("cpu")
+        return {name: to_tensor(arr, cpu) for name, arr in feats.items()}
+
     def _forward(self, served: _Served, feats):
-        variables = served.variables
+        """The padded batch's predictions on the device.  On the graph
+        path the host copy of the features goes into the shape's static
+        inputs, and the result is the static output: the caller reads it
+        before the next replay (predict holds `_serve_lock`)."""
         shape = tuple(
             (name, tuple(feats[name].shape)) for name in sorted(feats)
         )
@@ -307,13 +376,27 @@ class ServingEngine:
             if shape not in self._shapes_seen:
                 self._shapes_seen.add(shape)
                 self._compiles.inc()
-        tensors = {
-            name: to_tensor(arr, self.device) for name, arr in feats.items()
-        }
-        x = tensors[SINGLE_FEATURE_KEY] if self._single else tensors
-        kwargs = {"train": False} if self._has_train else {}
-        with torch.inference_mode():
-            return functional_call(self._model, variables, (x,), kwargs)
+        host = self._host(feats)
+        body = self._body(served)
+        if not self.graph_ok():
+            return body({name: t.to(self.device)
+                         for name, t in host.items()})
+        return self._graphs.run(
+            self, ("serving_forward", graphs_lib.batch_shapes(host)), host,
+            body, finish=lambda out: out)
+
+    def _capture(self, bucket: int) -> None:
+        """Capture the forward at `bucket` rows ahead of its next call,
+        after this thread's eager call (warmup): no forward runs, and the
+        registry records no second compile."""
+        host = self._host(_zeros_features(self._feature_spec, bucket))
+        key = ("serving_forward", graphs_lib.batch_shapes(host))
+        with self._serve_lock, self._on_stream():
+            self._graphs.capture(self, key, host, self._body(self._served))
+
+    def _on_stream(self):
+        return (torch.cuda.stream(self._stream) if self._stream is not None
+                else contextlib.nullcontext())
 
     # ---- introspection --------------------------------------------------
 
@@ -350,8 +433,10 @@ class ServingEngine:
 
     @property
     def variables(self) -> Dict[str, torch.Tensor]:
-        with self._lock:
-            return self._variables
+        """The served generation's tensors: the engine's static set,
+        which a swap overwrites in place (copy them to keep a
+        generation)."""
+        return self._served.variables
 
     def bucket_for(self, rows: int) -> Optional[int]:
         for b in self._buckets:
@@ -412,10 +497,14 @@ class ServingEngine:
     # ---- execution ------------------------------------------------------
 
     def warmup(self) -> None:
-        """Run every bucket once up front, so the first request of each
-        size finds the kernels built and the allocator warm."""
+        """Run every bucket once up front and, on the graph path
+        (`graph_ok`), capture it on this thread, so that no request pays
+        a build or a capture: the dispatch thread then only replays (the
+        JAX engine compiles every bucket here)."""
         for b in self._buckets:
             self.predict(_zeros_features(self._feature_spec, b), b)
+            if self._pad_to_bucket and self.graph_ok():
+                self._capture(b)
         logger.info(
             "serving engine warm on %s: buckets=%s batch shapes=%d",
             self.device, self._buckets, self.compile_count,
@@ -451,17 +540,21 @@ class ServingEngine:
                 )
                 arr = np.concatenate([arr, pad], axis=0)
             padded[name] = arr
-        with self._lock:
-            variables, step = self._variables, self._step
-        t1 = self.clock()
-        out = run_device_serialized(
-            self._program, _Served(variables), padded, device=self.device
-        )
-        t2 = self.clock()
-        # host transfer + row slice: the dequant/unpack leg of the span
-        result = out[:rows].float().cpu().numpy()
-        if phase_out is not None:
+        with self._serve_lock, self._on_stream():
+            # the step, the forward and the copy out belong to one
+            # generation: a swap waits for the lock
+            step = self.step
+            t1 = self.clock()
+            out = run_device_serialized(
+                self._program, self._served, padded, device=self.device
+            )
+            t2 = self.clock()
+            # host transfer + row slice: the dequant/unpack leg of the
+            # span; on the graph path it reads the static output before
+            # the next replay can rewrite it
+            result = out[:rows].to("cpu", torch.float32, copy=True).numpy()
             t3 = self.clock()
+        if phase_out is not None:
             phase_out["pad"] = max(0.0, t1 - t0)
             phase_out["compute"] = max(0.0, t2 - t1)
             phase_out["unpack"] = max(0.0, t3 - t2)
@@ -471,25 +564,34 @@ class ServingEngine:
 
     def swap(self, variables: Dict[str, torch.Tensor], step: int,
              produced_unix_s: Optional[float] = None) -> None:
-        """Atomically replace the served variables.  The new dict must
-        match the current one in names, shapes and dtypes — a mismatch
-        would give wrong results, or a new set of batch shapes,
-        mid-traffic.  `produced_unix_s` is the producer's stamp
-        (freshness tracing); None keeps no stamp for the new generation."""
-        placed = self._place(variables)
-        new_sig = _signature(placed)
-        # check-and-set under one lock hold: two concurrent swaps must
-        # not both validate against the same old dict
-        with self._lock:
-            if _signature(self._variables) != new_sig:
-                raise ValueError(
-                    "swap rejected: new variables do not match the "
-                    "served tree (structure/shape/dtype drift); restart "
-                    "serving with the new model instead of hot-swapping"
-                )
-            self._variables = placed
-            self._step = int(step)
-            self._produced_unix_s = produced_unix_s
+        """Atomically replace the served generation: the new tensors are
+        copied into the static set in place (a graph bakes in its
+        addresses, so nothing is captured again, as the JAX forward takes
+        the variables as an argument and a swap compiles nothing).  The
+        new dict must match the current one in names, shapes and dtypes
+        — a mismatch would give wrong results, or a new set of batch
+        shapes, mid-traffic.  A predict sees the old generation whole or
+        the new one whole, with its step.  `produced_unix_s` is the
+        producer's stamp (freshness tracing); None keeps no stamp for the
+        new generation."""
+        new = {name: t.detach() for name, t in dict(variables).items()}
+        if _signature(self._served.variables) != _signature(new):
+            raise ValueError(
+                "swap rejected: new variables do not match the "
+                "served tree (structure/shape/dtype drift); restart "
+                "serving with the new model instead of hot-swapping"
+            )
+        with self._serve_lock, self._on_stream():
+            with torch.no_grad():
+                for name, t in self._served.variables.items():
+                    t.copy_(new[name])
+            if self._stream is not None:
+                # the copy has landed before the swap returns (and
+                # before the caller frees the new tensors)
+                self._stream.synchronize()
+            with self._lock:
+                self._step = int(step)
+                self._produced_unix_s = produced_unix_s
         self._swaps.inc()
         logger.info("serving engine swapped to step %d", step)
 

@@ -12,9 +12,11 @@ steps with the double-buffer discipline:
 2. restore it into a FRESH TrainState (`restore_step` copies the
    engine's template), under `run_device_serialized`; the served
    variables are untouched, so both generations coexist briefly;
-3. `engine.swap()` atomically republishes the reference, with the
-   manifest's producer stamp.  In-flight batches finish on the
-   generation they already read, so no request is dropped or served a
+3. `engine.swap()` copies the new generation into the engine's static
+   tensors (the ones its CUDA graphs read) under its serve lock, with
+   the manifest's producer stamp.  A batch in flight finishes on the
+   generation it started on (the swap waits for it), and the next runs
+   on the new one with its step, so no request is dropped or served a
    half-loaded state.
 
 Any failure — integrity, a real restore error, or an injected fault at

@@ -21,11 +21,21 @@ Index vectors are padded to a power-of-four bucket (`_pad_bucket`) by
 repeating their first entry with its own value, so duplicate writes
 carry identical values and `index_copy_`'s unspecified order among
 duplicates cannot change the result.  The JAX package pads for XLA's
-compile cache; here it keeps the shapes few, as a CUDA graph per shape
-would need (the train step's graphs, worker/graphs.py, leave the seam
-eager: `apply_plan` runs before the captured step).  The admit and
-gather are plain PyTorch (`index_select`, `index_copy_`): ROADMAP.md
-queue 2's later hand kernel 7.
+compile cache; here it keeps the CUDA graphs few.  On CUDA, for whole
+cache tables, the gather of `read_rows` and the admission run as
+captured graphs (worker/graphs.py), one per bucket and cache dtype,
+kept on the state (`TrainState.graphs`) and dispatched on `graph_ok`:
+the padded host indices and values are copied into the graph's static
+inputs before the replay; the admit's replay does the `index_copy_` per
+plane, the zeroing of the moment rows and, for int8, the quantize; the
+gather's replay writes its static rows, and the blocking copy to the
+host runs after it, under the pool's lock.  An admit graph bakes in the
+optimizer's moments: a parameter without them yet has another graph,
+told apart by the state's fingerprint.  A cache row-sharded over
+`model`, and `read_full_tables` / `read_full_planes` (which the JAX
+package does not register either), stay eager.  The admit and gather
+are plain PyTorch (`index_select`, `index_copy_`): ROADMAP.md queue 2's
+later hand kernel 7.
 
 Model layout: `param_paths` maps each store plane to the dotted name of
 its `TieredArena` in the model (DeepFM: `fm_embedding`, `fm_linear`);
@@ -48,6 +58,7 @@ index buckets.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -58,6 +69,7 @@ from elasticdl_tpu_torch.layers.arena import dequantize_rows, quantize_rows
 from elasticdl_tpu_torch.layers.embedding import shard_of
 from elasticdl_tpu_torch.parallel import collectives
 from elasticdl_tpu_torch.parallel.mesh import MODEL_AXIS
+from elasticdl_tpu_torch.worker import graphs as graphs_lib
 from elasticdl_tpu_torch.worker.trainer import run_device_serialized
 
 
@@ -131,6 +143,36 @@ def cache_block(state, param_paths: Dict[str, str]):
     return first // rows, mesh.shape[MODEL_AXIS]
 
 
+def graph_ok(state, shard=None) -> bool:
+    """Whether the seam's gather and admit on `state` run as captured
+    CUDA graphs: a CUDA device outside `graphs_lib.eager_loop`, whole
+    cache tables (`shard` None: a row block over `model` reads and
+    writes through gloo collectives on the host), a state that keeps
+    graphs, real tensors, and no capture already under way."""
+    return (_device(state).type == "cuda" and shard is None
+            and not graphs_lib.in_eager_loop()
+            and isinstance(getattr(state, "graphs", None), dict)
+            and not programs.is_abstract(next(state.model.parameters()))
+            and not torch.cuda.is_current_stream_capturing())
+
+
+_GRAPHS_LOCK = threading.Lock()
+_GRAPHS: Dict[tuple, graphs_lib.ProgramGraphs] = {}
+
+
+def _graphs(device: torch.device, program: str) -> graphs_lib.ProgramGraphs:
+    """The seam's graph runner of `program` on `device`: one memory pool,
+    and one lock, for its graphs over every state there (the graphs
+    themselves live on each state, `TrainState.graphs`).  The gather and
+    the admit have a pool each, so an admission on the training thread
+    does not wait for an eviction read's copy to the host."""
+    with _GRAPHS_LOCK:
+        key = (device, program)
+        if key not in _GRAPHS:
+            _GRAPHS[key] = graphs_lib.ProgramGraphs(device)
+        return _GRAPHS[key]
+
+
 def _layout(param_paths: Dict[str, str]) -> Tuple[Tuple[str, str], ...]:
     """Hashable, order-stable (name, path) pairs: the key of the program
     caches below."""
@@ -161,8 +203,21 @@ def read_rows(state, param_paths: Dict[str, str], slots: np.ndarray,
     gather = _gather_program(layout, cache_dtype)
     shard = _shard(state, param_paths)
 
+    def host_rows(rows):
+        return {name: plane.float().cpu().numpy()[:n].copy()
+                for (name, _), plane in zip(layout, rows)}
+
     def _read():
-        idx = torch.from_numpy(idx_host).to(device)
+        idx = torch.from_numpy(idx_host)
+        if graph_ok(state, shard):
+            # the copy out runs under the pool's lock, before another
+            # replay can rewrite the static rows
+            return _graphs(device, "store_gather").run(
+                state, ("store_gather", layout, cache_dtype,
+                        graphs_lib.batch_shapes(idx)), idx,
+                lambda i: gather(state.model, i), finish=host_rows,
+                fingerprint=graphs_lib.model_fingerprint)
+        idx = idx.to(device)
         if shard is None:
             rows = gather(state.model, idx)
         else:
@@ -173,8 +228,7 @@ def read_rows(state, param_paths: Dict[str, str], slots: np.ndarray,
                 torch.where(inside, plane, torch.zeros_like(plane)), mesh,
                 MODEL_AXIS) for plane in gather(
                     state.model, torch.where(inside[:, 0], local, 0)))
-        return {name: plane.float().cpu().numpy()[:n].copy()
-                for (name, _), plane in zip(layout, rows)}
+        return host_rows(rows)
 
     return run_device_serialized(_read, device=device)
 
@@ -287,10 +341,16 @@ def apply_admissions(state, param_paths: Dict[str, str], slots: np.ndarray,
     admit = _admit_program(layout, cache_dtype)
 
     def _apply():
-        idx = torch.from_numpy(idx_host).to(device)
-        vals = tuple(torch.from_numpy(vals_host[name]).to(device)
-                     for name, _ in layout)
-        admit(state, idx, vals)
+        idx = torch.from_numpy(idx_host)
+        vals = tuple(torch.from_numpy(vals_host[name]) for name, _ in layout)
+        if graph_ok(state, shard):
+            _graphs(device, "store_admit").run(
+                state, ("store_admit", layout, cache_dtype,
+                        graphs_lib.batch_shapes((idx, vals))), (idx, vals),
+                lambda inputs: admit(state, *inputs),
+                finish=lambda out: None)
+        else:
+            admit(state, idx.to(device), tuple(v.to(device) for v in vals))
         return state
 
     return run_device_serialized(_apply, device=device)

@@ -1,37 +1,63 @@
-"""The world-of-one train programs as captured CUDA graphs: the port's
-compile (the counterpart of the JAX trainer's jitted `train_step`,
-`train_step_many` and fused timing loop).
+"""The port's compile: the registered device programs as captured CUDA
+graphs (the counterpart of the JAX package's jitted programs).
 
-A `StepGraphs` holds the graphs of one Trainer.  Each program call names
-a key (the program and its batches' shapes) and a body, the device work
-of K train steps over K batches, which returns their losses.  Per state
-and key:
+What runs as a graph on CUDA:
 
-- the first call runs the body eagerly, on a side stream: it is the
-  registry's counted call (common/programs.py), creates the optimizer
-  state, builds the kernels and warms the allocator, and is the
-  side-stream warm-up PyTorch asks for before a capture (a second
-  thread training the same state makes its own first call eagerly);
-- the next call captures the body over static copies of the batches
-  (`torch.cuda.graph`, the Trainer's one memory pool), then copies its
-  batches in and replays;
-- every later call copies its batches into the static buffers and
-  replays.
+- a world-of-one Trainer's `worker_train_step`, `worker_train_step_many`
+  and `worker_timed_fused` (K train steps over K batches; graphs on the
+  state, `TrainState.graphs`) and its `worker_eval_step` (the forward
+  with train=False, on the state too: an eval task's snapshot state
+  captures its own graph and frees it with itself);
+- a `ServingEngine`'s `serving_forward`, one graph per batch shape (a
+  bucket), on the engine, over its static served generation;
+- the tiered store seam's `store_gather` and `store_admit`
+  (store/device.py), one graph per index bucket and cache dtype, on the
+  state, for whole cache tables.
 
-A capture that fails raises; nothing goes eager in its place.  A graph
-bakes in the addresses of the state's parameters, buffers and optimizer
-state and the optimizer's hyperparameters: when any of them changes (a
-checkpoint restore loads new optimizer tensors) the key captures anew.
+What stays eager: `worker_init_state` (one call per state, so a graph
+would never replay), the data-parallel `worker_train_step` and every
+program on a cache row-sharded over `model` (their collectives run
+through gloo on the host), and the CPU, which always runs the eager
+version.
 
-Hand kernels count their launches in Python (ops/), and a replay runs
-no Python.  A capture runs each wrapper once and launches nothing, so
-its counts are taken back, kept as the graph's `launches`, and each
-replay adds them: the counters mean what they meant before.
+A `ProgramGraphs` runs the graphs of the objects that own them.  Per
+owner and key (the program and its inputs' shapes):
 
-A graph holds only an optimizer whose step counts live on the device
-(`graphs_ok_for`); `capturable_adam` builds Adam and AdamW so, counting
-in float64.  `eager_loop()` keeps a thread's programs on the eager loop,
-the graphs' plain version, which a check holds them against.
+- the first call on a thread, while the key has no graph, runs eagerly,
+  on a side stream: it is the registry's counted call
+  (common/programs.py), builds the kernels, sets up the thread's cuBLAS
+  handle, which cannot be created inside a capture, and is the
+  side-stream warm-up PyTorch asks for before a capture;
+- a thread that has made that call captures the program over static
+  copies of its inputs (`torch.cuda.graph`, the runner's one memory
+  pool; captures are serialized in the process by `CAPTURE_LOCK`), then
+  copies its inputs in and replays;
+- any thread replays a current graph: its inputs are copied into the
+  static inputs (host arrays too: the copy runs before the replay, as a
+  pageable copy cannot be captured), and the static output that the
+  replay rewrites is read before another replay of the runner's pool:
+  the graphs of one pool share its memory, so a capture, and a load,
+  its replay and the read of its output, hold the pool's lock.
+
+A capture that fails raises; nothing goes eager in its place, and
+dispatch is on an explicit predicate (`Trainer.graph_ok`,
+`Trainer.eval_graph_ok`, `ServingEngine.graph_ok`,
+`store.device.graph_ok`), never on a caught exception.  A graph bakes in
+the addresses of its owner's tensors (`state_fingerprint`,
+`model_fingerprint`) and, for a train step, the optimizer's
+hyperparameters: when any of them changes (a checkpoint restore loads
+new tensors) the key captures anew.  A serving engine's addresses never
+change: a hot swap copies the new generation into them.
+
+Hand kernels count their launches in Python (ops/launches.py), and a
+replay runs no Python.  A launch made on a capturing stream is recorded,
+not run: it goes to the capture's tally, which the graph keeps and each
+replay adds, so the counters mean what they meant before.
+
+A train-step graph holds only an optimizer whose step counts live on the
+device (`graphs_ok_for`); `capturable_adam` builds Adam and AdamW so,
+counting in float64.  `eager_loop()` keeps a thread's programs on the
+eager loop, the graphs' plain version, which a check holds them against.
 
 What a process cannot hand on is its graphs: a relaunched rank captures
 its own.  What it inherits is the kernel library cache that an abstract
@@ -44,51 +70,12 @@ import contextlib
 import inspect
 import threading
 import weakref
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.utils import _pytree as pytree
 
-def _launch_counters():
-    """{name: (owner, attribute)} of every plain launch count of the hand
-    kernels, and {name: per-variant count dict}."""
-    from elasticdl_tpu_torch.ops import flash_attention as fa
-    from elasticdl_tpu_torch.ops import scatter_add as sa
-
-    flash = fa.flash_attention
-    scalars = {"flash_attention_fwd": (flash, "launches"),
-               "flash_attention_bwd": (flash, "backward_launches"),
-               "scatter_add": (sa.scatter_add, "launches")}
-    dicts = {"flash_attention_fwd": flash.launches_by_kernel,
-             "flash_attention_bwd": flash.backward_launches_by_kernel}
-    return scalars, dicts
-
-
-def launch_counts() -> Dict[str, int]:
-    """Every hand-kernel launch count, flat ("scatter_add",
-    "flash_attention_fwd", "flash_attention_fwd.sm90_wgmma", ...)."""
-    scalars, dicts = _launch_counters()
-    out = {name: getattr(owner, attr)
-           for name, (owner, attr) in scalars.items()}
-    for name, counts in dicts.items():
-        for variant, n in counts.items():
-            out[f"{name}.{variant}"] = n
-    return out
-
-
-def _set_counts(values: Dict[str, int]) -> None:
-    scalars, dicts = _launch_counters()
-    for name, (owner, attr) in scalars.items():
-        setattr(owner, attr, values[name])
-    for name, counts in dicts.items():
-        for variant in counts:
-            counts[variant] = values[f"{name}.{variant}"]
-
-
-def add_launches(delta: Dict[str, int]) -> None:
-    """Add `delta` to the launch counts."""
-    now = launch_counts()
-    _set_counts({k: v + delta.get(k, 0) for k, v in now.items()})
+from elasticdl_tpu_torch.ops import launches as launches_lib
 
 
 # ---- the eager loop, for a reference -----------------------------------------
@@ -98,9 +85,9 @@ _EAGER = threading.local()
 
 @contextlib.contextmanager
 def eager_loop():
-    """Run this thread's train programs on the eager loop (the graphs'
-    plain version) inside the block, as the CPU runs them: what a check
-    holds a graph against."""
+    """Run this thread's programs (train, eval, serving, the store seam)
+    on the eager loop, the graphs' plain version, inside the block, as
+    the CPU runs them: what a check holds a graph against."""
     depth = getattr(_EAGER, "depth", 0)
     _EAGER.depth = depth + 1
     try:
@@ -182,11 +169,18 @@ def graphs_ok_for(opt: torch.optim.Optimizer) -> bool:
     return all(group.get("capturable", True) for group in opt.param_groups)
 
 
+def model_fingerprint(state) -> tuple:
+    """What a forward's graph of `state` bakes in: the address of every
+    parameter and buffer of its model."""
+    return tuple(t.data_ptr() for t in state.model.parameters()) + tuple(
+        t.data_ptr() for t in state.model.buffers())
+
+
 def state_fingerprint(state) -> tuple:
-    """What a graph of `state` bakes in: the address of every parameter,
-    buffer and optimizer-state tensor, and the optimizer's settings."""
-    ptrs = [t.data_ptr() for t in state.model.parameters()]
-    ptrs += [t.data_ptr() for t in state.model.buffers()]
+    """What a train step's graph of `state` bakes in: the address of
+    every parameter, buffer and optimizer-state tensor, and the
+    optimizer's settings."""
+    ptrs = list(model_fingerprint(state))
     for entry in state.optimizer.state.values():
         ptrs += [v.data_ptr() for v in entry.values()
                  if isinstance(v, torch.Tensor)]
@@ -200,10 +194,17 @@ def state_fingerprint(state) -> tuple:
     return tuple(ptrs), settings
 
 
+# One capture at a time in the process: two threads capturing at once
+# (a trainer and a serving engine's warm-up in one process) would share
+# PyTorch's capture stream, and the launch tally (ops/launches.py) is
+# one.  Replays do not take it.
+CAPTURE_LOCK = threading.RLock()
+
+
 class CudaGraphBackend:
-    """The CUDA calls a `StepGraphs` makes: a side stream for the eager
-    first call, and the capture into a graph over one memory pool (a new
-    pool once every graph of the last one has died)."""
+    """The CUDA calls a `ProgramGraphs` makes: a side stream for the
+    eager first call, and the capture into a graph over one memory pool
+    (a new pool once every graph of the last one has died)."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -226,17 +227,19 @@ class CudaGraphBackend:
             current.wait_stream(self._stream)
 
     def capture(self, body: Callable[[], torch.Tensor]):
-        """Capture body() into a graph; returns replay() -> the static
-        output that each replay rewrites."""
-        if self._pool is None or not len(self._graphs):
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        # only this thread's calls are held to the capture's rules: a
-        # serving thread beside the trainer (the online loop) goes on
-        # with its own copies and streams
-        with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode="thread_local"):
-            out = body()
+        """Capture body() into a graph, holding the process's capture
+        lock; returns replay() -> the static output that each replay
+        rewrites."""
+        with CAPTURE_LOCK:
+            if self._pool is None or not len(self._graphs):
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            # only this thread's calls are held to the capture's rules:
+            # a serving thread beside the trainer (the online loop) goes
+            # on with its own copies and streams
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                out = body()
 
         def replay():
             graph.replay()
@@ -248,8 +251,8 @@ class CudaGraphBackend:
 
 
 class _Captured:
-    """One key's graph: its static batches, its replay, its
-    fingerprint, and the launches its capture took back."""
+    """One key's graph: its static inputs, its replay, its fingerprint,
+    and the launches its capture recorded."""
 
     def __init__(self, static, replay, fingerprint, launches):
         self.static = static
@@ -257,14 +260,17 @@ class _Captured:
         self.fingerprint = fingerprint
         self.launches = launches
 
-    def load(self, batches) -> None:
+    def load(self, inputs) -> None:
+        """Copy `inputs` (host or device tensors) into the static inputs,
+        on the current stream, ahead of a replay."""
         for dst, src in zip(pytree.tree_leaves(self.static),
-                            pytree.tree_leaves(batches)):
-            dst.copy_(src, non_blocking=True)
+                            pytree.tree_leaves(inputs)):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src, non_blocking=True)
 
 
 class _KeyGraphs:
-    """What a state holds for one key: the threads whose eager call has
+    """What an owner holds for one key: the threads whose eager call has
     run there, and the current graph (None before a capture)."""
 
     def __init__(self):
@@ -272,88 +278,129 @@ class _KeyGraphs:
         self.captured: Optional[_Captured] = None
 
 
-class StepGraphs:
-    """The captured train programs of one Trainer (one memory pool for
-    all its graphs: a new batch shape does not hold a second step's
-    activations).  Graphs live on each state (`TrainState.graphs`), as
-    they bake in its tensors.
+def _own(out):
+    """A copy of a replay's output that the next replay leaves alone."""
+    return pytree.tree_map(
+        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, out)
 
-    Several threads may train one state in turn (the Local runner's
-    workers share one model).  A capture runs on the calling thread and
-    needs what that thread's eager call sets up (its cuBLAS handle, which
-    cannot be created inside a capture), so each thread's first call at
-    a key runs eagerly, and a graph is captured by a thread that has
-    made one; any thread replays it."""
 
-    def __init__(self, device: torch.device, backend=None):
+class ProgramGraphs:
+    """Captured programs of the objects that own them (an engine, a train
+    state): each owner keeps its graphs in its `graphs` dict, by key (the
+    program and its inputs' shapes), since a graph bakes in the
+    addresses of the owner's tensors.  One memory pool for all the
+    graphs made here (`backend`).
+
+    Per owner and key, `run`:
+
+    - replays the current graph where there is one, on any thread:
+      `load` copies the inputs into its static inputs, the replay
+      rewrites its static output, and `finish` reads that output;
+    - else, on a thread whose eager call at the key has run, captures
+      the body over static copies of the inputs and replays it;
+    - else runs the body eagerly on a side stream: the thread's first
+      call, which builds the kernels and sets up what a capture needs on
+      this thread (its cuBLAS handle cannot be created inside one), and
+      is the side-stream warm-up PyTorch asks for before a capture.
+
+    The graphs of one pool share its memory: a graph's static output may
+    lie where another's intermediates go during its replay.  So a
+    capture, and a load, its replay and the read of its output, hold the
+    pool's lock (`lock`): no other graph of the pool replays in between.
+    The eager calls run outside it.
+
+    A graph whose owner's `fingerprint` has changed since its capture (a
+    restore put new tensors in the model or the optimizer) is captured
+    anew.  A capture that fails raises; nothing goes eager in its
+    place."""
+
+    def __init__(self, device: torch.device, backend=None,
+                 fingerprint: Callable = state_fingerprint):
         self.device = device
         self.backend = backend or CudaGraphBackend(device)
+        self.fingerprint = fingerprint
+        self.lock = threading.RLock()
+        # captures and replays made here, by program (a key's first item)
+        self.captures: Dict[str, int] = {}
+        self.replays: Dict[str, int] = {}
 
-    def warmed(self, state, key) -> bool:
-        """Whether this thread's eager call at `key` has run on `state`."""
-        entry = state.graphs.get(key)
+    def _entry(self, owner, key) -> _KeyGraphs:
+        # dict.setdefault is atomic: two threads get one entry
+        return owner.graphs.setdefault(key, _KeyGraphs())
+
+    def warmed(self, owner, key) -> bool:
+        """Whether this thread's eager call at `key` has run on `owner`."""
+        entry = owner.graphs.get(key)
         return entry is not None and threading.get_ident() in entry.threads
 
-    def run(self, state, key, batches, body: Callable,
-            repeat: int = 1) -> Optional[torch.Tensor]:
-        """`repeat` runs of body(batches) (K steps each) for `key`: this
-        thread's first call at the key eagerly on the side stream, later
-        ones by replay (capturing first where the key has no current
-        graph).  Returns the last run's losses, a tensor of its own."""
-        if not self.warmed(state, key):
-            with self.backend.side_stream():
+    def captured(self, owner, key, fingerprint=None) -> Optional[_Captured]:
+        """`key`'s current graph on `owner`: captured, and its owner's
+        fingerprint unchanged since."""
+        entry = owner.graphs.get(key)
+        if entry is None or entry.captured is None:
+            return None
+        now = (fingerprint or self.fingerprint)(owner)
+        return entry.captured if entry.captured.fingerprint == now else None
+
+    def run(self, owner, key, inputs, body: Callable, repeat: int = 1,
+            finish: Callable = _own, fingerprint=None):
+        """`repeat` runs of body(inputs) for `key` (see the class), and
+        finish(the last run's output): a copy of its own by default."""
+        entry = self._entry(owner, key)
+        with self.lock:
+            if (self.captured(owner, key, fingerprint) is not None
+                    or self.warmed(owner, key)):
+                captured = self.capture(owner, key, inputs, body,
+                                        fingerprint)
+                captured.load(inputs)
                 for _ in range(repeat):
-                    out = body(batches)
-            state.graphs.setdefault(key, _KeyGraphs()).threads.add(
-                threading.get_ident())
-            return out
-        captured = self.capture(state, key, batches, body)
-        captured.load(batches)
-        for _ in range(repeat):
-            out = captured.replay()
-            add_launches(captured.launches)
-        return out.clone()
+                    out = captured.replay()
+                    launches_lib.add(captured.launches)
+                self.replays[key[0]] = self.replays.get(key[0], 0) + repeat
+                return finish(out)
+        with self.backend.side_stream():
+            staged = pytree.tree_map(self._staged, inputs)
+            for _ in range(repeat):
+                out = body(staged)
+        entry.threads.add(threading.get_ident())
+        return finish(out)
 
-    def captured(self, state, key) -> Optional[_Captured]:
-        """`key`'s current graph on `state`, if one was captured."""
-        entry = state.graphs.get(key)
-        return None if entry is None else entry.captured
+    def _staged(self, leaf):
+        return leaf.to(self.device) if isinstance(leaf, torch.Tensor) \
+            else leaf
 
-    def capture(self, state, key, batches, body: Callable) -> _Captured:
-        """`key`'s current graph, captured over static copies of
-        `batches` unless one whose fingerprint still holds exists.  This
-        thread's eager call at the key must have run (it creates what the
-        graph reads); a failed capture raises."""
-        if not self.warmed(state, key):
-            raise RuntimeError(
-                f"{key[0]}: a graph is captured only after the key's "
-                "eager call on the capturing thread")
-        entry = state.graphs[key]
-        fingerprint = state_fingerprint(state)
-        if entry.captured is not None and \
-                entry.captured.fingerprint == fingerprint:
+    def capture(self, owner, key, inputs, body: Callable,
+                fingerprint=None) -> _Captured:
+        """`key`'s current graph, captured over static copies of `inputs`
+        unless one whose fingerprint still holds exists.  This thread's
+        eager call at the key must have run (it creates what the graph
+        reads); a failed capture raises."""
+        fingerprint = fingerprint or self.fingerprint
+        with self.lock:
+            current = self.captured(owner, key, fingerprint)
+            if current is not None:
+                return current
+            if not self.warmed(owner, key):
+                raise RuntimeError(
+                    f"{key[0]}: a graph is captured only after the key's "
+                    "eager call on the capturing thread")
+            entry = self._entry(owner, key)
+            # an old graph of the key goes first: its memory returns to
+            # the pool before the new capture draws from it
+            entry.captured = None
+            static = pytree.tree_map(
+                lambda t: t.to(self.device, copy=True)
+                if isinstance(t, torch.Tensor) else t, inputs)
+            with CAPTURE_LOCK, launches_lib.capturing() as tally:
+                replay = self.backend.capture(lambda: body(static))
+            entry.captured = _Captured(static, replay, fingerprint(owner),
+                                       dict(tally))
+            self.captures[key[0]] = self.captures.get(key[0], 0) + 1
             return entry.captured
-        # an old graph of the key goes first: its memory returns to the
-        # pool before the new capture draws from it
-        entry.captured = None
-        static = pytree.tree_map(
-            lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
-            batches)
-        before = launch_counts()
-        try:
-            replay = self.backend.capture(lambda: body(static))
-        finally:
-            captured = launch_counts()
-            _set_counts(before)
-        launches = {k: captured[k] - before[k] for k in before
-                    if captured[k] != before[k]}
-        entry.captured = _Captured(static, replay,
-                                   state_fingerprint(state), launches)
-        return entry.captured
 
 
-def batch_shapes(batches: List) -> tuple:
-    """The shapes and dtypes of K batches of tensors (a graph's key)."""
+def batch_shapes(batches) -> tuple:
+    """The shapes and dtypes of a tree of tensors (a graph's key)."""
     leaves, spec = pytree.tree_flatten(batches)
     return (str(spec), tuple(
         (tuple(x.shape), str(x.dtype)) if isinstance(x, torch.Tensor)

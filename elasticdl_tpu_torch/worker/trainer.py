@@ -43,20 +43,22 @@ adds the sown values; it is the same on every rank and weighted by
 1/world there.
 
 The port's compile.  On CUDA, for a world of one, `worker_train_step`,
-`worker_train_step_many` and `worker_timed_fused` run as captured CUDA
-graphs (worker/graphs.py), one per state and batch shapes, dispatched on
-the explicit predicate `graph_ok`: the first call at a signature runs
-eagerly (the registry's counted call), the next captures and replays,
-later ones replay.  The eager loop is the graphs' plain version: the CPU
-runs it, and `graphs_lib.eager_loop()` keeps a CUDA thread on it.  Host
-bookkeeping stays outside the graph (`state.step += K`; the losses are
-copied out of the static output), and the device work inside reads the
-step from a device counter (`TrainState.fold_counter`, the int8 fold's
-key).  On CUDA a world of one's Adam and AdamW are capturable with
-float64 step counts (`graphs_lib.capturable_adam`), so eager and graph
-steps are the same arithmetic, and each update plain Adam's to an ulp;
-a cluster rank's state keeps plain Adam, as its data-parallel step
-stays eager (`graph_ok` says why).
+`worker_train_step_many`, `worker_timed_fused` and `worker_eval_step`
+run as captured CUDA graphs (worker/graphs.py), one per state and batch
+shapes, dispatched on the explicit predicates `graph_ok` and
+`eval_graph_ok`: the first call at a signature runs eagerly (the
+registry's counted call), the next captures and replays, later ones
+replay.  The eager loop is the graphs' plain version: the CPU runs it,
+and `graphs_lib.eager_loop()` keeps a CUDA thread on it.  Host
+bookkeeping stays outside the graph (`state.step += K`; the losses and
+the predictions are copied out of the static output), and the device
+work inside reads the step from a device counter
+(`TrainState.fold_counter`, the int8 fold's key).  On CUDA a world of
+one's Adam and AdamW are capturable with float64 step counts
+(`graphs_lib.capturable_adam`), so eager and graph steps are the same
+arithmetic, and each update plain Adam's to an ulp; a cluster rank's
+state keeps plain Adam, as its data-parallel step stays eager
+(`graph_ok` says why).
 `prewarm_for_device_counts` is the JAX trainer's prewarm: for the world
 sizes a failure would leave, it runs
 the train step's abstract compile (`aot_compile` on a fake state and a
@@ -222,8 +224,9 @@ class TrainState:
     # yet; False: the model has no int8 arena)
     fold_counter: Any = field(default=None, init=False, repr=False,
                               compare=False)
-    # the captured train programs over this state's tensors
-    # (worker/graphs.py), by program and batch shapes
+    # the captured programs over this state's tensors (worker/graphs.py):
+    # train steps, the eval forward and the store seam's, by program and
+    # input shapes
     graphs: Dict[tuple, Any] = field(default_factory=dict, init=False,
                                      repr=False, compare=False)
 
@@ -259,7 +262,11 @@ class Trainer:
                  device: Optional[Union[str, torch.device]] = None,
                  param_sharding_fn: Optional[Callable] = None):
         self.device = resolve_device(device)
-        self._graphs = graphs_lib.StepGraphs(self.device)
+        # the captured train steps and eval forwards of this trainer's
+        # states (one memory pool: a new batch shape does not hold a
+        # second step's activations); several threads may train one
+        # state in turn (the Local runner's workers share one model)
+        self._graphs = graphs_lib.ProgramGraphs(self.device)
         self.model = model
         # (parameter name, tensor) -> spec or None: the zoo's
         # `param_sharding`, applied by init_state_global
@@ -795,10 +802,49 @@ class Trainer:
         local = run_device_serialized(_predict, device=self.device)
         return collectives.host_allgather(local, mesh)
 
+    def _eval_body(self, state: TrainState):
+        """The eval forward's device work over `state` (a graph captures
+        this): BatchNorm and dropout models run with train=False."""
+        def body(features):
+            with torch.no_grad():
+                preds = self._forward(state.model, features, train=False)
+            return preds.float()
+
+        return body
+
     def _eval_step(self, state: TrainState, features) -> torch.Tensor:
-        with torch.no_grad():
-            preds = self._forward(state.model, features, train=False)
-        return preds.float()
+        """f32 predictions on the device: as a graph of the state where
+        `eval_graph_ok`, else eagerly.  A replay's output is copied out
+        of the graph under its pool's lock, so a thread's predictions are
+        its own."""
+        body = self._eval_body(state)
+        if not self.eval_graph_ok(state, features):
+            return body(features)
+        return self._graphs.run(
+            state, ("eval", graphs_lib.batch_shapes(features)), features,
+            body, fingerprint=graphs_lib.model_fingerprint)
+
+    def eval_graph_ok(self, state: TrainState, features) -> bool:
+        """Whether `worker_eval_step` over `features` runs as a captured
+        CUDA graph: a CUDA trainer outside `graphs_lib.eager_loop`, a
+        world of one (a sharded model's forward runs collectives, ring
+        attention on `seq` for one, and a capture over them is not done),
+        real tensors, all on the card, and no capture already under
+        way."""
+        if self.device.type != "cuda" or graphs_lib.in_eager_loop():
+            return False
+        if any(mesh is not None and mesh.world_size > 1 for mesh in (
+                state.mesh, mesh_lib.get_current_mesh())):
+            return False
+        leaves = pytree.tree_leaves(features)
+        if not leaves or not all(
+                isinstance(x, torch.Tensor) and x.device.type == "cuda"
+                and not programs.is_abstract(x) for x in leaves):
+            return False
+        first = next(state.model.parameters())
+        if programs.is_abstract(first) or first.device.type != "cuda":
+            return False
+        return not torch.cuda.is_current_stream_capturing()
 
     def predict_on_batch(self, state: TrainState, features) -> np.ndarray:
         """f32 predictions as numpy."""

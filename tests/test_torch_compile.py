@@ -45,6 +45,7 @@ from elasticdl_tpu_torch.layers import arena as port_arena
 from elasticdl_tpu_torch.model_zoo.deepfm.data import synthetic_criteo
 from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import flash_attention as fa
+from elasticdl_tpu_torch.ops import launches as ops_launches
 from elasticdl_tpu_torch.ops import scatter_add as sa
 from elasticdl_tpu_torch.worker import graphs as graphs_lib
 from elasticdl_tpu_torch.worker import trainer as port_trainer
@@ -443,11 +444,36 @@ def test_the_graphs_adam_steps_as_plain_adam(monkeypatch, cls):
 # ---- the graph runner ------------------------------------------------------
 
 
+@contextlib.contextmanager
+def capturing_stream():
+    """The current stream reads as capturing inside the block, as a
+    wrapper called inside a real capture sees it."""
+    real = ops_launches.stream_capturing
+    ops_launches.stream_capturing = lambda: True
+    try:
+        yield
+    finally:
+        ops_launches.stream_capturing = real
+
+
+def _rewrite(static, fresh):
+    """Copy a replay's fresh output into the static one, leaf by leaf."""
+    for dst, src in zip(torch.utils._pytree.tree_leaves(static),
+                        torch.utils._pytree.tree_leaves(fresh)):
+        if not isinstance(dst, torch.Tensor):
+            continue
+        # a forward's output under inference_mode is an inference tensor
+        with torch.inference_mode(dst.is_inference()):
+            dst.copy_(src)
+
+
 class StandInBackend:
     """A backend whose capture runs nothing and whose replay runs the
     captured body (on the static buffers), and which counts its calls; a
-    capture runs each wrapper's Python once, which `launches` stands
-    for."""
+    capture runs each wrapper's Python once, on a capturing stream,
+    which `launches` stands for.  As a real graph, every replay writes
+    into one static output (the first replay's), which the next replay
+    rewrites: a result read after the next replay is that replay's."""
 
     def __init__(self, fail=False, launches=0):
         self.fail = fail
@@ -466,11 +492,19 @@ class StandInBackend:
             raise RuntimeError("capture failed: operation not permitted "
                                "when stream is capturing")
         self.captures += 1
-        sa.scatter_add.launches += self.launches
+        with capturing_stream():
+            for _ in range(self.launches):
+                ops_launches.count("scatter_add")
+        static = []
 
         def replay():
             self.replays += 1
-            return body()
+            fresh = body()
+            if not static:
+                static.append(fresh)
+            else:
+                _rewrite(static[0], fresh)
+            return static[0]
 
         return replay
 
