@@ -413,7 +413,10 @@
    of the generation its step names, and the swap captured nothing and
    kept the static tensors' addresses; (c) DeepFM serving at the bench
    shape (vocab 2^20, dim 16, bf16 MLP), fp32 and int8 arenas, each
-   bucket's replay against the eager forward; (d) `worker_eval_step` as
+   bucket's replay against the eager forward, and 3 rows sent with
+   native ids and uint24-packed (`packed_feature_spec`): the packed
+   signature captures its own bucket graph, and its predictions equal
+   the native ones bit for bit; (d) `worker_eval_step` as
    a graph for DeepFM at batch 16384 and BERT-base at batch 64 (12 flash
    forwards inside its graph), and the AUC of local_deepfm's checkpoint
    evaluated by a Local `evaluate` job through eval graphs and with
@@ -428,6 +431,21 @@
    each eval step, beside the card's name and power limit: smoke
    figures, no claim.  The phase's seconds are printed beside its
    budget.
+
+24. The evaluation service's off-lock exact pass (`eval_exact`, after
+   `local_deepfm`; budget 30 s).  262,144 validation records in 8
+   shards of 32,768 (the port's `write_dataset`), and an `evaluate` job
+   from the command line's parser on local_deepfm's step-32 checkpoint
+   with two workers, whose reports race at the master.  The master's
+   merged set passes `INLINE_EXACT_ROWS` after half the tasks, so the
+   later exact passes run off the service lock.  The job must fail no
+   task, score every row once, and give an AUC in [0.79, 0.86] that
+   equals, within 1e-6, the port's numpy AUC of one pass of the restored
+   model's forward over the same rows on the card; its version must be
+   marked exact, and at least one pass must have run off the lock.  The
+   part prints the off-lock passes, the racing retries, the longest hold
+   of the service lock (timed by wrapping the lock: `TimedLock`), the
+   passes' ms and its seconds beside its budget, with the card.
 
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
@@ -483,6 +501,7 @@ from elasticdl_tpu_torch.common.model_handler import (  # noqa: E402
 )
 from elasticdl_tpu_torch.data.wire import (  # noqa: E402
     DedupPacker,
+    pack_int_to_uint24,
     plane_tensor,
     unpack_rows_dedup,
 )
@@ -555,6 +574,9 @@ from elasticdl_tpu_torch.common.k8s_stub_apiserver import (  # noqa: E402
     write_kubeconfig,
 )
 from elasticdl_tpu_torch.master import main as master_main  # noqa: E402
+from elasticdl_tpu_torch.master import (  # noqa: E402
+    evaluation_service as eval_service_lib,
+)
 from elasticdl_tpu_torch.master.freshness import FreshnessTracker  # noqa: E402,E501
 from elasticdl_tpu_torch.parallel import collectives  # noqa: E402
 from elasticdl_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
@@ -581,6 +603,7 @@ from elasticdl_tpu_torch.proto.service import ServingStub  # noqa: E402
 from elasticdl_tpu_torch.serving.engine import (  # noqa: E402
     ServingEngine,
     build_state_template,
+    packed_feature_spec,
 )
 from elasticdl_tpu_torch.serving.reloader import (  # noqa: E402
     CheckpointReloader,
@@ -2475,6 +2498,31 @@ def graph_serve_bert(card: str, device) -> tuple:
     return out, launches
 
 
+PACKED_ROWS = 3          # a request that pads to bucket 4
+PACKED_CALLS = 3         # eager, capture and replay, replay
+
+
+def packed_vs_native(engine, features: dict) -> dict:
+    """The same rows with native int32 ids and uint24-packed
+    (`packed_feature_spec`): the packed signature's bucket runs as its
+    own captured graph, and every packed prediction must equal the
+    native one bit for bit (the ids unpack exactly on the card)."""
+    x = {k: v[:PACKED_ROWS] for k, v in features.items()}
+    packed = {**x, "sparse": pack_int_to_uint24(x["sparse"])}
+    spec = packed_feature_spec(engine.feature_spec)
+    native, _ = engine.predict(x, PACKED_ROWS)
+    r0 = _replays(engine._graphs, "serving_forward")
+    got = [engine.predict(packed, PACKED_ROWS)[0]
+           for _ in range(PACKED_CALLS)]
+    return {"rows": PACKED_ROWS,
+            "valid": engine.validate(packed) is None
+            and spec["sparse"] == {"shape": [NUM_SPARSE, 3],
+                                   "dtype": "uint8"},
+            "bitwise": all(np.array_equal(native, p) for p in got),
+            "replayed": _replays(engine._graphs, "serving_forward") - r0,
+            "captures": dict(engine._graphs.captures)}
+
+
 def graph_serve_deepfm(device) -> dict:
     """(c) DeepFM serving at the bench shape (vocab 2^20, dim 16, bf16
     MLP), fp32 and int8 arenas: each bucket's replay against the eager
@@ -2521,6 +2569,13 @@ def graph_serve_deepfm(device) -> dict:
                 and row["captures"] == {"serving_forward": len(BUCKETS)}
                 and bool(row["int8_planes"]) == bool(arena)):
             raise AssertionError(f"graph_programs (c) DeepFM {label}: {row}")
+        row["packed"] = packed_vs_native(engine, batch["features"])
+        print(json.dumps({f"graph_programs_serve_deepfm_{label}_packed":
+                          row["packed"]}), flush=True)
+        if not (row["packed"]["valid"] and row["packed"]["bitwise"]
+                and row["packed"]["replayed"] == PACKED_CALLS - 1):
+            raise AssertionError(f"graph_programs (c) DeepFM {label} "
+                                 f"packed ids: {row['packed']}")
         del engine
         torch.cuda.empty_cache()
     return out
@@ -3081,6 +3136,187 @@ def local_deepfm(card: str, work: str):
         return summary, launches, served
     finally:
         events.configure(None)
+
+
+# ---- eval_exact: the evaluation service's off-lock exact pass -------
+
+EVAL_EXACT_BUDGET_S = 30.0
+EVAL_EXACT_ROWS = 1 << 18                  # validation records
+EVAL_EXACT_SHARDS = 8                      # files of 32,768 records
+EVAL_EXACT_SEED = SEED + 2000              # no training shard's seed
+EVAL_EXACT_WORKERS = 2
+EVAL_EXACT_TOL = 1e-6                      # the job's AUC vs one pass
+
+
+class TimedLock:
+    """A lock, taken with `with`, that keeps how long each hold lasted
+    and which thread holds it now: the evaluation service's lock, read
+    from outside."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.holds_s = []
+        self.owner = None
+        self._since = 0.0
+
+    def __enter__(self):
+        self._lock.acquire()
+        self.owner = threading.get_ident()
+        self._since = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.holds_s.append(time.perf_counter() - self._since)
+        self.owner = None
+        self._lock.release()
+
+
+@contextlib.contextmanager
+def eval_service_probe():
+    """Inside, each EvaluationService built gets a TimedLock, and each
+    exact scoring made without that lock (an off-lock pass) is timed and
+    counted against the publish attempt that made it: a publish that
+    scores more than once retried after a racing ingest.  Yields the
+    probe's record."""
+    cls = eval_service_lib.EvaluationService
+    real_init, real_publish = cls.__init__, cls._publish_exact
+    real_exact = eval_service_lib._exact_metrics
+    probe = {"locks": [], "pass_ms": [], "publishes": 0, "retries": 0}
+    guard = threading.Lock()
+    mine = threading.local()
+
+    def init(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        self._lock = TimedLock()
+        probe["locks"].append(self._lock)
+
+    def exact(*args):
+        t0 = time.perf_counter()
+        out = real_exact(*args)
+        ms = (time.perf_counter() - t0) * 1e3
+        if probe["locks"] and \
+                probe["locks"][-1].owner != threading.get_ident():
+            mine.passes = getattr(mine, "passes", 0) + 1
+            with guard:
+                probe["pass_ms"].append(ms)
+        return out
+
+    def publish(self, *args):
+        mine.passes = 0
+        real_publish(self, *args)
+        with guard:
+            probe["publishes"] += 1
+            probe["retries"] += max(0, mine.passes - 1)
+
+    cls.__init__, cls._publish_exact = init, publish
+    eval_service_lib._exact_metrics = exact
+    try:
+        yield probe
+    finally:
+        cls.__init__, cls._publish_exact = real_init, real_publish
+        eval_service_lib._exact_metrics = real_exact
+
+
+def eval_exact(card: str, work: str, served: dict) -> dict:
+    """An `evaluate` job from local_deepfm's step-32 checkpoint over
+    2^18 validation records in 8 shards, two workers reporting to one
+    master, whose exact AUC passes over more than INLINE_EXACT_ROWS
+    merged rows run off the service lock.  Its AUC must equal one pass
+    of the restored model's forward over the same rows, batch by batch
+    as the workers cut them, within EVAL_EXACT_TOL, lie in AUC_BAND and
+    be marked exact; at least one pass ran off the lock.  Budget
+    EVAL_EXACT_BUDGET_S."""
+    t0 = time.perf_counter()
+    tmp = os.path.join(work, "eval_exact")
+    # the 8 shards are write_dataset's training files; its one-record
+    # validation file is not read
+    data_dir, _ = write_dataset(
+        tmp, n_train=EVAL_EXACT_ROWS, n_val=1, seed=EVAL_EXACT_SEED,
+        shards=EVAL_EXACT_SHARDS)
+    write_s = time.perf_counter() - t0
+    args = cli.parse_args(local_argv(
+        "evaluate", "--validation_data", data_dir,
+        "--checkpoint_dir_for_init", served["ckpt"],
+        "--num_workers", str(EVAL_EXACT_WORKERS)))
+    with eval_service_probe() as probe:
+        # ---- the path: counts start at 0 here ----
+        fa.reset_launch_counts()
+        sa.scatter_add.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ev = api.run_local(args, "evaluate")
+        torch.cuda.synchronize()
+        job_s = time.perf_counter() - t1
+        launches = {"scatter_add": sa.scatter_add.launches,
+                    "flash_attention_fwd": fa.flash_attention.launches}
+        # ---- end of the path ----
+    service = ev.master.evaluation_service
+    lock, = probe["locks"]
+    version = max(service.history)
+    job_auc = service.history[version].get("auc")
+    counters = ev.master.task_manager.counters.as_dict()
+    # one pass of the restored model over the same rows
+    t2 = time.perf_counter()
+    per_shard = EVAL_EXACT_ROWS // EVAL_EXACT_SHARDS
+    labels, preds = [], []
+    for i in range(EVAL_EXACT_SHARDS):
+        dense, sparse, y = synthetic_criteo(per_shard,
+                                            seed=EVAL_EXACT_SEED + i)
+        for lo in range(0, per_shard, AUC_BATCH):
+            hi = lo + AUC_BATCH
+            preds.append(ev.owner.predict_batch({"features": {
+                "dense": dense[lo:hi], "sparse": sparse[lo:hi]}}))
+        labels.append(y)
+    single_auc = auc(np.concatenate(labels), np.concatenate(preds))
+    single_s = time.perf_counter() - t2
+    shutil.rmtree(tmp)
+    seconds = time.perf_counter() - t0
+    out = {
+        "card": card, "rows": EVAL_EXACT_ROWS, "shards": EVAL_EXACT_SHARDS,
+        "workers": EVAL_EXACT_WORKERS, "exit_code": ev.exit_code,
+        "counters": counters, "version": version,
+        "exact": version in service._history_exact,
+        "sample_rows": service._aggs[version].sample_rows,
+        "auc": job_auc, "single_pass_auc": single_auc,
+        "auc_gap": None if job_auc is None else abs(job_auc - single_auc),
+        "tol": EVAL_EXACT_TOL, "band": AUC_BAND,
+        "inline_exact_rows": eval_service_lib.INLINE_EXACT_ROWS,
+        "off_lock_passes": len(probe["pass_ms"]),
+        "publishes": probe["publishes"],
+        "racing_retries": probe["retries"],
+        "pass_ms_max": max(probe["pass_ms"], default=None),
+        "pass_ms_mean": (float(np.mean(probe["pass_ms"]))
+                         if probe["pass_ms"] else None),
+        "lock_holds": len(lock.holds_s),
+        "lock_hold_ms_max": max(lock.holds_s, default=0.0) * 1e3,
+        "launches": launches, "write_s": write_s, "job_s": job_s,
+        "single_pass_s": single_s, "seconds": seconds,
+        "budget_s": EVAL_EXACT_BUDGET_S}
+    del ev
+    print(json.dumps({"eval_exact": out}), flush=True)
+    print(f"eval_exact: {out['off_lock_passes']} off-lock passes "
+          f"({out['racing_retries']} racing retries), longest lock hold "
+          f"{out['lock_hold_ms_max']:.3f} ms, pass {out['pass_ms_max']} ms "
+          f"max; {seconds:.1f} s (budget {EVAL_EXACT_BUDGET_S} s) "
+          f"[{card}]", flush=True)
+    if out["exit_code"] != 0 or counters["failed"] != 0:
+        raise AssertionError(f"eval_exact: the job failed: {out}")
+    if counters["by_type"].get(1) != EVAL_EXACT_ROWS // \
+            LOCAL_RECORDS_PER_TASK or out["sample_rows"] != EVAL_EXACT_ROWS:
+        raise AssertionError(f"eval_exact: expected every row scored once: "
+                             f"{out}")
+    if job_auc is None or out["auc_gap"] > EVAL_EXACT_TOL or \
+            not AUC_BAND[0] <= job_auc <= AUC_BAND[1]:
+        raise AssertionError(f"eval_exact: AUC {job_auc} against one pass "
+                             f"{single_auc} (tol {EVAL_EXACT_TOL}), band "
+                             f"{AUC_BAND}: {out}")
+    if not out["exact"] or out["off_lock_passes"] < 1:
+        raise AssertionError(f"eval_exact: no exact value published off "
+                             f"the lock: {out}")
+    if any(launches.values()):
+        raise AssertionError(f"eval_exact: a DeepFM forward launches no "
+                             f"kernel of the port: {launches}")
+    return out
 
 
 # ---- resilient_local: crash and relaunch, faults, traces, the scanner ----
@@ -9426,6 +9662,7 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
     deepfm, fm_launches = phase("deepfm_trainer", train_deepfm)
     local, local_launches, fm_served = phase("local_deepfm", local_deepfm,
                                              card, work)
+    exact_eval = phase("eval_exact", eval_exact, card, work, fm_served)
     resilient, resilient_launches = phase(
         "resilient_local", resilient_local, card, work, fm_served)
     stream, stream_launches = phase("stream_judgment", stream_judgment,
@@ -9528,6 +9765,7 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
                    "train_bert": bert_train, "local_bert": bert_local,
                    "serve": serve, "bert_f32_check": check,
                    "deepfm": deepfm, "local_deepfm": local,
+                   "eval_exact": exact_eval,
                    "resilient_local": resilient,
                    "stream_judgment": stream, "online_loop": online,
                    "observatory": obs, "cluster": clus,

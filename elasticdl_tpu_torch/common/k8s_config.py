@@ -398,15 +398,19 @@ class ExecCredential:
     prints an ExecCredential.  Its `status.token` is the bearer token,
     cached until `status.expirationTimestamp`; or its
     `status.clientCertificateData`/`clientKeyData` is the client
-    certificate, read once when the config loads."""
+    certificate, read once when the config loads.  `clock` reads the wall
+    clock the expiry is compared with (an absolute time, seconds since
+    the epoch)."""
 
-    def __init__(self, conf: dict, base: str):
+    def __init__(self, conf: dict, base: str,
+                 clock: Callable[[], float] = time.time):
         if not conf.get("command"):
             raise K8sConfigError("exec plugin: no command")
         if not conf.get("apiVersion"):
             raise K8sConfigError("exec plugin: no apiVersion")
         self._conf = conf
         self._base = base
+        self._clock = clock
         self._lock = threading.Lock()
         self._token = ""
         self._expiry: Optional[float] = None
@@ -475,7 +479,7 @@ class ExecCredential:
         if self.client_cert is not None:
             return {}
         with self._lock:
-            if self._expiry is not None and time.time() >= self._expiry:
+            if self._expiry is not None and self._clock() >= self._expiry:
                 status = self._run()
                 if not status.get("token"):
                     raise K8sConfigError("exec plugin: a refreshed "

@@ -5,7 +5,10 @@ Eval tasks ride the training queue; workers run forward-only over a
 shard and report per-shard metrics plus the raw (label, prediction)
 samples, keyed by task, so job-level rank metrics (AUC) are recomputed
 exactly over the merged validation set: a weighted mean of per-shard
-AUCs is biased whenever shards differ.  With a `summary_writer`
+AUCs is biased whenever shards differ.  A large merged set is scored
+outside the service's lock, so concurrent reports do not wait behind
+its sort, and a weighted mean never replaces a published exact value.
+With a `summary_writer`
 (common/summary.py) each version's job-level metrics are written as
 `eval/<name>` scalars at that version, again as shards accumulate.
 """
@@ -28,11 +31,24 @@ logger = get_logger(__name__)
 # and on reads (latest_metrics).
 EAGER_EXACT_ROWS = 1 << 20
 
+# Above this count an eager exact pass runs off the service lock, on a
+# chunk snapshot, and publishes only if no ingest raced it: a sort of a
+# million rows takes tens to hundreds of ms, and under the lock every
+# concurrent worker report would wait behind it.
+INLINE_EXACT_ROWS = 1 << 17
+
+# Snapshots an off-lock pass scores before it gives up on ingests that
+# keep racing it (the next completed delivery schedules a new pass).
+OFF_LOCK_ATTEMPTS = 4
+
 
 def _exact_metrics(label_chunks, pred_chunks, width, eval_metrics
                    ) -> Dict[str, float]:
     """Merge sample chunks and score every metric fn over the merged
-    set."""
+    set.  O(rows), and safe outside the service lock on a
+    `sample_snapshot()`: chunk arrays are never changed in place, a
+    re-delivery replaces its chunk list whole.  A metric fn that raises
+    leaves that metric at its weighted shard mean."""
     out: Dict[str, float] = {}
     if not label_chunks:
         return out
@@ -41,7 +57,11 @@ def _exact_metrics(label_chunks, pred_chunks, width, eval_metrics
     if width == 1:
         preds = preds[:, 0]
     for name, fn in eval_metrics.items():
-        out[name] = float(fn(labels, preds))
+        try:
+            out[name] = float(fn(labels, preds))
+        except Exception:
+            logger.exception("exact recomputation of metric %r failed; "
+                             "keeping the weighted shard mean", name)
     return out
 
 
@@ -67,6 +87,9 @@ class _VersionAgg:
     def __init__(self, max_sample_rows: int = 1 << 24):
         self.reports: Dict[object, _TaskReport] = {}
         self.samples_dropped = False
+        # bumped on every change: an off-lock exact pass publishes only if
+        # the generation it scored is still the current one
+        self.generation = 0
         self._max_sample_rows = max_sample_rows
         # unkeyed reports accumulate, one slot per delivery; their
         # continuation chunks attach to the worker's latest slot
@@ -113,6 +136,7 @@ class _VersionAgg:
                         np.asarray(req.eval_labels, np.float32))
                     report.pred_chunks.append(
                         np.asarray(req.eval_preds, np.float32))
+        self.generation += 1
         self._dirty = True
 
     def drop_samples(self, reason: str):
@@ -126,6 +150,7 @@ class _VersionAgg:
         for report in self.reports.values():
             report.label_chunks = []
             report.pred_chunks = []
+        self.generation += 1
         self._dirty = True
 
     @property
@@ -148,17 +173,18 @@ class _VersionAgg:
         return {k: v / total for k, v in out.items()}
 
     def sample_snapshot(self):
-        """(label_chunks, pred_chunks, width) of the merged samples, of
-        the width with the most rows when deliveries disagree (mixed
-        widths cannot share one matrix; the rest count through the
-        weighted means)."""
+        """(generation, label_chunks, pred_chunks, width) of the merged
+        samples, of the width with the most rows when deliveries disagree
+        (mixed widths cannot share one matrix; the rest count through the
+        weighted means).  O(chunks) list copies, cheap under the lock; the
+        caller merges and scores them outside it."""
         by_width: Dict[int, list] = {}
         for report in self.reports.values():
             if report.label_chunks:
                 by_width.setdefault(report.pred_width or 1, []).append(
                     report)
         if not by_width:
-            return [], [], 1
+            return self.generation, [], [], 1
         rows_of = {w: sum(len(c) for r in reports for c in r.label_chunks)
                    for w, reports in by_width.items()}
         width = max(rows_of, key=lambda w: rows_of[w])
@@ -168,7 +194,7 @@ class _VersionAgg:
                 "width); exact metrics use width=%d only", rows_of, width)
         labels = [c for r in by_width[width] for c in r.label_chunks]
         preds = [c for r in by_width[width] for c in r.pred_chunks]
-        return labels, preds, width
+        return self.generation, labels, preds, width
 
     def result(self, eval_metrics=None, exact: bool = True
                ) -> Dict[str, float]:
@@ -182,12 +208,16 @@ class _VersionAgg:
             return self._cache_val
         out = self.weighted_means()
         if exact and eval_metrics and self.sample_rows:
-            out.update(_exact_metrics(*self.sample_snapshot(),
-                                      eval_metrics))
-        self._cache_key = key
-        self._cache_val = out
-        self._dirty = False
+            _, labels, preds, width = self.sample_snapshot()
+            out.update(_exact_metrics(labels, preds, width, eval_metrics))
+        self.seed_cache(key, out)
         return out
+
+    def seed_cache(self, key, value: Dict[str, float]) -> None:
+        """`value` is this agg's result for `key` until it changes."""
+        self._cache_key = key
+        self._cache_val = value
+        self._dirty = False
 
 
 class EvaluationService:
@@ -208,6 +238,8 @@ class EvaluationService:
         self._throttle_secs = throttle_secs
         self._lock = threading.Lock()
         self._aggs: Dict[int, _VersionAgg] = {}
+        # the versions whose history holds an exactly recomputed value
+        self._history_exact = set()
         self._last_eval_version = 0
         self._last_eval_time = 0.0
         self._start_time = time.time()
@@ -240,18 +272,38 @@ class EvaluationService:
 
     def report_metrics(self, req: pb.ReportEvaluationMetricsRequest):
         version = req.model_version
+        heavy = None
         with self._lock:
             agg = self._aggs.setdefault(version, _VersionAgg())
             if self._eval_metrics is None and req.num_samples:
                 # no metric fns here: samples could never be used
                 req.eval_labels = req.eval_preds = None
             agg.ingest(req)
-            exact = (agg.sample_rows <= EAGER_EXACT_ROWS or req.final_chunk
+            rows = agg.sample_rows
+            # exact on every report of a small merged set, and once per
+            # completed delivery of a large one, never once per chunk
+            eager = (rows <= EAGER_EXACT_ROWS or req.final_chunk
                      or not req.num_samples)
-            self.history[version] = agg.result(self._eval_metrics,
-                                               exact=exact)
-            self._prune_samples_locked()
+            inline = eager and (rows <= INLINE_EXACT_ROWS
+                                or not self._eval_metrics or not rows)
+            if inline:
+                self.history[version] = agg.result(self._eval_metrics,
+                                                   exact=True)
+                self._history_exact.add(version)
+            else:
+                result = agg.result(self._eval_metrics, exact=False)
+                if eager:
+                    # a large merged set is scored off the lock
+                    heavy = agg.sample_snapshot()
+                if version not in self._history_exact:
+                    # a weighted mean never replaces an exact value
+                    # already published for this version
+                    self.history[version] = result
+            self._prune_samples_locked(version)
             n, sampled = agg.num_examples, agg.sample_rows
+        if heavy is not None:
+            self._publish_exact(version, agg, heavy)
+        with self._lock:
             metrics = self.history[version]
         logger.info("Eval metrics v%d (n=%d, sampled=%d): %s",
                     version, n, sampled, metrics)
@@ -261,7 +313,40 @@ class EvaluationService:
                 {f"eval/{k}": v for k, v in metrics.items()}, step=version)
             self._summary.flush()
 
-    def _prune_samples_locked(self):
+    def _publish_exact(self, version: int, agg: _VersionAgg, snapshot):
+        """Score `snapshot` outside the lock and publish it as `version`'s
+        exact value if no ingest changed `agg` meanwhile; else score a new
+        snapshot, up to OFF_LOCK_ATTEMPTS in all."""
+        for attempt in range(OFF_LOCK_ATTEMPTS):
+            generation, labels, preds, width = snapshot
+            if not labels:
+                # the chunks went (version pruned, sample cap) and the
+                # lock holder that dropped them froze the best value
+                return
+            exact = _exact_metrics(labels, preds, width, self._eval_metrics)
+            with self._lock:
+                if agg.samples_dropped:
+                    return
+                if agg.generation == generation:
+                    merged = {**agg.weighted_means(), **exact}
+                    self.history[version] = merged
+                    self._history_exact.add(version)
+                    # later readers under the lock hit the cache instead
+                    # of scoring O(rows) there
+                    agg.seed_cache((id(self._eval_metrics), True), merged)
+                    return
+                # an ingest raced the pass: the stale value must not
+                # publish, and the racer may be a mid-delivery chunk that
+                # schedules no pass of its own, so score the new samples
+                if attempt == OFF_LOCK_ATTEMPTS - 1:
+                    logger.warning(
+                        "off-lock exact eval for v%d kept racing ingests; "
+                        "leaving the weighted mean until the next "
+                        "completed delivery", version)
+                else:
+                    snapshot = agg.sample_snapshot()
+
+    def _prune_samples_locked(self, current_version: int):
         keep = sorted(self._aggs)[-self.SAMPLE_VERSIONS_KEPT:]
         for version, agg in self._aggs.items():
             if version not in keep and not agg.samples_dropped:
@@ -272,8 +357,10 @@ class EvaluationService:
     def latest_metrics(self) -> Optional[Dict[str, float]]:
         with self._lock:
             if not self._aggs:
-                return None
+                return (self.history[max(self.history)] if self.history
+                        else None)
             version = max(self._aggs)
             self.history[version] = self._aggs[version].result(
                 self._eval_metrics)
+            self._history_exact.add(version)
             return self.history[version]

@@ -256,10 +256,18 @@ def create_mesh(world_size: int = 1, rank: int = 0, device: str = "cuda",
 def destroy_mesh(mesh: Optional[ProcessMesh]) -> None:
     """Leave the group (a no-op for a world of one), and clear the
     current mesh: no later call in this process runs on a mesh whose
-    groups are gone."""
+    groups are gone.  The mesh lets go of its groups too, so they are
+    freed here and not among the last objects of the interpreter's exit,
+    where freeing a gloo group now and then aborted the process
+    ("terminate called without an active exception") after its work had
+    finished."""
     set_current_mesh(None)
-    if mesh is not None and mesh.distributed and dist.is_initialized():
+    if mesh is None:
+        return
+    if mesh.distributed and dist.is_initialized():
         dist.destroy_process_group()
+    mesh.group = None
+    mesh._groups.clear()
 
 
 # ---- the mesh model code reads (the JAX set_current_mesh, export_mode) ---

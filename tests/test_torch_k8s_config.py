@@ -289,6 +289,33 @@ def test_an_exec_plugin_token_is_cached_until_it_expires(env, stub,
     assert _runs(env) == 3
 
 
+def test_an_exec_plugin_token_expires_by_the_injected_clock(env):
+    """The credential compares its expiry with the clock it was given:
+    a fake wall clock before the stamp keeps the token, one at or past
+    it runs the plugin again."""
+    expiry = k8s_config._parse_expiry("2031-05-01T12:00:00Z")
+    now = [expiry - 10.0]
+    plugin = k8s_config.ExecCredential(
+        _exec_user(env, "2031-05-01T12:00:00Z")["exec"], str(env),
+        clock=lambda: now[0])
+    assert _runs(env) == 1
+    assert plugin.headers() == {"Authorization": "Bearer exec-token-1"}
+    now[0] = expiry - 0.001
+    assert plugin.headers() == {"Authorization": "Bearer exec-token-1"}
+    assert _runs(env) == 1
+    now[0] = expiry
+    assert plugin.headers() == {"Authorization": "Bearer exec-token-2"}
+    assert _runs(env) == 2
+    # the refreshed credential carries the same stamp: every read past it
+    # runs the plugin once more, none before it does
+    now[0] = expiry + 5.0
+    plugin.headers()
+    assert _runs(env) == 3
+    now[0] = expiry - 1.0
+    plugin.headers()
+    assert _runs(env) == 3
+
+
 def test_an_exec_plugin_client_certificate(env, stub, monkeypatch):
     _use(monkeypatch, env / "kc.json",
          _kubeconfig(stub.url, user=_exec_user(env, cert=True)))

@@ -35,6 +35,8 @@ BUCKETS = (1, 4, 8)
 # f32 forward, both sides on their plain attention (the JAX engine traces
 # under export mode); sums in another order, measured ~1.5e-6.
 TOL = 1e-4
+# the DeepFM f32 forward against flax's (tests/test_torch_deepfm.py)
+F32_TOL = 1e-5
 
 
 def _requests(rows, seed):
@@ -157,6 +159,55 @@ def test_packed_feature_spec_matches_jax(engines):
             "sparse": {"shape": [26], "dtype": "int64"}}
     assert port_engine_lib.packed_feature_spec(spec) == \
         jax_engine_lib.packed_feature_spec(spec)
+
+
+def test_packed_predict_payload_matches_native():
+    """The twin of the JAX engine's packed case (its test
+    test_packed_predict_payload_matches_native): a DeepFM engine takes
+    the same 3 rows with native int32 ids and uint24-packed, and its
+    predictions are equal bit for bit (the ids unpack exactly, and
+    everything after the unpack is one computation).  The native
+    predictions are the JAX engine's within F32_TOL."""
+    from elasticdl_tpu_torch.data.wire import pack_int_to_uint24
+    from elasticdl_tpu_torch.model_zoo.deepfm import (
+        deepfm_functional_api as port_fm,
+    )
+    from model_zoo.deepfm import deepfm_functional_api as jax_fm
+
+    cfg = dict(vocab_capacity=4096, embed_dim=4)
+    rng = np.random.RandomState(0)
+    sample = {"dense": rng.rand(2, 13).astype(np.float32),
+              "sparse": rng.randint(0, 1 << 22, (2, 26)).astype(np.int32)}
+    jax_model = jax_fm.custom_model(**cfg)
+    variables = jax_model.init(jax.random.PRNGKey(0), sample)
+    jax_engine = jax_engine_lib.ServingEngine(
+        jax_model, variables, step=3, feature_spec=feature_meta(sample),
+        buckets=(4,))
+    port_model = port_fm.custom_model(**cfg)
+    engine = port_engine_lib.ServingEngine(
+        port_model, params_from_jax(port_model, flatten_params(
+            jax.tree.map(np.asarray, variables["params"]))),
+        step=3, feature_spec=feature_meta(sample), buckets=(4,),
+        device="cpu")
+
+    pspec = port_engine_lib.packed_feature_spec(engine.feature_spec)
+    assert pspec["sparse"] == {"shape": [26, 3], "dtype": "uint8"}
+    assert pspec["dense"] == engine.feature_spec["dense"]
+    x = {"dense": rng.rand(3, 13).astype(np.float32),
+         "sparse": rng.randint(0, 1 << 22, (3, 26)).astype(np.int32)}
+    packed = {"dense": x["dense"], "sparse": pack_int_to_uint24(x["sparse"])}
+    assert engine.validate(x) is None
+    assert engine.validate(packed) is None
+    bad = {"dense": x["dense"], "sparse": np.zeros((3, 26, 2), np.uint8)}
+    assert "uint24" in engine.validate(bad)
+
+    native, step = engine.predict(x, 3)
+    packed_preds, packed_step = engine.predict(packed, 3)
+    assert step == packed_step == 3 and native.shape == (3,)
+    np.testing.assert_array_equal(native, packed_preds)
+    want, _ = jax_engine.predict(x, 3)
+    np.testing.assert_allclose(native, np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
 
 
 def _drifted(variables, kind):

@@ -15,6 +15,7 @@ coordinator port again while the last group's sockets sit in TIME_WAIT.
 """
 
 import os
+import random
 import socket
 import subprocess
 import sys
@@ -69,10 +70,29 @@ FM_LOSS_TOL = 1e-5
 FM_PARAM_TOL = 1e-4
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _owned_port() -> int:
+    """A free port below the kernel's ephemeral range.  A port that
+    bind(("", 0)) handed out is free only until it is closed: until the
+    group binds it, another process's bind to port 0 or outgoing
+    connection may take it (seen under xdist as EADDRINUSE at the
+    coordinator).  No bind to port 0 and no connect() picks a port below
+    the range, so this one stays the test's."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768                        # Linux's default
+    rng = random.Random()
+    for _ in range(200):
+        port = rng.randrange(max(1024, low - 8192), low)
+        with socket.socket() as s:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError(f"no free port below {low}")
 
 
 def _jax_run(monkeypatch, argv, model_def, params, batch, reader_dir,
@@ -230,7 +250,7 @@ def test_two_gloo_ranks_are_one_model_and_match_jax_and_one_rank(
         _fm_argv(criteo) + ["--model_def", DEEPFM, "--device", "cpu"]))
     port = master.start_rpc(0)
     ctx = torch.multiprocessing.get_context("spawn")
-    coordinator = f"127.0.0.1:{_free_port()}"
+    coordinator = f"127.0.0.1:{_owned_port()}"
     outs = [str(tmp_path / f"rank{r}.pt") for r in range(2)]
     procs = [ctx.Process(target=_torch_dp_rank.run_rank, args=(
         r, 2, f"127.0.0.1:{port}", coordinator, train_dir, FM_PARAMS, 32,
@@ -350,9 +370,10 @@ mesh_lib.destroy_mesh(mesh)
 def test_a_new_rank_0_binds_the_coordinator_port_again():
     """Two groups in a row on one coordinator port: the second rank 0
     binds it while the first group's connections sit in TIME_WAIT (a
-    topology restart does this)."""
+    topology restart does this).  Each rank exits 0 after destroy_mesh
+    (a gloo group freed at interpreter exit sometimes aborted it)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    port = _free_port()
+    port = _owned_port()
     for _ in range(2):
         procs = [subprocess.Popen(
             [sys.executable, "-c", _REBIND, str(r), str(port), repo],
