@@ -447,6 +447,27 @@
    of the service lock (timed by wrapping the lock: `TimedLock`), the
    passes' ms and its seconds beside its budget, with the card.
 
+25. The JAX package's orbax checkpoints (`orbax_restore`, after
+   `serve_cli_bert`; budget 30 s), read with no orbax, tensorstore or
+   zstd package from tests/torch_fixtures/orbax/ (written by the JAX
+   package on the CPU: tests/torch_fixtures/make_orbax_fixtures.py).
+   (a) The C++ zstd decoder, built from hostsrc/zstd_decode.cc, and the
+   Python one give the same bytes on every zstd frame of both fixtures;
+   each one's MB/s on the host is printed with the card.  (b) Fixture
+   (a), Wide & Deep at the zoo's width (vocab 4096, dim 8) at step 8,
+   copied to the work directory, restores through
+   --checkpoint_dir_for_init: an `evaluate` job's owner predicts the 256
+   records of synthetic_census(256, seed=7) within 1e-5 of the JAX
+   package's recorded logits, then a `train` job takes 4 steps on the
+   recorded batches (synthetic_census(256, seed=9), batch 64) with the
+   JAX losses within 5e-5 and the scatter-add kernel launched on each
+   step (its count joins the kernels line).  (c) `serve --checkpoint_dir`
+   on it answers over the socket within 1e-5 of the in-process
+   predictions.  (d) Fixture (b), DeepFM with the int8 arena (vocab 4096,
+   dim 16) at step 2, serves 64 rows within 1e-4 of the recorded
+   predictions.  The C++ decoder must have decoded every frame of the
+   restores.  The phase's seconds are printed beside its budget.
+
 Exits non-zero on any failure; nothing is caught.  Without CUDA it exits
 1 before printing any result.  The line before the last is the `kernels`
 JSON; the last is {"ok": true, "device": {...}}.  The measured numbers,
@@ -478,6 +499,7 @@ sys.path.insert(0, ROOT)
 from elasticdl_tpu_torch.client import api  # noqa: E402
 from elasticdl_tpu_torch.client import main as cli  # noqa: E402
 from elasticdl_tpu_torch.common import events  # noqa: E402
+from elasticdl_tpu_torch.common import ocdbt, zstd  # noqa: E402
 from elasticdl_tpu_torch.common import faults, resilience  # noqa: E402
 from elasticdl_tpu_torch.common.faults import (  # noqa: E402
     FaultRegistry,
@@ -9572,6 +9594,249 @@ def parallel_axes(card: str, work: str, device: str = "cuda") -> tuple:
     return summary, launches
 
 
+# ---- orbax_restore: the JAX package's checkpoints on the card -----------
+
+ORBAX_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "orbax")
+ORBAX_BUDGET_S = 30.0
+ORBAX_CENSUS_PARAMS = "vocab_capacity=4096;embed_dim=8"   # the zoo's width
+ORBAX_CENSUS_STEP = 8
+ORBAX_PREDICT_SEED, ORBAX_PREDICT_ROWS = 7, 256
+ORBAX_CONTINUE_SEED, ORBAX_CONTINUE_STEPS, ORBAX_BATCH = 9, 4, 64
+ORBAX_INT8_PARAMS = "vocab_capacity=4096;embed_dim=16;arena_dtype='int8'"
+ORBAX_INT8_STEP, ORBAX_INT8_SEED, ORBAX_INT8_ROWS = 2, 5, 64
+# Wide & Deep's forward and losses against the JAX package's
+# (tests/test_torch_census.py's FWD_TOL and LOSS_TOL); serving against
+# the same step's in-process forward (tests/test_torch_serving_e2e.py's
+# STEP_TOL); int8 serving (tests/test_torch_serving_int8.py's INT8_TOL)
+ORBAX_FWD_TOL = 1e-5
+ORBAX_LOSS_TOL = 5e-5
+ORBAX_SERVE_TOL = 1e-5
+ORBAX_INT8_TOL = 1e-4
+
+
+def orbax_frames(step_path: str) -> list:
+    """Every zstd frame of an orbax step: the two databases' manifests
+    and B+tree roots (leaves here: the phase checks it) and each zarr
+    chunk."""
+    frames = []
+    default = os.path.join(step_path, "default")
+    for db in (default, os.path.join(default, "ocdbt.process_0")):
+        with open(os.path.join(db, ocdbt.MANIFEST_FILE), "rb") as f:
+            raw = f.read()
+        store = ocdbt.OcdbtStore(db)
+        latest = store.manifest.latest
+        if latest["root_height"] != 0:
+            raise AssertionError(f"{db}: a B+tree of height "
+                                 f"{latest['root_height']}; the phase "
+                                 "reads leaf roots only")
+        rel, offset, length = latest["root"]
+        with open(os.path.join(db, rel), "rb") as f:
+            f.seek(offset)
+            node = f.read(length)
+        frames += [blob[14:-4] for blob in (raw, node) if blob[13] == 1]
+    store = ocdbt.OcdbtStore(default)
+    for key in store.list():
+        value = store.read(key)
+        if int.from_bytes(value[:4], "little") == zstd.MAGIC:
+            frames.append(value)
+    return frames
+
+
+def decoders_agree(card: str) -> dict:
+    """The C++ and the Python zstd decoders on every frame of both
+    fixtures: the same bytes, and each one's MB/s of output on the
+    host."""
+    if not zstd.native_available():
+        raise AssertionError(f"the C++ zstd decoder did not build: "
+                             f"{zstd.unavailable_reason}")
+    frames = (orbax_frames(os.path.join(ORBAX_FIXTURES, "census",
+                                        str(ORBAX_CENSUS_STEP)))
+              + orbax_frames(os.path.join(ORBAX_FIXTURES, "deepfm_int8",
+                                          str(ORBAX_INT8_STEP))))
+    zstd.reset_served()
+    t0 = time.perf_counter()
+    native = [zstd.decompress_native(f) for f in frames]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = [zstd.decompress_py(f) for f in frames]
+    python_s = time.perf_counter() - t0
+    out_bytes = sum(len(b) for b in native)
+    out = {"card": card, "frames": len(frames),
+           "compressed_bytes": sum(len(f) for f in frames),
+           "decoded_bytes": out_bytes, "native_s": native_s,
+           "python_s": python_s,
+           "native_mb_per_s": out_bytes / native_s / 1e6,
+           "python_mb_per_s": out_bytes / python_s / 1e6,
+           "equal": native == python, "served": zstd.served()}
+    if not out["equal"]:
+        raise AssertionError("the C++ and Python zstd decoders differ on "
+                             "a fixture frame")
+    return out
+
+
+def orbax_census_argv(job: str, data: str, ckpt: str) -> list:
+    flag = "--validation_data" if job == "evaluate" else "--training_data"
+    return zoo_argv(job, CENSUS, ORBAX_BATCH, "--model_params",
+                    ORBAX_CENSUS_PARAMS, flag, data,
+                    "--records_per_task", str(ORBAX_PREDICT_ROWS),
+                    "--num_epochs", "1", "--checkpoint_dir_for_init", ckpt)
+
+
+def serve_one(model_def: str, params: str, ckpt: str, features: dict,
+              rows: int):
+    """`serve --checkpoint_dir` over the socket: (its predictions of
+    `features` in one request, the step it serves)."""
+    args = cli.parse_args([
+        "serve", "--model_def", model_def, "--model_params", params,
+        "--batch_buckets", str(rows), "--port", "0",
+        "--checkpoint_dir", ckpt,
+        "--feature_spec", json.dumps(feature_meta(features))])
+    server, stub = start_server(args)
+    try:
+        resp = stub.predict(make_predict_request(features))
+        if resp.code != spb.SERVING_OK:
+            raise AssertionError(f"serve {ckpt}: {resp.error}")
+        return from_tensor_proto(resp.predictions), resp.model_step
+    finally:
+        stub.close()
+        server.stop()
+
+
+def orbax_restore(card: str, work: str) -> tuple:
+    """The JAX package's orbax checkpoints (tests/torch_fixtures/orbax/,
+    written by the JAX package on the CPU) read on the card with no
+    orbax, tensorstore or zstd package: the decoders agree; fixture (a),
+    Wide & Deep at the zoo's width, restores through
+    --checkpoint_dir_for_init, predicts as the JAX package recorded,
+    trains 4 steps through the scatter-add kernel with the recorded
+    losses, and serves over the socket what it predicts in process;
+    fixture (b)'s int8 planes serve the recorded predictions.  Budget
+    ORBAX_BUDGET_S."""
+    t0 = time.perf_counter()
+    out = {"card": card, "decoders": decoders_agree(card)}
+    dec = out["decoders"]
+    print(f"orbax_restore decoders: {dec['frames']} frames, "
+          f"{dec['decoded_bytes']} bytes, C++ {dec['native_mb_per_s']:.1f} "
+          f"MB/s, Python {dec['python_mb_per_s']:.2f} MB/s on the host "
+          f"[{card}]", flush=True)
+    root = os.path.join(work, "orbax")
+    census_ckpt = os.path.join(root, "census")
+    int8_ckpt = os.path.join(root, "deepfm_int8")
+    shutil.copytree(os.path.join(ORBAX_FIXTURES, "census"), census_ckpt)
+    shutil.copytree(os.path.join(ORBAX_FIXTURES, "deepfm_int8"), int8_ckpt)
+    predict_rows = census_data.synthetic_census(ORBAX_PREDICT_ROWS,
+                                                seed=ORBAX_PREDICT_SEED)
+    predict_csv = census_data.write_csv(os.path.join(root, "predict.csv"),
+                                        predict_rows)
+    features = census_zoo.feed(predict_rows)["features"]
+    train_dir = os.path.join(root, "train")
+    os.makedirs(train_dir)
+    census_data.write_csv(
+        os.path.join(train_dir, "census-train.csv"),
+        census_data.synthetic_census(ORBAX_CONTINUE_STEPS * ORBAX_BATCH,
+                                     seed=ORBAX_CONTINUE_SEED))
+    zstd.reset_served()
+
+    # (a) the restored step's predictions: an evaluate job's owner
+    ev = api.run_local(cli.parse_args(orbax_census_argv(
+        "evaluate", predict_csv, census_ckpt)), "evaluate")
+    if ev.exit_code != 0 or ev.owner.step != ORBAX_CENSUS_STEP:
+        raise AssertionError(f"orbax_restore: the evaluate job failed or "
+                             f"restored step {ev.owner.step}")
+    preds = np.asarray(ev.owner.predict_batch({"features": features}),
+                       np.float32).reshape(-1)
+    want = np.load(os.path.join(ORBAX_FIXTURES, "census_predictions.npy"))
+    out["predict_max_abs_err"] = float(np.abs(preds - want).max())
+    out["eval_metrics"] = ev.metrics
+    del ev
+
+    # (a) 4 steps on the recorded batches: the main path, counted
+    args = cli.parse_args(orbax_census_argv("train", train_dir,
+                                            census_ckpt))
+    # ---- the main path: counts start at 0 here ----
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    job = api.run_local(args, "train")
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t1
+    launches = sa.scatter_add.launches
+    # ---- end of the main path ----
+    losses = job_losses(job)
+    want_losses = np.load(os.path.join(ORBAX_FIXTURES,
+                                       "census_losses.npy"))
+    out.update(train_exit=job.exit_code, train_step=job.owner.step,
+               losses=losses, jax_losses=want_losses.tolist(),
+               scatter_launches=launches)
+    del job
+    if out["train_exit"] != 0 or out["train_step"] != \
+            ORBAX_CENSUS_STEP + ORBAX_CONTINUE_STEPS or \
+            len(losses) != ORBAX_CONTINUE_STEPS:
+        raise AssertionError(f"orbax_restore: the train job: {out}")
+    out["loss_max_abs_err"] = float(np.abs(np.asarray(losses)
+                                           - want_losses).max())
+
+    # (a) serve --checkpoint_dir over the socket: the in-process forward
+    served, step = serve_one(CENSUS, ORBAX_CENSUS_PARAMS, census_ckpt,
+                             features, ORBAX_PREDICT_ROWS)
+    out["serve_step"] = step
+    out["serve_max_abs_err"] = float(np.abs(
+        np.asarray(served, np.float32).reshape(-1) - preds).max())
+
+    # (b) the int8 planes
+    dense, sparse, _ = synthetic_criteo(ORBAX_INT8_ROWS,
+                                        seed=ORBAX_INT8_SEED)
+    int8_preds, int8_step = serve_one(DEEPFM, ORBAX_INT8_PARAMS, int8_ckpt,
+                                      {"dense": dense, "sparse": sparse},
+                                      ORBAX_INT8_ROWS)
+    want8 = np.load(os.path.join(ORBAX_FIXTURES,
+                                 "deepfm_int8_predictions.npy"))
+    got8 = np.asarray(int8_preds, np.float32).reshape(-1)
+    out["int8_step"] = int8_step
+    out["int8_max_abs_err"] = float(np.abs(got8 - want8).max())
+    out["int8_within_tol"] = bool(np.allclose(got8, want8,
+                                              atol=ORBAX_INT8_TOL,
+                                              rtol=ORBAX_INT8_TOL))
+    out["restore_served"] = zstd.served()
+    shutil.rmtree(root)
+    seconds = time.perf_counter() - t0
+    out.update(seconds=seconds, budget_s=ORBAX_BUDGET_S,
+               tolerances={"predict": ORBAX_FWD_TOL, "loss": ORBAX_LOSS_TOL,
+                           "serve": ORBAX_SERVE_TOL,
+                           "int8": ORBAX_INT8_TOL})
+    print(json.dumps({"orbax_restore": out}), flush=True)
+    print(f"orbax_restore: predictions {out['predict_max_abs_err']:.3g}, "
+          f"losses {out['loss_max_abs_err']:.3g}, serve "
+          f"{out['serve_max_abs_err']:.3g}, int8 "
+          f"{out['int8_max_abs_err']:.3g} from the JAX records; "
+          f"{launches} scatter-adds; {seconds:.1f} s (budget "
+          f"{ORBAX_BUDGET_S} s) [{card}]", flush=True)
+    served_by = out["restore_served"]
+    if served_by["python"] != 0 or served_by["native"] == 0:
+        raise AssertionError(f"orbax_restore: the C++ decoder did not "
+                             f"serve every frame: {served_by}")
+    if out["predict_max_abs_err"] > ORBAX_FWD_TOL:
+        raise AssertionError(f"orbax_restore: predictions "
+                             f"{out['predict_max_abs_err']} from the JAX "
+                             f"ones (tol {ORBAX_FWD_TOL})")
+    if out["loss_max_abs_err"] > ORBAX_LOSS_TOL:
+        raise AssertionError(f"orbax_restore: losses {losses} vs the JAX "
+                             f"{want_losses.tolist()}")
+    if launches <= 0:
+        raise AssertionError("orbax_restore: the steps launched no "
+                             "scatter-add")
+    if step != ORBAX_CENSUS_STEP or \
+            out["serve_max_abs_err"] > ORBAX_SERVE_TOL:
+        raise AssertionError(f"orbax_restore: serve at step {step}, "
+                             f"{out['serve_max_abs_err']} from the "
+                             "in-process predictions")
+    if int8_step != ORBAX_INT8_STEP or not out["int8_within_tol"]:
+        raise AssertionError(f"orbax_restore: int8 serving at step "
+                             f"{int8_step}, {out['int8_max_abs_err']} from "
+                             "the JAX predictions")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -9691,6 +9956,8 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
         "local_bert", local_bert, card, work)
     serve_bert_cli, cli_launches = phase("serve_cli_bert", serve_cli_bert,
                                          card, bert_ckpt, serve)
+    orbax, orbax_launches = phase("orbax_restore", orbax_restore, card,
+                                  work)
     print(json.dumps({"phase_s": phase_s}), flush=True)
     # launches: the Local job's (the north star's path); each path's
     # count beside it
@@ -9719,7 +9986,8 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
            for path, n in clus_launches.items()},
         **kube_launches,
         **scale_launches,
-        **{path: n["scatter_add"] for path, n in par_launches.items()}}
+        **{path: n["scatter_add"] for path, n in par_launches.items()},
+        "orbax_restore": orbax_launches}
     bert_paths = {"train_bert": bert_launches_by["plain"],
                   "train_bert_remat": bert_launches_by["remat"],
                   **bert_local_launches}
@@ -9776,7 +10044,8 @@ def run_phases(card: str, build: dict, work: str, warm: dict) -> int:
                    "serve_cli_deepfm": serve_fm,
                    "tiered_deepfm": tiered, "local_tiered": local_t,
                    "zoo_local": zoo,
-                   "serve_cli_bert": serve_bert_cli, **kernels}, f,
+                   "serve_cli_bert": serve_bert_cli,
+                   "orbax_restore": orbax, **kernels}, f,
                   indent=1)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -68,9 +68,20 @@ first, so every listed step can be verified.  A step directory without
   older step).  `restore_step` (a separate state for an eval at a
   version) leaves the live store as it is.
 
-A loader for the JAX package's orbax checkpoints waits for its slice of
-the port (ROADMAP.md queue 1, item 3); an orbax step directory raises
-NotImplementedError.
+- The JAX package's orbax steps: a step directory that holds
+  `_CHECKPOINT_METADATA` was written by the JAX package's
+  `CheckpointSaver`.  It is listed beside the port's own steps
+  (`committed_steps`), checked against the JAX manifest at the same
+  `.manifests/<step>.json` path (`verify_step`: the same size and sha256
+  per file of the step), and restored through common/orbax_read.py and
+  common/orbax_state.py: the stored TrainState read with no orbax,
+  tensorstore or zstd package and mapped onto the port's model and
+  optimizer, then through the same arena, shard and load path as a
+  `state.pt`.  A step that fails its manifest check or does not read
+  falls back to the step before, as the JAX `maybe_restore` does.  The
+  port writes into no orbax step and deletes none: its saves skip a
+  step number an orbax step holds, and the keep-last-K sweep counts and
+  removes only `state.pt` steps (`port_steps`).
 """
 
 from __future__ import annotations
@@ -89,7 +100,8 @@ from typing import Any, Dict, FrozenSet, List, Optional
 
 import torch
 
-from elasticdl_tpu_torch.common import events, faults
+from elasticdl_tpu_torch.common import events, faults, orbax_read, \
+    orbax_state
 from elasticdl_tpu_torch.common.weights import gather_tensor, shard_tensor
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.layers.arena import (
@@ -110,8 +122,6 @@ STATE_FILE = "state.pt"
 # a missing key, a shape the template refuses
 LOAD_ERRORS = (RuntimeError, OSError, KeyError, ValueError, EOFError,
                pickle.UnpicklingError)
-# the file orbax writes into every step directory it finalizes
-_ORBAX_MARKER = "_CHECKPOINT_METADATA"
 
 
 class ArenaDtypeMismatch(ValueError):
@@ -330,25 +340,36 @@ def read_produced_meta(checkpoint_dir: str,
         return None
 
 
-def committed_steps(checkpoint_dir: str) -> List[int]:
-    """The finalized steps under `checkpoint_dir` (those whose state.pt
-    is in place), sorted; [] for a directory that does not exist.  An
-    orbax step directory of the JAX package raises."""
+def _step_kinds(checkpoint_dir: str) -> Dict[int, str]:
+    """{step: "port" or "orbax"} of the finalized steps: a port step's
+    state.pt is in place, an orbax step holds the file orbax writes as it
+    finalizes one."""
     if not os.path.isdir(checkpoint_dir):
-        return []
-    steps = []
+        return {}
+    kinds = {}
     for name in os.listdir(checkpoint_dir):
         step_dir = os.path.join(checkpoint_dir, name)
         if not (name.isdigit() and os.path.isdir(step_dir)):
             continue
-        if os.path.exists(os.path.join(step_dir, _ORBAX_MARKER)):
-            raise NotImplementedError(
-                f"{step_dir} is an orbax checkpoint of the JAX "
-                "package; loading those waits for its slice of the "
-                "port (ROADMAP.md queue 1, item 3)")
-        if os.path.isfile(os.path.join(step_dir, STATE_FILE)):
-            steps.append(int(name))
-    return sorted(steps)
+        if orbax_read.is_orbax_step(step_dir):
+            kinds[int(name)] = "orbax"
+        elif os.path.isfile(os.path.join(step_dir, STATE_FILE)):
+            kinds[int(name)] = "port"
+    return kinds
+
+
+def committed_steps(checkpoint_dir: str) -> List[int]:
+    """The finalized steps under `checkpoint_dir`, the port's (state.pt
+    in place) and the JAX package's orbax steps alike, sorted; [] for a
+    directory that does not exist."""
+    return sorted(_step_kinds(checkpoint_dir))
+
+
+def port_steps(checkpoint_dir: str) -> List[int]:
+    """The port's own finalized steps (state.pt in place), sorted: the
+    steps its keep-last-K sweep counts and may remove."""
+    return sorted(step for step, kind in _step_kinds(checkpoint_dir).items()
+                  if kind == "port")
 
 
 def verify_step(checkpoint_dir: str, step: int) -> bool:
@@ -392,9 +413,19 @@ def intact_steps(checkpoint_dir: str) -> List[int]:
 
 
 def _state_loads(checkpoint_dir: str, step: int) -> bool:
-    """True when the step's state.pt loads (on the CPU)."""
-    path = os.path.join(os.path.abspath(checkpoint_dir), str(int(step)),
-                        STATE_FILE)
+    """True when the step's state.pt loads (on the CPU), or, for an
+    orbax step, when its stored tree reads and is a TrainState."""
+    step_dir = os.path.join(os.path.abspath(checkpoint_dir), str(int(step)))
+    if orbax_read.is_orbax_step(step_dir):
+        try:
+            tree = orbax_read.read_tree(step_dir)
+        except LOAD_ERRORS as exc:
+            logger.warning("orbax checkpoint step %d does not read (%s)",
+                           step, exc)
+            return False
+        return isinstance(tree, dict) and {"step", "params", "opt_state"} \
+            <= set(tree)
+    path = os.path.join(step_dir, STATE_FILE)
     try:
         blob = torch.load(path, weights_only=True, map_location="cpu")
     except LOAD_ERRORS as exc:
@@ -406,7 +437,8 @@ def _state_loads(checkpoint_dir: str, step: int) -> bool:
 
 def restorable_step(checkpoint_dir: str) -> Optional[int]:
     """The step `CheckpointSaver.maybe_restore` restores: the newest
-    intact step whose state.pt loads; None when there is none."""
+    intact step whose state.pt loads (or whose orbax tree reads); None
+    when there is none."""
     for step in reversed(intact_steps(checkpoint_dir)):
         if _state_loads(checkpoint_dir, step):
             return step
@@ -426,7 +458,6 @@ class CheckpointSaver:
         self._writer = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="checkpoint-writer")
         self._tiered_store = None
-        self.all_steps()   # an orbax directory raises here
 
     def attach_tiered_store(self, store) -> None:
         """Save `store`'s sidecar with every step, and load it back into
@@ -446,7 +477,8 @@ class CheckpointSaver:
         return self._dir
 
     def all_steps(self) -> List[int]:
-        """Finalized steps (those whose state.pt is in place), sorted."""
+        """Finalized steps, the port's and the JAX package's orbax steps,
+        sorted."""
         return committed_steps(self._dir)
 
     def latest_step(self) -> Optional[int]:
@@ -475,6 +507,12 @@ class CheckpointSaver:
             return False
         self._raise_failed_writes()
         step = int(state.step)
+        if orbax_read.is_orbax_step(self._step_dir(step)):
+            # the JAX package's step of the same number is never written
+            # into
+            logger.info("checkpoint step %d is an orbax step of the JAX "
+                        "package; not saving over it", step)
+            return False
         with self._lock:
             if step in self._pending or os.path.isfile(
                     os.path.join(self._step_dir(step), STATE_FILE)):
@@ -532,10 +570,12 @@ class CheckpointSaver:
         self._sweep_old_steps()
 
     def _sweep_old_steps(self) -> None:
-        """Keep-last-K over finalized steps, skipping pinned ones."""
+        """Keep-last-K over the port's finalized steps, skipping pinned
+        ones; the JAX package's orbax steps are neither counted nor
+        removed."""
         if self._keep_max is None:
             return
-        excess = self.all_steps()[:-self._keep_max]
+        excess = port_steps(self._dir)[:-self._keep_max]
         pinned = pinned_steps(self._dir)
         for step in excess:
             if step in pinned:
@@ -577,11 +617,20 @@ class CheckpointSaver:
 
     # ---- restore -------------------------------------------------------
 
+    def _read_blob(self, state: TrainState, step: int) -> Dict[str, Any]:
+        """{"step", "model", "optimizer"} of a step: its state.pt, or
+        the JAX TrainState of an orbax step mapped onto `state`."""
+        step_dir = self._step_dir(step)
+        if orbax_read.is_orbax_step(step_dir):
+            model, optim, saved = orbax_state.read_state(step_dir, state)
+            return {"step": saved, "model": model, "optimizer": optim}
+        device = next(state.model.parameters()).device
+        return torch.load(os.path.join(step_dir, STATE_FILE),
+                          weights_only=True, map_location=device)
+
     def _load_into(self, state: TrainState, step: int,
                    arena_convert: bool = False) -> TrainState:
-        device = next(state.model.parameters()).device
-        blob = torch.load(os.path.join(self._step_dir(step), STATE_FILE),
-                          weights_only=True, map_location=device)
+        blob = self._read_blob(state, step)
         model_state = self._arena_compat(step, blob["model"], state,
                                          arena_convert)
         model_state, optim_state = shard_blob(state, model_state,

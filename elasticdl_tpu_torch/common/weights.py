@@ -54,14 +54,16 @@ from elasticdl_tpu_torch.layers.arena import (
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    """{'a': {'b': x}} -> {'a/b': np.asarray(x)}."""
+    """{'a': {'b': x}} -> {'a/b': np.asarray(x)} (a tensor leaf, an orbax
+    bfloat16 one, stays a tensor)."""
     flat: Dict[str, np.ndarray] = {}
     for key, value in tree.items():
         path = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(value, Mapping):
             flat.update(flatten_params(value, path))
         else:
-            flat[path] = np.asarray(value)
+            flat[path] = value if isinstance(value, torch.Tensor) \
+                else np.asarray(value)
     return flat
 
 
@@ -100,15 +102,35 @@ def _stat_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
             if name.rsplit(".", 1)[-1] in _STAT_BUFFERS.values()}
 
 
-def _kernel_to_torch(value: np.ndarray, stacked: bool = False
-                     ) -> np.ndarray:
-    """A flax kernel in torch's layout: (in, out) -> (out, in); HWIO ->
-    OIHW; a stacked (L, in, out) -> (L, out, in)."""
+def _kernel_to_torch(value, stacked: bool = False):
+    """A flax kernel (a numpy array or a tensor) in torch's layout: (in,
+    out) -> (out, in); HWIO -> OIHW; a stacked (L, in, out) -> (L, out,
+    in)."""
     if stacked:
-        return np.swapaxes(value, -1, -2)
+        return value.swapaxes(-1, -2)
     if value.ndim == 4:
-        return value.transpose(3, 2, 0, 1)
+        return value.permute(3, 2, 0, 1) if isinstance(
+            value, torch.Tensor) else value.transpose(3, 2, 0, 1)
     return value.T
+
+
+def _flax_leaves(flat: Mapping[str, object],
+                 quantized: Optional[Mapping[str, object]],
+                 batch_stats: Optional[Mapping[str, object]]):
+    """(collection, flax path, state-dict name, value in torch's layout)
+    of every leaf of a flattened flax tree and its `quantized` and
+    `batch_stats` collections: the naming rules, in one place."""
+    for path, value in (quantized or {}).items():
+        yield "quantized", path, _plane_name(path), value
+    for path, value in (batch_stats or {}).items():
+        yield "batch_stats", path, _stat_name(path), value
+    for path, value in flat.items():
+        if path.rsplit("/", 1)[-1] == "kernel":
+            if not isinstance(value, torch.Tensor):
+                value = np.asarray(value)
+            value = _kernel_to_torch(
+                value, stacked="gpipe_stack" in path.split("/"))
+        yield "params", path, torch_name(path), value
 
 
 def _quantized_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
@@ -141,26 +163,13 @@ def params_from_jax(module: nn.Module, flat: Mapping[str, np.ndarray],
             "the flax 'batch_stats' collection as `batch_stats`")
     out: Dict[str, torch.Tensor] = {}
     unused = []
-    for paths, to_name, targets in (
-            (quantized or {}, _plane_name, buffers),
-            (batch_stats or {}, _stat_name, stats)):
-        for path, value in paths.items():
-            name = to_name(path)
-            target = targets.get(name)
-            if target is None:
-                unused.append(path)
-                continue
-            out[name] = _leaf_tensor(path, name, np.asarray(value), target)
-    for path, value in flat.items():
-        name = torch_name(path)
-        target = params.get(name)
+    targets = {"params": params, "quantized": buffers, "batch_stats": stats}
+    for kind, path, name, value in _flax_leaves(flat, quantized,
+                                                batch_stats):
+        target = targets[kind].get(name)
         if target is None:
             unused.append(path)
             continue
-        value = np.asarray(value)
-        if path.rsplit("/", 1)[-1] == "kernel":
-            value = _kernel_to_torch(
-                value, stacked="gpipe_stack" in path.split("/"))
         out[name] = _leaf_tensor(path, name, value, target)
     missing = sorted((set(params) | set(buffers) | set(stats)) - set(out))
     if unused or missing:
@@ -171,16 +180,38 @@ def params_from_jax(module: nn.Module, flat: Mapping[str, np.ndarray],
     return out
 
 
-def _leaf_tensor(path: str, name: str, value: np.ndarray,
+def _as_tensor(value) -> torch.Tensor:
+    """An owning, contiguous CPU tensor of a numpy array or a tensor (an
+    orbax bfloat16 leaf arrives as a torch.bfloat16 tensor)."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().clone(memory_format=torch.contiguous_format)
+    return torch.from_numpy(np.array(value, copy=True))
+
+
+def state_dict_from_flax(flat: Mapping[str, object],
+                         quantized: Optional[Mapping[str, object]] = None,
+                         batch_stats: Optional[Mapping[str, object]] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """{state-dict name: CPU tensor} of a flattened flax tree by the
+    naming rules alone, with no module: what `params_from_jax` gives,
+    before the shapes are checked against a module and the tensors cast
+    to its dtypes.  A checkpoint's tree keeps its own layout this way
+    (its arena dtype may differ from the model's, common/save_utils.py
+    `_arena_compat`); `load_state_dict(strict=True)` then checks every
+    name and shape."""
+    return {name: _as_tensor(value) for _, _, name, value in
+            _flax_leaves(flat, quantized, batch_stats)}
+
+
+def _leaf_tensor(path: str, name: str, value,
                  target: torch.Tensor) -> torch.Tensor:
+    value = _as_tensor(value)
     if tuple(value.shape) != tuple(target.shape):
         raise ValueError(
-            f"flax leaf {path} has shape {value.shape}; port tensor "
+            f"flax leaf {path} has shape {tuple(value.shape)}; port tensor "
             f"{name} has {tuple(target.shape)}"
         )
-    return torch.from_numpy(np.array(value, copy=True)).to(
-        device=target.device, dtype=target.dtype
-    )
+    return value.to(device=target.device, dtype=target.dtype)
 
 
 def shard_tensor(value, spec, mesh):

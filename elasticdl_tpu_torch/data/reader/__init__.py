@@ -10,9 +10,8 @@ A zoo module plugs a source in by registration: it calls
 unbounded source into shard-addressable windows for a perpetual task
 manager.  As in the JAX package, no scheme is registered for them: a
 caller builds the reader itself, so `stream://x` raises the registry's
-ValueError.  `grain://` raises NotImplementedError: the grain package is
-not part of the port's stack (ROADMAP.md queue 1, item 3, "not
-queued").
+ValueError.  `grain://module:factory` origins read any random-access
+dataset a factory returns (grain_reader.py), with no grain package.
 """
 
 import os
@@ -21,6 +20,9 @@ from typing import Dict, Type
 from elasticdl_tpu_torch.data.reader.base import AbstractDataReader  # noqa: F401,E501
 from elasticdl_tpu_torch.data.reader.csv_reader import (  # noqa: F401
     CSVDataReader,
+)
+from elasticdl_tpu_torch.data.reader.grain_reader import (  # noqa: F401
+    GrainDataReader,
 )
 from elasticdl_tpu_torch.data.reader.memory_reader import (  # noqa: F401
     MemoryDataReader,
@@ -37,11 +39,6 @@ from elasticdl_tpu_torch.data.reader.tfrecord_reader import (  # noqa: F401
 )
 
 _REGISTRY: Dict[str, Type[AbstractDataReader]] = {}
-
-_NOT_PORTED = {
-    "grain": "the grain reader is not ported: the grain package is not "
-             "part of the port's stack (ROADMAP.md queue 1, item 3)",
-}
 
 
 def register_data_reader(scheme: str, reader_cls=None):
@@ -67,11 +64,10 @@ def register_data_reader(scheme: str, reader_cls=None):
 register_data_reader("csv", CSVDataReader)
 register_data_reader("tfrecord", TFRecordDataReader)
 register_data_reader("sqlite", TableDataReader)
+register_data_reader("grain", GrainDataReader)
 
 
 def _registered(scheme: str, what: str) -> Type[AbstractDataReader]:
-    if scheme in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[scheme])
     if scheme not in _REGISTRY:
         raise ValueError(
             f"no data reader registered for {what} {scheme!r} "

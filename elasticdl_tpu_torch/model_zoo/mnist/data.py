@@ -1,8 +1,9 @@
 """Synthetic MNIST-like data (the port's copy of the JAX zoo's
 model_zoo/mnist/data.py, byte for byte in its output): class-conditional
 blobs over 784 pixels, written as the real record format, 784 image
-bytes and 1 label byte per TFRecord.  The JAX zoo's `grain_dataset`
-raises: there is no grain package in the port's stack."""
+bytes and 1 label byte per TFRecord.  `grain_dataset` serves the same
+records to a `grain://` origin as a plain random-access list, with no
+grain package (data/reader/grain_reader.py)."""
 
 from __future__ import annotations
 
@@ -24,11 +25,13 @@ def synthetic_mnist(n: int, seed: int = 0):
 
 
 def grain_dataset(n: int = 2048, seed: int = 0):
-    """The JAX zoo's `grain://` factory; the grain reader is not ported
-    (`grain://` origins raise in data/reader/__init__.py)."""
-    raise NotImplementedError(
-        "grain datasets are not ported: the grain package is not part of "
-        "the port's stack (ROADMAP.md queue 1, item 3)")
+    """The `grain://` factory (data/reader/grain_reader.py): the JAX
+    zoo's records, each image's 784 bytes then its label byte, as a
+    random-access list (`len` and `[i]`, grain's contract) in place of a
+    grain MapDataset --
+    --training_data 'grain://mnist.data:grain_dataset?n=2048'."""
+    images, labels = synthetic_mnist(n, seed)
+    return [row.tobytes() for row in record_rows(images, labels)]
 
 
 def record_rows(images, labels) -> np.ndarray:

@@ -265,6 +265,10 @@ def test_a_failed_restore_installs_no_state_and_the_retry_restores(
 
 
 def test_an_orbax_checkpoint_directory_raises(tmp_path):
+    """An orbax step is listed beside the port's steps (the JAX
+    package's TrainStates restore through it: tests/test_torch_orbax*.py).
+    One whose stored tree is no TrainState raises on restore rather than
+    letting the job train from scratch."""
     import jax.numpy as jnp
     import orbax.checkpoint as ocp
 
@@ -273,8 +277,14 @@ def test_an_orbax_checkpoint_directory_raises(tmp_path):
             enable_async_checkpointing=False))
     mngr.save(3, args=ocp.args.StandardSave({"a": jnp.ones(3)}))
     mngr.wait_until_finished()
-    with pytest.raises(NotImplementedError, match="orbax"):
-        save_utils.CheckpointSaver(str(tmp_path))
+    saver = save_utils.CheckpointSaver(str(tmp_path))
+    assert saver.all_steps() == [3] and save_utils.port_steps(
+        str(tmp_path)) == []
+    assert save_utils.restorable_step(str(tmp_path)) is None
+    with pytest.raises(ValueError, match="not a TrainState"):
+        saver.maybe_restore(_trainer().init_state(0, _batches(1)[0][
+            "features"]))
+    saver.close()
 
 
 def test_the_manifest_lands_before_the_state_file(tmp_path, monkeypatch):

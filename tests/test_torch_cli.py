@@ -135,6 +135,13 @@ def online_loop(tmp_path_factory):
 def _fixed_time(monkeypatch):
     monkeypatch.setattr(time, "strftime", lambda *a: "12:34:56")
     monkeypatch.setattr(time, "time", lambda: FIXED_NOW)
+    # both packages' `top` commands bind their clock where they are
+    # defined (`clock=time.time`), out of the patch's reach: their "ago"
+    # column followed the wall clock, so two commands run on either side
+    # of a rounding boundary printed different ages
+    for command in (top.top, jax_top.top):
+        monkeypatch.setattr(command, "__defaults__",
+                            (lambda: FIXED_NOW,) + command.__defaults__[1:])
 
 
 # ---- top, slo, programs --------------------------------------------------

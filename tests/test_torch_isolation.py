@@ -1,6 +1,7 @@
 """The port stands alone: no module of elasticdl_tpu_torch, and not
-chip_smoke.py, imports jax, flax, optax, orbax, protobuf, grpc, msgpack,
-ml_dtypes, kubernetes, elasticdl_tpu or model_zoo — at import time
+chip_smoke.py, imports jax, flax, optax, orbax, tensorstore, zstandard,
+grain, protobuf, grpc, msgpack, ml_dtypes, kubernetes, elasticdl_tpu or
+model_zoo — at import time
 (checked in a subprocess that blocks them) or lazily inside a function
 (checked on the source).
 And the entry points pick the GPU unless told "cpu"."""
@@ -20,7 +21,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "elasticdl_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "elasticdl_tpu",
            "model_zoo", "google.protobuf", "grpc", "ml_dtypes", "msgpack",
-           "kubernetes")
+           "kubernetes", "zstandard", "tensorstore", "grain")
 
 
 def _blocked(name: str) -> bool:

@@ -55,8 +55,9 @@ def test_feeds_and_data_match_the_jax_zoo(tmp_path):
         np.testing.assert_array_equal(got["labels"], want["labels"])
     with pytest.raises(ValueError, match="785-byte"):
         port.feed_bulk(buffer[:-1], np.full(1, 784))
-    with pytest.raises(NotImplementedError, match="grain"):
-        port_data.grain_dataset()
+    # the grain:// factory serves the TFRecord files' 785-byte records
+    # (tests/test_torch_grain_reader.py holds it against the JAX one)
+    assert port_data.grain_dataset(n=20, seed=3) == records
     port_dirs = port_data.write_dataset(str(tmp_path / "p"), 30, 10, seed=2)
     jax_dirs = jax_data.write_dataset(str(tmp_path / "j"), 30, 10, seed=2)
     for pd, jd in zip(port_dirs, jax_dirs):

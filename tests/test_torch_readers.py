@@ -249,8 +249,13 @@ def test_registry_errors():
         port_reader.create_data_reader("/tmp/x", reader_type="nosuch")
     with pytest.raises(TypeError):
         port_reader.register_data_reader("bad", object)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_reader.create_data_reader("grain://mnist.data:grain_dataset")
+    # grain:// is ported (tests/test_torch_grain_reader.py); a factory
+    # without its ':' is refused on first use, as in the JAX reader
+    assert isinstance(
+        port_reader.create_data_reader("grain://mnist.data:grain_dataset"),
+        port_reader.GrainDataReader)
+    with pytest.raises(ValueError, match="factory"):
+        port_reader.create_data_reader("grain://no_colon").create_shards()
     # the stream reader is ported, and as in the JAX package no scheme
     # is registered for it: a caller builds it
     for module in (jax_reader, port_reader):

@@ -151,12 +151,13 @@ def test_create_data_reader_takes_paths_and_raises_for_waiting_readers(
     assert isinstance(create_data_reader(train_dir), TFRecordDataReader)
     assert isinstance(create_data_reader("tfrecord://" + train_dir),
                       TFRecordDataReader)
-    # the CSV and sqlite readers are ported (tests/test_torch_readers.py);
-    # grain waits and says where; stream is ported but, as in the JAX
-    # package, registered under no scheme
+    # the CSV, sqlite and grain readers are ported
+    # (tests/test_torch_readers.py, tests/test_torch_grain_reader.py);
+    # stream is ported but, as in the JAX package, registered under no
+    # scheme
     assert isinstance(create_data_reader("data.csv"), CSVDataReader)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_data_reader("grain://x")
+    assert type(create_data_reader("grain://x")).__name__ == \
+        "GrainDataReader"
     with pytest.raises(ValueError, match="no data reader registered"):
         create_data_reader("stream://clicks")
     with pytest.raises(ValueError, match="no data reader"):
