@@ -101,6 +101,21 @@ SERVING_SCALE_REASONS = frozenset({
 SPAN_PHASES = frozenset({
     "route", "queue_wait", "batch_form", "pad", "compute",
     "unpack", "respond",
+    # queue_wait's parts, by what the batcher's dispatch thread was doing
+    # (they sum to it): waiting out the oldest request's deadline, busy
+    # with other batches, and late to wake for a due batch
+    "queue_held", "queue_behind", "queue_wake",
+})
+
+#: Names of the in-process span recorder's spans (common/profiler.py
+#: `SPANS`): the request phases above, the batcher's dispatch-thread
+#: states and request spans, the engine's and the trainer's host legs.
+#: A graph replay's range is `serve.replay.b<bucket>` or `train.replay`.
+RECORDER_SPANS = SPAN_PHASES | frozenset({
+    "dispatch.empty", "dispatch.held", "dispatch.wake", "dispatch.form",
+    "dispatch.engine", "admit", "queue", "batch", "copy_in",
+    "serve.replay", "train.stage", "train.call", "train.check",
+    "train.load", "train.replay", "train.finish",
 })
 SPAN_REASONS = frozenset({
     "sampled", "error", "shed", "failover", "invalid", "internal",

@@ -4,17 +4,33 @@ the serving metrics and the profiler hooks (copies of `StepTimer`,
 package's common/profiler.py).  `trace` records with `torch.profiler`
 where the JAX package records with `jax.profiler`, and writes a Chrome
 trace.  The registry histogram behind PhaseTimer waits for its slice of
-the port."""
+the port.
+
+The port adds a span recorder (`SPANS`): the program's own boundaries
+(the batcher's dispatch-thread states and requests, the engine's and the
+trainer's host legs) as intervals on `time.perf_counter`'s clock, with a
+parent and a request or batch reference, kept in a bounded buffer in
+memory.  It records only while a torch profiler records
+(`torch_profiler._is_profiler_enabled`, which torch sets when a profile
+starts and clears when it stops): off, a boundary costs the read of
+that one module attribute, and takes no lock, makes no allocation and
+reads no clock.  `trace` writes the spans it saw into its Chrome trace,
+on the trace's clock; a caller holding its own profile places them the
+same way, by an annotation it reads on both clocks."""
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
 import math
 import os
 import threading
 import time
 from collections import deque
-from typing import Optional
+from typing import List, NamedTuple, Optional, Tuple
+
+from torch.autograd import profiler as torch_profiler
 
 from elasticdl_tpu_torch.common import events
 from elasticdl_tpu_torch.common.log_utils import get_logger
@@ -170,17 +186,26 @@ class LatencyHistogram:
         self._sum_s = 0.0
         self._lock = threading.Lock()
 
-    def record(self, seconds: float) -> None:
+    def _index(self, seconds: float) -> int:
         if seconds < self._min_s:
-            idx = 0
-        else:
-            idx = int((math.log(seconds) - self._log_min)
-                      / self._log_growth)
-            idx = min(idx, len(self._counts) - 1)
+            return 0
+        idx = int((math.log(seconds) - self._log_min) / self._log_growth)
+        return min(idx, len(self._counts) - 1)
+
+    def record(self, seconds: float) -> None:
+        idx = self._index(seconds)
         with self._lock:
             self._counts[idx] += 1
             self._total += 1
             self._sum_s += seconds
+
+    def record_many(self, values) -> None:
+        """`record` each of `values`, under one acquisition of the lock."""
+        with self._lock:
+            for seconds in values:
+                self._counts[self._index(seconds)] += 1
+                self._total += 1
+                self._sum_s += seconds
 
     def bucket_snapshot(self):
         """(uppers, counts, total, sum_s) copied under ONE lock
@@ -221,10 +246,173 @@ class LatencyHistogram:
         }
 
 
+# ---- the span recorder ---------------------------------------------------
+
+
+class Span(NamedTuple):
+    """One recorded interval, in nanoseconds of `time.perf_counter`'s
+    clock.  `ref` is the request id (a request's spans) or
+    "b<batch span id>" (a batch's); `attrs` a few (key, int) pairs."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    span_id: int
+    parent_id: int
+    ref: str
+    attrs: Tuple[Tuple[str, int], ...]
+
+
+def ns(seconds: float) -> int:
+    """A `time.perf_counter()` reading in the recorder's nanoseconds."""
+    return round(seconds * 1e9)
+
+
+class Legs:
+    """The boundaries of one graph run (worker/graphs.py
+    `ProgramGraphs.run`), for its caller's spans: `mark()` appends the
+    clock's reading at the load's start, the replay's start, the
+    replay's return and the finish's end, and the replay runs inside a
+    `record_function` named `replay`, whose device-side range then
+    covers the graph's kernels.  An eager run marks nothing."""
+
+    __slots__ = ("replay", "clock", "marks")
+
+    def __init__(self, replay: str, clock=time.perf_counter):
+        self.replay = replay
+        self.clock = clock
+        self.marks: List[float] = []
+
+    def mark(self) -> None:
+        self.marks.append(self.clock())
+
+
+#: Spans a recorder keeps (the newest): a 3-s traced serving slice
+#: records ~5,000, a whole 51-s serving window ~20,000.
+SPANS_KEPT = 1 << 16
+
+
+class SpanRecorder:
+    """Spans of the program's boundaries, the newest `SPANS_KEPT` kept.
+    Callers record only while `torch_profiler._is_profiler_enabled`;
+    `add` itself does not look.  A thread's current parent span and
+    `Legs` (`within`) reach code below it that has no argument for them
+    (the engine under the batcher, a graph run under the trainer)."""
+
+    def __init__(self):
+        self._spans: deque = deque(maxlen=SPANS_KEPT)
+        self._ids = itertools.count(1)
+        self._local = threading.local()
+
+    def new_id(self) -> int:
+        return next(self._ids)
+
+    def add(self, name: str, start_s: float, end_s: float, parent: int = 0,
+            ref: str = "", attrs=(), span_id: int = 0) -> int:
+        """Keep one span, from `time.perf_counter` readings (or a clock
+        standing in for it); returns its id."""
+        span_id = span_id or next(self._ids)
+        self._spans.append(Span(name, ns(start_s), ns(end_s), span_id,
+                                parent, ref, tuple(attrs)))
+        return span_id
+
+    def parent(self) -> int:
+        """This thread's current parent span (0: none)."""
+        return getattr(self._local, "parent", 0)
+
+    def legs(self) -> Optional[Legs]:
+        """This thread's `Legs` for the graph run below it, if any."""
+        return getattr(self._local, "legs", None)
+
+    def take_legs(self) -> Optional[Legs]:
+        """This thread's `Legs`, which the caller takes: a graph run
+        inside it finds none."""
+        legs = self.legs()
+        self._local.legs = None
+        return legs
+
+    @contextlib.contextmanager
+    def within(self, parent: int, legs: Optional[Legs] = None):
+        """Make `parent` (and `legs`) this thread's inside the block."""
+        local = self._local
+        saved = (self.parent(), self.legs())
+        local.parent, local.legs = parent, legs
+        try:
+            yield
+        finally:
+            local.parent, local.legs = saved
+
+    def spans(self, start_ns: Optional[int] = None,
+              end_ns: Optional[int] = None) -> List[Span]:
+        """The kept spans that overlap [start_ns, end_ns], oldest first."""
+        kept = self._spans.copy()
+        return [s for s in kept
+                if (start_ns is None or s.end_ns >= start_ns)
+                and (end_ns is None or s.start_ns <= end_ns)]
+
+    def clear(self) -> None:
+        self._spans.clear()
+
+
+#: The process's span recorder.
+SPANS = SpanRecorder()
+
+
+#: The annotation `trace` wraps its block in, read on both clocks.
+TRACE_MARK = "profiler.trace"
+
+
+def place_spans(chrome_trace_path: str, host_start_ns: int,
+                host_end_ns: int) -> int:
+    """Add `SPANS`' spans between the two host readings to a Chrome
+    trace, as async slices on the trace's clock: the `TRACE_MARK`
+    annotation, which began just before `host_start_ns` and ended just
+    after `host_end_ns`, gives the offset (the mean of its two ends').
+    Returns the number of spans added."""
+    with open(chrome_trace_path) as f:
+        doc = json.load(f)
+    trace_events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    marks = [e for e in trace_events if e.get("name") == TRACE_MARK
+             and e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    if not marks:
+        logger.warning("no %r annotation in %s: spans not placed",
+                       TRACE_MARK, chrome_trace_path)
+        return 0
+    ts, dur = float(marks[0]["ts"]), float(marks[0]["dur"])
+    offset = ((ts * 1e3 - host_start_ns)
+              + ((ts + dur) * 1e3 - host_end_ns)) / 2
+    pid = marks[0].get("pid", 0)
+    spans = SPANS.spans(host_start_ns, host_end_ns)
+    for s in spans:
+        args = {"span_id": s.span_id, "parent_id": s.parent_id,
+                "ref": s.ref, **dict(s.attrs)}
+        common = {"name": s.name, "cat": "program_span", "id": s.span_id,
+                  "pid": pid, "tid": 0}
+        trace_events.append(dict(common, ph="b",
+                                 ts=(s.start_ns + offset) / 1e3, args=args))
+        trace_events.append(dict(common, ph="e",
+                                 ts=(s.end_ns + offset) / 1e3))
+    with open(chrome_trace_path, "w") as f:
+        json.dump(doc, f)
+    return len(spans)
+
+
+def _all_threads():
+    """A profiler configuration that records every thread, or None where
+    this torch has no such setting."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    try:
+        return _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
+
+
 @contextlib.contextmanager
 def trace(log_dir: str, cuda: bool = False, name: str = "trace"):
     """Record the block with torch.profiler and write it as a Chrome
-    trace, `<log_dir>/<name>.json` (chrome://tracing, Perfetto):
+    trace, `<log_dir>/<name>.json` (chrome://tracing, Perfetto), with
+    the span recorder's spans of the block on the trace's clock:
 
         with profiler.trace("/tmp/trace", cuda=True):
             loss = trainer.train_on_batch(state, batch)
@@ -232,18 +420,28 @@ def trace(log_dir: str, cuda: bool = False, name: str = "trace"):
 
     `cuda` adds the CUDA activity (kernels, copies, device time); the
     caller synchronizes inside the block, so the kernels it launched
-    end before the trace closes.  Yields the path the trace goes to.
+    end before the trace closes.  Every thread's operations and ranges
+    are recorded where torch can (`profile_all_threads`; else only this
+    thread's), so a replay's range on the batcher's thread carries its
+    name to the device.  Yields the path the trace goes to.
     """
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     activities = [ProfilerActivity.CPU]
     if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, f"{name}.json")
-    with profile(activities=activities) as prof:
-        yield path
+    with profile(activities=activities,
+                 experimental_config=_all_threads()) as prof:
+        with record_function(TRACE_MARK):
+            host_start = time.perf_counter_ns()
+            try:
+                yield path
+            finally:
+                host_end = time.perf_counter_ns()
     prof.export_chrome_trace(path)
+    place_spans(path, host_start, host_end)
     logger.info("Profiler trace written to %s", path)
 
 

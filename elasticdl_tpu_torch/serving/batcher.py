@@ -32,10 +32,25 @@ the client's whole wait.
 
 Shutdown drains: queued requests complete, then later submissions get
 SHUTTING_DOWN.
+
+The dispatch thread is always in one of four states, kept with the time
+it entered it: `dispatch.empty` (nothing queued), `dispatch.held` (rows
+queued, waiting out the oldest request's deadline), `dispatch.form`
+(cutting and assembling a batch, answering the last one) and
+`dispatch.engine` (inside the engine's predict).  Cumulative clocks of
+the held and the busy (form + engine) time, read at each request's
+enqueue and at its pop, split its `queue_wait` into `queue_held` (the
+deadline), `queue_behind` (other batches) and `queue_wake` (the rest:
+the thread late to wake for a due batch), which sum to it.  Every shed
+keeps what the queue and the thread were doing (`BatcherMetrics.sheds`).
+While a torch profiler records, the states, each request's `admit` and
+`queue` spans and each `batch` go to the span recorder
+(common/profiler.py `SPANS`), a late wake as `dispatch.wake`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import threading
 import time
@@ -48,6 +63,7 @@ import numpy as np
 
 from elasticdl_tpu_torch.common import metrics as metrics_lib
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.profiler import SPANS, ns, torch_profiler
 
 logger = get_logger(__name__)
 
@@ -59,6 +75,22 @@ OVERLOADED = 1
 SHUTTING_DOWN = 2
 INVALID = 3
 INTERNAL = 4
+
+# the dispatch thread's states (and their span names)
+EMPTY = "dispatch.empty"
+HELD = "dispatch.held"
+FORM = "dispatch.form"
+ENGINE = "dispatch.engine"
+# a recorded held or empty span's tail, once a batch was due
+WAKE = "dispatch.wake"
+# not waiting: FORM or ENGINE (the split clocks' busy time)
+BUSY = "busy"
+
+# sheds kept for `BatcherMetrics.snapshot()["sheds"]`
+SHEDS_KEPT = 64
+
+# the engine call's context when no span is recorded
+_UNTRACED = contextlib.nullcontext()
 
 
 @dataclass
@@ -77,13 +109,25 @@ class ServingResult:
     phases_s: Optional[Dict[str, float]] = None
 
 
+QUEUE_PHASES = ("queue_wait", "queue_held", "queue_behind", "queue_wake")
+
+
 def _merge_phases(results) -> Optional[Dict[str, float]]:
     """Worst-case per-phase durations across split-request chunks — the
-    chunk that waited longest is the one the caller experienced."""
+    chunk that waited longest is the one the caller experienced; the
+    queue phases all come from the chunk that queued longest, so that
+    its parts still sum to its wait."""
     merged: Dict[str, float] = {}
+    longest: Dict[str, float] = {}
     for r in results:
-        for phase, seconds in (r.phases_s or {}).items():
+        phases = r.phases_s or {}
+        for phase, seconds in phases.items():
             merged[phase] = max(merged.get(phase, 0.0), seconds)
+        if phases.get("queue_wait", -1.0) > longest.get("queue_wait", -1.0):
+            longest = phases
+    for phase in QUEUE_PHASES:
+        if phase in longest:
+            merged[phase] = longest[phase]
     return merged or None
 
 
@@ -97,6 +141,21 @@ class _Item:
     # for split oversized requests: (aggregate, chunk_index)
     aggregate: Optional["_Aggregate"] = None
     chunk_index: int = 0
+    # the batcher's held and busy clocks at the enqueue; at the pop, the
+    # pop's time and the queue wait's seconds, all and held and behind
+    held0: float = 0.0
+    busy0: float = 0.0
+    popped_at: float = 0.0
+    queue_wait: float = 0.0
+    queue_held: float = 0.0
+    queue_behind: float = 0.0
+
+    def queue_phases(self) -> Dict[str, float]:
+        wait, held, behind = self.queue_wait, self.queue_held, \
+            self.queue_behind
+        return {"queue_wait": wait, "queue_held": held,
+                "queue_behind": behind,
+                "queue_wake": wait - held - behind}
 
 
 @dataclass
@@ -114,6 +173,9 @@ class _Aggregate:
     enqueued_at: float
     # called with the chunk count before an OK answer is set
     answered: Callable[["_Aggregate", int], None]
+    # the batcher's held and busy clocks at the first enqueue
+    held0: float = 0.0
+    busy0: float = 0.0
     chunks: list = field(default_factory=list)
     lock: threading.Lock = field(default_factory=threading.Lock)
 
@@ -192,9 +254,16 @@ class BatcherMetrics:
         self.phase = self.registry.histogram(
             "serving_request_phase_seconds",
             "per-request serve-path phase latency "
-            "(queue_wait/batch_form/pad/compute/unpack/respond)",
+            "(queue_wait = queue_held + queue_behind + queue_wake; "
+            "batch_form/pad/compute/unpack/respond)",
             labelnames=("phase",),
         )
+        # the queue phases' series, recorded a batch at a time (made at
+        # the first batch, as `labels` makes a series at its first use)
+        self._queue_phase: Optional[dict] = None
+        # the newest sheds, each with the queue's and the dispatch
+        # thread's state at the refusal
+        self._sheds: deque = deque(maxlen=SHEDS_KEPT)
         self.registry.gauge_fn(
             "serving_batch_fill_ratio",
             self._mean_fill,
@@ -210,8 +279,16 @@ class BatcherMetrics:
         self._rows.inc(rows)
         self._fill_sum.inc(rows / bucket)
 
-    def record_shed(self) -> None:
+    def record_shed(self, record: Optional[dict] = None) -> None:
+        """Count a shed; `record` is what the batcher saw at it."""
         self._rejected.labels(reason="shed").inc()
+        if record is not None:
+            self._sheds.append(record)
+
+    @property
+    def sheds(self) -> list:
+        """The newest sheds' records, oldest first."""
+        return list(self._sheds)
 
     def record_invalid(self) -> None:
         self._rejected.labels(reason="invalid").inc()
@@ -224,6 +301,20 @@ class BatcherMetrics:
 
     def record_phase(self, phase: str, seconds: float) -> None:
         self.phase.labels(phase=phase).record(max(0.0, seconds))
+
+    def record_queue_phases(self, items) -> None:
+        """The queue phases of one batch's items (`_Item`), one
+        histogram lock a phase."""
+        series = self._queue_phase
+        if series is None:
+            series = self._queue_phase = {
+                p: self.phase.labels(phase=p) for p in QUEUE_PHASES}
+        wait, held, behind, wake = series.values()
+        wait.record_many(max(0.0, i.queue_wait) for i in items)
+        held.record_many(i.queue_held for i in items)
+        behind.record_many(i.queue_behind for i in items)
+        wake.record_many(max(0.0, i.queue_wait - i.queue_held
+                             - i.queue_behind) for i in items)
 
     def snapshot(self) -> dict:
         lat = self.latency.snapshot()
@@ -245,6 +336,8 @@ class BatcherMetrics:
             "latency_p50_s": lat["p50_s"],
             "latency_p99_s": lat["p99_s"],
             "latency_mean_s": lat["mean_s"],
+            # not a scalar: the newest sheds' records (`sheds`)
+            "sheds": self.sheds,
         }
 
 
@@ -256,7 +349,7 @@ class DynamicBatcher:
         max_batch: Optional[int] = None,
         max_queue_rows: Optional[int] = None,
         reject_oversized: bool = False,
-        clock=time.monotonic,
+        clock=time.perf_counter,
     ):
         self._engine = engine
         self._max_latency_s = float(max_latency_s)
@@ -273,6 +366,8 @@ class DynamicBatcher:
             else 4 * self._max_batch
         )
         self._reject_oversized = reject_oversized
+        # the phases' clock: time.perf_counter, the engine's and the span
+        # recorder's, unless a test gives a fake
         self._clock = clock
         # engines predating the tracing contract (or test fakes) may not
         # accept phase_out=; probe once and skip phase capture for them
@@ -294,6 +389,26 @@ class DynamicBatcher:
         self._queued_rows = 0
         self._cond = threading.Condition()
         self._stopped = False
+        now = clock()
+        # Under the lock: whether the dispatch thread waits (EMPTY,
+        # HELD) or not (BUSY, from a pop), since `_mark`; a held wait's
+        # deadline, brought forward when the queue fills a batch; the
+        # held and busy seconds up to `_mark` (the split clocks); and
+        # whether the wait's span is recorded when it ends.
+        self._wait = EMPTY
+        self._mark = now
+        self._held_until = now
+        self._cum_held = 0.0
+        self._cum_busy = 0.0
+        self._wait_traced = False
+        # The dispatch thread's own, written outside the lock: while
+        # BUSY, FORM or ENGINE since `_busy_since` (written first), the
+        # bucket inside the engine (0: none), and whether the busy
+        # state's span is recorded when it ends.
+        self._busy_since = now
+        self._busy = FORM
+        self._inflight = 0
+        self._busy_traced = False
         self._thread = threading.Thread(
             target=self._dispatch_loop, name="serving-batcher", daemon=True
         )
@@ -332,25 +447,28 @@ class DynamicBatcher:
 
     def _submit_split(self, features, rows: int,
                       request_id: str = "") -> Future:
+        traced = torch_profiler._is_profiler_enabled
+        start = self._clock() if traced else None
         agg = _Aggregate(future=Future(), pending=0, features=features,
                          rows=rows, request_id=request_id,
-                         rerun=self._rerun_split,
-                         enqueued_at=self._clock(),
+                         rerun=self._rerun_split, enqueued_at=0.0,
                          answered=self._split_answered)
         # admission-check the WHOLE request before enqueuing any chunk:
         # partially admitting an oversized request sheds its own tail
         with self._cond:
             if self._stopped:
                 return _resolved(SHUTTING_DOWN, "server is shutting down")
-            if self._queued_rows + rows > self._max_queue_rows:
-                self.metrics.record_shed()
-                return _resolved(
-                    OVERLOADED,
-                    f"queue full ({self._queued_rows} rows queued)",
-                )
+            queued = self._queued_rows
+            if queued + rows > self._max_queue_rows:
+                return self._shed(rows, request_id, start)
+            now = agg.enqueued_at = self._clock()
+            agg.held0, agg.busy0 = self._clocks_at(now)
             self._queue.extend(self._split_items(agg))
             self._queued_rows += rows
+            self._due(now)
             self._cond.notify()
+        if traced:
+            self._admitted(start, now, queued, rows, request_id)
         return agg.future
 
     def _split_items(self, agg: _Aggregate) -> list:
@@ -362,7 +480,8 @@ class DynamicBatcher:
                             for k, v in agg.features.items()},
                   rows=min(chunk, rows - lo), future=Future(),
                   enqueued_at=agg.enqueued_at, request_id=agg.request_id,
-                  aggregate=agg, chunk_index=i)
+                  aggregate=agg, chunk_index=i, held0=agg.held0,
+                  busy0=agg.busy0)
             for i, lo in enumerate(range(0, rows, chunk))
         ]
 
@@ -383,23 +502,139 @@ class DynamicBatcher:
             self.metrics.latency.record(wait)
 
     def _enqueue(self, features, rows: int, request_id: str = "") -> Future:
+        traced = torch_profiler._is_profiler_enabled
+        start = self._clock() if traced else None
         with self._cond:
             if self._stopped:
                 return _resolved(SHUTTING_DOWN, "server is shutting down")
-            if self._queued_rows + rows > self._max_queue_rows:
-                self.metrics.record_shed()
-                return _resolved(
-                    OVERLOADED,
-                    f"queue full ({self._queued_rows} rows queued)",
-                )
+            queued = self._queued_rows
+            if queued + rows > self._max_queue_rows:
+                return self._shed(rows, request_id, start)
+            now = self._clock()
+            held0, busy0 = self._clocks_at(now)
             item = _Item(
                 features=features, rows=rows, future=Future(),
-                enqueued_at=self._clock(), request_id=request_id,
+                enqueued_at=now, request_id=request_id, held0=held0,
+                busy0=busy0,
             )
             self._queue.append(item)
             self._queued_rows += rows
+            self._due(now)
             self._cond.notify()
-            return item.future
+        if traced:
+            self._admitted(start, now, queued, rows, request_id)
+        return item.future
+
+    def _due(self, now: float) -> None:
+        """Under the lock, after an enqueue at `now`: where the queue
+        now fills a batch, a held wait's deadline is `now`."""
+        if self._queued_rows >= self._max_batch and self._wait is HELD \
+                and now < self._held_until:
+            self._held_until = now
+
+    def _shed(self, rows: int, request_id: str,
+              start: Optional[float]) -> Future:
+        """Refuse a request the queue has no room for, under the lock:
+        count it, with the queue's and the dispatch thread's state."""
+        now = self._clock()
+        state, since = self._dispatch_state()
+        queued = self._queued_rows
+        self.metrics.record_shed({
+            "at_s": now, "request_id": request_id, "rows": rows,
+            "queued_rows": queued, "bound_rows": self._max_queue_rows,
+            "oldest_age_s": (now - self._queue[0].enqueued_at
+                             if self._queue else 0.0),
+            "state": state, "state_s": now - since,
+            "bucket_in_flight": self._inflight,
+        })
+        if start is not None:
+            SPANS.add("admit", start, now, ref=request_id,
+                      attrs=self._admit_attrs(queued, rows, 0))
+        return _resolved(OVERLOADED, f"queue full ({queued} rows queued)")
+
+    def _admit_attrs(self, queued: int, rows: int, admitted: int) -> tuple:
+        return (("queued", queued), ("rows", rows), ("admitted", admitted),
+                ("bound", self._max_queue_rows))
+
+    def _admitted(self, start: float, now: float, queued: int, rows: int,
+                  request_id: str) -> None:
+        SPANS.add("admit", start, now, ref=request_id,
+                  attrs=self._admit_attrs(queued, rows, 1))
+
+    # ---- the dispatch thread's state -------------------------------------
+
+    def _dispatch_state(self):
+        """(state, since) of the dispatch thread, under the lock."""
+        if self._wait is not BUSY:
+            return self._wait, self._mark
+        while True:  # the busy state and its time, from one moment
+            since, state = self._busy_since, self._busy
+            if since == self._busy_since:
+                # a pop the thread has not yet written is a new form
+                return (state, since) if since >= self._mark \
+                    else (FORM, self._mark)
+
+    def _clocks_at(self, t: float):
+        """(held, busy) seconds of the dispatch thread up to `t`, under
+        the lock."""
+        if self._wait is HELD:
+            return (self._cum_held
+                    + max(0.0, min(t, self._held_until) - self._mark),
+                    self._cum_busy)
+        if self._wait is EMPTY:
+            return self._cum_held, self._cum_busy
+        return self._cum_held, self._cum_busy + (t - self._mark)
+
+    def _enter(self, wait: str, now: float, until: float = 0.0) -> None:
+        """Under the lock, at `now`: the dispatch thread waits (EMPTY,
+        HELD) or pops a batch (BUSY).  The segment it leaves goes to the
+        held or the busy clock, and its span to the recorder."""
+        prev = self._wait
+        if prev is HELD:
+            self._cum_held += max(0.0, min(now, self._held_until)
+                                  - self._mark)
+        elif prev is BUSY:
+            self._cum_busy += now - self._mark
+        recording = torch_profiler._is_profiler_enabled
+        if prev is BUSY:
+            if recording or self._busy_traced:
+                self._trace_busy(now)
+        elif recording or self._wait_traced:
+            self._trace_wait(now)
+        self._wait_traced = recording
+        self._mark = now
+        self._held_until = until
+        self._wait = wait
+
+    def _shift(self, busy: str, now: float) -> None:
+        """Form <-> engine at `now`, on the dispatch thread, outside the
+        lock (both are busy: the split clocks stay as they are)."""
+        recording = torch_profiler._is_profiler_enabled
+        if recording or self._busy_traced:
+            self._trace_busy(now)
+        self._busy_traced = recording
+        self._busy_since = now
+        self._busy = busy
+
+    def _trace_busy(self, now: float) -> None:
+        """Record the busy state that ends at `now`."""
+        state = self._busy
+        SPANS.add(state, self._busy_since, now,
+                  attrs=(("bucket", self._inflight),) if state is ENGINE
+                  else ())
+
+    def _trace_wait(self, now: float) -> None:
+        """Record the wait that ends at `now`, under the lock; its part
+        after a batch fell due (the deadline, a full batch, the first
+        request) as `dispatch.wake`."""
+        due = now
+        if self._wait is HELD:
+            due = min(now, max(self._mark, self._held_until))
+        elif self._queue:
+            due = min(now, max(self._mark, self._queue[0].enqueued_at))
+        SPANS.add(self._wait, self._mark, due)
+        if due < now:
+            SPANS.add(WAKE, due, now)
 
     # ---- dispatch -------------------------------------------------------
 
@@ -416,28 +651,40 @@ class DynamicBatcher:
         with self._cond:
             while True:
                 if self._queue:
+                    now = self._clock()
                     deadline = (
                         self._queue[0].enqueued_at + self._max_latency_s
                     )
                     if (
                         self._queued_rows >= self._max_batch
-                        or self._clock() >= deadline
+                        or now >= deadline
                         or self._stopped  # draining: don't wait out
                     ):                    # deadlines nobody benefits from
-                        return self._pop_batch()
-                    self._cond.wait(
-                        timeout=max(0.0, deadline - self._clock())
-                    )
+                        self._enter(BUSY, now)
+                        return self._pop_batch(now)
+                    if self._wait is not HELD:
+                        self._enter(HELD, now, deadline)
+                    self._cond.wait(timeout=max(0.0, deadline - now))
                 elif self._stopped:
+                    # the last state ends here (its span, if recorded)
+                    self._enter(EMPTY, self._clock())
                     return None
                 else:
+                    self._enter(EMPTY, self._clock())
                     self._cond.wait()
 
-    def _pop_batch(self):
-        """Called under the lock: pop queued items that fit max_batch."""
+    def _pop_batch(self, now: float):
+        """Called under the lock, at the pop (`now`, BUSY entered): pop
+        queued items that fit max_batch, each with the held and busy
+        seconds of its wait."""
+        held, busy = self._cum_held, self._cum_busy
         batch, rows = [], 0
         while self._queue and rows + self._queue[0].rows <= self._max_batch:
             item = self._queue.popleft()
+            item.popped_at = now
+            item.queue_wait = now - item.enqueued_at
+            item.queue_held = held - item.held0
+            item.queue_behind = busy - item.busy0
             rows += item.rows
             batch.append(item)
         self._queued_rows -= rows
@@ -455,6 +702,10 @@ class DynamicBatcher:
                 for k in sorted(item.features)
             )
 
+        # the pop's form (the pop recorded what came before it)
+        self._busy_traced = torch_profiler._is_profiler_enabled
+        self._busy_since = batch[0].popped_at
+        self._busy = FORM
         groups = []
         for item in batch:
             f = form(item)
@@ -462,45 +713,56 @@ class DynamicBatcher:
                 groups[-1][1].append(item)
             else:
                 groups.append((f, [item]))
-        for _, group in groups:
+        for i, (_, group) in enumerate(groups):
+            if i:
+                # a later run's items queued on behind the earlier runs
+                now = self._clock()
+                for item in group:
+                    item.queue_wait += now - item.popped_at
+                    item.queue_behind += now - item.popped_at
+                    item.popped_at = now
             self._execute_uniform(group)
 
     def _execute_uniform(self, batch) -> None:
+        traced = torch_profiler._is_profiler_enabled
         rows = sum(item.rows for item in batch)
         # phase clock starts when the batch is cut: queue_wait ends
-        # here, batch_form covers assembly, pad/compute/unpack come
+        # there, batch_form covers assembly, pad/compute/unpack come
         # back from the engine (docs/OBSERVABILITY.md "Request tracing")
-        popped_at = self._clock()
-        queue_waits = {
-            id(item): max(0.0, popped_at - item.enqueued_at)
-            for item in batch
-        }
-        for wait in queue_waits.values():
-            self.metrics.record_phase("queue_wait", wait)
+        popped_at = batch[0].popped_at
+        self.metrics.record_queue_phases(batch)
         features = {
             k: np.concatenate(
                 [np.asarray(item.features[k]) for item in batch], axis=0
             )
             for k in batch[0].features
         }
-        batch_form_s = max(0.0, self._clock() - popped_at)
+        formed_at = self._clock()
+        batch_form_s = max(0.0, formed_at - popped_at)
         self.metrics.record_phase("batch_form", batch_form_s)
         engine_phases: Dict[str, float] = {}
 
         def item_phases(item):
-            phases = {"queue_wait": queue_waits[id(item)],
-                      "batch_form": batch_form_s}
+            phases = item.queue_phases()
+            phases["batch_form"] = batch_form_s
             phases.update(engine_phases)
             return phases
 
+        bucket = self._engine.bucket_for(rows)
+        batch_id = self._trace_queue(batch) if traced else 0
+        self._inflight = bucket or rows
+        self._shift(ENGINE, formed_at)
         try:
-            if self._engine_traces:
-                preds, step = self._engine.predict(
-                    features, rows, phase_out=engine_phases
-                )
-            else:
-                preds, step = self._engine.predict(features, rows)
+            with SPANS.within(batch_id) if traced else _UNTRACED:
+                if self._engine_traces:
+                    preds, step = self._engine.predict(
+                        features, rows, phase_out=engine_phases
+                    )
+                else:
+                    preds, step = self._engine.predict(features, rows)
         except Exception as exc:  # engine failure: fail THIS batch only
+            self._shift(FORM, self._clock())
+            self._inflight = 0
             logger.exception("serving batch execution failed")
             self.metrics.record_internal()
             for item in batch:
@@ -510,11 +772,12 @@ class DynamicBatcher:
                     phases_s=item_phases(item),
                 ))
             return
+        now = self._clock()
+        self._shift(FORM, now)
+        self._inflight = 0
         for phase, seconds in engine_phases.items():
             self.metrics.record_phase(phase, seconds)
-        bucket = self._engine.bucket_for(rows)
         self.metrics.record_batch(rows, bucket)
-        now = self._clock()
         offset = 0
         for item in batch:
             if item.aggregate is None:
@@ -529,6 +792,25 @@ class DynamicBatcher:
                 phases_s=item_phases(item),
             ))
             offset += item.rows
+        if traced:
+            SPANS.add("batch", popped_at, self._clock(),
+                      ref=f"b{batch_id}", span_id=batch_id,
+                      attrs=(("rows", rows), ("bucket", bucket),
+                             ("requests", len(batch))))
+
+    def _trace_queue(self, batch) -> int:
+        """Record each item's `queue` span under a new batch span's id
+        (the batch span itself is recorded once it is answered)."""
+        batch_id = SPANS.new_id()
+        for item in batch:
+            phases = item.queue_phases()
+            SPANS.add("queue", item.enqueued_at, item.popped_at,
+                      parent=batch_id, ref=item.request_id,
+                      attrs=(("held_ns", ns(phases["queue_held"])),
+                             ("behind_ns", ns(phases["queue_behind"])),
+                             ("wake_ns", ns(phases["queue_wake"])),
+                             ("rows", item.rows)))
+        return batch_id
 
     @staticmethod
     def _finish(item: _Item, result: ServingResult) -> None:

@@ -74,6 +74,7 @@ from elasticdl_tpu_torch.common.export import (
     read_export_meta,
 )
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.profiler import SPANS, Legs, torch_profiler
 from elasticdl_tpu_torch.common.save_utils import CheckpointSaver
 from elasticdl_tpu_torch.device import resolve_device
 from elasticdl_tpu_torch.worker.trainer import (
@@ -520,6 +521,11 @@ class ServingEngine:
         durations {"pad", "compute", "unpack"} in seconds.  On CUDA,
         "compute" is the time to queue the kernels and "unpack" includes
         waiting for them: the host copy of the result is the sync.
+        While a profiler records, the legs go to the span recorder under
+        the thread's parent span (the batcher's batch): `pad`, then on
+        the graph path `copy_in` (to the replay), `serve.replay.b<bucket>`
+        (the replay's launch, in a range of that name) and `unpack` (from
+        the launch's return), else `compute` and `unpack`.
 
         Oversized batches are the batcher's job to split; this raises."""
         bucket = self.bucket_for(rows)
@@ -530,6 +536,7 @@ class ServingEngine:
             )
         if not self._pad_to_bucket:
             bucket = rows
+        traced = torch_profiler._is_profiler_enabled
         t0 = self.clock()
         padded = {}
         for name, arr in features.items():
@@ -545,9 +552,16 @@ class ServingEngine:
             # generation: a swap waits for the lock
             step = self.step
             t1 = self.clock()
-            out = run_device_serialized(
-                self._program, self._served, padded, device=self.device
-            )
+            if traced:
+                legs = Legs(f"serve.replay.b{bucket}", self.clock)
+                with SPANS.within(SPANS.parent(), legs):
+                    out = run_device_serialized(
+                        self._program, self._served, padded,
+                        device=self.device)
+            else:
+                out = run_device_serialized(
+                    self._program, self._served, padded, device=self.device
+                )
             t2 = self.clock()
             # host transfer + row slice: the dequant/unpack leg of the
             # span; on the graph path it reads the static output before
@@ -558,6 +572,8 @@ class ServingEngine:
             phase_out["pad"] = max(0.0, t1 - t0)
             phase_out["compute"] = max(0.0, t2 - t1)
             phase_out["unpack"] = max(0.0, t3 - t2)
+        if traced:
+            _trace_legs(legs, (t0, t1, t2, t3), rows)
         return result, step
 
     # ---- hot reload -----------------------------------------------------
@@ -594,6 +610,23 @@ class ServingEngine:
                 self._produced_unix_s = produced_unix_s
         self._swaps.inc()
         logger.info("serving engine swapped to step %d", step)
+
+
+def _trace_legs(legs: Legs, times, rows: int) -> None:
+    """A predict's legs, from its clock readings `times` (start, forward
+    called, forward returned, copied out) and the graph run's marks."""
+    t0, t1, t2, t3 = times
+    parent = SPANS.parent()
+    SPANS.add("pad", t0, t1, parent)
+    if len(legs.marks) == 4:
+        _load, replay, launched, _finished = legs.marks
+        SPANS.add("copy_in", t1, replay, parent)
+        SPANS.add(legs.replay, replay, launched, parent,
+                  attrs=(("rows", rows),))
+        SPANS.add("unpack", launched, t3, parent)
+    else:
+        SPANS.add("compute", t1, t2, parent)
+        SPANS.add("unpack", t2, t3, parent)
 
 
 def build_state_template(spec, sample_features, device=None) -> TrainState:

@@ -179,7 +179,9 @@ class ServingServicer:
             queue_depth=self._batcher.queue_depth,
             compile_count=self._engine.compile_count,
         )
-        metrics = dict(self._batcher.metrics.snapshot())
+        # the scalars (the shed records are a list)
+        metrics = self._batcher.metrics.snapshot()
+        metrics.pop("sheds", None)
         metrics["swap_count"] = float(self._engine.swap_count)
         # producer wall-time stamp of the served checkpoint (absent when
         # unknown): end-to-end freshness rides the scalar-metric list

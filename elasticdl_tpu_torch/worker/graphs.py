@@ -75,6 +75,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from elasticdl_tpu_torch.common.profiler import SPANS, torch_profiler
 from elasticdl_tpu_torch.ops import launches as launches_lib
 
 
@@ -345,25 +346,50 @@ class ProgramGraphs:
     def run(self, owner, key, inputs, body: Callable, repeat: int = 1,
             finish: Callable = _own, fingerprint=None):
         """`repeat` runs of body(inputs) for `key` (see the class), and
-        finish(the last run's output): a copy of its own by default."""
+        finish(the last run's output): a copy of its own by default.
+        While a profiler records, a replay marks the thread's `Legs`
+        (common/profiler.py), which it takes, so that a run below it
+        finds none."""
+        legs = SPANS.take_legs() if torch_profiler._is_profiler_enabled \
+            else None
         entry = self._entry(owner, key)
         with self.lock:
             if (self.captured(owner, key, fingerprint) is not None
                     or self.warmed(owner, key)):
                 captured = self.capture(owner, key, inputs, body,
                                         fingerprint)
+                if legs is not None:
+                    legs.mark()
                 captured.load(inputs)
-                for _ in range(repeat):
-                    out = captured.replay()
-                    launches_lib.add(captured.launches)
+                if legs is None:
+                    for _ in range(repeat):
+                        out = captured.replay()
+                        launches_lib.add(captured.launches)
+                else:
+                    out = self._traced_replays(captured, repeat, legs)
                 self.replays[key[0]] = self.replays.get(key[0], 0) + repeat
-                return finish(out)
+                out = finish(out)
+                if legs is not None:
+                    legs.mark()
+                return out
         with self.backend.side_stream():
             staged = pytree.tree_map(self._staged, inputs)
             for _ in range(repeat):
                 out = body(staged)
         entry.threads.add(threading.get_ident())
         return finish(out)
+
+    @staticmethod
+    def _traced_replays(captured: _Captured, repeat: int, legs):
+        """The replays inside a range named `legs.replay`, marked at
+        their start and at the last one's return."""
+        legs.mark()
+        with torch_profiler.record_function(legs.replay):
+            for _ in range(repeat):
+                out = captured.replay()
+                launches_lib.add(captured.launches)
+        legs.mark()
+        return out
 
     def _staged(self, leaf):
         return leaf.to(self.device) if isinstance(leaf, torch.Tensor) \

@@ -94,6 +94,7 @@ from torch.utils import _pytree as pytree
 
 from elasticdl_tpu_torch.common import programs
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.profiler import SPANS, Legs, torch_profiler
 from elasticdl_tpu_torch.data.wire import (
     BF16Bits,
     is_wire_planes,
@@ -498,9 +499,15 @@ class Trainer:
     def stage_batch(self, batch):
         """`batch`'s tensors on the device now, for a later
         train_on_batch (which leaves tensors already there as they
-        are)."""
-        return self._timed("h2d_stage", lambda: run_device_serialized(
+        are); a `train.stage` span while a profiler records."""
+        traced = torch_profiler._is_profiler_enabled
+        start = time.perf_counter() if traced else 0.0
+        staged = self._timed("h2d_stage", lambda: run_device_serialized(
             _to_device, batch, self.device, device=self.device))
+        if traced:
+            SPANS.add("train.stage", start, time.perf_counter(),
+                      SPANS.parent())
+        return staged
 
     def _store(self):
         if self.tiered_store is None:
@@ -570,15 +577,32 @@ class Trainer:
         calls there give the same parameters bit for bit.  Batches of any
         wire format (plain, b22, dedup) go through as they are; the
         worker groups only batches of one shape.  Tiered batches share
-        one admission plan over the block (`_apply_store_block`)."""
+        one admission plan over the block (`_apply_store_block`).
+        While a profiler records, the call is a `train.call` span and,
+        where the steps replay a graph, its legs its children:
+        `train.check` (to the load: the graph's key and its owner's
+        fingerprint), `train.load` (the copy into the static inputs),
+        `train.replay` (the launch, in a range of that name) and
+        `train.finish` (the copy of the losses)."""
+        traced = torch_profiler._is_profiler_enabled
+        start = time.perf_counter() if traced else 0.0
         batches = self._apply_store_block(state, batches)
 
         def _steps():
             return self.train_step_many(
                 state, [_to_device(b, self.device) for b in batches])
 
-        losses = self._timed("compute", lambda: run_device_serialized(
-            _steps, device=self.device))
+        def _call():
+            return self._timed("compute", lambda: run_device_serialized(
+                _steps, device=self.device))
+
+        if not traced:
+            return state, _call()
+        call_id, legs = SPANS.new_id(), Legs("train.replay")
+        checked = time.perf_counter()
+        with SPANS.within(call_id, legs):
+            losses = _call()
+        _trace_call(call_id, start, checked, time.perf_counter(), legs)
         return state, losses
 
     def _train_steps(self, state: TrainState, batches) -> torch.Tensor:
@@ -853,6 +877,20 @@ class Trainer:
                 state, _to_device(features, self.device)).cpu().numpy()
 
         return run_device_serialized(_predict, device=self.device)
+
+
+def _trace_call(call_id: int, start: float, checked: float, end: float,
+                legs: Legs) -> None:
+    """A traced `train_on_batch_stack` call and, where it replayed a
+    graph, its legs (`Legs.marks`: load, replay, launched, finished)."""
+    if len(legs.marks) == 4:
+        load, replay, launched, finished = legs.marks
+        for name, a, b in (("train.check", checked, load),
+                           ("train.load", load, replay),
+                           ("train.replay", replay, launched),
+                           ("train.finish", launched, finished)):
+            SPANS.add(name, a, b, call_id)
+    SPANS.add("train.call", start, end, SPANS.parent(), span_id=call_id)
 
 
 def _check_abstract_device(state: TrainState) -> None:

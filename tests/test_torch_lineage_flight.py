@@ -235,11 +235,15 @@ def test_observers_see_every_emit_without_a_log_and_never_raise(tmp_path):
     with pytest.raises(ValueError, match="unknown span event"):
         port_events.emit("no_such_event")
     assert port_events.VOCABULARY == jax_events.VOCABULARY
-    for name in ("WINDOW_PHASES", "WINDOW_REASONS", "SPAN_PHASES",
+    for name in ("WINDOW_PHASES", "WINDOW_REASONS",
                  "SPAN_REASONS", "INCIDENT_TRIGGERS", "POLICY_ACTIONS",
                  "POLICY_REASONS", "SERVING_SCALE_ACTIONS",
                  "SERVING_SCALE_REASONS"):
         assert getattr(port_events, name) == getattr(jax_events, name)
+    # the port splits queue_wait by the batcher's dispatch state
+    assert port_events.SPAN_PHASES - jax_events.SPAN_PHASES == {
+        "queue_held", "queue_behind", "queue_wake"}
+    assert jax_events.SPAN_PHASES <= port_events.SPAN_PHASES
 
 
 def test_log_rotation_env_wire_and_read_order_match(tmp_path, monkeypatch):
